@@ -1,0 +1,8 @@
+"""Hand-written Hopper kernels of the port, each beside its plain PyTorch
+version.  Every wrapper takes the plain version for a CPU tensor and
+launches its CUDA kernel (or raises) for a CUDA tensor.
+
+  K1 fused_window_layer.window_layer_attention   (window layer)
+  K2 flash_attention.attention_qkv_relpos        (global attention)
+  K3 fused_mlp.ln_mlp_residual                   (LayerNorm + MLP + residual)
+"""

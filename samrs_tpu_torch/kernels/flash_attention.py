@@ -1,0 +1,86 @@
+"""K2: global attention of the encoder with the decomposed rel-pos bias,
+heads read in place from the raw ``(B, N, 3C)`` qkv tensor.
+
+Replaces samrs_tpu/kernels/flash_attention.py::flash_attention_qkv_relpos
+(variant "m", Pallas call ``_qkv_flash_m_pallas``).  On a CUDA tensor the
+wrapper computes the per-query rel-pos rows ``rel_h = q.Rh[x_q]^T`` and
+``rel_w = q.Rw[y_q]^T`` in fp32 (outside the kernel, as the JAX package does
+outside its pallas_call) and launches the hand-written flash kernel of
+csrc/flash_attention.cu.  Bound on the H100: tensor-core flops plus the
+softmax on the CUDA cores; the N x N logits never reach device memory.  On a
+CPU tensor it runs the plain version.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from samrs_tpu_torch.kernels import _build
+
+launches = 0  # CUDA launches of this kernel (one per wrapper call)
+
+_HEAD_DIMS = (64, 80)  # instantiated in csrc/flash_attention.cu
+_TILE = 64  # query and key tile of the kernel; a key tile must lie in one grid row
+
+
+def _rel_rows(q: torch.Tensor, Rh: torch.Tensor, Rw: torch.Tensor, hw: Tuple[int, int]):
+    """q (B, nH, N, hd) -> fp32 rel_h (B, nH, N, H), rel_w (B, nH, N, W)."""
+    H, W = hw
+    B, nH, N, hd = q.shape
+    rq = q.float().reshape(B, nH, H, W, hd)
+    rel_h = torch.einsum("bnxyd,xkd->bnxyk", rq, Rh.float()).reshape(B, nH, N, H)
+    rel_w = torch.einsum("bnxyd,ykd->bnxyk", rq, Rw.float()).reshape(B, nH, N, W)
+    return rel_h, rel_w
+
+
+def attention_qkv_relpos_plain(qkv, Rh, Rw, hw: Tuple[int, int], scale: float, num_heads: int):
+    """Plain PyTorch version, following the JAX oracle
+    ``attention_qkv_relpos_xla``: fp32 logits and softmax, output in qkv's
+    dtype.  qkv (B, N, 3C) -> (B, N, C)."""
+    H, W = hw
+    B, N, C3 = qkv.shape
+    C = C3 // 3
+    hd = C // num_heads
+    q, k, v = qkv.reshape(B, N, 3, num_heads, hd).permute(2, 0, 3, 1, 4).unbind(0)
+    rel_h, rel_w = _rel_rows(q, Rh, Rw, hw)
+    s = (q * scale).float() @ k.float().transpose(-1, -2)     # (B, nH, N, N)
+    s = s.reshape(B, num_heads, N, H, W) + rel_h[..., :, None] + rel_w[..., None, :]
+    p = s.reshape(B, num_heads, N, N).softmax(-1)
+    out = p.to(v.dtype) @ v
+    return out.permute(0, 2, 1, 3).reshape(B, N, C).to(qkv.dtype)
+
+
+def attention_qkv_relpos_cuda(qkv, Rh, Rw, hw: Tuple[int, int], scale: float, num_heads: int):
+    """The hand-written flash kernel on a bf16 CUDA ``qkv (B, N, 3C)``."""
+    global launches
+    _build.require_cuda("qkv", qkv, torch.bfloat16)
+    if qkv.dim() != 3:
+        raise ValueError(f"qkv: expected (B, N, 3C), got {tuple(qkv.shape)}")
+    H, W = hw
+    B, N, C3 = qkv.shape
+    C = C3 // 3
+    hd = C // num_heads
+    if 3 * C != C3 or hd * num_heads != C or hd not in _HEAD_DIMS:
+        raise ValueError(f"flash kernel supports head_dim in {_HEAD_DIMS}, got 3C={C3}, heads={num_heads}")
+    if N != H * W or W % _TILE:
+        raise ValueError(f"flash kernel needs N = H*W with W % {_TILE} == 0, got N={N}, hw={hw}")
+    if tuple(Rh.shape) != (H, H, hd) or tuple(Rw.shape) != (W, W, hd):
+        raise ValueError(f"Rh/Rw: expected ({H}, {H}, {hd}) / ({W}, {W}, {hd})")
+    q = qkv[..., :C].reshape(B, N, num_heads, hd).transpose(1, 2)
+    rel_h, rel_w = _rel_rows(q, Rh, Rw, hw)
+    rel_h, rel_w = rel_h.contiguous(), rel_w.contiguous()
+    out = torch.empty(B, N, C, device=qkv.device, dtype=torch.bfloat16)
+    _build.launch("samrs_flash_attention_relpos", _build.ptr(qkv), _build.ptr(rel_h),
+                  _build.ptr(rel_w), _build.ptr(out), B, N, C, num_heads, hd, H, W, float(scale))
+    launches += 1
+    return out
+
+
+def attention_qkv_relpos(qkv, Rh, Rw, hw: Tuple[int, int], scale: float, num_heads: int):
+    """K2 on ``qkv (B, N, 3C)`` -> ``(B, N, C)``: the kernel for a CUDA
+    tensor, the plain version for a CPU tensor."""
+    if not qkv.is_cuda:
+        return attention_qkv_relpos_plain(qkv, Rh, Rw, hw, scale, num_heads)
+    return attention_qkv_relpos_cuda(qkv, Rh, Rw, hw, scale, num_heads)

@@ -1,0 +1,56 @@
+"""Launchers for the dense pieces shared by K1 and K3 (csrc/gemm.cu): a bf16
+GEMM with bias / exact-GELU / residual epilogues, and the fp32-statistics
+LayerNorm.  CUDA tensors only; the callers own the CPU path."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from samrs_tpu_torch.kernels import _build
+
+
+def linear(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
+           gelu: bool = False, residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """bf16 ``x (T, K) @ weight (N, K)^T + bias`` [-> gelu] [+ residual (T, N)].
+
+    `weight` and `bias` are parameters in any float dtype; they are cast to
+    bf16 / fp32 for the kernel.  The epilogue adds in fp32 and rounds once."""
+    _build.require_cuda("x", x, torch.bfloat16)
+    if x.dim() != 2:
+        raise ValueError(f"x: expected (T, K), got {tuple(x.shape)}")
+    T, K = x.shape
+    N = weight.shape[0]
+    if tuple(weight.shape) != (N, K):
+        raise ValueError(f"weight: expected ({N}, {K}), got {tuple(weight.shape)}")
+    if K % 64 or N % 8:
+        raise ValueError(f"GEMM needs K % 64 == 0 and N % 8 == 0, got K={K}, N={N}")
+    w = weight.to(device=x.device, dtype=torch.bfloat16).contiguous()
+    b = None if bias is None else bias.to(device=x.device, dtype=torch.float32).contiguous()
+    if b is not None and tuple(b.shape) != (N,):
+        raise ValueError(f"bias: expected ({N},), got {tuple(b.shape)}")
+    if residual is not None:
+        _build.require_cuda("residual", residual, torch.bfloat16, (T, N))
+    out = torch.empty(T, N, device=x.device, dtype=torch.bfloat16)
+    _build.launch("samrs_gemm_bf16", _build.ptr(x), _build.ptr(w), _build.ptr(b),
+                  _build.ptr(residual), _build.ptr(out), T, N, K, int(gelu))
+    return out
+
+
+def layernorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float) -> torch.Tensor:
+    """Row LayerNorm of bf16 ``x (T, C)`` with fp32 statistics -> bf16."""
+    _build.require_cuda("x", x, torch.bfloat16)
+    if x.dim() != 2:
+        raise ValueError(f"x: expected (T, C), got {tuple(x.shape)}")
+    T, C = x.shape
+    if C % 8:
+        raise ValueError(f"LayerNorm kernel needs C % 8 == 0, got {C}")
+    g = gamma.to(device=x.device, dtype=torch.float32).contiguous()
+    b = beta.to(device=x.device, dtype=torch.float32).contiguous()
+    if tuple(g.shape) != (C,) or tuple(b.shape) != (C,):
+        raise ValueError(f"gamma/beta: expected ({C},)")
+    out = torch.empty_like(x)
+    _build.launch("samrs_layernorm_bf16", _build.ptr(x), _build.ptr(g), _build.ptr(b),
+                  _build.ptr(out), T, C, float(eps))
+    return out
