@@ -4,13 +4,14 @@ The fields and variant table mirror ``samrs_tpu.core.config`` (``SamConfig``
 shared hyper-parameters and ``SAM_VARIANTS``); the TPU implementation knobs
 are not carried.  The port computes the encoder in bf16 on a CUDA device and
 in fp32 on the CPU, and its kernel switch is the explicit ``use_kernels``
-argument of ``build_sam``.
+argument of ``build_sam``.  ``GenerateConfig`` mirrors the label-generation
+driver's configuration.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 
 @dataclass
@@ -70,3 +71,20 @@ def sam_config(variant: str, **overrides: Any) -> SamConfig:
     kw = dict(SAM_VARIANTS[variant])
     kw.update(overrides)
     return SamConfig(variant=variant, **kw)
+
+
+@dataclass
+class GenerateConfig:
+    """Label-generation driver settings (samrs_tpu.core.config.GenerateConfig;
+    the reference's GD/main_sam_*_semantic.py arguments)."""
+
+    dataset: str = "dior"  # dota | dior | fair1m (a key of both LOADERS and CLASS_SETS)
+    sam_variant: str = "vit_h"
+    sam_checkpoint: Optional[str] = None
+    image_dir: str = ""
+    ann_dir: str = ""
+    save_dir: str = ""
+    box_buckets: Tuple[int, ...] = (16, 64, 256, 1024)  # prompt counts pad to a bucket
+    shard_index: int = 0  # this process's shard of the image worklist
+    shard_count: int = 1
+    device: str = "cuda"

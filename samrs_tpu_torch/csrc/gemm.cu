@@ -1,6 +1,7 @@
 // Dense layers of the encoder kernels K1 and K3: a bf16 GEMM with fused
-// bias / exact-GELU / residual epilogues, and the fp32-statistics LayerNorm
-// that opens the MLP sublayer.
+// bias / exact-GELU epilogues and bf16 output, or with the encoder's fp32
+// residual stream added and fp32 output, and the fp32-statistics LayerNorm
+// of the fp32 stream that opens the MLP sublayer.
 //
 // Replaces the matrix products inside the TPU kernels
 //   samrs_tpu/kernels/fused_mlp.py::_ln_kernel (LN + lin1 + gelu + lin2 + residual)
@@ -49,15 +50,24 @@ __device__ __forceinline__ void load_tiles(bf16* stage, const bf16* __restrict__
 }
 
 // C[M,N] = A[M,K] . B[N,K]^T (+ bias[N]) (-> gelu) (+ residual[M,N]).
-// A, B, residual, C bf16 row-major; bias fp32.  Requires K % BK == 0 and
+// A, B bf16 row-major; bias fp32; C bf16 (OutT = bf16, no residual) or fp32
+// with an fp32 residual.  The epilogue adds in fp32 and rounds once.
+// Requires K % BK == 0 and
 // N % 8 == 0 (checked by the host entry); ragged M and N tiles are masked.
 // Each warp multiplies a WM x WN tile with ldmatrix + mma.sync fragments
 // and applies the epilogue straight from its accumulator registers.
-template <class G>
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+template <class G, class OutT>
 __global__ void __launch_bounds__(G::THREADS)
 gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
-                 const float* __restrict__ bias, const bf16* __restrict__ residual,
-                 bf16* __restrict__ C, int M, int N, int K, int gelu) {
+                 const float* __restrict__ bias, const float* __restrict__ residual,
+                 OutT* __restrict__ C, int M, int N, int K, int gelu) {
   constexpr int FM = G::WM / 16, FN = G::WN / 8;  // m16 rows x n8 columns per warp
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* smem = reinterpret_cast<bf16*>(smem_raw);
@@ -126,52 +136,56 @@ gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
           v1 = gelu_erf(v1);
         }
         if (residual) {
-          const __nv_bfloat162 rv =
-              *reinterpret_cast<const __nv_bfloat162*>(residual + (size_t)gm * N + gn);
-          v0 += __bfloat162float(rv.x);
-          v1 += __bfloat162float(rv.y);
+          const float2 rv = *reinterpret_cast<const float2*>(residual + (size_t)gm * N + gn);
+          v0 += rv.x;
+          v1 += rv.y;
         }
-        *reinterpret_cast<__nv_bfloat162*>(C + (size_t)gm * N + gn) = __floats2bfloat162_rn(v0, v1);
+        store2(C + (size_t)gm * N + gn, v0, v1);
       }
     }
   }
 }
 
-template <class G>
+template <class G, class OutT>
 int launch_gemm(const void* A, const void* B, const void* bias, const void* residual, void* C,
                 int M, int N, int K, int gelu, cudaStream_t stream) {
   if (K % G::BK != 0) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(gemm_bf16_kernel<G>,
+  cudaError_t err = cudaFuncSetAttribute(gemm_bf16_kernel<G, OutT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
   if (err != cudaSuccess) return err;
   dim3 grid((N + G::BN - 1) / G::BN, (M + G::BM - 1) / G::BM);
-  gemm_bf16_kernel<G><<<grid, G::THREADS, G::SMEM, stream>>>(
+  gemm_bf16_kernel<G, OutT><<<grid, G::THREADS, G::SMEM, stream>>>(
       static_cast<const bf16*>(A), static_cast<const bf16*>(B), static_cast<const float*>(bias),
-      static_cast<const bf16*>(residual), static_cast<bf16*>(C), M, N, K, gelu);
+      static_cast<const float*>(residual), static_cast<OutT*>(C), M, N, K, gelu);
   return cudaGetLastError();
 }
 
 using GemmMain = GemmCfg<128, 128, 64, 64, 32, 3>;  // 110 KB of shared memory
 
-// One warp per row: fp32 mean and E[x^2] - mean^2 variance (the JAX oracle's
+// Eight consecutive values of a row.
+__device__ __forceinline__ void load8(const float* p, float (&f)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p), b = *reinterpret_cast<const float4*>(p + 4);
+  f[0] = a.x, f[1] = a.y, f[2] = a.z, f[3] = a.w, f[4] = b.x, f[5] = b.y, f[6] = b.z, f[7] = b.w;
+}
+
+// One warp per fp32 row: mean and E[x^2] - mean^2 variance (the JAX oracle's
 // form), normalised output rounded to bf16.  Requires C % 8 == 0.
 __global__ void __launch_bounds__(256)
-layernorm_bf16_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
-                      const float* __restrict__ beta, bf16* __restrict__ y,
-                      int rows, int C, float eps) {
+layernorm_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
+                 const float* __restrict__ beta, bf16* __restrict__ y, int rows, int C,
+                 float eps) {
   const int row = blockIdx.x * 8 + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;
-  const bf16* xr = x + (size_t)row * C;
+  const float* xr = x + (size_t)row * C;
   float s = 0.f, sq = 0.f;
   for (int c = lane * 8; c < C; c += 256) {
-    uint4 v = load16(xr + c);
-    const bf16* b = reinterpret_cast<const bf16*>(&v);
+    float f[8];
+    load8(xr + c, f);
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
-      float f = __bfloat162float(b[e]);
-      s += f;
-      sq += f * f;
+      s += f[e];
+      sq += f[e] * f[e];
     }
   }
 #pragma unroll
@@ -184,14 +198,14 @@ layernorm_bf16_kernel(const bf16* __restrict__ x, const float* __restrict__ gamm
   const float rstd = rsqrtf(var + eps);
   bf16* yr = y + (size_t)row * C;
   for (int c = lane * 8; c < C; c += 256) {
-    uint4 v = load16(xr + c);
-    const bf16* b = reinterpret_cast<const bf16*>(&v);
+    float f[8];
+    load8(xr + c, f);
     uint4 ov;
     __nv_bfloat162* ob = reinterpret_cast<__nv_bfloat162*>(&ov);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      float f0 = (__bfloat162float(b[2 * e]) - mu) * rstd * gamma[c + 2 * e] + beta[c + 2 * e];
-      float f1 = (__bfloat162float(b[2 * e + 1]) - mu) * rstd * gamma[c + 2 * e + 1] + beta[c + 2 * e + 1];
+      const float f0 = (f[2 * e] - mu) * rstd * gamma[c + 2 * e] + beta[c + 2 * e];
+      const float f1 = (f[2 * e + 1] - mu) * rstd * gamma[c + 2 * e + 1] + beta[c + 2 * e + 1];
       ob[e] = __floats2bfloat162_rn(f0, f1);
     }
     store16(yr + c, ov);
@@ -207,20 +221,24 @@ const char* samrs_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// C = A . B^T (+ bias) (-> gelu); A, B bf16; C bf16, or with an fp32
+// residual C = residual + ... in fp32.
 int samrs_gemm_bf16(const void* A, const void* B, const void* bias, const void* residual,
                     void* C, int M, int N, int K, int gelu, void* stream) {
   using namespace samrs;
   if (M <= 0 || N <= 0 || K <= 0 || N % 8 != 0) return cudaErrorInvalidValue;
-  return launch_gemm<GemmMain>(A, B, bias, residual, C, M, N, K, gelu,
-                               static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (residual) return launch_gemm<GemmMain, float>(A, B, bias, residual, C, M, N, K, gelu, st);
+  return launch_gemm<GemmMain, bf16>(A, B, bias, nullptr, C, M, N, K, gelu, st);
 }
 
-int samrs_layernorm_bf16(const void* x, const void* gamma, const void* beta, void* y,
-                         int rows, int C, float eps, void* stream) {
+// Row LayerNorm of fp32 x -> bf16 y.
+int samrs_layernorm(const void* x, const void* gamma, const void* beta, void* y, int rows, int C,
+                    float eps, void* stream) {
   using namespace samrs;
   if (rows <= 0 || C <= 0 || C % 8 != 0) return cudaErrorInvalidValue;
-  layernorm_bf16_kernel<<<(rows + 7) / 8, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(gamma),
+  layernorm_kernel<<<(rows + 7) / 8, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(gamma),
       static_cast<const float*>(beta), static_cast<bf16*>(y), rows, C, eps);
   return cudaGetLastError();
 }

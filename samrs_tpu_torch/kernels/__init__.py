@@ -5,4 +5,8 @@ launches its CUDA kernel (or raises) for a CUDA tensor.
   K1 fused_window_layer.window_layer_attention   (window layer)
   K2 flash_attention.attention_qkv_relpos        (global attention)
   K3 fused_mlp.ln_mlp_residual                   (LayerNorm + MLP + residual)
+  K4 fused_twoway.t2i_kv_proj                    (decoder K/V projection)
+  K5 fused_twoway.i2t_update                     (decoder image->token update)
+  K6 fused_upscale.upscale_hyper                 (upscaling + hypernetwork dot)
+  K7 amg_post.amg_postprocess                    (full-resolution mask postprocess)
 """

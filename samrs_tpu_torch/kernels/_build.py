@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 On first use, every ``samrs_tpu_torch/csrc/*.cu`` is compiled with nvcc for
-``sm_90a`` into one shared library with a plain C interface under
+``sm_90a`` (one nvcc process per source, all started together) and linked
+into one shared library with a plain C interface under
 ``samrs_tpu_torch/_build/`` (named by a hash of the sources, so an edited
 source rebuilds), and loaded with ctypes.  Nothing here runs at import time:
 the CPU path of every wrapper never reaches this module.
@@ -23,17 +24,21 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: name -> (argtypes, restype)
 _SIGNATURES = {
     "samrs_error_string": ([_I], ctypes.c_char_p),
     "samrs_gemm_bf16": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
-    "samrs_layernorm_bf16": ([_P, _P, _P, _P, _I, _I, _F, _P], _I),
+    "samrs_layernorm": ([_P, _P, _P, _P, _I, _I, _F, _P], _I),
     "samrs_window_attention_smem": ([_I], ctypes.c_longlong),
     "samrs_window_attention": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P], _I),
     "samrs_flash_attention_relpos": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P], _I),
+    "samrs_t2i_kv": ([_P] * 8 + [_I, _I, _P], _I),
+    "samrs_i2t_update": ([_P] * 18 + [_I, _I, _I, _I, _I, _F, _F, _P], _I),
+    "samrs_upscale_hyper": ([_P] * 9 + [_I, _I, _I, _I, _F, _P], _I),
+    "samrs_amg_post": ([_P] * 7 + [_I, _I, _I, _I, _F, _F, _P], _I),
 }
 
 _lib = None
@@ -62,16 +67,32 @@ def _sources():
     return srcs, digest.hexdigest()[:16]
 
 
+def _run_all(cmds):
+    """Run the commands in parallel; returns (returncode, log) per command."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [" ".join(c) + "\n" + p.communicate()[0] for c, p in zip(cmds, procs)]
+    return [(p.returncode, log) for p, log in zip(procs, logs)]
+
+
 def _compile(out: Path, srcs) -> None:
     global build_seconds
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+    nvcc = _nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{s.stem}.o" for s in srcs]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / "build.log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{proc.stderr}")
+    results = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+                        for s, o in zip(srcs, objs)])
+    if all(code == 0 for code, _ in results):
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        results += _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+    (BUILD_DIR / "build.log").write_text("\n".join(log for _, log in results))
+    for o in objs:
+        o.unlink(missing_ok=True)
+    failed = [log for code, log in results if code != 0]
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     os.replace(tmp, out)
     build_seconds = time.perf_counter() - t0
 

@@ -16,6 +16,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 from samrs_tpu_torch.kernels import _build
 
@@ -35,20 +36,37 @@ def _rel_rows(q: torch.Tensor, Rh: torch.Tensor, Rw: torch.Tensor, hw: Tuple[int
     return rel_h, rel_w
 
 
+def online_softmax_v(s: torch.Tensor, v: torch.Tensor, dtype: torch.dtype,
+                     tile: int = _TILE) -> torch.Tensor:
+    """``softmax(s) @ v`` in fp32, rounded as the kernels' online softmax
+    rounds it (csrc/warp_attention.cuh): keys in tiles of `tile`, each
+    tile's probabilities exp(s - running max) rounded to `dtype` (the P of
+    the P.V product), row sum of the rounded values, rescaled to the final
+    max.  For fp32 this is the exact softmax.  s (..., n), v (..., n, d)."""
+    n = s.shape[-1]
+    st = F.pad(s, (0, (-n) % tile), value=float("-inf")).unflatten(-1, (-1, tile))
+    m = st.amax(-1).cummax(-1).values                     # running max after each tile
+    p = torch.exp(st - m[..., None]).to(dtype).float()
+    rescale = torch.exp(m - m[..., -1:])
+    denom = (p.sum(-1) * rescale).sum(-1, keepdim=True)
+    p = (p * rescale[..., None]).flatten(-2)[..., :n]
+    return (p @ v.float()) / denom
+
+
 def attention_qkv_relpos_plain(qkv, Rh, Rw, hw: Tuple[int, int], scale: float, num_heads: int):
     """Plain PyTorch version, following the JAX oracle
     ``attention_qkv_relpos_xla``: fp32 logits and softmax, output in qkv's
-    dtype.  qkv (B, N, 3C) -> (B, N, C)."""
+    dtype; the probabilities are rounded as the kernel rounds them
+    (``online_softmax_v``).  qkv (B, N, 3C) -> (B, N, C)."""
     H, W = hw
     B, N, C3 = qkv.shape
     C = C3 // 3
     hd = C // num_heads
     q, k, v = qkv.reshape(B, N, 3, num_heads, hd).permute(2, 0, 3, 1, 4).unbind(0)
     rel_h, rel_w = _rel_rows(q, Rh, Rw, hw)
-    s = (q * scale).float() @ k.float().transpose(-1, -2)     # (B, nH, N, N)
+    s = (q.float() * scale) @ k.float().transpose(-1, -2)     # (B, nH, N, N)
     s = s.reshape(B, num_heads, N, H, W) + rel_h[..., :, None] + rel_w[..., None, :]
-    p = s.reshape(B, num_heads, N, N).softmax(-1)
-    out = p.to(v.dtype) @ v
+    out = online_softmax_v(s.reshape(B, num_heads, N, N), v, qkv.dtype)
     return out.permute(0, 2, 1, 3).reshape(B, N, C).to(qkv.dtype)
 
 

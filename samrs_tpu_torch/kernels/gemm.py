@@ -1,14 +1,34 @@
 """Launchers for the dense pieces shared by K1 and K3 (csrc/gemm.cu): a bf16
-GEMM with bias / exact-GELU / residual epilogues, and the fp32-statistics
-LayerNorm.  CUDA tensors only; the callers own the CPU path."""
+GEMM with bias / exact-GELU epilogues and bf16 output, or with the encoder's
+fp32 residual stream added and fp32 output, and the fp32-statistics
+LayerNorm of that stream.  CUDA tensors only; the callers own the CPU path.
+``linear_plain`` is the GEMM's plain version, rounded where it rounds."""
 
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from samrs_tpu_torch.kernels import _build
+
+
+def linear_plain(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
+                 gelu: bool = False, residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of ``linear`` with the kernel's numerics: products of x
+    and the weight rounded to x's dtype, fp32 accumulation, bias, exact GELU
+    and residual added in fp32, one rounding at the end to the residual's
+    dtype (x's without one)."""
+    dt = x.dtype
+    y = F.linear(x.float(), weight.to(dt).float())
+    if bias is not None:
+        y = y + bias.float()
+    if gelu:
+        y = F.gelu(y)
+    if residual is not None:
+        return (y + residual.float()).to(residual.dtype)
+    return y.to(dt)
 
 
 def linear(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
@@ -16,7 +36,8 @@ def linear(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
     """bf16 ``x (T, K) @ weight (N, K)^T + bias`` [-> gelu] [+ residual (T, N)].
 
     `weight` and `bias` are parameters in any float dtype; they are cast to
-    bf16 / fp32 for the kernel.  The epilogue adds in fp32 and rounds once."""
+    bf16 / fp32 for the kernel.  The epilogue adds in fp32 and rounds once
+    to bf16; with an fp32 `residual` the output is fp32."""
     _build.require_cuda("x", x, torch.bfloat16)
     if x.dim() != 2:
         raise ValueError(f"x: expected (T, K), got {tuple(x.shape)}")
@@ -31,16 +52,17 @@ def linear(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
     if b is not None and tuple(b.shape) != (N,):
         raise ValueError(f"bias: expected ({N},), got {tuple(b.shape)}")
     if residual is not None:
-        _build.require_cuda("residual", residual, torch.bfloat16, (T, N))
-    out = torch.empty(T, N, device=x.device, dtype=torch.bfloat16)
+        _build.require_cuda("residual", residual, torch.float32, (T, N))
+    out = torch.empty(T, N, device=x.device,
+                      dtype=torch.bfloat16 if residual is None else torch.float32)
     _build.launch("samrs_gemm_bf16", _build.ptr(x), _build.ptr(w), _build.ptr(b),
                   _build.ptr(residual), _build.ptr(out), T, N, K, int(gelu))
     return out
 
 
 def layernorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float) -> torch.Tensor:
-    """Row LayerNorm of bf16 ``x (T, C)`` with fp32 statistics -> bf16."""
-    _build.require_cuda("x", x, torch.bfloat16)
+    """Row LayerNorm of fp32 ``x (T, C)`` -> bf16."""
+    _build.require_cuda("x", x, torch.float32)
     if x.dim() != 2:
         raise ValueError(f"x: expected (T, C), got {tuple(x.shape)}")
     T, C = x.shape
@@ -50,7 +72,7 @@ def layernorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: flo
     b = beta.to(device=x.device, dtype=torch.float32).contiguous()
     if tuple(g.shape) != (C,) or tuple(b.shape) != (C,):
         raise ValueError(f"gamma/beta: expected ({C},)")
-    out = torch.empty_like(x)
-    _build.launch("samrs_layernorm_bf16", _build.ptr(x), _build.ptr(g), _build.ptr(b),
+    out = torch.empty(T, C, device=x.device, dtype=torch.bfloat16)
+    _build.launch("samrs_layernorm", _build.ptr(x), _build.ptr(g), _build.ptr(b),
                   _build.ptr(out), T, C, float(eps))
     return out

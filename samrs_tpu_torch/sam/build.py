@@ -48,13 +48,14 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
 
 
 def build_sam(variant: str = "vit_h", checkpoint: Optional[str] = None,
-              device: Any = "cpu", generator: Optional[torch.Generator] = None,
+              device: Any = "cuda", generator: Optional[torch.Generator] = None,
               use_kernels: bool = True, **overrides: Any) -> Sam:
     """Build SAM `variant` (config fields overridable) on `device`, in eval
     mode.  With `checkpoint` (an official-layout state dict file) the weights
     load strictly; otherwise they are drawn from `generator` (default: seed 0
-    on `device`).  `use_kernels` selects the encoder's hand-written kernels
-    (True) or their plain PyTorch versions (False)."""
+    on `device`).  The model runs on the card unless `device` says
+    otherwise.  `use_kernels` sets ``Sam.use_kernels``: the hand-written
+    kernels (True) or their plain PyTorch versions (False)."""
     cfg = sam_config(variant, **overrides)
     with torch.device(device):
         model = Sam(cfg, use_kernels=use_kernels)

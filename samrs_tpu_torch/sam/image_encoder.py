@@ -2,16 +2,24 @@
 
 NHWC in, NHWC out.  Parameters are fp32 with the official attribute names
 (``patch_embed.proj``, ``blocks.{i}.attn.qkv``, ``neck.{0..3}``, ...).  The
-compute dtype follows the device: bf16 on CUDA, fp32 on the CPU.  Per block:
+compute dtype of the products follows the device: bf16 on CUDA, fp32 on the
+CPU.  The residual stream between blocks and the neck stay fp32 on both: a
+bf16 stream rounds every block's update into it, and two computations of
+one block that differ below a bf16 ulp (a different summation order) then
+part by whole ulps, block after block.  Per block:
 
   norm1 (fp32 statistics, output in the compute dtype)
-  windowed blocks: K1 on the unpadded normed map
-  global blocks:   qkv Linear -> K2 on the raw (B, N, 3C) qkv -> proj Linear
-  residual add
-  K3 (LayerNorm + MLP + residual)
+  windowed blocks: K1 on the unpadded normed map, the residual added in
+                   its proj epilogue
+  global blocks:   qkv GEMM -> K2 on the raw (B, N, 3C) qkv -> proj GEMM
+                   with the residual added in its epilogue
+  K3 (LayerNorm + MLP + residual, fp32 in and out)
 
-``use_kernels=False`` runs the kernels' plain versions instead (the
-comparison path on the card).
+The global blocks' GEMMs are csrc/gemm.cu (``gemm.linear``) with the
+kernels and ``gemm.linear_plain`` without, so both paths round alike.
+
+``forward(x, use_kernels=False)`` runs the kernels' plain versions instead
+(the comparison path on the card); ``Sam.use_kernels`` passes the switch.
 """
 
 from __future__ import annotations
@@ -22,7 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from samrs_tpu_torch.kernels import fused_mlp, fused_window_layer, flash_attention
+from samrs_tpu_torch.kernels import flash_attention, fused_mlp, fused_window_layer, gemm
 from samrs_tpu_torch.nn.layers import LayerNorm2d, MLPBlock
 
 
@@ -70,30 +78,31 @@ class Block(nn.Module):
         self.mlp = MLPBlock(dim, int(dim * mlp_ratio))
         self.window_size = window_size
 
-    def forward(self, x: torch.Tensor, use_kernels: bool) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, use_kernels: bool, dt: torch.dtype) -> torch.Tensor:
+        """x: the fp32 residual stream; `dt` the dtype of the products."""
         B, H, W, C = x.shape
-        dt = x.dtype
         a = self.attn
         xn = F.layer_norm(x.float(), (C,), self.norm1.weight, self.norm1.bias, 1e-6).to(dt)
         if self.window_size > 0:
             ws = self.window_size
             layer = (fused_window_layer.window_layer_attention if use_kernels
                      else fused_window_layer.window_layer_plain)
-            y = layer(xn, a.qkv.weight, a.qkv.bias, a.proj.weight, a.proj.bias,
+            x = layer(xn, a.qkv.weight, a.qkv.bias, a.proj.weight, a.proj.bias,
                       get_rel_pos(ws, ws, a.rel_pos_h), get_rel_pos(ws, ws, a.rel_pos_w),
-                      ws, a.scale, a.num_heads)
+                      ws, a.scale, a.num_heads, residual=x)
         else:
             attend = (flash_attention.attention_qkv_relpos if use_kernels
                       else flash_attention.attention_qkv_relpos_plain)
-            qkv = F.linear(xn, a.qkv.weight.to(dt), a.qkv.bias.to(dt)).reshape(B, H * W, 3 * C)
+            linear = gemm.linear if use_kernels and x.is_cuda else gemm.linear_plain
+            qkv = linear(xn.reshape(-1, C), a.qkv.weight, a.qkv.bias).reshape(B, H * W, 3 * C)
             y = attend(qkv, get_rel_pos(H, H, a.rel_pos_h), get_rel_pos(W, W, a.rel_pos_w),
                        (H, W), a.scale, a.num_heads)
-            y = F.linear(y.reshape(B, H, W, C), a.proj.weight.to(dt), a.proj.bias.to(dt))
-        x = x + y
+            x = linear(y.reshape(-1, C), a.proj.weight, a.proj.bias,
+                       residual=x.reshape(-1, C)).reshape(B, H, W, C)
         mlp = fused_mlp.ln_mlp_residual if use_kernels else fused_mlp.ln_mlp_residual_plain
         m = self.mlp
         return mlp(x, self.norm2.weight, self.norm2.bias, m.lin1.weight, m.lin1.bias,
-                   m.lin2.weight, m.lin2.bias, 1e-6)
+                   m.lin2.weight, m.lin2.bias, 1e-6, dtype=dt)
 
 
 class PatchEmbed(nn.Module):
@@ -116,8 +125,7 @@ class ImageEncoderViT(nn.Module):
     def __init__(self, img_size: int = 1024, patch_size: int = 16, in_chans: int = 3,
                  embed_dim: int = 768, depth: int = 12, num_heads: int = 12,
                  mlp_ratio: float = 4.0, out_chans: int = 256, window_size: int = 14,
-                 global_attn_indexes: Tuple[int, ...] = (2, 5, 8, 11),
-                 use_kernels: bool = True) -> None:
+                 global_attn_indexes: Tuple[int, ...] = (2, 5, 8, 11)) -> None:
         super().__init__()
         grid = img_size // patch_size
         self.patch_embed = PatchEmbed(patch_size, in_chans, embed_dim)
@@ -133,14 +141,13 @@ class ImageEncoderViT(nn.Module):
             nn.Conv2d(out_chans, out_chans, kernel_size=3, padding=1, bias=False),
             LayerNorm2d(out_chans),
         )
-        self.use_kernels = use_kernels
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, use_kernels: bool = True) -> torch.Tensor:
         dt = _compute_dtype(x)
-        x = self.patch_embed(x.to(dt)) + self.pos_embed.to(dt)
+        x = (self.patch_embed(x.to(dt)) + self.pos_embed.to(dt)).float()
         for blk in self.blocks:
-            x = blk(x, self.use_kernels)
+            x = blk(x, use_kernels, dt)
         x = x.permute(0, 3, 1, 2)
-        x = self.neck[1](F.conv2d(x, self.neck[0].weight.to(dt)))
-        x = self.neck[3](F.conv2d(x, self.neck[2].weight.to(dt), padding=1))
+        x = self.neck[1](F.conv2d(x, self.neck[0].weight.float()))
+        x = self.neck[3](F.conv2d(x, self.neck[2].weight.float(), padding=1))
         return x.permute(0, 2, 3, 1)

@@ -1,7 +1,8 @@
-"""SAM mask decoder (mirrors the ``upscale_impl="xla"``,
-``twoway_impl="xla"`` composition of samrs_tpu/sam/mask_decoder.py).  Runs in
-fp32; only the requested mask tokens go through the hypernetwork and the
-mask dot."""
+"""SAM mask decoder (mirrors samrs_tpu/sam/mask_decoder.py with its default
+``twoway_impl="fused"``, ``upscale_impl="fused"``).  The two-way
+transformer's image side runs through K4/K5 and the upscaling tail with the
+hypernetwork dot through K6, for the requested mask tokens only; token-side
+work is fp32.  ``use_kernels=False`` runs the kernels' plain versions."""
 
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from samrs_tpu_torch.kernels import fused_upscale
 from samrs_tpu_torch.nn.layers import MLP, LayerNorm2d
 from samrs_tpu_torch.sam.transformer import TwoWayTransformer
 
@@ -40,8 +42,8 @@ class MaskDecoder(nn.Module):
 
     def forward(self, image_embeddings: torch.Tensor, image_pe: torch.Tensor,
                 sparse_prompt_embeddings: torch.Tensor, dense_prompt_embeddings: torch.Tensor,
-                multimask_output: bool = False,
-                src_uniform: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+                multimask_output: bool = False, src_uniform: bool = False,
+                use_kernels: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
         """Returns (masks (B, M, 4H, 4W), iou_pred (B, M)).
 
         src_uniform=True is a caller contract: every prompt shares one image
@@ -49,14 +51,15 @@ class MaskDecoder(nn.Module):
         and broadcasts lazily."""
         idx = tuple(range(1, self.num_mask_tokens)) if multimask_output else (0,)
         masks, iou_pred = self.predict_masks(image_embeddings, image_pe, sparse_prompt_embeddings,
-                                             dense_prompt_embeddings, idx, src_uniform)
+                                             dense_prompt_embeddings, idx, src_uniform,
+                                             use_kernels)
         sl = slice(1, None) if multimask_output else slice(0, 1)
         return masks, iou_pred[:, sl]
 
     def predict_masks(self, image_embeddings: torch.Tensor, image_pe: torch.Tensor,
                       sparse_prompt_embeddings: torch.Tensor, dense_prompt_embeddings: torch.Tensor,
-                      token_idx: Optional[Sequence[int]] = None,
-                      src_uniform: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+                      token_idx: Optional[Sequence[int]] = None, src_uniform: bool = False,
+                      use_kernels: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
         """Returns (masks (B, len(token_idx), 4H, 4W), iou_pred (B, all tokens))."""
         B = sparse_prompt_embeddings.shape[0]
         output_tokens = torch.cat([self.iou_token.weight, self.mask_tokens.weight], dim=0)
@@ -66,13 +69,15 @@ class MaskDecoder(nn.Module):
         else:
             src = image_embeddings + dense_prompt_embeddings
         h, w, c = src.shape[-3:]
-        hs, keys = self.transformer(src, image_pe, tokens)
+        hs, keys = self.transformer(src, image_pe, tokens, use_kernels)
         iou_token_out = hs[:, 0, :]
         mask_tokens_out = hs[:, 1:1 + self.num_mask_tokens, :]
 
         idx = range(self.num_mask_tokens) if token_idx is None else token_idx
         hyper_in = torch.stack(
             [self.output_hypernetworks_mlps[i](mask_tokens_out[:, i, :]) for i in idx], dim=1)
-        up = self.output_upscaling(keys.reshape(B, h, w, c).permute(0, 3, 1, 2))
-        masks = torch.einsum("bmc,bchw->bmhw", hyper_in, up)
+        conv1, ln, conv2 = self.output_upscaling[0], self.output_upscaling[1], self.output_upscaling[3]
+        upscale = fused_upscale.upscale_hyper if use_kernels else fused_upscale.upscale_hyper_plain
+        masks = upscale(keys.reshape(B, h, w, c), conv1.weight, conv1.bias, ln.weight, ln.bias,
+                        conv2.weight, conv2.bias, hyper_in, keys.dtype)
         return masks, self.iou_prediction_head(iou_token_out)

@@ -6,7 +6,9 @@ normalises and zero-pads to the square on the device (``sam.preprocess``, as
 the reference does), and caches the encoder features.  ``predict_boxes`` decodes every box in one batched
 call, padded up to a bucket size with not-a-point prompts; buckets above
 ``decode_chunk`` prompts decode chunk by chunk to bound the decoder's
-per-prompt image-side activations.
+per-prompt image-side activations.  ``predict_boxes_lowres`` keeps the
+decoded low-res logits on the device for the generate driver, whose binary
+masks leave the device bit-packed (``packbits2d``, np.packbits order).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from samrs_tpu_torch.kernels.amg_post import packbits2d
 from samrs_tpu_torch.sam.sam import Sam, postprocess_masks, preprocess
 from samrs_tpu_torch.sam.transforms import ResizeLongestSide
 
@@ -32,6 +35,14 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     host.copy_(t)
     return host.numpy()
+
+
+__all__ = ["DEFAULT_BUCKETS", "SamPredictor", "packbits2d", "unpackbits2d"]
+
+
+def unpackbits2d(packed: np.ndarray, width: int) -> np.ndarray:
+    """Host inverse of ``packbits2d``: (..., ceil(W/8)) uint8 -> (..., W) bool."""
+    return np.unpackbits(np.asarray(packed, np.uint8), axis=-1)[..., :width].astype(bool)
 
 
 def _bucket(n: int, buckets: Tuple[int, ...]) -> int:
@@ -74,6 +85,15 @@ class SamPredictor:
         x = torch.from_numpy(resized).to(self.device)[None]
         x = preprocess(x, cfg.pixel_mean, cfg.pixel_std, cfg.image_size)
         self.features = self.model.encode_image(x)
+        self.is_image_set = True
+
+    def set_image_features(self, features: torch.Tensor, original_size: Tuple[int, int],
+                           input_size: Tuple[int, int]) -> None:
+        """Install precomputed encoder features (1, g, g, C) for an image of
+        `original_size` resized to `input_size`."""
+        self.features = features.to(self.device)
+        self.original_size = tuple(original_size)
+        self.input_size = tuple(input_size)
         self.is_image_set = True
 
     def get_image_embedding(self) -> torch.Tensor:
@@ -138,10 +158,10 @@ class SamPredictor:
         masks, iou, low_res = self._finish(low_res, iou, 1, return_logits)
         return masks[0], iou[0], low_res[0]
 
-    def predict_boxes(self, boxes: np.ndarray, multimask_output: bool = False,
-                      return_logits: bool = False) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """(N, 4) xyxy boxes -> (masks (N, M, H, W), iou (N, M), low_res (N, M, 4g, 4g)),
-        decoded in one bucket-padded batch."""
+    def predict_boxes_lowres(self, boxes: np.ndarray,
+                             multimask_output: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(N, 4) xyxy boxes -> (low_res (Nb, M, 4g, 4g), iou (Nb, M)) device
+        tensors, Nb the bucket-padded N, decoded in one batch."""
         if not self.is_image_set:
             raise RuntimeError("An image must be set with .set_image(...) first.")
         n = boxes.shape[0]
@@ -152,5 +172,11 @@ class SamPredictor:
         pts[:n] = tb
         labs[:n, 0] = 2  # top-left corner embedding
         labs[:n, 1] = 3  # bottom-right corner embedding
-        low_res, iou = self._decode(pts, labs, None, multimask_output)
-        return self._finish(low_res, iou, n, return_logits)
+        return self._decode(pts, labs, None, multimask_output)
+
+    def predict_boxes(self, boxes: np.ndarray, multimask_output: bool = False,
+                      return_logits: bool = False) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(N, 4) xyxy boxes -> (masks (N, M, H, W), iou (N, M), low_res (N, M, 4g, 4g)),
+        decoded in one bucket-padded batch."""
+        low_res, iou = self.predict_boxes_lowres(boxes, multimask_output)
+        return self._finish(low_res, iou, boxes.shape[0], return_logits)

@@ -2,7 +2,9 @@
 
 ``Sam.encode_image`` runs the encoder (bf16 on CUDA, fp32 on the CPU) and
 returns fp32 NHWC features; ``Sam.predict`` runs the prompt encoder and the
-fp32 mask decoder against cached features.
+mask decoder against cached features.  ``Sam.use_kernels`` is the one
+switch between the hand-written kernels (K1-K7, including the generate
+driver's postprocess) and their plain PyTorch versions on the card.
 """
 
 from __future__ import annotations
@@ -47,11 +49,11 @@ class Sam(nn.Module):
         super().__init__()
         c = cfg
         self.cfg = cfg
+        self.use_kernels = use_kernels
         self.image_encoder = ImageEncoderViT(
             img_size=c.image_size, patch_size=c.patch_size, embed_dim=c.encoder_embed_dim,
             depth=c.encoder_depth, num_heads=c.encoder_num_heads, out_chans=c.prompt_embed_dim,
             window_size=c.window_size, global_attn_indexes=c.encoder_global_attn_indexes,
-            use_kernels=use_kernels,
         )
         self.prompt_encoder = PromptEncoder(
             embed_dim=c.prompt_embed_dim, image_embedding_size=(c.grid_size, c.grid_size),
@@ -67,7 +69,7 @@ class Sam(nn.Module):
     @torch.no_grad()
     def encode_image(self, x: torch.Tensor) -> torch.Tensor:
         """Preprocessed (B, S, S, 3) -> (B, S/16, S/16, 256) fp32 features."""
-        return self.image_encoder(x).float()
+        return self.image_encoder(x, self.use_kernels).float()
 
     @torch.no_grad()
     def predict(self, image_embeddings: torch.Tensor, points: Optional[torch.Tensor] = None,
@@ -76,4 +78,5 @@ class Sam(nn.Module):
         """Cached-features decode: prompts -> (low-res mask logits, iou)."""
         sparse, dense = self.prompt_encoder(points=points, labels=labels, masks=mask_inputs)
         return self.mask_decoder(image_embeddings, self.prompt_encoder.get_dense_pe(), sparse,
-                                 dense, multimask_output, src_uniform=mask_inputs is None)
+                                 dense, multimask_output, src_uniform=mask_inputs is None,
+                                 use_kernels=self.use_kernels)

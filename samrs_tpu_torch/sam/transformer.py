@@ -1,14 +1,25 @@
-"""SAM two-way (token <-> image) transformer (mirrors the module composition
-of samrs_tpu/sam/transformer.py).  Shapes are (B, N, C); the decoder runs in
-fp32.  LayerNorm eps is 1e-5 here."""
+"""SAM two-way (token <-> image) transformer, in the fused composition of
+samrs_tpu/sam/transformer.py (``TwoWayTransformer._fused``).
+
+The image side, a (B, 4096, 256) fp32 stream at a prompt bucket B, goes
+through K4 (``t2i_kv_proj``: layer 0's token->image K/V, once) and K5
+(``i2t_update``: per layer, the whole image->token update plus the next
+attention's K/V).  The token side is plain fp32 PyTorch:
+self-attention, token->image attention against the K/V the kernels emit,
+the MLP, norms 1-3 and the final attention and norm.  Products of the image
+side take bf16 operands with fp32 accumulation on CUDA and fp32 on the CPU.
+The parameter tree is the official one (LayerNorm eps 1e-5).
+"""
 
 from __future__ import annotations
 
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from samrs_tpu_torch.kernels import fused_twoway
 from samrs_tpu_torch.nn.layers import MLPBlock
 
 
@@ -38,12 +49,25 @@ class AttentionDownsample(nn.Module):
         b, _, n, _ = out.shape
         return self.out_proj(out.transpose(1, 2).reshape(b, n, self.internal_dim))
 
+    def attend_image(self, queries: torch.Tensor, k_img: torch.Tensor,
+                     v_img: torch.Tensor) -> torch.Tensor:
+        """Token -> image attention against projected image K/V (1 or B, N,
+        Ci) from K4/K5 (bf16 on the card): q, the logits, the softmax and
+        its sums in fp32, since no tensor-core product needs them in bf16."""
+        q = self._split(self.q_proj(queries)) / (self.internal_dim // self.num_heads) ** 0.5
+        k = self._split(k_img).float()
+        v = self._split(v_img).float()
+        s = q @ k.transpose(-1, -2)
+        out = s.softmax(-1) @ v
+        b, _, n, _ = out.shape
+        return self.out_proj(out.transpose(1, 2).reshape(b, n, self.internal_dim))
+
 
 class TwoWayAttentionBlock(nn.Module):
-    """transformer.py:109-182."""
+    """Parameters of one two-way layer (transformer.py:109-182)."""
 
     def __init__(self, embedding_dim: int, num_heads: int, mlp_dim: int = 2048,
-                 attention_downsample_rate: int = 2, skip_first_layer_pe: bool = False) -> None:
+                 attention_downsample_rate: int = 2) -> None:
         super().__init__()
         self.self_attn = AttentionDownsample(embedding_dim, num_heads)
         self.norm1 = nn.LayerNorm(embedding_dim)
@@ -55,27 +79,6 @@ class TwoWayAttentionBlock(nn.Module):
         self.norm4 = nn.LayerNorm(embedding_dim)
         self.cross_attn_image_to_token = AttentionDownsample(
             embedding_dim, num_heads, attention_downsample_rate)
-        self.skip_first_layer_pe = skip_first_layer_pe
-
-    def forward(self, queries: torch.Tensor, keys: torch.Tensor, query_pe: torch.Tensor,
-                key_pe: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        if self.skip_first_layer_pe:
-            queries = self.self_attn(queries, queries, queries)
-        else:
-            q = queries + query_pe
-            queries = queries + self.self_attn(q, q, queries)
-        queries = self.norm1(queries)
-
-        q = queries + query_pe
-        k = keys + key_pe
-        queries = self.norm2(queries + self.cross_attn_token_to_image(q, k, keys))
-
-        queries = self.norm3(queries + self.mlp(queries))
-
-        q = queries + query_pe
-        k = keys + key_pe
-        keys = self.norm4(keys + self.cross_attn_image_to_token(k, q, queries))
-        return queries, keys
 
 
 class TwoWayTransformer(nn.Module):
@@ -85,27 +88,60 @@ class TwoWayTransformer(nn.Module):
                  mlp_dim: int = 2048, attention_downsample_rate: int = 2) -> None:
         super().__init__()
         self.layers = nn.ModuleList(
-            TwoWayAttentionBlock(embedding_dim, num_heads, mlp_dim, attention_downsample_rate,
-                                 skip_first_layer_pe=(i == 0))
-            for i in range(depth)
+            TwoWayAttentionBlock(embedding_dim, num_heads, mlp_dim, attention_downsample_rate)
+            for _ in range(depth)
         )
         self.final_attn_token_to_image = AttentionDownsample(
             embedding_dim, num_heads, attention_downsample_rate)
         self.norm_final_attn = nn.LayerNorm(embedding_dim)
 
     def forward(self, image_embedding: torch.Tensor, image_pe: torch.Tensor,
-                point_embedding: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """image_embedding (1 or B, H, W, C), image_pe (H, W, C),
-        point_embedding (B, N, C) -> (queries (B, N, C), keys (B, HW, C)).
-        A batch-1 image broadcasts to the prompt batch as a view."""
+                point_embedding: torch.Tensor,
+                use_kernels: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+        """image_embedding (1 or B, H, W, C) fp32, image_pe (H, W, C),
+        point_embedding (B, Nt, C) -> (queries (B, Nt, C) fp32, keys (B, HW,
+        C) in the image side's product dtype).  A batch-1 image is shared by
+        the B prompts until layer 0's image->token update."""
         b, h, w, c = image_embedding.shape
-        bt = point_embedding.shape[0]
-        keys = image_embedding.reshape(b, h * w, c).expand(bt, h * w, c)
-        key_pe = image_pe.reshape(1, h * w, c).expand(bt, h * w, c)
+        keys = image_embedding.reshape(b, h * w, c).float().contiguous()
+        key_pe = image_pe.reshape(h * w, c).float().contiguous()
+        kdt = torch.bfloat16 if keys.is_cuda else torch.float32
+        tw = fused_twoway
+        kv = tw.t2i_kv_proj if use_kernels else tw.t2i_kv_proj_plain
+        i2t = tw.i2t_update if use_kernels else tw.i2t_update_plain
+        B, Nt, _ = point_embedding.shape
+        slots = -(-Nt // tw.NT) * tw.NT  # K5 takes the tokens in blocks of NT slots
+        dev = point_embedding.device
+        mask_bias = torch.where(torch.arange(slots, device=dev) < Nt, 0.0, -1e9)
+
+        def pad(x: torch.Tensor) -> torch.Tensor:
+            return F.pad(x, (0, 0, 0, slots - Nt)).contiguous()
+
+        first = self.layers[0].cross_attn_token_to_image
+        k_img, v_img = kv(keys, key_pe, first.k_proj.weight, first.k_proj.bias,
+                          first.v_proj.weight, first.v_proj.bias, dtype=kdt)
         queries = point_embedding
-        for layer in self.layers:
-            queries, keys = layer(queries, keys, point_embedding, key_pe)
-        q = queries + point_embedding
-        k = keys + key_pe
-        queries = self.norm_final_attn(queries + self.final_attn_token_to_image(q, k, keys))
+        for i, layer in enumerate(self.layers):
+            if i == 0:
+                queries = layer.self_attn(queries, queries, queries)
+            else:
+                q = queries + point_embedding
+                queries = queries + layer.self_attn(q, q, queries)
+            queries = layer.norm1(queries)
+            queries = layer.norm2(queries + layer.cross_attn_token_to_image.attend_image(
+                queries + point_embedding, k_img, v_img))
+            queries = layer.norm3(queries + layer.mlp(queries))
+
+            last = i == len(self.layers) - 1
+            nxt = self.final_attn_token_to_image if last else \
+                self.layers[i + 1].cross_attn_token_to_image
+            a = layer.cross_attn_image_to_token
+            keys, k_img, v_img = i2t(
+                keys, key_pe, pad(a.k_proj(queries + point_embedding)), pad(a.v_proj(queries)),
+                mask_bias, a.q_proj.weight, a.q_proj.bias, a.out_proj.weight, a.out_proj.bias,
+                layer.norm4.weight, layer.norm4.bias, nxt.k_proj.weight, nxt.k_proj.bias,
+                nxt.v_proj.weight, nxt.v_proj.bias, a.num_heads, dtype=kdt,
+                eps=layer.norm4.eps, out_dtype=kdt if last else torch.float32)
+        queries = self.norm_final_attn(queries + self.final_attn_token_to_image.attend_image(
+            queries + point_embedding, k_img, v_img))
         return queries, keys

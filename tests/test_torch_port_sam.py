@@ -72,7 +72,7 @@ def tiny():
             v = 0.1 * v
         flat[k] = v.astype(np.float32)
     jvars = flax.traverse_util.unflatten_dict(flat)
-    model = build_sam("vit_b", **TINY)
+    model = build_sam("vit_b", device="cpu", **TINY)
     model.load_state_dict(jax_params_to_torch(jvars, sam_config("vit_b", **TINY)), strict=True)
     return jmodel, jvars, model
 
