@@ -40,18 +40,42 @@ checkout; it has no CPU path and raises on any failure.  Phases:
    gray PNG is the label of the last instance covering each pixel and the
    colour PNG is PALETTE[gray], and against the plain path mean instance
    IoU, per-pixel cover-index agreement and gray agreement, each >= 0.99;
-5. prints one JSON line of per-kernel results (launches from the generate
-   phase), then the final status line.
+5. K8 phase (ViT-H freed first): K8 forward and backward against
+   ``sample_weighted_plain`` on the same inputs at the RVSA shape of the
+   FAST head (65 images x 12 heads, 14x14, K and V in one launch: Gc 128,
+   one tap) in fp32 and with a bf16 map, at Gc 64, at a DCNv3 shape (BG 48,
+   56x56, Gc 16, 9 taps partly off the map) and on the identity grid on
+   exact integers; rel-L2 of out, dxg, dfx, dfy, dmask <= 1e-5 (dxg of the
+   bf16 map <= 1e-2, integer-grid dfx <= 1e-6), timed against the plain
+   version and ``F.grid_sample`` (forward, backward, both), with the bound;
+6. train-step phase: vit_b_rvsa + UperNet with its own seeded init, one
+   pretrain step on 17/12/65 seeded images at 224^2 (fp32, TF32 off) from
+   identical state with K8's kernels and with its plain version: launches
+   24/24 and 0/0, parameters unmoved (lr 0 at step 0), |dloss| / loss <=
+   1e-5, every gradient and both AdamW moments rel-L2 <= 1e-4 (the two
+   zero-gradient neck biases against the whole norm); then warm s/step,
+   img/s and peak memory of both;
+7. pretrain phase: ``run_pretrain`` at the defaults for 3 steps on a
+   synthetic SAMRS layout (DATASET_LAYOUT's trees, noise images, uniform
+   labels): launches, the step count, one mIoU line per dataset, ``last`` /
+   ``best`` checkpoints with encoder copies, and a resume from ``last`` that
+   restores the step and the weights;
+8. prints one JSON line of per-kernel results (launches: K1-K7 from the
+   generate phase, K8 from the pretrain phase, with K8's per step), then the
+   card's name and power limit and the final status line.
 
 ``--profile`` adds a torch.profiler table of one warm generate image with
-the kernels and with the plain versions (device time by kernel, device busy
-share of the wall time).  ``chip_drift.py`` shows where the two paths part.
+the kernels and with the plain versions, and of one warm train step with
+the kernels (device time by operation, device busy share of the wall
+time).  ``chip_drift.py`` shows where the generate path's two paths part.
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import json
+import logging
 import os
 import pickle
 import statistics
@@ -70,8 +94,25 @@ IMAGE_HW = (768, 1024)
 GEN_HW = (800, 800)
 GEN_BOXES = 100
 GEN_BOX_PX = (16, 240)  # box sides, uniform; not taken from a DIOR statistic
-MAIN_LAUNCHES = {"K1": 28, "K2": 4, "K3": 32, "K4": 1, "K5": 2, "K6": 1, "K7": 0}
-GEN_LAUNCHES = {"K1": 28, "K2": 4, "K3": 32, "K4": 1, "K5": 2, "K6": 1, "K7": 4}
+MAIN_LAUNCHES = {"K1": 28, "K2": 4, "K3": 32, "K4": 1, "K5": 2, "K6": 1, "K7": 0, "K8f": 0,
+                 "K8b": 0}
+GEN_LAUNCHES = {"K1": 28, "K2": 4, "K3": 32, "K4": 1, "K5": 2, "K6": 1, "K7": 4, "K8f": 0,
+                "K8b": 0}
+# SEP pretraining: vit_b_rvsa + UperNet, 224^2, heads SOTA / SIOR / FAST
+TRAIN_BATCH = (17, 12, 65)     # proportional_batch_sizes(..., 96): floors of the subset shares
+TRAIN_CLASSES = (18, 20, 37)
+RVSA_BLOCKS = 8                # of vit_b_rvsa's 12 (every third is full attention)
+STEP_LAUNCHES = {"K8f": RVSA_BLOCKS * 3, "K8b": RVSA_BLOCKS * 3}  # K and V in one launch
+PRETRAIN_ITERS = 3
+K8_RTOL = 1e-5                 # fp32 gather, kernel vs plain: summation order and atomics only
+K8_BF16_DXG_RTOL = 1e-2        # dxg returned in bf16: one bf16 rounding of the same fp32 sum
+K8_INT_RTOL = 1e-6             # taps on exact integers: dfx of the one-sided floor formula
+STEP_LOSS_RTOL = 1e-5          # train step, K8 kernels vs plain K8: |dloss| / loss
+STEP_RTOL = 1e-4               # ... each parameter's gradient and each AdamW moment, rel-L2
+# parameters whose true gradient is 0 (the neck's last deconv biases: a per-channel
+# shift the next layer's BatchNorm removes); both paths give rounding noise there,
+# so their distance is taken against the norm of the whole gradient (or moment)
+ZERO_GRAD = ("encoder.fpn1.3.bias", "encoder.fpn2.0.bias")
 KERNEL_RTOL = 1e-2     # bf16 rounding of operands / intermediates vs an fp32 reference
 FEATURE_RTOL = 2e-2    # 32 blocks with bf16 products, kernels vs plain versions
 IOU_MIN = 0.99         # kernels vs plain path: bf16 summation order flips pixels near 0
@@ -81,12 +122,13 @@ PEAK = {"bf16": 989e12, "fp32": 67e12}
 
 
 def counters():
-    from samrs_tpu_torch.kernels import (amg_post, flash_attention, fused_mlp, fused_twoway,
-                                         fused_upscale, fused_window_layer)
+    from samrs_tpu_torch.kernels import (amg_post, bilinear_gather, flash_attention, fused_mlp,
+                                         fused_twoway, fused_upscale, fused_window_layer)
     return {"K1": (fused_window_layer, "launches"), "K2": (flash_attention, "launches"),
             "K3": (fused_mlp, "launches"), "K4": (fused_twoway, "kv_launches"),
             "K5": (fused_twoway, "i2t_launches"), "K6": (fused_upscale, "launches"),
-            "K7": (amg_post, "launches")}
+            "K7": (amg_post, "launches"), "K8f": (bilinear_gather, "fwd_launches"),
+            "K8b": (bilinear_gather, "bwd_launches")}
 
 
 def reset_counts() -> None:
@@ -321,6 +363,120 @@ def k7_phase(gen: torch.Generator):
                        route="cuda", source="samrs_tpu_torch/csrc/amg_post.cu",
                        replaces="samrs_tpu/kernels/amg_post.py:140", library_ms=None,
                        ms_768x1024=out[IMAGE_HW]["ms"], **r)}
+
+
+def k8_case(gen, BG, H, W, Gc, P, K, dtype, coords):
+    """Seeded inputs of one K8 call: xg (BG, H, W*Gc) in `dtype`; fx, fy, mask
+    (BG, P, K); dout (BG, P, Gc).  coords: "window" (generic, some taps off
+    the map), "integer" (the identity grid on exact pixel centres) or
+    "deform" (taps around each output pixel, some off the map)."""
+    dev = "cuda"
+    xg = torch.randn(BG, H, W * Gc, generator=gen, device=dev).to(dtype)
+    u = lambda *s: torch.rand(*s, generator=gen, device=dev)
+    ys, xs = torch.meshgrid(torch.arange(H, device=dev), torch.arange(W, device=dev),
+                            indexing="ij")
+    ys, xs = ys.reshape(1, -1, 1).float(), xs.reshape(1, -1, 1).float()
+    if coords == "integer":
+        fx, fy = xs.expand(BG, P, K), ys.expand(BG, P, K)
+    elif coords == "window":
+        fx = u(BG, P, K) * (W + 2.0) - 1.5
+        fy = u(BG, P, K) * (H + 2.0) - 1.5
+    else:  # deform: a 3x3 ring around each output pixel plus offsets of up to 2.5 px
+        ring = torch.arange(K, device=dev)
+        fx = xs + (ring % 3 - 1) + (u(BG, P, K) * 5 - 2.5)
+        fy = ys + (ring // 3 - 1) + (u(BG, P, K) * 5 - 2.5)
+    mask = torch.ones(BG, P, K, device=dev) if K == 1 and coords != "deform" else u(BG, P, K)
+    dout = torch.randn(BG, P, Gc, generator=gen, device=dev)
+    return xg, fx.contiguous(), fy.contiguous(), mask.contiguous(), dout
+
+
+def k8_phase(gen):
+    """K8 forward and backward against sample_weighted_plain on the same
+    inputs: the RVSA shape of the FAST head (K and V of 65 x 12 heads in one
+    launch, Gc 128; also Gc 64, one of K or V) in fp32 and with a bf16 xg, a
+    DCNv3-shaped case, and the identity grid on exact integers."""
+    from samrs_tpu_torch.kernels import bilinear_gather as bg
+
+    BG = TRAIN_BATCH[2] * 12
+    cases = [("rvsa", BG, 14, 14, 128, 196, 1, torch.float32, "window"),
+             ("rvsa_bf16", BG, 14, 14, 128, 196, 1, torch.bfloat16, "window"),
+             ("rvsa_gc64", BG, 14, 14, 64, 196, 1, torch.float32, "window"),
+             ("dcnv3", 12 * 4, 56, 56, 16, 56 * 56, 9, torch.float32, "deform"),
+             ("identity", BG, 14, 14, 128, 196, 1, torch.float32, "integer")]
+    names = ("out", "dxg", "dfx", "dfy", "dmask")
+    out = {}
+    for key, BGc, H, W, Gc, P, K, dtype, coords in cases:
+        xg, fx, fy, mask, dout = k8_case(gen, BGc, H, W, Gc, P, K, dtype, coords)
+        got = [bg.sample_weighted_fwd_cuda(xg, fx, fy, mask, Gc)]
+        got += list(bg.sample_weighted_bwd_cuda(xg, fx, fy, mask, dout, Gc))
+        torch.cuda.synchronize()
+        leaves = [t.clone().requires_grad_() for t in (xg, fx, fy, mask)]
+        ref = bg.sample_weighted_plain(*leaves, Gc)
+        want = [ref.detach()] + list(torch.autograd.grad(ref, leaves, dout, retain_graph=True))
+        errs = {n: rel_l2([g], [w]) for n, g, w in zip(names, got, want)}
+        max_abs = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+        esz = xg.element_size()
+        n_in = BGc * H * W * Gc * esz + 3 * BGc * P * K * 4
+        fwd_bytes, fwd_ops = n_in + BGc * P * Gc * 4, BGc * P * K * Gc * 10
+        bwd_bytes = n_in + BGc * P * Gc * 4 + BGc * H * W * Gc * esz + 3 * BGc * P * K * 4
+        bwd_ops = BGc * P * K * Gc * 24
+        fwd_ms = cuda_ms(lambda: bg.sample_weighted_fwd_cuda(xg, fx, fy, mask, Gc))
+        bwd_ms = cuda_ms(lambda: bg.sample_weighted_bwd_cuda(xg, fx, fy, mask, dout, Gc))
+        plain_fwd_ms = cuda_ms(lambda: bg.sample_weighted_plain(xg, fx, fy, mask, Gc))
+        plain_bwd_ms = cuda_ms(lambda: torch.autograd.grad(ref, leaves, dout, retain_graph=True))
+        lib = {}
+        if K == 1:  # F.grid_sample computes K8 at one tap (a yardstick; the port never calls it)
+            img = xg.reshape(BGc, H, W, Gc).permute(0, 3, 1, 2).contiguous().requires_grad_()
+            grid = torch.stack([fx[..., 0] / (W - 1) * 2 - 1, fy[..., 0] / (H - 1) * 2 - 1], -1)
+            grid = grid.reshape(BGc, H, W, 2).to(img.dtype).requires_grad_() if P == H * W else None
+            if grid is not None:
+                gs = lambda: F.grid_sample(img, grid, mode="bilinear", padding_mode="zeros",
+                                           align_corners=True)
+                y = gs()
+                g_out = dout.reshape(BGc, H, W, Gc).permute(0, 3, 1, 2).to(y.dtype)
+                lib["fwd"] = cuda_ms(gs)
+                lib["bwd"] = cuda_ms(lambda: torch.autograd.grad(y, (img, grid), g_out,
+                                                                 retain_graph=True))
+                lib["fwd_bwd"] = cuda_ms(lambda: torch.autograd.grad(gs(), (img, grid), g_out))
+        fb, fby = bound(fwd_bytes, fwd_ops, "fp32")
+        bb, bby = bound(bwd_bytes, bwd_ops, "fp32")
+        print(f"K8 {key} (BG {BGc}, {H}x{W}, Gc {Gc}, P {P}, K {K}, {str(dtype)[6:]}): rel_l2 "
+              + " ".join(f"{n}={e:.3e}" for n, e in errs.items())
+              + f" max_abs={max_abs:.3e}; fwd kernel/plain/library ms {fwd_ms:.4f}/"
+              f"{plain_fwd_ms:.4f}/{lib.get('fwd')}, bound {fb:.4f} ({fby}, "
+              f"{fwd_bytes / 1e6:.1f} MB); bwd kernel/plain/library ms {bwd_ms:.4f}/"
+              f"{plain_bwd_ms:.4f}/{lib.get('bwd')}, bound {bb:.4f} ({bby}, "
+              f"{bwd_bytes / 1e6:.1f} MB); library fwd+bwd ms {lib.get('fwd_bwd')}", flush=True)
+        for n, e in errs.items():
+            tol = K8_RTOL
+            if key == "identity" and n == "dfx":
+                tol = K8_INT_RTOL
+            elif dtype == torch.bfloat16 and n == "dxg":
+                tol = K8_BF16_DXG_RTOL
+            if not e <= tol:
+                raise RuntimeError(f"K8 {key}: {n} relative L2 {e:.3e} > {tol}")
+        out[key] = dict(max_abs_err=max_abs, fwd_ms=fwd_ms, bwd_ms=bwd_ms,
+                        plain_fwd_ms=plain_fwd_ms, plain_bwd_ms=plain_bwd_ms, fwd_bound=(fb, fby),
+                        bwd_bound=(bb, bby), lib=lib, errs=errs)
+        del xg, fx, fy, mask, dout, got, want, leaves, ref
+        torch.cuda.empty_cache()
+    r = out["rvsa"]
+    common = dict(route="cuda", source="samrs_tpu_torch/csrc/bilinear_gather.cu")
+    extra = lambda d: {f"{k}_ms": out[k][f"{d}_ms"] for k in ("rvsa_bf16", "rvsa_gc64", "dcnv3")}
+    fwd = dict(name="K8 fwd weighted bilinear gather (RVSA FAST head: BG 780, 14x14, Gc 128, "
+                    "K 1, fp32; bf16 / Gc 64 / DCNv3 shapes in *_ms)",
+               replaces="samrs_tpu/kernels/bilinear_gather.py:386", **common,
+               max_abs_err=r["max_abs_err"], ms=r["fwd_ms"],
+               plain_ms=r["plain_fwd_ms"], bound_ms=r["fwd_bound"][0],
+               bound_by=r["fwd_bound"][1], library_ms=r["lib"]["fwd"], **extra("fwd"))
+    bwd = dict(name="K8 bwd weighted bilinear gather (dxg, dfx, dfy, dmask; same shapes; "
+                    "library_ms: F.grid_sample backward, library_fwd_bwd_ms: forward + backward)",
+               replaces="samrs_tpu/kernels/bilinear_gather.py:467", **common,
+               max_abs_err=r["max_abs_err"], ms=r["bwd_ms"],
+               plain_ms=r["plain_bwd_ms"], bound_ms=r["bwd_bound"][0],
+               bound_by=r["bwd_bound"][1], library_ms=r["lib"]["bwd"],
+               library_fwd_bwd_ms=r["lib"]["fwd_bwd"], **extra("bwd"))
+    return {"K8f": fwd, "K8b": bwd}
 
 
 def mask_iou(a: np.ndarray, b: np.ndarray) -> np.ndarray:
@@ -558,9 +714,254 @@ def generate_phase(model, profile: bool = False):
     return launches
 
 
+def train_batches(seed: int):
+    """One 17/12/65 batch of seeded normalized images at 224^2 and labels
+    uniform over each head's classes, on the card."""
+    rng = np.random.default_rng(seed)
+    return [(torch.from_numpy(rng.normal(size=(b, 224, 224, 3)).astype(np.float32)).cuda(),
+             torch.from_numpy(rng.integers(0, nc, (b, 224, 224))).cuda())
+            for b, nc in zip(TRAIN_BATCH, TRAIN_CLASSES)]
+
+
+def train_step_phase(profile: bool = False):
+    """One SEP pretrain step of vit_b_rvsa + UperNet (three heads, 17/12/65
+    images at 224^2, fp32, TF32 off) from identical state with K8's kernels
+    and with its plain version: losses, every gradient and both AdamW
+    moments.  The step is the schedule's step 0, so lr = 0 and the
+    parameters must not move.  Then the step's time and peak memory."""
+    from samrs_tpu_torch.core.config import PretrainConfig
+    from samrs_tpu_torch.seg.frameworks import build_multihead_model
+    from samrs_tpu_torch.train import optim, trainer
+
+    cfg = PretrainConfig()
+    t0 = time.perf_counter()
+    model = build_multihead_model(device="cuda",
+                                  generator=torch.Generator(device="cuda").manual_seed(SEED))
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"built vit_b_rvsa + UperNet ({n_params / 1e6:.1f} M parameters) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    batches = train_batches(SEED + 2)
+    sched = optim.warmup_cosine_schedule(cfg.optim.lr, cfg.total_iters, cfg.optim.warmup_iters)
+
+    def fresh_state():
+        model.load_state_dict(init)
+        opt = optim.Optimizer(model, sched, weight_decay=cfg.optim.weight_decay,
+                              grad_clip=cfg.optim.grad_clip, layer_decay=cfg.optim.layer_decay,
+                              num_layers=model.encoder.depth)
+        return trainer.TrainState(0, model, opt)
+
+    runs = {}
+    for use_kernels in (True, False):
+        model.use_kernels = use_kernels
+        state = fresh_state()
+        reset_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        metrics = trainer.pretrain_step(state, batches, cfg.seed)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        names = {p: n for n, p in model.named_parameters()}
+        runs[use_kernels] = dict(
+            loss=float(metrics["loss"]), counts=read_counts(), first_s=dt,
+            grads={n: p.grad.clone() for n, p in model.named_parameters()},
+            mu={names[p]: s["exp_avg"].clone() for p, s in state.optimizer.opt.state.items()},
+            nu={names[p]: s["exp_avg_sq"].clone() for p, s in state.optimizer.opt.state.items()},
+            moved=[k for k, v in model.state_dict().items()
+                   if "running" not in k and not torch.equal(v, init[k])])
+        state.optimizer.zero_grad()
+        del state
+    k, p = runs[True], runs[False]
+    want = {kk: (STEP_LAUNCHES[kk] if kk in STEP_LAUNCHES else 0) for kk in k["counts"]}
+    print(f"train step launches: kernels {k['counts']}, plain {p['counts']}", flush=True)
+    if k["counts"] != want or any(p["counts"].values()):
+        raise RuntimeError(f"train step launches {k['counts']} / {p['counts']}, want {want}")
+    if k["moved"] or p["moved"]:
+        raise RuntimeError(f"parameters moved at lr 0: {k['moved'][:3]} {p['moved'][:3]}")
+    dloss = abs(k["loss"] - p["loss"]) / abs(p["loss"])
+    worst = {}
+    for what in ("grads", "mu", "nu"):
+        total = float(torch.sqrt(sum((w.double() ** 2).sum() for w in p[what].values())))
+        errs = {}
+        for name, w in p[what].items():
+            g = k[what][name]
+            if name in ZERO_GRAD:  # noise on both paths: its distance against the whole norm
+                errs[name] = float(torch.linalg.vector_norm((g - w).double())) / total
+            else:
+                errs[name] = rel_l2([g], [w])
+        name = max(errs, key=errs.get)
+        worst[what] = (errs[name], name)
+        samp = max(e for n, e in errs.items() if ".sampling_" in n)
+        print(f"train step {what}: worst rel_l2 {errs[name]:.3e} ({name}), sampling nets "
+              f"{samp:.3e}, median {statistics.median(errs.values()):.3e}, zero-gradient "
+              + ", ".join(f"{n} {errs[n]:.3e}" for n in ZERO_GRAD), flush=True)
+    print(f"train step loss kernels {k['loss']:.6f} plain {p['loss']:.6f} (|d|/loss "
+          f"{dloss:.3e}); first step s kernels {k['first_s']:.3f} plain {p['first_s']:.3f}",
+          flush=True)
+    if not dloss <= STEP_LOSS_RTOL:
+        raise RuntimeError(f"train step loss |d|/loss {dloss:.3e} > {STEP_LOSS_RTOL}")
+    for what, (e, name) in worst.items():
+        if not e <= STEP_RTOL:
+            raise RuntimeError(f"train step {what} of {name}: rel_l2 {e:.3e} > {STEP_RTOL}")
+    del runs, k, p
+
+    # warm step time, img/s and peak memory (kernels, then plain, then kernels)
+    times = {True: [], False: []}
+    peak = {}
+    for use_kernels in (True, False, True):
+        model.use_kernels = use_kernels
+        state = fresh_state()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            trainer.pretrain_step(state, batches, cfg.seed)
+            torch.cuda.synchronize()
+            times[use_kernels].append(time.perf_counter() - t)
+        peak[use_kernels] = torch.cuda.max_memory_allocated()
+        del state
+    n_img = sum(TRAIN_BATCH)
+    for use_kernels, label in ((True, "kernels"), (False, "plain K8")):
+        s_step = statistics.median(times[use_kernels])
+        print(f"train step ({label}, {n_img} images at 224^2, fp32): {s_step:.4f} s/step, "
+              f"{n_img / s_step:.2f} img/s, peak memory {peak[use_kernels] / 2**30:.2f} GiB",
+              flush=True)
+    if profile:
+        profile_step(model, fresh_state, batches, cfg.seed)
+    model.use_kernels = True
+    del model, init, batches
+    torch.cuda.empty_cache()
+    return statistics.median(times[True])
+
+
+def profile_step(model, fresh_state, batches, seed) -> None:
+    """torch.profiler over one warm train step with the kernels: device time
+    by operation and the device's busy share of the wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from samrs_tpu_torch.train import trainer
+
+    model.use_kernels = True
+    state = fresh_state()
+    trainer.pretrain_step(state, batches, seed)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.pretrain_step(state, batches, seed)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t) * 1e3
+    events = prof.key_averages()
+    device_ms = sum(e.self_device_time_total for e in events
+                    if e.device_type == DeviceType.CUDA) / 1e3
+    print(f"profile (train step): wall {wall_ms:.2f} ms under the profiler, device "
+          f"{device_ms:.2f} ms, busy {100 * device_ms / wall_ms:.1f}% of the profiled wall",
+          flush=True)
+    print(events.table(sort_by="self_device_time_total", row_limit=25, max_name_column_width=70),
+          flush=True)
+
+
+def write_samrs_layout(root: str, n_train, n_val: int = 8, size: int = 256) -> None:
+    """DATASET_LAYOUT's three trees under `root`: seeded noise images and
+    labels uniform over each dataset's classes, train.txt and valid.txt."""
+    from PIL import Image
+
+    from samrs_tpu_torch.train.pretrain import DATASET_CLASSES, DATASET_LAYOUT
+
+    rng = np.random.default_rng(SEED + 3)
+    for name, (sub, img_dir, lbl_dir, ext) in DATASET_LAYOUT.items():
+        base = os.path.join(root, sub)
+        os.makedirs(os.path.join(base, img_dir))
+        os.makedirs(os.path.join(base, lbl_dir))
+        names = [f"{name}_{i:04d}" for i in range(n_train[name] + n_val)]
+        for nm in names:
+            Image.fromarray(rng.integers(0, 256, (size, size, 3), dtype=np.uint8)).save(
+                os.path.join(base, img_dir, nm + ext))
+            Image.fromarray(rng.integers(0, DATASET_CLASSES[name], (size, size),
+                                         dtype=np.uint8)).save(
+                os.path.join(base, lbl_dir, nm + ".png"))
+        with open(os.path.join(base, "train.txt"), "w") as f:
+            f.write("\n".join(names[:n_train[name]]))
+        with open(os.path.join(base, "valid.txt"), "w") as f:
+            f.write("\n".join(names[n_train[name]:]))
+
+
+class _Lines(logging.Handler):
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def pretrain_phase():
+    """``run_pretrain`` at its defaults (vit_b_rvsa + UperNet, 17/12/65 at
+    224^2) on a synthetic SAMRS layout: PRETRAIN_ITERS steps, then the
+    evaluation with a per-dataset mIoU line, ``last``/``best`` checkpoints
+    with their encoder copies, and a resume from ``last`` that restores the
+    step and the weights."""
+    from samrs_tpu_torch.core.config import PretrainConfig
+    from samrs_tpu_torch.train.pretrain import apply_optim_defaults, run_pretrain
+
+    handler = _Lines()
+    log = logging.getLogger("samrs_tpu_torch.pretrain")
+    log.addHandler(handler)
+    log.setLevel(logging.INFO)
+    with tempfile.TemporaryDirectory() as tmp:
+        n_val = 8
+        write_samrs_layout(tmp, {"sota": 20, "sior": 15, "fast": 70}, n_val)
+        over = [f"data.root={tmp}", f"total_iters={PRETRAIN_ITERS}",
+                f"eval_interval={PRETRAIN_ITERS}", f"data.val_images={n_val}",
+                f"ckpt_dir={os.path.join(tmp, 'ckpt')}"]
+        cfg = apply_optim_defaults(PretrainConfig().override(over), over)
+        reset_counts()
+        t = time.perf_counter()
+        state = run_pretrain(cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = read_counts()
+        evals = len(cfg.data.datasets) * -(-n_val // 8)  # eval forwards of 8 images
+        want = {k: 0 for k in launches}
+        want.update(K8f=PRETRAIN_ITERS * STEP_LAUNCHES["K8f"] + evals * RVSA_BLOCKS,
+                    K8b=PRETRAIN_ITERS * STEP_LAUNCHES["K8b"])
+        print(f"pretrain launches: {launches}", flush=True)
+        if launches != want:
+            raise RuntimeError(f"pretrain launches {launches} != {want}")
+        if state.step != PRETRAIN_ITERS:
+            raise RuntimeError(f"run_pretrain stopped at step {state.step}")
+        vals = [ln for ln in handler.lines if ln.startswith("val[")]
+        print("\n".join(["pretrain " + ln for ln in handler.lines]), flush=True)
+        if sorted(v.split("]")[0][4:] for v in vals) != sorted(cfg.data.datasets):
+            raise RuntimeError(f"per-dataset mIoU lines: {vals}")
+        for v in vals:
+            miou = float(v.split("mIoU ")[1].split()[0])
+            if not 0.0 <= miou <= 1.0:
+                raise RuntimeError(f"mIoU out of range: {v}")
+        files = sorted(os.listdir(cfg.ckpt_dir))
+        if not {"last.pt", "last_encoder.pt", "best.pt", "best_encoder.pt"} <= set(files):
+            raise RuntimeError(f"checkpoints written: {files}")
+        trained = {k: v.clone() for k, v in state.model.state_dict().items()}
+        del state
+        torch.cuda.empty_cache()
+        over2 = over + ["resume=last"]
+        cfg2 = apply_optim_defaults(PretrainConfig().override(over2), over2)
+        resumed = run_pretrain(cfg2)
+        same = all(torch.equal(resumed.model.state_dict()[k], v) for k, v in trained.items())
+        print(f"pretrain: {PRETRAIN_ITERS} steps + eval in {wall:.1f} s, checkpoints {files}, "
+              f"resumed at step {resumed.step}, weights restored {same}", flush=True)
+        if resumed.step != PRETRAIN_ITERS or not same:
+            raise RuntimeError("resume from last.pt did not restore the step and weights")
+        del resumed, trained
+    log.removeHandler(handler)
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--profile", action="store_true", help="profile one generate image per path")
+    ap.add_argument("--profile", action="store_true",
+                    help="profile one generate image per path and one train step")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: torch.cuda.is_available() is False; this script runs on a GPU only")
@@ -585,8 +986,18 @@ def main() -> None:
     main_launches = main_path(model)
     gen_launches = generate_phase(model, args.profile)
     for key, n in gen_launches.items():
-        results[key]["launches"] = n
-        results[key]["launches_main_path"] = main_launches[key]
+        if key in results:
+            results[key]["launches"] = n
+            results[key]["launches_main_path"] = main_launches[key]
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    results.update(k8_phase(gen))
+    train_step_phase(args.profile)
+    pre_launches = pretrain_phase()
+    for key in ("K8f", "K8b"):
+        results[key]["launches"] = pre_launches[key]
+        results[key]["launches_per_step"] = STEP_LAUNCHES[key]
     print(json.dumps({"kernels": list(results.values())}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

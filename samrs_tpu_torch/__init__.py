@@ -1,7 +1,10 @@
-"""PyTorch + CUDA port of samrs-tpu's SAM box-prompted generation path.
+"""PyTorch + CUDA port of samrs-tpu: SAM box-prompted label generation and
+SEP segmentation pretraining.
 
-Mirrors the layout of ``samrs_tpu``: ``core`` (config), ``kernels`` (the
-hand-written Hopper kernels and their plain PyTorch versions), ``nn``
-(layers), ``sam`` (model, weight bridge, predictor).  Imports torch and numpy
-only.
+Mirrors the layout of ``samrs_tpu``: ``core`` (configs, metrics,
+checkpoints), ``kernels`` (the hand-written Hopper kernels and their plain
+PyTorch versions), ``nn`` (layers), ``sam`` (model, weight bridge,
+predictor), ``generate`` (the label generator), ``seg`` (backbones,
+decoders, frameworks, weight bridge), ``data`` and ``train`` (the pretrain
+entry point).  Imports torch, numpy and PIL only.
 """

@@ -5,13 +5,66 @@ shared hyper-parameters and ``SAM_VARIANTS``); the TPU implementation knobs
 are not carried.  The port computes the encoder in bf16 on a CUDA device and
 in fp32 on the CPU, and its kernel switch is the explicit ``use_kernels``
 argument of ``build_sam``.  ``GenerateConfig`` mirrors the label-generation
-driver's configuration.
+entry point's configuration; ``PretrainConfig`` (with ``OptimConfig`` and
+``DataConfig``) the pretraining entry point's, with the same fields, defaults and
+dotted ``a.b=value`` overrides (``Config.override``), plus ``device``.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+import dataclasses
+import typing
+from dataclasses import dataclass, field
+from typing import Any, Dict, Optional, Sequence, Tuple
+
+
+def _coerce(value: str, typ: Any) -> Any:
+    """A CLI string as the annotated field type (samrs_tpu/core/config.py:28-50)."""
+    origin = getattr(typ, "__origin__", None)
+    if typ in (str, Any):
+        return value
+    if typ is bool:
+        return value.lower() in ("1", "true", "yes", "on")
+    if typ is int:
+        return int(value)
+    if typ is float:
+        return float(value)
+    if origin in (tuple, list):
+        elem = getattr(typ, "__args__", (str,))[0]
+        out = [_coerce(p, elem) for p in value.split(",") if p]
+        return tuple(out) if origin is tuple else out
+    if origin is not None and type(None) in getattr(typ, "__args__", ()):  # Optional[...]
+        if value.lower() in ("none", "null", ""):
+            return None
+        inner = [a for a in typ.__args__ if a is not type(None)][0]
+        return _coerce(value, inner)
+    return value
+
+
+@dataclass
+class Config:
+    """Base of the entry points' configs: dotted-path CLI overrides."""
+
+    def override(self, assignments: Sequence[str]) -> "Config":
+        """Apply ``a.b.c=value`` overrides, returning a new config."""
+        cfg = dataclasses.replace(self)
+        for a in assignments:
+            if "=" not in a:
+                raise ValueError(f"override must be key=value, got {a!r}")
+            path, value = a.split("=", 1)
+            keys = path.split(".")
+            objs = [cfg]
+            for k in keys[:-1]:
+                objs.append(getattr(objs[-1], k))
+            owner, leaf = objs[-1], keys[-1]
+            ftypes = typing.get_type_hints(type(owner))
+            if leaf not in ftypes:
+                raise KeyError(f"unknown config field {path!r}")
+            updated = dataclasses.replace(owner, **{leaf: _coerce(value, ftypes[leaf])})
+            for parent, key in zip(reversed(objs[:-1]), reversed(keys[:-1])):
+                updated = dataclasses.replace(parent, **{key: updated})
+            cfg = updated
+        return cfg
 
 
 @dataclass
@@ -87,4 +140,51 @@ class GenerateConfig:
     box_buckets: Tuple[int, ...] = (16, 64, 256, 1024)  # prompt counts pad to a bucket
     shard_index: int = 0  # this process's shard of the image worklist
     shard_count: int = 1
+    device: str = "cuda"
+
+
+@dataclass
+class OptimConfig(Config):
+    optimizer: str = "adamw"
+    lr: float = 6e-5
+    weight_decay: float = 0.05
+    betas: Tuple[float, float] = (0.9, 0.999)
+    layer_decay: float = 0.9  # layer-wise lr decay rate (mmcv_custom constructors)
+    grad_clip: float = 5.0  # ED/main_pretrain.py:616
+    warmup_iters: int = 1500
+    min_lr_ratio: float = 0.0
+    schedule: str = "cosine"  # per-iteration (ED/main_pretrain.py:656)
+
+
+@dataclass
+class DataConfig(Config):
+    root: str = "/data/samrs"
+    datasets: Tuple[str, ...] = ("sota", "sior", "fast")
+    image_size: int = 224
+    batch_size: int = 96  # global; split by subset size (ED/main_pretrain.py:233-269)
+    num_workers: int = 8
+    val_images: int = 500  # last-500 val split (ED/datasets.py:55-56)
+
+
+@dataclass
+class PretrainConfig(Config):
+    """samrs_tpu.core.config.PretrainConfig.  The port trains on one card:
+    ``mesh_shape`` / ``mesh_axes`` are kept for the same overrides and must
+    name one device."""
+
+    backbone: str = "vit_b_rvsa"
+    decoder: str = "upernet"
+    init: str = "none"
+    pretrained: Optional[str] = None
+    total_iters: int = 80_000
+    eval_interval: int = 1000
+    seed: int = 2023
+    data: DataConfig = field(default_factory=DataConfig)
+    optim: OptimConfig = field(default_factory=OptimConfig)
+    ckpt_dir: str = "checkpoints/pretrain"
+    resume: Optional[str] = None
+    mesh_shape: Tuple[int, ...] = (-1,)
+    mesh_axes: Tuple[str, ...] = ("data",)
+    m2f_num_points: Optional[int] = None
+    remat: bool = False  # per-block activation checkpointing
     device: str = "cuda"

@@ -1,0 +1,290 @@
+// K8: weighted bilinear gather over absolute pixel coordinates, forward and
+// backward.
+//
+//   out[bg, p, :] = sum_k mask[bg, p, k] * bilinear(xg[bg], fy[bg, p, k], fx[bg, p, k])
+//
+// xg (BG, H, W, Gc) fp32 or bf16, channels contiguous; fx, fy, mask (BG, P, K)
+// fp32; zero padding outside the map; out (BG, P, Gc) fp32.
+//
+// Replaces samrs_tpu/kernels/bilinear_gather.py::_make_sampler (fwd_call's
+// pallas_call and bwd_call's).  The TPU kernels turned the gather into "hat"
+// matmuls on the matrix unit (a (P, H) row-weight matrix times the map, an E2
+// 0/1 expansion matmul over the lane // Gc layout, transposed hat matmuls for
+// dX).  Those are TPU layout devices; here it is the direct gather of the
+// reference's CUDA im2col.  Per tap a thread takes the floor, the weights and
+// the validity of the four corners and reads V contiguous channels of each
+// corner (16 B for fp32, 8 B for bf16); a group of TPG = min(32, pow2ceil(Gc/V))
+// neighbouring lanes covers the Gc channels of one (bg, p), so each corner is
+// one coalesced read of Gc contiguous values.  No tensor-core work: both
+// kernels are bound by device-memory bytes (at the RVSA shape, BG 780, 14x14,
+// Gc 128, K 1: 158 MB forward, 238 MB backward).
+//
+// The forward rounds each product and sum on its own, in the order of the
+// plain PyTorch version (sample_weighted_plain), so at one tap the two agree
+// bit for bit.  This matters in training: RVSA's grid starts within an ulp of
+// the pixel centres, and a contracted multiply-add that moves the sampled K/V
+// by 1e-7 reaches the decoder's BatchNorms, whose channels' means dwarf their
+// spread at initialisation, and comes out ~1e3 times larger in the gradients.
+//
+// Backward: dfx, dfy and dmask reduce over the channels within the lane
+// group (shuffles); dX is a scatter, fp32 atomicAdd into a zeroed fp32 buffer
+// (the caller casts it to bf16 when xg is bf16).  The atomics' order is not
+// deterministic: dX differs from run to run by fp32 rounding (~1e-7
+// relative).  The coordinate derivative is the one-sided one of the floor
+// formula, exactly JAX's _dhat: at an integer coordinate the tap at t in
+// [0, 1) has slope -1, the tap at t in [-1, 0) slope +1 and the tap at t = 1
+// none.
+#include "common.cuh"
+
+namespace samrs {
+namespace {
+
+constexpr int THREADS = 256;
+
+__device__ __forceinline__ void load_vec(const float* p, float (&v)[4]) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+}
+__device__ __forceinline__ void load_vec(const bf16* p, float (&v)[4]) {
+  const uint2 t = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&t.x);
+  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&t.y);
+  v[0] = __low2float(a); v[1] = __high2float(a); v[2] = __low2float(b); v[3] = __high2float(b);
+}
+__device__ __forceinline__ void load_vec(const float* p, float (&v)[1]) { v[0] = *p; }
+__device__ __forceinline__ void load_vec(const bf16* p, float (&v)[1]) { v[0] = __bfloat162float(*p); }
+
+// One tap's four corners: clamped pixel indices and validity-masked weights.
+struct Tap {
+  int i00, i01, i10, i11;        // pixel index y * W + x (clamped into the map)
+  float w00, w01, w10, w11;      // bilinear weights, 0 for a corner off the map
+  float wx, wy;
+  bool v00, v01, v10, v11;
+};
+
+__device__ __forceinline__ Tap make_tap(float fx, float fy, int H, int W) {
+  Tap t;
+  const float x0f = floorf(fx), y0f = floorf(fy);
+  t.wx = fx - x0f;
+  t.wy = fy - y0f;
+  // clamp before the int conversion; a clamped corner is off the map either way
+  const int x0 = static_cast<int>(fminf(fmaxf(x0f, -2.f), static_cast<float>(W)));
+  const int y0 = static_cast<int>(fminf(fmaxf(y0f, -2.f), static_cast<float>(H)));
+  const int x1 = x0 + 1, y1 = y0 + 1;
+  const bool vx0 = x0 >= 0 && x0 < W, vx1 = x1 >= 0 && x1 < W;
+  const bool vy0 = y0 >= 0 && y0 < H, vy1 = y1 >= 0 && y1 < H;
+  t.v00 = vy0 && vx0; t.v01 = vy0 && vx1; t.v10 = vy1 && vx0; t.v11 = vy1 && vx1;
+  const int cx0 = min(max(x0, 0), W - 1), cx1 = min(max(x1, 0), W - 1);
+  const int cy0 = min(max(y0, 0), H - 1), cy1 = min(max(y1, 0), H - 1);
+  t.i00 = cy0 * W + cx0; t.i01 = cy0 * W + cx1; t.i10 = cy1 * W + cx0; t.i11 = cy1 * W + cx1;
+  const float ax = 1.f - t.wx, ay = 1.f - t.wy;
+  t.w00 = t.v00 ? ax * ay : 0.f;
+  t.w01 = t.v01 ? t.wx * ay : 0.f;
+  t.w10 = t.v10 ? ax * t.wy : 0.f;
+  t.w11 = t.v11 ? t.wx * t.wy : 0.f;
+  return t;
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void load_corner(const T* img, bool valid, int pix, int Gc, int c,
+                                            float (&v)[V]) {
+  if (valid) {
+    load_vec(img + static_cast<size_t>(pix) * Gc + c, v);
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; ++j) v[j] = 0.f;
+  }
+}
+
+template <typename T, int V>
+__global__ void __launch_bounds__(THREADS)
+bilinear_fwd_kernel(const T* __restrict__ xg, const float* __restrict__ fx,
+                    const float* __restrict__ fy, const float* __restrict__ mask,
+                    float* __restrict__ out, int BG, int H, int W, int P, int K, int Gc,
+                    int tpg_log2) {
+  const long long gid = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
+  const long long q = gid >> tpg_log2;  // (bg, p)
+  const int lane = static_cast<int>(gid & ((1 << tpg_log2) - 1));
+  if (q >= static_cast<long long>(BG) * P) return;
+  const int bg = static_cast<int>(q / P);
+  const T* img = xg + static_cast<size_t>(bg) * H * W * Gc;
+  const int nvec = Gc / V;
+  for (int cv = lane; cv < nvec; cv += 1 << tpg_log2) {
+    const int c = cv * V;
+    float acc[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) acc[j] = 0.f;
+    for (int k = 0; k < K; ++k) {
+      const size_t i = static_cast<size_t>(q) * K + k;
+      const Tap t = make_tap(fx[i], fy[i], H, W);
+      const float m = mask[i];
+      float v00[V], v01[V], v10[V], v11[V];
+      load_corner<T, V>(img, t.v00, t.i00, Gc, c, v00);
+      load_corner<T, V>(img, t.v01, t.i01, Gc, c, v01);
+      load_corner<T, V>(img, t.v10, t.i10, Gc, c, v10);
+      load_corner<T, V>(img, t.v11, t.i11, Gc, c, v11);
+      // rounded op by op (no fused multiply-add), in the plain version's order
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        float s = __fmul_rn(v00[j], t.w00);
+        s = __fadd_rn(s, __fmul_rn(v01[j], t.w01));
+        s = __fadd_rn(s, __fmul_rn(v10[j], t.w10));
+        s = __fadd_rn(s, __fmul_rn(v11[j], t.w11));
+        acc[j] = __fadd_rn(acc[j], __fmul_rn(m, s));
+      }
+    }
+    float* o = out + static_cast<size_t>(q) * Gc + c;
+#pragma unroll
+    for (int j = 0; j < V; ++j) o[j] = acc[j];
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void scatter(float* dimg, bool valid, int pix, int Gc, int c, float w,
+                                        const float (&g)[V]) {
+  if (!valid) return;
+  float* d = dimg + static_cast<size_t>(pix) * Gc + c;
+#pragma unroll
+  for (int j = 0; j < V; ++j) atomicAdd(d + j, g[j] * w);
+}
+
+template <typename T, int V>
+__global__ void __launch_bounds__(THREADS)
+bilinear_bwd_kernel(const T* __restrict__ xg, const float* __restrict__ fx,
+                    const float* __restrict__ fy, const float* __restrict__ mask,
+                    const float* __restrict__ dout, float* __restrict__ dxg,
+                    float* __restrict__ dfx, float* __restrict__ dfy, float* __restrict__ dmask,
+                    int BG, int H, int W, int P, int K, int Gc, int tpg_log2) {
+  const long long gid = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
+  const long long q = gid >> tpg_log2;
+  const int tpg = 1 << tpg_log2;
+  const int lane = static_cast<int>(gid & (tpg - 1));
+  // every lane of a group takes part in the shuffles, so none returns early
+  const bool active = q < static_cast<long long>(BG) * P;
+  const int bg = active ? static_cast<int>(q / P) : 0;
+  const size_t img_off = static_cast<size_t>(bg) * H * W * Gc;
+  const T* img = xg + img_off;
+  float* dimg = dxg + img_off;
+  const int nvec = Gc / V;
+  for (int k = 0; k < K; ++k) {
+    const size_t i = static_cast<size_t>(q) * K + k;
+    float gx = 0.f, gy = 0.f, gm = 0.f;
+    if (active) {
+      const Tap t = make_tap(fx[i], fy[i], H, W);
+      const float m = mask[i];
+      const float ax = 1.f - t.wx, ay = 1.f - t.wy;
+      for (int cv = lane; cv < nvec; cv += tpg) {
+        const int c = cv * V;
+        float r[V], v00[V], v01[V], v10[V], v11[V], g[V];
+        load_vec(dout + static_cast<size_t>(q) * Gc + c, r);
+        load_corner<T, V>(img, t.v00, t.i00, Gc, c, v00);
+        load_corner<T, V>(img, t.v01, t.i01, Gc, c, v01);
+        load_corner<T, V>(img, t.v10, t.i10, Gc, c, v10);
+        load_corner<T, V>(img, t.v11, t.i11, Gc, c, v11);
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          const float top = v00[j] * ax + v01[j] * t.wx;
+          const float bot = v10[j] * ax + v11[j] * t.wx;
+          gm += r[j] * (top * ay + bot * t.wy);
+          g[j] = m * r[j];
+          gx += g[j] * ((v01[j] - v00[j]) * ay + (v11[j] - v10[j]) * t.wy);
+          gy += g[j] * (bot - top);
+        }
+        scatter<V>(dimg, t.v00, t.i00, Gc, c, t.w00, g);
+        scatter<V>(dimg, t.v01, t.i01, Gc, c, t.w01, g);
+        scatter<V>(dimg, t.v10, t.i10, Gc, c, t.w10, g);
+        scatter<V>(dimg, t.v11, t.i11, Gc, c, t.w11, g);
+      }
+    }
+    for (int s = tpg >> 1; s > 0; s >>= 1) {
+      gx += __shfl_xor_sync(0xffffffffu, gx, s);
+      gy += __shfl_xor_sync(0xffffffffu, gy, s);
+      gm += __shfl_xor_sync(0xffffffffu, gm, s);
+    }
+    if (active && lane == 0) {
+      dfx[i] = gx;
+      dfy[i] = gy;
+      dmask[i] = gm;
+    }
+  }
+}
+
+int tpg_log2_for(int nvec) {
+  int l = 0;
+  while ((1 << l) < nvec && l < 5) ++l;
+  return l;
+}
+
+template <typename T, int V>
+int launch_fwd(const void* xg, const void* fx, const void* fy, const void* mask, void* out,
+               int BG, int H, int W, int P, int K, int Gc, cudaStream_t stream) {
+  const int l = tpg_log2_for(Gc / V);
+  const long long threads = (static_cast<long long>(BG) * P) << l;
+  const long long blocks = (threads + THREADS - 1) / THREADS;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  bilinear_fwd_kernel<T, V><<<static_cast<unsigned>(blocks), THREADS, 0, stream>>>(
+      static_cast<const T*>(xg), static_cast<const float*>(fx), static_cast<const float*>(fy),
+      static_cast<const float*>(mask), static_cast<float*>(out), BG, H, W, P, K, Gc, l);
+  return cudaGetLastError();
+}
+
+template <typename T, int V>
+int launch_bwd(const void* xg, const void* fx, const void* fy, const void* mask, const void* dout,
+               void* dxg, void* dfx, void* dfy, void* dmask, int BG, int H, int W, int P, int K,
+               int Gc, cudaStream_t stream) {
+  const int l = tpg_log2_for(Gc / V);
+  const long long threads = (static_cast<long long>(BG) * P) << l;
+  const long long blocks = (threads + THREADS - 1) / THREADS;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  bilinear_bwd_kernel<T, V><<<static_cast<unsigned>(blocks), THREADS, 0, stream>>>(
+      static_cast<const T*>(xg), static_cast<const float*>(fx), static_cast<const float*>(fy),
+      static_cast<const float*>(mask), static_cast<const float*>(dout),
+      static_cast<float*>(dxg), static_cast<float*>(dfx), static_cast<float*>(dfy),
+      static_cast<float*>(dmask), BG, H, W, P, K, Gc, l);
+  return cudaGetLastError();
+}
+
+bool bad_shape(int BG, int H, int W, int P, int K, int Gc) {
+  return BG <= 0 || H <= 0 || W <= 0 || P <= 0 || K <= 0 || Gc <= 0;
+}
+
+}  // namespace
+}  // namespace samrs
+
+extern "C" {
+
+// K8 forward.  xg (BG, H, W, Gc) fp32 (is_bf16 = 0) or bf16 (is_bf16 = 1);
+// fx, fy, mask (BG, P, K) fp32; out (BG, P, Gc) fp32.  All contiguous.
+int samrs_bilinear_fwd(const void* xg, const void* fx, const void* fy, const void* mask, void* out,
+                       int BG, int H, int W, int P, int K, int Gc, int is_bf16, void* stream) {
+  using namespace samrs;
+  if (bad_shape(BG, H, W, P, K, Gc)) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (Gc % 4 == 0)
+    return is_bf16 ? launch_fwd<bf16, 4>(xg, fx, fy, mask, out, BG, H, W, P, K, Gc, s)
+                   : launch_fwd<float, 4>(xg, fx, fy, mask, out, BG, H, W, P, K, Gc, s);
+  return is_bf16 ? launch_fwd<bf16, 1>(xg, fx, fy, mask, out, BG, H, W, P, K, Gc, s)
+                 : launch_fwd<float, 1>(xg, fx, fy, mask, out, BG, H, W, P, K, Gc, s);
+}
+
+// K8 backward.  dout (BG, P, Gc) fp32; dxg (BG, H, W, Gc) fp32, zeroed by the
+// caller and accumulated with atomics; dfx, dfy, dmask (BG, P, K) fp32.
+int samrs_bilinear_bwd(const void* xg, const void* fx, const void* fy, const void* mask,
+                       const void* dout, void* dxg, void* dfx, void* dfy, void* dmask, int BG,
+                       int H, int W, int P, int K, int Gc, int is_bf16, void* stream) {
+  using namespace samrs;
+  if (bad_shape(BG, H, W, P, K, Gc)) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (Gc % 4 == 0)
+    return is_bf16
+               ? launch_bwd<bf16, 4>(xg, fx, fy, mask, dout, dxg, dfx, dfy, dmask, BG, H, W, P,
+                                     K, Gc, s)
+               : launch_bwd<float, 4>(xg, fx, fy, mask, dout, dxg, dfx, dfy, dmask, BG, H, W, P,
+                                      K, Gc, s);
+  return is_bf16 ? launch_bwd<bf16, 1>(xg, fx, fy, mask, dout, dxg, dfx, dfy, dmask, BG, H, W, P,
+                                       K, Gc, s)
+                 : launch_bwd<float, 1>(xg, fx, fy, mask, dout, dxg, dfx, dfy, dmask, BG, H, W,
+                                        P, K, Gc, s);
+}
+
+}  // extern "C"

@@ -9,4 +9,5 @@ launches its CUDA kernel (or raises) for a CUDA tensor.
   K5 fused_twoway.i2t_update                     (decoder image->token update)
   K6 fused_upscale.upscale_hyper                 (upscaling + hypernetwork dot)
   K7 amg_post.amg_postprocess                    (full-resolution mask postprocess)
+  K8 bilinear_gather.sample_weighted             (weighted bilinear gather, fwd + bwd)
 """

@@ -39,6 +39,8 @@ _SIGNATURES = {
     "samrs_i2t_update": ([_P] * 18 + [_I, _I, _I, _I, _I, _F, _F, _P], _I),
     "samrs_upscale_hyper": ([_P] * 9 + [_I, _I, _I, _I, _F, _P], _I),
     "samrs_amg_post": ([_P] * 7 + [_I, _I, _I, _I, _F, _F, _P], _I),
+    "samrs_bilinear_fwd": ([_P] * 5 + [_I] * 7 + [_P], _I),
+    "samrs_bilinear_bwd": ([_P] * 9 + [_I] * 7 + [_P], _I),
 }
 
 _lib = None

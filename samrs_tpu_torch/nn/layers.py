@@ -3,17 +3,20 @@
 Attribute names follow the official SAM modules (``lin1``/``lin2``,
 ``layers.{i}``, LayerNorm2d ``weight``/``bias``) so official state dicts load
 strictly.  ``ConvTranspose2x`` and the patch-flatten matmul of the JAX
-package are TPU lowering workarounds and have no counterpart here: the model
-uses ``nn.ConvTranspose2d`` and ``nn.Conv2d``.
+package are TPU lowering workarounds and have no counterpart here: the models
+use ``nn.ConvTranspose2d(k=2, s=2)`` (torch's layout needs no flip; the JAX
+flip is flax's) and ``nn.Conv2d``.  Dropout and drop-path take an explicit
+``torch.Generator``.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
 class LayerNorm2d(nn.Module):
@@ -88,3 +91,89 @@ def window_unpartition(windows: torch.Tensor, window_size: int, pad_hw: Tuple[in
     x = windows.reshape(B, Hp // window_size, Wp // window_size, window_size, window_size, -1)
     x = x.permute(0, 1, 3, 2, 4, 5).reshape(B, Hp, Wp, -1)
     return x[:, :H, :W, :]
+
+
+def _keep_mask(shape, keep: float, x: torch.Tensor, generator) -> torch.Tensor:
+    """Bernoulli(keep) bool mask of `shape` drawn from `generator` on x's device."""
+    return torch.empty(shape, dtype=torch.bool, device=x.device).bernoulli_(keep, generator=generator)
+
+
+class DropPath(nn.Module):
+    """Stochastic depth per sample (samrs_tpu/nn/layers.py:207-222): in
+    training, each sample's branch is kept with probability 1 - rate and
+    scaled by 1 / (1 - rate).  The mask comes from the explicit generator
+    passed to ``forward``."""
+
+    def __init__(self, rate: float = 0.0) -> None:
+        super().__init__()
+        self.rate = float(rate)
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        mask = _keep_mask((x.shape[0],) + (1,) * (x.dim() - 1), keep, x, generator)
+        return x * mask / keep
+
+
+class Dropout(nn.Module):
+    """Element-wise dropout (flax ``nn.Dropout``) drawing its mask from the
+    explicit generator passed to ``forward``."""
+
+    def __init__(self, rate: float = 0.0) -> None:
+        super().__init__()
+        self.rate = float(rate)
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        return x * _keep_mask(x.shape, keep, x, generator) / keep
+
+
+_MAX_INTERP = 2**31 - 1  # output elements of one F.interpolate call
+
+
+def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """Bilinear resize of the last two axes of an NCHW tensor, torch
+    ``align_corners=False`` without antialiasing (samrs_tpu/nn/interpolate.py:
+    90-127): half-pixel source index clamped at 0, upper neighbour clamped at
+    the edge, as ``_axis_matrix`` builds it.  fp32 math, output in x's dtype."""
+    if tuple(x.shape[-2:]) == tuple(out_hw):
+        return x
+    xf = x.float()
+    per_image = xf[0].numel() // (xf.shape[-2] * xf.shape[-1]) * out_hw[0] * out_hw[1]
+    if x.dim() != 4 or x.shape[0] * per_image <= _MAX_INTERP:
+        return F.interpolate(xf, size=tuple(out_hw), mode="bilinear",
+                             align_corners=False).to(x.dtype)
+    # CUDA's bilinear backward refuses to launch past 2^31 output elements (the FAST
+    # head's x4 upsample at 65 x 768 x 224^2 is 2.5e9): resample in batch slices into
+    # one output; each image is resampled alone either way, so the values are the same
+    out = xf.new_empty(x.shape[0], x.shape[1], *out_hw)
+    step = max(1, _MAX_INTERP // per_image)
+    for i in range(0, x.shape[0], step):
+        out[i:i + step] = F.interpolate(xf[i:i + step], size=tuple(out_hw), mode="bilinear",
+                                        align_corners=False)
+    return out.to(x.dtype)
+
+
+def checkpoint_with_generator(fn, x: torch.Tensor, generator: Optional[torch.Generator]):
+    """``fn(x, generator)`` under activation checkpointing: only `x` is kept
+    for the backward, which runs `fn` again.  Its random draws (dropout,
+    drop-path) come from a copy of `generator`'s state at the call, so the
+    recompute draws the same masks; `generator` ends as `fn` left it."""
+    state = None if generator is None else generator.get_state()
+    used = []
+
+    def run(x):
+        g = None
+        if state is not None:
+            g = torch.Generator(device=generator.device)
+            g.set_state(state)
+            used.append(g)
+        return fn(x, g)
+
+    out = checkpoint(run, x, use_reentrant=False)
+    if used:
+        generator.set_state(used[0].get_state())
+    return out

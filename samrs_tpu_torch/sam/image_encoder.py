@@ -47,6 +47,23 @@ def get_rel_pos(q_size: int, k_size: int, rel_pos: torch.Tensor) -> torch.Tensor
     return rel_pos[relative.long()]
 
 
+def add_decomposed_rel_pos(attn: torch.Tensor, q: torch.Tensor, rel_pos_h: torch.Tensor,
+                           rel_pos_w: torch.Tensor, q_hw: Tuple[int, int],
+                           k_hw: Tuple[int, int]) -> torch.Tensor:
+    """Add the decomposed relative-position bias to attention logits
+    (image_encoder.py:325-361): attn (B, qh*qw, kh*kw), q (B, qh*qw, hd)."""
+    q_h, q_w = q_hw
+    k_h, k_w = k_hw
+    Rh = get_rel_pos(q_h, k_h, rel_pos_h)
+    Rw = get_rel_pos(q_w, k_w, rel_pos_w)
+    B, _, dim = q.shape
+    r_q = q.reshape(B, q_h, q_w, dim)
+    rel_h = torch.einsum("bhwc,hkc->bhwk", r_q, Rh)
+    rel_w = torch.einsum("bhwc,wkc->bhwk", r_q, Rw)
+    attn = attn.reshape(B, q_h, q_w, k_h, k_w) + rel_h[..., :, None] + rel_w[..., None, :]
+    return attn.reshape(B, q_h * q_w, k_h * k_w)
+
+
 def _compute_dtype(x: torch.Tensor) -> torch.dtype:
     return torch.bfloat16 if x.is_cuda else torch.float32
 

@@ -1,0 +1,67 @@
+"""Shared decoder blocks (mirrors samrs_tpu/seg/decoders/blocks.py; reference
+ED/modules.py).  NCHW.
+
+``BatchNorm`` follows flax's ``nn.BatchNorm`` as the JAX package uses it,
+not torch's default: momentum 0.9 on the running average (torch's 0.1 on the
+new value), eps 1e-5, and the running variance updated with the BIASED batch
+variance (``nn.BatchNorm2d`` would use the unbiased one).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from samrs_tpu_torch.nn.layers import resize_bilinear
+
+__all__ = ["BatchNorm", "ConvBNReLU", "adaptive_avg_pool", "resize_bilinear"]
+
+
+class BatchNorm(nn.Module):
+    """Batch statistics in training, running statistics in eval."""
+
+    def __init__(self, features: int, momentum: float = 0.9, eps: float = 1e-5) -> None:
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+        self.momentum = momentum
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
+                                False, 0.0, self.eps)
+        if x.numel() == x.shape[1]:
+            # one value per channel (a batch of 1 after the 1x1 pool), which
+            # F.batch_norm refuses: zero variance, so the output is the bias
+            xc = x - x.mean((0, 2, 3), keepdim=True)
+            y = xc * torch.rsqrt(self.eps + xc * xc) * self.weight[:, None, None] \
+                + self.bias[:, None, None]
+        else:
+            y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x.float(), (0, 2, 3), unbiased=False)
+            self.running_mean.mul_(self.momentum).add_(mean, alpha=1.0 - self.momentum)
+            self.running_var.mul_(self.momentum).add_(var, alpha=1.0 - self.momentum)
+        return y
+
+
+class ConvBNReLU(nn.Module):
+    """kxk conv (no bias, 'same' padding) -> BatchNorm -> ReLU (ED/modules.py:10)."""
+
+    def __init__(self, in_channels: int, features: int, kernel: int = 3) -> None:
+        super().__init__()
+        self.conv = nn.Conv2d(in_channels, features, kernel, padding=kernel // 2, bias=False)
+        self.bn = BatchNorm(features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.relu(self.bn(self.conv(x)))
+
+
+def adaptive_avg_pool(x: torch.Tensor, out_hw) -> torch.Tensor:
+    """torch AdaptiveAvgPool2d bins (the JAX package's pooling matrices
+    compute the same bins)."""
+    return F.adaptive_avg_pool2d(x, tuple(out_hw))

@@ -210,7 +210,8 @@ def test_port_imports_no_jax():
         "import importlib, pkgutil, sys, samrs_tpu_torch\n"
         "for m in pkgutil.walk_packages(samrs_tpu_torch.__path__, 'samrs_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'samrs_tpu')]\n"
+        "bad = [k for k in sys.modules\n"
+        "       if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'samrs_tpu')]\n"
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
