@@ -48,26 +48,49 @@ checkout; it has no CPU path and raises on any failure.  Phases:
    exact integers; rel-L2 of out, dxg, dfx, dfy, dmask <= 1e-5 (dxg of the
    bf16 map <= 1e-2, integer-grid dfx <= 1e-6), timed against the plain
    version and ``F.grid_sample`` (forward, backward, both), with the bound;
-6. train-step phase: vit_b_rvsa + UperNet with its own seeded init, one
+6. K10 / K11 phase: K10 (plain attention) and K11 (fused MLP) in fp32
+   against their plain versions, forward and the autograd backward
+   (rel-L2 <= 1e-5), at vit_b 512^2 batch 8 (BH 96, N 1024; T 8192, C 768,
+   M 3072) and at the RVSA FAST head's 224^2 shape (N 196: a tail tile),
+   timed against the plain version, SDPA (K10) and the F.linear -> F.gelu
+   -> F.linear composition (K11), with the bound;
+7. train-step phase: vit_b_rvsa + UperNet with its own seeded init, one
    pretrain step on 17/12/65 seeded images at 224^2 (fp32, TF32 off) from
-   identical state with K8's kernels and with its plain version: launches
-   24/24 and 0/0, parameters unmoved (lr 0 at step 0), |dloss| / loss <=
-   1e-5, every gradient and both AdamW moments rel-L2 <= 1e-4 (the two
-   zero-gradient neck biases against the whole norm); then warm s/step,
-   img/s and peak memory of both;
-7. pretrain phase: ``run_pretrain`` at the defaults for 3 steps on a
+   identical state with the kernels (K8 24/24, K10 12, K11 36 launches),
+   with their plain versions (0), and with the control (the plain versions
+   with each MLP product split into two K-halves and added); parameters
+   unmoved (lr 0 at step 0), |dloss| / loss <= 1e-5, and for the gradients
+   and both AdamW moments the kernels-vs-plain rel-L2 over all parameters
+   within 3x the control's (UperNet's BatchNorms amplify any change of fp32
+   summation order ~1e3x at initialisation; the zero-gradient neck biases
+   printed apart); then warm s/step, img/s and peak memory of both;
+8. finetune-step phase: SegModel(vit_b, upernet, 6 classes, 512^2) at full
+   width and depth, seeded init, batch 8: eval-mode logits kernels vs plain
+   rel-L2 <= 1e-5 (K10 12, K11 12 launches), one finetune step by the rule
+   of phase 7, then s/step, img/s and peak memory of both paths;
+9. pretrain phase: ``run_pretrain`` at the defaults for 3 steps on a
    synthetic SAMRS layout (DATASET_LAYOUT's trees, noise images, uniform
    labels): launches, the step count, one mIoU line per dataset, ``last`` /
    ``best`` checkpoints with encoder copies, and a resume from ``last`` that
    restores the step and the weights;
-8. prints one JSON line of per-kernel results (launches: K1-K7 from the
-   generate phase, K8 from the pretrain phase, with K8's per step), then the
+10. finetune-driver phase: ``run_finetune`` at the defaults (vit_b_rvsa +
+   UperNet, Potsdam, 512^2, batch 8) for one epoch (2 steps, one eval batch)
+   on a synthetic Potsdam layout with RGB labels in ISPRS_PALETTE, grafting
+   the pretrain phase's ``best_encoder.pt``: launches K8, K10, K11, the epoch
+   line with mIoU, ``last`` / ``best`` checkpoints;
+11. test phase: ``run_test`` with flip TTA on two seeded 600x700 images at
+   crop 512 (a 2x2 grid with tail crops) with the finetuned model: launches,
+   gray and colour PNGs read back against the prediction and the palette,
+   and kernels-vs-plain probability maps (rel-L2 <= 1e-5);
+12. prints one JSON line of per-kernel results (launches: K1-K7 from the
+   generate phase, K8 from the pretrain phase with its per-step count, K10
+   and K11 from the finetune driver with their per-step counts), then the
    card's name and power limit and the final status line.
 
 ``--profile`` adds a torch.profiler table of one warm generate image with
-the kernels and with the plain versions, and of one warm train step with
-the kernels (device time by operation, device busy share of the wall
-time).  ``chip_drift.py`` shows where the generate path's two paths part.
+the kernels and with the plain versions, and of one warm pretrain step and
+one warm finetune step with the kernels (device time by operation, device
+busy share of the wall time).  ``chip_drift.py`` shows where the generate path's two paths part.
 """
 
 from __future__ import annotations
@@ -95,20 +118,33 @@ GEN_HW = (800, 800)
 GEN_BOXES = 100
 GEN_BOX_PX = (16, 240)  # box sides, uniform; not taken from a DIOR statistic
 MAIN_LAUNCHES = {"K1": 28, "K2": 4, "K3": 32, "K4": 1, "K5": 2, "K6": 1, "K7": 0, "K8f": 0,
-                 "K8b": 0}
-GEN_LAUNCHES = {"K1": 28, "K2": 4, "K3": 32, "K4": 1, "K5": 2, "K6": 1, "K7": 4, "K8f": 0,
-                "K8b": 0}
+                 "K8b": 0, "K10": 0, "K11": 0}
+GEN_LAUNCHES = {**MAIN_LAUNCHES, "K7": 4}
 # SEP pretraining: vit_b_rvsa + UperNet, 224^2, heads SOTA / SIOR / FAST
 TRAIN_BATCH = (17, 12, 65)     # proportional_batch_sizes(..., 96): floors of the subset shares
 TRAIN_CLASSES = (18, 20, 37)
 RVSA_BLOCKS = 8                # of vit_b_rvsa's 12 (every third is full attention)
-STEP_LAUNCHES = {"K8f": RVSA_BLOCKS * 3, "K8b": RVSA_BLOCKS * 3}  # K and V in one launch
+FULL_BLOCKS = 4                # ... and its full-attention blocks: K10
+VIT_DEPTH = 12                 # blocks (and MLPs: K11) of vit_b and vit_b_rvsa
+# one launch per block and forward, three forwards (heads) a step; K and V in one K8 launch
+STEP_LAUNCHES = {"K8f": RVSA_BLOCKS * 3, "K8b": RVSA_BLOCKS * 3, "K10": FULL_BLOCKS * 3,
+                 "K11": VIT_DEPTH * 3}
 PRETRAIN_ITERS = 3
 K8_RTOL = 1e-5                 # fp32 gather, kernel vs plain: summation order and atomics only
 K8_BF16_DXG_RTOL = 1e-2        # dxg returned in bf16: one bf16 rounding of the same fp32 sum
 K8_INT_RTOL = 1e-6             # taps on exact integers: dfx of the one-sided floor formula
-STEP_LOSS_RTOL = 1e-5          # train step, K8 kernels vs plain K8: |dloss| / loss
-STEP_RTOL = 1e-4               # ... each parameter's gradient and each AdamW moment, rel-L2
+STEP_LOSS_RTOL = 1e-5          # train steps, kernels vs plain versions: |dloss| / loss
+# ... gradients and AdamW moments: at initialisation UperNet's BatchNorms return an fp32
+# change in summation order ~1e3 times larger, so the kernels-vs-plain distance (rel-L2
+# over all parameters) is held within CONTROL_FACTOR times that of a control: the plain
+# path against itself with each MLP product split into two K-halves and added
+CONTROL_FACTOR = 3.0
+K10_K11_RTOL = 1e-5            # fp32 kernels vs plain versions, forward and backward
+EVAL_RTOL = 1e-5               # eval-mode logits / probabilities, kernels vs plain
+# finetuning: vit_b + UperNet on Potsdam at 512^2, batch 8 (FinetuneConfig, FINETUNE_DATASETS)
+FT_SIZE, FT_BATCH, FT_CLASSES = 512, 8, 6
+FT_TRAIN, FT_VAL = 16, 8       # synthetic Potsdam layout of the driver phase: 2 steps, 1 eval batch
+TEST_HW = (600, 700)           # test images: a 2x2 crop grid at 512 with tail crops
 # parameters whose true gradient is 0 (the neck's last deconv biases: a per-channel
 # shift the next layer's BatchNorm removes); both paths give rounding noise there,
 # so their distance is taken against the norm of the whole gradient (or moment)
@@ -128,7 +164,8 @@ def counters():
             "K3": (fused_mlp, "launches"), "K4": (fused_twoway, "kv_launches"),
             "K5": (fused_twoway, "i2t_launches"), "K6": (fused_upscale, "launches"),
             "K7": (amg_post, "launches"), "K8f": (bilinear_gather, "fwd_launches"),
-            "K8b": (bilinear_gather, "bwd_launches")}
+            "K8b": (bilinear_gather, "bwd_launches"), "K10": (flash_attention, "full_launches"),
+            "K11": (fused_mlp, "mlp_launches")}
 
 
 def reset_counts() -> None:
@@ -479,6 +516,98 @@ def k8_phase(gen):
     return {"K8f": fwd, "K8b": bwd}
 
 
+def k10_k11_phase(gen):
+    """K10 and K11 against their plain versions in fp32, forward and the
+    autograd backward (the kernels' Functions recompute with the plain
+    version), at vit_b 512^2 batch 8 and at the RVSA FAST head's 224^2 shape
+    (N 196: a tail tile of 4 keys); timed against the plain version, SDPA
+    (K10) and the F.linear -> F.gelu -> F.linear composition (K11), with the
+    bound."""
+    from samrs_tpu_torch.kernels import flash_attention as fa
+    from samrs_tpu_torch.kernels import fused_mlp as fm
+
+    rn = lambda *shape, std=1.0: torch.randn(*shape, generator=gen, device="cuda") * std
+    scale = 64 ** -0.5
+    out = {"K10": {}, "K11": {}}
+    for key, B, N in (("vit_b_512", FT_BATCH, (FT_SIZE // 16) ** 2),
+                      ("rvsa_fast_224", TRAIN_BATCH[2], 196)):
+        BH, d = B * 12, 64
+        q, k, v, g = (rn(BH, N, d) for _ in range(4))
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        got = fa.full_attention(*leaves, scale)
+        got = [got.detach()] + list(torch.autograd.grad(got, leaves, g))
+        ref = fa.full_attention_plain(*leaves, scale)
+        want = [ref.detach()] + list(torch.autograd.grad(ref, leaves, g))
+        errs = {n: rel_l2([a], [b]) for n, a, b in zip(("out", "dq", "dk", "dv"), got, want)}
+        max_abs = float((got[0] - want[0]).abs().max())
+        ms = cuda_ms(lambda: fa.full_attention_cuda(q, k, v, scale))
+        plain_ms = cuda_ms(lambda: fa.full_attention_plain(q, k, v, scale))
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
+        bound_ms, bound_by = bound(4 * 4 * BH * N * d, 4 * BH * N * N * d, "fp32")
+        print(f"K10 {key} (BH {BH}, N {N}, d {d}, fp32): rel_l2 "
+              + " ".join(f"{n}={e:.3e}" for n, e in errs.items())
+              + f" max_abs={max_abs:.3e}; kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"sdpa_ms={lib_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by})", flush=True)
+        for n, e in errs.items():
+            if not e <= K10_K11_RTOL:
+                raise RuntimeError(f"K10 {key}: {n} relative L2 {e:.3e} > {K10_K11_RTOL}")
+        out["K10"][key] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                               bound_ms=bound_ms, bound_by=bound_by)
+        del q, k, v, g, leaves, got, ref, want
+
+        T, C, M = BH // 12 * N, 768, 3072
+        x, dy = rn(T, C), rn(T, C)
+        w = (rn(M, C, std=C ** -0.5), rn(M, std=0.1), rn(C, M, std=M ** -0.5), rn(C, std=0.1))
+        leaves = [t.clone().requires_grad_() for t in (x, *w)]
+        got = fm.fused_mlp(*leaves)
+        got = [got.detach()] + list(torch.autograd.grad(got, leaves, dy))
+        ref = fm.fused_mlp_plain(*leaves)
+        want = [ref.detach()] + list(torch.autograd.grad(ref, leaves, dy))
+        names = ("out", "dx", "dw1", "db1", "dw2", "db2")
+        errs = {n: rel_l2([a], [b]) for n, a, b in zip(names, got, want)}
+        max_abs = float((got[0] - want[0]).abs().max())
+        ms = cuda_ms(lambda: fm.fused_mlp_cuda(x, *w))
+        plain_ms = cuda_ms(lambda: fm.fused_mlp_plain(x, *w))
+        comp_ms = cuda_ms(lambda: F.linear(F.gelu(F.linear(x, w[0], w[1])), w[2], w[3]))
+        bound_ms, bound_by = bound(4 * (2 * T * C + 2 * C * M + M + C), 4 * T * C * M, "fp32")
+        print(f"K11 {key} (T {T}, C {C}, M {M}, fp32): rel_l2 "
+              + " ".join(f"{n}={e:.3e}" for n, e in errs.items())
+              + f" max_abs={max_abs:.3e}; kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"linear_gelu_linear_ms={comp_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by})",
+              flush=True)
+        for n, e in errs.items():
+            if not e <= K10_K11_RTOL:
+                raise RuntimeError(f"K11 {key}: {n} relative L2 {e:.3e} > {K10_K11_RTOL}")
+        out["K11"][key] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                               composition_ms=comp_ms, bound_ms=bound_ms, bound_by=bound_by)
+        del x, dy, w, leaves, got, ref, want
+        torch.cuda.empty_cache()
+    r10, r11 = out["K10"]["vit_b_512"], out["K11"]["vit_b_512"]
+    tail10, tail11 = out["K10"]["rvsa_fast_224"], out["K11"]["rvsa_fast_224"]
+    return {
+        "K10": dict(name="K10 plain attention fp32 (vit_b 512^2 batch 8: BH 96, N 1024, d 64; "
+                         "RVSA FAST head 224^2 in rvsa_*)", route="cuda",
+                    source="samrs_tpu_torch/csrc/plain_attention.cu",
+                    replaces="samrs_tpu/kernels/flash_attention.py:618",
+                    max_abs_err=max(r10["max_abs_err"], tail10["max_abs_err"]), ms=r10["ms"],
+                    plain_ms=r10["plain_ms"], bound_ms=r10["bound_ms"],
+                    bound_by=r10["bound_by"], library_ms=r10["library_ms"],
+                    **{f"rvsa_{k}": tail10[k] for k in ("ms", "plain_ms", "library_ms",
+                                                         "bound_ms")}),
+        "K11": dict(name="K11 fused MLP fp32 (vit_b 512^2 batch 8: T 8192, C 768, M 3072; "
+                         "RVSA FAST head in rvsa_*; composition_ms: F.linear -> F.gelu -> "
+                         "F.linear, no single library call)", route="cuda",
+                    source="samrs_tpu_torch/csrc/fused_mlp.cu",
+                    replaces="samrs_tpu/kernels/fused_mlp.py:105",
+                    max_abs_err=max(r11["max_abs_err"], tail11["max_abs_err"]), ms=r11["ms"],
+                    plain_ms=r11["plain_ms"], bound_ms=r11["bound_ms"],
+                    bound_by=r11["bound_by"], library_ms=None,
+                    composition_ms=r11["composition_ms"],
+                    **{f"rvsa_{k}": tail11[k] for k in ("ms", "plain_ms", "composition_ms",
+                                                         "bound_ms")}),
+    }
+
+
 def mask_iou(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     a, b = a.reshape(a.shape[0], -1), b.reshape(b.shape[0], -1)
     inter = np.logical_and(a, b).sum(1)
@@ -723,12 +852,142 @@ def train_batches(seed: int):
             for b, nc in zip(TRAIN_BATCH, TRAIN_CLASSES)]
 
 
+def split_mlp_plain(x, w1, b1, w2, b2):
+    """The plain MLP with each product split into two K-halves and added: the
+    same function in another fp32 summation order (the control of the step
+    comparisons).  The halves are strided views of 2-D operands, so autograd
+    keeps no more than the plain version does."""
+    C, M = x.shape[-1], w1.shape[0]
+    x2 = x.reshape(-1, C)
+    h = x2[:, :C // 2] @ w1[:, :C // 2].t() + torch.addmm(b1, x2[:, C // 2:], w1[:, C // 2:].t())
+    a = F.gelu(h)
+    out = a[:, :M // 2] @ w2[:, :M // 2].t() + torch.addmm(b2, a[:, M // 2:], w2[:, M // 2:].t())
+    return out.reshape(x.shape)
+
+
+def step_runs(model, fresh_state, step):
+    """One train step from identical state with the kernels, with the plain
+    versions, and with the plain versions and split MLP products (the
+    control): loss, launches, gradients, both AdamW moments (copied to the
+    host: a 94-image pretrain step peaks near the card's 80 GB), the
+    parameters that moved, and the first step's wall time of each."""
+    from samrs_tpu_torch.kernels import fused_mlp
+
+    runs = {}
+    plain_mlp = fused_mlp.fused_mlp_plain
+    for mode in ("kernels", "plain", "control"):
+        model.use_kernels = mode == "kernels"
+        fused_mlp.fused_mlp_plain = split_mlp_plain if mode == "control" else plain_mlp
+        try:
+            state = fresh_state()
+            init = {k: v.clone() for k, v in model.state_dict().items() if "running" not in k}
+            reset_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            metrics = step(state)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+        finally:
+            fused_mlp.fused_mlp_plain = plain_mlp
+        names = {p: n for n, p in model.named_parameters()}
+        opt_state = state.optimizer.opt.state
+        runs[mode] = dict(
+            loss=float(metrics["loss"]), counts=read_counts(), first_s=dt,
+            grads={n: p.grad.cpu() for n, p in model.named_parameters()},
+            mu={names[p]: st["exp_avg"].cpu() for p, st in opt_state.items()},
+            nu={names[p]: st["exp_avg_sq"].cpu() for p, st in opt_state.items()},
+            moved=[k for k, v in model.state_dict().items()
+                   if k in init and not torch.equal(v, init[k])])
+        state.optimizer.zero_grad()
+        del state, init, metrics
+        torch.cuda.empty_cache()
+    model.use_kernels = True
+    return runs
+
+
+def compare_steps(label: str, runs, want_counts):
+    """Launches (the kernels' as `want_counts`, none on the plain runs), no
+    parameter moved (lr 0 at step 0), |dloss| / loss <= STEP_LOSS_RTOL, and per
+    gradient and AdamW moment the kernels-vs-plain rel-L2 over all parameters
+    within CONTROL_FACTOR times the control-vs-plain one.  The zero-gradient
+    neck biases are left out of the sums and printed against the whole norm."""
+    k, p, c = runs["kernels"], runs["plain"], runs["control"]
+    want = {kk: want_counts.get(kk, 0) for kk in k["counts"]}
+    print(f"{label} launches: kernels {k['counts']}, plain {p['counts']}, control "
+          f"{c['counts']}", flush=True)
+    if k["counts"] != want or any(p["counts"].values()) or any(c["counts"].values()):
+        raise RuntimeError(f"{label} launches {k['counts']} / {p['counts']}, want {want}")
+    moved = k["moved"] + p["moved"] + c["moved"]
+    if moved:
+        raise RuntimeError(f"{label}: parameters moved at lr 0: {moved[:3]}")
+    dloss = {m: abs(runs[m]["loss"] - p["loss"]) / abs(p["loss"]) for m in ("kernels", "control")}
+    print(f"{label} loss kernels {k['loss']:.6f} plain {p['loss']:.6f} control {c['loss']:.6f} "
+          f"(|d|/loss {dloss['kernels']:.3e} / control {dloss['control']:.3e}); first step s "
+          f"kernels {k['first_s']:.3f} plain {p['first_s']:.3f}", flush=True)
+    if not dloss["kernels"] <= STEP_LOSS_RTOL:
+        raise RuntimeError(f"{label} loss |d|/loss {dloss['kernels']:.3e} > {STEP_LOSS_RTOL}")
+    out = {}
+    for what in ("grads", "mu", "nu"):
+        ref = p[what]
+        norm2 = sum(float((w.double() ** 2).sum()) for n, w in ref.items() if n not in ZERO_GRAD)
+        dist, worst, zero = {}, {}, {}
+        for mode in ("kernels", "control"):
+            got = runs[mode][what]
+            d2 = sum(float(((got[n] - w).double() ** 2).sum()) for n, w in ref.items()
+                     if n not in ZERO_GRAD)
+            dist[mode] = (d2 / norm2) ** 0.5
+            errs = {n: rel_l2([got[n]], [w]) for n, w in ref.items() if n not in ZERO_GRAD}
+            worst[mode] = max(errs.items(), key=lambda kv: kv[1])
+            zero[mode] = max(float(torch.linalg.vector_norm((got[n] - ref[n]).double()))
+                             for n in ZERO_GRAD) / norm2 ** 0.5
+        print(f"{label} {what}: rel_l2 over all parameters kernels {dist['kernels']:.3e}, "
+              f"control {dist['control']:.3e} (ratio "
+              f"{dist['kernels'] / max(dist['control'], 1e-30):.2f}, limit {CONTROL_FACTOR}); "
+              f"worst parameter kernels {worst['kernels'][1]:.3e} ({worst['kernels'][0]}), "
+              f"control {worst['control'][1]:.3e} ({worst['control'][0]}); zero-gradient "
+              f"biases against the norm kernels {zero['kernels']:.3e} control "
+              f"{zero['control']:.3e}", flush=True)
+        if not dist["kernels"] <= CONTROL_FACTOR * dist["control"]:
+            raise RuntimeError(f"{label} {what}: kernels-vs-plain rel-L2 {dist['kernels']:.3e} > "
+                               f"{CONTROL_FACTOR} x control {dist['control']:.3e}")
+        out[what] = (dist["kernels"], dist["control"])
+    return out
+
+
+def time_steps(model, fresh_state, step, label: str, n_img: int, shape: str):
+    """Warm s/step, img/s and peak memory with the kernels and with the plain
+    versions (kernels, plain, kernels); returns {use_kernels: (s/step, bytes)}."""
+    times = {True: [], False: []}
+    peak = {}
+    for use_kernels in (True, False, True):
+        model.use_kernels = use_kernels
+        state = fresh_state()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            step(state)
+            torch.cuda.synchronize()
+            times[use_kernels].append(time.perf_counter() - t)
+        peak[use_kernels] = torch.cuda.max_memory_allocated()
+        del state
+    model.use_kernels = True
+    out = {}
+    for use_kernels, name in ((True, "kernels"), (False, "plain")):
+        s_step = statistics.median(times[use_kernels])
+        out[use_kernels] = (s_step, peak[use_kernels])
+        print(f"{label} ({name}, {n_img} images at {shape}, fp32): {s_step:.4f} s/step, "
+              f"{n_img / s_step:.2f} img/s, peak memory {peak[use_kernels] / 2**30:.2f} GiB",
+              flush=True)
+    return out
+
+
 def train_step_phase(profile: bool = False):
     """One SEP pretrain step of vit_b_rvsa + UperNet (three heads, 17/12/65
-    images at 224^2, fp32, TF32 off) from identical state with K8's kernels
-    and with its plain version: losses, every gradient and both AdamW
-    moments.  The step is the schedule's step 0, so lr = 0 and the
-    parameters must not move.  Then the step's time and peak memory."""
+    images at 224^2, fp32, TF32 off) from identical state with the kernels
+    (K8, K10, K11), with their plain versions and with the control; the step
+    is the schedule's step 0, so lr = 0 and the parameters must not move.
+    Then the step's time and peak memory."""
     from samrs_tpu_torch.core.config import PretrainConfig
     from samrs_tpu_torch.seg.frameworks import build_multihead_model
     from samrs_tpu_torch.train import optim, trainer
@@ -751,114 +1010,101 @@ def train_step_phase(profile: bool = False):
                               num_layers=model.encoder.depth)
         return trainer.TrainState(0, model, opt)
 
-    runs = {}
-    for use_kernels in (True, False):
-        model.use_kernels = use_kernels
-        state = fresh_state()
-        reset_counts()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        metrics = trainer.pretrain_step(state, batches, cfg.seed)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t
-        names = {p: n for n, p in model.named_parameters()}
-        runs[use_kernels] = dict(
-            loss=float(metrics["loss"]), counts=read_counts(), first_s=dt,
-            grads={n: p.grad.clone() for n, p in model.named_parameters()},
-            mu={names[p]: s["exp_avg"].clone() for p, s in state.optimizer.opt.state.items()},
-            nu={names[p]: s["exp_avg_sq"].clone() for p, s in state.optimizer.opt.state.items()},
-            moved=[k for k, v in model.state_dict().items()
-                   if "running" not in k and not torch.equal(v, init[k])])
-        state.optimizer.zero_grad()
-        del state
-    k, p = runs[True], runs[False]
-    want = {kk: (STEP_LAUNCHES[kk] if kk in STEP_LAUNCHES else 0) for kk in k["counts"]}
-    print(f"train step launches: kernels {k['counts']}, plain {p['counts']}", flush=True)
-    if k["counts"] != want or any(p["counts"].values()):
-        raise RuntimeError(f"train step launches {k['counts']} / {p['counts']}, want {want}")
-    if k["moved"] or p["moved"]:
-        raise RuntimeError(f"parameters moved at lr 0: {k['moved'][:3]} {p['moved'][:3]}")
-    dloss = abs(k["loss"] - p["loss"]) / abs(p["loss"])
-    worst = {}
-    for what in ("grads", "mu", "nu"):
-        total = float(torch.sqrt(sum((w.double() ** 2).sum() for w in p[what].values())))
-        errs = {}
-        for name, w in p[what].items():
-            g = k[what][name]
-            if name in ZERO_GRAD:  # noise on both paths: its distance against the whole norm
-                errs[name] = float(torch.linalg.vector_norm((g - w).double())) / total
-            else:
-                errs[name] = rel_l2([g], [w])
-        name = max(errs, key=errs.get)
-        worst[what] = (errs[name], name)
-        samp = max(e for n, e in errs.items() if ".sampling_" in n)
-        print(f"train step {what}: worst rel_l2 {errs[name]:.3e} ({name}), sampling nets "
-              f"{samp:.3e}, median {statistics.median(errs.values()):.3e}, zero-gradient "
-              + ", ".join(f"{n} {errs[n]:.3e}" for n in ZERO_GRAD), flush=True)
-    print(f"train step loss kernels {k['loss']:.6f} plain {p['loss']:.6f} (|d|/loss "
-          f"{dloss:.3e}); first step s kernels {k['first_s']:.3f} plain {p['first_s']:.3f}",
-          flush=True)
-    if not dloss <= STEP_LOSS_RTOL:
-        raise RuntimeError(f"train step loss |d|/loss {dloss:.3e} > {STEP_LOSS_RTOL}")
-    for what, (e, name) in worst.items():
-        if not e <= STEP_RTOL:
-            raise RuntimeError(f"train step {what} of {name}: rel_l2 {e:.3e} > {STEP_RTOL}")
-    del runs, k, p
-
-    # warm step time, img/s and peak memory (kernels, then plain, then kernels)
-    times = {True: [], False: []}
-    peak = {}
-    for use_kernels in (True, False, True):
-        model.use_kernels = use_kernels
-        state = fresh_state()
-        torch.cuda.reset_peak_memory_stats()
-        for _ in range(2):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            trainer.pretrain_step(state, batches, cfg.seed)
-            torch.cuda.synchronize()
-            times[use_kernels].append(time.perf_counter() - t)
-        peak[use_kernels] = torch.cuda.max_memory_allocated()
-        del state
-    n_img = sum(TRAIN_BATCH)
-    for use_kernels, label in ((True, "kernels"), (False, "plain K8")):
-        s_step = statistics.median(times[use_kernels])
-        print(f"train step ({label}, {n_img} images at 224^2, fp32): {s_step:.4f} s/step, "
-              f"{n_img / s_step:.2f} img/s, peak memory {peak[use_kernels] / 2**30:.2f} GiB",
-              flush=True)
+    step = lambda state: trainer.pretrain_step(state, batches, cfg.seed)
+    compare_steps("train step", step_runs(model, fresh_state, step), STEP_LAUNCHES)
+    timing = time_steps(model, fresh_state, step, "train step", sum(TRAIN_BATCH), "224^2")
     if profile:
-        profile_step(model, fresh_state, batches, cfg.seed)
-    model.use_kernels = True
+        profile_step(model, fresh_state, step, "train step")
     del model, init, batches
     torch.cuda.empty_cache()
-    return statistics.median(times[True])
+    return timing
 
 
-def profile_step(model, fresh_state, batches, seed) -> None:
+def profile_step(model, fresh_state, step, label: str) -> None:
     """torch.profiler over one warm train step with the kernels: device time
     by operation and the device's busy share of the wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from samrs_tpu_torch.train import trainer
-
     model.use_kernels = True
     state = fresh_state()
-    trainer.pretrain_step(state, batches, seed)
+    step(state)
     torch.cuda.synchronize()
     t = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        trainer.pretrain_step(state, batches, seed)
+        step(state)
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t) * 1e3
     events = prof.key_averages()
     device_ms = sum(e.self_device_time_total for e in events
                     if e.device_type == DeviceType.CUDA) / 1e3
-    print(f"profile (train step): wall {wall_ms:.2f} ms under the profiler, device "
+    print(f"profile ({label}): wall {wall_ms:.2f} ms under the profiler, device "
           f"{device_ms:.2f} ms, busy {100 * device_ms / wall_ms:.1f}% of the profiled wall",
           flush=True)
     print(events.table(sort_by="self_device_time_total", row_limit=25, max_name_column_width=70),
           flush=True)
+
+
+def finetune_step_phase(profile: bool = False):
+    """SegModel(vit_b, upernet, 6 classes, 512^2) at full width and depth with
+    its seeded init, batch 8, fp32, TF32 off: eval-mode logits with the
+    kernels against the plain versions (K10 12 and K11 12 launches a
+    forward), one finetune step from identical state with the kernels, the
+    plain versions and the control, then warm s/step, img/s and peak memory."""
+    from samrs_tpu_torch.core.config import FinetuneConfig
+    from samrs_tpu_torch.seg.frameworks import build_seg_model
+    from samrs_tpu_torch.train import optim, trainer
+
+    cfg = FinetuneConfig()
+    model = build_seg_model("vit_b", "upernet", FT_CLASSES, FT_SIZE, "cuda",
+                            torch.Generator(device="cuda").manual_seed(SEED + 4))
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    rng = np.random.default_rng(SEED + 5)
+    x = torch.from_numpy(rng.normal(size=(FT_BATCH, FT_SIZE, FT_SIZE, 3)).astype(np.float32)).cuda()
+    y = rng.integers(0, FT_CLASSES, (FT_BATCH, FT_SIZE, FT_SIZE))
+    y[:, :16] = 255  # some ignored pixels
+    y = torch.from_numpy(y).cuda()
+
+    model.eval()
+    with torch.no_grad():
+        reset_counts()
+        logits = model(x)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        model.use_kernels = False
+        logits_p = model(x)
+        model.use_kernels = True
+    err = rel_l2([logits], [logits_p])
+    want = {k: {"K10": VIT_DEPTH, "K11": VIT_DEPTH}.get(k, 0) for k in counts}
+    print(f"finetune eval forward (vit_b, {FT_BATCH} x {FT_SIZE}^2): launches {counts}; logits "
+          f"{tuple(logits.shape)} kernels vs plain rel_l2={err:.3e}", flush=True)
+    if counts != want:
+        raise RuntimeError(f"finetune eval forward launches {counts} != {want}")
+    if tuple(logits.shape) != (FT_BATCH, FT_SIZE, FT_SIZE, FT_CLASSES) or \
+            not torch.isfinite(logits).all():
+        raise RuntimeError(f"finetune logits {tuple(logits.shape)} or non-finite")
+    if not err <= EVAL_RTOL:
+        raise RuntimeError(f"finetune eval logits rel-L2 {err:.3e} > {EVAL_RTOL}")
+    del logits, logits_p
+
+    sched = optim.warmup_cosine_schedule(cfg.optim.lr, 1000, cfg.optim.warmup_iters)
+
+    def fresh_state():
+        model.load_state_dict(init)
+        opt = optim.Optimizer(model, sched, weight_decay=cfg.optim.weight_decay,
+                              grad_clip=cfg.optim.grad_clip, layer_decay=cfg.optim.layer_decay,
+                              num_layers=model.encoder.depth)
+        return trainer.TrainState(0, model, opt)
+
+    step = lambda state: trainer.finetune_step(state, x, y, cfg.seed)
+    compare_steps("finetune step", step_runs(model, fresh_state, step),
+                  {"K10": VIT_DEPTH, "K11": VIT_DEPTH})
+    timing = time_steps(model, fresh_state, step, "finetune step", FT_BATCH, f"{FT_SIZE}^2")
+    if profile:
+        profile_step(model, fresh_state, step, "finetune step")
+    del model, init, x, y
+    torch.cuda.empty_cache()
+    return timing
 
 
 def write_samrs_layout(root: str, n_train, n_val: int = 8, size: int = 256) -> None:
@@ -895,12 +1141,13 @@ class _Lines(logging.Handler):
         self.lines.append(record.getMessage())
 
 
-def pretrain_phase():
+def pretrain_phase(tmp: str):
     """``run_pretrain`` at its defaults (vit_b_rvsa + UperNet, 17/12/65 at
-    224^2) on a synthetic SAMRS layout: PRETRAIN_ITERS steps, then the
-    evaluation with a per-dataset mIoU line, ``last``/``best`` checkpoints
-    with their encoder copies, and a resume from ``last`` that restores the
-    step and the weights."""
+    224^2) on a synthetic SAMRS layout under `tmp`: PRETRAIN_ITERS steps,
+    then the evaluation with a per-dataset mIoU line, ``last``/``best``
+    checkpoints with their encoder copies, and a resume from ``last`` that
+    restores the step and the weights.  Returns the launches and the path of
+    ``best_encoder.pt``."""
     from samrs_tpu_torch.core.config import PretrainConfig
     from samrs_tpu_torch.train.pretrain import apply_optim_defaults, run_pretrain
 
@@ -908,61 +1155,191 @@ def pretrain_phase():
     log = logging.getLogger("samrs_tpu_torch.pretrain")
     log.addHandler(handler)
     log.setLevel(logging.INFO)
-    with tempfile.TemporaryDirectory() as tmp:
-        n_val = 8
-        write_samrs_layout(tmp, {"sota": 20, "sior": 15, "fast": 70}, n_val)
-        over = [f"data.root={tmp}", f"total_iters={PRETRAIN_ITERS}",
-                f"eval_interval={PRETRAIN_ITERS}", f"data.val_images={n_val}",
-                f"ckpt_dir={os.path.join(tmp, 'ckpt')}"]
-        cfg = apply_optim_defaults(PretrainConfig().override(over), over)
-        reset_counts()
-        t = time.perf_counter()
-        state = run_pretrain(cfg)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-        launches = read_counts()
-        evals = len(cfg.data.datasets) * -(-n_val // 8)  # eval forwards of 8 images
-        want = {k: 0 for k in launches}
-        want.update(K8f=PRETRAIN_ITERS * STEP_LAUNCHES["K8f"] + evals * RVSA_BLOCKS,
-                    K8b=PRETRAIN_ITERS * STEP_LAUNCHES["K8b"])
-        print(f"pretrain launches: {launches}", flush=True)
-        if launches != want:
-            raise RuntimeError(f"pretrain launches {launches} != {want}")
-        if state.step != PRETRAIN_ITERS:
-            raise RuntimeError(f"run_pretrain stopped at step {state.step}")
-        vals = [ln for ln in handler.lines if ln.startswith("val[")]
-        print("\n".join(["pretrain " + ln for ln in handler.lines]), flush=True)
-        if sorted(v.split("]")[0][4:] for v in vals) != sorted(cfg.data.datasets):
-            raise RuntimeError(f"per-dataset mIoU lines: {vals}")
-        for v in vals:
-            miou = float(v.split("mIoU ")[1].split()[0])
-            if not 0.0 <= miou <= 1.0:
-                raise RuntimeError(f"mIoU out of range: {v}")
-        files = sorted(os.listdir(cfg.ckpt_dir))
-        if not {"last.pt", "last_encoder.pt", "best.pt", "best_encoder.pt"} <= set(files):
-            raise RuntimeError(f"checkpoints written: {files}")
-        trained = {k: v.clone() for k, v in state.model.state_dict().items()}
-        del state
-        torch.cuda.empty_cache()
-        over2 = over + ["resume=last"]
-        cfg2 = apply_optim_defaults(PretrainConfig().override(over2), over2)
-        resumed = run_pretrain(cfg2)
-        same = all(torch.equal(resumed.model.state_dict()[k], v) for k, v in trained.items())
-        print(f"pretrain: {PRETRAIN_ITERS} steps + eval in {wall:.1f} s, checkpoints {files}, "
-              f"resumed at step {resumed.step}, weights restored {same}", flush=True)
-        if resumed.step != PRETRAIN_ITERS or not same:
-            raise RuntimeError("resume from last.pt did not restore the step and weights")
-        del resumed, trained
+    root = os.path.join(tmp, "samrs")
+    n_val = 8
+    write_samrs_layout(root, {"sota": 20, "sior": 15, "fast": 70}, n_val)
+    over = [f"data.root={root}", f"total_iters={PRETRAIN_ITERS}",
+            f"eval_interval={PRETRAIN_ITERS}", f"data.val_images={n_val}",
+            f"ckpt_dir={os.path.join(tmp, 'pretrain_ckpt')}"]
+    cfg = apply_optim_defaults(PretrainConfig().override(over), over)
+    reset_counts()
+    t = time.perf_counter()
+    state = run_pretrain(cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = read_counts()
+    evals = len(cfg.data.datasets) * -(-n_val // 8)  # eval forwards of 8 images
+    want = {k: 0 for k in launches}
+    want.update(K8f=PRETRAIN_ITERS * STEP_LAUNCHES["K8f"] + evals * RVSA_BLOCKS,
+                K8b=PRETRAIN_ITERS * STEP_LAUNCHES["K8b"],
+                K10=PRETRAIN_ITERS * STEP_LAUNCHES["K10"] + evals * FULL_BLOCKS,
+                K11=PRETRAIN_ITERS * STEP_LAUNCHES["K11"] + evals * VIT_DEPTH)
+    print(f"pretrain launches: {launches}", flush=True)
+    if launches != want:
+        raise RuntimeError(f"pretrain launches {launches} != {want}")
+    if state.step != PRETRAIN_ITERS:
+        raise RuntimeError(f"run_pretrain stopped at step {state.step}")
+    vals = [ln for ln in handler.lines if ln.startswith("val[")]
+    print("\n".join(["pretrain " + ln for ln in handler.lines]), flush=True)
     log.removeHandler(handler)
+    if sorted(v.split("]")[0][4:] for v in vals) != sorted(cfg.data.datasets):
+        raise RuntimeError(f"per-dataset mIoU lines: {vals}")
+    for v in vals:
+        miou = float(v.split("mIoU ")[1].split()[0])
+        if not 0.0 <= miou <= 1.0:
+            raise RuntimeError(f"mIoU out of range: {v}")
+    files = sorted(os.listdir(cfg.ckpt_dir))
+    if not {"last.pt", "last_encoder.pt", "best.pt", "best_encoder.pt"} <= set(files):
+        raise RuntimeError(f"checkpoints written: {files}")
+    trained = {k: v.clone() for k, v in state.model.state_dict().items()}
+    del state
     torch.cuda.empty_cache()
+    over2 = over + ["resume=last"]
+    cfg2 = apply_optim_defaults(PretrainConfig().override(over2), over2)
+    resumed = run_pretrain(cfg2)
+    same = all(torch.equal(resumed.model.state_dict()[k], v) for k, v in trained.items())
+    print(f"pretrain: {PRETRAIN_ITERS} steps + eval in {wall:.1f} s, checkpoints {files}, "
+          f"resumed at step {resumed.step}, weights restored {same}", flush=True)
+    if resumed.step != PRETRAIN_ITERS or not same:
+        raise RuntimeError("resume from last.pt did not restore the step and weights")
+    del resumed, trained
+    torch.cuda.empty_cache()
+    return launches, os.path.join(cfg.ckpt_dir, "best_encoder.pt")
+
+
+def write_potsdam_layout(root: str, n_train: int, n_val: int, hw=(600, 600)) -> None:
+    """A Potsdam tree under `root`/potsdam (FINETUNE_DATASETS' layout): seeded
+    noise images and RGB-coded labels uniform over ISPRS_PALETTE."""
+    from PIL import Image
+
+    from samrs_tpu_torch.data.datasets import ISPRS_PALETTE
+
+    rng = np.random.default_rng(SEED + 6)
+    base = os.path.join(root, "potsdam")
+    os.makedirs(os.path.join(base, "images"))
+    os.makedirs(os.path.join(base, "labels"))
+    names = [f"top_potsdam_{i:04d}" for i in range(n_train + n_val)]
+    for nm in names:
+        Image.fromarray(rng.integers(0, 256, (*hw, 3), dtype=np.uint8)).save(
+            os.path.join(base, "images", nm + ".png"))
+        Image.fromarray(ISPRS_PALETTE[rng.integers(0, len(ISPRS_PALETTE), hw)]).save(
+            os.path.join(base, "labels", nm + ".png"))
+    with open(os.path.join(base, "train.txt"), "w") as f:
+        f.write("\n".join(names[:n_train]))
+    with open(os.path.join(base, "valid.txt"), "w") as f:
+        f.write("\n".join(names[n_train:]))
+
+
+def finetune_driver_phase(tmp: str, pretrained: str):
+    """``run_finetune`` at the defaults (vit_b_rvsa + UperNet on Potsdam at
+    512^2, batch 8) for one epoch on a synthetic Potsdam layout, starting
+    from the pretrain phase's ``best_encoder.pt`` (the SEP -> finetune flow):
+    launches (K8, K10, K11), the epoch line with mIoU, the ``last`` / ``best``
+    checkpoints.  Returns the launches and the trained model."""
+    from samrs_tpu_torch.core.config import FinetuneConfig
+    from samrs_tpu_torch.train.finetune import run_finetune
+
+    write_potsdam_layout(tmp, FT_TRAIN, FT_VAL)
+    handler = _Lines()
+    log = logging.getLogger("samrs_tpu_torch.finetune")
+    log.addHandler(handler)
+    log.setLevel(logging.INFO)
+    over = [f"data.root={tmp}", "epochs=1", f"data.val_images={FT_VAL}", f"pretrained={pretrained}",
+            f"ckpt_dir={os.path.join(tmp, 'finetune_ckpt')}"]
+    cfg = FinetuneConfig().override(over)
+    reset_counts()
+    t = time.perf_counter()
+    state = run_finetune(cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = read_counts()
+    log.removeHandler(handler)
+    steps, evals = FT_TRAIN // FT_BATCH, -(-FT_VAL // 8)
+    want = {k: 0 for k in launches}
+    want.update(K8f=(steps + evals) * RVSA_BLOCKS, K8b=steps * RVSA_BLOCKS,
+                K10=(steps + evals) * FULL_BLOCKS, K11=(steps + evals) * VIT_DEPTH)
+    print("\n".join(["finetune " + ln for ln in handler.lines]), flush=True)
+    print(f"finetune launches: {launches} ({steps} steps + {evals} eval batch in {wall:.1f} s)",
+          flush=True)
+    if launches != want:
+        raise RuntimeError(f"finetune launches {launches} != {want}")
+    if state.step != steps:
+        raise RuntimeError(f"run_finetune stopped at step {state.step}")
+    epochs = [ln for ln in handler.lines if ln.startswith("epoch 1/1")]
+    if len(epochs) != 1 or not 0.0 <= float(epochs[0].split("mIoU ")[1].split()[0]) <= 1.0:
+        raise RuntimeError(f"epoch lines: {epochs}")
+    if not any(ln.startswith("loaded pretrained encoder") for ln in handler.lines):
+        raise RuntimeError("the SEP encoder was not grafted")
+    files = sorted(os.listdir(cfg.ckpt_dir))
+    if not {"last.pt", "best.pt"} <= set(files):
+        raise RuntimeError(f"finetune checkpoints written: {files}")
+    return launches, state.model
+
+
+def test_phase(tmp: str, model):
+    """``run_test`` with flip TTA on two seeded images of TEST_HW at crop 512
+    (a 2x2 crop grid with tail crops, one batch of 8 crops an image): launches,
+    gray and colour PNGs written and read back against the predictions, and
+    kernels-vs-plain probability maps."""
+    from PIL import Image
+
+    from samrs_tpu_torch.train.evaluate import (dataset_palette, make_crop_forward,
+                                                predict_probs, run_test)
+
+    rng = np.random.default_rng(SEED + 7)
+    data = [(rng.integers(0, 256, (*TEST_HW, 3), dtype=np.uint8),
+             rng.integers(0, FT_CLASSES, TEST_HW).astype(np.int32)) for _ in range(2)]
+    palette = dataset_palette("potsdam")
+    out_dir = os.path.join(tmp, "test_out")
+    reset_counts()
+    t = time.perf_counter()
+    scores = run_test(model, data, FT_CLASSES, FT_SIZE, save_dir=out_dir, palette=palette)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = read_counts()
+    fwd = 2 * len(data)  # one batch of crops an image, and its flip
+    want = {k: 0 for k in launches}
+    want.update(K8f=fwd * RVSA_BLOCKS, K10=fwd * FULL_BLOCKS, K11=fwd * VIT_DEPTH)
+    print(f"test launches: {launches}; {len(data)} images of {TEST_HW} in {wall:.2f} s; "
+          f"mIoU {scores['miou']:.4f}", flush=True)
+    if launches != want:
+        raise RuntimeError(f"test launches {launches} != {want}")
+    probs = {}
+    for use_kernels in (True, False):
+        model.use_kernels = use_kernels
+        fwd_fn = make_crop_forward(model)
+        probs[use_kernels] = [predict_probs(fwd_fn, img, FT_CLASSES, FT_SIZE) for img, _ in data]
+    model.use_kernels = True
+    err = rel_l2([torch.from_numpy(p) for p in probs[True]],
+                 [torch.from_numpy(p) for p in probs[False]])
+    agree = float(np.mean([(a.argmax(-1) == b.argmax(-1)).mean()
+                           for a, b in zip(probs[True], probs[False])]))
+    for i, prob in enumerate(probs[True]):
+        with Image.open(os.path.join(out_dir, "gray", f"{i:06d}.png")) as im:
+            gray = np.asarray(im)
+        with Image.open(os.path.join(out_dir, "color", f"{i:06d}.png")) as im:
+            color = np.asarray(im)
+        if gray.shape != TEST_HW or not np.array_equal(gray, prob.argmax(-1)):
+            raise RuntimeError(f"test image {i}: the gray PNG is not the prediction")
+        if not np.array_equal(color, palette[gray]):
+            raise RuntimeError(f"test image {i}: the colour PNG is not palette[gray]")
+        if not (np.isfinite(prob).all() and np.allclose(prob.sum(-1), 1.0, atol=1e-4)):
+            raise RuntimeError(f"test image {i}: probabilities are not a distribution")
+    print(f"test kernels vs plain: probability rel_l2={err:.3e}, label agreement {agree:.6f}",
+          flush=True)
+    if not err <= EVAL_RTOL:
+        raise RuntimeError(f"test probabilities rel-L2 {err:.3e} > {EVAL_RTOL}")
     return launches
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="profile one generate image per path and one train step")
+                    help="profile one generate image per path, one pretrain and one finetune step")
     args = ap.parse_args()
+    # the 94-image pretrain step peaks near 80 GB; growable segments keep the
+    # caching allocator from failing on fragmentation (the values are the same)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: torch.cuda.is_available() is False; this script runs on a GPU only")
     from samrs_tpu_torch.kernels import _build
@@ -993,11 +1370,25 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     results.update(k8_phase(gen))
+    results.update(k10_k11_phase(gen))
     train_step_phase(args.profile)
-    pre_launches = pretrain_phase()
-    for key in ("K8f", "K8b"):
+    finetune_step_phase(args.profile)
+    with tempfile.TemporaryDirectory() as tmp:
+        pre_launches, encoder_ckpt = pretrain_phase(tmp)
+        ft_launches, model = finetune_driver_phase(tmp, encoder_ckpt)
+        test_launches = test_phase(tmp, model)
+        del model
+    for key in ("K8f", "K8b"):  # K8's path: pretraining (and finetuning vit_b_rvsa)
         results[key]["launches"] = pre_launches[key]
         results[key]["launches_per_step"] = STEP_LAUNCHES[key]
+        results[key]["launches_finetune"] = ft_launches[key]
+        results[key]["launches_test"] = test_launches[key]
+    for key in ("K10", "K11"):  # this slice's path: finetuning, then the sliding-window test
+        results[key]["launches"] = ft_launches[key]
+        results[key]["launches_test"] = test_launches[key]
+        results[key]["launches_per_finetune_step_vit_b"] = VIT_DEPTH
+        results[key]["launches_pretrain"] = pre_launches[key]
+        results[key]["launches_per_pretrain_step"] = STEP_LAUNCHES[key]
     print(json.dumps({"kernels": list(results.values())}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -6,8 +6,9 @@ are not carried.  The port computes the encoder in bf16 on a CUDA device and
 in fp32 on the CPU, and its kernel switch is the explicit ``use_kernels``
 argument of ``build_sam``.  ``GenerateConfig`` mirrors the label-generation
 entry point's configuration; ``PretrainConfig`` (with ``OptimConfig`` and
-``DataConfig``) the pretraining entry point's, with the same fields, defaults and
-dotted ``a.b=value`` overrides (``Config.override``), plus ``device``.
+``DataConfig``) the pretraining entry point's and ``FinetuneConfig`` the
+finetuning entry point's, with the same fields, defaults and dotted
+``a.b=value`` overrides (``Config.override``), plus ``device``.
 """
 
 from __future__ import annotations
@@ -187,4 +188,22 @@ class PretrainConfig(Config):
     mesh_axes: Tuple[str, ...] = ("data",)
     m2f_num_points: Optional[int] = None
     remat: bool = False  # per-block activation checkpointing
+    device: str = "cuda"
+
+
+@dataclass
+class FinetuneConfig(Config):
+    """samrs_tpu.core.config.FinetuneConfig, plus ``device``."""
+
+    dataset: str = "potsdam"  # potsdam | vaihingen | isaid
+    backbone: str = "vit_b_rvsa"
+    decoder: str = "upernet"
+    epochs: int = 75
+    image_size: int = 512  # 512/512/896 per dataset (main_finetune.py:166-229)
+    batch_size: int = 8
+    seed: int = 2023
+    pretrained: Optional[str] = None  # the SEP encoder checkpoint ({tag}_encoder.pt)
+    data: DataConfig = field(default_factory=DataConfig)
+    optim: OptimConfig = field(default_factory=OptimConfig)
+    ckpt_dir: str = "checkpoints/finetune"
     device: str = "cuda"

@@ -7,8 +7,9 @@ lists, the last ``val_images`` of valid.txt as the val split).
 augments ``prefetch`` batches ahead of the step.  The epoch order is a
 permutation from ``np.random.default_rng(seed + epoch)``, the JAX package's
 order, so both packages see the same batches; the trainer moves each batch
-to the card through pinned memory.  The ISPRS and iSAID finetune datasets
-come with the finetune slice (ROADMAP.md).
+to the card through pinned memory.  ``ISPRSDataset`` (Potsdam / Vaihingen,
+RGB-coded labels in ``ISPRS_PALETTE``) and ``ISAIDDataset`` are the finetune
+datasets (ED/datasets.py:91-267).
 """
 
 from __future__ import annotations
@@ -60,6 +61,57 @@ class SegmentationDataset:
     def __getitem__(self, i: int) -> Tuple[np.ndarray, np.ndarray]:
         image = np.asarray(Image.open(self.files[i]).convert("RGB"))
         label = np.asarray(Image.open(self.targets[i]))
+        if self.transform is not None:
+            image, label = self.transform(image, label)
+        return normalize_image(image), label.astype(np.int32)
+
+
+ISPRS_PALETTE = np.array(
+    [
+        [255, 255, 255],  # impervious surface
+        [0, 0, 255],  # building
+        [0, 255, 255],  # low vegetation
+        [0, 255, 0],  # tree
+        [255, 255, 0],  # car
+        [255, 0, 0],  # clutter
+    ],
+    np.uint8,
+)
+
+
+def isprs_rgb_to_label(rgb: np.ndarray, ignore_label: int = 255) -> np.ndarray:
+    """RGB-coded ISPRS label -> class indices, `ignore_label` for any other
+    colour (ED/datasets.py:120-140)."""
+    out = np.full(rgb.shape[:2], ignore_label, np.uint8)
+    for i, c in enumerate(ISPRS_PALETTE):
+        out[np.all(rgb == c, axis=-1)] = i
+    return out
+
+
+class ISPRSDataset(SegmentationDataset):
+    """Potsdam / Vaihingen: RGB label PNGs -> 6 classes (ED/datasets.py:91-175)."""
+
+    NUM_CLASSES = 6
+
+    def __getitem__(self, i: int) -> Tuple[np.ndarray, np.ndarray]:
+        image = np.asarray(Image.open(self.files[i]).convert("RGB"))
+        label = isprs_rgb_to_label(np.asarray(Image.open(self.targets[i]).convert("RGB")))
+        if self.transform is not None:
+            image, label = self.transform(image, label)
+        return normalize_image(image), label.astype(np.int32)
+
+
+class ISAIDDataset(SegmentationDataset):
+    """iSAID: gray-encoded label PNGs (the first channel of an RGB one),
+    16 classes (ED/datasets.py:178-267)."""
+
+    NUM_CLASSES = 16
+
+    def __getitem__(self, i: int) -> Tuple[np.ndarray, np.ndarray]:
+        image = np.asarray(Image.open(self.files[i]).convert("RGB"))
+        label = np.asarray(Image.open(self.targets[i]))
+        if label.ndim == 3:
+            label = label[..., 0]
         if self.transform is not None:
             image, label = self.transform(image, label)
         return normalize_image(image), label.astype(np.int32)

@@ -41,6 +41,8 @@ _SIGNATURES = {
     "samrs_amg_post": ([_P] * 7 + [_I, _I, _I, _I, _F, _F, _P], _I),
     "samrs_bilinear_fwd": ([_P] * 5 + [_I] * 7 + [_P], _I),
     "samrs_bilinear_bwd": ([_P] * 9 + [_I] * 7 + [_P], _I),
+    "samrs_plain_attention": ([_P] * 4 + [_I, _I, _I, _F, _P], _I),
+    "samrs_fused_mlp": ([_P] * 6 + [_I, _I, _I, _P], _I),
 }
 
 _lib = None

@@ -1,5 +1,7 @@
 """K2: global attention of the encoder with the decomposed rel-pos bias,
-heads read in place from the raw ``(B, N, 3C)`` qkv tensor.
+heads read in place from the raw ``(B, N, 3C)`` qkv tensor; and K10, plain
+softmax attention in fp32 for the seg ViTs' full-attention blocks (at the
+end of this module).
 
 Replaces samrs_tpu/kernels/flash_attention.py::flash_attention_qkv_relpos
 (variant "m", Pallas call ``_qkv_flash_m_pallas``).  On a CUDA tensor the
@@ -102,3 +104,69 @@ def attention_qkv_relpos(qkv, Rh, Rw, hw: Tuple[int, int], scale: float, num_hea
     if not qkv.is_cuda:
         return attention_qkv_relpos_plain(qkv, Rh, Rw, hw, scale, num_heads)
     return attention_qkv_relpos_cuda(qkv, Rh, Rw, hw, scale, num_heads)
+
+
+# ---------------------------------------------------------------------------
+# K10: plain softmax attention, fp32 (the seg ViTs' full-attention blocks).
+#
+# Replaces samrs_tpu/kernels/flash_attention.py::flash_attention_plain
+# (Pallas call ``_plain_fwd_pallas``, :618).  On a CUDA tensor the forward
+# launches the hand-written online-softmax kernel of csrc/plain_attention.cu
+# (fp32 on the CUDA cores, bound by fp32 operations: 4 N^2 d per head); the
+# backward recomputes with ``full_attention_plain`` under autograd, as the JAX
+# package's ``_plain_bwd`` recomputes with its XLA oracle, and launches no
+# kernel.  On a CPU tensor it runs the plain version.
+# ---------------------------------------------------------------------------
+
+full_launches = 0  # CUDA launches of K10 (one per forward)
+
+_FULL_HEAD_DIMS = (64, 80)  # instantiated in csrc/plain_attention.cu
+
+
+def full_attention_plain(q, k, v, scale: float):
+    """Plain PyTorch version, JAX's ``attention_plain_xla``:
+    ``softmax((q * scale) @ k^T) @ v`` in fp32.  q, k, v (BH, N, d) -> (BH, N, d)."""
+    s = (q.float() * scale) @ k.float().transpose(-1, -2)
+    return s.softmax(-1) @ v.float()
+
+
+def full_attention_cuda(q, k, v, scale: float):
+    """The K10 kernel on contiguous fp32 CUDA ``q, k, v (BH, N, d)``."""
+    global full_launches
+    if q.dim() != 3:
+        raise ValueError(f"q: expected (BH, N, d), got {tuple(q.shape)}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _build.require_cuda(name, t, torch.float32, q.shape)
+    BH, N, d = q.shape
+    if d not in _FULL_HEAD_DIMS:
+        raise ValueError(f"K10 supports head_dim in {_FULL_HEAD_DIMS}, got {d}")
+    out = torch.empty_like(q)
+    _build.launch("samrs_plain_attention", _build.ptr(q), _build.ptr(k), _build.ptr(v),
+                  _build.ptr(out), BH, N, d, float(scale))
+    full_launches += 1
+    return out
+
+
+class _FullAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return full_attention_cuda(q, k, v, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = full_attention_plain(*leaves, ctx.scale)
+        return (*torch.autograd.grad(out, leaves, g), None)
+
+
+def full_attention(q, k, v, scale: float):
+    """K10 (JAX ``flash_attention_plain``): q, k, v (BH, N, d) -> (BH, N, d)
+    fp32.  The kernel for a CUDA tensor (backward: the plain version's VJP,
+    recomputed), the plain version for a CPU tensor."""
+    if not q.is_cuda:
+        return full_attention_plain(q, k, v, scale)
+    return _FullAttention.apply(q.float().contiguous(), k.float().contiguous(),
+                                v.float().contiguous(), float(scale))

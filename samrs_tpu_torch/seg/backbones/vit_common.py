@@ -1,7 +1,11 @@
 """Shared pieces of the plain-ViT and RVSA segmentation backbones (mirrors
 samrs_tpu/seg/backbones/vit_common.py).
 
-Tokens are NHWC; the neck returns NCHW maps for the decoders.  Module names
+Tokens are NHWC; the neck returns NCHW maps for the decoders.  With
+``use_kernels`` the MLPs run K11 (``kernels.fused_mlp.fused_mlp``) and the
+full-attention blocks without rel-pos run K10
+(``kernels.flash_attention.full_attention``); both wrappers take their plain
+version on a CPU tensor.  Module names
 follow the reference layout (ED/backbone/vit_win_rvsa_v3_wsz7.py): ``mlp.fc1``
 / ``mlp.fc2``, and the neck's ``fpn1.0`` (deconv), ``fpn1.1.ln`` (Norm2d),
 ``fpn1.3``, ``fpn2.0`` at the backbone's top level.
@@ -14,6 +18,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from samrs_tpu_torch.kernels import flash_attention, fused_mlp
 from samrs_tpu_torch.nn.layers import DropPath
 from samrs_tpu_torch.sam.image_encoder import add_decomposed_rel_pos
 
@@ -21,7 +26,8 @@ from samrs_tpu_torch.sam.image_encoder import add_decomposed_rel_pos
 class FullAttentionRelPos(nn.Module):
     """Global attention over the whole token grid, with the decomposed
     rel-pos bias when ``use_rel_pos`` (vit_common.py:22-74); RVSA's full
-    blocks define none (``use_rel_pos=False``).  fp32 logits and softmax."""
+    blocks define none (``use_rel_pos=False``) and go through K10 under
+    ``use_kernels``.  fp32 logits and softmax."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
                  input_size: Tuple[int, int] = (14, 14), use_rel_pos: bool = True) -> None:
@@ -42,25 +48,30 @@ class FullAttentionRelPos(nn.Module):
         hd = C // nH
         qkv = self.qkv(x).reshape(B, H * W, 3, nH, hd).permute(2, 0, 3, 1, 4)
         q, k, v = qkv.reshape(3, B * nH, H * W, hd).unbind(0)
-        attn = (q * self.scale) @ k.transpose(-1, -2)
-        if self.use_rel_pos:
+        if not self.use_rel_pos:
+            attend = flash_attention.full_attention if use_kernels \
+                else flash_attention.full_attention_plain
+            out = attend(q, k, v, self.scale)
+        else:
+            attn = (q * self.scale) @ k.transpose(-1, -2)
             attn = add_decomposed_rel_pos(attn, q, self.rel_pos_h, self.rel_pos_w, (H, W), (H, W))
-        out = attn.softmax(-1) @ v
+            out = attn.softmax(-1) @ v
         out = out.reshape(B, nH, H, W, hd).permute(0, 2, 3, 1, 4).reshape(B, H, W, C)
         return self.proj(out)
 
 
 class Mlp(nn.Module):
-    """fc1 -> erf GELU -> fc2 (the reference's timm Mlp)."""
+    """fc1 -> erf GELU -> fc2 (the reference's timm Mlp); K11 under
+    ``use_kernels``."""
 
     def __init__(self, dim: int, hidden: int) -> None:
         super().__init__()
         self.fc1 = nn.Linear(dim, hidden)
-        self.act = nn.GELU()
         self.fc2 = nn.Linear(hidden, dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(self.act(self.fc1(x)))
+    def forward(self, x: torch.Tensor, use_kernels: bool = True) -> torch.Tensor:
+        mlp = fused_mlp.fused_mlp if use_kernels else fused_mlp.fused_mlp_plain
+        return mlp(x, self.fc1.weight, self.fc1.bias, self.fc2.weight, self.fc2.bias)
 
 
 class ViTBlock(nn.Module):
@@ -88,7 +99,7 @@ class ViTBlock(nn.Module):
         if self.gamma_1 is not None:
             y = self.gamma_1 * y
         x = x + self.drop_path(y, generator)
-        y = self.mlp(self.norm2(x))
+        y = self.mlp(self.norm2(x), use_kernels)
         if self.gamma_2 is not None:
             y = self.gamma_2 * y
         return x + self.drop_path(y, generator)

@@ -2,11 +2,15 @@
 state dict.
 
 ``jax_params_to_torch(params, batch_stats)`` takes the flax ``params`` and
-``batch_stats`` of a ``MultiHeadSegModel`` (nested dicts of numpy arrays)
-and returns a state dict that the port's ``MultiHeadSegModel`` loads
-strictly.  The name mapping is this module's own copy of the one in
-samrs_tpu/seg/port.py (``load_torch_rvsa_backbone``, read in the other
-direction); the port does not import the JAX package.
+``batch_stats`` of a ``MultiHeadSegModel`` or a ``SegModel`` (nested dicts of
+numpy arrays) and returns a state dict that the port's model of the same
+kind loads strictly.  The name mapping is this module's own copy of the one
+in samrs_tpu/seg/port.py (``load_torch_rvsa_backbone`` and
+``load_torch_vitseg_backbone``, read in the other direction); the port does
+not import the JAX package.  ViTSeg's flax names are inline
+(``blocks_{i}_norm1``, ``blocks_{i}_attn/qkv``, ``blocks_{i}_mlp/lin1``)
+where RVSA's are nested (``blocks_{i}/norm1``); both map to
+``blocks.{i}.norm1``.
 
 Layout conversions (flax -> torch):
   dense   kernel (in, out)        -> weight (out, in)
@@ -31,7 +35,7 @@ _RENAMES: Tuple[Tuple[str, str], ...] = (
     (r"^encoder/neck/fpn1_norm$", "encoder.fpn1.1.ln"),
     (r"^encoder/neck/fpn1_deconv2$", "encoder.fpn1.3"),
     (r"^encoder/neck/fpn2_deconv$", "encoder.fpn2.0"),
-    (r"^encoder/blocks_(\d+)/", r"encoder.blocks.\1."),
+    (r"^encoder/blocks_(\d+)[/_]", r"encoder.blocks.\1."),
     (r"mlp/lin1$", "mlp.fc1"),
     (r"mlp/lin2$", "mlp.fc2"),
     (r"attn/sampling_(offsets|scales|angles)$", r"attn.sampling_\1.2"),

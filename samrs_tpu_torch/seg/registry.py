@@ -12,6 +12,12 @@ from typing import Any, Callable, Dict, Sequence
 from torch import nn
 
 
+def _vit_b(**kw) -> nn.Module:
+    from samrs_tpu_torch.seg.backbones.vit import vit_b
+
+    return vit_b(**kw)
+
+
 def _rvsa(name: str) -> Callable[..., nn.Module]:
     def build(**kw):
         from samrs_tpu_torch.seg.backbones import rvsa
@@ -22,6 +28,7 @@ def _rvsa(name: str) -> Callable[..., nn.Module]:
 
 
 BACKBONES: Dict[str, Callable[..., nn.Module]] = {
+    "vit_b": _vit_b,
     "vit_b_rvsa": _rvsa("vit_b_rvsa"),
     "vit_l_rvsa": _rvsa("vit_l_rvsa"),
     "vit_h_rvsa": _rvsa("vit_h_rvsa"),

@@ -141,6 +141,7 @@ class Optimizer:
 # Per-backbone optimizer defaults of the reference's zoo (ED/main_pretrain.py:329-409);
 # the rows of samrs_tpu/train/optim.py's table for the backbones the port has.
 BACKBONE_OPTIM_DEFAULTS: Dict[str, Dict[str, Any]] = {
+    "vit_b": dict(lr=6e-5, weight_decay=0.05, layer_decay=0.9),
     "vit_b_rvsa": dict(lr=6e-5, weight_decay=0.05, layer_decay=0.9),
     "vit_l_rvsa": dict(lr=6e-5, weight_decay=0.05, layer_decay=0.9),
     "vit_h_rvsa": dict(lr=6e-5, weight_decay=0.05, layer_decay=0.9),

@@ -1,9 +1,10 @@
-"""Trainer core: the loss, the pretrain step and the eval step (mirrors
-samrs_tpu/train/trainer.py; reference ED/main_pretrain.py:567-625 and
-:463-556).
+"""Trainer core: the loss, the pretrain and finetune steps and the eval step
+(mirrors samrs_tpu/train/trainer.py; reference ED/main_pretrain.py:567-625,
+:463-556 and ED/main_finetune.py:536-592).
 
-One step sums the per-dataset cross-entropies (ignore label 255) over the
-heads, runs one backward, clips and updates.  Dropout and drop-path draw
+A pretrain step sums the per-dataset cross-entropies (ignore label 255) over
+the heads, a finetune step takes the one head's; each runs one backward,
+clips and updates.  Dropout and drop-path draw
 from a generator seeded from (seed, step), so a step is reproducible.
 """
 
@@ -64,10 +65,25 @@ def pretrain_step(state: TrainState, batches: Sequence[Optional[Tuple[torch.Tens
             **{f"loss_{i}": l.detach() for i, l in enumerate(losses)}}
 
 
+def finetune_step(state: TrainState, x: torch.Tensor, y: torch.Tensor,
+                  seed: int) -> Dict[str, torch.Tensor]:
+    """One single-head step in place (JAX ``make_finetune_step``).  Returns
+    the loss and the pre-clip gradient norm as device tensors."""
+    model, opt = state.model, state.optimizer
+    model.train()
+    loss = cross_entropy_ignore(model(x, generator=step_generator(seed, state.step, x.device)), y)
+    opt.zero_grad()
+    loss.backward()
+    grad_norm = opt.step(state.step)
+    state.step += 1
+    return {"loss": loss.detach(), "grad_norm": grad_norm}
+
+
 @torch.no_grad()
 def eval_step(model: nn.Module, x: torch.Tensor, y: torch.Tensor, num_classes: int,
-              head_idx: int):
-    """Per-batch (intersection, target, union) histograms of one head."""
+              head_idx: Optional[int] = None):
+    """Per-batch (intersection, target, union) histograms of head `head_idx`
+    of a multi-head model, or of a single-head model (None)."""
     model.eval()
-    pred = model.forward_one(x, head_idx).argmax(-1)
-    return intersection_and_union(pred, y, num_classes)
+    logits = model(x) if head_idx is None else model.forward_one(x, head_idx)
+    return intersection_and_union(logits.argmax(-1), y, num_classes)

@@ -206,10 +206,12 @@ def test_predictor_single_prompt_matches_jax(tiny):
 
 
 def test_port_imports_no_jax():
+    """Every module of the port, and chip_smoke.py, pulls in no JAX."""
     code = (
         "import importlib, pkgutil, sys, samrs_tpu_torch\n"
         "for m in pkgutil.walk_packages(samrs_tpu_torch.__path__, 'samrs_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
         "bad = [k for k in sys.modules\n"
         "       if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'samrs_tpu')]\n"
         "assert not bad, bad\n"

@@ -1,8 +1,10 @@
 """PyTorch port of the segmentation model (samrs_tpu_torch.seg, K8) vs the
 JAX package, on CPU in fp32.
 
-K8's plain version is held against the JAX Pallas kernel in interpret mode,
-forward and VJP.  The RVSA attention, the RVSA trunk with its neck, and the
+K8's, K10's and K11's plain versions are held against the JAX Pallas
+kernels in interpret mode, forward and VJP; the K10 / K11 autograd Functions'
+backward (the plain version's VJP, recomputed) runs here with the kernel's
+forward replaced by its plain version.  The RVSA attention, the RVSA trunk with its neck, and the
 UperNet head run on flax variables whose every leaf is drawn with numpy
 (none left at zero: the sampling nets too, so the sampling coordinates are
 generic), bridged with ``jax_params_to_torch`` and loaded strictly.
@@ -16,13 +18,16 @@ import pytest
 import torch
 
 from samrs_tpu.kernels.bilinear_gather import grid_sample_pallas
+from samrs_tpu.kernels.flash_attention import flash_attention_plain as jax_flash_plain
+from samrs_tpu.kernels.fused_mlp import fused_mlp as jax_fused_mlp
+from samrs_tpu.nn import layers as jax_layers
 from samrs_tpu.kernels.bilinear_gather import sample_weighted as jax_sample_weighted
 from samrs_tpu.seg.backbones.rvsa import RotatedVariedSizeWindowAttention as JaxRVSA
 from samrs_tpu.seg.backbones.rvsa import ViTRVSA as JaxViTRVSA
 from samrs_tpu.seg.backbones.vit_common import FullAttentionRelPos as JaxFullAttention
 from samrs_tpu.seg.decoders.upernet import UPerHead as JaxUPerHead
 from samrs_tpu.seg.port import load_torch_rvsa_backbone
-from samrs_tpu_torch.kernels import bilinear_gather
+from samrs_tpu_torch.kernels import bilinear_gather, flash_attention, fused_mlp
 from samrs_tpu_torch.seg.backbones.rvsa import RotatedVariedSizeWindowAttention, ViTRVSA
 from samrs_tpu_torch.seg.backbones.vit_common import FullAttentionRelPos
 from samrs_tpu_torch.seg.decoders.upernet import UPerHead
@@ -153,6 +158,101 @@ def test_k8_cuda_path_refuses_cpu_tensors():
         bilinear_gather.sample_weighted_fwd_cuda(xg, f, f, f, 4)
 
 
+# ------------------------------------------------------------ K10, K11 ----
+
+
+def _vjp_port(fn, arrays, dout):
+    ts = [torch.from_numpy(a).requires_grad_() for a in arrays]
+    out = fn(*ts)
+    out.backward(torch.from_numpy(dout))
+    return [out.detach().numpy()] + [t.grad.numpy() for t in ts]
+
+
+def _vjp_jax(fn, arrays, dout):
+    out, vjp = jax.vjp(fn, *map(jnp.asarray, arrays))
+    return [np.asarray(out)] + [np.asarray(g) for g in vjp(jnp.asarray(dout))]
+
+
+def _k10_inputs(N, d, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=(3, N, d)).astype(np.float32) for _ in range(4)]
+
+
+@pytest.mark.parametrize("N,d", [(64, 16), (256, 64), (196, 64), (196, 16)])
+def test_k10_plain_matches_jax(N, d):
+    """K10's plain version against ``flash_attention_plain``: the Pallas
+    kernel in interpret mode where N has a query tile (64, 256), the XLA
+    oracle where it has none (196); forward and VJP, fp32 at 1e-5."""
+    q, k, v, dout = _k10_inputs(N, d, N + d)
+    scale = d ** -0.5
+    want = _vjp_jax(lambda *a: jax_flash_plain(*a, scale, interpret=True), (q, k, v), dout)
+    got = _vjp_port(lambda *a: flash_attention.full_attention(*a, scale), (q, k, v), dout)
+    for name, g, w in zip(("out", "dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape, name
+        assert _rel_l2(g, w) <= 1e-5, (name, _rel_l2(g, w))
+
+
+def test_k10_autograd_function_backward(monkeypatch):
+    """The kernel path's autograd Function: the forward as launched (here its
+    plain version), the backward the plain version's VJP, recomputed."""
+    monkeypatch.setattr(flash_attention, "full_attention_cuda", flash_attention.full_attention_plain)
+    q, k, v, dout = _k10_inputs(70, 16, 3)
+    scale = 0.25
+    got = _vjp_port(lambda *a: flash_attention._FullAttention.apply(*a, scale), (q, k, v), dout)
+    want = _vjp_port(lambda *a: flash_attention.full_attention_plain(*a, scale), (q, k, v), dout)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=1e-6, atol=1e-7)
+
+
+def _k11_inputs(lead, C, M, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(*lead, C)).astype(np.float32)
+    w1 = (rng.normal(size=(M, C)) * C ** -0.5).astype(np.float32)   # nn.Linear layout
+    b1 = (0.1 * rng.normal(size=M)).astype(np.float32)
+    w2 = (rng.normal(size=(C, M)) * M ** -0.5).astype(np.float32)
+    b2 = (0.1 * rng.normal(size=C)).astype(np.float32)
+    dout = rng.normal(size=(*lead, C)).astype(np.float32)
+    return (x, w1, b1, w2, b2), dout
+
+
+@pytest.mark.parametrize("lead", [(2, 37), (5, 3, 7)])
+def test_k11_plain_matches_jax(lead):
+    """K11's plain version against ``fused_mlp(dtype=float32)``: the Pallas
+    kernel in interpret mode, T = 74 or 105 tokens in leading dims (not a
+    multiple of its token tile: the pad path); forward and VJP at 2e-6 (the
+    Pallas body's Abramowitz-Stegun erf is within 1.5e-7 of erf)."""
+    (x, w1, b1, w2, b2), dout = _k11_inputs(lead, 32, 256, len(lead))
+
+    def jax_fn(x, w1, b1, w2, b2):  # flax layout: kernels (in, out)
+        return jax_fused_mlp(x, w1.T, b1, w2.T, b2, dtype=jnp.float32, interpret=True)
+
+    want = _vjp_jax(jax_fn, (x, w1, b1, w2, b2), dout)
+    got = _vjp_port(fused_mlp.fused_mlp, (x, w1, b1, w2, b2), dout)
+    for name, g, w in zip(("out", "dx", "dw1", "db1", "dw2", "db2"), got, want):
+        assert g.shape == w.shape, name
+        assert _rel_l2(g, w) <= 2e-6, (name, _rel_l2(g, w))
+
+
+def test_k11_autograd_function_backward(monkeypatch):
+    """The kernel path's autograd Function on (T, C): the hidden layer
+    recomputed, dW2 / db2 / dA by hand, the rest through autograd."""
+    monkeypatch.setattr(fused_mlp, "fused_mlp_cuda", fused_mlp.fused_mlp_plain)
+    args, dout = _k11_inputs((45,), 16, 128, 9)
+    got = _vjp_port(fused_mlp._FusedMLP.apply, args, dout)
+    want = _vjp_port(fused_mlp.fused_mlp_plain, args, dout)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-6)
+
+
+def test_k10_k11_cuda_paths_refuse_cpu_tensors():
+    t = torch.zeros(2, 8, 64)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        flash_attention.full_attention_cuda(t, t, t, 0.125)
+    x, w1, w2 = torch.zeros(4, 768), torch.zeros(3072, 768), torch.zeros(768, 3072)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fused_mlp.fused_mlp_cuda(x, w1, torch.zeros(3072), w2, torch.zeros(768))
+
+
 # ------------------------------------------------------- RVSA, UperNet ----
 
 
@@ -223,6 +323,26 @@ def test_vit_rvsa_matches_jax(tiny_rvsa, size):
         g = g.permute(0, 2, 3, 1).numpy()  # the port's maps are NCHW
         assert g.shape == w.shape, i
         assert _rel_l2(g, w) <= TOL, (i, _rel_l2(g, w))
+
+
+@pytest.mark.parametrize("use_kernels", [True, False])
+def test_vit_rvsa_k10_k11_routing_matches_jax_flash_fused(tiny_rvsa, use_kernels):
+    """The trunk with its full block through K10 and its MLPs through K11
+    (the plain versions here) against flax with the process defaults set to
+    "flash" / "fused"; and the port's plain routing against the same."""
+    jm, jvars, model = tiny_rvsa
+    x = np.random.default_rng(31).normal(size=(2, 224, 224, 3)).astype(np.float32)
+    try:
+        jax_layers.set_default_attn_impl("flash")
+        jax_layers.set_default_mlp_impl("fused")
+        want = jax.jit(lambda v, a: jm.apply(v, a))(jvars, jnp.asarray(x))
+    finally:
+        jax_layers.set_default_attn_impl("xla")
+        jax_layers.set_default_mlp_impl("xla")
+    with torch.no_grad():
+        got = model(torch.from_numpy(x), use_kernels=use_kernels)
+    for i, (g, w) in enumerate(zip(got[1:], want[1:])):
+        assert _rel_l2(g.permute(0, 2, 3, 1).numpy(), w) <= TOL, i
 
 
 def test_rvsa_bridge_round_trip(tiny_rvsa):
