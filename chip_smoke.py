@@ -48,6 +48,17 @@ checkout; it has no CPU path and raises on any failure.  Phases:
    exact integers; rel-L2 of out, dxg, dfx, dfy, dmask <= 1e-5 (dxg of the
    bf16 map <= 1e-2, integer-grid dfx <= 1e-6), timed against the plain
    version and ``F.grid_sample`` (forward, backward, both), with the bound;
+   also at Mask2Former's shapes: one MSDeformAttn level (BG 520, 28x28, Gc
+   32, 1029 queries, 4 taps) and the shared matching sample (BG 65, 56x56,
+   Gc 100 and 37, 12544 points);
+5b. K9 phase: K9 forward and backward (dimg, dfx, dfy) against
+   ``point_sample_plain`` at the FAST head's point losses (6500 masks of
+   56x56 at 12544 points and at the 37632 candidates), on a 256x256 map (the
+   kernel's device-memory path), on exact integer points and off the map,
+   rel-L2 <= 1e-5, timed against the plain version and ``F.grid_sample`` on
+   the one-channel maps, with the bound; then the MSDeformAttn wrapper
+   (three K8 launches) forward and backward against its plain route at the
+   pixel decoder's FAST shapes (rel-L2 <= 1e-5);
 6. K10 / K11 phase: K10 (plain attention) and K11 (fused MLP) in fp32
    against their plain versions, forward and the autograd backward
    (rel-L2 <= 1e-5), at vit_b 512^2 batch 8 (BH 96, N 1024; T 8192, C 768,
@@ -64,6 +75,13 @@ checkout; it has no CPU path and raises on any failure.  Phases:
    within 3x the control's (UperNet's BatchNorms amplify any change of fp32
    summation order ~1e3x at initialisation; the zero-gradient neck biases
    printed apart); then warm s/step, img/s and peak memory of both;
+7b. Mask2Former step phase: vit_b_rvsa + Mask2Former at full width and
+   depth, seeded init, the same 17/12/65 batch shape, m2f_num_points 12544:
+   one step with the kernels (K8 138 + 78, K9 90 + 30, K10 12, K11 36
+   launches), the plain versions and the control, judged by the rule of
+   phase 7; the attention-mask bits and point-sampled assignments that
+   differ between the paths (eval forwards); s/step, img/s and peak memory
+   of both paths; the Hungarian assignment's host time in a step;
 8. finetune-step phase: SegModel(vit_b, upernet, 6 classes, 512^2) at full
    width and depth, seeded init, batch 8: eval-mode logits kernels vs plain
    rel-L2 <= 1e-5 (K10 12, K11 12 launches), one finetune step by the rule
@@ -72,7 +90,9 @@ checkout; it has no CPU path and raises on any failure.  Phases:
    synthetic SAMRS layout (DATASET_LAYOUT's trees, noise images, uniform
    labels): launches, the step count, one mIoU line per dataset, ``last`` /
    ``best`` checkpoints with encoder copies, and a resume from ``last`` that
-   restores the step and the weights;
+   restores the step and the weights; then the same with
+   ``decoder=mask2former m2f_num_points=12544`` (launches per step as in
+   phase 7b plus K8 26, K10 4, K11 12 an eval forward);
 10. finetune-driver phase: ``run_finetune`` at the defaults (vit_b_rvsa +
    UperNet, Potsdam, 512^2, batch 8) for one epoch (2 steps, one eval batch)
    on a synthetic Potsdam layout with RGB labels in ISPRS_PALETTE, grafting
@@ -83,13 +103,14 @@ checkout; it has no CPU path and raises on any failure.  Phases:
    gray and colour PNGs read back against the prediction and the palette,
    and kernels-vs-plain probability maps (rel-L2 <= 1e-5);
 12. prints one JSON line of per-kernel results (launches: K1-K7 from the
-   generate phase, K8 from the pretrain phase with its per-step count, K10
-   and K11 from the finetune driver with their per-step counts), then the
-   card's name and power limit and the final status line.
+   generate phase, K8 from the pretrain phase with its per-step count, K9
+   from the Mask2Former pretrain phase, K10 and K11 from the finetune driver
+   with their per-step counts), then the card's name and power limit and the
+   final status line.
 
 ``--profile`` adds a torch.profiler table of one warm generate image with
-the kernels and with the plain versions, and of one warm pretrain step and
-one warm finetune step with the kernels (device time by operation, device
+the kernels and with the plain versions, and of one warm pretrain step (UperNet
+and Mask2Former) and one warm finetune step with the kernels (device time by operation, device
 busy share of the wall time).  ``chip_drift.py`` shows where the generate path's two paths part.
 """
 
@@ -118,7 +139,7 @@ GEN_HW = (800, 800)
 GEN_BOXES = 100
 GEN_BOX_PX = (16, 240)  # box sides, uniform; not taken from a DIOR statistic
 MAIN_LAUNCHES = {"K1": 28, "K2": 4, "K3": 32, "K4": 1, "K5": 2, "K6": 1, "K7": 0, "K8f": 0,
-                 "K8b": 0, "K10": 0, "K11": 0}
+                 "K8b": 0, "K9f": 0, "K9b": 0, "K10": 0, "K11": 0}
 GEN_LAUNCHES = {**MAIN_LAUNCHES, "K7": 4}
 # SEP pretraining: vit_b_rvsa + UperNet, 224^2, heads SOTA / SIOR / FAST
 TRAIN_BATCH = (17, 12, 65)     # proportional_batch_sizes(..., 96): floors of the subset shares
@@ -130,6 +151,17 @@ VIT_DEPTH = 12                 # blocks (and MLPs: K11) of vit_b and vit_b_rvsa
 STEP_LAUNCHES = {"K8f": RVSA_BLOCKS * 3, "K8b": RVSA_BLOCKS * 3, "K10": FULL_BLOCKS * 3,
                  "K11": VIT_DEPTH * 3}
 PRETRAIN_ITERS = 3
+# Mask2Former pretraining (decoder=mask2former): 6 MSDeformAttn layers x 3 levels through K8,
+# 10 decoder outputs a head, each with the shared matching sample (K8) of its masks and of
+# the gt masks, and K9 for the candidates, the prediction (backward too) and the target
+M2F_POINTS = 12544             # m2f_num_points (mmdet's; samrs_tpu/core/config.py:310-312)
+M2F_OUTPUTS = 10               # the initial queries' and 9 decoder layers' predictions
+MSDA_CALLS = 6 * 3             # K8 launches of one pixel-decoder forward
+M2F_STEP_LAUNCHES = {
+    "K8f": 3 * (RVSA_BLOCKS + MSDA_CALLS + 2 * M2F_OUTPUTS), "K8b": 3 * (RVSA_BLOCKS + MSDA_CALLS),
+    "K9f": 3 * 3 * M2F_OUTPUTS, "K9b": 3 * M2F_OUTPUTS, "K10": FULL_BLOCKS * 3, "K11": VIT_DEPTH * 3}
+M2F_EVAL_LAUNCHES = {"K8f": RVSA_BLOCKS + MSDA_CALLS, "K10": FULL_BLOCKS, "K11": VIT_DEPTH}
+K9_RTOL = 1e-5                 # K9 vs its plain version: summation order (dimg by atomics)
 K8_RTOL = 1e-5                 # fp32 gather, kernel vs plain: summation order and atomics only
 K8_BF16_DXG_RTOL = 1e-2        # dxg returned in bf16: one bf16 rounding of the same fp32 sum
 K8_INT_RTOL = 1e-6             # taps on exact integers: dfx of the one-sided floor formula
@@ -164,7 +196,8 @@ def counters():
             "K3": (fused_mlp, "launches"), "K4": (fused_twoway, "kv_launches"),
             "K5": (fused_twoway, "i2t_launches"), "K6": (fused_upscale, "launches"),
             "K7": (amg_post, "launches"), "K8f": (bilinear_gather, "fwd_launches"),
-            "K8b": (bilinear_gather, "bwd_launches"), "K10": (flash_attention, "full_launches"),
+            "K8b": (bilinear_gather, "bwd_launches"), "K9f": (bilinear_gather, "ps_fwd_launches"),
+            "K9b": (bilinear_gather, "ps_bwd_launches"), "K10": (flash_attention, "full_launches"),
             "K11": (fused_mlp, "mlp_launches")}
 
 
@@ -439,7 +472,14 @@ def k8_phase(gen):
              ("rvsa_bf16", BG, 14, 14, 128, 196, 1, torch.bfloat16, "window"),
              ("rvsa_gc64", BG, 14, 14, 64, 196, 1, torch.float32, "window"),
              ("dcnv3", 12 * 4, 56, 56, 16, 56 * 56, 9, torch.float32, "deform"),
-             ("identity", BG, 14, 14, 128, 196, 1, torch.float32, "integer")]
+             ("identity", BG, 14, 14, 128, 196, 1, torch.float32, "integer"),
+             # Mask2Former at the FAST head: one MSDeformAttn level (65 x 8 heads, the 28^2
+             # level, head dim 32, 1029 queries, 4 points) and the shared matching sample
+             # of the 100 mask logits and of the 37 gt masks at 12544 points
+             ("msda_l28", TRAIN_BATCH[2] * 8, 28, 28, 32, 1029, 4, torch.float32, "window"),
+             ("shared_masks", TRAIN_BATCH[2], 56, 56, 100, M2F_POINTS, 1, torch.float32,
+              "window"),
+             ("shared_gt", TRAIN_BATCH[2], 56, 56, 37, M2F_POINTS, 1, torch.float32, "window")]
     names = ("out", "dxg", "dfx", "dfy", "dmask")
     out = {}
     for key, BGc, H, W, Gc, P, K, dtype, coords in cases:
@@ -499,21 +539,167 @@ def k8_phase(gen):
         torch.cuda.empty_cache()
     r = out["rvsa"]
     common = dict(route="cuda", source="samrs_tpu_torch/csrc/bilinear_gather.cu")
-    extra = lambda d: {f"{k}_ms": out[k][f"{d}_ms"] for k in ("rvsa_bf16", "rvsa_gc64", "dcnv3")}
+    extra = lambda d: {f"{k}_ms": out[k][f"{d}_ms"] for k in (
+        "rvsa_bf16", "rvsa_gc64", "dcnv3", "msda_l28", "shared_masks", "shared_gt")}
+    extra_bound = lambda d: {f"{k}_bound_ms": out[k][f"{d}_bound"][0] for k in (
+        "msda_l28", "shared_masks", "shared_gt")}
     fwd = dict(name="K8 fwd weighted bilinear gather (RVSA FAST head: BG 780, 14x14, Gc 128, "
-                    "K 1, fp32; bf16 / Gc 64 / DCNv3 shapes in *_ms)",
+                    "K 1, fp32; bf16 / Gc 64 / DCNv3 shapes, Mask2Former's MSDA level "
+                    "(BG 520, 28x28, Gc 32, P 1029, K 4) and shared point sample (BG 65, "
+                    "56x56, Gc 100 / 37, P 12544) in *_ms)",
                replaces="samrs_tpu/kernels/bilinear_gather.py:386", **common,
                max_abs_err=r["max_abs_err"], ms=r["fwd_ms"],
                plain_ms=r["plain_fwd_ms"], bound_ms=r["fwd_bound"][0],
-               bound_by=r["fwd_bound"][1], library_ms=r["lib"]["fwd"], **extra("fwd"))
+               bound_by=r["fwd_bound"][1], library_ms=r["lib"]["fwd"], **extra("fwd"),
+               **extra_bound("fwd"))
     bwd = dict(name="K8 bwd weighted bilinear gather (dxg, dfx, dfy, dmask; same shapes; "
                     "library_ms: F.grid_sample backward, library_fwd_bwd_ms: forward + backward)",
                replaces="samrs_tpu/kernels/bilinear_gather.py:467", **common,
                max_abs_err=r["max_abs_err"], ms=r["bwd_ms"],
                plain_ms=r["plain_bwd_ms"], bound_ms=r["bwd_bound"][0],
                bound_by=r["bwd_bound"][1], library_ms=r["lib"]["bwd"],
-               library_fwd_bwd_ms=r["lib"]["fwd_bwd"], **extra("bwd"))
+               library_fwd_bwd_ms=r["lib"]["fwd_bwd"], **extra("bwd"), **extra_bound("bwd"))
     return {"K8f": fwd, "K8b": bwd}
+
+
+def k9_case(gen, N, H, W, K, coords):
+    """Seeded inputs of one K9 call: img (N, H, W) fp32; fx, fy, dout (N, K).
+    coords: "loss" (x * W - 0.5 for x uniform in [0, 1), as the point loss
+    draws them), "integer" (pixel centres, some on the last row and column
+    and one off each side) or "off" (a margin of 3 pixels off every side)."""
+    dev = "cuda"
+    img = torch.randn(N, H, W, generator=gen, device=dev)
+    u = lambda: torch.rand(N, K, generator=gen, device=dev)
+    if coords == "loss":
+        fx, fy = u() * W - 0.5, u() * H - 0.5
+    elif coords == "integer":
+        fx = torch.floor(u() * (W + 2)) - 1
+        fy = torch.floor(u() * (H + 2)) - 1
+    else:
+        fx, fy = u() * (W + 6) - 3.5, u() * (H + 6) - 3.5
+    return img, fx, fy, torch.randn(N, K, generator=gen, device=dev)
+
+
+def k9_phase(gen):
+    """K9 forward and backward against point_sample_plain on the same inputs:
+    the FAST head's point losses (6500 masks of 56x56 at 12544 points and at
+    the 37632 uncertainty candidates), a map above shared memory (256x256:
+    the kernel's device-memory path), points on exact integers and points
+    off the map; timed against the plain version and F.grid_sample (one
+    channel, align_corners=False), with the bound."""
+    from samrs_tpu_torch.kernels import bilinear_gather as bg
+
+    N = TRAIN_BATCH[2] * 100
+    cases = [("fast", N, 56, 56, M2F_POINTS, "loss"), ("fast_candidates", N, 56, 56, 3 * M2F_POINTS,
+                                                        "loss"),
+             ("map256", 300, 256, 256, M2F_POINTS, "loss"), ("integer", 650, 56, 56, 4096, "integer"),
+             ("off_map", 650, 56, 56, 4096, "off"), ("integer_map256", 40, 256, 256, 4096, "integer")]
+    names = ("out", "dimg", "dfx", "dfy")
+    out = {}
+    for key, Nc, H, W, K, coords in cases:
+        img, fx, fy, dout = k9_case(gen, Nc, H, W, K, coords)
+        got = [bg.point_sample_fwd_cuda(img, fx, fy)]
+        got += list(bg.point_sample_bwd_cuda(img, fx, fy, dout))
+        torch.cuda.synchronize()
+        want = [bg.point_sample_plain_fwd(img, fx, fy)]
+        want += list(bg.point_sample_plain_bwd(img, fx, fy, dout))
+        errs = {n: rel_l2([g], [w]) for n, g, w in zip(names, got, want)}
+        max_abs = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        fwd_bytes = 4 * (Nc * H * W + 3 * Nc * K)
+        bwd_bytes = 4 * (2 * Nc * H * W + 5 * Nc * K)
+        fb, fby = bound(fwd_bytes, 10 * Nc * K, "fp32")
+        bb, bby = bound(bwd_bytes, 24 * Nc * K, "fp32")
+        fwd_ms = cuda_ms(lambda: bg.point_sample_fwd_cuda(img, fx, fy))
+        bwd_ms = cuda_ms(lambda: bg.point_sample_bwd_cuda(img, fx, fy, dout))
+        plain_fwd_ms = cuda_ms(lambda: bg.point_sample_plain_fwd(img, fx, fy))
+        plain_bwd_ms = cuda_ms(lambda: bg.point_sample_plain_bwd(img, fx, fy, dout))
+        # F.grid_sample computes K9 on a one-channel (N, 1, H, W) map at a (N, 1, K) grid
+        lib_img = img[:, None].clone().requires_grad_()
+        grid = torch.stack([(fx + 0.5) / W * 2 - 1, (fy + 0.5) / H * 2 - 1], -1)[:, None]
+        grid = grid.requires_grad_()
+        gs = lambda: F.grid_sample(lib_img, grid, mode="bilinear", padding_mode="zeros",
+                                   align_corners=False)
+        lib_err = rel_l2([gs().detach()[:, 0, 0]], [want[0]])
+        y = gs()
+        lib_fwd = cuda_ms(gs)
+        lib_bwd = cuda_ms(lambda: torch.autograd.grad(y, (lib_img, grid), dout[:, None, None],
+                                                      retain_graph=True))
+        del y, lib_img, grid
+        print(f"K9 {key} (N {Nc}, {H}x{W}, K {K}): rel_l2 "
+              + " ".join(f"{n}={e:.3e}" for n, e in errs.items())
+              + f" max_abs={max_abs:.3e} (F.grid_sample out rel_l2 {lib_err:.3e}); fwd "
+              f"kernel/plain/library ms {fwd_ms:.4f}/{plain_fwd_ms:.4f}/{lib_fwd:.4f}, bound "
+              f"{fb:.4f} ({fby}, {fwd_bytes / 1e6:.1f} MB); bwd kernel/plain/library ms "
+              f"{bwd_ms:.4f}/{plain_bwd_ms:.4f}/{lib_bwd:.4f}, bound {bb:.4f} ({bby}, "
+              f"{bwd_bytes / 1e6:.1f} MB)", flush=True)
+        for n, e in errs.items():
+            if not e <= K9_RTOL:
+                raise RuntimeError(f"K9 {key}: {n} relative L2 {e:.3e} > {K9_RTOL}")
+        out[key] = dict(max_abs_err=max_abs, fwd_ms=fwd_ms, bwd_ms=bwd_ms, plain_fwd_ms=plain_fwd_ms,
+                        plain_bwd_ms=plain_bwd_ms, fwd_bound=(fb, fby), bwd_bound=(bb, bby),
+                        lib_fwd=lib_fwd, lib_bwd=lib_bwd)
+        del img, fx, fy, dout, got, want
+        torch.cuda.empty_cache()
+    r = out["fast"]
+    common = dict(route="cuda", source="samrs_tpu_torch/csrc/point_sample.cu",
+                  max_abs_err=max(o["max_abs_err"] for o in out.values()))
+    extra = lambda d: {**{f"{k}_ms": out[k][f"{d}_ms"] for k in ("fast_candidates", "map256")},
+                       **{f"{k}_bound_ms": out[k][f"{d}_bound"][0]
+                          for k in ("fast_candidates", "map256")}}
+    fwd = dict(name="K9 fwd per-mask point sample (FAST head: N 6500, 56x56, K 12544, fp32; "
+                    "the 37632 candidates and a 256x256 map (device-memory path) in *_ms; "
+                    "library: F.grid_sample on (N, 1, H, W))",
+               replaces="samrs_tpu/kernels/bilinear_gather.py:762", **common, ms=r["fwd_ms"],
+               plain_ms=r["plain_fwd_ms"], bound_ms=r["fwd_bound"][0], bound_by=r["fwd_bound"][1],
+               library_ms=r["lib_fwd"], **extra("fwd"))
+    bwd = dict(name="K9 bwd per-mask point sample (dimg, dfx, dfy; same shapes; library: "
+                    "F.grid_sample backward)",
+               replaces="samrs_tpu/kernels/bilinear_gather.py:786", **common, ms=r["bwd_ms"],
+               plain_ms=r["plain_bwd_ms"], bound_ms=r["bwd_bound"][0], bound_by=r["bwd_bound"][1],
+               library_ms=r["lib_bwd"], **extra("bwd"))
+    return {"K9f": fwd, "K9b": bwd}
+
+
+def msda_phase(gen):
+    """The MSDeformAttn wrapper (one K8 launch a level) forward and backward
+    against its plain route at the pixel decoder's FAST-head shapes (65
+    images, 8 heads of 32, levels 7^2 / 14^2 / 28^2, 1029 queries, 4 points),
+    rel-L2 <= K8_RTOL, with the times of both."""
+    from samrs_tpu_torch.kernels import bilinear_gather as bg
+
+    B, nH, D, P = TRAIN_BATCH[2], 8, 32, 4
+    levels = [(7, 7), (14, 14), (28, 28)]
+    S = sum(h * w for h, w in levels)
+    rn = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    value = rn(B, S, nH, D)
+    loc = (torch.rand(B, S, nH, 3, P, 2, generator=gen, device="cuda") * 1.2 - 0.1)
+    wts = torch.rand(B, S, nH, 3, P, generator=gen, device="cuda").softmax(-1)
+    dout = rn(B, S, nH * D)
+    res = {}
+    for plain in (False, True):
+        leaves = [t.clone().requires_grad_() for t in (value, loc, wts)]
+        o = bg.ms_deform_attn(leaves[0], levels, leaves[1], leaves[2], plain=plain)
+        res[plain] = [o.detach()] + list(torch.autograd.grad(o, leaves, dout))
+    torch.cuda.synchronize()
+    errs = {n: rel_l2([a], [b]) for n, a, b in zip(("out", "dvalue", "dloc", "dweights"),
+                                                     res[False], res[True])}
+    timed = {}
+    for plain in (False, True):
+        leaves = [t.clone().requires_grad_() for t in (value, loc, wts)]
+        f = lambda: bg.ms_deform_attn(leaves[0], levels, leaves[1], leaves[2], plain=plain)
+        timed[plain] = (cuda_ms(lambda: f().detach()),
+                        cuda_ms(lambda: torch.autograd.grad(f(), leaves, dout)))
+    print(f"MSDA wrapper (B {B}, {nH} heads of {D}, levels {levels}, Q {S}, P {P}): kernels vs "
+          f"plain rel_l2 " + " ".join(f"{n}={e:.3e}" for n, e in errs.items())
+          + f"; fwd kernels/plain ms {timed[False][0]:.4f}/{timed[True][0]:.4f}, fwd+bwd "
+          f"{timed[False][1]:.4f}/{timed[True][1]:.4f}", flush=True)
+    for n, e in errs.items():
+        if not e <= K8_RTOL:
+            raise RuntimeError(f"MSDA wrapper: {n} relative L2 {e:.3e} > {K8_RTOL}")
+    del value, loc, wts, dout, res
+    torch.cuda.empty_cache()
+    return dict(fwd_ms=timed[False][0], plain_fwd_ms=timed[True][0], fwd_bwd_ms=timed[False][1],
+                plain_fwd_bwd_ms=timed[True][1])
 
 
 def k10_k11_phase(gen):
@@ -1020,6 +1206,113 @@ def train_step_phase(profile: bool = False):
     return timing
 
 
+def m2f_discontinuities(model, batches):
+    """Eval-mode forwards of every head with the kernels and with the plain
+    versions: how many of the attention-mask bits each decoder layer derives
+    from the previous output, and how many of the point-sampled assignments
+    (the same matching points on both paths), differ."""
+    from samrs_tpu_torch.seg.decoders import mask2former as m2f
+
+    model.eval()
+    bits = flips = assigns = changed = 0
+    with torch.no_grad():
+        for i, ((x, y), nc) in enumerate(zip(batches, TRAIN_CLASSES)):
+            masks, matches = {}, {}
+            for use_kernels in (True, False):
+                model.use_kernels = use_kernels
+                outs = model.forward_one(x, i)
+                scales = [(7, 7), (14, 14), (28, 28)]
+                masks[use_kernels] = [torch.sigmoid(m2f.resize_bilinear_antialias(
+                    outs[layer][1], scales[layer % 3])) < 0.5 for layer in range(M2F_OUTPUTS - 1)]
+                gt_masks, gt_valid = m2f.mask2former_targets(y, nc, tuple(outs[0][1].shape[-2:]))
+                draw = m2f.generator_draws(torch.Generator(device="cuda").manual_seed(SEED + i))
+                matches[use_kernels] = m2f.mask2former_assign(outs, gt_masks, gt_valid,
+                                                              num_points=M2F_POINTS, draw=draw,
+                                                              plain=not use_kernels)
+                del outs
+            bits += sum(m.numel() for m in masks[True])
+            flips += sum(int((a != b).sum()) for a, b in zip(masks[True], masks[False]))
+            assigns += matches[True].numel()
+            changed += int((matches[True] != matches[False]).sum())
+    model.use_kernels = True
+    model.train()
+    return bits, flips, assigns, changed
+
+
+def mask2former_step_phase(profile: bool = False):
+    """One Mask2Former pretrain step of vit_b_rvsa + Mask2Former (full width
+    and depth, three heads, 17/12/65 images at 224^2, m2f_num_points 12544,
+    fp32, TF32 off) from identical state with the kernels (K8, K9, K10, K11),
+    with their plain versions and with the control, judged as the UperNet
+    step (lr 0 at step 0; kernels within CONTROL_FACTOR x the control); the
+    attention-mask bits and assignments that differ between the paths; then
+    s/step, img/s and peak memory of both paths and the Hungarian
+    assignment's host time."""
+    from samrs_tpu_torch.core.config import PretrainConfig
+    from samrs_tpu_torch.seg.decoders import mask2former as m2f
+    from samrs_tpu_torch.seg.frameworks import build_multihead_mask2former_model
+    from samrs_tpu_torch.train import optim, trainer
+
+    cfg = PretrainConfig()
+    t0 = time.perf_counter()
+    model = build_multihead_mask2former_model(
+        device="cuda", generator=torch.Generator(device="cuda").manual_seed(SEED + 8))
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"built vit_b_rvsa + Mask2Former ({n_params / 1e6:.1f} M parameters) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    batches = train_batches(SEED + 9)
+    sched = optim.warmup_cosine_schedule(cfg.optim.lr, cfg.total_iters, cfg.optim.warmup_iters)
+
+    def fresh_state():
+        model.load_state_dict(init)
+        opt = optim.Optimizer(model, sched, weight_decay=cfg.optim.weight_decay,
+                              grad_clip=cfg.optim.grad_clip, layer_decay=cfg.optim.layer_decay,
+                              num_layers=model.encoder.depth)
+        return trainer.TrainState(0, model, opt)
+
+    step = lambda state: trainer.pretrain_step_mask2former(state, batches, cfg.seed,
+                                                           TRAIN_CLASSES, M2F_POINTS)
+    dist = compare_steps("mask2former step", step_runs(model, fresh_state, step),
+                         M2F_STEP_LAUNCHES)
+    bits, flips, assigns, changed = m2f_discontinuities(model, batches)
+    print(f"mask2former kernels vs plain (eval forward): {flips} of {bits} attention-mask bits "
+          f"and {changed} of {assigns} assignments differ", flush=True)
+    timing = time_steps(model, fresh_state, step, "mask2former step", sum(TRAIN_BATCH), "224^2")
+    # the assignment's host time in one more step with the kernels: the wait for the
+    # costs, their device-to-host copy, scipy's solve (one call a head)
+    solve = m2f.hungarian_match
+    spent = []
+
+    def timed_match(cost):
+        t = time.perf_counter()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        host = cost.cpu()
+        t2 = time.perf_counter()
+        out = solve(host)
+        spent.append((t1 - t, t2 - t1, time.perf_counter() - t2, tuple(cost.shape)))
+        return out.to(cost.device)
+
+    m2f.hungarian_match = timed_match
+    try:
+        state = fresh_state()
+        step(state)
+        torch.cuda.synchronize()
+    finally:
+        m2f.hungarian_match = solve
+    wait, copy, host = (sum(t[j] for t in spent) for j in range(3))
+    print(f"mask2former Hungarian: {len(spent)} calls a step (costs {[t[3] for t in spent]}): "
+          f"wait for the costs {wait * 1e3:.2f} ms, copy {copy * 1e3:.2f} ms, scipy "
+          f"{host * 1e3:.2f} ms a step", flush=True)
+    if profile:
+        profile_step(model, fresh_state, step, "mask2former step")
+    del model, init, batches, state
+    torch.cuda.empty_cache()
+    return dict(timing=timing, dist=dist, flips=(flips, bits), assign=(changed, assigns),
+                hungarian_ms=host * 1e3)
+
+
 def profile_step(model, fresh_state, step, label: str) -> None:
     """torch.profiler over one warm train step with the kernels: device time
     by operation and the device's busy share of the wall time."""
@@ -1207,6 +1500,72 @@ def pretrain_phase(tmp: str):
     return launches, os.path.join(cfg.ckpt_dir, "best_encoder.pt")
 
 
+def mask2former_driver_phase(tmp: str):
+    """``run_pretrain(decoder=mask2former, m2f_num_points=12544)`` at the
+    defaults otherwise (vit_b_rvsa, 17/12/65 at 224^2) on the synthetic SAMRS
+    layout the pretrain phase wrote under `tmp`: PRETRAIN_ITERS steps, the
+    evaluation with a per-dataset mIoU line, ``last``/``best`` checkpoints
+    with their encoder copies, and a resume from ``last`` that restores the
+    step and the weights.  Returns the launches."""
+    from samrs_tpu_torch.core.config import PretrainConfig
+    from samrs_tpu_torch.train.pretrain import apply_optim_defaults, run_pretrain
+
+    handler = _Lines()
+    log = logging.getLogger("samrs_tpu_torch.pretrain")
+    log.addHandler(handler)
+    log.setLevel(logging.INFO)
+    n_val = 8
+    over = [f"data.root={os.path.join(tmp, 'samrs')}", "decoder=mask2former",
+            f"m2f_num_points={M2F_POINTS}", f"total_iters={PRETRAIN_ITERS}",
+            f"eval_interval={PRETRAIN_ITERS}", f"data.val_images={n_val}",
+            f"ckpt_dir={os.path.join(tmp, 'm2f_ckpt')}"]
+    cfg = apply_optim_defaults(PretrainConfig().override(over), over)
+    reset_counts()
+    t = time.perf_counter()
+    state = run_pretrain(cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = read_counts()
+    evals = len(cfg.data.datasets) * -(-n_val // 8)  # eval forwards of 8 images
+    want = {k: PRETRAIN_ITERS * M2F_STEP_LAUNCHES.get(k, 0) + evals * M2F_EVAL_LAUNCHES.get(k, 0)
+            for k in launches}
+    print(f"mask2former pretrain launches: {launches}", flush=True)
+    if launches != want:
+        raise RuntimeError(f"mask2former pretrain launches {launches} != {want}")
+    if state.step != PRETRAIN_ITERS:
+        raise RuntimeError(f"run_pretrain (mask2former) stopped at step {state.step}")
+    vals = [ln for ln in handler.lines if ln.startswith("val[")]
+    print("\n".join(["mask2former pretrain " + ln for ln in handler.lines]), flush=True)
+    log.removeHandler(handler)
+    if sorted(v.split("]")[0][4:] for v in vals) != sorted(cfg.data.datasets):
+        raise RuntimeError(f"per-dataset mIoU lines: {vals}")
+    for v in vals:
+        miou = float(v.split("mIoU ")[1].split()[0])
+        if not 0.0 <= miou <= 1.0:
+            raise RuntimeError(f"mIoU out of range: {v}")
+    losses = [float(ln.split(" loss ")[1].split()[0]) for ln in handler.lines
+              if ln.startswith("iter ") and " loss " in ln]
+    if not losses or not all(np.isfinite(losses)):
+        raise RuntimeError(f"mask2former losses: {losses}")
+    files = sorted(os.listdir(cfg.ckpt_dir))
+    if not {"last.pt", "last_encoder.pt", "best.pt", "best_encoder.pt"} <= set(files):
+        raise RuntimeError(f"checkpoints written: {files}")
+    trained = {k: v.clone() for k, v in state.model.state_dict().items()}
+    del state
+    torch.cuda.empty_cache()
+    over2 = over + ["resume=last"]
+    cfg2 = apply_optim_defaults(PretrainConfig().override(over2), over2)
+    resumed = run_pretrain(cfg2)
+    same = all(torch.equal(resumed.model.state_dict()[k], v) for k, v in trained.items())
+    print(f"mask2former pretrain: {PRETRAIN_ITERS} steps + eval in {wall:.1f} s, checkpoints "
+          f"{files}, resumed at step {resumed.step}, weights restored {same}", flush=True)
+    if resumed.step != PRETRAIN_ITERS or not same:
+        raise RuntimeError("resume from last.pt did not restore the step and weights")
+    del resumed, trained
+    torch.cuda.empty_cache()
+    return launches
+
+
 def write_potsdam_layout(root: str, n_train: int, n_val: int, hw=(600, 600)) -> None:
     """A Potsdam tree under `root`/potsdam (FINETUNE_DATASETS' layout): seeded
     noise images and RGB-coded labels uniform over ISPRS_PALETTE."""
@@ -1370,25 +1729,42 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     results.update(k8_phase(gen))
+    results.update(k9_phase(gen))
+    msda = msda_phase(gen)
+    results["K8f"].update({f"msda_wrapper_{k}": v for k, v in msda.items()})
     results.update(k10_k11_phase(gen))
     train_step_phase(args.profile)
+    m2f = mask2former_step_phase(args.profile)
     finetune_step_phase(args.profile)
     with tempfile.TemporaryDirectory() as tmp:
         pre_launches, encoder_ckpt = pretrain_phase(tmp)
+        m2f_launches = mask2former_driver_phase(tmp)
         ft_launches, model = finetune_driver_phase(tmp, encoder_ckpt)
         test_launches = test_phase(tmp, model)
         del model
-    for key in ("K8f", "K8b"):  # K8's path: pretraining (and finetuning vit_b_rvsa)
+    for key in ("K8f", "K8b"):  # K8's paths: pretraining (UperNet, Mask2Former), finetuning
         results[key]["launches"] = pre_launches[key]
         results[key]["launches_per_step"] = STEP_LAUNCHES[key]
+        results[key]["launches_mask2former"] = m2f_launches[key]
+        results[key]["launches_per_mask2former_step"] = M2F_STEP_LAUNCHES[key]
         results[key]["launches_finetune"] = ft_launches[key]
         results[key]["launches_test"] = test_launches[key]
-    for key in ("K10", "K11"):  # this slice's path: finetuning, then the sliding-window test
+    for key in ("K9f", "K9b"):  # this slice's path: Mask2Former pretraining
+        results[key]["launches"] = m2f_launches[key]
+        results[key]["launches_per_step"] = M2F_STEP_LAUNCHES[key]
+    for key in ("K10", "K11"):  # finetuning, then the sliding-window test; both pretrainings
         results[key]["launches"] = ft_launches[key]
         results[key]["launches_test"] = test_launches[key]
         results[key]["launches_per_finetune_step_vit_b"] = VIT_DEPTH
         results[key]["launches_pretrain"] = pre_launches[key]
         results[key]["launches_per_pretrain_step"] = STEP_LAUNCHES[key]
+        results[key]["launches_mask2former"] = m2f_launches[key]
+    kernels_s, plain_s = (m2f["timing"][k][0] for k in (True, False))
+    print(f"mask2former summary: kernels {kernels_s:.4f} s/step, plain {plain_s:.4f} s/step, "
+          f"peak {m2f['timing'][True][1] / 2**30:.2f} / {m2f['timing'][False][1] / 2**30:.2f} "
+          f"GiB, Hungarian {m2f['hungarian_ms']:.2f} ms a step, attention-mask bits differing "
+          f"{m2f['flips'][0]} of {m2f['flips'][1]}, assignments {m2f['assign'][0]} of "
+          f"{m2f['assign'][1]}", flush=True)
     print(json.dumps({"kernels": list(results.values())}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

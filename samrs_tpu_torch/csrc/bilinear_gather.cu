@@ -34,7 +34,7 @@
 // formula, exactly JAX's _dhat: at an integer coordinate the tap at t in
 // [0, 1) has slope -1, the tap at t in [-1, 0) slope +1 and the tap at t = 1
 // none.
-#include "common.cuh"
+#include "bilinear_tap.cuh"
 
 namespace samrs {
 namespace {
@@ -53,37 +53,6 @@ __device__ __forceinline__ void load_vec(const bf16* p, float (&v)[4]) {
 }
 __device__ __forceinline__ void load_vec(const float* p, float (&v)[1]) { v[0] = *p; }
 __device__ __forceinline__ void load_vec(const bf16* p, float (&v)[1]) { v[0] = __bfloat162float(*p); }
-
-// One tap's four corners: clamped pixel indices and validity-masked weights.
-struct Tap {
-  int i00, i01, i10, i11;        // pixel index y * W + x (clamped into the map)
-  float w00, w01, w10, w11;      // bilinear weights, 0 for a corner off the map
-  float wx, wy;
-  bool v00, v01, v10, v11;
-};
-
-__device__ __forceinline__ Tap make_tap(float fx, float fy, int H, int W) {
-  Tap t;
-  const float x0f = floorf(fx), y0f = floorf(fy);
-  t.wx = fx - x0f;
-  t.wy = fy - y0f;
-  // clamp before the int conversion; a clamped corner is off the map either way
-  const int x0 = static_cast<int>(fminf(fmaxf(x0f, -2.f), static_cast<float>(W)));
-  const int y0 = static_cast<int>(fminf(fmaxf(y0f, -2.f), static_cast<float>(H)));
-  const int x1 = x0 + 1, y1 = y0 + 1;
-  const bool vx0 = x0 >= 0 && x0 < W, vx1 = x1 >= 0 && x1 < W;
-  const bool vy0 = y0 >= 0 && y0 < H, vy1 = y1 >= 0 && y1 < H;
-  t.v00 = vy0 && vx0; t.v01 = vy0 && vx1; t.v10 = vy1 && vx0; t.v11 = vy1 && vx1;
-  const int cx0 = min(max(x0, 0), W - 1), cx1 = min(max(x1, 0), W - 1);
-  const int cy0 = min(max(y0, 0), H - 1), cy1 = min(max(y1, 0), H - 1);
-  t.i00 = cy0 * W + cx0; t.i01 = cy0 * W + cx1; t.i10 = cy1 * W + cx0; t.i11 = cy1 * W + cx1;
-  const float ax = 1.f - t.wx, ay = 1.f - t.wy;
-  t.w00 = t.v00 ? ax * ay : 0.f;
-  t.w01 = t.v01 ? t.wx * ay : 0.f;
-  t.w10 = t.v10 ? ax * t.wy : 0.f;
-  t.w11 = t.v11 ? t.wx * t.wy : 0.f;
-  return t;
-}
 
 template <typename T, int V>
 __device__ __forceinline__ void load_corner(const T* img, bool valid, int pix, int Gc, int c,

@@ -10,6 +10,7 @@ launches its CUDA kernel (or raises) for a CUDA tensor.
   K6 fused_upscale.upscale_hyper                 (upscaling + hypernetwork dot)
   K7 amg_post.amg_postprocess                    (full-resolution mask postprocess)
   K8 bilinear_gather.sample_weighted             (weighted bilinear gather, fwd + bwd)
+  K9 bilinear_gather.point_sample                (per-mask point sample, fwd + bwd)
   K10 flash_attention.full_attention             (plain softmax attention, fp32)
   K11 fused_mlp.fused_mlp                        (fc1 -> GELU -> fc2, fp32)
 """

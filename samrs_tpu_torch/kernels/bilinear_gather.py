@@ -1,6 +1,7 @@
 """K8: weighted bilinear gather over absolute pixel coordinates, forward and
-backward (the sampling core of RVSA's K/V windows, and later of DCNv3 and
-MSDeformAttn).
+backward (the sampling core of RVSA's K/V windows, of MSDeformAttn and of
+Mask2Former's shared point sample; later of DCNv3), and K9: the per-mask
+single-channel point sample of Mask2Former's point losses.
 
     out[bg, p, :] = sum_k mask[bg, p, k] * bilinear(xg[bg], fy[bg, p, k], fx[bg, p, k])
 
@@ -18,23 +19,36 @@ bound by device-memory bytes.  On a CPU tensor it runs
 same one-sided coordinate derivative as the TPU kernel's ``_dhat``: at an
 integer coordinate the tap at t in [0, 1) has slope -1, the tap at
 t in [-1, 0) slope +1, and the tap at t = 1 none.
+
+K9 (``point_sample``, csrc/point_sample.cu) replaces
+samrs_tpu/kernels/bilinear_gather.py::_make_point_sampler: its forward
+``pallas_call`` (:762) and its backward (:786), which returns dimg, dfx and
+dfy.  Each of the N maps is sampled at its own K points.  Its plain version
+``point_sample_plain`` is an autograd Function of plain PyTorch that keeps
+only the map and the coordinates for its backward, as the kernel's does (an
+autograd graph of the gather would keep four int64 indices and four weights
+a point: ~5 GB a call at the FAST head's 6500 masks x 12544 points).
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from samrs_tpu_torch.kernels import _build
 
-fwd_launches = 0  # CUDA launches of the forward kernel
-bwd_launches = 0  # CUDA launches of the backward kernel
+fwd_launches = 0  # CUDA launches of K8's forward kernel
+bwd_launches = 0  # CUDA launches of K8's backward kernel
+ps_fwd_launches = 0  # CUDA launches of K9's forward kernel
+ps_bwd_launches = 0  # CUDA launches of K9's backward kernel
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _corner_weights(fx, fy, H: int, W: int):
-    """Per tap: the flat pixel index (clamped into the map) and the bilinear
-    weight (0 off the map) of each of the four corners."""
+def _corners(fx, fy, H: int, W: int):
+    """Per tap: the fractional offsets (wx, wy) and, for each of the four
+    corners (00, 01, 10, 11), its flat pixel index (clamped into the map)
+    and whether it lies on the map."""
     x0 = torch.floor(fx)
     y0 = torch.floor(fy)
     wx, wy = fx - x0, fy - y0
@@ -42,13 +56,20 @@ def _corner_weights(fx, fy, H: int, W: int):
     x0i = x0.clamp(-2, W).long()
     y0i = y0.clamp(-2, H).long()
     out = []
-    for dy, wyc in ((0, 1 - wy), (1, wy)):
-        for dx, wxc in ((0, 1 - wx), (1, wx)):
+    for dy in (0, 1):
+        for dx in (0, 1):
             xi, yi = x0i + dx, y0i + dy
             valid = (xi >= 0) & (xi < W) & (yi >= 0) & (yi < H)
-            idx = yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1)
-            out.append((idx, wxc * wyc * valid))
-    return out
+            out.append((yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1), valid))
+    return wx, wy, out
+
+
+def _corner_weights(fx, fy, H: int, W: int):
+    """Per tap: the flat pixel index (clamped into the map) and the bilinear
+    weight (0 off the map) of each of the four corners."""
+    wx, wy, corners = _corners(fx, fy, H, W)
+    factors = [(1 - wx, 1 - wy), (wx, 1 - wy), (1 - wx, wy), (wx, wy)]
+    return [(idx, wxc * wyc * valid) for (idx, valid), (wxc, wyc) in zip(corners, factors)]
 
 
 def sample_weighted_plain(xg, fx, fy, mask, group_channels: int):
@@ -160,3 +181,159 @@ def grid_sample(img, grid, align_corners: bool = False, plain: bool = False):
     ones = torch.ones(B, P, 1, device=img.device, dtype=torch.float32)
     sampler = sample_weighted_plain if plain else sample_weighted
     return sampler(xg, fx, fy, ones, C).reshape(B, Ho, Wo, C)
+
+
+def ms_deform_attn(value, spatial_shapes, sampling_locations, attention_weights,
+                   plain: bool = False):
+    """Multi-scale deformable attention over K8 (JAX ``ms_deform_attn_pallas``):
+    value (B, S, nH, D) with S = sum(h * w) over ``spatial_shapes``;
+    sampling_locations (B, Q, nH, L, P, 2) in [0, 1]; attention_weights (B, Q,
+    nH, L, P) -> (B, Q, nH * D) fp32.  One ``sample_weighted`` a level on the
+    (B * nH, h, w * D) map, with the attention weights as the taps' weights
+    (K = P) and fx = x * w - 0.5 (align_corners=False).  ``plain=True`` runs
+    the plain version on any device, under activation checkpointing: its
+    autograd graph would keep the sampled corners, (B * nH, Q, P, D) fp32
+    each (~2 GB a level for the pixel decoder's 94 images), where the
+    kernel keeps only its inputs."""
+    B, S, nH, D = value.shape
+    _, Q, _, L, P, _ = sampling_locations.shape
+
+    def sampler(*args):
+        if not plain:
+            return sample_weighted(*args)
+        if not torch.is_grad_enabled():
+            return sample_weighted_plain(*args)
+        return checkpoint(sample_weighted_plain, *args, use_reentrant=False)
+
+    values = value.split([h * w for h, w in spatial_shapes], dim=1)
+    out = None
+    for lvl, (h, w) in enumerate(spatial_shapes):
+        xg = values[lvl].reshape(B, h, w, nH, D).permute(0, 3, 1, 2, 4).reshape(B * nH, h, w * D)
+        loc = sampling_locations[:, :, :, lvl].transpose(1, 2).reshape(B * nH, Q, P, 2).float()
+        wts = attention_weights[:, :, :, lvl].transpose(1, 2).reshape(B * nH, Q, P).float()
+        o = sampler(xg, loc[..., 0] * w - 0.5, loc[..., 1] * h - 0.5, wts, D)
+        out = o if out is None else out + o
+    return out.reshape(B, nH, Q, D).transpose(1, 2).reshape(B, Q, nH * D)
+
+
+# ---------------------------------------------------------------- K9 ----
+
+_PS_POINTS = 1 << 24  # points of one pass of the plain version (bounds its int64 indices)
+
+
+def point_sample_plain_fwd(img, fx, fy):
+    """K9's plain forward: img (N, H, W) fp32 or bf16; fx, fy (N, K) fp32
+    absolute pixel coordinates -> (N, K) fp32; the four-corner gather of
+    ``sample_weighted_plain``, summed in the kernel's order, in row slices."""
+    N, H, W = img.shape
+    flat = img.float().reshape(N, H * W)
+    out = torch.empty(fx.shape, device=img.device, dtype=torch.float32)
+    step = max(1, _PS_POINTS // fx.shape[1])
+    for s in range(0, N, step):
+        rows = slice(s, s + step)
+        acc = 0.0
+        for idx, w in _corner_weights(fx[rows], fy[rows], H, W):
+            acc = acc + flat[rows].gather(1, idx) * w
+        out[rows] = acc
+    return out
+
+
+def point_sample_plain_bwd(img, fx, fy, dout, coords_grad: bool = True):
+    """K9's plain backward: (dimg in img's dtype, dfx, dfy), the last two
+    None unless ``coords_grad``; the floor formula's one-sided coordinate
+    derivative, dimg by ``scatter_add_``."""
+    N, H, W = img.shape
+    flat = img.float().reshape(N, H * W)
+    dimg = torch.zeros(N, H * W, device=img.device, dtype=torch.float32)
+    dfx = torch.empty_like(fx) if coords_grad else None
+    dfy = torch.empty_like(fy) if coords_grad else None
+    step = max(1, _PS_POINTS // fx.shape[1])
+    for s in range(0, N, step):
+        rows = slice(s, s + step)
+        r = dout[rows]
+        wx, wy, corners = _corners(fx[rows], fy[rows], H, W)
+        ax, ay = 1 - wx, 1 - wy
+        for (idx, valid), w in zip(corners, (ax * ay, wx * ay, ax * wy, wx * wy)):
+            dimg[rows].scatter_add_(1, idx, r * w * valid)
+        if coords_grad:
+            v00, v01, v10, v11 = (flat[rows].gather(1, idx) * valid for idx, valid in corners)
+            dfx[rows] = r * ((v01 - v00) * ay + (v11 - v10) * wy)
+            dfy[rows] = r * ((v10 * ax + v11 * wx) - (v00 * ax + v01 * wx))
+    return dimg.reshape(N, H, W).to(img.dtype), dfx, dfy
+
+
+def _ps_check(img, fx, fy):
+    if img.dim() != 3 or fx.dim() != 2 or fx.shape[0] != img.shape[0]:
+        raise ValueError(f"point_sample: expected img (N, H, W) and fx, fy (N, K), got "
+                         f"{tuple(img.shape)} and {tuple(fx.shape)}")
+    if img.dtype not in _DTYPES:
+        raise ValueError(f"img: the kernel takes {_DTYPES}, got {img.dtype}")
+    _build.require_cuda("img", img, img.dtype)
+    _build.require_cuda("fx", fx, torch.float32)
+    _build.require_cuda("fy", fy, torch.float32, fx.shape)
+
+
+def point_sample_fwd_cuda(img, fx, fy):
+    """K9's forward kernel: (N, K) fp32."""
+    global ps_fwd_launches
+    _ps_check(img, fx, fy)
+    N, H, W = img.shape
+    out = torch.empty(fx.shape, device=img.device, dtype=torch.float32)
+    p = _build.ptr
+    _build.launch("samrs_point_sample_fwd", p(img), p(fx), p(fy), p(out), N, H, W, fx.shape[1],
+                  int(img.dtype == torch.bfloat16))
+    ps_fwd_launches += 1
+    return out
+
+
+def point_sample_bwd_cuda(img, fx, fy, dout, coords_grad: bool = True):
+    """K9's backward kernel: (dimg in img's dtype, dfx, dfy); dfx and dfy are
+    None (and not computed) unless ``coords_grad``."""
+    global ps_bwd_launches
+    _ps_check(img, fx, fy)
+    _build.require_cuda("dout", dout, torch.float32, fx.shape)
+    N, H, W = img.shape
+    dimg = torch.zeros(N, H, W, device=img.device, dtype=torch.float32)
+    dfx = torch.empty_like(fx) if coords_grad else None
+    dfy = torch.empty_like(fy) if coords_grad else None
+    p = _build.ptr
+    _build.launch("samrs_point_sample_bwd", p(img), p(fx), p(fy), p(dout), p(dimg), p(dfx),
+                  p(dfy), N, H, W, fx.shape[1], int(img.dtype == torch.bfloat16))
+    ps_bwd_launches += 1
+    return dimg.to(img.dtype), dfx, dfy
+
+
+class _PointSample(torch.autograd.Function):
+    """K9 or its plain version; keeps img, fx and fy for the backward."""
+
+    @staticmethod
+    def forward(ctx, img, fx, fy, plain: bool):
+        ctx.save_for_backward(img, fx, fy)
+        ctx.plain = plain
+        return (point_sample_plain_fwd if plain else point_sample_fwd_cuda)(img, fx, fy)
+
+    @staticmethod
+    def backward(ctx, dout):
+        img, fx, fy = ctx.saved_tensors
+        bwd = point_sample_plain_bwd if ctx.plain else point_sample_bwd_cuda
+        coords_grad = ctx.needs_input_grad[1] or ctx.needs_input_grad[2]
+        dimg, dfx, dfy = bwd(img, fx, fy, dout.float().contiguous(), coords_grad)
+        return dimg, dfx, dfy, None
+
+
+def _ps_args(img, fx, fy):
+    return img.contiguous(), fx.float().contiguous(), fy.float().contiguous()
+
+
+def point_sample_plain(img, fx, fy):
+    """K9's plain version on any device: img (N, H, W) fp32 or bf16; fx, fy
+    (N, K) absolute pixel coordinates -> (N, K) fp32, differentiable."""
+    return _PointSample.apply(*_ps_args(img, fx, fy), True)
+
+
+def point_sample(img, fx, fy):
+    """K9 (JAX ``point_sample_pallas`` after its [-1, 1] -> pixel step): the
+    kernels for a CUDA tensor, the plain version for a CPU tensor."""
+    if not img.is_cuda:
+        return point_sample_plain(img, fx, fy)
+    return _PointSample.apply(*_ps_args(img, fx, fy), False)

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -129,6 +130,25 @@ class Dropout(nn.Module):
             return x
         keep = 1.0 - self.rate
         return x * _keep_mask(x.shape, keep, x, generator) / keep
+
+
+def jax_resize_weights(n_in: int, n_out: int, kernel) -> np.ndarray:
+    """(n_in, n_out) fp32 weights of ``jax.image.resize`` along one axis with
+    the interpolation `kernel` (a numpy function of the distance): half-pixel
+    centres, the kernel widened by the scale on a downscale (antialiasing, on
+    by default in ``jax.image.resize``), each column normalised to sum 1,
+    and columns whose sample lies outside the input zero.  A copy of jax's
+    ``compute_weight_mat``."""
+    inv = np.float32(1.0) / np.float32(n_out / n_in)
+    kernel_scale = max(inv, np.float32(1.0))
+    sample = (np.arange(n_out, dtype=np.float32) + np.float32(0.5)) * inv - np.float32(0.5)
+    x = np.abs(sample[None, :] - np.arange(n_in, dtype=np.float32)[:, None]) / kernel_scale
+    w = kernel(x)
+    total = w.sum(0, keepdims=True)
+    ok = np.abs(total) > 1000.0 * np.finfo(np.float32).eps
+    w = np.where(ok, w / np.where(total != 0, total, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return np.where(inside[None, :], w, 0.0).astype(np.float32)
 
 
 _MAX_INTERP = 2**31 - 1  # output elements of one F.interpolate call

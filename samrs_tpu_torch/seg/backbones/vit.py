@@ -18,7 +18,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from samrs_tpu_torch.nn.layers import checkpoint_with_generator
+from samrs_tpu_torch.nn.layers import checkpoint_with_generator, jax_resize_weights
 from samrs_tpu_torch.sam.image_encoder import PatchEmbed
 from samrs_tpu_torch.seg.backbones.vit_common import FullAttentionRelPos, ViTBlock, ViTFPNNeck
 
@@ -39,20 +39,9 @@ def _keys_cubic(x: np.ndarray) -> np.ndarray:
 
 def jax_bicubic_weights(n_in: int, n_out: int) -> np.ndarray:
     """(n_in, n_out) fp32 weights of ``jax.image.resize(..., "bicubic")`` along
-    one axis: half-pixel centres, the kernel widened by the scale on a
-    downscale (antialiasing), each column normalised to sum 1, and columns
-    whose sample lies outside the input zero.  A copy of jax's
-    ``compute_weight_mat``; torch's bicubic (a = -0.75, no antialias) differs."""
-    inv = np.float32(1.0) / np.float32(n_out / n_in)
-    kernel_scale = max(inv, np.float32(1.0))
-    sample = (np.arange(n_out, dtype=np.float32) + np.float32(0.5)) * inv - np.float32(0.5)
-    x = np.abs(sample[None, :] - np.arange(n_in, dtype=np.float32)[:, None]) / kernel_scale
-    w = _keys_cubic(x)
-    total = w.sum(0, keepdims=True)
-    ok = np.abs(total) > 1000.0 * np.finfo(np.float32).eps
-    w = np.where(ok, w / np.where(total != 0, total, 1.0), 0.0)
-    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
-    return np.where(inside[None, :], w, 0.0).astype(np.float32)
+    one axis (``jax_resize_weights`` with Keys' cubic); torch's bicubic (a =
+    -0.75, no antialias) differs."""
+    return jax_resize_weights(n_in, n_out, _keys_cubic)
 
 
 def resize_bicubic_jax(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:

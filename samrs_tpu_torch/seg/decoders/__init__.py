@@ -1,1 +1,1 @@
-"""Segmentation decoders of the port (ported so far: UperNet)."""
+"""Segmentation decoders of the port (ported so far: UperNet, Mask2Former)."""

@@ -3,13 +3,15 @@ ED/models.py:52-318).
 
 ``MultiHeadSegModel``: one shared encoder and decoder, one classification
 head per pretraining dataset (SOTA 18 / SIOR 20 / FAST 37 classes); the
-encoder and decoder run once per dataset batch.  ``SegModel``: the single
+encoder and decoder run once per dataset batch.  ``MultiHeadMask2FormerModel``:
+the E2E variant, the shared encoder and a decoupled Mask2Former decoder with
+a class head per dataset (E2E/models.py:219-276).  ``SegModel``: the single
 head of finetuning and testing (ED/models.py:319-530).  Images go in NHWC
 and the logits come out NHWC, as in the JAX package.  ``use_kernels``
-(default True) is the one switch between the kernels (K8, K10, K11) and
-their plain versions on the card; only the smoke's comparison and the tests
-turn it off.  Dropout and drop-path draw from the generator passed to
-``forward``.
+(default True) is the one switch between the kernels (K8, K10, K11; and K9
+in the Mask2Former loss, which the trainer routes by it) and their plain
+versions on the card; only the smoke's comparison and the tests turn it
+off.  Dropout and drop-path draw from the generator passed to ``forward``.
 """
 
 from __future__ import annotations
@@ -41,6 +43,8 @@ class MultiHeadSegModel(nn.Module):
                  num_classes: Tuple[int, ...] = (18, 20, 37), image_size: int = 224,
                  remat: bool = False, use_kernels: bool = True) -> None:
         super().__init__()
+        if decoder == "mask2former":
+            raise KeyError("decoder 'mask2former' has its own model: MultiHeadMask2FormerModel")
         if decoder != "upernet":
             raise KeyError(f"decoder {decoder!r} is not ported yet (ROADMAP.md)")
         self.backbone, self.decoder = backbone, decoder
@@ -62,6 +66,40 @@ class MultiHeadSegModel(nn.Module):
     def forward(self, xs: Sequence[Optional[torch.Tensor]],
                 generator: Optional[torch.Generator] = None) -> List[Optional[torch.Tensor]]:
         """One batch per dataset (None skips that head) -> per-dataset logits."""
+        return [None if x is None else self.forward_one(x, i, generator)
+                for i, x in enumerate(xs)]
+
+
+class MultiHeadMask2FormerModel(nn.Module):
+    """Shared encoder + Mask2Former decoder, one class head per dataset.
+    ``forward`` returns per dataset the list of (class logits, mask logits)
+    of every decoder output, for ``mask2former_loss`` / ``mask2former_predict``."""
+
+    def __init__(self, backbone: str = "vit_b_rvsa", num_classes: Tuple[int, ...] = (18, 20, 37),
+                 image_size: int = 224, num_queries: int = 100, num_decoder_layers: int = 9,
+                 use_kernels: bool = True) -> None:
+        super().__init__()
+        from samrs_tpu_torch.seg.decoders.mask2former import Mask2FormerHead
+
+        self.backbone, self.decoder = backbone, "mask2former"
+        self.num_classes = tuple(num_classes)
+        self.image_size = image_size
+        self.use_kernels = use_kernels
+        self.encoder = get_backbone(backbone, image_size=image_size)
+        self.seg_decoder = get_decoder("mask2former", self.encoder.out_channels,
+                                       num_queries=num_queries,
+                                       num_decoder_layers=num_decoder_layers)
+        self.heads = nn.ModuleList(Mask2FormerHead(self.seg_decoder.embed_dim, nc)
+                                   for nc in self.num_classes)
+
+    def forward_one(self, x: torch.Tensor, head_idx: int,
+                    generator: Optional[torch.Generator] = None):
+        """(B, H, W, 3) normalized images -> [(class logits, mask logits)]."""
+        feats = self.encoder(x, generator, self.use_kernels)
+        return self.heads[head_idx](self.seg_decoder(feats, self.use_kernels))
+
+    def forward(self, xs: Sequence[Optional[torch.Tensor]],
+                generator: Optional[torch.Generator] = None):
         return [None if x is None else self.forward_one(x, i, generator)
                 for i, x in enumerate(xs)]
 
@@ -132,6 +170,38 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
         elif name.endswith(("relative_position_bias_table", "pos_embed")):
             p.copy_(torch.randn(p.shape, generator=generator, device=generator.device)
                     .to(p.device) * 0.02)
+
+
+@torch.no_grad()
+def init_mask2former(model: nn.Module, generator: torch.Generator) -> None:
+    """The JAX decoder's own initialisers, after ``init_parameters``: the
+    MSDeformAttn sampling offsets a zero kernel and the rotated-grid bias,
+    the attention weights zero, ``level_embed`` / ``query_feat`` /
+    ``query_embed`` normal(1.0); GroupNorm stays ones and zeros."""
+    from samrs_tpu_torch.seg.backbones.vit_adapter import MSDeformAttnModule
+
+    for m in model.modules():
+        if isinstance(m, MSDeformAttnModule):
+            m.reset_sampling()
+    for name, p in model.named_parameters():
+        if name.endswith(("level_embed", "query_feat", "query_embed")):
+            p.copy_(torch.randn(p.shape, generator=generator, device=generator.device)
+                    .to(p.device))
+
+
+def build_multihead_mask2former_model(backbone: str = "vit_b_rvsa",
+                                      num_classes: Tuple[int, ...] = (18, 20, 37),
+                                      image_size: int = 224, device="cuda",
+                                      generator: Optional[torch.Generator] = None,
+                                      **kw) -> MultiHeadMask2FormerModel:
+    """The Mask2Former model on `device` (the card unless the caller asks
+    for the CPU), initialised from `generator` (default: seed 0 on `device`)."""
+    with torch.device(device):
+        model = MultiHeadMask2FormerModel(backbone, num_classes, image_size, **kw).to(device)
+    gen = generator or torch.Generator(device=device).manual_seed(0)
+    init_parameters(model, gen)
+    init_mask2former(model, gen)
+    return model
 
 
 def build_multihead_model(backbone: str = "vit_b_rvsa", decoder: str = "upernet",

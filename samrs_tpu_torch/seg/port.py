@@ -2,22 +2,27 @@
 state dict.
 
 ``jax_params_to_torch(params, batch_stats)`` takes the flax ``params`` and
-``batch_stats`` of a ``MultiHeadSegModel`` or a ``SegModel`` (nested dicts of
-numpy arrays) and returns a state dict that the port's model of the same
-kind loads strictly.  The name mapping is this module's own copy of the one
+``batch_stats`` of a ``MultiHeadSegModel``, a ``MultiHeadMask2FormerModel``
+or a ``SegModel`` (nested dicts of numpy arrays) and returns a state dict
+that the port's model of the same kind loads strictly.  The name mapping is this module's own copy of the one
 in samrs_tpu/seg/port.py (``load_torch_rvsa_backbone`` and
 ``load_torch_vitseg_backbone``, read in the other direction); the port does
 not import the JAX package.  ViTSeg's flax names are inline
 (``blocks_{i}_norm1``, ``blocks_{i}_attn/qkv``, ``blocks_{i}_mlp/lin1``)
 where RVSA's are nested (``blocks_{i}/norm1``); both map to
-``blocks.{i}.norm1``.
+``blocks.{i}.norm1``.  The Mask2Former decoder's module names are the flax
+ones (``seg_decoder/pixel_decoder/encoder0_attn/value_proj``,
+``seg_decoder/layer0_cross/q_proj``, ``head_0/cls``); only the MLP's
+``layers_{i}`` become ``layers.{i}``, and its parameters ``level_embed``,
+``query_feat`` and ``query_embed`` keep their names and layout.
 
 Layout conversions (flax -> torch):
   dense   kernel (in, out)        -> weight (out, in)
   conv    kernel (kh, kw, I, O)   -> weight (O, I, kh, kw)
   convT   kernel (kh, kw, I, O)   -> weight (I, O, kh, kw), spatially flipped back
           (flax's ConvTranspose convention; torch's ConvTranspose2d needs no flip)
-  norms   scale / bias -> weight / bias; BatchNorm mean / var -> running_mean / running_var
+  norms   scale / bias -> weight / bias (LayerNorm, GroupNorm); BatchNorm mean / var ->
+          running_mean / running_var
 """
 
 from __future__ import annotations
@@ -38,7 +43,8 @@ _RENAMES: Tuple[Tuple[str, str], ...] = (
     (r"^encoder/blocks_(\d+)[/_]", r"encoder.blocks.\1."),
     (r"mlp/lin1$", "mlp.fc1"),
     (r"mlp/lin2$", "mlp.fc2"),
-    (r"attn/sampling_(offsets|scales|angles)$", r"attn.sampling_\1.2"),
+    (r"^(encoder\.blocks\.\d+\.attn)/sampling_(offsets|scales|angles)$", r"\1.sampling_\2.2"),
+    (r"mask_embed_mlp/layers_(\d+)$", r"mask_embed_mlp.layers.\1"),
     (r"^head_(\d+)/", r"heads.\1."),
 )
 _DECONVS = ("fpn1_deconv1", "fpn1_deconv2", "fpn2_deconv")

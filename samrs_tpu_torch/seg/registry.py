@@ -34,7 +34,7 @@ BACKBONES: Dict[str, Callable[..., nn.Module]] = {
     "vit_h_rvsa": _rvsa("vit_h_rvsa"),
 }
 
-DECODERS = ("upernet",)
+DECODERS = ("upernet", "mask2former")
 
 
 def get_backbone(name: str, image_size: int = 224, **kw: Any) -> nn.Module:
@@ -45,10 +45,15 @@ def get_backbone(name: str, image_size: int = 224, **kw: Any) -> nn.Module:
 
 
 def get_decoder(name: str, encoder_channels: Sequence[int], **kw: Any) -> nn.Module:
-    """UperNet's width is the backbone's out_channels[2] (ED/models.py:176-182)."""
+    """UperNet's width is the backbone's out_channels[2] (ED/models.py:176-182);
+    Mask2Former takes c1..c4 (``MultiHeadMask2FormerModel`` builds it)."""
     if name == "upernet":
         from samrs_tpu_torch.seg.decoders.upernet import UPerHead
 
         return UPerHead(encoder_channels[1:], channels=encoder_channels[2], **kw)
+    if name == "mask2former":
+        from samrs_tpu_torch.seg.decoders.mask2former import Mask2FormerDecoder
+
+        return Mask2FormerDecoder(in_channels=tuple(encoder_channels[1:]), **kw)
     raise KeyError(f"decoder {name!r} is not ported yet (ported: {list(DECODERS)}; "
                    "the others are queued in ROADMAP.md)")

@@ -11,7 +11,9 @@ proportional to the subset sizes (17/12/65 of a global 96), the summed
 cross-entropy of the three heads, grad clip 5, layer-decay AdamW on a
 per-iteration warmup-cosine schedule; validation every ``eval_interval``
 iterations (per-dataset mIoU), checkpoints ``last`` / ``best`` and their
-``*_encoder`` copies.
+``*_encoder`` copies.  ``decoder=mask2former`` trains the E2E variant
+(``MultiHeadMask2FormerModel``, the summed Mask2Former losses of the three
+heads, point-sampled with ``m2f_num_points``) in the same loop.
 """
 
 from __future__ import annotations
@@ -31,10 +33,12 @@ from samrs_tpu_torch.core.metrics import segmentation_scores
 from samrs_tpu_torch.core.resilience import GracefulShutdown, Watchdog
 from samrs_tpu_torch.data.datasets import DataLoader, SegmentationDataset, infinite_loader
 from samrs_tpu_torch.data.transforms import EvalAugment, TrainAugment
-from samrs_tpu_torch.seg.frameworks import MultiHeadSegModel, build_multihead_model
+from samrs_tpu_torch.seg.frameworks import (build_multihead_mask2former_model,
+                                            build_multihead_model)
 from samrs_tpu_torch.train.optim import (Optimizer, backbone_optim_settings,
                                          warmup_cosine_schedule)
-from samrs_tpu_torch.train.trainer import TrainState, eval_step, pretrain_step
+from samrs_tpu_torch.train.trainer import (TrainState, eval_step, mask2former_eval_step,
+                                           pretrain_step, pretrain_step_mask2former)
 
 logger = logging.getLogger("samrs_tpu_torch.pretrain")
 
@@ -78,18 +82,18 @@ def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.to(device)
 
 
-def evaluate(cfg: PretrainConfig, model: MultiHeadSegModel, datasets_val,
+def evaluate(cfg: PretrainConfig, model: torch.nn.Module, datasets_val,
              num_classes: Sequence[int]) -> Dict[str, dict]:
     """Scores per dataset on its val split (main_pretrain.py:463-556)."""
     device = next(model.parameters()).device
+    step = mask2former_eval_step if cfg.decoder == "mask2former" else eval_step
     out = {}
     for i, name in enumerate(cfg.data.datasets):
         nc = num_classes[i]
         hist = torch.zeros(3, nc, dtype=torch.int64, device=device)
         loader = DataLoader(datasets_val[name], batch_size=8, shuffle=False, drop_last=False)
         for x, y in loader:
-            hist += torch.stack(eval_step(model, to_device(x, device), to_device(y, device),
-                                          nc, i))
+            hist += torch.stack(step(model, to_device(x, device), to_device(y, device), nc, i))
         inter, target, union = hist.cpu().numpy().astype(np.float64)
         out[name] = segmentation_scores(inter, target, union)
         logger.info("val[%s]: mIoU %.4f allAcc %.4f", name, out[name]["miou"],
@@ -97,13 +101,12 @@ def evaluate(cfg: PretrainConfig, model: MultiHeadSegModel, datasets_val,
     return out
 
 
-def run_pretrain(cfg: PretrainConfig, model: Optional[MultiHeadSegModel] = None,
+def run_pretrain(cfg: PretrainConfig, model: Optional[torch.nn.Module] = None,
                  datasets_trn=None, datasets_val=None,
                  max_iters: Optional[int] = None) -> TrainState:
     """The training loop; the model and datasets are injectable (tests).  Runs on
     ``cfg.device`` and never moves elsewhere."""
-    if cfg.decoder == "mask2former":
-        raise NotImplementedError("mask2former pretraining comes with its slice (ROADMAP.md)")
+    is_m2f = cfg.decoder == "mask2former"
     if int(np.prod(cfg.mesh_shape)) not in (-1, 1):
         raise ValueError("the port trains on one card; DDP is queued in ROADMAP.md")
     if cfg.pretrained:
@@ -112,9 +115,13 @@ def run_pretrain(cfg: PretrainConfig, model: Optional[MultiHeadSegModel] = None,
     device = torch.device(cfg.device)
     num_classes = tuple(DATASET_CLASSES[d] for d in cfg.data.datasets)
     if model is None:
-        model = build_multihead_model(cfg.backbone, cfg.decoder, num_classes,
-                                      cfg.data.image_size, cfg.remat, device,
-                                      torch.Generator(device=device).manual_seed(cfg.seed))
+        gen = torch.Generator(device=device).manual_seed(cfg.seed)
+        if is_m2f:
+            model = build_multihead_mask2former_model(cfg.backbone, num_classes,
+                                                      cfg.data.image_size, device, gen)
+        else:
+            model = build_multihead_model(cfg.backbone, cfg.decoder, num_classes,
+                                          cfg.data.image_size, cfg.remat, device, gen)
     model.to(device)
     if datasets_trn is None:
         datasets_trn = build_datasets(cfg, "trn")
@@ -158,7 +165,11 @@ def run_pretrain(cfg: PretrainConfig, model: Optional[MultiHeadSegModel] = None,
             for ld in loaders:
                 x, y = next(ld)
                 batches.append((to_device(x, device), to_device(y, device)))
-            metrics = pretrain_step(state, batches, cfg.seed)
+            if is_m2f:
+                metrics = pretrain_step_mask2former(state, batches, cfg.seed, num_classes,
+                                                    cfg.m2f_num_points)
+            else:
+                metrics = pretrain_step(state, batches, cfg.seed)
             it = state.step
             if it % 50 == 0 or it == total:
                 dt = (time.perf_counter() - t0) / (it - last_log)

@@ -1,23 +1,26 @@
-"""Trainer core: the loss, the pretrain and finetune steps and the eval step
+"""Trainer core: the loss, the pretrain and finetune steps and the eval steps
 (mirrors samrs_tpu/train/trainer.py; reference ED/main_pretrain.py:567-625,
-:463-556 and ED/main_finetune.py:536-592).
+:463-556, E2E/main_pretrain.py:608-640 and ED/main_finetune.py:536-592).
 
 A pretrain step sums the per-dataset cross-entropies (ignore label 255) over
 the heads, a finetune step takes the one head's; each runs one backward,
-clips and updates.  Dropout and drop-path draw
-from a generator seeded from (seed, step), so a step is reproducible.
+clips and updates.  The Mask2Former pretrain step sums the heads'
+Mask2Former losses (its backward runs head by head, below).  Dropout,
+drop-path and the point losses' draws come from a generator seeded from
+(seed, step), so a step is reproducible.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from samrs_tpu_torch.core.metrics import intersection_and_union
+from samrs_tpu_torch.nn.layers import resize_bilinear
 from samrs_tpu_torch.train.optim import Optimizer
 
 
@@ -65,6 +68,43 @@ def pretrain_step(state: TrainState, batches: Sequence[Optional[Tuple[torch.Tens
             **{f"loss_{i}": l.detach() for i, l in enumerate(losses)}}
 
 
+def pretrain_step_mask2former(state: TrainState,
+                              batches: Sequence[Optional[Tuple[torch.Tensor, torch.Tensor]]],
+                              seed: int, num_classes: Sequence[int],
+                              num_points: Optional[int] = None,
+                              draws: Optional[Sequence[Callable]] = None) -> Dict[str, torch.Tensor]:
+    """One multi-dataset Mask2Former step in place (JAX
+    ``make_pretrain_step_mask2former``): per head the summed
+    ``mask2former_loss`` (CE + mask BCE + dice over the decoder's outputs),
+    point-sampled when ``num_points`` is set.  Each head's loss runs its own
+    backward as soon as it is computed, so only one head's graph is alive at
+    a time (the point losses keep ~2 GB a decoder output at the FAST head);
+    the accumulated gradient is that of the sum.  ``draws`` (one per head)
+    replace the generator's draws of the point losses (the tests feed JAX's).
+    K8, K9, K10 and K11 follow ``model.use_kernels``."""
+    from samrs_tpu_torch.seg.decoders.mask2former import mask2former_loss
+
+    model, opt = state.model, state.optimizer
+    model.train()
+    dev = next(b[0] for b in batches if b is not None).device
+    gen = step_generator(seed, state.step, dev)
+    opt.zero_grad()
+    losses = {}
+    for i, (b, nc) in enumerate(zip(batches, num_classes)):
+        if b is None:
+            continue
+        d = mask2former_loss(model.forward_one(b[0], i, gen), b[1], nc, num_points=num_points,
+                             generator=gen, draw=None if draws is None else draws[i],
+                             plain=not model.use_kernels)
+        loss = d["loss_cls"] + d["loss_mask"] + d["loss_dice"]
+        loss.backward()
+        losses[i] = loss.detach()
+    grad_norm = opt.step(state.step)
+    state.step += 1
+    return {"loss": sum(losses.values()), "grad_norm": grad_norm,
+            **{f"loss_{i}": l for i, l in losses.items()}}
+
+
 def finetune_step(state: TrainState, x: torch.Tensor, y: torch.Tensor,
                   seed: int) -> Dict[str, torch.Tensor]:
     """One single-head step in place (JAX ``make_finetune_step``).  Returns
@@ -87,3 +127,19 @@ def eval_step(model: nn.Module, x: torch.Tensor, y: torch.Tensor, num_classes: i
     model.eval()
     logits = model(x) if head_idx is None else model.forward_one(x, head_idx)
     return intersection_and_union(logits.argmax(-1), y, num_classes)
+
+
+@torch.no_grad()
+def mask2former_eval_step(model: nn.Module, x: torch.Tensor, y: torch.Tensor, num_classes: int,
+                          head_idx: int):
+    """Per-batch (intersection, target, union) histograms of head `head_idx`
+    of a Mask2Former model (JAX ``_make_m2f_eval_step``): the last output's
+    softmax(cls) . sigmoid(mask) scores, bilinearly upsampled to the labels'
+    size, argmax."""
+    from samrs_tpu_torch.seg.decoders.mask2former import mask2former_predict
+
+    model.eval()
+    cls_logits, mask_logits = model.forward_one(x, head_idx)[-1]
+    seg = mask2former_predict(cls_logits, mask_logits, num_classes).permute(0, 3, 1, 2)
+    seg = resize_bilinear(seg, tuple(y.shape[-2:]))
+    return intersection_and_union(seg.argmax(1), y, num_classes)
