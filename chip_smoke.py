@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch/H100 port (``samrs_tpu_torch``).
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile] [--only modes|configs|sizes ...]
 
 Needs one CUDA card, nvcc (CUDA_HOME or /usr/local/cuda) and the repo
 checkout; it has no CPU path and raises on any failure.  Phases:
@@ -31,6 +31,17 @@ checkout; it has no CPU path and raises on any failure.  Phases:
    K1 28, K2 4, K3 32, K4 1, K5 2, K6 1 per image, then reruns on the plain
    versions (``Sam.use_kernels = False``): encoder feature rel-L2 <= 2e-2
    and mean mask IoU >= 0.99;
+2b. modes phase (the SAM encoder's kernel configurations), at the same
+   shapes against the fp32 plain versions (rel-L2 <= 1e-2) with kernel,
+   bf16 plain and SDPA times and the bound: K12 (split-head rel-pos
+   attention) at the windows (B' 400, N 196: the whole-window launch), the
+   globals (16, 4096: the query-tiled launch) and the global grids of
+   image_size 512 and 256 (16, 1024; 16, 256); K2 in its modes split, exp2
+   and aug and on a 48x48 grid (key tiles straddling grid rows); K3's tail
+   mode on a 70^2 padded map cropped to 64^2; K1's window orders (plain, one
+   block per window row), blockq, the padded output, the residual form
+   (block2), the attention stage on the raw qkv map (fused2) and on
+   partitioned windows (fused);
 4. generate phase: a seeded 800x800 image and a DIOR XML with 100 boxes
    of 16-240 px, labels uniform over DIOR's 20 classes (bucket 256, four K7
    chunks), loaded with the port's DIOR loader and run through
@@ -40,6 +51,17 @@ checkout; it has no CPU path and raises on any failure.  Phases:
    gray PNG is the label of the last instance covering each pixel and the
    colour PNG is PALETTE[gray], and against the plain path mean instance
    IoU, per-pixel cover-index agreement and gray agreement, each >= 0.99;
+4b. configurations phase: the ViT-H encoder on one 1024^2 image from the
+   main path's weights under every value of window_attn_impl, each
+   global_attn_impl mode, tail_impl=fused and mlp_impl=xla: launches per
+   image (pallas K12 28 / K2 4 / K3 32; xla K12 4 / K3 32; tail K1 28 /
+   K3-tail 28 / K3 4 / K2 4; mlp xla K1 28 / K2 4; every other value its K1
+   mode 28 / K2 4 / K3 32), encoder ms (CUDA events, median of 7) and the
+   feature rel-L2 against the default configuration (<= 2e-2);
+4c. image sizes: the generate phase at image_size 512 and 256 (global grids
+   of 1024 and 256 tokens: K12 4 launches an image instead of K2; cover and
+   gray agreement >= 0.99), then the main path at image_size 768 (K2 on a
+   48x48 grid); each ViT-H freed before the next;
 5. K8 phase (ViT-H freed first): K8 forward and backward against
    ``sample_weighted_plain`` on the same inputs at the RVSA shape of the
    FAST head (65 images x 12 heads, 14x14, K and V in one launch: Gc 128,
@@ -102,13 +124,20 @@ checkout; it has no CPU path and raises on any failure.  Phases:
    crop 512 (a 2x2 grid with tail crops) with the finetuned model: launches,
    gray and colour PNGs read back against the prediction and the palette,
    and kernels-vs-plain probability maps (rel-L2 <= 1e-5);
-12. prints one JSON line of per-kernel results (launches: K1-K7 from the
-   generate phase, K8 from the pretrain phase with its per-step count, K9
+12. prints the configurations phase's results as one JSON line, then one
+   JSON line of per-kernel results (launches: K1-K7 from the generate
+   phase, K12 from the generate phase at image_size 512, the modes from the
+   configuration or image size that runs them, K8 from the pretrain phase
+   with its per-step count, K9
    from the Mask2Former pretrain phase, K10 and K11 from the finetune driver
    with their per-step counts), then the card's name and power limit and the
    final status line.
 
-``--profile`` adds a torch.profiler table of one warm generate image with
+``--only`` runs just the named phases of the encoder's kernel configurations
+(2b, 4b, 4c) after the build, and prints no result lines.
+
+``--profile`` adds a torch.profiler table of one warm generate image (and of
+one warm main-path image at image_size 768) with
 the kernels and with the plain versions, and of one warm pretrain step (UperNet
 and Mask2Former) and one warm finetune step with the kernels (device time by operation, device
 busy share of the wall time).  ``chip_drift.py`` shows where the generate path's two paths part.
@@ -138,8 +167,9 @@ IMAGE_HW = (768, 1024)
 GEN_HW = (800, 800)
 GEN_BOXES = 100
 GEN_BOX_PX = (16, 240)  # box sides, uniform; not taken from a DIOR statistic
-MAIN_LAUNCHES = {"K1": 28, "K2": 4, "K3": 32, "K4": 1, "K5": 2, "K6": 1, "K7": 0, "K8f": 0,
-                 "K8b": 0, "K9f": 0, "K9b": 0, "K10": 0, "K11": 0}
+MAIN_LAUNCHES = {"K1": 28, "K1pf": 0, "K1w": 0, "K2": 4, "K3": 32, "K3t": 0, "K12": 0, "K4": 1,
+                 "K5": 2, "K6": 1, "K7": 0, "K8f": 0, "K8b": 0, "K9f": 0, "K9b": 0, "K10": 0,
+                 "K11": 0}
 GEN_LAUNCHES = {**MAIN_LAUNCHES, "K7": 4}
 # SEP pretraining: vit_b_rvsa + UperNet, 224^2, heads SOTA / SIOR / FAST
 TRAIN_BATCH = (17, 12, 65)     # proportional_batch_sizes(..., 96): floors of the subset shares
@@ -190,10 +220,13 @@ PEAK = {"bf16": 989e12, "fp32": 67e12}
 
 
 def counters():
-    from samrs_tpu_torch.kernels import (amg_post, bilinear_gather, flash_attention, fused_mlp,
-                                         fused_twoway, fused_upscale, fused_window_layer)
-    return {"K1": (fused_window_layer, "launches"), "K2": (flash_attention, "launches"),
-            "K3": (fused_mlp, "launches"), "K4": (fused_twoway, "kv_launches"),
+    from samrs_tpu_torch.kernels import (amg_post, bilinear_gather, flash_attention,
+                                         fused_attention, fused_mlp, fused_twoway, fused_upscale,
+                                         fused_window_block, fused_window_layer, window_attention)
+    return {"K1": (fused_window_layer, "launches"), "K1pf": (fused_window_block, "launches"),
+            "K1w": (fused_attention, "launches"), "K2": (flash_attention, "launches"),
+            "K3": (fused_mlp, "launches"), "K3t": (fused_mlp, "tail_launches"),
+            "K12": (window_attention, "launches"), "K4": (fused_twoway, "kv_launches"),
             "K5": (fused_twoway, "i2t_launches"), "K6": (fused_upscale, "launches"),
             "K7": (amg_post, "launches"), "K8f": (bilinear_gather, "fwd_launches"),
             "K8b": (bilinear_gather, "bwd_launches"), "K9f": (bilinear_gather, "ps_fwd_launches"),
@@ -259,9 +292,10 @@ def kernel_phase(gen: torch.Generator):
           rn(C, std=0.1), rn(ws, ws, hd, std=0.1), rn(ws, ws, hd, std=0.1), ws, hd ** -0.5, nH)
     nwin = (-(-G // ws)) ** 2
     k1_flops = 2 * T * C * 4 * C + nwin * nH * (4 * (ws * ws) ** 2 * hd + 4 * ws ** 3 * hd)
-    cases.append(("K1", "window layer", "samrs_tpu_torch/csrc/window_attention.cu",
+    cases.append(("K1", "window layer (batch-innermost order: block_ijb, block_sg)",
+                  "samrs_tpu_torch/csrc/window_attention.cu",
                   "samrs_tpu/kernels/fused_window_layer.py:639",
-                  lambda: fused_window_layer.window_layer_attention(xn, *k1),
+                  lambda: fused_window_layer.window_layer_attention(xn, *k1, variant="ijb"),
                   lambda: fused_window_layer.window_layer_plain(xn.float(), *k1),
                   lambda: fused_window_layer.window_layer_plain(xn, *k1),
                   2 * (2 * T * C + 4 * C * C), k1_flops, None))
@@ -340,6 +374,27 @@ def kernel_phase(gen: torch.Generator):
                   Bp * T * D * 2 + Bp * 16 * T * 4,
                   2 * Bp * T * (D * D + D * D // 2 + 16 * (D // 8)), None))
 
+    results = run_cases(cases)
+    del sdpa_mask, keysB, src
+    torch.cuda.empty_cache()
+    results.update(k7_phase(gen))
+    # the kernel line lists K5 once: its layer-1 (per-prompt) launch, with the
+    # shared-keys mode and the 32-slot case beside it
+    k5 = results.pop("K5p")
+    k5["name"] = ("K5 decoder i2t update (per-prompt keys; shared-keys mode in shared_*, "
+                  "21 tokens in 32 slots in slots32_*)")
+    for key, prefix in (("K5s", "shared"), ("K5w", "slots32")):
+        other = results.pop(key)
+        k5.update({f"{prefix}_{k}": other[k] for k in ("ms", "plain_ms", "bound_ms", "max_abs_err")})
+        k5["max_abs_err"] = max(k5["max_abs_err"], other["max_abs_err"])
+    results["K5"] = k5
+    return {k: results[k] for k in sorted(results)}
+
+
+def run_cases(cases):
+    """Each case: the kernel against its plain version in fp32 on the same
+    inputs (relative L2 <= KERNEL_RTOL), then kernel, bf16 plain and library
+    times and the bound."""
     results = {}
     for key, title, source, replaces, kernel, ref, plain, nbytes, flops, library in cases:
         got = as_tuple(kernel())
@@ -365,20 +420,235 @@ def kernel_phase(gen: torch.Generator):
                             max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                             bound_by=bound_by, library_ms=lib_ms)
         del got, want
-    del sdpa_mask, keysB, src
+    return results
+
+
+def modes_kernel_phase(gen: torch.Generator):
+    """K12, K2's modes, K3's tail mode and K1's modes at the shapes of one
+    ViT-H image, each against its plain version in fp32 on the same
+    bf16-rounded inputs (run_cases)."""
+    from samrs_tpu_torch.kernels import (flash_attention, fused_attention, fused_mlp,
+                                         fused_window_block, fused_window_layer, window_attention)
+
+    C, nH, ws, G = 1280, 16, 14, 64
+    hd = C // nH
+    T = G * G
+    nwin = (-(-G // ws)) ** 2  # 25 windows of the padded 70 x 70 map
+    n = ws * ws
+
+    def rn(*shape, std=1.0):  # bf16-representable fp32 values
+        return (torch.randn(*shape, generator=gen, device="cuda") * std).bfloat16().float()
+
+    cases = []
+
+    def split_case(key, title, replaces, Bq, kh, kw):
+        N = kh * kw
+        q, k, v = (rn(Bq, N, hd).bfloat16() for _ in range(3))
+        rh, rw = rn(Bq, N, kh, std=0.5), rn(Bq, N, kw, std=0.5)
+        mask = (rh[..., :, None] + rw[..., None, :]).reshape(Bq, N, N).bfloat16()
+        args = (rh, rw, hd ** -0.5)
+        cases.append((key, title, "samrs_tpu_torch/csrc/split_attention.cu", replaces,
+                      lambda: window_attention.split_attention(q, k, v, *args),
+                      lambda: window_attention.split_attention_plain(q.float(), k.float(),
+                                                                     v.float(), *args),
+                      lambda: window_attention.split_attention_plain(q, k, v, *args),
+                      3 * Bq * N * hd * 2 + Bq * N * (kh + kw) * 4 + Bq * N * hd * 4,
+                      4 * Bq * N * N * hd,
+                      lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                             scale=hd ** -0.5)))
+
+    split_case("K12", "split-head rel-pos attention, ViT-H windows (whole-window launch)",
+               "samrs_tpu/kernels/window_attention.py:83", nwin * nH, ws, ws)
+    split_case("K12g", "split-head rel-pos attention, ViT-H globals (query-tiled launch)",
+               "samrs_tpu/kernels/flash_attention.py:105", nH, G, G)
+    split_case("K12s1024", "split-head rel-pos attention, 32x32 grid (image_size 512)",
+               "samrs_tpu/kernels/window_attention.py:83", nH, 32, 32)
+    split_case("K12s256", "split-head rel-pos attention, 16x16 grid (image_size 256)",
+               "samrs_tpu/kernels/window_attention.py:83", nH, 16, 16)
+
+    def k2_case(key, title, replaces, variant, g):
+        N = g * g
+        qkv = rn(1, N, 3 * C).bfloat16()
+        args = (rn(g, g, hd, std=0.1), rn(g, g, hd, std=0.1), (g, g), hd ** -0.5, nH)
+        q, k, v = qkv.reshape(1, N, 3, nH, hd).permute(2, 0, 3, 1, 4)
+        rel_h, rel_w = flash_attention._rel_rows(q, args[0], args[1], (g, g))
+        mask = (rel_h[..., :, None] + rel_w[..., None, :]).reshape(1, nH, N, N).bfloat16()
+        del rel_h, rel_w
+        cases.append((key, title, "samrs_tpu_torch/csrc/flash_attention.cu", replaces,
+                      lambda: flash_attention.attention_qkv_relpos(qkv, *args, variant=variant),
+                      lambda: flash_attention.attention_qkv_relpos_plain(qkv.float(), *args,
+                                                                         variant=variant),
+                      lambda: flash_attention.attention_qkv_relpos_plain(qkv, *args,
+                                                                         variant=variant),
+                      2 * 4 * N * C, 4 * nH * N * N * hd,
+                      lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                             scale=hd ** -0.5)))
+
+    k2_case("K2split", "global flash attention, mode split", "samrs_tpu/kernels/flash_attention.py:239",
+            "split", G)
+    k2_case("K2exp2", "global flash attention, mode exp2 (base-2 softmax)",
+            "samrs_tpu/kernels/flash_attention.py:239", "exp2", G)
+    k2_case("K2aug", "global flash attention, mode aug (q*scale and rel rows rounded to bf16)",
+            "samrs_tpu/kernels/flash_attention.py:454", "aug", G)
+    k2_case("K2w48", "global flash attention, 48x48 grid (image_size 768, key tiles straddle rows)",
+            "samrs_tpu/kernels/flash_attention.py:343", "m", 48)
+
+    Hp = -(-G // ws) * ws
+    att_p = rn(1, Hp, Hp, C).bfloat16()
+    sc = rn(1, G, G, C)
+    k3 = (1.0 + rn(C, std=0.1), rn(C, std=0.1), rn(4 * C, C, std=C ** -0.5), rn(4 * C, std=0.1),
+          rn(C, 4 * C, std=(4 * C) ** -0.5), rn(C, std=0.1), 1e-6)
+    cases.append(("K3t", f"LN-MLP-residual tail mode ({Hp}^2 padded map cropped to {G}^2)",
+                  "samrs_tpu_torch/csrc/gemm.cu", "samrs_tpu/kernels/fused_mlp.py:413",
+                  lambda: fused_mlp.fused_tail_ln_mlp_residual(att_p, sc, *k3),
+                  lambda: fused_mlp.fused_tail_ln_mlp_residual_plain(att_p.float(), sc, *k3,
+                                                                     dtype=torch.float32),
+                  lambda: fused_mlp.fused_tail_ln_mlp_residual_plain(att_p, sc, *k3,
+                                                                     dtype=torch.bfloat16),
+                  T * C * (2 + 4 + 4) + 2 * 8 * C * C, 16 * T * C * C, None))
+
+    xn = rn(1, G, G, C).bfloat16()
+    k1 = (rn(3 * C, C, std=C ** -0.5), rn(3 * C, std=0.5), rn(C, C, std=C ** -0.5),
+          rn(C, std=0.1), rn(ws, ws, hd, std=0.1), rn(ws, ws, hd, std=0.1), ws, hd ** -0.5, nH)
+    attn_flops = nwin * nH * (4 * n * n * hd + 4 * ws ** 3 * hd)
+    k1_bytes, k1_flops = 2 * (2 * T * C + 4 * C * C), 2 * T * C * 4 * C + attn_flops
+    layer = fused_window_layer.window_layer_attention
+    plain = fused_window_layer.window_layer_plain
+    src = "samrs_tpu_torch/csrc/window_attention.cu"
+    for key, title, replaces, kw in (
+            ("K1blk", "window layer, plain window order (block, block_slab)",
+             "samrs_tpu/kernels/fused_window_layer.py:639", dict(variant=None)),
+            ("K1row", "window layer, one block per window row (block_row)",
+             "samrs_tpu/kernels/fused_window_layer.py:568", dict(variant="row")),
+            ("K1q", "window layer, qkv GEMM outside (blockq; plain order)",
+             "samrs_tpu/kernels/fused_window_layer.py:305", dict(variant="qkv_out")),
+            ("K1pad", "window layer, padded map out (tail_impl=fused)",
+             "samrs_tpu/kernels/fused_window_layer.py:639",
+             dict(variant="ijb", return_padded=True))):
+        cases.append((key, title, src, replaces,
+                      lambda kw=kw: layer(xn, *k1, **kw),
+                      lambda kw=kw: plain(xn.float(), *k1, **kw),
+                      lambda kw=kw: plain(xn, *k1, **kw), k1_bytes, k1_flops, None))
+    res = rn(1, G, G, C)
+    cases.append(("K1r", "window layer, residual in the projection (block2)", src,
+                  "samrs_tpu/kernels/fused_window_layer.py:457",
+                  lambda: fused_window_layer.window_layer_attention_residual(res, xn, *k1),
+                  lambda: plain(xn.float(), *k1, residual=res),
+                  lambda: plain(xn, *k1, residual=res), k1_bytes + 2 * T * C * 4, k1_flops, None))
+    qkv_map = rn(1, G, G, 3 * C).bfloat16()
+    pf = (k1[4], k1[5], ws, hd ** -0.5, nH)
+    bq = k1[1]
+    cases.append(("K1pf", "window attention stage on the raw qkv map (fused2)", src,
+                  "samrs_tpu/kernels/fused_window_block.py:246",
+                  lambda: fused_window_block.window_attention_partition_free(qkv_map, *pf,
+                                                                             pad_fill=bq),
+                  lambda: fused_window_block.window_attention_partition_free_plain(
+                      qkv_map.float(), *pf, pad_fill=bq),
+                  lambda: fused_window_block.window_attention_partition_free_plain(
+                      qkv_map, *pf, pad_fill=bq),
+                  T * 4 * C * 2, attn_flops, None))
+    qkv_win = rn(nwin, n, 3 * C).bfloat16()
+    fa = (k1[4], k1[5], (ws, ws), hd ** -0.5, nH)
+    cases.append(("K1w", "window attention on partitioned windows (fused)", src,
+                  "samrs_tpu/kernels/fused_attention.py:114",
+                  lambda: fused_attention.attention_qkv_fused(qkv_win, *fa),
+                  lambda: fused_attention.attention_qkv_fused_plain(qkv_win.float(), *fa),
+                  lambda: fused_attention.attention_qkv_fused_plain(qkv_win, *fa),
+                  nwin * n * 4 * C * 2, attn_flops, None))
+    results = run_cases(cases)
     torch.cuda.empty_cache()
-    results.update(k7_phase(gen))
-    # the kernel line lists K5 once: its layer-1 (per-prompt) launch, with the
-    # shared-keys mode and the 32-slot case beside it
-    k5 = results.pop("K5p")
-    k5["name"] = ("K5 decoder i2t update (per-prompt keys; shared-keys mode in shared_*, "
-                  "21 tokens in 32 slots in slots32_*)")
-    for key, prefix in (("K5s", "shared"), ("K5w", "slots32")):
-        other = results.pop(key)
-        k5.update({f"{prefix}_{k}": other[k] for k in ("ms", "plain_ms", "bound_ms", "max_abs_err")})
-        k5["max_abs_err"] = max(k5["max_abs_err"], other["max_abs_err"])
-    results["K5"] = k5
-    return {k: results[k] for k in sorted(results)}
+    return results
+
+
+def _config_launches(knobs):
+    """Launches per image of the ViT-H encoder under the SamConfig `knobs`."""
+    want = {"K1": 28, "K2": 4, "K3": 32}
+    impl = knobs.get("window_attn_impl")
+    if impl in ("pallas", "xla", "fused", "fused2"):
+        del want["K1"]
+        want.update({"pallas": {"K12": 28}, "xla": {"K12": 4}, "fused": {"K1w": 28},
+                     "fused2": {"K1pf": 28}}[impl])
+        if impl == "xla":
+            del want["K2"]
+    if knobs.get("tail_impl") == "fused":
+        want.update(K3=4, K3t=28)
+    if knobs.get("mlp_impl") == "xla":
+        del want["K3"]
+    return want
+
+
+# the encoder's kernel configurations: (label, SamConfig knobs)
+CONFIGS = [("default", {})]
+CONFIGS += [(f"window_attn_impl={v}", dict(window_attn_impl=v))
+            for v in ("pallas", "xla", "fused", "fused2", "block", "block_row", "blockq",
+                      "block2", "block_slab", "block_sg")]
+CONFIGS += [(f"global_attn_impl={v}", dict(global_attn_impl=v)) for v in ("split", "exp2", "aug")]
+CONFIGS += [("tail_impl=fused", dict(tail_impl="fused")), ("mlp_impl=xla", dict(mlp_impl="xla"))]
+CONFIG_REPS = 7
+
+
+def configs_phase(model, gen: torch.Generator):
+    """The ViT-H encoder on one 1024^2 image under every kernel
+    configuration, from the weights of `model`: launches per image, encoder
+    ms (CUDA events, median of CONFIG_REPS) and the feature rel-L2 against
+    the default configuration (<= FEATURE_RTOL)."""
+    from samrs_tpu_torch.sam.image_encoder import ImageEncoderViT
+
+    c = model.cfg
+    x = torch.randn(1, c.image_size, c.image_size, 3, generator=gen, device="cuda")
+    state = model.image_encoder.state_dict()
+    out, ref = {}, None
+    for label, knobs in CONFIGS:
+        with torch.device("cuda"):
+            enc = ImageEncoderViT(
+                img_size=c.image_size, patch_size=c.patch_size, embed_dim=c.encoder_embed_dim,
+                depth=c.encoder_depth, num_heads=c.encoder_num_heads,
+                out_chans=c.prompt_embed_dim, window_size=c.window_size,
+                global_attn_indexes=c.encoder_global_attn_indexes, **knobs)
+        enc.load_state_dict(state, strict=True)
+        enc.eval()
+        with torch.no_grad():
+            reset_counts()
+            feats = enc(x, True)
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in read_counts().items() if v}
+            ms = cuda_ms(lambda: enc(x, True), warmup=1, reps=CONFIG_REPS)
+        want = _config_launches(knobs)
+        if ref is None:
+            ref = feats
+        err = rel_l2([feats], [ref])
+        print(f"config {label}: encoder_ms={ms:.3f} feature_rel_l2_vs_default={err:.3e} "
+              f"launches={counts}", flush=True)
+        if counts != want:
+            raise RuntimeError(f"config {label}: launches {counts} != {want}")
+        if not (torch.isfinite(feats).all() and err <= FEATURE_RTOL):
+            raise RuntimeError(f"config {label}: feature rel-L2 {err:.3e} > {FEATURE_RTOL}")
+        out[label] = dict(ms=ms, rel_l2=err, launches=counts)
+        del enc, feats
+    torch.cuda.empty_cache()
+    return out
+
+
+# the generator at other image sizes: global grids of 32^2 and 16^2 tokens take
+# K12 (query-tiled / whole-window); at 768 (48^2 = 2304 tokens) K2 with key
+# tiles that straddle grid rows
+SIZE_GEN_LAUNCHES = {**GEN_LAUNCHES, "K2": 0, "K12": 4}
+
+
+def sizes_phase(gen: torch.Generator, profile: bool = False):
+    """generate_phase at image_size 512 and 256 (kernels against plain), then
+    main_path at image_size 768; each ViT-H freed before the next."""
+    counts = {}
+    for size, run in ((512, "generate"), (256, "generate"), (768, "main")):
+        model = build_model(gen, image_size=size)
+        if run == "generate":
+            counts[size] = generate_phase(model, want=SIZE_GEN_LAUNCHES)
+        else:
+            counts[size] = main_path(model, profile=profile)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return counts
 
 
 def k7_phase(gen: torch.Generator):
@@ -801,20 +1071,21 @@ def mask_iou(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return np.where(union > 0, inter / np.maximum(union, 1), 1.0)
 
 
-def build_model(gen: torch.Generator):
+def build_model(gen: torch.Generator, **overrides):
     from samrs_tpu_torch.sam import build_sam
 
     t0 = time.perf_counter()
-    model = build_sam("vit_h", device="cuda", generator=gen)
+    model = build_sam("vit_h", device="cuda", generator=gen, **overrides)
     with torch.no_grad():
         for p in model.parameters():
             if not p.any():
                 p.copy_(torch.randn(p.shape, generator=gen, device="cuda") * 0.02)
-    print(f"built ViT-H with seeded weights in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"built ViT-H {overrides or ''} with seeded weights in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     return model
 
 
-def main_path(model):
+def main_path(model, want=MAIN_LAUNCHES, profile: bool = False):
     from samrs_tpu_torch.sam import SamPredictor
 
     rng = np.random.default_rng(SEED)
@@ -835,9 +1106,9 @@ def main_path(model):
     reset_counts()
     masks, iou, low = run()
     launches = read_counts()
-    print(f"main path launches: {launches}", flush=True)
-    if launches != MAIN_LAUNCHES:
-        raise RuntimeError(f"launch counts {launches} != {MAIN_LAUNCHES} for one image")
+    print(f"main path launches (image_size {model.cfg.image_size}): {launches}", flush=True)
+    if launches != want:
+        raise RuntimeError(f"launch counts {launches} != {want} for one image")
     feats = predictor.features.clone()
     if masks.shape != (N_BOXES, 1, H, W) or masks.dtype != np.bool_:
         raise RuntimeError(f"masks {masks.shape} {masks.dtype}")
@@ -872,7 +1143,10 @@ def main_path(model):
             run()
             times[use_kernels].append(time.perf_counter() - t)
     for use_kernels, label in ((True, "kernels"), (False, "plain")):
-        print(f"img/s ({label}): {1.0 / statistics.median(times[use_kernels]):.3f}", flush=True)
+        print(f"img/s ({label}, image_size {model.cfg.image_size}): "
+              f"{1.0 / statistics.median(times[use_kernels]):.3f}", flush=True)
+    if profile:
+        profile_image(run, model)
     model.use_kernels = True
     return launches
 
@@ -940,7 +1214,7 @@ def cover_index(masks: np.ndarray) -> np.ndarray:
     return np.where(hit, last, -1)
 
 
-def generate_phase(model, profile: bool = False):
+def generate_phase(model, profile: bool = False, want=GEN_LAUNCHES):
     from PIL import Image
 
     from samrs_tpu_torch.core.config import GenerateConfig
@@ -971,9 +1245,9 @@ def generate_phase(model, profile: bool = False):
         reset_counts()
         res = run()
         launches = read_counts()
-        print(f"generate launches: {launches}", flush=True)
-        if launches != GEN_LAUNCHES:
-            raise RuntimeError(f"generate launch counts {launches} != {GEN_LAUNCHES}")
+        print(f"generate launches (image_size {model.cfg.image_size}): {launches}", flush=True)
+        if launches != want:
+            raise RuntimeError(f"generate launch counts {launches} != {want}")
         paths = {k: os.path.join(tmp, f"img0_{k}.png") for k in ("gray", "color")}
         save_semantic_png(paths["gray"], res.gray)
         save_color_png(paths["color"], res.color)
@@ -1021,7 +1295,8 @@ def generate_phase(model, profile: bool = False):
         run()
         times[use_kernels].append(time.perf_counter() - t)
     for use_kernels, label in ((True, "kernels"), (False, "plain")):
-        print(f"generate s/image ({label}, 800x800, 100 boxes): "
+        print(f"generate s/image ({label}, 800x800, 100 boxes, image_size "
+              f"{model.cfg.image_size}): "
               f"{statistics.median(times[use_kernels]):.4f}", flush=True)
     if profile:
         profile_image(run, model)
@@ -1695,6 +1970,9 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="profile one generate image per path, one pretrain and one finetune step")
+    ap.add_argument("--only", choices=("modes", "configs", "sizes"), action="append",
+                    help="run only these phases of the SAM encoder's kernel configurations "
+                         "(a partial check: no result lines)")
     args = ap.parse_args()
     # the 94-image pretrain step peaks near 80 GB; growable segments keep the
     # caching allocator from failing on fragmentation (the values are the same)
@@ -1717,17 +1995,56 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    if args.only:
+        if "modes" in args.only:
+            modes_kernel_phase(gen)
+        if "configs" in args.only:
+            model = build_model(gen)
+            configs_phase(model, gen)
+            del model
+            torch.cuda.empty_cache()
+        if "sizes" in args.only:
+            sizes_phase(gen, args.profile)
+        print(f"partial run {args.only} passed", flush=True)
+        return
     results = kernel_phase(gen)
+    results.update(modes_kernel_phase(gen))
     model = build_model(gen)
     main_launches = main_path(model)
     gen_launches = generate_phase(model, args.profile)
-    for key, n in gen_launches.items():
-        if key in results:
-            results[key]["launches"] = n
-            results[key]["launches_main_path"] = main_launches[key]
+    for key in ("K1", "K2", "K3", "K4", "K5", "K6", "K7"):
+        results[key]["launches"] = gen_launches[key]
+        results[key]["launches_main_path"] = main_launches[key]
+    configs = configs_phase(model, gen)
     del model
     gc.collect()
     torch.cuda.empty_cache()
+    sizes = sizes_phase(gen, args.profile)
+    # the modes: launches per image of the configuration (or image size) that runs them
+    for key, counts, counter in (
+            ("K12", sizes[512], "K12"), ("K12g", configs["window_attn_impl=xla"]["launches"], "K12"),
+            ("K2split", configs["global_attn_impl=split"]["launches"], "K2"),
+            ("K2exp2", configs["global_attn_impl=exp2"]["launches"], "K2"),
+            ("K2aug", configs["global_attn_impl=aug"]["launches"], "K2"),
+            ("K2w48", sizes[768], "K2"),
+            ("K3t", configs["tail_impl=fused"]["launches"], "K3t"),
+            ("K1blk", configs["window_attn_impl=block"]["launches"], "K1"),
+            ("K1row", configs["window_attn_impl=block_row"]["launches"], "K1"),
+            ("K1q", configs["window_attn_impl=blockq"]["launches"], "K1"),
+            ("K1pad", configs["tail_impl=fused"]["launches"], "K1"),
+            ("K1r", configs["window_attn_impl=block2"]["launches"], "K1"),
+            ("K1pf", configs["window_attn_impl=fused2"]["launches"], "K1pf"),
+            ("K1w", configs["window_attn_impl=fused"]["launches"], "K1w")):
+        results[key]["launches"] = counts.get(counter, 0)
+    results["K12"]["launches_image_size_256"] = sizes[256]["K12"]
+    results["K12"]["launches_config_pallas"] = configs["window_attn_impl=pallas"]["launches"]["K12"]
+    for key, prefix in (("K12s1024", "grid32"), ("K12s256", "grid16")):
+        other = results.pop(key)
+        results["K12"].update({f"{prefix}_{k}": other[k] for k in
+                               ("ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err")})
+    results["K1"]["launches_config_block_sg"] = configs["window_attn_impl=block_sg"]["launches"]["K1"]
+    results["K1blk"]["launches_config_block_slab"] = \
+        configs["window_attn_impl=block_slab"]["launches"]["K1"]
     results.update(k8_phase(gen))
     results.update(k9_phase(gen))
     msda = msda_phase(gen)
@@ -1765,6 +2082,7 @@ def main() -> None:
           f"GiB, Hungarian {m2f['hungarian_ms']:.2f} ms a step, attention-mask bits differing "
           f"{m2f['flips'][0]} of {m2f['flips'][1]}, assignments {m2f['assign'][0]} of "
           f"{m2f['assign'][1]}", flush=True)
+    print("encoder configurations: " + json.dumps(configs), flush=True)
     print(json.dumps({"kernels": list(results.values())}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

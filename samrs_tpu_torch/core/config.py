@@ -1,10 +1,14 @@
 """SAM model configuration for the PyTorch port.
 
 The fields and variant table mirror ``samrs_tpu.core.config`` (``SamConfig``
-shared hyper-parameters and ``SAM_VARIANTS``); the TPU implementation knobs
-are not carried.  The port computes the encoder in bf16 on a CUDA device and
-in fp32 on the CPU, and its kernel switch is the explicit ``use_kernels``
-argument of ``build_sam``.  ``GenerateConfig`` mirrors the label-generation
+shared hyper-parameters and ``SAM_VARIANTS``), with the encoder's four
+implementation knobs (``window_attn_impl``, ``global_attn_impl``,
+``mlp_impl``, ``tail_impl``: the same names, defaults and value sets, each
+selecting a kernel mode of the port).  The other implementation knobs of the
+JAX package (``compute_dtype``, ``decode_dtype``, ``use_flash_attention``,
+``upscale_impl``, ``twoway_impl``) are not carried: the port computes the
+encoder in bf16 on a CUDA device and in fp32 on the CPU, and its kernel
+switch is the explicit ``use_kernels`` argument of ``build_sam``.  ``GenerateConfig`` mirrors the label-generation
 entry point's configuration; ``PretrainConfig`` (with ``OptimConfig`` and
 ``DataConfig``) the pretraining entry point's and ``FinetuneConfig`` the
 finetuning entry point's, with the same fields, defaults and dotted
@@ -91,6 +95,34 @@ class SamConfig:
     mask_threshold: float = 0.0
     pixel_mean: Tuple[float, float, float] = (123.675, 116.28, 103.53)
     pixel_std: Tuple[float, float, float] = (58.395, 57.12, 57.375)
+    # Encoder kernel configurations (samrs_tpu/core/config.py:143-221).  The
+    # windowed layers: the block family runs K1 on the unpadded map ("block",
+    # "block_slab": plain window order; "block_ijb", "block_sg": batch
+    # innermost; "block_row": one program per window row; "blockq": the qkv
+    # GEMM outside; "block2": the residual inside), "fused2" K1's attention
+    # stage on the raw qkv map, "fused" K1 on partitioned windows, "pallas"
+    # K12 on split heads, "xla" the torch composition of the JAX oracle.
+    window_attn_impl: str = "block_ijb"
+    mlp_impl: str = "fused"  # K3 | "xla": Dense -> exact GELU -> Dense
+    # "fused": crop + attention residual + LN2 + MLP + residual in one K3
+    # tail call; takes effect only with mlp_impl="fused" and a block-family
+    # window_attn_impl other than "block_row" / "blockq" / "block2"
+    tail_impl: str = "xla"
+    global_attn_impl: str = "m"  # K2's mode: "m" / "split" / "exp2" / "aug"
+
+    WINDOW_ATTN_IMPLS = ("block", "fused", "fused2", "pallas", "xla",
+                         "blockq", "block_row", "block2", "block_slab",
+                         "block_ijb", "block_sg")
+    MLP_IMPLS = ("fused", "xla")
+    TAIL_IMPLS = ("fused", "xla")
+    GLOBAL_ATTN_IMPLS = ("aug", "split", "exp2", "m")
+
+    def __post_init__(self) -> None:
+        for name, allowed in (("window_attn_impl", self.WINDOW_ATTN_IMPLS),
+                              ("mlp_impl", self.MLP_IMPLS), ("tail_impl", self.TAIL_IMPLS),
+                              ("global_attn_impl", self.GLOBAL_ATTN_IMPLS)):
+            if getattr(self, name) not in allowed:
+                raise ValueError(f"unknown {name} {getattr(self, name)!r}; have {allowed}")
 
     @property
     def grid_size(self) -> int:

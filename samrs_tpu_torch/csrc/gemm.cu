@@ -5,6 +5,8 @@
 //
 // Replaces the matrix products inside the TPU kernels
 //   samrs_tpu/kernels/fused_mlp.py::_ln_kernel (LN + lin1 + gelu + lin2 + residual)
+//   samrs_tpu/kernels/fused_mlp.py::_tail_kernel (tail_impl="fused": the same
+//     after crop + attention residual, which the tail LayerNorm reads in place)
 //   samrs_tpu/kernels/fused_window_layer.py::_kernel (its qkv and proj matmuls)
 // Bound on the H100: tensor-core throughput (ViT-H: 2*T*C*4C flops per
 // linear against T*C bf16 bytes, far above the ~295 flop/byte ridge).  The
@@ -212,6 +214,66 @@ layernorm_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
   }
 }
 
+// The sublayer tail's prologue (tail_impl="fused"): one warp per token of
+// the (B, H, W) map; x = sc + att, with att read in place from the padded
+// (B, Hp, Wp, C) bf16 attention map (the crop is in the addressing), is
+// written to xs (the residual of the lin2 epilogue) and normalised as
+// layernorm_kernel does.  Requires C % 8 == 0.
+__global__ void __launch_bounds__(256)
+layernorm_tail_kernel(const float* __restrict__ sc, const bf16* __restrict__ att,
+                      const float* __restrict__ gamma, const float* __restrict__ beta,
+                      float* __restrict__ xs, bf16* __restrict__ y, int rows, int H, int W,
+                      int Hp, int Wp, int C, float eps) {
+  const int row = blockIdx.x * 8 + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const int b = row / (H * W), x = row / W % H, col = row % W;
+  const float* sr = sc + (size_t)row * C;
+  const bf16* ar = att + (((size_t)b * Hp + x) * Wp + col) * C;
+  float* xr = xs + (size_t)row * C;
+  float s = 0.f, sq = 0.f;
+  for (int c = lane * 8; c < C; c += 256) {
+    float f[8];
+    load8(sr + c, f);
+    const uint4 av = load16(ar + c);
+    const __nv_bfloat162* ab = reinterpret_cast<const __nv_bfloat162*>(&av);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      f[2 * e] += __bfloat162float(ab[e].x);
+      f[2 * e + 1] += __bfloat162float(ab[e].y);
+    }
+    *reinterpret_cast<float4*>(xr + c) = make_float4(f[0], f[1], f[2], f[3]);
+    *reinterpret_cast<float4*>(xr + c + 4) = make_float4(f[4], f[5], f[6], f[7]);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      s += f[e];
+      sq += f[e] * f[e];
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    s += __shfl_xor_sync(0xffffffffu, s, o);
+    sq += __shfl_xor_sync(0xffffffffu, sq, o);
+  }
+  const float mu = s / C;
+  const float var = fmaxf(sq / C - mu * mu, 0.f);
+  const float rstd = rsqrtf(var + eps);
+  bf16* yr = y + (size_t)row * C;
+  for (int c = lane * 8; c < C; c += 256) {
+    float f[8];
+    load8(xr + c, f);  // this lane's own writes above
+    uint4 ov;
+    __nv_bfloat162* ob = reinterpret_cast<__nv_bfloat162*>(&ov);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float f0 = (f[2 * e] - mu) * rstd * gamma[c + 2 * e] + beta[c + 2 * e];
+      const float f1 = (f[2 * e + 1] - mu) * rstd * gamma[c + 2 * e + 1] + beta[c + 2 * e + 1];
+      ob[e] = __floats2bfloat162_rn(f0, f1);
+    }
+    store16(yr + c, ov);
+  }
+}
+
 }  // namespace
 }  // namespace samrs
 
@@ -240,6 +302,22 @@ int samrs_layernorm(const void* x, const void* gamma, const void* beta, void* y,
   layernorm_kernel<<<(rows + 7) / 8, 256, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(gamma),
       static_cast<const float*>(beta), static_cast<bf16*>(y), rows, C, eps);
+  return cudaGetLastError();
+}
+
+// The tail prologue: xs = sc + att[:, :H, :W] (fp32) and its LayerNorm
+// -> bf16 y; sc (B, H, W, C) fp32, att (B, Hp, Wp, C) bf16.
+int samrs_layernorm_tail(const void* sc, const void* att, const void* gamma, const void* beta,
+                         void* xs, void* y, int B, int H, int W, int Hp, int Wp, int C, float eps,
+                         void* stream) {
+  using namespace samrs;
+  if (B <= 0 || H <= 0 || W <= 0 || Hp < H || Wp < W || C <= 0 || C % 8 != 0)
+    return cudaErrorInvalidValue;
+  const int rows = B * H * W;
+  layernorm_tail_kernel<<<(rows + 7) / 8, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(sc), static_cast<const bf16*>(att),
+      static_cast<const float*>(gamma), static_cast<const float*>(beta), static_cast<float*>(xs),
+      static_cast<bf16*>(y), rows, H, W, Hp, Wp, C, eps);
   return cudaGetLastError();
 }
 

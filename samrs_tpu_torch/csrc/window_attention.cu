@@ -24,6 +24,19 @@
 // in registers (warp_attention.cuh) so that two blocks fit per SM.  Each
 // warp owns 16 query rows at a time and streams the window's keys in blocks
 // of 64 with an online softmax.
+//
+// The modes of the TPU kernel family map onto two arguments:
+//   * the window order (which block takes which window): plain (image
+//     outermost, windows in row order: "block", "block_slab"), batch
+//     innermost (consecutive blocks take one window of consecutive images:
+//     "block_ijb", "block_sg"), or one block per window row, which walks the
+//     row's windows in turn (_pallas_row, "block_row");
+//   * the layout: the unpartitioned (B, H, W, 3C) map whose windows may pad
+//     (the block family and fused_window_block's "fused2"), or partitioned
+//     windows (B * nW, ws, ws, 3C) with no pad (fused_attention's "fused"),
+//     which is the map layout with one window per image;
+// and the output map may be the padded (Hp, Wp) one (return_padded, for the
+// fused sublayer tail), where the pad tokens' queries are written too.
 #include "warp_attention.cuh"
 
 namespace samrs {
@@ -78,11 +91,16 @@ __device__ __forceinline__ void token_chunk_async(bf16* dst, const bf16* __restr
   cp_async16(dst, src, valid);
 }
 
+enum WinOrder { kOrderPlain = 0, kOrderIJB = 1, kOrderRow = 2 };
+
+// One head of one window (wi, wj) of image b: the whole attention stage.
 template <int HD, int WS>
-__global__ void __launch_bounds__(WIN_WARPS * 32)
-window_attention_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ bqkv,
-                        const float* __restrict__ RhT, const float* __restrict__ RwT,
-                        bf16* __restrict__ out, int H, int W, int C, int nww, float scale) {
+__device__ __forceinline__ void window_head(const bf16* __restrict__ qkv,
+                                            const bf16* __restrict__ bqkv,
+                                            const float* __restrict__ RhT,
+                                            const float* __restrict__ RwT, bf16* __restrict__ out,
+                                            int H, int W, int Ho, int Wo, int C, float scale,
+                                            int wi, int wj, int h, int b) {
   constexpr int CH = HD / 8;  // 16-byte chunks per head row
   constexpr WinLayout L = win_layout(HD, WS);
   constexpr int NT = WS * WS;
@@ -94,9 +112,6 @@ window_attention_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ b
   unsigned char* wbase = smem + L.warp_off + warp * L.warp_bytes;
   bf16* Qs = reinterpret_cast<bf16*>(wbase + L.q_off);
   float* rel = reinterpret_cast<float*>(wbase + L.rel_off);
-
-  const int wi = blockIdx.x / nww, wj = blockIdx.x % nww;
-  const int h = blockIdx.y, b = blockIdx.z;
   const bf16* base = qkv + (size_t)b * H * W * 3 * C;
 
   for (int idx = threadIdx.x; idx < L.np * CH; idx += blockDim.x) {
@@ -165,9 +180,9 @@ window_attention_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ b
     for (int half = 0; half < 2; ++half) {
       const int t = s * 16 + g + 8 * half;
       const int x = wi * WS + t / WS, y = wj * WS + t % WS;
-      if (t < NT && x < H && y < W) {
+      if (t < NT && x < Ho && y < Wo) {
         const float inv = 1.f / st.l[half];
-        bf16* orow = out + (((size_t)b * H + x) * W + y) * C + h * HD + 2 * t4;
+        bf16* orow = out + (((size_t)b * Ho + x) * Wo + y) * C + h * HD + 2 * t4;
 #pragma unroll
         for (int n = 0; n < HD / 8; ++n)
           *reinterpret_cast<__nv_bfloat162*>(orow + n * 8) =
@@ -178,9 +193,33 @@ window_attention_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ b
   }
 }
 
+// grid: plain (nwh * nww, heads, B), window-major; batch innermost
+// (nwh * nww * B, heads, 1); window rows (nwh, heads, B), each block walking
+// the nww windows of its row.
+template <int HD, int WS>
+__global__ void __launch_bounds__(WIN_WARPS * 32)
+window_attention_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ bqkv,
+                        const float* __restrict__ RhT, const float* __restrict__ RwT,
+                        bf16* __restrict__ out, int B, int H, int W, int Ho, int Wo, int C,
+                        int nww, int order, float scale) {
+  const int h = blockIdx.y;
+  if (order == kOrderRow) {
+    for (int wj = 0; wj < nww; ++wj) {
+      if (wj) __syncthreads();  // the previous window's K/V are read out
+      window_head<HD, WS>(qkv, bqkv, RhT, RwT, out, H, W, Ho, Wo, C, scale, blockIdx.x, wj, h,
+                          blockIdx.z);
+    }
+    return;
+  }
+  const int w = order == kOrderIJB ? blockIdx.x / B : blockIdx.x;
+  const int b = order == kOrderIJB ? blockIdx.x % B : blockIdx.z;
+  window_head<HD, WS>(qkv, bqkv, RhT, RwT, out, H, W, Ho, Wo, C, scale, w / nww, w % nww, h, b);
+}
+
 template <int HD>
 int launch_window(const void* qkv, const void* bqkv, const void* RhT, const void* RwT, void* out,
-                  int B, int H, int W, int C, int num_heads, float scale, cudaStream_t stream) {
+                  int B, int H, int W, int Ho, int Wo, int C, int num_heads, int order,
+                  float scale, cudaStream_t stream) {
   constexpr WinLayout L = win_layout(HD, WIN_WS);
   static_assert((L.np / 16) >= WIN_WARPS, "every warp needs a query stripe");
   auto kernel = window_attention_kernel<HD, WIN_WS>;
@@ -188,10 +227,13 @@ int launch_window(const void* qkv, const void* bqkv, const void* RhT, const void
                                          (int)L.total);
   if (err != cudaSuccess) return err;
   const int nwh = (H + WIN_WS - 1) / WIN_WS, nww = (W + WIN_WS - 1) / WIN_WS;
-  dim3 grid(nwh * nww, num_heads, B);
+  dim3 grid = order == kOrderIJB ? dim3(nwh * nww * B, num_heads, 1)
+              : order == kOrderRow ? dim3(nwh, num_heads, B)
+                                   : dim3(nwh * nww, num_heads, B);
   kernel<<<grid, WIN_WARPS * 32, L.total, stream>>>(
       static_cast<const bf16*>(qkv), static_cast<const bf16*>(bqkv), static_cast<const float*>(RhT),
-      static_cast<const float*>(RwT), static_cast<bf16*>(out), H, W, C, nww, scale);
+      static_cast<const float*>(RwT), static_cast<bf16*>(out), B, H, W, Ho, Wo, C, nww, order,
+      scale);
   return cudaGetLastError();
 }
 
@@ -208,16 +250,25 @@ long long samrs_window_attention_smem(int head_dim) {
 
 // qkv (B, H, W, 3C) bf16, bqkv (3C,) bf16 or NULL, RhT/RwT (14, head_dim, 14)
 // fp32 (the gathered (x_q, x_k, d) tables with the last two axes swapped)
-// -> out (B, H, W, C) bf16, the attention output before the projection.
+// -> out (B, Ho, Wo, C) bf16, the attention output before the projection:
+// (Ho, Wo) = (H, W), or the padded map (multiples of 14 covering it).
+// layout 0: an unpartitioned map; 1: partitioned windows, H = W = 14.
+// order 0: plain, 1: batch innermost, 2: one block per window row.
 int samrs_window_attention(const void* qkv, const void* bqkv, const void* RhT, const void* RwT,
-                           void* out, int B, int H, int W, int C, int num_heads, int head_dim,
-                           int ws, float scale, void* stream) {
+                           void* out, int B, int H, int W, int Ho, int Wo, int C, int num_heads,
+                           int head_dim, int ws, int layout, int order, float scale,
+                           void* stream) {
   using namespace samrs;
-  if (B <= 0 || H <= 0 || W <= 0 || ws != WIN_WS || num_heads * head_dim != C)
+  const int Hp = (H + WIN_WS - 1) / WIN_WS * WIN_WS, Wp = (W + WIN_WS - 1) / WIN_WS * WIN_WS;
+  if (B <= 0 || H <= 0 || W <= 0 || ws != WIN_WS || num_heads * head_dim != C ||
+      !((Ho == H && Wo == W) || (Ho == Hp && Wo == Wp)) || order < 0 || order > 2 ||
+      (layout == 1 && (H != WIN_WS || W != WIN_WS)) || layout < 0 || layout > 1)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (head_dim == 80) return launch_window<80>(qkv, bqkv, RhT, RwT, out, B, H, W, C, num_heads, scale, st);
-  if (head_dim == 64) return launch_window<64>(qkv, bqkv, RhT, RwT, out, B, H, W, C, num_heads, scale, st);
+  if (head_dim == 80)
+    return launch_window<80>(qkv, bqkv, RhT, RwT, out, B, H, W, Ho, Wo, C, num_heads, order, scale, st);
+  if (head_dim == 64)
+    return launch_window<64>(qkv, bqkv, RhT, RwT, out, B, H, W, Ho, Wo, C, num_heads, order, scale, st);
   return cudaErrorInvalidValue;
 }
 

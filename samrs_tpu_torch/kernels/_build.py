@@ -32,9 +32,11 @@ _SIGNATURES = {
     "samrs_error_string": ([_I], ctypes.c_char_p),
     "samrs_gemm_bf16": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
     "samrs_layernorm": ([_P, _P, _P, _P, _I, _I, _F, _P], _I),
+    "samrs_layernorm_tail": ([_P] * 6 + [_I] * 6 + [_F, _P], _I),
     "samrs_window_attention_smem": ([_I], ctypes.c_longlong),
-    "samrs_window_attention": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P], _I),
-    "samrs_flash_attention_relpos": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P], _I),
+    "samrs_window_attention": ([_P] * 5 + [_I] * 11 + [_F, _P], _I),
+    "samrs_flash_attention_relpos": ([_P] * 4 + [_I] * 7 + [_F, _I, _P], _I),
+    "samrs_split_attention": ([_P] * 6 + [_I] * 5 + [_F, _I, _P], _I),
     "samrs_t2i_kv": ([_P] * 8 + [_I, _I, _P], _I),
     "samrs_i2t_update": ([_P] * 18 + [_I, _I, _I, _I, _I, _F, _F, _P], _I),
     "samrs_upscale_hyper": ([_P] * 9 + [_I, _I, _I, _I, _F, _P], _I),

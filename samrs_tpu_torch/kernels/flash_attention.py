@@ -1,16 +1,24 @@
 """K2: global attention of the encoder with the decomposed rel-pos bias,
-heads read in place from the raw ``(B, N, 3C)`` qkv tensor; and K10, plain
-softmax attention in fp32 for the seg ViTs' full-attention blocks (at the
-end of this module).
+heads read in place from the raw ``(B, N, 3C)`` qkv tensor, in the four
+modes of the JAX package's ``global_attn_impl``; ``flash_attention_relpos``,
+the same attention on split heads over K12 (window_attention.py); and K10,
+plain softmax attention in fp32 for the seg ViTs' full-attention blocks (at
+the end of this module).
 
-Replaces samrs_tpu/kernels/flash_attention.py::flash_attention_qkv_relpos
-(variant "m", Pallas call ``_qkv_flash_m_pallas``).  On a CUDA tensor the
-wrapper computes the per-query rel-pos rows ``rel_h = q.Rh[x_q]^T`` and
-``rel_w = q.Rw[y_q]^T`` in fp32 (outside the kernel, as the JAX package does
-outside its pallas_call) and launches the hand-written flash kernel of
-csrc/flash_attention.cu.  Bound on the H100: tensor-core flops plus the
-softmax on the CUDA cores; the N x N logits never reach device memory.  On a
-CPU tensor it runs the plain version.
+K2 replaces samrs_tpu/kernels/flash_attention.py::flash_attention_qkv_relpos
+(Pallas calls ``_qkv_flash_m_pallas`` :343 for variant "m",
+``_qkv_flash_pallas`` :239 for "split" and "exp2", ``_qkv_flash_aug_pallas``
+:454 for "aug").  On a CUDA tensor the wrapper computes the per-query
+rel-pos rows ``rel_h = q.Rh[x_q]^T`` and ``rel_w = q.Rw[y_q]^T`` in fp32
+(outside the kernel, as the JAX package does outside its pallas_call) and
+launches the hand-written flash kernel of csrc/flash_attention.cu.  The
+modes round where their twins round: "m" and "split" add the fp32 rows;
+"exp2" takes the softmax in base 2 with log2 e folded into the scale and the
+tables; "aug" rounds ``q * scale`` and the rows to the compute dtype before
+they meet.  Any grid (a key tile may straddle grid rows) and any N (ragged
+tiles are masked).  Bound on the H100: tensor-core flops plus the softmax on
+the CUDA cores; the N x N logits never reach device memory.  On a CPU tensor
+it runs the plain version.
 """
 
 from __future__ import annotations
@@ -20,12 +28,15 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from samrs_tpu_torch.kernels import _build
+from samrs_tpu_torch.kernels import _build, window_attention
 
 launches = 0  # CUDA launches of this kernel (one per wrapper call)
 
 _HEAD_DIMS = (64, 80)  # instantiated in csrc/flash_attention.cu
-_TILE = 64  # query and key tile of the kernel; a key tile must lie in one grid row
+_TILE = 64  # query and key tile of the kernel
+VARIANTS = ("m", "split", "exp2", "aug")  # the JAX package's global_attn_impl values
+_MODE = {"m": 0, "split": 0, "exp2": 1, "aug": 2}  # the kernel's softmax / rounding mode
+LOG2E = 1.4426950408889634
 
 
 def _rel_rows(q: torch.Tensor, Rh: torch.Tensor, Rw: torch.Tensor, hw: Tuple[int, int]):
@@ -39,42 +50,70 @@ def _rel_rows(q: torch.Tensor, Rh: torch.Tensor, Rw: torch.Tensor, hw: Tuple[int
 
 
 def online_softmax_v(s: torch.Tensor, v: torch.Tensor, dtype: torch.dtype,
-                     tile: int = _TILE) -> torch.Tensor:
+                     tile: int = _TILE, base2: bool = False) -> torch.Tensor:
     """``softmax(s) @ v`` in fp32, rounded as the kernels' online softmax
     rounds it (csrc/warp_attention.cuh): keys in tiles of `tile`, each
     tile's probabilities exp(s - running max) rounded to `dtype` (the P of
     the P.V product), row sum of the rounded values, rescaled to the final
-    max.  For fp32 this is the exact softmax.  s (..., n), v (..., n, d)."""
+    max.  For fp32 this is the exact softmax.  With `base2` the logits are in
+    units of log2 e and the powers are of 2.  s (..., n), v (..., n, d)."""
     n = s.shape[-1]
+    exp = torch.exp2 if base2 else torch.exp
     st = F.pad(s, (0, (-n) % tile), value=float("-inf")).unflatten(-1, (-1, tile))
     m = st.amax(-1).cummax(-1).values                     # running max after each tile
-    p = torch.exp(st - m[..., None]).to(dtype).float()
-    rescale = torch.exp(m - m[..., -1:])
+    p = exp(st - m[..., None]).to(dtype).float()
+    rescale = exp(m - m[..., -1:])
     denom = (p.sum(-1) * rescale).sum(-1, keepdim=True)
     p = (p * rescale[..., None]).flatten(-2)[..., :n]
     return (p @ v.float()) / denom
 
 
-def attention_qkv_relpos_plain(qkv, Rh, Rw, hw: Tuple[int, int], scale: float, num_heads: int):
+def _check_variant(variant: str) -> None:
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown global attention variant {variant!r}; have {VARIANTS}")
+
+
+def _mode_inputs(q, Rh, Rw, hw, scale: float, variant: str, dtype: torch.dtype):
+    """The rel rows and the scales of one mode, rounded where its twin rounds:
+    (rel_h, rel_w, scale of q before the product (None: not rounded), scale
+    of the product)."""
+    if variant == "exp2":
+        rel_h, rel_w = _rel_rows(q, Rh * LOG2E, Rw * LOG2E, hw)
+        return rel_h, rel_w, None, scale * LOG2E
+    if variant == "aug":
+        rel_h, rel_w = _rel_rows(q, Rh.to(dtype), Rw.to(dtype), hw)
+        return rel_h.to(dtype).float(), rel_w.to(dtype).float(), scale, 1.0
+    rel_h, rel_w = _rel_rows(q, Rh, Rw, hw)
+    return rel_h, rel_w, None, scale
+
+
+def attention_qkv_relpos_plain(qkv, Rh, Rw, hw: Tuple[int, int], scale: float, num_heads: int,
+                               variant: str = "m"):
     """Plain PyTorch version, following the JAX oracle
     ``attention_qkv_relpos_xla``: fp32 logits and softmax, output in qkv's
     dtype; the probabilities are rounded as the kernel rounds them
-    (``online_softmax_v``).  qkv (B, N, 3C) -> (B, N, C)."""
+    (``online_softmax_v``), and each mode rounds as the kernel's does.
+    qkv (B, N, 3C) -> (B, N, C)."""
+    _check_variant(variant)
     H, W = hw
     B, N, C3 = qkv.shape
     C = C3 // 3
     hd = C // num_heads
+    dt = qkv.dtype
     q, k, v = qkv.reshape(B, N, 3, num_heads, hd).permute(2, 0, 3, 1, 4).unbind(0)
-    rel_h, rel_w = _rel_rows(q, Rh, Rw, hw)
-    s = (q.float() * scale) @ k.float().transpose(-1, -2)     # (B, nH, N, N)
+    rel_h, rel_w, q_scale, s_scale = _mode_inputs(q, Rh, Rw, hw, scale, variant, dt)
+    qf = q.float() if q_scale is None else (q.float() * q_scale).to(dt).float()
+    s = (qf @ k.float().transpose(-1, -2)) * s_scale          # (B, nH, N, N)
     s = s.reshape(B, num_heads, N, H, W) + rel_h[..., :, None] + rel_w[..., None, :]
-    out = online_softmax_v(s.reshape(B, num_heads, N, N), v, qkv.dtype)
-    return out.permute(0, 2, 1, 3).reshape(B, N, C).to(qkv.dtype)
+    out = online_softmax_v(s.reshape(B, num_heads, N, N), v, dt, base2=variant == "exp2")
+    return out.permute(0, 2, 1, 3).reshape(B, N, C).to(dt)
 
 
-def attention_qkv_relpos_cuda(qkv, Rh, Rw, hw: Tuple[int, int], scale: float, num_heads: int):
+def attention_qkv_relpos_cuda(qkv, Rh, Rw, hw: Tuple[int, int], scale: float, num_heads: int,
+                              variant: str = "m"):
     """The hand-written flash kernel on a bf16 CUDA ``qkv (B, N, 3C)``."""
     global launches
+    _check_variant(variant)
     _build.require_cuda("qkv", qkv, torch.bfloat16)
     if qkv.dim() != 3:
         raise ValueError(f"qkv: expected (B, N, 3C), got {tuple(qkv.shape)}")
@@ -84,26 +123,44 @@ def attention_qkv_relpos_cuda(qkv, Rh, Rw, hw: Tuple[int, int], scale: float, nu
     hd = C // num_heads
     if 3 * C != C3 or hd * num_heads != C or hd not in _HEAD_DIMS:
         raise ValueError(f"flash kernel supports head_dim in {_HEAD_DIMS}, got 3C={C3}, heads={num_heads}")
-    if N != H * W or W % _TILE:
-        raise ValueError(f"flash kernel needs N = H*W with W % {_TILE} == 0, got N={N}, hw={hw}")
+    if N != H * W:
+        raise ValueError(f"flash kernel needs N = H*W, got N={N}, hw={hw}")
     if tuple(Rh.shape) != (H, H, hd) or tuple(Rw.shape) != (W, W, hd):
         raise ValueError(f"Rh/Rw: expected ({H}, {H}, {hd}) / ({W}, {W}, {hd})")
     q = qkv[..., :C].reshape(B, N, num_heads, hd).transpose(1, 2)
-    rel_h, rel_w = _rel_rows(q, Rh, Rw, hw)
+    rel_h, rel_w, q_scale, s_scale = _mode_inputs(q, Rh, Rw, hw, scale, variant, torch.bfloat16)
     rel_h, rel_w = rel_h.contiguous(), rel_w.contiguous()
     out = torch.empty(B, N, C, device=qkv.device, dtype=torch.bfloat16)
     _build.launch("samrs_flash_attention_relpos", _build.ptr(qkv), _build.ptr(rel_h),
-                  _build.ptr(rel_w), _build.ptr(out), B, N, C, num_heads, hd, H, W, float(scale))
+                  _build.ptr(rel_w), _build.ptr(out), B, N, C, num_heads, hd, H, W,
+                  float(s_scale if q_scale is None else q_scale), _MODE[variant])
     launches += 1
     return out
 
 
-def attention_qkv_relpos(qkv, Rh, Rw, hw: Tuple[int, int], scale: float, num_heads: int):
-    """K2 on ``qkv (B, N, 3C)`` -> ``(B, N, C)``: the kernel for a CUDA
-    tensor, the plain version for a CPU tensor."""
+def attention_qkv_relpos(qkv, Rh, Rw, hw: Tuple[int, int], scale: float, num_heads: int,
+                         variant: str = "m"):
+    """K2 on ``qkv (B, N, 3C)`` -> ``(B, N, C)`` in the mode `variant` (the
+    JAX package's ``global_attn_impl``): the kernel for a CUDA tensor, the
+    plain version for a CPU tensor."""
     if not qkv.is_cuda:
-        return attention_qkv_relpos_plain(qkv, Rh, Rw, hw, scale, num_heads)
-    return attention_qkv_relpos_cuda(qkv, Rh, Rw, hw, scale, num_heads)
+        return attention_qkv_relpos_plain(qkv, Rh, Rw, hw, scale, num_heads, variant)
+    return attention_qkv_relpos_cuda(qkv, Rh, Rw, hw, scale, num_heads, variant)
+
+
+def flash_attention_relpos(q, k, v, Rh, Rw, hw: Tuple[int, int], scale: float) -> torch.Tensor:
+    """JAX ``flash_attention_relpos``: attention with the decomposed rel-pos
+    bias over an (H, W) grid on split heads, q, k, v (B', N, d), the
+    gathered Rh (H, H, d) / Rw (W, W, d) -> (B', N, d) fp32; K12's
+    query-tiled launch on the card (the whole-window one for N <= 256)."""
+    rel_h, rel_w = window_attention.rel_rows(q, Rh, Rw, hw)
+    return window_attention.split_attention(q, k, v, rel_h, rel_w, scale)
+
+
+def flash_attention_relpos_plain(q, k, v, Rh, Rw, hw: Tuple[int, int], scale: float):
+    """``flash_attention_relpos`` with K12's plain version on any device."""
+    rel_h, rel_w = window_attention.rel_rows(q, Rh, Rw, hw)
+    return window_attention.split_attention_plain(q, k, v, rel_h, rel_w, scale)
 
 
 # ---------------------------------------------------------------------------

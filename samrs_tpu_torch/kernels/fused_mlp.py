@@ -11,6 +11,13 @@ matmul operands are bf16).  Bound on the H100: tensor-core flops
 (4*T*C*M); the hidden activation (T x M bf16) still makes one round trip
 through device memory.  On a CPU tensor it runs the plain version.
 
+``fused_tail_ln_mlp_residual`` is K3's tail mode (``tail_impl="fused"``;
+samrs_tpu/kernels/fused_mlp.py::fused_tail_ln_mlp_residual, Pallas call
+``_tail_pallas`` :413): the windowed sublayer's crop and attention residual
+move into K3's LayerNorm prologue, which reads the valid (H, W) region of
+the padded attention map in place and writes the summed stream that the
+lin2 epilogue adds back; the GEMMs are K3's.
+
 Weights use torch's ``nn.Linear`` layout: w1 (M, C), w2 (C, M).
 """
 
@@ -22,6 +29,7 @@ import torch.nn.functional as F
 from samrs_tpu_torch.kernels import _build, gemm
 
 launches = 0  # CUDA launches of this kernel (one per wrapper call)
+tail_launches = 0  # CUDA launches of the tail mode (one per wrapper call)
 
 
 def ln_mlp_residual_plain(x, g_ln, b_ln, w1, b1, w2, b2, eps: float = 1e-6,
@@ -69,6 +77,58 @@ def ln_mlp_residual(x, g_ln, b_ln, w1, b1, w2, b2, eps: float = 1e-6, dtype=torc
     C = x.shape[-1]
     out = ln_mlp_residual_cuda(x.reshape(-1, C), g_ln, b_ln, w1, b1, w2, b2, eps)
     return out.reshape(x.shape)
+
+
+def fused_tail_ln_mlp_residual_plain(att_p, sc, g_ln, b_ln, w1, b1, w2, b2, eps: float = 1e-6,
+                                     dtype=torch.float32):
+    """Plain version, following the JAX oracle ``tail_ln_mlp_residual_xla``:
+    ``x = sc + att_p[:, :H, :W]`` in sc's dtype, then ``x + MLP(LN(x))``
+    as ``ln_mlp_residual_plain``.  att_p (B, Hp, Wp, C), sc (B, H, W, C)."""
+    B, H, W, C = sc.shape
+    x = sc + att_p[:, :H, :W].to(sc.dtype)
+    return ln_mlp_residual_plain(x, g_ln, b_ln, w1, b1, w2, b2, eps, dtype)
+
+
+def fused_tail_ln_mlp_residual_cuda(att_p, sc, g_ln, b_ln, w1, b1, w2, b2, eps: float = 1e-6):
+    """The tail mode on the card: bf16 ``att_p (B, Hp, Wp, C)``, the fp32
+    residual stream ``sc (B, H, W, C)`` -> fp32 ``(B, H, W, C)``."""
+    global tail_launches
+    _build.require_cuda("sc", sc, torch.float32)
+    _build.require_cuda("att_p", att_p, torch.bfloat16)
+    if sc.dim() != 4 or att_p.dim() != 4:
+        raise ValueError(f"att_p / sc: expected (B, Hp, Wp, C) / (B, H, W, C), got "
+                         f"{tuple(att_p.shape)} / {tuple(sc.shape)}")
+    B, H, W, C = sc.shape
+    _, Hp, Wp, _ = att_p.shape
+    if att_p.shape[0] != B or att_p.shape[3] != C or Hp < H or Wp < W or C % 8:
+        raise ValueError(f"att_p {tuple(att_p.shape)} does not cover sc {tuple(sc.shape)} "
+                         f"(or C % 8 != 0)")
+    M = w1.shape[0]
+    if tuple(w1.shape) != (M, C) or tuple(w2.shape) != (C, M):
+        raise ValueError(f"w1/w2: expected ({M}, {C}) / ({C}, {M})")
+    g = g_ln.to(device=sc.device, dtype=torch.float32).contiguous()
+    b = b_ln.to(device=sc.device, dtype=torch.float32).contiguous()
+    xs = torch.empty_like(sc)
+    xn = torch.empty(B, H, W, C, device=sc.device, dtype=torch.bfloat16)
+    _build.launch("samrs_layernorm_tail", _build.ptr(sc), _build.ptr(att_p), _build.ptr(g),
+                  _build.ptr(b), _build.ptr(xs), _build.ptr(xn), B, H, W, Hp, Wp, C, float(eps))
+    h = gemm.linear(xn.reshape(-1, C), w1, b1, gelu=True)
+    out = gemm.linear(h, w2, b2, residual=xs.reshape(-1, C))
+    tail_launches += 1
+    return out.reshape(B, H, W, C)
+
+
+def fused_tail_ln_mlp_residual(att_p, sc, g_ln, b_ln, w1, b1, w2, b2, eps: float = 1e-6,
+                               dtype=torch.bfloat16):
+    """``x + MLP(LN(x))`` with ``x = sc + att_p[:, :H, :W]``: the kernel for
+    a CUDA tensor (bf16 products), the plain version with products in
+    `dtype` for a CPU tensor."""
+    if not sc.is_cuda:
+        return fused_tail_ln_mlp_residual_plain(att_p, sc, g_ln, b_ln, w1, b1, w2, b2, eps, dtype)
+    if dtype != torch.bfloat16:
+        raise ValueError(f"the MLP kernel computes in bfloat16, got dtype {dtype}")
+    return fused_tail_ln_mlp_residual_cuda(att_p, sc.contiguous(), g_ln, b_ln, w1, b1, w2, b2,
+                                           eps)
 
 
 # ---------------------------------------------------------------------------

@@ -54,6 +54,8 @@ class Sam(nn.Module):
             img_size=c.image_size, patch_size=c.patch_size, embed_dim=c.encoder_embed_dim,
             depth=c.encoder_depth, num_heads=c.encoder_num_heads, out_chans=c.prompt_embed_dim,
             window_size=c.window_size, global_attn_indexes=c.encoder_global_attn_indexes,
+            window_attn_impl=c.window_attn_impl, global_attn_impl=c.global_attn_impl,
+            mlp_impl=c.mlp_impl, tail_impl=c.tail_impl,
         )
         self.prompt_encoder = PromptEncoder(
             embed_dim=c.prompt_embed_dim, image_embedding_size=(c.grid_size, c.grid_size),

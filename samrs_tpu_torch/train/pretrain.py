@@ -110,8 +110,8 @@ def run_pretrain(cfg: PretrainConfig, model: Optional[torch.nn.Module] = None,
     if int(np.prod(cfg.mesh_shape)) not in (-1, 1):
         raise ValueError("the port trains on one card; DDP is queued in ROADMAP.md")
     if cfg.pretrained:
-        raise NotImplementedError("loading a torch backbone checkpoint comes with the finetune "
-                                  "slice (ROADMAP.md)")
+        raise NotImplementedError("loading a torch backbone checkpoint (pretrained=) is not "
+                                  "ported yet: ROADMAP.md Queue 1 item 2")
     device = torch.device(cfg.device)
     num_classes = tuple(DATASET_CLASSES[d] for d in cfg.data.datasets)
     if model is None:

@@ -16,14 +16,21 @@ import jax.numpy as jnp
 import torch
 
 from samrs_tpu.kernels.amg_post import amg_postprocess as jax_amg_postprocess
-from samrs_tpu.kernels.flash_attention import attention_qkv_relpos_xla, flash_attention_qkv_relpos
-from samrs_tpu.kernels.fused_mlp import fused_ln_mlp_residual, ln_mlp_residual_xla
+from samrs_tpu.kernels.flash_attention import (attention_qkv_relpos_xla, attention_relpos_xla,
+                                               flash_attention_qkv_relpos, flash_attention_relpos)
+from samrs_tpu.kernels.fused_attention import attention_qkv_fused
+from samrs_tpu.kernels.fused_mlp import (fused_ln_mlp_residual, fused_tail_ln_mlp_residual,
+                                         ln_mlp_residual_xla, tail_ln_mlp_residual_xla)
 from samrs_tpu.kernels.fused_twoway import i2t_update, i2t_update_xla, t2i_kv_proj, t2i_kv_proj_xla
 from samrs_tpu.kernels.fused_upscale import fused_upscale_hyper, upscale_hyper_xla
+from samrs_tpu.kernels.fused_window_block import (window_attention_partition_free,
+                                                 window_block_xla)
 from samrs_tpu.kernels.fused_window_layer import (window_layer_attention,
                                                  window_layer_attention_residual, window_layer_xla)
-from samrs_tpu_torch.kernels import (_build, amg_post, flash_attention, fused_mlp, fused_twoway,
-                                     fused_upscale, fused_window_layer, gemm)
+from samrs_tpu.kernels.window_attention import window_attention_relpos, window_attention_xla
+from samrs_tpu_torch.kernels import (_build, amg_post, flash_attention, fused_attention,
+                                     fused_mlp, fused_twoway, fused_upscale, fused_window_block,
+                                     fused_window_layer, gemm, window_attention)
 
 TOL = 1e-4  # fp32 on both sides; only summation order differs
 
@@ -155,18 +162,155 @@ def _k6_case(rng, M):
     return oracle, interp, port
 
 
+def _k1_variant_case(rng, variant, padded=False):
+    """K1's modes (the JAX package's ``variant``); with `padded` the padded
+    map out, compared on its valid region (the pad rows are unspecified)."""
+    B, H, W, C, nH, ws = 2, 6, 6, 32, 2, 4
+    hd = C // nH
+    f = lambda *s, std=1.0: (rng.normal(size=s) * std).astype(np.float32)
+    xn, Wqkv, bqkv = f(B, H, W, C), f(C, 3 * C, std=0.2), f(3 * C, std=0.5)
+    Wproj, bproj = f(C, C, std=0.2), f(C, std=0.1)
+    Rh, Rw = f(ws, ws, hd, std=0.2), f(ws, ws, hd, std=0.2)
+    static = (ws, hd ** -0.5, nH)
+    jax_args = [jnp.asarray(a) for a in (xn, Wqkv, bqkv, Wproj, bproj, Rh, Rw)]
+    t = torch.from_numpy
+    port_args = (t(xn), t(Wqkv.T.copy()), t(bqkv), t(Wproj.T.copy()), t(bproj), t(Rh), t(Rw))
+    crop = (lambda a: a[:, :H, :W]) if padded else (lambda a: a)
+    oracle = lambda: window_layer_xla(*jax_args, *static, dtype=jnp.float32)
+    interp = lambda: crop(window_layer_attention(*jax_args, *static, dtype=jnp.float32,
+                                                 interpret=True, variant=variant,
+                                                 return_padded=padded))
+    port = lambda: crop(fused_window_layer.window_layer_attention(
+        *port_args, *static, variant=variant, return_padded=padded))
+    return oracle, interp, port
+
+
+def _split_case(rng, kh, kw, flash=False):
+    """K12 at a (kh, kw) grid on split heads: the windowed kernel, or with
+    `flash` the query-tiled one (N % 128 for the Pallas twin)."""
+    B, d = 3, 16
+    N = kh * kw
+    f = lambda *s, std=1.0: (rng.normal(size=s) * std).astype(np.float32)
+    q, k, v, Rh, Rw = f(B, N, d), f(B, N, d), f(B, N, d), f(kh, kh, d, std=0.3), f(kw, kw, d, std=0.3)
+    jax_args = [jnp.asarray(a) for a in (q, k, v, Rh, Rw)]
+    static = ((kh, kw), d ** -0.5)
+    twin = flash_attention_relpos if flash else window_attention_relpos
+    port_fn = (flash_attention.flash_attention_relpos if flash
+               else window_attention.window_attention_relpos)
+
+    def oracle():
+        jq = jnp.asarray(q).reshape(B, kh, kw, d)
+        rel_h = jnp.einsum("bhwc,hkc->bhwk", jq, jnp.asarray(Rh)).reshape(B, N, kh)
+        rel_w = jnp.einsum("bhwc,wkc->bhwk", jq, jnp.asarray(Rw)).reshape(B, N, kw)
+        xla = attention_relpos_xla if flash else window_attention_xla
+        return xla(*jax_args[:3], rel_h, rel_w, d ** -0.5)
+
+    interp = lambda: twin(*jax_args, *static, interpret=True)
+    t = torch.from_numpy
+    port = lambda: port_fn(t(q), t(k), t(v), t(Rh), t(Rw), *static)
+    return oracle, interp, port
+
+
+def _k2_variant_case(rng, variant):
+    """K2's modes at N = 256: "split", "exp2" (base-2 softmax), "aug" (the
+    rel-pos rows folded into augmented q / k)."""
+    B, H, W, C, nH = 1, 16, 16, 32, 2
+    hd = C // nH
+    qkv = rng.normal(size=(B, H * W, 3 * C)).astype(np.float32)
+    Rh = (rng.normal(size=(H, H, hd)) * 0.2).astype(np.float32)
+    Rw = (rng.normal(size=(W, W, hd)) * 0.2).astype(np.float32)
+    static = ((H, W), hd ** -0.5, nH)
+    jax_args = [jnp.asarray(a) for a in (qkv, Rh, Rw)]
+    oracle = lambda: attention_qkv_relpos_xla(*jax_args, *static)
+    interp = lambda: flash_attention_qkv_relpos(*jax_args, *static, interpret=True,
+                                                variant=variant)
+    t = torch.from_numpy
+    port = lambda: flash_attention.attention_qkv_relpos(t(qkv), t(Rh), t(Rw), *static,
+                                                        variant=variant)
+    return oracle, interp, port
+
+
+def _k3_tail_case(rng):
+    """K3's tail mode: a 21 x 21 padded attention map cropped to 16 x 16,
+    plus the shortcut, then LN + MLP + residual."""
+    B, H, W, Hp, C, M = 2, 16, 16, 21, 32, 128
+    f = lambda *s, std=1.0: (rng.normal(size=s) * std).astype(np.float32)
+    att_p, sc, g, b = f(B, Hp, Hp, C), f(B, H, W, C), 1.0 + f(C, std=0.1), f(C, std=0.1)
+    w1, b1, w2, b2 = f(C, M, std=0.2), f(M, std=0.1), f(M, C, std=0.1), f(C, std=0.1)
+    jax_args = [jnp.asarray(a) for a in (att_p, sc, g, b, w1, b1, w2, b2)]
+    oracle = lambda: tail_ln_mlp_residual_xla(*jax_args, jnp.float32, eps=1e-6)
+    interp = lambda: fused_tail_ln_mlp_residual(*jax_args, dtype=jnp.float32, eps=1e-6,
+                                                interpret=True)
+    t = torch.from_numpy
+    port = lambda: fused_mlp.fused_tail_ln_mlp_residual(
+        t(att_p), t(sc), t(g), t(b), t(w1.T.copy()), t(b1), t(w2.T.copy()), t(b2), 1e-6,
+        dtype=torch.float32)
+    return oracle, interp, port
+
+
+def _partition_free_case(rng):
+    """K1's attention stage on the raw qkv map (fused2): a 6 x 6 map in 4 x 4
+    windows, pad tokens filled from a nonzero qkv bias row."""
+    B, H, W, C, nH, ws = 2, 6, 6, 32, 2, 4
+    hd = C // nH
+    f = lambda *s, std=1.0: (rng.normal(size=s) * std).astype(np.float32)
+    qkv, Rh, Rw, fill = f(B, H, W, 3 * C), f(ws, ws, hd, std=0.2), f(ws, ws, hd, std=0.2), f(3 * C)
+    jax_args = [jnp.asarray(a) for a in (qkv, Rh, Rw)]
+    static = (ws, hd ** -0.5, nH)
+    oracle = lambda: window_block_xla(*jax_args, *static, jnp.asarray(fill))
+    interp = lambda: window_attention_partition_free(*jax_args, *static, interpret=True,
+                                                     pad_fill=jnp.asarray(fill))
+    t = torch.from_numpy
+    port = lambda: fused_window_block.window_attention_partition_free(
+        t(qkv), t(Rh), t(Rw), *static, pad_fill=t(fill))
+    return oracle, interp, port
+
+
+def _fused_case(rng):
+    """Attention from raw qkv rows with heads as column slices (fused): 8
+    partitioned 4 x 4 windows."""
+    B, ws, C, nH = 8, 4, 32, 2
+    hd, N = C // nH, ws * ws
+    f = lambda *s, std=1.0: (rng.normal(size=s) * std).astype(np.float32)
+    qkv, Rh, Rw = f(B, N, 3 * C), f(ws, ws, hd, std=0.2), f(ws, ws, hd, std=0.2)
+    jax_args = [jnp.asarray(a) for a in (qkv, Rh, Rw)]
+    static = ((ws, ws), hd ** -0.5, nH)
+    oracle = lambda: attention_qkv_relpos_xla(*jax_args, *static)
+    interp = lambda: attention_qkv_fused(*jax_args, *static, interpret=True)
+    t = torch.from_numpy
+    port = lambda: fused_attention.attention_qkv_fused(t(qkv), t(Rh), t(Rw), *static)
+    return oracle, interp, port
+
+
 CASES = {"K1": _k1_case, "K1-residual": lambda rng: _k1_case(rng, residual=True),
          "K2": _k2_case, "K3": _k3_case, "K4": _k4_case,
          "K5-per-prompt": lambda rng: _k5_case(rng, shared=False),
          "K5-shared": lambda rng: _k5_case(rng, shared=True),
          "K5-32-slots": lambda rng: _k5_case(rng, shared=True, nt=21, slots=32),
          "K6-M1": lambda rng: _k6_case(rng, 1), "K6-M3": lambda rng: _k6_case(rng, 3)}
+# the encoder's kernel configurations (SamConfig knobs); seeded after CASES
+MODE_CASES = {"K1-block": lambda rng: _k1_variant_case(rng, None),
+              "K1-row": lambda rng: _k1_variant_case(rng, "row"),
+              "K1-qkv-out": lambda rng: _k1_variant_case(rng, "qkv_out"),
+              "K1-slab": lambda rng: _k1_variant_case(rng, "slab"),
+              "K1-slab-ijb": lambda rng: _k1_variant_case(rng, "slab_ijb"),
+              "K1-padded": lambda rng: _k1_variant_case(rng, "ijb", padded=True),
+              "K1-partition-free": _partition_free_case, "K1-fused": _fused_case,
+              "K12-4x4": lambda rng: _split_case(rng, 4, 4),
+              "K12-7x7": lambda rng: _split_case(rng, 7, 7),
+              "K12-flash-16x16": lambda rng: _split_case(rng, 16, 16, flash=True),
+              "K2-split": lambda rng: _k2_variant_case(rng, "split"),
+              "K2-exp2": lambda rng: _k2_variant_case(rng, "exp2"),
+              "K2-aug": lambda rng: _k2_variant_case(rng, "aug"),
+              "K3-tail": _k3_tail_case}
+ORDER = sorted(CASES) + sorted(MODE_CASES)
+ALL_CASES = {**CASES, **MODE_CASES}
 
 
 @pytest.mark.parametrize("reference", ["oracle", "interpret"])
-@pytest.mark.parametrize("kernel", sorted(CASES))
+@pytest.mark.parametrize("kernel", ORDER)
 def test_plain_port_matches_jax(kernel, reference):
-    oracle, interp, port = CASES[kernel](np.random.default_rng(sorted(CASES).index(kernel)))
+    oracle, interp, port = ALL_CASES[kernel](np.random.default_rng(ORDER.index(kernel)))
     want = oracle() if reference == "oracle" else interp()
     got = port()
     wants = want if isinstance(want, (tuple, list)) else (want,)
@@ -267,7 +411,7 @@ def test_cpu_wrappers_never_build_or_count(monkeypatch):
     for mod, name in COUNTERS.values():
         monkeypatch.setattr(mod, name, 0)
     rng = np.random.default_rng(7)
-    for case in CASES.values():
+    for case in ALL_CASES.values():
         case(rng)[2]()
     for case in K7_CASES:
         low, img_size, inp, orig = _k7_inputs(case)
@@ -280,7 +424,9 @@ COUNTERS = {  # kernel -> (module, launch counter)
     "K1": (fused_window_layer, "launches"), "K2": (flash_attention, "launches"),
     "K3": (fused_mlp, "launches"), "K4": (fused_twoway, "kv_launches"),
     "K5": (fused_twoway, "i2t_launches"), "K6": (fused_upscale, "launches"),
-    "K7": (amg_post, "launches"),
+    "K7": (amg_post, "launches"), "K12": (window_attention, "launches"),
+    "K1-partition-free": (fused_window_block, "launches"), "K1-fused": (fused_attention, "launches"),
+    "K3-tail": (fused_mlp, "tail_launches"),
 }
 
 CUDA_ENTRIES = {  # the kernel launchers, called with a CPU tensor
@@ -291,6 +437,8 @@ CUDA_ENTRIES = {  # the kernel launchers, called with a CPU tensor
     "K5": lambda x: fused_twoway.i2t_update_cuda(x.float(), *[None] * 14, 8),
     "K6": lambda x: fused_upscale.upscale_hyper_cuda(x, *[None] * 7),
     "K7": lambda x: amg_post.amg_postprocess_cuda(x.float(), (64, 64), (64, 64), 64, 0.0, 1.0),
+    "K12": lambda x: window_attention.split_attention_cuda(x, x, x, None, None, 1.0),
+    "K3-tail": lambda x: fused_mlp.fused_tail_ln_mlp_residual_cuda(x, x, *[None] * 6),
 }
 
 

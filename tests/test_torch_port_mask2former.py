@@ -657,12 +657,13 @@ def test_m2f_step_matches_jax_point_mode(m2f_variables):
     points; JAX's draws replayed through the seam): the shared matching
     points (K8), the uncertainty candidates and the loss points (K9).  One
     head keeps JAX's compile of the step short.  The moments over all
-    parameters are held at 1e-4, each tensor's at 2e-3: a few small
+    parameters are held at 1e-4, each tensor's at 1.2e-3: a few small
     gradients (biases, the RVSA sampling nets' through K8's coordinate
     derivative) are sums whose terms largely cancel, and with 16 points a
-    mask their fp32 summation order shows at 1e-4 to 4e-4, varying with the
-    number of threads the two packages reduce with."""
-    _check_snapshot(_run_steps(m2f_variables, POINTS, 1, heads=(2,))[0], 2e-3)
+    mask their fp32 summation order shows at up to 3.75e-4 (the RVSA
+    sampling-angle bias's first moment), the same with 1 or 8 torch threads:
+    the bound keeps a 3x margin over it."""
+    _check_snapshot(_run_steps(m2f_variables, POINTS, 1, heads=(2,))[0], 1.2e-3)
 
 
 def test_m2f_zero_gradient_parameters_are_noise(m2f_variables):

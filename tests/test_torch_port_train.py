@@ -458,6 +458,12 @@ def _make_seg_dataset(tmp_path, name, size=32, n_train=12, n_val=8, n_classes=5)
     return root
 
 
+def test_run_pretrain_refuses_pretrained_with_its_roadmap_item():
+    cfg = PretrainConfig(pretrained="mae_vit_b.pth", device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 2"):
+        run_pretrain(cfg)
+
+
 def test_run_pretrain_end_to_end_and_resume(tmp_path, caplog):
     """Two datasets, the tiny model, 4 iterations with an eval every 2,
     checkpoints, then a resume from ``last`` that restores the step."""
