@@ -115,6 +115,20 @@ checkout; it has no CPU path and raises on any failure.  Phases:
    restores the step and the weights; then the same with
    ``decoder=mask2former m2f_num_points=12544`` (launches per step as in
    phase 7b plus K8 26, K10 4, K11 12 an eval forward);
+9b. InternImage-T (this slice's path): K8's row-slab form (csrc/bilinear_slab.cu)
+   forward and backward against dense K8 (forward rel-L2 <= 1e-6; it is
+   bit-equal by design) and against sample_weighted_plain (K8's bounds) at
+   the four DCNv3 levels of the FAST head (BG 260 / 520 / 1040 / 2080,
+   56^2 .. 7^2, Gc 16, 9 taps, slab 7), level 0 with a bf16 map, the MSDA
+   level, a scattered 64^2 map over the shared-memory budget, a 1024-wide
+   map and Gc 6, timed beside dense K8 and the plain version with the
+   bound; K11 at C 64 / 128 / 256 / 512 on each level's tokens (rel-L2 <=
+   1e-5); one internimage_t + UperNet step (17/12/65 at 224^2, fp32) with
+   dense K8, with SAMRS_BILINEAR_SLAB=7, plain and the control, judged as
+   in phase 7 (K8 or K8-slab 90 + 90, K11 90 launches), with s/step, img/s
+   and peak memory of each; ``run_pretrain backbone=internimage_t`` for 3
+   steps with eval and checkpoints, dense and with SAMRS_BILINEAR_SLAB=7
+   (the slab kernels' launches in the result line come from that run);
 10. finetune-driver phase: ``run_finetune`` at the defaults (vit_b_rvsa +
    UperNet, Potsdam, 512^2, batch 8) for one epoch (2 steps, one eval batch)
    on a synthetic Potsdam layout with RGB labels in ISPRS_PALETTE, grafting
@@ -133,8 +147,9 @@ checkout; it has no CPU path and raises on any failure.  Phases:
    with their per-step counts), then the card's name and power limit and the
    final status line.
 
-``--only`` runs just the named phases of the encoder's kernel configurations
-(2b, 4b, 4c) after the build, and prints no result lines.
+``--only`` runs just the named phases after the build (modes, configs,
+sizes: 2b, 4b, 4c; slab: the K8-slab and K11-width checks of 9b;
+internimage: its step and driver runs), and prints no result lines.
 
 ``--profile`` adds a torch.profiler table of one warm generate image (and of
 one warm main-path image at image_size 768) with
@@ -169,7 +184,7 @@ GEN_BOXES = 100
 GEN_BOX_PX = (16, 240)  # box sides, uniform; not taken from a DIOR statistic
 MAIN_LAUNCHES = {"K1": 28, "K1pf": 0, "K1w": 0, "K2": 4, "K3": 32, "K3t": 0, "K12": 0, "K4": 1,
                  "K5": 2, "K6": 1, "K7": 0, "K8f": 0, "K8b": 0, "K9f": 0, "K9b": 0, "K10": 0,
-                 "K11": 0}
+                 "K11": 0, "K8sf": 0, "K8sb": 0}
 GEN_LAUNCHES = {**MAIN_LAUNCHES, "K7": 4}
 # SEP pretraining: vit_b_rvsa + UperNet, 224^2, heads SOTA / SIOR / FAST
 TRAIN_BATCH = (17, 12, 65)     # proportional_batch_sizes(..., 96): floors of the subset shares
@@ -191,6 +206,15 @@ M2F_STEP_LAUNCHES = {
     "K8f": 3 * (RVSA_BLOCKS + MSDA_CALLS + 2 * M2F_OUTPUTS), "K8b": 3 * (RVSA_BLOCKS + MSDA_CALLS),
     "K9f": 3 * 3 * M2F_OUTPUTS, "K9b": 3 * M2F_OUTPUTS, "K10": FULL_BLOCKS * 3, "K11": VIT_DEPTH * 3}
 M2F_EVAL_LAUNCHES = {"K8f": RVSA_BLOCKS + MSDA_CALLS, "K10": FULL_BLOCKS, "K11": VIT_DEPTH}
+# InternImage-T SEP pretraining (backbone=internimage_t): 30 blocks, one DCNv3 (K8) and one
+# MLP (K11) each; three encoder passes (heads) a step
+II_DEPTHS, II_GROUPS, II_GC = (4, 4, 18, 4), (4, 8, 16, 32), 16
+II_BLOCKS = sum(II_DEPTHS)
+II_SLAB = 7                    # SAMRS_BILINEAR_SLAB of the slab runs: divides 56, 28, 14 and 7
+II_STEP_LAUNCHES = {"K8f": II_BLOCKS * 3, "K8b": II_BLOCKS * 3, "K11": II_BLOCKS * 3}
+II_SLAB_STEP_LAUNCHES = {"K8sf": II_BLOCKS * 3, "K8sb": II_BLOCKS * 3, "K11": II_BLOCKS * 3}
+II_EVAL_LAUNCHES = {"K8f": II_BLOCKS, "K11": II_BLOCKS}
+K8_SLAB_FWD_RTOL = 1e-6        # K8-slab forward vs dense K8 (0 by design: K8's per-tap order)
 K9_RTOL = 1e-5                 # K9 vs its plain version: summation order (dimg by atomics)
 K8_RTOL = 1e-5                 # fp32 gather, kernel vs plain: summation order and atomics only
 K8_BF16_DXG_RTOL = 1e-2        # dxg returned in bf16: one bf16 rounding of the same fp32 sum
@@ -231,7 +255,8 @@ def counters():
             "K7": (amg_post, "launches"), "K8f": (bilinear_gather, "fwd_launches"),
             "K8b": (bilinear_gather, "bwd_launches"), "K9f": (bilinear_gather, "ps_fwd_launches"),
             "K9b": (bilinear_gather, "ps_bwd_launches"), "K10": (flash_attention, "full_launches"),
-            "K11": (fused_mlp, "mlp_launches")}
+            "K11": (fused_mlp, "mlp_launches"), "K8sf": (bilinear_gather, "slab_fwd_launches"),
+            "K8sb": (bilinear_gather, "slab_bwd_launches")}
 
 
 def reset_counts() -> None:
@@ -972,6 +997,165 @@ def msda_phase(gen):
                 plain_fwd_bwd_ms=timed[True][1])
 
 
+def k8_slab_phase(gen):
+    """K8's row-slab form (slab height 7 but where a case says otherwise)
+    forward and backward against dense K8 and against sample_weighted_plain
+    on the same inputs: InternImage-T's four DCNv3 levels at the FAST head
+    (65 images x G 4/8/16/32, 56^2 .. 7^2, Gc 16, 9 taps around each pixel
+    with offsets up to 1.5 px) in fp32 and level 0 with a bf16 map;
+    Mask2Former's MSDeformAttn level (BG 520, 28^2, Gc 32, 1029 queries, 4
+    taps anywhere on the map); a scattered case whose every slab is active
+    (a 64^2 map over the staging budget: tap by tap in row chunks), with
+    taps off the map and a padded last block; a map whose two rows exceed the
+    budget (W in tiles) and one with Gc 6 in bf16 (rows not 16-byte aligned).
+    The forward must equal dense K8's (rel-L2 <= K8_SLAB_FWD_RTOL; the design
+    keeps K8's per-tap order, so 0 is expected); the backward within K8's
+    bounds of the plain version.  Timed (CUDA events) beside dense K8 and the
+    plain version, with the bound."""
+    from samrs_tpu_torch.kernels import bilinear_gather as bg
+
+    B = TRAIN_BATCH[2]
+    cases = [(f"ii_l{lvl}", B * G, 56 >> lvl, 56 >> lvl, II_GC, (56 >> lvl) ** 2, 9,
+              torch.float32, "dcn", II_SLAB) for lvl, G in enumerate(II_GROUPS)]
+    cases += [("ii_l0_bf16", B * II_GROUPS[0], 56, 56, II_GC, 56 * 56, 9, torch.bfloat16, "dcn",
+               II_SLAB),
+              ("msda_l28", B * 8, 28, 28, 32, 1029, 4, torch.float32, "window", II_SLAB),
+              ("scatter", 64, 64, 64, 16, 1000, 4, torch.float32, "window", 8),
+              ("wide", 4, 8, 1024, 16, 2000, 4, torch.float32, "window", 2),
+              ("gc6_bf16", 8, 16, 20, 6, 300, 3, torch.bfloat16, "window", 4)]
+    names = ("out", "dxg", "dfx", "dfy", "dmask")
+    out = {}
+    for key, BGc, H, W, Gc, P, K, dtype, coords, Hs in cases:
+        if coords == "dcn":
+            xg, _, _, mask, dout = k8_case(gen, BGc, H, W, Gc, P, K, dtype, "window")
+            bx, by = bg._dcnv3_base_grid(H, W, 3, 3, 1, 1, 1, 1, 1, 1)
+            u = lambda: torch.rand(BGc, P, K, generator=gen, device="cuda") * 3 - 1.5
+            fx = (torch.from_numpy(bx).cuda() + u()).contiguous()
+            fy = (torch.from_numpy(by).cuda() + u()).contiguous()
+        else:
+            xg, fx, fy, mask, dout = k8_case(gen, BGc, H, W, Gc, P, K, dtype, coords)
+        args = (xg, fx, fy, mask)
+        got = [bg.sample_weighted_slab_fwd_cuda(*args, Gc, Hs)]
+        got += list(bg.sample_weighted_slab_bwd_cuda(*args, dout, Gc, Hs))
+        dense = [bg.sample_weighted_fwd_cuda(*args, Gc)]
+        dense += list(bg.sample_weighted_bwd_cuda(*args, dout, Gc))
+        torch.cuda.synchronize()
+        leaves = [t.clone().requires_grad_() for t in args]
+        ref = bg.sample_weighted_plain(*leaves, Gc)
+        want = [ref.detach()] + list(torch.autograd.grad(ref, leaves, dout, retain_graph=True))
+        errs = {n: rel_l2([g], [w]) for n, g, w in zip(names, got, want)}
+        vs_dense = {n: rel_l2([g], [d]) for n, g, d in zip(names, got, dense)}
+        fwd_equal = bool(torch.equal(got[0], dense[0]))
+        max_abs = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+        esz = xg.element_size()
+        n_in = BGc * H * W * Gc * esz + 3 * BGc * P * K * 4
+        fwd_bytes, fwd_ops = n_in + BGc * P * Gc * 4, BGc * P * K * Gc * 10
+        bwd_bytes = n_in + BGc * P * Gc * 4 + BGc * H * W * Gc * esz + 3 * BGc * P * K * 4
+        bwd_ops = BGc * P * K * Gc * 24
+        t = dict(fwd=cuda_ms(lambda: bg.sample_weighted_slab_fwd_cuda(*args, Gc, Hs)),
+                 bwd=cuda_ms(lambda: bg.sample_weighted_slab_bwd_cuda(*args, dout, Gc, Hs)),
+                 dense_fwd=cuda_ms(lambda: bg.sample_weighted_fwd_cuda(*args, Gc)),
+                 dense_bwd=cuda_ms(lambda: bg.sample_weighted_bwd_cuda(*args, dout, Gc)),
+                 plain_fwd=cuda_ms(lambda: bg.sample_weighted_plain(*args, Gc)),
+                 plain_bwd=cuda_ms(lambda: torch.autograd.grad(ref, leaves, dout,
+                                                               retain_graph=True)))
+        fb, fby = bound(fwd_bytes, fwd_ops, "fp32")
+        bb, bby = bound(bwd_bytes, bwd_ops, "fp32")
+        print(f"K8-slab {key} (BG {BGc}, {H}x{W}, Gc {Gc}, P {P}, K {K}, Hs {Hs}, "
+              f"{str(dtype)[6:]}): vs plain rel_l2 "
+              + " ".join(f"{n}={e:.3e}" for n, e in errs.items())
+              + f" max_abs={max_abs:.3e}; vs dense K8 rel_l2 "
+              + " ".join(f"{n}={e:.3e}" for n, e in vs_dense.items())
+              + f" (forward bit-equal {fwd_equal}); fwd slab/dense/plain ms {t['fwd']:.4f}/"
+              f"{t['dense_fwd']:.4f}/{t['plain_fwd']:.4f}, bound {fb:.4f} ({fby}); bwd "
+              f"slab/dense/plain ms {t['bwd']:.4f}/{t['dense_bwd']:.4f}/{t['plain_bwd']:.4f}, "
+              f"bound {bb:.4f} ({bby})", flush=True)
+        if not vs_dense["out"] <= K8_SLAB_FWD_RTOL:
+            raise RuntimeError(f"K8-slab {key}: forward vs dense K8 relative L2 "
+                               f"{vs_dense['out']:.3e} > {K8_SLAB_FWD_RTOL}")
+        for n, e in errs.items():
+            tol = K8_BF16_DXG_RTOL if dtype == torch.bfloat16 and n == "dxg" else K8_RTOL
+            if not e <= tol:
+                raise RuntimeError(f"K8-slab {key}: {n} relative L2 {e:.3e} > {tol}")
+        out[key] = dict(max_abs_err=max_abs, fwd_bound=(fb, fby), bwd_bound=(bb, bby),
+                        fwd_equal=fwd_equal, **t)
+        del xg, fx, fy, mask, dout, args, got, dense, want, leaves, ref
+        torch.cuda.empty_cache()
+    r = out["ii_l0"]
+    common = dict(route="cuda", source="samrs_tpu_torch/csrc/bilinear_slab.cu", library_ms=None,
+                  max_abs_err=max(o["max_abs_err"] for o in out.values()))
+    extra = lambda d: {**{f"{k}_ms": out[k][d] for k in out if k != "ii_l0"},
+                       **{f"{k}_dense_ms": out[k][f"dense_{d}"] for k in out},
+                       **{f"{k}_plain_ms": out[k][f"plain_{d}"] for k in out if k != "ii_l0"},
+                       **{f"{k}_bound_ms": out[k][f"{d}_bound"][0] for k in out if k != "ii_l0"}}
+    fwd = dict(name="K8-slab fwd weighted bilinear gather over active row slabs (InternImage-T "
+                    "level 0 at the FAST head: BG 260, 56x56, Gc 16, K 9, Hs 7, fp32; the other "
+                    "levels, bf16, the MSDA level and the scattered / wide / Gc 6 cases in *_ms, "
+                    "dense K8 in *_dense_ms; no single library call)",
+               replaces="samrs_tpu/kernels/bilinear_gather.py:164", **common, ms=r["fwd"],
+               plain_ms=r["plain_fwd"], bound_ms=r["fwd_bound"][0], bound_by=r["fwd_bound"][1],
+               forward_bit_equal_dense=all(o["fwd_equal"] for o in out.values()), **extra("fwd"))
+    bwd = dict(name="K8-slab bwd (dxg by a shared-memory tile per block, dfx, dfy, dmask; same "
+                    "shapes)",
+               replaces="samrs_tpu/kernels/bilinear_gather.py:419", **common, ms=r["bwd"],
+               plain_ms=r["plain_bwd"], bound_ms=r["bwd_bound"][0], bound_by=r["bwd_bound"][1],
+               **extra("bwd"))
+    return {"K8sf": fwd, "K8sb": bwd}
+
+
+def k11_widths_phase(gen):
+    """K11 at InternImage-T's four MLP widths (C 64 / 128 / 256 / 512, M 4C)
+    on the FAST head's tokens of each level (65 images at 56^2 .. 7^2)
+    against its plain version in fp32, forward and the autograd backward
+    (rel-L2 <= 1e-5); timed against the plain version and the F.linear ->
+    F.gelu -> F.linear composition, with the bound."""
+    from samrs_tpu_torch.kernels import fused_mlp as fm
+
+    rn = lambda *shape, std=1.0: torch.randn(*shape, generator=gen, device="cuda") * std
+    out = {}
+    for lvl in range(4):
+        T, C = TRAIN_BATCH[2] * (56 >> lvl) ** 2, 64 << lvl
+        M = 4 * C
+        x, dy = rn(T, C), rn(T, C)
+        w = (rn(M, C, std=C ** -0.5), rn(M, std=0.1), rn(C, M, std=M ** -0.5), rn(C, std=0.1))
+        leaves = [t.clone().requires_grad_() for t in (x, *w)]
+        got = fm.fused_mlp(*leaves)
+        got = [got.detach()] + list(torch.autograd.grad(got, leaves, dy))
+        ref = fm.fused_mlp_plain(*leaves)
+        want = [ref.detach()] + list(torch.autograd.grad(ref, leaves, dy))
+        errs = {n: rel_l2([a], [b]) for n, a, b in zip(("out", "dx", "dw1", "db1", "dw2", "db2"),
+                                                        got, want)}
+        max_abs = float((got[0] - want[0]).abs().max())
+        ms = cuda_ms(lambda: fm.fused_mlp_cuda(x, *w))
+        plain_ms = cuda_ms(lambda: fm.fused_mlp_plain(x, *w))
+        comp_ms = cuda_ms(lambda: F.linear(F.gelu(F.linear(x, w[0], w[1])), w[2], w[3]))
+        bound_ms, bound_by = bound(4 * (2 * T * C + 2 * C * M + M + C), 4 * T * C * M, "fp32")
+        print(f"K11 internimage level {lvl} (T {T}, C {C}, M {M}, fp32): rel_l2 "
+              + " ".join(f"{n}={e:.3e}" for n, e in errs.items())
+              + f" max_abs={max_abs:.3e}; kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"linear_gelu_linear_ms={comp_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by})",
+              flush=True)
+        for n, e in errs.items():
+            if not e <= K10_K11_RTOL:
+                raise RuntimeError(f"K11 C {C}: {n} relative L2 {e:.3e} > {K10_K11_RTOL}")
+        out[C] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, composition_ms=comp_ms,
+                      bound=(bound_ms, bound_by))
+        del x, dy, w, leaves, got, ref, want
+        torch.cuda.empty_cache()
+    r = out[64]
+    return {"K11w": dict(
+        name="K11 fused MLP fp32 at InternImage-T's widths (level 0 at the FAST head: T 203840, "
+             "C 64, M 256; C 128 / 256 / 512 in c*_; library: none, composition in "
+             "composition_ms)", route="cuda", source="samrs_tpu_torch/csrc/fused_mlp.cu",
+        replaces="samrs_tpu/kernels/fused_mlp.py:105",
+        max_abs_err=max(o["max_abs_err"] for o in out.values()), ms=r["ms"],
+        plain_ms=r["plain_ms"], bound_ms=r["bound"][0], bound_by=r["bound"][1], library_ms=None,
+        composition_ms=r["composition_ms"],
+        **{f"c{C}_{k}": o[k] for C, o in out.items() if C != 64
+           for k in ("ms", "plain_ms", "composition_ms")},
+        **{f"c{C}_bound_ms": o["bound"][0] for C, o in out.items() if C != 64})}
+
+
 def k10_k11_phase(gen):
     """K10 and K11 against their plain versions in fp32, forward and the
     autograd backward (the kernels' Functions recompute with the plain
@@ -1326,19 +1510,23 @@ def split_mlp_plain(x, w1, b1, w2, b2):
     return out.reshape(x.shape)
 
 
-def step_runs(model, fresh_state, step):
+def step_runs(model, fresh_state, step, modes=("kernels", "plain", "control")):
     """One train step from identical state with the kernels, with the plain
     versions, and with the plain versions and split MLP products (the
-    control): loss, launches, gradients, both AdamW moments (copied to the
-    host: a 94-image pretrain step peaks near the card's 80 GB), the
-    parameters that moved, and the first step's wall time of each."""
+    control); mode "slab" runs the kernels with SAMRS_BILINEAR_SLAB=II_SLAB
+    (K8's row-slab form where the slab divides the map): loss, launches,
+    gradients, both AdamW moments (copied to the host: a 94-image pretrain
+    step peaks near the card's 80 GB), the parameters that moved, and the
+    first step's wall time of each."""
     from samrs_tpu_torch.kernels import fused_mlp
 
     runs = {}
     plain_mlp = fused_mlp.fused_mlp_plain
-    for mode in ("kernels", "plain", "control"):
-        model.use_kernels = mode == "kernels"
+    for mode in modes:
+        model.use_kernels = mode in ("kernels", "slab")
         fused_mlp.fused_mlp_plain = split_mlp_plain if mode == "control" else plain_mlp
+        if mode == "slab":
+            os.environ["SAMRS_BILINEAR_SLAB"] = str(II_SLAB)
         try:
             state = fresh_state()
             init = {k: v.clone() for k, v in model.state_dict().items() if "running" not in k}
@@ -1350,6 +1538,7 @@ def step_runs(model, fresh_state, step):
             dt = time.perf_counter() - t
         finally:
             fused_mlp.fused_mlp_plain = plain_mlp
+            os.environ.pop("SAMRS_BILINEAR_SLAB", None)
         names = {p: n for n, p in model.named_parameters()}
         opt_state = state.optimizer.opt.state
         runs[mode] = dict(
@@ -1366,12 +1555,13 @@ def step_runs(model, fresh_state, step):
     return runs
 
 
-def compare_steps(label: str, runs, want_counts):
+def compare_steps(label: str, runs, want_counts, zero_grad=ZERO_GRAD):
     """Launches (the kernels' as `want_counts`, none on the plain runs), no
     parameter moved (lr 0 at step 0), |dloss| / loss <= STEP_LOSS_RTOL, and per
     gradient and AdamW moment the kernels-vs-plain rel-L2 over all parameters
     within CONTROL_FACTOR times the control-vs-plain one.  The zero-gradient
-    neck biases are left out of the sums and printed against the whole norm."""
+    parameters (`zero_grad`: RVSA's neck biases) are left out of the sums and
+    printed against the whole norm."""
     k, p, c = runs["kernels"], runs["plain"], runs["control"]
     want = {kk: want_counts.get(kk, 0) for kk in k["counts"]}
     print(f"{label} launches: kernels {k['counts']}, plain {p['counts']}, control "
@@ -1390,17 +1580,18 @@ def compare_steps(label: str, runs, want_counts):
     out = {}
     for what in ("grads", "mu", "nu"):
         ref = p[what]
-        norm2 = sum(float((w.double() ** 2).sum()) for n, w in ref.items() if n not in ZERO_GRAD)
+        norm2 = sum(float((w.double() ** 2).sum()) for n, w in ref.items() if n not in zero_grad)
         dist, worst, zero = {}, {}, {}
         for mode in ("kernels", "control"):
             got = runs[mode][what]
             d2 = sum(float(((got[n] - w).double() ** 2).sum()) for n, w in ref.items()
-                     if n not in ZERO_GRAD)
+                     if n not in zero_grad)
             dist[mode] = (d2 / norm2) ** 0.5
-            errs = {n: rel_l2([got[n]], [w]) for n, w in ref.items() if n not in ZERO_GRAD}
+            errs = {n: rel_l2([got[n]], [w]) for n, w in ref.items()
+                    if n not in zero_grad and w.any()}
             worst[mode] = max(errs.items(), key=lambda kv: kv[1])
-            zero[mode] = max(float(torch.linalg.vector_norm((got[n] - ref[n]).double()))
-                             for n in ZERO_GRAD) / norm2 ** 0.5
+            zero[mode] = max((float(torch.linalg.vector_norm((got[n] - ref[n]).double()))
+                              for n in zero_grad), default=0.0) / norm2 ** 0.5
         print(f"{label} {what}: rel_l2 over all parameters kernels {dist['kernels']:.3e}, "
               f"control {dist['control']:.3e} (ratio "
               f"{dist['kernels'] / max(dist['control'], 1e-30):.2f}, limit {CONTROL_FACTOR}); "
@@ -1415,12 +1606,14 @@ def compare_steps(label: str, runs, want_counts):
     return out
 
 
-def time_steps(model, fresh_state, step, label: str, n_img: int, shape: str):
+def time_steps(model, fresh_state, step, label: str, n_img: int, shape: str,
+               order=(True, False, True)):
     """Warm s/step, img/s and peak memory with the kernels and with the plain
-    versions (kernels, plain, kernels); returns {use_kernels: (s/step, bytes)}."""
+    versions (in `order`: kernels, plain, kernels); returns {use_kernels:
+    (s/step, bytes)}."""
     times = {True: [], False: []}
     peak = {}
-    for use_kernels in (True, False, True):
+    for use_kernels in order:
         model.use_kernels = use_kernels
         state = fresh_state()
         torch.cuda.reset_peak_memory_stats()
@@ -1435,6 +1628,8 @@ def time_steps(model, fresh_state, step, label: str, n_img: int, shape: str):
     model.use_kernels = True
     out = {}
     for use_kernels, name in ((True, "kernels"), (False, "plain")):
+        if not times[use_kernels]:
+            continue
         s_step = statistics.median(times[use_kernels])
         out[use_kernels] = (s_step, peak[use_kernels])
         print(f"{label} ({name}, {n_img} images at {shape}, fp32): {s_step:.4f} s/step, "
@@ -1479,6 +1674,61 @@ def train_step_phase(profile: bool = False):
     del model, init, batches
     torch.cuda.empty_cache()
     return timing
+
+
+def internimage_step_phase(profile: bool = False):
+    """One SEP pretrain step of internimage_t + UperNet (full width and depth:
+    channels 64, depths 4/4/18/4, groups 4/8/16/32; UperNet at 128; three
+    heads, 17/12/65 images at 224^2, fp32, TF32 off) from identical state
+    with the kernels (DCNv3 through dense K8, MLPs through K11), with the
+    kernels and SAMRS_BILINEAR_SLAB=7 (every level's DCNv3 through K8's
+    row-slab form), with the plain versions and with the control, each kernel
+    run judged against the plain one by the rule of the train-step phase.
+    The DCNv3 offset and mask linears start at zero, so every tap of this
+    step lies exactly on a pixel.  Then s/step, img/s and peak memory of the
+    dense, slab and plain steps."""
+    from samrs_tpu_torch.core.config import PretrainConfig
+    from samrs_tpu_torch.seg.frameworks import build_multihead_model
+    from samrs_tpu_torch.train import optim, trainer
+
+    cfg = PretrainConfig()
+    t0 = time.perf_counter()
+    model = build_multihead_model("internimage_t", device="cuda",
+                                  generator=torch.Generator(device="cuda").manual_seed(SEED))
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"built internimage_t + UperNet ({n_params / 1e6:.1f} M parameters) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    batches = train_batches(SEED + 4)
+    bset = optim.backbone_optim_settings("internimage_t", model.encoder)
+    sched = optim.warmup_cosine_schedule(bset["lr"], cfg.total_iters, cfg.optim.warmup_iters)
+
+    def fresh_state():
+        model.load_state_dict(init)
+        opt = optim.Optimizer(model, sched, weight_decay=bset["weight_decay"],
+                              grad_clip=cfg.optim.grad_clip, layer_decay=bset["layer_decay"],
+                              num_layers=bset["num_layers"], layer_id_scheme=bset["scheme"],
+                              depths=bset["depths"])
+        return trainer.TrainState(0, model, opt)
+
+    step = lambda state: trainer.pretrain_step(state, batches, cfg.seed)
+    runs = step_runs(model, fresh_state, step, modes=("kernels", "slab", "plain", "control"))
+    compare_steps("internimage step (dense K8)", runs, II_STEP_LAUNCHES, zero_grad=())
+    compare_steps("internimage step (K8-slab)", {**runs, "kernels": runs["slab"]},
+                  II_SLAB_STEP_LAUNCHES, zero_grad=())
+    n_img = sum(TRAIN_BATCH)
+    timing = time_steps(model, fresh_state, step, "internimage step", n_img, "224^2")
+    os.environ["SAMRS_BILINEAR_SLAB"] = str(II_SLAB)
+    try:
+        slab = time_steps(model, fresh_state, step, "internimage step, K8-slab", n_img, "224^2",
+                          order=(True,))
+    finally:
+        os.environ.pop("SAMRS_BILINEAR_SLAB", None)
+    if profile:
+        profile_step(model, fresh_state, step, "internimage step")
+    del model, init, batches, runs
+    torch.cuda.empty_cache()
+    return {"dense": timing[True], "slab": slab[True], "plain": timing[False]}
 
 
 def m2f_discontinuities(model, batches):
@@ -1775,6 +2025,72 @@ def pretrain_phase(tmp: str):
     return launches, os.path.join(cfg.ckpt_dir, "best_encoder.pt")
 
 
+def internimage_pretrain_phase(tmp: str, slab: bool = False):
+    """``run_pretrain`` with backbone=internimage_t at the defaults otherwise
+    (UperNet, 17/12/65 at 224^2, the family's lr / wd / depthwise layer ids)
+    on the synthetic SAMRS layout of the pretrain phase, with dense K8 or
+    (``slab``) with SAMRS_BILINEAR_SLAB=7: PRETRAIN_ITERS steps, the
+    evaluation with a per-dataset mIoU line, ``last`` / ``best`` checkpoints
+    with their encoder copies.  Returns the launches."""
+    from samrs_tpu_torch.core.config import PretrainConfig
+    from samrs_tpu_torch.train.pretrain import apply_optim_defaults, run_pretrain
+
+    handler = _Lines()
+    log = logging.getLogger("samrs_tpu_torch.pretrain")
+    log.addHandler(handler)
+    root, n_val = os.path.join(tmp, "samrs"), 8
+    log.setLevel(logging.INFO)
+    label = "internimage pretrain" + (" (K8-slab)" if slab else "")
+    over = ["backbone=internimage_t", f"data.root={root}", f"total_iters={PRETRAIN_ITERS}",
+            f"eval_interval={PRETRAIN_ITERS}", f"data.val_images={n_val}",
+            f"ckpt_dir={os.path.join(tmp, 'internimage_slab' if slab else 'internimage')}"]
+    cfg = apply_optim_defaults(PretrainConfig().override(over), over)
+    if slab:
+        os.environ["SAMRS_BILINEAR_SLAB"] = str(II_SLAB)
+    try:
+        reset_counts()
+        t = time.perf_counter()
+        state = run_pretrain(cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = read_counts()
+    finally:
+        os.environ.pop("SAMRS_BILINEAR_SLAB", None)
+        log.removeHandler(handler)
+    evals = len(cfg.data.datasets) * -(-n_val // 8)
+    per_step, per_eval = dict(II_STEP_LAUNCHES), dict(II_EVAL_LAUNCHES)
+    if slab:
+        per_step = {"K8sf" if k == "K8f" else "K8sb" if k == "K8b" else k: v
+                    for k, v in per_step.items()}
+        per_eval = {"K8sf" if k == "K8f" else k: v for k, v in per_eval.items()}
+    want = {k: PRETRAIN_ITERS * per_step.get(k, 0) + evals * per_eval.get(k, 0)
+            for k in launches}
+    print("\n".join([f"{label} " + ln for ln in handler.lines]), flush=True)
+    print(f"{label} launches: {launches} ({PRETRAIN_ITERS} steps + eval in "
+          f"{wall:.1f} s; lr {cfg.optim.lr}, wd {cfg.optim.weight_decay}, layer decay "
+          f"{cfg.optim.layer_decay})", flush=True)
+    if launches != want:
+        raise RuntimeError(f"{label} launches {launches} != {want}")
+    if state.step != PRETRAIN_ITERS:
+        raise RuntimeError(f"run_pretrain(internimage_t) stopped at step {state.step}")
+    vals = [ln for ln in handler.lines if ln.startswith("val[")]
+    if sorted(v.split("]")[0][4:] for v in vals) != sorted(cfg.data.datasets):
+        raise RuntimeError(f"per-dataset mIoU lines: {vals}")
+    for v in vals:
+        if not 0.0 <= float(v.split("mIoU ")[1].split()[0]) <= 1.0:
+            raise RuntimeError(f"mIoU out of range: {v}")
+    files = sorted(os.listdir(cfg.ckpt_dir))
+    if not {"last.pt", "last_encoder.pt", "best.pt", "best_encoder.pt"} <= set(files):
+        raise RuntimeError(f"checkpoints written: {files}")
+    finite = all(torch.isfinite(v).all() for v in state.model.state_dict().values()
+                 if v.is_floating_point())
+    if not finite:
+        raise RuntimeError("run_pretrain(internimage_t): non-finite weights")
+    del state
+    torch.cuda.empty_cache()
+    return launches
+
+
 def mask2former_driver_phase(tmp: str):
     """``run_pretrain(decoder=mask2former, m2f_num_points=12544)`` at the
     defaults otherwise (vit_b_rvsa, 17/12/65 at 224^2) on the synthetic SAMRS
@@ -1970,9 +2286,12 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="profile one generate image per path, one pretrain and one finetune step")
-    ap.add_argument("--only", choices=("modes", "configs", "sizes"), action="append",
-                    help="run only these phases of the SAM encoder's kernel configurations "
-                         "(a partial check: no result lines)")
+    ap.add_argument("--only", choices=("modes", "configs", "sizes", "slab", "internimage"),
+                    action="append",
+                    help="run only these phases (a partial check: no result lines): the SAM "
+                         "encoder's kernel configurations (modes, configs, sizes), K8-slab and "
+                         "K11 at InternImage's widths (slab), the InternImage step and driver "
+                         "(internimage)")
     args = ap.parse_args()
     # the 94-image pretrain step peaks near 80 GB; growable segments keep the
     # caching allocator from failing on fragmentation (the values are the same)
@@ -2005,6 +2324,16 @@ def main() -> None:
             torch.cuda.empty_cache()
         if "sizes" in args.only:
             sizes_phase(gen, args.profile)
+        if "slab" in args.only:
+            k8_slab_phase(gen)
+            k11_widths_phase(gen)
+        if "internimage" in args.only:
+            internimage_step_phase(args.profile)
+            with tempfile.TemporaryDirectory() as tmp:
+                write_samrs_layout(os.path.join(tmp, "samrs"), {"sota": 20, "sior": 15,
+                                                                "fast": 70}, 8)
+                internimage_pretrain_phase(tmp)
+                internimage_pretrain_phase(tmp, slab=True)
         print(f"partial run {args.only} passed", flush=True)
         return
     results = kernel_phase(gen)
@@ -2050,11 +2379,16 @@ def main() -> None:
     msda = msda_phase(gen)
     results["K8f"].update({f"msda_wrapper_{k}": v for k, v in msda.items()})
     results.update(k10_k11_phase(gen))
+    results.update(k8_slab_phase(gen))
+    results.update(k11_widths_phase(gen))
     train_step_phase(args.profile)
+    ii_step = internimage_step_phase(args.profile)
     m2f = mask2former_step_phase(args.profile)
     finetune_step_phase(args.profile)
     with tempfile.TemporaryDirectory() as tmp:
         pre_launches, encoder_ckpt = pretrain_phase(tmp)
+        ii_launches = internimage_pretrain_phase(tmp)
+        ii_slab_launches = internimage_pretrain_phase(tmp, slab=True)
         m2f_launches = mask2former_driver_phase(tmp)
         ft_launches, model = finetune_driver_phase(tmp, encoder_ckpt)
         test_launches = test_phase(tmp, model)
@@ -2076,6 +2410,18 @@ def main() -> None:
         results[key]["launches_pretrain"] = pre_launches[key]
         results[key]["launches_per_pretrain_step"] = STEP_LAUNCHES[key]
         results[key]["launches_mask2former"] = m2f_launches[key]
+    for key in ("K8f", "K8b"):  # InternImage's DCNv3 through dense K8
+        results[key]["launches_internimage"] = ii_launches[key]
+        results[key]["launches_per_internimage_step"] = II_STEP_LAUNCHES[key]
+    for key in ("K8sf", "K8sb"):  # this slice's path: InternImage pretraining, slab selected
+        results[key]["launches"] = ii_slab_launches[key]
+        results[key]["launches_per_step"] = II_SLAB_STEP_LAUNCHES[key]
+    results["K11w"]["launches"] = ii_launches["K11"]
+    results["K11w"]["launches_per_step"] = II_STEP_LAUNCHES["K11"]
+    results["K11w"]["launches_slab_run"] = ii_slab_launches["K11"]
+    print("internimage summary: " + ", ".join(
+        f"{k} {v[0]:.4f} s/step ({sum(TRAIN_BATCH) / v[0]:.2f} img/s, peak {v[1] / 2**30:.2f} GiB)"
+        for k, v in ii_step.items()), flush=True)
     kernels_s, plain_s = (m2f["timing"][k][0] for k in (True, False))
     print(f"mask2former summary: kernels {kernels_s:.4f} s/step, plain {plain_s:.4f} s/step, "
           f"peak {m2f['timing'][True][1] / 2**30:.2f} / {m2f['timing'][False][1] / 2**30:.2f} "

@@ -4,7 +4,8 @@
 //
 // x (T, C), out (T, C); W1 (M, C), b1 (M), W2 (C, M), b2 (C) in nn.Linear's
 // layout; all fp32 and contiguous.  C in {768, 1024, 1280} (the vit_b / l / h
-// widths), M a multiple of 128, any T.
+// widths) or {64, 128, 256, 512} (InternImage-T's four levels), M a multiple
+// of 128, any T.
 //
 // Replaces samrs_tpu/kernels/fused_mlp.py::_fused_pallas (its pallas_call,
 // body _kernel), the forward of fused_mlp that every seg-ViT MLP block calls.
@@ -182,6 +183,10 @@ int samrs_fused_mlp(const void* x, const void* w1, const void* b1, const void* w
   using namespace samrs;
   if (T <= 0 || M <= 0 || M % FM_MK != 0) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (C == 64) return launch_fused_mlp<64>(x, w1, b1, w2, b2, out, T, M, st);
+  if (C == 128) return launch_fused_mlp<128>(x, w1, b1, w2, b2, out, T, M, st);
+  if (C == 256) return launch_fused_mlp<256>(x, w1, b1, w2, b2, out, T, M, st);
+  if (C == 512) return launch_fused_mlp<512>(x, w1, b1, w2, b2, out, T, M, st);
   if (C == 768) return launch_fused_mlp<768>(x, w1, b1, w2, b2, out, T, M, st);
   if (C == 1024) return launch_fused_mlp<1024>(x, w1, b1, w2, b2, out, T, M, st);
   if (C == 1280) return launch_fused_mlp<1280>(x, w1, b1, w2, b2, out, T, M, st);

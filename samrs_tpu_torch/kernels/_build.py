@@ -43,6 +43,8 @@ _SIGNATURES = {
     "samrs_amg_post": ([_P] * 7 + [_I, _I, _I, _I, _F, _F, _P], _I),
     "samrs_bilinear_fwd": ([_P] * 5 + [_I] * 7 + [_P], _I),
     "samrs_bilinear_bwd": ([_P] * 9 + [_I] * 7 + [_P], _I),
+    "samrs_bilinear_slab_fwd": ([_P] * 5 + [_I] * 8 + [_P], _I),
+    "samrs_bilinear_slab_bwd": ([_P] * 9 + [_I] * 8 + [_P], _I),
     "samrs_point_sample_fwd": ([_P] * 4 + [_I] * 5 + [_P], _I),
     "samrs_point_sample_bwd": ([_P] * 7 + [_I] * 5 + [_P], _I),
     "samrs_plain_attention": ([_P] * 4 + [_I, _I, _I, _F, _P], _I),

@@ -28,10 +28,32 @@ dfy.  Each of the N maps is sampled at its own K points.  Its plain version
 only the map and the coordinates for its backward, as the kernel's does (an
 autograd graph of the gather would keep four int64 indices and four weights
 a point: ~5 GB a call at the FAST head's 6500 masks x 12544 points).
+
+K8's row-slab form (``row_slab`` > 0; csrc/bilinear_slab.cu) replaces the
+slab kernels of the same ``_make_sampler``: ``_fwd_kernel_slab`` (launched
+by ``fwd_call``, :386, when ``slab > 0``) and ``bwd_call_slab`` (:419).  It
+computes K8's function; per block of 128 raster-contiguous queries it stages
+only the Hs-row slabs of the map that the block's taps touch (the JAX
+predicate: slab rows [s*Hs, s*Hs+Hs-1] against [min fy - 1, max fy + 1]) in
+shared memory and gathers from there; its backward accumulates dX in a
+shared-memory tile of those slabs and adds it to device memory once per
+block.  ``row_slab`` follows the JAX package: ``None`` in ``dcnv3`` and
+``ms_deform_attn`` means ``_auto_slab(H)`` (dense unless
+``SAMRS_BILINEAR_SLAB`` names a height that divides H), 0 dense, and a
+height that does not divide H dense, per call and per level.  On a CPU
+tensor the slab mode runs the plain version: the function is the same.
+
+``dcnv3`` is JAX ``dcnv3_pallas`` (DCNv3 over K8, InternImage's sampling
+core) on absolute coordinates ``fx = px - 0.5 + offset``: the base grid
+``_dcnv3_base_grid`` with the taps column-major (``k = iw * kh + ih``).
 """
 
 from __future__ import annotations
 
+import os
+from typing import Optional, Tuple
+
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -41,6 +63,8 @@ fwd_launches = 0  # CUDA launches of K8's forward kernel
 bwd_launches = 0  # CUDA launches of K8's backward kernel
 ps_fwd_launches = 0  # CUDA launches of K9's forward kernel
 ps_bwd_launches = 0  # CUDA launches of K9's backward kernel
+slab_fwd_launches = 0  # CUDA launches of K8's row-slab forward kernel
+slab_bwd_launches = 0  # CUDA launches of K8's row-slab backward kernel
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -76,7 +100,10 @@ def sample_weighted_plain(xg, fx, fy, mask, group_channels: int):
     """Plain PyTorch version: the four-corner gather of JAX's
     ``_gather_chunk`` in fp32, differentiable by autograd (``floor`` has a
     zero derivative, so d/dfx is the one-sided slope).  xg (BG, H, W*Gc) fp32
-    or bf16; fx, fy, mask (BG, P, K) fp32 -> (BG, P, Gc) fp32."""
+    or bf16; fx, fy, mask (BG, P, K) fp32 -> (BG, P, Gc) fp32.  Rounded as
+    the kernels round: each tap's corners summed in the order 00, 01, 10, 11,
+    then the taps' weighted sums added one after the other (so on the card
+    the forward is bit-equal to K8's)."""
     BG, H, WGc = xg.shape
     Gc = group_channels
     W = WGc // Gc
@@ -87,7 +114,10 @@ def sample_weighted_plain(xg, fx, fy, mask, group_channels: int):
     for idx, w in _corner_weights(fx, fy, H, W):
         vals = img[(base + idx).reshape(-1)].reshape(BG, P, K, Gc)
         samp = samp + vals * w[..., None]
-    return (samp * mask[..., None]).sum(2)
+    out = samp[:, :, 0] * mask[:, :, 0, None]
+    for k in range(1, K):
+        out = out + samp[:, :, k] * mask[:, :, k, None]
+    return out
 
 
 def _check(xg, fx, fy, mask, Gc: int):
@@ -148,16 +178,148 @@ class _SampleWeighted(torch.autograd.Function):
         return dxg, dfx, dfy, dmask, None
 
 
-def sample_weighted(xg, fx, fy, mask, group_channels: int):
+def _check_slab(xg, Hs: int):
+    if Hs <= 0 or xg.shape[1] % Hs:
+        raise ValueError(f"row slab {Hs} does not divide the map's {xg.shape[1]} rows")
+
+
+def sample_weighted_slab_fwd_cuda(xg, fx, fy, mask, Gc: int, Hs: int):
+    """The row-slab forward kernel (slab height Hs, a divisor of H): (BG, P,
+    Gc) fp32, bit-equal to ``sample_weighted_fwd_cuda``."""
+    global slab_fwd_launches
+    _check(xg, fx, fy, mask, Gc)
+    _check_slab(xg, Hs)
+    BG, H, WGc = xg.shape
+    _, P, K = fx.shape
+    out = torch.empty(BG, P, Gc, device=xg.device, dtype=torch.float32)
+    p = _build.ptr
+    _build.launch("samrs_bilinear_slab_fwd", p(xg), p(fx), p(fy), p(mask), p(out),
+                  BG, H, WGc // Gc, P, K, Gc, Hs, int(xg.dtype == torch.bfloat16))
+    slab_fwd_launches += 1
+    return out
+
+
+def sample_weighted_slab_bwd_cuda(xg, fx, fy, mask, dout, Gc: int, Hs: int):
+    """The row-slab backward kernel: (dxg in xg's dtype, dfx, dfy, dmask fp32)."""
+    global slab_bwd_launches
+    _check(xg, fx, fy, mask, Gc)
+    _check_slab(xg, Hs)
+    BG, H, WGc = xg.shape
+    _, P, K = fx.shape
+    _build.require_cuda("dout", dout, torch.float32, (BG, P, Gc))
+    dxg = torch.zeros(BG, H, WGc, device=xg.device, dtype=torch.float32)
+    dfx, dfy, dmask = (torch.empty_like(fx) for _ in range(3))
+    p = _build.ptr
+    _build.launch("samrs_bilinear_slab_bwd", p(xg), p(fx), p(fy), p(mask), p(dout), p(dxg),
+                  p(dfx), p(dfy), p(dmask), BG, H, WGc // Gc, P, K, Gc, Hs,
+                  int(xg.dtype == torch.bfloat16))
+    slab_bwd_launches += 1
+    return dxg.to(xg.dtype), dfx, dfy, dmask
+
+
+class _SampleWeightedSlab(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xg, fx, fy, mask, Gc, Hs):
+        ctx.save_for_backward(xg, fx, fy, mask)
+        ctx.Gc, ctx.Hs = Gc, Hs
+        return sample_weighted_slab_fwd_cuda(xg, fx, fy, mask, Gc, Hs)
+
+    @staticmethod
+    def backward(ctx, dout):
+        xg, fx, fy, mask = ctx.saved_tensors
+        dxg, dfx, dfy, dmask = sample_weighted_slab_bwd_cuda(
+            xg, fx, fy, mask, dout.float().contiguous(), ctx.Gc, ctx.Hs)
+        return dxg, dfx, dfy, dmask, None, None
+
+
+def _auto_slab(H: int) -> int:
+    """Row-slab height of ``row_slab=None`` (JAX ``_auto_slab``): 0 (dense)
+    unless ``SAMRS_BILINEAR_SLAB`` names a height; that height where it
+    divides H, else 0; ``=0`` is dense."""
+    env = os.environ.get("SAMRS_BILINEAR_SLAB")
+    if env is not None:
+        s = int(env)
+        return s if s > 0 and H % s == 0 else 0
+    return 0
+
+
+def sample_weighted(xg, fx, fy, mask, group_channels: int, row_slab: int = 0):
     """K8 (JAX ``sample_weighted``): xg (BG, H, W*Gc) fp32 or bf16; fx, fy,
     mask (BG, P, K) fp32 absolute pixel coordinates and tap weights ->
-    (BG, P, Gc) fp32.  The kernels for a CUDA tensor, the plain version for
-    a CPU tensor."""
+    (BG, P, Gc) fp32.  ``row_slab`` > 0 that divides H selects the row-slab
+    kernels, any other value the dense ones.  The kernels for a CUDA tensor,
+    the plain version for a CPU tensor."""
+    if row_slab > 0 and xg.shape[1] % row_slab != 0:
+        row_slab = 0
     if not xg.is_cuda:
         return sample_weighted_plain(xg, fx, fy, mask, group_channels)
-    return _SampleWeighted.apply(xg.contiguous(), fx.float().contiguous(),
-                                 fy.float().contiguous(), mask.float().contiguous(),
-                                 int(group_channels))
+    args = (xg.contiguous(), fx.float().contiguous(), fy.float().contiguous(),
+            mask.float().contiguous(), int(group_channels))
+    if row_slab > 0:
+        return _SampleWeightedSlab.apply(*args, int(row_slab))
+    return _SampleWeighted.apply(*args)
+
+
+def _plain_sampler(*args):
+    """``sample_weighted_plain`` on any device, under activation checkpointing
+    while autograd records: its graph would keep the four corners' gathered
+    values and indices a tap, where the kernels keep only their inputs."""
+    if not torch.is_grad_enabled():
+        return sample_weighted_plain(*args)
+    return checkpoint(sample_weighted_plain, *args, use_reentrant=False)
+
+
+# ---------------------------------------------------------------- DCNv3 ----
+
+
+def _dcnv3_base_grid(Ho: int, Wo: int, kernel_h: int, kernel_w: int, stride_h: int,
+                     stride_w: int, pad_h: int, pad_w: int, dilation_h: int,
+                     dilation_w: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(P, K) fp32 base sampling coordinates (x, y) in source pixels with the
+    half-pixel shift applied (fx = px - 0.5); taps column-major, k = iw *
+    kh + ih (JAX ``_dcnv3_base_grid``, dcnv3_func.py:142-160)."""
+    ref_y = np.arange(Ho) * stride_h - pad_h + (dilation_h * (kernel_h - 1)) // 2 + 0.5
+    ref_x = np.arange(Wo) * stride_w - pad_w + (dilation_w * (kernel_w - 1)) // 2 + 0.5
+    ky = np.arange(kernel_h) * dilation_h - (dilation_h * (kernel_h - 1)) // 2
+    kx = np.arange(kernel_w) * dilation_w - (dilation_w * (kernel_w - 1)) // 2
+    tap_y = np.broadcast_to(ky[None, :], (kernel_w, kernel_h)).reshape(-1)
+    tap_x = np.broadcast_to(kx[:, None], (kernel_w, kernel_h)).reshape(-1)
+    by = ref_y[:, None, None] + tap_y[None, None, :]
+    bx = ref_x[None, :, None] + tap_x[None, None, :]
+    base_y = np.broadcast_to(by, (Ho, Wo, len(tap_y))).reshape(Ho * Wo, -1)
+    base_x = np.broadcast_to(bx, (Ho, Wo, len(tap_x))).reshape(Ho * Wo, -1)
+    return (base_x - 0.5).astype(np.float32), (base_y - 0.5).astype(np.float32)
+
+
+def dcnv3(x, offset, mask, kernel_h: int, kernel_w: int, stride_h: int = 1, stride_w: int = 1,
+          pad_h: int = 1, pad_w: int = 1, dilation_h: int = 1, dilation_w: int = 1,
+          groups: int = 1, group_channels: int = 16, offset_scale: float = 1.0,
+          row_slab: Optional[int] = None, plain: bool = False):
+    """DCNv3 core over K8 (JAX ``dcnv3_pallas``), NHWC: x (B, H, W, G*Gc)
+    fp32 or bf16; offset (B, Ho, Wo, G*K*2) and mask (B, Ho, Wo, G*K) ->
+    (B, Ho, Wo, G*Gc) fp32.  One ``sample_weighted`` on the (B*G, H, W*Gc)
+    map with the taps' absolute coordinates; ``row_slab`` None is
+    ``_auto_slab(H)``, 0 dense, h > 0 the slab kernels where h divides H.
+    ``plain=True`` runs the plain version on any device, under activation
+    checkpointing."""
+    B, H, W, _ = x.shape
+    _, Ho, Wo, _ = offset.shape
+    G, Gc, K = groups, group_channels, kernel_h * kernel_w
+    P = Ho * Wo
+    xg = x.reshape(B, H, W, G, Gc).permute(0, 3, 1, 2, 4).reshape(B * G, H, W * Gc)
+    off = offset.float().reshape(B, P, G, K, 2).permute(0, 2, 1, 3, 4).reshape(B * G, P, K, 2)
+    m = mask.float().reshape(B, P, G, K).permute(0, 2, 1, 3).reshape(B * G, P, K)
+    bx, by = _dcnv3_base_grid(Ho, Wo, kernel_h, kernel_w, stride_h, stride_w, pad_h, pad_w,
+                              dilation_h, dilation_w)
+    fx = torch.from_numpy(bx).to(x.device) + off[..., 0] * offset_scale
+    fy = torch.from_numpy(by).to(x.device) + off[..., 1] * offset_scale
+    if plain:
+        out = _plain_sampler(xg, fx, fy, m, Gc)
+    else:
+        slab = _auto_slab(H) if row_slab is None else row_slab
+        out = sample_weighted(xg, fx, fy, m, Gc, row_slab=slab)
+    out = out.reshape(B, G, Ho, Wo, Gc).permute(0, 2, 3, 1, 4)
+    return out.reshape(B, Ho, Wo, G * Gc)
 
 
 def grid_sample(img, grid, align_corners: bool = False, plain: bool = False):
@@ -184,7 +346,7 @@ def grid_sample(img, grid, align_corners: bool = False, plain: bool = False):
 
 
 def ms_deform_attn(value, spatial_shapes, sampling_locations, attention_weights,
-                   plain: bool = False):
+                   plain: bool = False, row_slab: Optional[int] = None):
     """Multi-scale deformable attention over K8 (JAX ``ms_deform_attn_pallas``):
     value (B, S, nH, D) with S = sum(h * w) over ``spatial_shapes``;
     sampling_locations (B, Q, nH, L, P, 2) in [0, 1]; attention_weights (B, Q,
@@ -194,16 +356,16 @@ def ms_deform_attn(value, spatial_shapes, sampling_locations, attention_weights,
     the plain version on any device, under activation checkpointing: its
     autograd graph would keep the sampled corners, (B * nH, Q, P, D) fp32
     each (~2 GB a level for the pixel decoder's 94 images), where the
-    kernel keeps only its inputs."""
+    kernel keeps only its inputs.  ``row_slab`` as in ``dcnv3``, per level
+    (None: ``_auto_slab`` of the level's height)."""
     B, S, nH, D = value.shape
     _, Q, _, L, P, _ = sampling_locations.shape
 
-    def sampler(*args):
-        if not plain:
-            return sample_weighted(*args)
-        if not torch.is_grad_enabled():
-            return sample_weighted_plain(*args)
-        return checkpoint(sample_weighted_plain, *args, use_reentrant=False)
+    def sampler(*args, h):
+        if plain:
+            return _plain_sampler(*args)
+        slab = _auto_slab(h) if row_slab is None else row_slab
+        return sample_weighted(*args, row_slab=slab)
 
     values = value.split([h * w for h, w in spatial_shapes], dim=1)
     out = None
@@ -211,7 +373,7 @@ def ms_deform_attn(value, spatial_shapes, sampling_locations, attention_weights,
         xg = values[lvl].reshape(B, h, w, nH, D).permute(0, 3, 1, 2, 4).reshape(B * nH, h, w * D)
         loc = sampling_locations[:, :, :, lvl].transpose(1, 2).reshape(B * nH, Q, P, 2).float()
         wts = attention_weights[:, :, :, lvl].transpose(1, 2).reshape(B * nH, Q, P).float()
-        o = sampler(xg, loc[..., 0] * w - 0.5, loc[..., 1] * h - 0.5, wts, D)
+        o = sampler(xg, loc[..., 0] * w - 0.5, loc[..., 1] * h - 0.5, wts, D, h=h)
         out = o if out is None else out + o
     return out.reshape(B, nH, Q, D).transpose(1, 2).reshape(B, Q, nH * D)
 

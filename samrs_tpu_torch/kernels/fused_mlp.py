@@ -147,7 +147,7 @@ def fused_tail_ln_mlp_residual(att_p, sc, g_ln, b_ln, w1, b1, w2, b2, eps: float
 
 mlp_launches = 0  # CUDA launches of K11 (one per forward)
 
-_MLP_WIDTHS = (768, 1024, 1280)  # instantiated in csrc/fused_mlp.cu
+_MLP_WIDTHS = (64, 128, 256, 512, 768, 1024, 1280)  # instantiated in csrc/fused_mlp.cu
 _MLP_CHUNK = 128  # the kernel's hidden chunk; M must be a multiple
 
 

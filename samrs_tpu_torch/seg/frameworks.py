@@ -22,6 +22,7 @@ import torch
 from torch import nn
 
 from samrs_tpu_torch.nn.layers import Dropout, checkpoint_with_generator
+from samrs_tpu_torch.seg.backbones.internimage import DCNv3Module
 from samrs_tpu_torch.seg.registry import get_backbone, get_decoder
 
 
@@ -154,9 +155,10 @@ def _lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> 
 def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded init in the JAX package's style: dense and conv weights
     lecun-normal, biases zero, norms ones/zeros (torch's default), the Swin
-    bias tables and pos_embed normal(0.02); RVSA's sampling nets and the
-    rel-pos tables stay zero, as the JAX modules initialise them (so the
-    sampling grid starts as the identity)."""
+    bias tables and pos_embed normal(0.02); RVSA's sampling nets, DCNv3's
+    offset and mask linears and the rel-pos tables stay zero, as the JAX
+    modules initialise them (so the sampling grid starts as the identity or
+    the 3x3 grid); layer scales keep their constant."""
     for name, m in model.named_modules():
         if isinstance(m, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
             fan_in = m.weight[:, 0].numel() if isinstance(m, nn.ConvTranspose2d) \
@@ -170,6 +172,9 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
         elif name.endswith(("relative_position_bias_table", "pos_embed")):
             p.copy_(torch.randn(p.shape, generator=generator, device=generator.device)
                     .to(p.device) * 0.02)
+    for m in model.modules():
+        if isinstance(m, DCNv3Module):
+            m.reset_sampling()
 
 
 @torch.no_grad()

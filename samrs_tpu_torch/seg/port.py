@@ -15,6 +15,15 @@ ones (``seg_decoder/pixel_decoder/encoder0_attn/value_proj``,
 ``seg_decoder/layer0_cross/q_proj``, ``head_0/cls``); only the MLP's
 ``layers_{i}`` become ``layers.{i}``, and its parameters ``level_embed``,
 ``query_feat`` and ``query_embed`` keep their names and layout.
+InternImage's flax names (``stem_conv{1,2}``, ``stem_norm{1,2}``,
+``level{l}_block{b}/{norm1, dcn/{input_proj, dw_conv, dw_norm, offset, mask,
+output_proj}, norm2, mlp/lin{1,2}, gamma{1,2}}``, ``level_norm{l}``,
+``downsample{l}``, ``downsample_norm{l}``) map to the reference's key layout
+(samrs_tpu/seg/port.py:325-417): ``patch_embed.conv{1,2}`` /
+``norm{1,2}.1``, ``levels.{l}.blocks.{b}.{norm1.0, dcn.dw_conv.0,
+dcn.dw_conv.1.1, ...}``, ``levels.{l}.norm.0``, ``levels.{l}.downsample.{conv,
+norm.1}``; the depthwise kernel (3, 3, 1, C) becomes (C, 1, 3, 3) by the conv
+rule.
 
 Layout conversions (flax -> torch):
   dense   kernel (in, out)        -> weight (out, in)
@@ -36,6 +45,16 @@ import torch
 # flax module path (with '/') -> torch module path, applied in order
 _RENAMES: Tuple[Tuple[str, str], ...] = (
     (r"^encoder/patch_embed$", "encoder.patch_embed.proj"),
+    (r"^encoder/stem_conv([12])$", r"encoder.patch_embed.conv\1"),
+    (r"^encoder/stem_norm([12])$", r"encoder.patch_embed.norm\1.1"),
+    (r"^encoder/level(\d+)_block(\d+)/(norm[12])$", r"encoder.levels.\1.blocks.\2.\3.0"),
+    (r"^encoder/level(\d+)_block(\d+)/dcn/dw_conv$", r"encoder.levels.\1.blocks.\2.dcn.dw_conv.0"),
+    (r"^encoder/level(\d+)_block(\d+)/dcn/dw_norm$",
+     r"encoder.levels.\1.blocks.\2.dcn.dw_conv.1.1"),
+    (r"^encoder/level(\d+)_block(\d+)(/|$)", r"encoder.levels.\1.blocks.\2\3"),
+    (r"^encoder/level_norm(\d+)$", r"encoder.levels.\1.norm.0"),
+    (r"^encoder/downsample_norm(\d+)$", r"encoder.levels.\1.downsample.norm.1"),
+    (r"^encoder/downsample(\d+)$", r"encoder.levels.\1.downsample.conv"),
     (r"^encoder/neck/fpn1_deconv1$", "encoder.fpn1.0"),
     (r"^encoder/neck/fpn1_norm$", "encoder.fpn1.1.ln"),
     (r"^encoder/neck/fpn1_deconv2$", "encoder.fpn1.3"),

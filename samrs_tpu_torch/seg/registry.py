@@ -27,11 +27,19 @@ def _rvsa(name: str) -> Callable[..., nn.Module]:
     return build
 
 
+def _internimage_t(**kw) -> nn.Module:
+    from samrs_tpu_torch.seg.backbones.internimage import internimage_t
+
+    kw.pop("image_size", None)  # a CNN: any image size
+    return internimage_t(**kw)
+
+
 BACKBONES: Dict[str, Callable[..., nn.Module]] = {
     "vit_b": _vit_b,
     "vit_b_rvsa": _rvsa("vit_b_rvsa"),
     "vit_l_rvsa": _rvsa("vit_l_rvsa"),
     "vit_h_rvsa": _rvsa("vit_h_rvsa"),
+    "internimage_t": _internimage_t,
 }
 
 DECODERS = ("upernet", "mask2former")

@@ -133,6 +133,7 @@ def run_finetune(cfg: FinetuneConfig, model: Optional[SegModel] = None, dataset_
     opt = Optimizer(model, sched, weight_decay=cfg.optim.weight_decay,
                     betas=tuple(cfg.optim.betas), grad_clip=cfg.optim.grad_clip,
                     layer_decay=cfg.optim.layer_decay, num_layers=bset["num_layers"],
+                    layer_id_scheme=bset["scheme"], depths=bset["depths"],
                     optimizer=cfg.optim.optimizer)
     state = TrainState(0, model, opt)
     logger.info("finetune %s: %d images, batch %d, %d steps on %s", cfg.dataset,

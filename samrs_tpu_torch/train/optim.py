@@ -8,8 +8,12 @@ add_decayed_weights(mask) -> per-layer scale -> scale_by_learning_rate.
 Here:
 
   * layer ids on the port's parameter names: ``pos_embed`` / ``patch_embed``
-    0, ``blocks.{i}`` i+1, the rest L+1; each parameter's lr is scaled by
-    rate^(L+1-id) (one torch param group per scale and decay flag);
+    0, ``blocks.{i}`` i+1, the rest L+1 (scheme "vit"); for staged backbones
+    (scheme "depthwise", InternImage) each block its own id counted across
+    the stages, ``levels.{i}.downsample`` / ``levels.{i}.norm`` one past the
+    stage's last block, capped at the stage-2 boundary; each parameter's lr
+    is scaled by rate^(L+1-id) (one torch param group per scale and decay
+    flag);
   * no weight decay for 1-D parameters, ``pos_embed``, rel-pos and the Swin
     bias tables;
   * global-norm clipping as optax's: g * min(1, c / ||g||) (not
@@ -25,7 +29,7 @@ from __future__ import annotations
 
 import math
 import re
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -41,6 +45,37 @@ def vit_layer_id(name: str, num_layers: int) -> int:
     return num_layers + 1
 
 
+def depthwise_layer_id(name: str, num_layers: int, depths: Sequence[int]) -> int:
+    """Depth-aware layer id of a staged backbone's parameter (JAX
+    ``depthwise_layer_id``; custom_layer_decay_optimizer_constructor.py:17-63):
+    block b of stage s gets b + 1 + sum(depths[:s]); a stage's downsample and
+    out-norm one past the stage's last block, the last stage capped at the
+    stage-2 boundary as the reference caps it."""
+    if any(k in name for k in ("pos_embed", "patch_embed", "stem", "level_embed")):
+        return 0
+    m = re.search(r"levels\.(\d+)\.blocks\.(\d+)\.", name)
+    if m:
+        s, b = int(m.group(1)), int(m.group(2))
+        return b + 1 + sum(depths[:s])
+    m = re.search(r"levels\.(\d+)\.(?:downsample|norm)\.", name)
+    if m:
+        s = int(m.group(1))
+        return 1 + sum(depths[:min(s + 1, len(depths) - 1)])
+    return num_layers + 1
+
+
+def layer_id_for(name: str, num_layers: int, scheme: str = "vit",
+                 depths: Optional[Sequence[int]] = None) -> int:
+    """The layer id of `name` under `scheme` ("vit" or "depthwise")."""
+    if scheme == "depthwise":
+        if depths is None:
+            raise ValueError("the depthwise layer-id scheme needs the stages' depths")
+        return depthwise_layer_id(name, num_layers, depths)
+    if scheme != "vit":
+        raise KeyError(f"unknown layer-id scheme {scheme!r} (vit, depthwise)")
+    return vit_layer_id(name, num_layers)
+
+
 def no_weight_decay(name: str, param: torch.Tensor) -> bool:
     """True for parameters that get no decay (1-D, pos/rel-pos tables)."""
     if param.dim() <= 1:
@@ -48,11 +83,12 @@ def no_weight_decay(name: str, param: torch.Tensor) -> bool:
     return any(k in name for k in ("pos_embed", "rel_pos", "relative_position_bias_table"))
 
 
-def layer_decay_scale(name: str, layer_decay: Optional[float], num_layers: int) -> float:
+def layer_decay_scale(name: str, layer_decay: Optional[float], num_layers: int,
+                      scheme: str = "vit", depths: Optional[Sequence[int]] = None) -> float:
     """lr multiplier rate^(num_layers + 1 - id); 1 without layer decay."""
     if layer_decay is None or layer_decay >= 1.0:
         return 1.0
-    return layer_decay ** (num_layers + 1 - vit_layer_id(name, num_layers))
+    return layer_decay ** (num_layers + 1 - layer_id_for(name, num_layers, scheme, depths))
 
 
 def warmup_cosine_schedule(base_lr: float, total_steps: int, warmup_steps: int = 1500,
@@ -92,12 +128,14 @@ class Optimizer:
     def __init__(self, model: nn.Module, lr_schedule: Callable[[int], float],
                  weight_decay: float = 0.05, betas: Tuple[float, float] = (0.9, 0.999),
                  grad_clip: float = 5.0, layer_decay: Optional[float] = None,
-                 num_layers: int = 12, optimizer: str = "adamw") -> None:
+                 num_layers: int = 12, optimizer: str = "adamw", layer_id_scheme: str = "vit",
+                 depths: Optional[Sequence[int]] = None) -> None:
         groups: Dict[Tuple[float, bool], List[torch.Tensor]] = {}
         for name, p in model.named_parameters():
             if not p.requires_grad:
                 continue
-            key = (layer_decay_scale(name, layer_decay, num_layers), not no_weight_decay(name, p))
+            key = (layer_decay_scale(name, layer_decay, num_layers, layer_id_scheme, depths),
+                   not no_weight_decay(name, p))
             groups.setdefault(key, []).append(p)
         wd_key = "weight_decay" if optimizer == "adamw" else "decoupled_wd"
         param_groups = [{"params": ps, "lr": 0.0, "lr_scale": s, wd_key: weight_decay if d else 0.0}
@@ -141,18 +179,28 @@ class Optimizer:
 # Per-backbone optimizer defaults of the reference's zoo (ED/main_pretrain.py:329-409);
 # the rows of samrs_tpu/train/optim.py's table for the backbones the port has.
 BACKBONE_OPTIM_DEFAULTS: Dict[str, Dict[str, Any]] = {
-    "vit_b": dict(lr=6e-5, weight_decay=0.05, layer_decay=0.9),
-    "vit_b_rvsa": dict(lr=6e-5, weight_decay=0.05, layer_decay=0.9),
-    "vit_l_rvsa": dict(lr=6e-5, weight_decay=0.05, layer_decay=0.9),
-    "vit_h_rvsa": dict(lr=6e-5, weight_decay=0.05, layer_decay=0.9),
+    "vit_b": dict(lr=6e-5, weight_decay=0.05, layer_decay=0.9, scheme="vit"),
+    "vit_b_rvsa": dict(lr=6e-5, weight_decay=0.05, layer_decay=0.9, scheme="vit"),
+    "vit_l_rvsa": dict(lr=6e-5, weight_decay=0.05, layer_decay=0.9, scheme="vit"),
+    "vit_h_rvsa": dict(lr=6e-5, weight_decay=0.05, layer_decay=0.9, scheme="vit"),
+    # rate 1.0 (no decay) with the reference's depth-aware ids
+    # (custom_layer_decay_optimizer_constructor: num_layers 30, depths 4/4/18/4)
+    "internimage_t": dict(lr=6e-5, weight_decay=0.05, layer_decay=1.0, scheme="depthwise"),
 }
 
 
 def backbone_optim_settings(backbone: str, encoder: Optional[nn.Module] = None) -> Dict[str, Any]:
-    """The family's lr / weight_decay / layer_decay and ``num_layers`` (the
-    encoder's ``depth`` when given, 12 otherwise)."""
+    """The family's lr / weight_decay / layer_decay / layer-id scheme, and
+    ``num_layers`` / ``depths`` from the encoder when given (a staged
+    backbone's ``depths``, summed; a ViT's ``depth``; 12 without one)."""
     if backbone not in BACKBONE_OPTIM_DEFAULTS:
         raise KeyError(f"backbone {backbone!r} is not ported yet (ROADMAP.md)")
     d = dict(BACKBONE_OPTIM_DEFAULTS[backbone])
-    d["num_layers"] = int(getattr(encoder, "depth", 12)) if encoder is not None else 12
+    depths = getattr(encoder, "depths", None) if encoder is not None else None
+    if depths is not None:
+        d["depths"] = tuple(depths)
+        d["num_layers"] = int(sum(depths))
+    else:
+        d["depths"] = None
+        d["num_layers"] = int(getattr(encoder, "depth", 12)) if encoder is not None else 12
     return d

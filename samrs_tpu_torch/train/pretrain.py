@@ -140,6 +140,7 @@ def run_pretrain(cfg: PretrainConfig, model: Optional[torch.nn.Module] = None,
     opt = Optimizer(model, sched, weight_decay=cfg.optim.weight_decay,
                     betas=tuple(cfg.optim.betas), grad_clip=cfg.optim.grad_clip,
                     layer_decay=cfg.optim.layer_decay, num_layers=bset["num_layers"],
+                    layer_id_scheme=bset["scheme"], depths=bset["depths"],
                     optimizer=cfg.optim.optimizer)
     state = TrainState(0, model, opt)
     meta = {}

@@ -1,8 +1,10 @@
 """PyTorch port of the segmentation model (samrs_tpu_torch.seg, K8) vs the
 JAX package, on CPU in fp32.
 
-K8's, K10's and K11's plain versions are held against the JAX Pallas
-kernels in interpret mode, forward and VJP; the K10 / K11 autograd Functions'
+K8's (dense and row-slab mode, through ``sample_weighted``, the MSDeformAttn
+wrapper and ``dcnv3``), K10's and K11's (at the ViT and InternImage widths)
+plain versions are held against the JAX Pallas kernels in interpret mode,
+forward and VJP; the K10 / K11 autograd Functions'
 backward (the plain version's VJP, recomputed) runs here with the kernel's
 forward replaced by its plain version.  The RVSA attention, the RVSA trunk with its neck, and the
 UperNet head run on flax variables whose every leaf is drawn with numpy
@@ -17,9 +19,10 @@ import numpy as np
 import pytest
 import torch
 
-from samrs_tpu.kernels.bilinear_gather import grid_sample_pallas
+from samrs_tpu.kernels.bilinear_gather import dcnv3_pallas, grid_sample_pallas
 from samrs_tpu.kernels.flash_attention import flash_attention_plain as jax_flash_plain
 from samrs_tpu.kernels.fused_mlp import fused_mlp as jax_fused_mlp
+from samrs_tpu.kernels.sampling import dcnv3 as jax_sampling_dcnv3
 from samrs_tpu.nn import layers as jax_layers
 from samrs_tpu.kernels.bilinear_gather import sample_weighted as jax_sample_weighted
 from samrs_tpu.seg.backbones.rvsa import RotatedVariedSizeWindowAttention as JaxRVSA
@@ -386,3 +389,286 @@ def test_upernet_matches_jax(train):
         {}, {"seg_decoder": new_stats["batch_stats"]}).items()}
     for k, v in stats.items():
         assert _rel_l2(model.state_dict()[k].numpy(), v.numpy()) <= TOL, k
+
+
+# ------------------------------------------- K8 at integers, K8-slab, DCNv3 ----
+
+
+def _pallas_far_lane_rounds(c):
+    """Coordinates where the Pallas kernel's ``t = fx - x`` for the lane two
+    past the floor rounds to exactly -1 in fp32 (so ``_dhat`` gives that
+    lane a slope of +1 that the floor formula does not have): [-2^-24, 0),
+    where fx - 1 rounds to -1 (denormals flush to -0 first, whose floor is 0
+    there and -1 in the formula), and 1 - 2^-24, where fx - 2 ties to -1."""
+    c = np.asarray(c, np.float32)
+    return ((c < 0) & (c >= -np.float32(2.0 ** -24))) | (c == np.float32(1 - 2.0 ** -24))
+
+
+def _floor_formula_grads(xg, fx, fy, mask, dout, Gc):
+    """dfx, dfy of the floor formula in float64: d/dfx = sum_c g (v01 - v00)(1 - wy)
+    + (v11 - v10) wy, d/dfy = sum_c g (v10 - v00)(1 - wx) + (v11 - v01) wx."""
+    BG, H, WGc = xg.shape
+    img = xg.reshape(BG, H, WGc // Gc, Gc).astype(np.float64)
+    W = WGc // Gc
+    dfx, dfy = np.zeros(fx.shape), np.zeros(fy.shape)
+    for b, p, k in np.ndindex(*fx.shape):
+        x0, y0 = int(np.floor(fx[b, p, k])), int(np.floor(fy[b, p, k]))
+        wx, wy = float(fx[b, p, k]) - x0, float(fy[b, p, k]) - y0
+        at = lambda y, x: img[b, y, x] if 0 <= y < H and 0 <= x < W else np.zeros(Gc)
+        v00, v01, v10, v11 = at(y0, x0), at(y0, x0 + 1), at(y0 + 1, x0), at(y0 + 1, x0 + 1)
+        g = mask[b, p, k] * dout[b, p].astype(np.float64)
+        dfx[b, p, k] = np.sum(g * ((v01 - v00) * (1 - wy) + (v11 - v10) * wy))
+        dfy[b, p, k] = np.sum(g * ((v10 - v00) * (1 - wx) + (v11 - v01) * wx))
+    return dfx, dfy
+
+
+def test_k8_derivative_next_to_integers_equals_pallas_interpret():
+    """The one-sided coordinate derivative at x = n, n + 1 ulp, n - 1 ulp and
+    n + 1 - 1 ulp, in x and in y (n on the map, its last row and column
+    included): the plain version's dfx / dfy are the floor formula's, and
+    they equal the Pallas kernel's ``_dhat`` everywhere but at the
+    coordinates where the kernel's fp32 ``fx - x`` rounds the lane two past
+    the floor onto -1 (``_pallas_far_lane_rounds``: n = 0 - 1 ulp and
+    n = 1 - 1 ulp), where the Pallas derivative gains that lane's term."""
+    Gc, H, W = 4, 5, 6
+    rng = np.random.default_rng(17)
+    n = rng.integers(0, [W, H], (2, 24, 2)).astype(np.float32)  # (BG, P, xy)
+    n[0, :2] = 0  # both special points below 0 and 1 occur
+    n[1, :2] = 1
+    nudges = [lambda v: v, lambda v: np.nextafter(v, np.float32(np.inf)),
+              lambda v: np.nextafter(v, np.float32(-np.inf)),
+              lambda v: np.nextafter(v + np.float32(1), np.float32(-np.inf))]
+    xg, _, _, mask, dout = _k8_inputs(rng, 2, H, W, Gc, 24, 4)
+    differ = 0
+    for axis, name in ((0, "dfx"), (1, "dfy")):  # nudge x, then y; the other stays on n
+        coords = np.stack([n.copy() for _ in nudges], 2)  # (BG, P, K=4, xy)
+        for k, f in enumerate(nudges):
+            coords[:, :, k, axis] = f(coords[:, :, k, axis])
+        fx, fy = coords[..., 0].copy(), coords[..., 1].copy()
+        want = _k8_jax(xg, fx, fy, mask, dout, Gc)
+        got = _k8_port(xg, fx, fy, mask, dout, Gc)
+        for nm, g, w in zip(("out", "dxg", "dmask"), (got[0], got[1], got[4]),
+                            (want[0], want[1], want[4])):
+            np.testing.assert_allclose(g, w, rtol=0, atol=1e-5, err_msg=f"{nm} axis {axis}")
+        formula = _floor_formula_grads(xg, fx, fy, mask, dout, Gc)
+        for i in (2, 3):  # dfx, dfy: the floor formula everywhere
+            np.testing.assert_allclose(got[i], formula[i - 2], rtol=0, atol=1e-5,
+                                       err_msg=f"{('dfx', 'dfy')[i - 2]} axis {axis}")
+        i = 2 + axis  # the nudged coordinate's derivative against _dhat
+        special = _pallas_far_lane_rounds(coords[..., axis])
+        np.testing.assert_allclose(got[i][~special], want[i][~special], rtol=0, atol=1e-5,
+                                   err_msg=name)
+        differ += int((np.abs(got[i] - want[i]) > 1e-5)[special].sum())
+        assert special.any()
+    assert differ > 0  # the Pallas rounding shows at the special points
+
+
+def _msda_inputs(rng, spread, Q=133):
+    B, nH, D, Pt = 1, 2, 8, 4
+    shapes = [(32, 16), (16, 8)]  # level 0 in slabs of 16 rows; level 1 (16 rows) too
+    S = sum(h * w for h, w in shapes)
+    val = rng.normal(size=(B, S, nH, D)).astype(np.float32)
+    base = rng.random((B, Q, nH, 2, 1, 1)) * 1.1 - 0.05
+    jitter = (rng.random((B, Q, nH, 2, Pt, 2)) - 0.5) * spread
+    loc = (base + jitter).astype(np.float32)
+    w = rng.normal(size=(B, Q, nH, 2, Pt)).astype(np.float32)
+    w = np.exp(w) / np.exp(w).sum(-1, keepdims=True)
+    return shapes, val, loc, w.astype(np.float32)
+
+
+@pytest.mark.parametrize("spread", [0.06, 1.0])
+def test_k8_slab_msda_matches_pallas_interpret(spread):
+    """K8's row-slab mode through the MSDeformAttn wrapper (row_slab 16) against
+    ``ms_deform_attn_pallas(row_slab=16)`` in interpret mode: clustered rows
+    (most slabs skipped) and scattered ones (every slab active), taps off the
+    map, Q = 133 (a padded last block); forward and the gradients of
+    sum(sin(out)) in value, locations and weights, at the JAX tests' 1e-5 /
+    2e-4."""
+    from samrs_tpu.kernels.bilinear_gather import ms_deform_attn_pallas
+
+    shapes, val, loc, w = _msda_inputs(np.random.default_rng(int(spread * 100)), spread)
+
+    def jax_loss(v, l, ww):
+        return jnp.sum(jnp.sin(ms_deform_attn_pallas(v, shapes, l, ww, interpret=True,
+                                                     row_slab=16)))
+
+    want_out = ms_deform_attn_pallas(*map(jnp.asarray, (val,)), shapes, jnp.asarray(loc),
+                                     jnp.asarray(w), interpret=True, row_slab=16)
+    want = jax.grad(jax_loss, argnums=(0, 1, 2))(*map(jnp.asarray, (val, loc, w)))
+    ts = [torch.from_numpy(a).requires_grad_() for a in (val, loc, w)]
+    out = bilinear_gather.ms_deform_attn(ts[0], shapes, ts[1], ts[2], row_slab=16)
+    out.sin().sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want_out), atol=1e-5, rtol=1e-5)
+    for t, g, name in zip(ts, want, ("dvalue", "dloc", "dweights")):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(g), atol=2e-4, rtol=2e-4,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("row_slab", [4, 5, 0])
+def test_k8_slab_sample_weighted_matches_pallas_interpret(row_slab):
+    """``sample_weighted(row_slab=...)`` against JAX ``sample_weighted`` with the
+    same row_slab in interpret mode (4 divides H = 12: the slab kernels; 5
+    does not: dense, as JAX decides per call), forward and VJP at 1e-4."""
+    Gc = 4
+    args = _k8_inputs(np.random.default_rng(row_slab + 40), 3, 12, 7, Gc, 133, 3)
+    xg, fx, fy, mask, dout = args
+    f = lambda *a: jax_sample_weighted(*a, Gc, interpret=True, row_slab=row_slab)
+    out, vjp = jax.vjp(f, *map(jnp.asarray, (xg, fx, fy, mask)))
+    want = [np.asarray(out)] + [np.asarray(g) for g in vjp(jnp.asarray(dout))]
+    ts = [torch.from_numpy(a).requires_grad_() for a in (xg, fx, fy, mask)]
+    got = bilinear_gather.sample_weighted(*ts, Gc, row_slab=row_slab)
+    got.backward(torch.from_numpy(dout))
+    got = [got.detach().numpy()] + [t.grad.numpy() for t in ts]
+    for name, g, w in zip(("out", "dxg", "dfx", "dfy", "dmask"), got, want):
+        assert _rel_l2(g, w) <= TOL, (name, _rel_l2(g, w))
+
+
+@pytest.mark.parametrize("env", [None, "0", "7", "8", "32"])
+def test_auto_slab_matches_jax(monkeypatch, env):
+    """``_auto_slab`` against the JAX package's under the same
+    SAMRS_BILINEAR_SLAB: dense unless it names a height, and then only where
+    the height divides H."""
+    from samrs_tpu.kernels.bilinear_gather import _auto_slab as jax_auto_slab
+
+    if env is None:
+        monkeypatch.delenv("SAMRS_BILINEAR_SLAB", raising=False)
+    else:
+        monkeypatch.setenv("SAMRS_BILINEAR_SLAB", env)
+    for H in (7, 14, 16, 28, 40, 56, 64, 128):
+        assert bilinear_gather._auto_slab(H) == jax_auto_slab(H), (env, H)
+
+
+def _dcnv3_inputs(rng, B, H, W, G, Gc, K, offsets, Ho=None, Wo=None):
+    """x, offset, mask in the JAX tests' layout.  offsets: "zero" (every tap on
+    a pixel), "asymmetric" (x offsets in [-2.3, 0.4], y in [-0.6, 1.9], each
+    tap its own shift: a row-major tap order would not match) or "generic"
+    (the JAX tests' +-2.5 + 0.123, off the integers)."""
+    Ho, Wo = Ho or H, Wo or W
+    x = rng.normal(size=(B, H, W, G * Gc)).astype(np.float32)
+    shape = (B, Ho, Wo, G, K)
+    if offsets == "zero":
+        off = np.zeros(shape + (2,), np.float32)
+    elif offsets == "asymmetric":
+        ox = rng.uniform(-2.3, 0.4, shape) + 0.1 * np.arange(K)
+        oy = rng.uniform(-0.6, 1.9, shape) - 0.07 * np.arange(K)
+        off = np.stack([ox, oy], -1)
+    else:
+        off = (rng.random(shape + (2,)) * 2 - 1) * 2.5 + 0.123
+    m = rng.random(shape).astype(np.float32)
+    m = m / m.sum(-1, keepdims=True)
+    return (x, off.reshape(B, Ho, Wo, G * K * 2).astype(np.float32),
+            m.reshape(B, Ho, Wo, G * K).astype(np.float32))
+
+
+DCN_CASES = [  # kh, kw, sh, sw, ph, pw, dh, dw, G, Gc, H, W, scale
+    (3, 3, 1, 1, 1, 1, 1, 1, 2, 16, 10, 12, 1.0),
+    (3, 3, 2, 2, 1, 1, 1, 1, 2, 4, 12, 8, 1.0),
+    (3, 3, 1, 1, 2, 2, 2, 2, 1, 4, 11, 11, 0.5),
+]
+
+
+def _dcnv3_jax_and_port(case, inputs, jax_fn, row_slab=None):
+    kh, kw, sh, sw, ph, pw, dh, dw, G, Gc, H, W, scale = case
+    args = (kh, kw, sh, sw, ph, pw, dh, dw, G, Gc, scale)
+    loss = lambda *a: jnp.sum(jnp.sin(jax_fn(*a, *args)))
+    want = [np.asarray(jax_fn(*map(jnp.asarray, inputs), *args))]
+    want += [np.asarray(g) for g in jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, inputs))]
+    ts = [torch.from_numpy(a).requires_grad_() for a in inputs]
+    out = bilinear_gather.dcnv3(*ts, *args, row_slab=row_slab)
+    out.sin().sum().backward()
+    return [out.detach().numpy()] + [t.grad.numpy() for t in ts], want
+
+
+def _ho(case):
+    kh, kw, sh, sw, ph, pw, dh, dw, G, Gc, H, W, _ = case
+    return ((H + 2 * ph - (dh * (kh - 1) + 1)) // sh + 1,
+            (W + 2 * pw - (dw * (kw - 1) + 1)) // sw + 1)
+
+
+@pytest.mark.parametrize("offsets", ["zero", "asymmetric"])
+@pytest.mark.parametrize("case", DCN_CASES)
+def test_dcnv3_plain_matches_pallas_interpret(case, offsets):
+    """The port's ``dcnv3`` (its plain version on the CPU) against
+    ``dcnv3_pallas(interpret=True)`` on the same absolute coordinates:
+    forward and the gradients of sum(sin(out)) in x, offset and mask, at the
+    JAX tests' 1e-4 / 2e-4; zero offsets put every tap on a pixel (the
+    one-sided derivative decides every coordinate gradient)."""
+    kh, kw, sh, sw, ph, pw, dh, dw, G, Gc, H, W, scale = case
+    Ho, Wo = _ho(case)
+    inputs = _dcnv3_inputs(np.random.default_rng(H * 7 + G), 2, H, W, G, Gc, kh * kw, offsets,
+                           Ho, Wo)
+    pallas = lambda *a: dcnv3_pallas(*a, interpret=True)
+    got, want = _dcnv3_jax_and_port(case, inputs, pallas)
+    for name, g, w in zip(("out", "dx", "doffset", "dmask"), got, want):
+        tol = 1e-4 if name == "out" else 2e-4
+        np.testing.assert_allclose(g, w, atol=tol, rtol=tol, err_msg=name)
+
+
+@pytest.mark.parametrize("case", DCN_CASES)
+def test_dcnv3_plain_matches_sampling_dcnv3_off_integers(case):
+    """Against the JAX package's gather oracle ``sampling.dcnv3`` (the path its
+    DCNv3Module takes off the TPU, through [-1, 1] and back), on offsets off
+    the integers where that round trip cannot move a tap across a floor."""
+    kh, kw, sh, sw, ph, pw, dh, dw, G, Gc, H, W, scale = case
+    Ho, Wo = _ho(case)
+    inputs = _dcnv3_inputs(np.random.default_rng(W * 3 + G), 2, H, W, G, Gc, kh * kw,
+                           "generic", Ho, Wo)
+    got, want = _dcnv3_jax_and_port(case, inputs, jax_sampling_dcnv3)
+    for name, g, w in zip(("out", "dx", "doffset", "dmask"), got, want):
+        tol = 1e-4 if name == "out" else 2e-4
+        np.testing.assert_allclose(g, w, atol=tol, rtol=tol, err_msg=name)
+
+
+def test_dcnv3_row_slab_matches_pallas_interpret():
+    """DCNv3 on a 40-row map with row_slab 8 on both sides (the slab kernels
+    in JAX, the slab mode's plain version here); asymmetric offsets."""
+    case = (3, 3, 1, 1, 1, 1, 1, 1, 2, 8, 40, 12, 1.0)
+    inputs = _dcnv3_inputs(np.random.default_rng(5), 1, 40, 12, 2, 8, 9, "asymmetric")
+    slab = lambda *a: dcnv3_pallas(*a, interpret=True, row_slab=8)
+    got, want = _dcnv3_jax_and_port(case, inputs, slab, row_slab=8)
+    for name, g, w in zip(("out", "dx", "doffset", "dmask"), got, want):
+        tol = 1e-4 if name == "out" else 2e-4
+        np.testing.assert_allclose(g, w, atol=tol, rtol=tol, err_msg=name)
+
+
+@pytest.mark.parametrize("args", [(5, 7, 3, 3, 1, 1, 1, 1, 1, 1), (6, 4, 3, 3, 2, 2, 1, 1, 1, 1),
+                                  (11, 11, 3, 3, 1, 1, 2, 2, 2, 2), (4, 5, 1, 1, 1, 1, 0, 0, 1, 1)])
+def test_dcnv3_base_grid_matches_jax(args):
+    """The base grid (taps column-major, k = iw * kh + ih; fx = px - 0.5)."""
+    from samrs_tpu.kernels.bilinear_gather import _dcnv3_base_grid as jax_base_grid
+
+    for g, w in zip(bilinear_gather._dcnv3_base_grid(*args), jax_base_grid(*args)):
+        assert g.dtype == np.float32
+        np.testing.assert_array_equal(g, w)
+    bx, by = bilinear_gather._dcnv3_base_grid(4, 4, 3, 3, 1, 1, 1, 1, 1, 1)
+    assert (by[:, 1] - by[:, 0] == 1).all() and (bx[:, 1] == bx[:, 0]).all()  # k=1: next row
+
+
+def test_k8_slab_cuda_paths_refuse_cpu_tensors():
+    xg = torch.zeros(1, 4, 8)
+    f = torch.zeros(1, 3, 1)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        bilinear_gather.sample_weighted_slab_fwd_cuda(xg, f, f, f, 4, 2)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        bilinear_gather.sample_weighted_slab_bwd_cuda(xg, f, f, f, torch.zeros(1, 3, 4), 4, 2)
+
+
+@pytest.mark.parametrize("C", [64, 128, 256, 512])
+def test_k11_plain_matches_jax_at_internimage_widths(C):
+    """K11's plain version against ``fused_mlp(dtype=float32)`` in interpret
+    mode at InternImage-T's four widths (M = 4C), 37 tokens; forward and VJP
+    at K11's 2e-6."""
+    (x, w1, b1, w2, b2), dout = _k11_inputs((37,), C, 4 * C, C)
+
+    def jax_fn(x, w1, b1, w2, b2):
+        return jax_fused_mlp(x, w1.T, b1, w2.T, b2, dtype=jnp.float32, interpret=True)
+
+    want = _vjp_jax(jax_fn, (x, w1, b1, w2, b2), dout)
+    got = _vjp_port(fused_mlp.fused_mlp, (x, w1, b1, w2, b2), dout)
+    for name, g, w in zip(("out", "dx", "dw1", "db1", "dw2", "db2"), got, want):
+        assert _rel_l2(g, w) <= 2e-6, (name, _rel_l2(g, w))
+    assert C in fused_mlp._MLP_WIDTHS
+    t = torch.zeros(4, C)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fused_mlp.fused_mlp_cuda(t, torch.zeros(4 * C, C), torch.zeros(4 * C),
+                                 torch.zeros(C, 4 * C), torch.zeros(C))
