@@ -13,7 +13,9 @@ checkout; it has no CPU path and raises on any failure.  Phases:
    in fp32 on the same bf16-rounded inputs (relative L2 must stay <= 1e-2),
    and timed against the plain version in bf16 (CUDA events, median of 7);
    K2 also against ``F.scaled_dot_product_attention`` with the rel-pos bias
-   as its mask; K5 also with 21 live tokens in 32 slots (two slot blocks,
+   as its mask (both with TFLOP/s), K3 also against the ``mlp_impl="xla"``
+   composition (F.layer_norm -> F.linear -> F.gelu -> F.linear in bf16);
+   K5 also with 21 live tokens in 32 slots (two slot blocks,
    as a decode with many point prompts gives it).  K7 on 32 low-res masks
    to an 800x800 original (input 1024x1024) and to a 768x1024 original
    (input 768x1024): counts, boxes and bits must equal the plain version's
@@ -28,9 +30,17 @@ checkout; it has no CPU path and raises on any failure.  Phases:
 3. main path: ViT-H with seeded random weights (zero-initialised parameters
    re-randomised), ``SamPredictor.set_image`` on a non-square 768x1024 image
    and ``predict_boxes`` on 64 boxes; checks shapes, finiteness and launches
-   K1 28, K2 4, K3 32, K4 1, K5 2, K6 1 per image, then reruns on the plain
+   K1 28, K2 4, K3 32, K4 1, K5 2, K6 1 per image (and 128 GEMM launches:
+   qkv and proj of every block, lin1 and lin2 of every MLP), then reruns on the plain
    versions (``Sam.use_kernels = False``): encoder feature rel-L2 <= 2e-2
    and mean mask IoU >= 0.99;
+2a. GEMM phase: the dense layer of K1 and K3 (csrc/gemm.cu, wgmma fed by
+   TMA) at the ViT-H encoder's four shapes (T 4096: qkv 3840 x 1280, proj
+   1280 x 1280 + fp32 residual, lin1 5120 x 1280 + GELU, lin2 1280 x 5120 +
+   fp32 residual) against ``linear_plain`` in fp32 on the same bf16 inputs
+   (rel-L2 <= 1e-2), timed over back-to-back launches beside the plain
+   version and ``F.linear`` in bf16 (cuBLAS, the yardstick; the port never
+   calls it), with TFLOP/s and the bound;
 2b. modes phase (the SAM encoder's kernel configurations), at the same
    shapes against the fp32 plain versions (rel-L2 <= 1e-2) with kernel,
    bf16 plain and SDPA times and the bound: K12 (split-head rel-pos
@@ -147,7 +157,7 @@ checkout; it has no CPU path and raises on any failure.  Phases:
    with their per-step counts), then the card's name and power limit and the
    final status line.
 
-``--only`` runs just the named phases after the build (modes, configs,
+``--only`` runs just the named phases after the build (gemm: 2a; modes, configs,
 sizes: 2b, 4b, 4c; slab: the K8-slab and K11-width checks of 9b;
 internimage: its step and driver runs), and prints no result lines.
 
@@ -186,6 +196,7 @@ MAIN_LAUNCHES = {"K1": 28, "K1pf": 0, "K1w": 0, "K2": 4, "K3": 32, "K3t": 0, "K1
                  "K5": 2, "K6": 1, "K7": 0, "K8f": 0, "K8b": 0, "K9f": 0, "K9b": 0, "K10": 0,
                  "K11": 0, "K8sf": 0, "K8sb": 0}
 GEN_LAUNCHES = {**MAIN_LAUNCHES, "K7": 4}
+MAIN_GEMM_LAUNCHES = 128       # ViT-H: qkv + proj of 32 blocks, lin1 + lin2 of 32 MLPs
 # SEP pretraining: vit_b_rvsa + UperNet, 224^2, heads SOTA / SIOR / FAST
 TRAIN_BATCH = (17, 12, 65)     # proportional_batch_sizes(..., 96): floors of the subset shares
 TRAIN_CLASSES = (18, 20, 37)
@@ -260,8 +271,10 @@ def counters():
 
 
 def reset_counts() -> None:
+    from samrs_tpu_torch.kernels import gemm
     for mod, name in counters().values():
         setattr(mod, name, 0)
+    gemm.launches = 0  # the dense layers inside K1 / K3 and the globals' qkv / proj
 
 
 def read_counts():
@@ -281,6 +294,22 @@ def cuda_ms(fn, warmup: int = 2, reps: int = 7) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def loop_ms(fn, n: int = 20, warmup: int = 3) -> float:
+    """ms per call over `n` back-to-back calls (CUDA events around the run):
+    the device time of a kernel shorter than its wrapper's host work is not
+    hidden behind an idle card."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
 
 
 def rel_l2(a, b) -> float:
@@ -402,6 +431,20 @@ def kernel_phase(gen: torch.Generator):
     results = run_cases(cases)
     del sdpa_mask, keysB, src
     torch.cuda.empty_cache()
+    g_ln, b_ln, w1, b1, w2, b2, eps = k3
+
+    w1b, b1b, w2b, b2b = (t.bfloat16() for t in (w1, b1, w2, b2))  # cast once, as K3 keeps them
+
+    def k3_composition():  # mlp_impl="xla" (ImageEncoderViT Block._mlp_xla) on the same inputs
+        y = F.layer_norm(x, (C,), g_ln, b_ln, eps).bfloat16()
+        y = F.gelu(F.linear(y, w1b, b1b))
+        return x + F.linear(y, w2b, b2b).float()
+
+    comp_ms = cuda_ms(k3_composition)
+    results["K3"]["composition_ms"] = comp_ms
+    print(f"K3 composition (mlp_impl=xla: F.layer_norm -> F.linear -> F.gelu -> F.linear, "
+          f"bf16 weights cast beforehand): {comp_ms:.4f} ms against the kernel's "
+          f"{results['K3']['ms']:.4f}", flush=True)
     results.update(k7_phase(gen))
     # the kernel line lists K5 once: its layer-1 (per-prompt) launch, with the
     # shared-keys mode and the 32-slot case beside it
@@ -435,9 +478,11 @@ def run_cases(cases):
         plain_ms = cuda_ms(plain)
         lib_ms = cuda_ms(library) if library is not None else None
         bound_ms, bound_by = bound(nbytes, flops, "bf16")
+        lib_rate = f" ({flops / lib_ms / 1e9:.1f} TFLOP/s)" if lib_ms else ""
         print(f"{key} {title}: rel_l2={err:.3e} max_abs={max_abs:.3e} "
               f"rel_l2_to_bf16_plain={err_bf16:.3e} kernel_ms={ms:.4f} "
-              f"plain_bf16_ms={plain_ms:.4f} library_ms={lib_ms} bound_ms={bound_ms:.4f} "
+              f"({flops / ms / 1e9:.1f} TFLOP/s) plain_bf16_ms={plain_ms:.4f} "
+              f"library_ms={lib_ms}{lib_rate} bound_ms={bound_ms:.4f} "
               f"({bound_by}, {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)", flush=True)
         if not err <= KERNEL_RTOL:
             raise RuntimeError(f"{key}: relative L2 {err:.3e} > {KERNEL_RTOL}")
@@ -446,6 +491,65 @@ def run_cases(cases):
                             bound_by=bound_by, library_ms=lib_ms)
         del got, want
     return results
+
+
+# the encoder's dense layers at ViT-H (C 1280, T 4096): (name, N / C, K / C, GELU, fp32 residual)
+GEMM_SHAPES = (("qkv", 3, 1, False, False), ("proj", 1, 1, False, True),
+               ("lin1", 4, 1, True, False), ("lin2", 1, 4, False, True))
+
+
+def gemm_phase(gen: torch.Generator):
+    """K1 / K3's GEMM (csrc/gemm.cu) at the four dense shapes of the ViT-H
+    encoder against ``linear_plain`` in fp32 on the same bf16 inputs, timed
+    over back-to-back launches beside its plain version in bf16 and
+    ``F.linear`` in bf16 (cuBLAS: the yardstick, never called by the port;
+    it adds the bias but not the GELU or the residual)."""
+    from samrs_tpu_torch.kernels import gemm
+
+    C, T = 1280, 4096
+    rows = {}
+    for name, nf, kf, gelu, res in GEMM_SHAPES:
+        N, K = nf * C, kf * C
+        x = (torch.randn(T, K, generator=gen, device="cuda")).bfloat16()
+        w = (torch.randn(N, K, generator=gen, device="cuda") * K ** -0.5).bfloat16()
+        b = torch.randn(N, generator=gen, device="cuda") * 0.1
+        r = torch.randn(T, N, generator=gen, device="cuda") if res else None
+        got = gemm.linear(x, w, b, gelu=gelu, residual=r)
+        torch.cuda.synchronize()
+        want = gemm.linear_plain(x.float(), w, b, gelu=gelu, residual=r)
+        err = rel_l2([got], [want])
+        max_abs = float((got.float() - want).abs().max())
+        del got, want
+        ms = loop_ms(lambda: gemm.linear(x, w, b, gelu=gelu, residual=r))
+        plain_ms = loop_ms(lambda: gemm.linear_plain(x, w, b, gelu=gelu, residual=r))
+        bb = b.bfloat16()
+        lib_ms = loop_ms(lambda: F.linear(x, w, bb))
+        flops = 2 * T * K * N
+        nbytes = 2 * (T * K + N * K) + 4 * N + T * N * (8 if res else 2)
+        bound_ms, bound_by = bound(nbytes, flops, "bf16")
+        print(f"GEMM {name} (T {T}, N {N}, K {K}{', GELU' if gelu else ''}"
+              f"{', fp32 residual' if res else ''}): rel_l2={err:.3e} max_abs={max_abs:.3e} "
+              f"kernel_ms={ms:.4f} ({flops / ms / 1e9:.1f} TFLOP/s) "
+              f"cublas_ms={lib_ms:.4f} ({flops / lib_ms / 1e9:.1f} TFLOP/s) "
+              f"plain_bf16_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by})", flush=True)
+        if not err <= KERNEL_RTOL:
+            raise RuntimeError(f"GEMM {name}: relative L2 {err:.3e} > {KERNEL_RTOL}")
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, max_abs_err=max_abs, tflops=flops / ms / 1e9,
+                          library_tflops=flops / lib_ms / 1e9)
+        del x, w, r
+    torch.cuda.empty_cache()
+    # the result line's row: the qkv shape (F.linear with its bias is the same
+    # function there), the other shapes beside it
+    entry = dict(name="GEMM dense layer of K1 / K3 and the globals (wgmma fed by TMA), qkv shape; "
+                      "proj / lin1 / lin2 in <shape>_*",
+                 route="cuda", source="samrs_tpu_torch/csrc/gemm.cu",
+                 replaces="samrs_tpu/kernels/fused_mlp.py:249", **rows["qkv"])
+    entry["max_abs_err"] = max(r["max_abs_err"] for r in rows.values())
+    for name in ("proj", "lin1", "lin2"):
+        entry.update({f"{name}_{k}": v for k, v in rows[name].items()
+                      if k not in ("bound_by", "max_abs_err")})
+    return {"GEMM": entry}
 
 
 def modes_kernel_phase(gen: torch.Generator):
@@ -1286,13 +1390,19 @@ def main_path(model, want=MAIN_LAUNCHES, profile: bool = False):
         torch.cuda.synchronize()
         return out
 
+    from samrs_tpu_torch.kernels import gemm
+
     model.use_kernels = True
     reset_counts()
     masks, iou, low = run()
     launches = read_counts()
-    print(f"main path launches (image_size {model.cfg.image_size}): {launches}", flush=True)
+    gemm_launches = gemm.launches
+    print(f"main path launches (image_size {model.cfg.image_size}): {launches}, "
+          f"GEMM {gemm_launches}", flush=True)
     if launches != want:
         raise RuntimeError(f"launch counts {launches} != {want} for one image")
+    if gemm_launches != MAIN_GEMM_LAUNCHES:
+        raise RuntimeError(f"GEMM launches {gemm_launches} != {MAIN_GEMM_LAUNCHES} for one image")
     feats = predictor.features.clone()
     if masks.shape != (N_BOXES, 1, H, W) or masks.dtype != np.bool_:
         raise RuntimeError(f"masks {masks.shape} {masks.dtype}")
@@ -1306,7 +1416,7 @@ def main_path(model, want=MAIN_LAUNCHES, profile: bool = False):
 
     model.use_kernels = False
     masks_p, iou_p, _ = run()
-    if read_counts() != launches:
+    if read_counts() != launches or gemm.launches != gemm_launches:
         raise RuntimeError("the plain path launched a kernel")
     err = rel_l2([feats], [predictor.features])
     ious = mask_iou(masks, masks_p)
@@ -1332,7 +1442,7 @@ def main_path(model, want=MAIN_LAUNCHES, profile: bool = False):
     if profile:
         profile_image(run, model)
     model.use_kernels = True
-    return launches
+    return {**launches, "GEMM": gemm_launches}
 
 
 def dior_xml(boxes: np.ndarray, names) -> str:
@@ -2286,9 +2396,10 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="profile one generate image per path, one pretrain and one finetune step")
-    ap.add_argument("--only", choices=("modes", "configs", "sizes", "slab", "internimage"),
+    ap.add_argument("--only", choices=("gemm", "modes", "configs", "sizes", "slab", "internimage"),
                     action="append",
-                    help="run only these phases (a partial check: no result lines): the SAM "
+                    help="run only these phases (a partial check: no result lines): the "
+                         "encoder's GEMM (gemm), the SAM "
                          "encoder's kernel configurations (modes, configs, sizes), K8-slab and "
                          "K11 at InternImage's widths (slab), the InternImage step and driver "
                          "(internimage)")
@@ -2315,6 +2426,8 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     if args.only:
+        if "gemm" in args.only:
+            gemm_phase(gen)
         if "modes" in args.only:
             modes_kernel_phase(gen)
         if "configs" in args.only:
@@ -2337,13 +2450,16 @@ def main() -> None:
         print(f"partial run {args.only} passed", flush=True)
         return
     results = kernel_phase(gen)
+    results.update(gemm_phase(gen))
     results.update(modes_kernel_phase(gen))
     model = build_model(gen)
+    reset_counts()  # the counts of the main path's run alone
     main_launches = main_path(model)
     gen_launches = generate_phase(model, args.profile)
     for key in ("K1", "K2", "K3", "K4", "K5", "K6", "K7"):
         results[key]["launches"] = gen_launches[key]
         results[key]["launches_main_path"] = main_launches[key]
+    results["GEMM"]["launches"] = main_launches["GEMM"]
     configs = configs_phase(model, gen)
     del model
     gc.collect()

@@ -9,160 +9,290 @@
 //     after crop + attention residual, which the tail LayerNorm reads in place)
 //   samrs_tpu/kernels/fused_window_layer.py::_kernel (its qkv and proj matmuls)
 // Bound on the H100: tensor-core throughput (ViT-H: 2*T*C*4C flops per
-// linear against T*C bf16 bytes, far above the ~295 flop/byte ridge).  The
-// design feeds mma.sync from a 128x128x64 block tile with a three-stage
-// cp.async ring (two tiles in flight while one multiplies), and applies
-// every elementwise step in the epilogue so each activation makes one trip
-// through device memory.  Measured on an H100 80GB HBM3 at a 700 W power
-// limit: ~220 TFLOP/s at the ViT-H MLP shapes against ~400 for cuBLAS
-// (wgmma), which is where a later wgmma/TMA version starts.  The MLP hidden activation (T x 4C bf16) still goes
-// through device memory; keeping it on chip is later work.
-#include "common.cuh"
+// linear against T*C bf16 bytes, far above the ~295 flop/byte ridge), which
+// only wgmma reaches.  The design (hopper.cuh's plumbing): a persistent grid
+// of one 384-thread block per SM walks the 128 x BN output tiles; a producer
+// warp keeps a 3-6 stage ring of 64-deep A / B tiles in flight with TMA
+// (128-byte swizzle, zero fill past the ragged edges), brings each tile's
+// bias and fp32 residual into shared memory while its products run, and
+// gives its registers to two consumer warpgroups, each multiplying 64 rows x
+// BN with wgmma m64nBNk16 straight from shared memory.  The epilogue adds
+// bias / GELU / residual from the accumulator registers into a swizzled
+// shared-memory tile that one thread stores with TMA, so each activation
+// makes one trip through device memory and no global load or scattered
+// store stalls it.  BN is chosen per call (256 / 160 for a bf16 output, 160
+// / 128 with the fp32 residual tile) for the fewest idle SMs in the last
+// wave (N = 1280 at 128 x 256 is 1.2 waves of 132 SMs; at 128 x 160, 1.9).
+// Measured (chip_smoke.py's GEMM phase, H100 80GB HBM3 at a 700 W limit):
+// ~600 TFLOP/s at the ViT-H qkv shape against cuBLAS's ~660 (the old
+// mma.sync / cp.async design: ~220).  The epilogue runs after each tile's
+// products, with the tensor cores idle; it is what keeps the GELU (lin1) and
+// fp32-residual (lin2, proj) shapes further from cuBLAS's plain product (a
+// ping-pong schedule, one warpgroup's epilogue under the other's products
+// on 128 x 128 tiles, was slower at every shape).  The MLP hidden
+// activation (T x 4C bf16) still goes through device memory.
+#include "hopper.cuh"
 
 namespace samrs {
 namespace {
 
-// Block tile BM x BN x BK, warp tile WM x WN, STAGES-deep cp.async ring.
-template <int BM_, int BN_, int BK_, int WM_, int WN_, int STAGES_>
-struct GemmCfg {
-  static constexpr int BM = BM_, BN = BN_, BK = BK_, WM = WM_, WN = WN_, STAGES = STAGES_;
-  static constexpr int WARPS_N = BN / WN;
-  static constexpr int THREADS = 32 * (BM / WM) * WARPS_N;
-  static constexpr int LDT = BK + 8;  // smem row stride (bf16): conflict-free fragment loads
-  static constexpr int A_ELEMS = BM * LDT, STAGE_ELEMS = (BM + BN) * LDT;
-  static constexpr int SMEM = STAGES * STAGE_ELEMS * (int)sizeof(bf16);
+constexpr int GM_BM = 128;       // rows of an output tile (two consumer warpgroups of 64)
+constexpr int GM_BK = 64;        // depth of a stage: 128 bytes of bf16, one swizzle row
+constexpr int GM_THREADS = 384;  // producer warpgroup + two consumer warpgroups
+constexpr int GM_SMEM_MAX = 232448;
+
+// Shared memory of a block: the ring of A / B stages, then the tile's
+// epilogue buffers -- its bias slice, and the output tile the TMA stores:
+// with an fp32 residual the residual tile itself (BN / 32 boxes of 128 rows
+// x 32 fp32, 128-byte swizzled), which the epilogue overwrites with the
+// output; else bf16 boxes of 64 rows x 32 (64-byte swizzle), BN / 32 per
+// warpgroup -- then the barriers; as many stages as fit (at most 6).
+template <int BN, bool RES>
+struct GemmTile {
+  static constexpr int A_BYTES = GM_BM * GM_BK * 2;
+  static constexpr int B_BYTES = BN * GM_BK * 2;  // a multiple of the 1024-byte swizzle atom
+  static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+  static constexpr int BIAS_BYTES = 1024;
+  static constexpr int RES_BYTES = GM_BM * BN * (RES ? 4 : 2);  // residual / output tile
+  static constexpr int BAR_BYTES = 256;
+  static constexpr int FIT =
+      (GM_SMEM_MAX - 1024 - BIAS_BYTES - RES_BYTES - BAR_BYTES) / STAGE_BYTES;
+  static constexpr int STAGES = FIT < 6 ? FIT : 6;
+  static constexpr int EPI = STAGES * STAGE_BYTES;  // offset of the bias slice
+  static constexpr int SMEM = 1024 + EPI + BIAS_BYTES + RES_BYTES + BAR_BYTES;
+  static_assert(STAGES >= 3 && BN <= 256 && BN % 32 == 0, "tile");
 };
 
-// Issues the cp.async loads of the A and B tiles at column k0 into `stage`.
-template <class G>
-__device__ __forceinline__ void load_tiles(bf16* stage, const bf16* __restrict__ A,
-                                           const bf16* __restrict__ B, int M, int N, int K,
-                                           int m0, int n0, int k0) {
-  constexpr int CPR = G::BK / 8;  // 16-byte chunks per tile row
-  for (int c = threadIdx.x; c < (G::BM + G::BN) * CPR; c += G::THREADS) {
-    const int row = c / CPR, col = (c % CPR) * 8;
-    if (row < G::BM) {
-      const int gm = m0 + row;
-      cp_async16(stage + row * G::LDT + col, A + (size_t)(gm < M ? gm : 0) * K + k0 + col, gm < M);
-    } else {
-      const int gn = n0 + row - G::BM;
-      cp_async16(stage + row * G::LDT + col, B + (size_t)(gn < N ? gn : 0) * K + k0 + col, gn < N);
-    }
-  }
-}
-
-// C[M,N] = A[M,K] . B[N,K]^T (+ bias[N]) (-> gelu) (+ residual[M,N]).
-// A, B bf16 row-major; bias fp32; C bf16 (OutT = bf16, no residual) or fp32
-// with an fp32 residual.  The epilogue adds in fp32 and rounds once.
-// Requires K % BK == 0 and
-// N % 8 == 0 (checked by the host entry); ragged M and N tiles are masked.
-// Each warp multiplies a WM x WN tile with ldmatrix + mma.sync fragments
-// and applies the epilogue straight from its accumulator registers.
 __device__ __forceinline__ void store2(bf16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+
+template <int BN>
+__device__ __forceinline__ void wgmma_tile(float (&acc)[BN / 2], uint64_t da, uint64_t db,
+                                           int scale_d) {
+  if constexpr (BN == 256) wgmma_ss_n256(acc, da, db, scale_d);
+  else if constexpr (BN == 160) wgmma_ss_n160(acc, da, db, scale_d);
+  else wgmma_ss_n128(acc, da, db, scale_d);
 }
 
-template <class G, class OutT>
-__global__ void __launch_bounds__(G::THREADS)
-gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
-                 const float* __restrict__ bias, const float* __restrict__ residual,
-                 OutT* __restrict__ C, int M, int N, int K, int gelu) {
-  constexpr int FM = G::WM / 16, FN = G::WN / 8;  // m16 rows x n8 columns per warp
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp / G::WARPS_N, wn = warp % G::WARPS_N;
-  const int m0 = blockIdx.y * G::BM, n0 = blockIdx.x * G::BN;
+// C[M,N] = A[M,K] . B[N,K]^T (+ bias[N]) (-> gelu) (+ residual[M,N]).
+// A, B bf16 row-major (K-major, wgmma's native form) behind the tensor maps
+// tmA (box 64 x 128) and tmB (box 64 x BN); bias fp32; C bf16 (OutT = bf16,
+// no residual) or fp32 with an fp32 residual behind tmR (box 32 x 128),
+// written through tmC (box 32 x 64).  The epilogue adds in fp32 and rounds
+// once.  Requires K % 64 == 0 and N % 8 == 0 (checked by the host entry);
+// ragged M and N tiles load zeros and the TMA clips their stores.  The
+// producer brings each tile's bias and residual into shared memory while
+// the tile's products run; each consumer warpgroup writes its 64 rows into
+// shared memory and one thread stores them with TMA, so the epilogue waits
+// on no global load and issues no scattered store.
+template <int BN, class OutT>
+__global__ void __launch_bounds__(GM_THREADS, 1)
+gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant__ CUtensorMap tmB,
+                  const __grid_constant__ CUtensorMap tmR, const __grid_constant__ CUtensorMap tmC,
+                  const float* __restrict__ bias, int M, int N, int K, int gelu) {
+  constexpr bool RES = sizeof(OutT) == 4;
+  using G = GemmTile<BN, RES>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(align_up(
+      reinterpret_cast<size_t>(smem_raw), 1024));  // the swizzle atoms need 1024-byte alignment
+  float* bias_s = reinterpret_cast<float*>(smem + G::EPI);
+  unsigned char* res_s = smem + G::EPI + G::BIAS_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(res_s + G::RES_BYTES);
+  uint64_t* empty = full + G::STAGES;
+  uint64_t* epi_full = empty + G::STAGES;
+  uint64_t* epi_empty = epi_full + 1;
+  const int wg = threadIdx.x >> 7;
+  const int tiles_m = (M + GM_BM - 1) / GM_BM;
+  const int tiles = tiles_m * ((N + BN - 1) / BN);
+  const int KT = K / GM_BK;
 
-  float acc[FM][FN][4];
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  const int KT = K / G::BK;
-#pragma unroll
-  for (int st = 0; st < G::STAGES - 1; ++st) {
-    if (st < KT) load_tiles<G>(smem + st * G::STAGE_ELEMS, A, B, M, N, K, m0, n0, st * G::BK);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<G::STAGES - 2>();
-    __syncthreads();
-    const int pf = kt + G::STAGES - 1;
-    if (pf < KT)
-      load_tiles<G>(smem + (pf % G::STAGES) * G::STAGE_ELEMS, A, B, M, N, K, m0, n0, pf * G::BK);
-    cp_async_commit();
-    const bf16* As = smem + (kt % G::STAGES) * G::STAGE_ELEMS + (wm * G::WM) * G::LDT;
-    const bf16* Bs = smem + (kt % G::STAGES) * G::STAGE_ELEMS + G::A_ELEMS + (wn * G::WN) * G::LDT;
-#pragma unroll
-    for (int kk = 0; kk < G::BK; kk += 16) {
-      uint32_t a[FM][4], b[FN / 2][4];
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-        ldmatrix_x4(a[i], As + (i * 16 + (lane & 15)) * G::LDT + kk + ((lane >> 4) << 3));
-#pragma unroll
-      for (int jp = 0; jp < FN / 2; ++jp)
-        ldmatrix_x4(b[jp], Bs + (jp * 16 + (lane & 7) + ((lane >> 4) << 3)) * G::LDT + kk +
-                               (((lane >> 3) & 1) << 3));
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-#pragma unroll
-        for (int jp = 0; jp < FN / 2; ++jp) {
-          mma_16816(acc[i][2 * jp], a[i], b[jp][0], b[jp][1]);
-          mma_16816(acc[i][2 * jp + 1], a[i], b[jp][2], b[jp][3]);
-        }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < G::STAGES; ++s) {
+      mbar_init(&full[s], 1);   // the producer's expect_tx; the TMA bytes complete it
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
     }
+    mbar_init(epi_full, 1);
+    mbar_init(epi_empty, 2);  // each warpgroup's storing thread, once its store has read the tile
+    mbar_fence_init();
   }
+  __syncthreads();
 
-  const int g = lane >> 2, t = lane & 3;
+  if (wg == 0) {  // producer
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      tma_prefetch_map(&tmA);
+      tma_prefetch_map(&tmB);
+      tma_prefetch_map(&tmC);
+      if constexpr (RES) tma_prefetch_map(&tmR);
+      const int epi_kb = (KT < G::STAGES ? KT : G::STAGES) - 1;
+      int stage = 0;
+      unsigned phase = 0, epi_phase = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = (tile % tiles_m) * GM_BM, n0 = (tile / tiles_m) * BN;
+        for (int kb = 0; kb < KT; ++kb) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          unsigned char* st = smem + stage * G::STAGE_BYTES;
+          mbar_expect_tx(&full[stage], G::STAGE_BYTES);
+          tma_load_2d(st, &tmA, &full[stage], kb * GM_BK, m0);
+          tma_load_2d(st + G::A_BYTES, &tmB, &full[stage], kb * GM_BK, n0);
+          if (++stage == G::STAGES) stage = 0, phase ^= 1;
+          if (kb == epi_kb) {  // the tile's first stages are queued: now its epilogue inputs
+            mbar_wait(epi_empty, epi_phase ^ 1);
+            const int nb = N - n0 < BN ? N - n0 : BN;
+            mbar_expect_tx(epi_full, (bias ? nb * 4 : 0) + (RES ? G::RES_BYTES : 0));
+            if (bias) bulk_load(bias_s, bias + n0, nb * 4, epi_full);
+            if constexpr (RES) {
 #pragma unroll
-  for (int i = 0; i < FM; ++i) {
-#pragma unroll
-    for (int j = 0; j < FN; ++j) {
-      const int gn = n0 + wn * G::WN + j * 8 + 2 * t;
-      if (gn >= N) continue;
-      const float b0 = bias ? bias[gn] : 0.f, b1 = bias ? bias[gn + 1] : 0.f;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int gm = m0 + wm * G::WM + i * 16 + g + 8 * half;
-        if (gm >= M) continue;
-        float v0 = acc[i][j][2 * half] + b0, v1 = acc[i][j][2 * half + 1] + b1;
-        if (gelu) {
-          v0 = gelu_erf(v0);
-          v1 = gelu_erf(v1);
+              for (int bx = 0; bx < BN / 32; ++bx)
+                tma_load_2d(res_s + bx * GM_BM * 128, &tmR, epi_full, n0 + 32 * bx, m0);
+            }
+            epi_phase ^= 1;
+          }
         }
-        if (residual) {
-          const float2 rv = *reinterpret_cast<const float2*>(residual + (size_t)gm * N + gn);
-          v0 += rv.x;
-          v1 += rv.y;
-        }
-        store2(C + (size_t)gm * N + gn, v0, v1);
       }
     }
+  } else {  // consumers: warpgroup c multiplies rows 64c .. 64c + 63 of each tile
+    setmaxnreg_inc<232>();
+    const int c = wg - 1;
+    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    int stage = 0;
+    unsigned phase = 0, epi_phase = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int m0 = (tile % tiles_m) * GM_BM, n0 = (tile / tiles_m) * BN;
+      int prev = 0;
+      for (int kb = 0; kb < KT; ++kb) {
+        mbar_wait(&full[stage], phase);
+        const unsigned char* st = smem + stage * G::STAGE_BYTES;
+        const uint64_t da = wgmma_desc(st + c * 64 * 128, kSwizzle128B, 16, 1024);
+        const uint64_t db = wgmma_desc(st + G::A_BYTES, kSwizzle128B, 16, 1024);
+        fence_regs(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < GM_BK / 16; ++k)
+          wgmma_tile<BN>(acc, da + 2 * k, db + 2 * k, (kb | k) != 0);
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous stage's products are done: release it
+        fence_regs(acc);
+        if (kb > 0 && lane == 0) mbar_arrive(&empty[prev]);
+        __syncwarp();
+        prev = stage;
+        if (++stage == G::STAGES) stage = 0, phase ^= 1;
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (lane == 0) mbar_arrive(&empty[prev]);
+      __syncwarp();
+
+      mbar_wait(epi_full, epi_phase);
+      epi_phase ^= 1;
+      named_barrier_sync(1 + c, 128);  // this warpgroup's last store has read its tile
+      const int g = lane >> 2, t = lane & 3;
+      // bf16 out: this warpgroup's boxes; fp32: its 64 rows of the residual boxes
+      unsigned char* out_s = res_s + (RES ? c * 64 * 128 : c * 64 * BN * 2);
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int cn = j * 8 + 2 * t, cc = cn & 31;
+        const float2 bv = bias ? *reinterpret_cast<const float2*>(bias_s + cn) : make_float2(0.f, 0.f);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = warp * 16 + g + 8 * half;  // row of the warpgroup's 64
+          float v0 = acc[4 * j + 2 * half] + bv.x, v1 = acc[4 * j + 2 * half + 1] + bv.y;
+          if (gelu) {
+            v0 = gelu_erf(v0);
+            v1 = gelu_erf(v1);
+          }
+          if constexpr (RES) {  // box cn / 32, 16-byte chunk cc / 4 swizzled by the row
+            float2* p = reinterpret_cast<float2*>(out_s + (cn >> 5) * GM_BM * 128 + r * 128 +
+                                                  (((cc >> 2) ^ (r & 7)) << 4) + (cc & 3) * 4);
+            const float2 rv = *p;
+            *p = make_float2(v0 + rv.x, v1 + rv.y);
+          } else {  // box cn / 32 of 64 rows x 64 bytes, chunk cc / 8 swizzled by (r / 2) % 4
+            store2(reinterpret_cast<bf16*>(out_s + (cn >> 5) * 64 * 64 + r * 64 +
+                                           (((cc >> 3) ^ ((r >> 1) & 3)) << 4) + (cc & 7) * 2),
+                   v0, v1);
+          }
+        }
+      }
+      fence_proxy_async();
+      named_barrier_sync(1 + c, 128);
+      if ((threadIdx.x & 127) == 0) {
+#pragma unroll
+        for (int bx = 0; bx < BN / 32; ++bx)
+          tma_store_2d(&tmC, out_s + bx * (RES ? GM_BM * 128 : 64 * 64), n0 + 32 * bx, m0 + 64 * c);
+        bulk_commit();
+        bulk_wait_read();
+        mbar_arrive(epi_empty);
+      }
+      __syncwarp();
+    }
   }
+  if ((threadIdx.x & 127) == 0) bulk_wait_all();  // this thread's stores are written
 }
 
-template <class G, class OutT>
+template <int BN, class OutT>
 int launch_gemm(const void* A, const void* B, const void* bias, const void* residual, void* C,
                 int M, int N, int K, int gelu, cudaStream_t stream) {
-  if (K % G::BK != 0) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(gemm_bf16_kernel<G, OutT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
-  if (err != cudaSuccess) return err;
-  dim3 grid((N + G::BN - 1) / G::BN, (M + G::BM - 1) / G::BM);
-  gemm_bf16_kernel<G, OutT><<<grid, G::THREADS, G::SMEM, stream>>>(
-      static_cast<const bf16*>(A), static_cast<const bf16*>(B), static_cast<const float*>(bias),
-      static_cast<const float*>(residual), static_cast<OutT*>(C), M, N, K, gelu);
+  using G = GemmTile<BN, sizeof(OutT) == 4>;
+  CUtensorMap tmA, tmB, tmR, tmC;
+  const uint64_t dimsA[2] = {(uint64_t)K, (uint64_t)M}, dimsB[2] = {(uint64_t)K, (uint64_t)N};
+  const uint64_t stride[1] = {(uint64_t)K * 2};
+  const uint32_t boxA[2] = {GM_BK, GM_BM}, boxB[2] = {GM_BK, BN};
+  int err = make_tensor_map(&tmA, A, 2, dimsA, stride, boxA, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err == 0) err = make_tensor_map(&tmB, B, 2, dimsB, stride, boxB, CU_TENSOR_MAP_SWIZZLE_128B);
+  tmR = tmA;
+  if (err == 0 && residual) {
+    const uint64_t dimsR[2] = {(uint64_t)N, (uint64_t)M}, strideR[1] = {(uint64_t)N * 4};
+    const uint32_t boxR[2] = {32, GM_BM};
+    err = make_tensor_map(&tmR, residual, 2, dimsR, strideR, boxR, CU_TENSOR_MAP_SWIZZLE_128B,
+                          CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
+  }
+  if (err == 0) {  // the output, stored in boxes of 64 rows x 32 columns
+    const bool f32 = sizeof(OutT) == 4;
+    const uint64_t dimsC[2] = {(uint64_t)N, (uint64_t)M}, strideC[1] = {(uint64_t)N * sizeof(OutT)};
+    const uint32_t boxC[2] = {32, 64};
+    err = make_tensor_map(&tmC, C, 2, dimsC, strideC, boxC,
+                          f32 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                          f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16);
+  }
+  if (err != 0) return err;
+  auto kernel = gemm_wgmma_kernel<BN, OutT>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
+  if (e != cudaSuccess) return e;
+  const int tiles = ((M + GM_BM - 1) / GM_BM) * ((N + BN - 1) / BN);
+  const int grid = tiles < sm_count() ? tiles : sm_count();
+  kernel<<<grid, GM_THREADS, G::SMEM, stream>>>(tmA, tmB, tmR, tmC, static_cast<const float*>(bias),
+                                                M, N, K, gelu);
   return cudaGetLastError();
 }
 
-using GemmMain = GemmCfg<128, 128, 64, 64, 32, 3>;  // 110 KB of shared memory
+// The tile width of the N side: of the two candidates (256 and 160 for a
+// bf16 output; 160 and 128 with the fp32 residual tile in shared memory),
+// the one whose waves of tiles over the SMs take the least time (a wave's
+// time grows with the width), the wider on a tie.
+int pick_bn(int M, int N, int wide, int narrow) {
+  const int sms = sm_count(), tiles_m = (M + GM_BM - 1) / GM_BM;
+  auto cost = [&](int bn) {
+    const long tiles = (long)tiles_m * ((N + bn - 1) / bn);
+    return (tiles + sms - 1) / sms * bn;
+  };
+  return cost(narrow) < cost(wide) ? narrow : wide;
+}
+
+int launch_gemm_any(const void* A, const void* B, const void* bias, const void* residual, void* C,
+                    int M, int N, int K, int gelu, cudaStream_t stream) {
+  if (residual) {
+    if (pick_bn(M, N, 160, 128) == 128)
+      return launch_gemm<128, float>(A, B, bias, residual, C, M, N, K, gelu, stream);
+    return launch_gemm<160, float>(A, B, bias, residual, C, M, N, K, gelu, stream);
+  }
+  if (pick_bn(M, N, 256, 160) == 160)
+    return launch_gemm<160, bf16>(A, B, bias, nullptr, C, M, N, K, gelu, stream);
+  return launch_gemm<256, bf16>(A, B, bias, nullptr, C, M, N, K, gelu, stream);
+}
 
 // Eight consecutive values of a row.
 __device__ __forceinline__ void load8(const float* p, float (&f)[8]) {
@@ -288,10 +418,9 @@ const char* samrs_error_string(int code) {
 int samrs_gemm_bf16(const void* A, const void* B, const void* bias, const void* residual,
                     void* C, int M, int N, int K, int gelu, void* stream) {
   using namespace samrs;
-  if (M <= 0 || N <= 0 || K <= 0 || N % 8 != 0) return cudaErrorInvalidValue;
+  if (M <= 0 || N <= 0 || K <= 0 || N % 8 != 0 || K % GM_BK != 0) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (residual) return launch_gemm<GemmMain, float>(A, B, bias, residual, C, M, N, K, gelu, st);
-  return launch_gemm<GemmMain, bf16>(A, B, bias, nullptr, C, M, N, K, gelu, st);
+  return launch_gemm_any(A, B, bias, residual, C, M, N, K, gelu, st);
 }
 
 // Row LayerNorm of fp32 x -> bf16 y.

@@ -1,5 +1,5 @@
-// Warp-level attention building blocks shared by K1 (window attention), K2
-// (global flash attention from the raw qkv) and K12 (split-head attention):
+// Warp-level attention building blocks shared by K1 (window attention) and
+// K12 (split-head attention):
 // one warp owns 16 query rows and streams key blocks through the tensor cores
 // with the logits kept in registers; `flash_key_loop` streams a whole key
 // sequence through two shared-memory stages for the query-tiled kernels.
@@ -198,7 +198,7 @@ __device__ __forceinline__ RelBias lane_rel_bias(const float* rel_h, const float
   return b;
 }
 
-// Query-tiled flash loop of K2 and K12: the block's 64 query rows (16 per
+// Query-tiled flash loop of K12: the block's 64 query rows (16 per
 // warp) attend to keys [0, n) in tiles of 64, double-buffered in shared
 // memory.  The caller has started (and committed, as one cp.async group) the
 // copies of its Q tile to Qs and of key tile 0 to stage 0.

@@ -7,9 +7,10 @@ launches its CUDA kernel (or raises) for a CUDA tensor.
      stage in fused_window_block (raw qkv map) and fused_attention
      (partitioned windows))
   K2 flash_attention.attention_qkv_relpos        (global attention; modes m,
-                                                  split, exp2, aug)
+                                                  split, exp2, aug; wgmma + TMA)
   K3 fused_mlp.ln_mlp_residual                   (LayerNorm + MLP + residual;
-     the tail mode fused_tail_ln_mlp_residual)
+     the tail mode fused_tail_ln_mlp_residual; its GEMM, gemm.linear, also
+     K1's: wgmma + TMA)
   K4 fused_twoway.t2i_kv_proj                    (decoder K/V projection)
   K5 fused_twoway.i2t_update                     (decoder image->token update)
   K6 fused_upscale.upscale_hyper                 (upscaling + hypernetwork dot)

@@ -8,11 +8,13 @@ the end of this module).
 K2 replaces samrs_tpu/kernels/flash_attention.py::flash_attention_qkv_relpos
 (Pallas calls ``_qkv_flash_m_pallas`` :343 for variant "m",
 ``_qkv_flash_pallas`` :239 for "split" and "exp2", ``_qkv_flash_aug_pallas``
-:454 for "aug").  On a CUDA tensor the wrapper computes the per-query
-rel-pos rows ``rel_h = q.Rh[x_q]^T`` and ``rel_w = q.Rw[y_q]^T`` in fp32
-(outside the kernel, as the JAX package does outside its pallas_call) and
-launches the hand-written flash kernel of csrc/flash_attention.cu.  The
-modes round where their twins round: "m" and "split" add the fp32 rows;
+:454 for "aug").  On a CUDA tensor the wrapper launches two hand-written
+kernels of csrc/flash_attention.cu: one computes the per-query rel-pos rows
+``rel_h = q.Rh[x_q]^T`` and ``rel_w = q.Rw[y_q]^T`` in fp32 from the q
+columns read in place (outside the attention, as the JAX package computes
+them outside its pallas_call), then the flash kernel (wgmma fed by TMA,
+csrc/hopper.cuh; ``check_qkv_layout`` states what it takes).
+The modes round where their twins round: "m" and "split" add the fp32 rows;
 "exp2" takes the softmax in base 2 with log2 e folded into the scale and the
 tables; "aug" rounds ``q * scale`` and the rows to the compute dtype before
 they meet.  Any grid (a key tile may straddle grid rows) and any N (ragged
@@ -33,7 +35,9 @@ from samrs_tpu_torch.kernels import _build, window_attention
 launches = 0  # CUDA launches of this kernel (one per wrapper call)
 
 _HEAD_DIMS = (64, 80)  # instantiated in csrc/flash_attention.cu
-_TILE = 64  # query and key tile of the kernel
+_TILE = 64  # key tile of the warp-level kernels (K1, K12: csrc/warp_attention.cuh)
+K2_KEY_TILE = 128  # key tile of K2's kernel: its online softmax rounds per tile of this
+MAX_TOKENS = 1 << 22  # the kernel splits keys into grid (row, column) by a float reciprocal
 VARIANTS = ("m", "split", "exp2", "aug")  # the JAX package's global_attn_impl values
 _MODE = {"m": 0, "split": 0, "exp2": 1, "aug": 2}  # the kernel's softmax / rounding mode
 LOG2E = 1.4426950408889634
@@ -68,23 +72,54 @@ def online_softmax_v(s: torch.Tensor, v: torch.Tensor, dtype: torch.dtype,
     return (p @ v.float()) / denom
 
 
+def check_qkv_layout(B: int, N: int, C3: int, num_heads: int, hw: Tuple[int, int],
+                     pointer: int = 0) -> int:
+    """Raise ValueError unless K2's kernel takes a ``qkv (B, N, C3)`` bf16
+    tensor of `num_heads` heads on the grid `hw` at device address `pointer`;
+    returns the head dim.  The kernel reads qkv through TMA tensor maps: the
+    base 16-byte aligned and each row (3C bf16) a multiple of 16 bytes; heads
+    of 64 or 80 (csrc/flash_attention.cu's instantiations); N = H * W, under
+    2^22 tokens."""
+    H, W = hw
+    C = C3 // 3
+    hd = C // num_heads if num_heads > 0 else 0
+    if B <= 0 or 3 * C != C3 or hd * num_heads != C or hd not in _HEAD_DIMS:
+        raise ValueError(f"flash kernel supports head_dim in {_HEAD_DIMS}, got 3C={C3}, "
+                         f"heads={num_heads}")
+    if N != H * W or not 0 < N < MAX_TOKENS:
+        raise ValueError(f"flash kernel needs N = H*W < {MAX_TOKENS}, got N={N}, hw={hw}")
+    if (C3 * 2) % 16 or pointer % 16:
+        raise ValueError(f"flash kernel reads qkv by TMA: needs a 16-byte aligned base and rows "
+                         f"of a multiple of 16 bytes, got 3C={C3}, address {pointer:#x}")
+    return hd
+
+
 def _check_variant(variant: str) -> None:
     if variant not in VARIANTS:
         raise ValueError(f"unknown global attention variant {variant!r}; have {VARIANTS}")
+
+
+def _mode_tables(Rh, Rw, scale: float, variant: str, dtype: torch.dtype):
+    """The rel-pos tables and scales of one mode, as its twin rounds them:
+    (table for rel_h, table for rel_w, whether the rel rows round to `dtype`,
+    scale of q before the product (None: not rounded), scale of the
+    product)."""
+    if variant == "exp2":
+        return Rh * LOG2E, Rw * LOG2E, False, None, scale * LOG2E
+    if variant == "aug":
+        return Rh.to(dtype), Rw.to(dtype), True, scale, 1.0
+    return Rh, Rw, False, None, scale
 
 
 def _mode_inputs(q, Rh, Rw, hw, scale: float, variant: str, dtype: torch.dtype):
     """The rel rows and the scales of one mode, rounded where its twin rounds:
     (rel_h, rel_w, scale of q before the product (None: not rounded), scale
     of the product)."""
-    if variant == "exp2":
-        rel_h, rel_w = _rel_rows(q, Rh * LOG2E, Rw * LOG2E, hw)
-        return rel_h, rel_w, None, scale * LOG2E
-    if variant == "aug":
-        rel_h, rel_w = _rel_rows(q, Rh.to(dtype), Rw.to(dtype), hw)
-        return rel_h.to(dtype).float(), rel_w.to(dtype).float(), scale, 1.0
-    rel_h, rel_w = _rel_rows(q, Rh, Rw, hw)
-    return rel_h, rel_w, None, scale
+    Th, Tw, round_rows, q_scale, s_scale = _mode_tables(Rh, Rw, scale, variant, dtype)
+    rel_h, rel_w = _rel_rows(q, Th, Tw, hw)
+    if round_rows:
+        rel_h, rel_w = rel_h.to(dtype).float(), rel_w.to(dtype).float()
+    return rel_h, rel_w, q_scale, s_scale
 
 
 def attention_qkv_relpos_plain(qkv, Rh, Rw, hw: Tuple[int, int], scale: float, num_heads: int,
@@ -105,13 +140,16 @@ def attention_qkv_relpos_plain(qkv, Rh, Rw, hw: Tuple[int, int], scale: float, n
     qf = q.float() if q_scale is None else (q.float() * q_scale).to(dt).float()
     s = (qf @ k.float().transpose(-1, -2)) * s_scale          # (B, nH, N, N)
     s = s.reshape(B, num_heads, N, H, W) + rel_h[..., :, None] + rel_w[..., None, :]
-    out = online_softmax_v(s.reshape(B, num_heads, N, N), v, dt, base2=variant == "exp2")
+    out = online_softmax_v(s.reshape(B, num_heads, N, N), v, dt, tile=K2_KEY_TILE,
+                           base2=variant == "exp2")
     return out.permute(0, 2, 1, 3).reshape(B, N, C).to(dt)
 
 
 def attention_qkv_relpos_cuda(qkv, Rh, Rw, hw: Tuple[int, int], scale: float, num_heads: int,
                               variant: str = "m"):
-    """The hand-written flash kernel on a bf16 CUDA ``qkv (B, N, 3C)``."""
+    """The hand-written kernels on a bf16 CUDA ``qkv (B, N, 3C)``: the fp32
+    rel-pos rows from the q columns read in place (``samrs_relpos_rows``),
+    then the flash kernel."""
     global launches
     _check_variant(variant)
     _build.require_cuda("qkv", qkv, torch.bfloat16)
@@ -120,16 +158,16 @@ def attention_qkv_relpos_cuda(qkv, Rh, Rw, hw: Tuple[int, int], scale: float, nu
     H, W = hw
     B, N, C3 = qkv.shape
     C = C3 // 3
-    hd = C // num_heads
-    if 3 * C != C3 or hd * num_heads != C or hd not in _HEAD_DIMS:
-        raise ValueError(f"flash kernel supports head_dim in {_HEAD_DIMS}, got 3C={C3}, heads={num_heads}")
-    if N != H * W:
-        raise ValueError(f"flash kernel needs N = H*W, got N={N}, hw={hw}")
+    hd = check_qkv_layout(B, N, C3, num_heads, hw, _build.ptr(qkv))
     if tuple(Rh.shape) != (H, H, hd) or tuple(Rw.shape) != (W, W, hd):
         raise ValueError(f"Rh/Rw: expected ({H}, {H}, {hd}) / ({W}, {W}, {hd})")
-    q = qkv[..., :C].reshape(B, N, num_heads, hd).transpose(1, 2)
-    rel_h, rel_w, q_scale, s_scale = _mode_inputs(q, Rh, Rw, hw, scale, variant, torch.bfloat16)
-    rel_h, rel_w = rel_h.contiguous(), rel_w.contiguous()
+    Th, Tw, round_rows, q_scale, s_scale = _mode_tables(Rh, Rw, scale, variant, torch.bfloat16)
+    Th, Tw = (t.to(device=qkv.device, dtype=torch.float32).contiguous() for t in (Th, Tw))
+    rel_h = torch.empty(B, num_heads, N, H, device=qkv.device, dtype=torch.float32)
+    rel_w = torch.empty(B, num_heads, N, W, device=qkv.device, dtype=torch.float32)
+    _build.launch("samrs_relpos_rows", _build.ptr(qkv), _build.ptr(Th), _build.ptr(Tw),
+                  _build.ptr(rel_h), _build.ptr(rel_w), B, N, C, num_heads, hd, H, W,
+                  int(round_rows))
     out = torch.empty(B, N, C, device=qkv.device, dtype=torch.bfloat16)
     _build.launch("samrs_flash_attention_relpos", _build.ptr(qkv), _build.ptr(rel_h),
                   _build.ptr(rel_w), _build.ptr(out), B, N, C, num_heads, hd, H, W,

@@ -2,7 +2,11 @@
 GEMM with bias / exact-GELU epilogues and bf16 output, or with the encoder's
 fp32 residual stream added and fp32 output, and the fp32-statistics
 LayerNorm of that stream.  CUDA tensors only; the callers own the CPU path.
-``linear_plain`` is the GEMM's plain version, rounded where it rounds."""
+``linear_plain`` is the GEMM's plain version, rounded where it rounds.
+
+The GEMM is a warp-specialised wgmma kernel fed by TMA (csrc/hopper.cuh):
+its operands must meet the TMA's rules, which ``check_gemm_layout`` states
+and the wrapper enforces (it raises; there is no other route)."""
 
 from __future__ import annotations
 
@@ -10,8 +14,49 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.weak import WeakTensorKeyDictionary
 
 from samrs_tpu_torch.kernels import _build
+
+
+launches = 0  # CUDA launches of the GEMM (one per ``linear`` call on the card)
+
+GEMM_BK = 64  # depth of a stage of csrc/gemm.cu: K must be a multiple
+TMA_ALIGN = 16  # bytes: a TMA base address and row stride are multiples
+
+
+def check_gemm_layout(T: int, K: int, N: int, pointers=()) -> None:
+    """Raise ValueError unless csrc/gemm.cu takes ``x (T, K) @ w (N, K)^T``:
+    K a multiple of GEMM_BK (so each bf16 row stride is a multiple of 16
+    bytes), N a multiple of 8 (paired epilogue stores), and every pointer
+    (x, w, the bias, the residual; device addresses as ints) 16-byte
+    aligned."""
+    if T <= 0 or K <= 0 or N <= 0:
+        raise ValueError(f"GEMM needs positive sizes, got T={T}, K={K}, N={N}")
+    if K % GEMM_BK or N % 8:
+        raise ValueError(f"GEMM needs K % {GEMM_BK} == 0 and N % 8 == 0, got K={K}, N={N}")
+    for p in pointers:
+        if p is not None and p % TMA_ALIGN:
+            raise ValueError(f"GEMM operands must be {TMA_ALIGN}-byte aligned (TMA), "
+                             f"got address {p:#x}")
+
+
+_bf16_weights = WeakTensorKeyDictionary()  # weight -> (its version, bf16 copy on the card)
+
+
+def _bf16_weight(weight: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """`weight` as a contiguous bf16 tensor on `device`.  A weight in another
+    dtype keeps its converted copy while it lives and its version counter
+    (bumped by every in-place change) stands still, so an encoder's fp32
+    parameters are converted once and not on every call."""
+    if weight.dtype == torch.bfloat16 and weight.device == device:
+        return weight.contiguous()
+    hit = _bf16_weights.get(weight)
+    if hit is not None and hit[0] == weight._version and hit[1].device == device:
+        return hit[1]
+    copy = weight.detach().to(device=device, dtype=torch.bfloat16).contiguous()
+    _bf16_weights[weight] = (weight._version, copy)
+    return copy
 
 
 def linear_plain(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
@@ -36,8 +81,10 @@ def linear(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
     """bf16 ``x (T, K) @ weight (N, K)^T + bias`` [-> gelu] [+ residual (T, N)].
 
     `weight` and `bias` are parameters in any float dtype; they are cast to
-    bf16 / fp32 for the kernel.  The epilogue adds in fp32 and rounds once
+    bf16 / fp32 for the kernel (the weight's bf16 copy is kept:
+    ``_bf16_weight``).  The epilogue adds in fp32 and rounds once
     to bf16; with an fp32 `residual` the output is fp32."""
+    global launches
     _build.require_cuda("x", x, torch.bfloat16)
     if x.dim() != 2:
         raise ValueError(f"x: expected (T, K), got {tuple(x.shape)}")
@@ -45,18 +92,19 @@ def linear(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
     N = weight.shape[0]
     if tuple(weight.shape) != (N, K):
         raise ValueError(f"weight: expected ({N}, {K}), got {tuple(weight.shape)}")
-    if K % 64 or N % 8:
-        raise ValueError(f"GEMM needs K % 64 == 0 and N % 8 == 0, got K={K}, N={N}")
-    w = weight.to(device=x.device, dtype=torch.bfloat16).contiguous()
+    w = _bf16_weight(weight, x.device)
     b = None if bias is None else bias.to(device=x.device, dtype=torch.float32).contiguous()
     if b is not None and tuple(b.shape) != (N,):
         raise ValueError(f"bias: expected ({N},), got {tuple(b.shape)}")
     if residual is not None:
         _build.require_cuda("residual", residual, torch.float32, (T, N))
+    check_gemm_layout(T, K, N, (_build.ptr(x), _build.ptr(w), _build.ptr(b),
+                                _build.ptr(residual)))
     out = torch.empty(T, N, device=x.device,
                       dtype=torch.bfloat16 if residual is None else torch.float32)
     _build.launch("samrs_gemm_bf16", _build.ptr(x), _build.ptr(w), _build.ptr(b),
                   _build.ptr(residual), _build.ptr(out), T, N, K, int(gelu))
+    launches += 1
     return out
 
 

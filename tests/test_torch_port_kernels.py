@@ -28,6 +28,7 @@ from samrs_tpu.kernels.fused_window_block import (window_attention_partition_fre
 from samrs_tpu.kernels.fused_window_layer import (window_layer_attention,
                                                  window_layer_attention_residual, window_layer_xla)
 from samrs_tpu.kernels.window_attention import window_attention_relpos, window_attention_xla
+from samrs_tpu_torch.core.config import sam_config
 from samrs_tpu_torch.kernels import (_build, amg_post, flash_attention, fused_attention,
                                      fused_mlp, fused_twoway, fused_upscale, fused_window_block,
                                      fused_window_layer, gemm, window_attention)
@@ -455,3 +456,120 @@ def test_build_raises_clearly_without_cuda():
         pytest.skip("a CUDA device is present; this checks the CPU-only refusal")
     with pytest.raises(RuntimeError, match="need a CUDA device"):
         _build.library()
+
+
+K2_WIDE_GRIDS = {"4x64": (4, 64), "8x48": (8, 48)}  # kw 64: a key tile is two grid rows;
+# kw 48: key tiles of 128 straddle grid rows at varying columns
+
+
+@pytest.mark.parametrize("grid", sorted(K2_WIDE_GRIDS))
+@pytest.mark.parametrize("hd", [64, 80])
+@pytest.mark.parametrize("variant", flash_attention.VARIANTS)
+def test_k2_plain_matches_interpret_at_kernel_head_dims(variant, hd, grid):
+    """K2's plain version in every mode against the Pallas twin in interpret
+    mode at the head dims the CUDA kernel takes (64: one 128-byte box; 80:
+    a 64- and a 16-column box), on a grid whose width is the kernel's fast
+    case (64) and one whose width is not a multiple of its 128-key tile."""
+    H, W = K2_WIDE_GRIDS[grid]
+    nH = 2
+    C = nH * hd
+    rng = np.random.default_rng(100 + hd + W)
+    qkv = rng.normal(size=(1, H * W, 3 * C)).astype(np.float32)
+    Rh = (rng.normal(size=(H, H, hd)) * 0.1).astype(np.float32)
+    Rw = (rng.normal(size=(W, W, hd)) * 0.1).astype(np.float32)
+    static = ((H, W), hd ** -0.5, nH)
+    want = flash_attention_qkv_relpos(*(jnp.asarray(a) for a in (qkv, Rh, Rw)), *static,
+                                      interpret=True, variant=variant)
+    t = torch.from_numpy
+    got = flash_attention.attention_qkv_relpos(t(qkv), t(Rh), t(Rw), *static, variant=variant)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (1, H * W, C)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL, rtol=TOL)
+
+
+def test_online_softmax_follows_k2_key_tiles():
+    """K2's plain version rounds its probabilities per tile of
+    K2_KEY_TILE keys, as the wgmma kernel's online softmax does."""
+    rng = np.random.default_rng(14)
+    tile = flash_attention.K2_KEY_TILE
+    s = torch.from_numpy((rng.normal(size=(3, 300)) * 3).astype(np.float32))
+    v = torch.from_numpy(rng.normal(size=(300, 8)).astype(np.float32)).bfloat16().float()
+    m = torch.full((3, 1), float("-inf"))
+    den, o = torch.zeros(3, 1), torch.zeros(3, 8)
+    for k0 in range(0, 300, tile):
+        blk = s[:, k0:k0 + tile]
+        m_new = torch.maximum(m, blk.amax(-1, keepdim=True))
+        p = torch.exp(blk - m_new).bfloat16().float()
+        alpha = torch.exp(m - m_new)
+        den, o, m = den * alpha + p.sum(-1, keepdim=True), o * alpha + p @ v[k0:k0 + tile], m_new
+    got = flash_attention.online_softmax_v(s, v, torch.bfloat16, tile=tile)
+    np.testing.assert_allclose(got.numpy(), (o / den).numpy(), rtol=1e-5, atol=1e-6)
+
+
+def _sam_shapes():
+    """(variant, image_size, C, heads, grid, window tokens) of every SAM
+    configuration the port builds: the three widths at the image sizes the
+    JAX CLI and the chip run use."""
+    for variant in ("vit_b", "vit_l", "vit_h"):
+        for size in (1024, 768, 512, 256):
+            cfg = sam_config(variant, image_size=size)
+            g, ws = cfg.grid_size, cfg.window_size
+            nwin = (-(-g // ws)) ** 2
+            yield variant, size, cfg.encoder_embed_dim, cfg.encoder_num_heads, g, nwin * ws * ws
+
+
+@pytest.mark.parametrize("variant,size,C,heads,g,win_tokens", list(_sam_shapes()),
+                         ids=lambda v: str(v))
+def test_gemm_layout_takes_every_sam_shape(variant, size, C, heads, g, win_tokens):
+    """The GEMM's TMA rules admit every dense layer of the encoder: qkv,
+    proj, lin1, lin2 on the map (T = g^2, K1 / K3 / the globals) and qkv /
+    proj on partitioned windows, at 16-byte aligned operands."""
+    for T in (g * g, win_tokens):
+        for K, N in ((C, 3 * C), (C, C), (C, 4 * C), (4 * C, C)):
+            gemm.check_gemm_layout(T, K, N, (0x7F0000000000, 0x7F0000100000, None))
+
+
+@pytest.mark.parametrize("T,K,N,pointers", [
+    (4096, 1280, 1284, ()),                     # N not a multiple of 8
+    (4096, 1000, 1280, ()),                     # K not a multiple of the 64-deep stage
+    (4096, 1280, 3840, (0x7F0000000008,)),      # an operand 8 bytes off the TMA's alignment
+    (0, 1280, 3840, ()),
+])
+def test_gemm_layout_refuses(T, K, N, pointers):
+    with pytest.raises(ValueError, match="GEMM"):
+        gemm.check_gemm_layout(T, K, N, pointers)
+
+
+@pytest.mark.parametrize("variant,size,C,heads,g,win_tokens", list(_sam_shapes()),
+                         ids=lambda v: str(v))
+def test_k2_layout_takes_every_sam_global_grid(variant, size, C, heads, g, win_tokens):
+    """K2's TMA rules admit every global grid the encoder hands it (any
+    grid under fused mode, N >= 2048 otherwise) and give the head dim."""
+    hd = flash_attention.check_qkv_layout(1, g * g, 3 * C, heads, (g, g), 0x7F0000000000)
+    assert hd == C // heads and hd in (64, 80)
+
+
+@pytest.mark.parametrize("B,N,C3,heads,hw,pointer", [
+    (1, 4096, 3 * 1536, 16, (64, 64), 0),       # head dim 96: no instantiation
+    (1, 4096, 3 * 1280, 16, (64, 64), 0x7F0000000004),  # base off 16 bytes
+    (1, 4096, 3 * 1280, 16, (32, 64), 0),       # N != H * W
+    (1, 4096, 3 * 1280 + 1, 16, (64, 64), 0),   # not a qkv width
+])
+def test_k2_layout_refuses(B, N, C3, heads, hw, pointer):
+    with pytest.raises(ValueError, match="flash kernel"):
+        flash_attention.check_qkv_layout(B, N, C3, heads, hw, pointer)
+
+
+def test_gemm_keeps_one_bf16_copy_per_weight():
+    """The GEMM wrapper converts an fp32 weight to bf16 once and reuses the
+    copy until the weight changes in place (its version counter moves)."""
+    w = torch.nn.Parameter(torch.from_numpy(np.random.default_rng(15).normal(size=(8, 64))
+                                            .astype(np.float32)))
+    first = gemm._bf16_weight(w, w.device)
+    assert first.dtype == torch.bfloat16 and torch.equal(first, w.detach().bfloat16())
+    assert gemm._bf16_weight(w, w.device) is first
+    with torch.no_grad():
+        w.mul_(2.0)
+    second = gemm._bf16_weight(w, w.device)
+    assert second is not first and torch.equal(second, w.detach().bfloat16())
+    b = torch.zeros(4, 64, dtype=torch.bfloat16)
+    assert gemm._bf16_weight(b, b.device) is b
