@@ -16,7 +16,8 @@ checkout; it has no CPU path and raises on any failure.  Phases:
    as its mask (both with TFLOP/s), K3 also against the ``mlp_impl="xla"``
    composition (F.layer_norm -> F.linear -> F.gelu -> F.linear in bf16);
    K5 also with 21 live tokens in 32 slots (two slot blocks,
-   as a decode with many point prompts gives it).  K7 on 32 low-res masks
+   as a decode with many point prompts gives it) and at bucket 256
+   (generate's 100 boxes).  K7 on 32 low-res masks
    to an 800x800 original (input 1024x1024) and to a 768x1024 original
    (input 768x1024): counts, boxes and bits must equal the plain version's
    except at pixels whose plain logit lies within 1e-4 of a threshold
@@ -51,7 +52,8 @@ checkout; it has no CPU path and raises on any failure.  Phases:
    mode on a 70^2 padded map cropped to 64^2; K1's window orders (plain, one
    block per window row), blockq, the padded output, the residual form
    (block2), the attention stage on the raw qkv map (fused2) and on
-   partitioned windows (fused);
+   partitioned windows (fused), these two also against SDPA on the
+   partitioned windows with the window rel-pos bias as its mask;
 4. generate phase: a seeded 800x800 image and a DIOR XML with 100 boxes
    of 16-240 px, labels uniform over DIOR's 20 classes (bucket 256, four K7
    chunks), loaded with the port's DIOR loader and run through
@@ -157,7 +159,7 @@ checkout; it has no CPU path and raises on any failure.  Phases:
    with their per-step counts), then the card's name and power limit and the
    final status line.
 
-``--only`` runs just the named phases after the build (gemm: 2a; modes, configs,
+``--only`` runs just the named phases after the build (kernels: 2; gemm: 2a; modes, configs,
 sizes: 2b, 4b, 4c; slab: the K8-slab and K11-width checks of 9b;
 internimage: its step and driver runs), and prints no result lines.
 
@@ -192,6 +194,7 @@ IMAGE_HW = (768, 1024)
 GEN_HW = (800, 800)
 GEN_BOXES = 100
 GEN_BOX_PX = (16, 240)  # box sides, uniform; not taken from a DIOR statistic
+GEN_BUCKET = 256           # the prompt bucket of GEN_BOXES (sam/predictor.py DEFAULT_BUCKETS)
 MAIN_LAUNCHES = {"K1": 28, "K1pf": 0, "K1w": 0, "K2": 4, "K3": 32, "K3t": 0, "K12": 0, "K4": 1,
                  "K5": 2, "K6": 1, "K7": 0, "K8f": 0, "K8b": 0, "K9f": 0, "K9b": 0, "K10": 0,
                  "K11": 0, "K8sf": 0, "K8sb": 0}
@@ -380,6 +383,7 @@ def kernel_phase(gen: torch.Generator):
     # decoder image side at bucket 64: batch-1 keys (layer 0), per-prompt keys (layer 1)
     keys1, pe = rn(1, T, D), rn(T, D)
     keysB = rn(Bp, T, D)
+    keysG = rn(GEN_BUCKET, T, D)
     kvw = (rn(Ci, D, std=D ** -0.5), rn(Ci, std=0.1), rn(Ci, D, std=D ** -0.5), rn(Ci, std=0.1))
     cases.append(("K4", "decoder t2i K/V projection", "samrs_tpu_torch/csrc/twoway.cu",
                   "samrs_tpu/kernels/fused_twoway.py:192",
@@ -387,10 +391,10 @@ def kernel_phase(gen: torch.Generator):
                   lambda: fused_twoway.t2i_kv_proj_plain(keys1, pe, *kvw, torch.float32),
                   lambda: fused_twoway.t2i_kv_proj_plain(keys1, pe, *kvw, torch.bfloat16),
                   2 * T * D * 4 + 2 * Ci * D * 2 + 2 * T * Ci * 2, 2 * 2 * T * D * Ci, None))
-    def tokens(live, slots):  # token K, V and mask bias with `live` of `slots` slots live
+    def tokens(live, slots, prompts=Bp):  # token K, V and mask bias, `live` of `slots` slots live
         on = torch.arange(slots, device="cuda") < live
-        return (rn(Bp, slots, Ci) * on[None, :, None], rn(Bp, slots, Ci) * on[None, :, None],
-                torch.where(on, 0.0, -1e9))
+        return (rn(prompts, slots, Ci) * on[None, :, None],
+                rn(prompts, slots, Ci) * on[None, :, None], torch.where(on, 0.0, -1e9))
 
     i2tw = (rn(Ci, D, std=D ** -0.5), rn(Ci, std=0.1), rn(D, Ci, std=Ci ** -0.5), rn(D, std=0.1),
             1.0 + rn(D, std=0.1), rn(D, std=0.1), rn(Ci, D, std=D ** -0.5), rn(Ci, std=0.1),
@@ -401,10 +405,13 @@ def kernel_phase(gen: torch.Generator):
             ("K5p", "decoder i2t update, per-prompt keys", keysB, torch.bfloat16, Bp * T * D * 4,
              box_tokens),
             ("K5w", "decoder i2t update, 21 tokens in 32 slots", keysB, torch.float32,
-             Bp * T * D * 4, tokens(21, 2 * NTOK))):
-        S = tok_k.shape[1]
+             Bp * T * D * 4, tokens(21, 2 * NTOK)),
+            ("K5b256", f"decoder i2t update, per-prompt keys at bucket {GEN_BUCKET} (generate's "
+             f"{GEN_BOXES} boxes)", keysG, torch.bfloat16, GEN_BUCKET * T * D * 4,
+             tokens(NLIVE, NTOK, GEN_BUCKET))):
+        S, Bk = tok_k.shape[1], tok_k.shape[0]
         row_flops = 2 * (D * Ci + 2 * S * Ci + Ci * D + 2 * D * Ci)
-        small = 2 * Bp * S * Ci * 4 + 4 * Ci * D * 2
+        small = 2 * Bk * S * Ci * 4 + 4 * Ci * D * 2
         args = (kin, pe, tok_k, tok_v, mask_bias, *i2tw)
         osz = 4 if out_dt == torch.float32 else 2
         cases.append((key, title, "samrs_tpu_torch/csrc/twoway.cu",
@@ -414,8 +421,8 @@ def kernel_phase(gen: torch.Generator):
                           *a, dtype=torch.float32, out_dtype=o),
                       lambda a=args, o=out_dt: fused_twoway.i2t_update_plain(
                           *a, dtype=torch.bfloat16, out_dtype=o),
-                      kin_bytes + T * D * 4 + small + Bp * T * (D * osz + 2 * Ci * 2),
-                      Bp * T * row_flops, None))
+                      kin_bytes + T * D * 4 + small + Bk * T * (D * osz + 2 * Ci * 2),
+                      Bk * T * row_flops, None))
     src = rn(Bp, G, G, D).bfloat16()
     upw = (rn(D, D // 4, 2, 2, std=D ** -0.5), rn(D // 4, std=0.1), 1.0 + rn(D // 4, std=0.1),
            rn(D // 4, std=0.1), rn(D // 4, D // 8, 2, 2, std=(D // 4) ** -0.5), rn(D // 8, std=0.1))
@@ -429,7 +436,7 @@ def kernel_phase(gen: torch.Generator):
                   2 * Bp * T * (D * D + D * D // 2 + 16 * (D // 8)), None))
 
     results = run_cases(cases)
-    del sdpa_mask, keysB, src
+    del sdpa_mask, keysB, keysG, src
     torch.cuda.empty_cache()
     g_ln, b_ln, w1, b1, w2, b2, eps = k3
 
@@ -450,8 +457,9 @@ def kernel_phase(gen: torch.Generator):
     # shared-keys mode and the 32-slot case beside it
     k5 = results.pop("K5p")
     k5["name"] = ("K5 decoder i2t update (per-prompt keys; shared-keys mode in shared_*, "
-                  "21 tokens in 32 slots in slots32_*)")
-    for key, prefix in (("K5s", "shared"), ("K5w", "slots32")):
+                  f"21 tokens in 32 slots in slots32_*, bucket {GEN_BUCKET} in "
+                  f"bucket{GEN_BUCKET}_*)")
+    for key, prefix in (("K5s", "shared"), ("K5w", "slots32"), ("K5b256", f"bucket{GEN_BUCKET}")):
         other = results.pop(key)
         k5.update({f"{prefix}_{k}": other[k] for k in ("ms", "plain_ms", "bound_ms", "max_abs_err")})
         k5["max_abs_err"] = max(k5["max_abs_err"], other["max_abs_err"])
@@ -664,6 +672,23 @@ def modes_kernel_phase(gen: torch.Generator):
                   lambda: fused_window_layer.window_layer_attention_residual(res, xn, *k1),
                   lambda: plain(xn.float(), *k1, residual=res),
                   lambda: plain(xn, *k1, residual=res), k1_bytes + 2 * T * C * 4, k1_flops, None))
+    def window_sdpa(qkv_map, fill):
+        """SDPA on the map's partitioned windows (pad tokens filled with
+        `fill`) with the window rel-pos bias as its mask: the yardstick of
+        the attention stage, built as the K12 windows case builds its inputs."""
+        Bq, Hq, Wq = qkv_map.shape[:3]
+        Hp, Wp = -(-Hq // ws) * ws, -(-Wq // ws) * ws
+        full = fill.bfloat16().expand(Bq, Hp, Wp, 3 * C).clone()
+        full[:, :Hq, :Wq] = qkv_map
+        wins = full.reshape(Bq, Hp // ws, ws, Wp // ws, ws, 3, nH, hd)
+        wins = wins.permute(5, 0, 1, 3, 6, 2, 4, 7)
+        q, k, v = (t.reshape(-1, nH, n, hd).contiguous() for t in wins)
+        rq = q.float().reshape(-1, nH, ws, ws, hd)
+        rel_h = torch.einsum("wnxyd,xud->wnxyu", rq, k1[4])
+        rel_w = torch.einsum("wnxyd,yvd->wnxyv", rq, k1[5])
+        mask = (rel_h[..., :, None] + rel_w[..., None, :]).reshape(-1, nH, n, n).bfloat16()
+        return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=hd ** -0.5)
+
     qkv_map = rn(1, G, G, 3 * C).bfloat16()
     pf = (k1[4], k1[5], ws, hd ** -0.5, nH)
     bq = k1[1]
@@ -675,7 +700,7 @@ def modes_kernel_phase(gen: torch.Generator):
                       qkv_map.float(), *pf, pad_fill=bq),
                   lambda: fused_window_block.window_attention_partition_free_plain(
                       qkv_map, *pf, pad_fill=bq),
-                  T * 4 * C * 2, attn_flops, None))
+                  T * 4 * C * 2, attn_flops, window_sdpa(qkv_map, bq)))
     qkv_win = rn(nwin, n, 3 * C).bfloat16()
     fa = (k1[4], k1[5], (ws, ws), hd ** -0.5, nH)
     cases.append(("K1w", "window attention on partitioned windows (fused)", src,
@@ -683,7 +708,9 @@ def modes_kernel_phase(gen: torch.Generator):
                   lambda: fused_attention.attention_qkv_fused(qkv_win, *fa),
                   lambda: fused_attention.attention_qkv_fused_plain(qkv_win.float(), *fa),
                   lambda: fused_attention.attention_qkv_fused_plain(qkv_win, *fa),
-                  nwin * n * 4 * C * 2, attn_flops, None))
+                  nwin * n * 4 * C * 2, attn_flops,
+                  window_sdpa(qkv_win.reshape(nwin, ws, ws, 3 * C),
+                              torch.zeros(3 * C, device="cuda"))))
     results = run_cases(cases)
     torch.cuda.empty_cache()
     return results
@@ -2396,10 +2423,11 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="profile one generate image per path, one pretrain and one finetune step")
-    ap.add_argument("--only", choices=("gemm", "modes", "configs", "sizes", "slab", "internimage"),
+    ap.add_argument("--only", choices=("kernels", "gemm", "modes", "configs", "sizes", "slab",
+                                       "internimage"),
                     action="append",
-                    help="run only these phases (a partial check: no result lines): the "
-                         "encoder's GEMM (gemm), the SAM "
+                    help="run only these phases (a partial check: no result lines): K1-K7 at "
+                         "the main path's shapes (kernels), the encoder's GEMM (gemm), the SAM "
                          "encoder's kernel configurations (modes, configs, sizes), K8-slab and "
                          "K11 at InternImage's widths (slab), the InternImage step and driver "
                          "(internimage)")
@@ -2426,6 +2454,8 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     if args.only:
+        if "kernels" in args.only:
+            kernel_phase(gen)
         if "gemm" in args.only:
             gemm_phase(gen)
         if "modes" in args.only:

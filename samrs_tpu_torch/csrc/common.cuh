@@ -2,7 +2,8 @@
 //
 // The warp-level kernels multiply bf16 tensors with fp32 accumulation
 // through mma.sync m16n8k16 with operands loaded by ldmatrix (the wgmma
-// kernels, K2 and the dense GEMM, use hopper.cuh instead).  Host
+// kernels -- K1's window attention, K2, K5 and the dense GEMM -- use
+// hopper.cuh instead).  Host
 // entry points are plain C functions (loaded with ctypes); each launches on
 // the caller's stream and returns cudaGetLastError() so the Python wrapper
 // can raise on a refused launch.

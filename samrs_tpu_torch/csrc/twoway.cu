@@ -4,27 +4,48 @@
 // ::_i2t_pallas (K5).  At a prompt bucket B the image side is a
 // (B, 4096, 256) fp32 stream; every step is a few hundred flops per element
 // against 4-8 bytes, far below the H100's ~295 flop/byte ridge, so both
-// kernels are bound by device-memory bytes.  The design keeps everything
-// between the stream's one read and its writes on chip:
+// kernels are bound by device-memory bytes.  Both keep everything between
+// the stream's one read and its writes on chip:
 //
 //   K4  one pass over the batch-1 keys: K = (keys + pe) Wk^T + bk and
-//       V = keys Wv^T + bv, written in bf16.
-//   K5  one pass per two-way layer over a 64-row tile: q-projection of
+//       V = keys Wv^T + bv, written in bf16 (mma.sync from shared memory).
+//   K5  one pass per two-way layer over 64-row tiles: q-projection of
 //       bf16(keys + pe), 8-head attention over the padded token slots in
-//       fp32 registers (blocks of 16 slots with an online softmax; a box
-//       decode fills one block, many point prompts more), out-projection,
-//       residual, two-pass LayerNorm (norm4), and the next layer's K/V
-//       projections of the normed keys.
+//       fp32 (blocks of 16 slots with an online softmax; a box decode fills
+//       one block, many point prompts more), out-projection, residual,
+//       two-pass LayerNorm (norm4), and the next layer's K/V projections of
+//       the normed keys.
 //
-// The four 128x256 / 256x128 bf16 weights (64 KB each) do not fit in a
-// block's 227 KB of shared memory together with the tile, so they are staged
-// one after another through a single buffer with cp.async, each load issued
-// before the work that precedes its use.  Projections run on the tensor cores
-// (mma.sync m16n8k16, bf16 in, fp32 accumulate) from shared memory.  In the
-// shared-keys mode (layer 0, batch-1 keys, B prompts) the grid's fastest
-// index is the prompt, so the blocks of one row tile read the same 64 KB of
-// keys and pe from L2.  Each block reads its keys tile once from device
-// memory and once more (the LayerNorm residual) while it is still in L2.
+// K5 on Hopper (hopper.cuh).  The cp.async kernel it replaces streamed its
+// four weights through one buffer with cp.async, multiplied on mma.sync,
+// staged its tiles with synchronous loads issued one after another and
+// ended every stage in a full wait; its tile loads, LayerNorm and stores
+// alone took three times the bytes bound, its projections a quarter of its
+// time (chip_breakdown.py).  Here, one 64-row tile per block of two
+// warpgroups:
+//   * the weights arrive by TMA (boxes of 64 k-columns, 128-byte swizzle)
+//     into one 64 KB buffer, each issued as soon as the previous projection
+//     has read the buffer, so Wo lands during the attention, Wk during the
+//     LayerNorm and Wv while the V operand is built.  All four (256 KB) do
+//     not fit beside the tiles in 227 KB.  Of the cuts weighed (a 2-block
+//     cluster multicasting each weight, 128-row tiles, two resident and two
+//     streamed) the persistent forms, tried first, were slower than the
+//     kernel this replaces: two warpgroups on a tile each had to take every
+//     streamed chunk in step, and a tile's dependent loads were exposed on
+//     four warps instead of eight.  So were two blocks an SM (16 KB chunks
+//     through a ring, the LayerNorm in registers): at 128 registers a
+//     thread they spilled;
+//   * the projections run on wgmma m64nNk16 with A from registers (the
+//     m16n8k16 fragments, read from the bf16 tile with ldmatrix): each
+//     warpgroup takes half of the output columns of all 64 rows, B read
+//     from the swizzled weight boxes;
+//   * every thread issues all of its tile loads before it uses one (the
+//     keys and pe tile, the LayerNorm's rows), so a block's loads are in
+//     flight together;
+//   * the attention over the token slots stays fp32 on the CUDA cores, as
+//     the plain version computes it: each thread takes two (row, head)
+//     pairs, online over blocks of 16 slots.
+#include "hopper.cuh"
 #include "warp_gemm.cuh"
 
 namespace samrs {
@@ -40,36 +61,50 @@ constexpr int THREADS = 256;
 constexpr int PAIRS = ROWS * NH / THREADS;  // (row, head) pairs per thread
 static_assert(PAIRS * THREADS == ROWS * NH, "attention pairs");
 
-constexpr int LDW256 = C + 8;    // smem row stride of a (CI x C) weight
-constexpr int LDW128 = CI + 8;   // of the (C x CI) out-projection weight
+constexpr int LDW256 = C + 8;    // smem row stride of a (CI x C) weight (K4)
 constexpr int LDA = C + 8;       // of the bf16 activation tile
 constexpr int LDQ = CI + 4;      // of the fp32 q tile
 constexpr int LDF = C + 8;       // of the fp32 residual / keys2 tile
 constexpr int HS = NTOK * HD + 4;  // per-head stride of the token K/V (conflict-free float4)
 
-constexpr int W_BYTES = (CI * LDW256 > C * LDW128 ? CI * LDW256 : C * LDW128) * 2;
+constexpr int W_BYTES = CI * LDW256 * 2;   // K4's weight buffer
 constexpr int A_BYTES = ROWS * LDA * 2;
 constexpr int F_BYTES = ROWS * LDF * 4;
 constexpr int T_BYTES = (2 * NH * HS + NTOK) * 4;
 constexpr int KV_SMEM = W_BYTES + A_BYTES;
-constexpr int I2T_SMEM = W_BYTES + A_BYTES + F_BYTES + T_BYTES;
+constexpr int WB_BYTES = C * CI * 2;       // K5's weight buffer: one weight in 64-column boxes
+constexpr int I2T_SMEM = 1024 + WB_BYTES + A_BYTES + F_BYTES + T_BYTES + 64;
 static_assert(W_BYTES % 128 == 0 && A_BYTES % 128 == 0 && F_BYTES % 128 == 0, "smem carve");
 static_assert(I2T_SMEM <= 232448, "K5 shared memory");
 
 // As[r][c] = bf16(x[r][c] + p[r][c]) (p may be null) for the 64 x 256 tile;
-// x and p are fp32 rows of C in device memory.
+// x and p are fp32 rows of C in device memory.  A thread issues all of its
+// loads before it converts one.
 __device__ __forceinline__ void stage_tile(bf16* As, const float* __restrict__ x,
                                            const float* __restrict__ p) {
-  for (int i = threadIdx.x; i < ROWS * C / 4; i += THREADS) {
-    const int r = i / (C / 4), c = (i % (C / 4)) * 4;
-    float4 v = *reinterpret_cast<const float4*>(x + (size_t)r * C + c);
-    if (p != nullptr) {
-      const float4 q = *reinterpret_cast<const float4*>(p + (size_t)r * C + c);
-      v.x += q.x, v.y += q.y, v.z += q.z, v.w += q.w;
+  constexpr int PER = ROWS * C / 4 / THREADS;
+  float4 v[PER];
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int i = threadIdx.x + k * THREADS, r = i / (C / 4), c = (i % (C / 4)) * 4;
+    v[k] = *reinterpret_cast<const float4*>(x + (size_t)r * C + c);
+  }
+  if (p != nullptr) {
+    float4 q[PER];
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      const int i = threadIdx.x + k * THREADS, r = i / (C / 4), c = (i % (C / 4)) * 4;
+      q[k] = *reinterpret_cast<const float4*>(p + (size_t)r * C + c);
     }
+#pragma unroll
+    for (int k = 0; k < PER; ++k) v[k].x += q[k].x, v[k].y += q[k].y, v[k].z += q[k].z, v[k].w += q[k].w;
+  }
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int i = threadIdx.x + k * THREADS, r = i / (C / 4), c = (i % (C / 4)) * 4;
     __nv_bfloat162* d = reinterpret_cast<__nv_bfloat162*>(As + r * LDA + c);
-    d[0] = __floats2bfloat162_rn(v.x, v.y);
-    d[1] = __floats2bfloat162_rn(v.z, v.w);
+    d[0] = __floats2bfloat162_rn(v[k].x, v[k].y);
+    d[1] = __floats2bfloat162_rn(v[k].z, v[k].w);
   }
 }
 
@@ -139,61 +174,113 @@ t2i_kv_kernel(const float* __restrict__ keys, const float* __restrict__ pe,
   project_store(As, Ws, bv, vout + row * CI);
 }
 
-// K5.  Grid (B, N / ROWS); blockIdx.x is the prompt.  With `shared` the keys
-// have batch 1 and every prompt reads row tile blockIdx.y of it.  The token
-// K/V have `nslot` slots, a multiple of NTOK.
-__global__ void __launch_bounds__(THREADS)
-i2t_update_kernel(const float* __restrict__ keys, const float* __restrict__ pe,
-                  const float* __restrict__ tok_k, const float* __restrict__ tok_v,
-                  const float* __restrict__ mask_bias,
-                  const bf16* __restrict__ Wq, const float* __restrict__ bq,
-                  const bf16* __restrict__ Wo, const float* __restrict__ bo,
-                  const float* __restrict__ g4, const float* __restrict__ b4,
-                  const bf16* __restrict__ Wk, const float* __restrict__ bk,
-                  const bf16* __restrict__ Wv, const float* __restrict__ bv,
-                  void* __restrict__ keys2, bf16* __restrict__ kout, bf16* __restrict__ vout,
-                  int N, int nslot, int shared, int out_bf16, float scale, float eps) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Ws = reinterpret_cast<bf16*>(smem);
-  bf16* As = reinterpret_cast<bf16*>(smem + W_BYTES);
-  float* Fs = reinterpret_cast<float*>(smem + W_BYTES + A_BYTES);
-  float* tk = reinterpret_cast<float*>(smem + W_BYTES + A_BYTES + F_BYTES);
+// ---------------------------------------------------------------------------
+// K5: one 64-row tile per block, wgmma with A from registers, weights by TMA
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+// acc = rows 0..63 of As[:, 0:K] times this warpgroup's NW output rows of the
+// weight in `W` (boxes of 64 k-columns x `box_rows` rows, 128-byte swizzle),
+// starting at row n0: wgmma m64nNWk16, A fragments from As with ldmatrix,
+// all loaded before the first product (a product reads its A registers
+// after it is issued).
+template <int NW, int K>
+__device__ __forceinline__ void project_wg(float (&acc)[NW / 2], const bf16* As,
+                                           const unsigned char* W, int box_rows, int n0) {
+  const int wi = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  uint32_t af[K / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk)
+    ldmatrix_x4(af[kk], As + (wi * 16 + (lane & 15)) * LDA + kk * 16 + ((lane >> 4) << 3));
+  fence_regs(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk) {
+    const uint64_t db =
+        wgmma_desc(W + (kk / 4) * box_rows * 128 + n0 * 128, kSwizzle128B, 16, 1024) + 2 * (kk % 4);
+    if constexpr (NW == 128) wgmma_rs_n128(acc, af[kk], db, kk != 0);
+    else wgmma_rs_n64(acc, af[kk], db, kk != 0);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(acc);
+}
+
+// K5.  Grid (B, N / ROWS); blockIdx.x is the prompt, so in the shared-keys
+// mode (batch-1 keys, layer 0) consecutive blocks read the same row tile of
+// the keys and pe from L2.  The token K/V have `nslot` slots, a multiple of
+// NTOK.  Warpgroup w computes output columns [w N / 2, (w + 1) N / 2) of
+// every projection.
+__global__ void __launch_bounds__(THREADS, 1)
+i2t_wgmma_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mo,
+                 const __grid_constant__ CUtensorMap mk, const __grid_constant__ CUtensorMap mv,
+                 const float* __restrict__ keys, const float* __restrict__ pe,
+                 const float* __restrict__ tok_k, const float* __restrict__ tok_v,
+                 const float* __restrict__ mask_bias, const float* __restrict__ bq,
+                 const float* __restrict__ bo, const float* __restrict__ g4,
+                 const float* __restrict__ b4, const float* __restrict__ bk,
+                 const float* __restrict__ bv, void* __restrict__ keys2, bf16* __restrict__ kout,
+                 bf16* __restrict__ vout, int N, int nslot, int shared, int out_bf16, float scale,
+                 float eps) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(align_up(
+      reinterpret_cast<size_t>(smem_raw), 1024));
+  unsigned char* Wb = smem;  // the weight in use, boxes of 64 k-columns
+  bf16* As = reinterpret_cast<bf16*>(smem + WB_BYTES);
+  float* Fs = reinterpret_cast<float*>(smem + WB_BYTES + A_BYTES);
+  float* tk = reinterpret_cast<float*>(smem + WB_BYTES + A_BYTES + F_BYTES);
   float* tv = tk + NH * HS;
   float* mb = tv + NH * HS;
+  uint64_t* wbar = reinterpret_cast<uint64_t*>(smem + WB_BYTES + A_BYTES + F_BYTES + T_BYTES);
 
   const int b = blockIdx.x, r0 = blockIdx.y * ROWS;
   const float* x = keys + ((size_t)(shared ? 0 : b) * N + r0) * C;
   const float* p = pe + (size_t)r0 * C;
   const size_t orow = (size_t)b * N + r0;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wr = warp & 3, wc = warp >> 2, g = lane >> 2, t = lane & 3;
+  const int wg = warp >> 2, wi = warp & 3, g = lane >> 2, t = lane & 3;
 
-  // 1. q = bf16(keys + pe) . Wq^T + bq -> Fs (64 x CI fp32, stride LDQ)
-  load_rows_async<THREADS>(Ws, LDW256, Wq, CI, C);
-  cp_async_commit();
+  // the weight buffer: load L (Wq, Wo, Wk, Wv) completes phase L & 1 of wbar
+  auto load_weight = [&](const CUtensorMap* map, int rows) {
+    mbar_expect_tx(wbar, WB_BYTES);  // Wq (128 x 256) and Wo (256 x 128) are 64 KB alike
+    for (int kc = 0; kc < (rows == CI ? C : CI) / 64; ++kc)
+      tma_load_2d(Wb + kc * rows * 128, map, wbar, kc * 64, 0);
+  };
+  if (tid == 0) {
+    mbar_init(wbar, 1);
+    mbar_fence_init();
+    tma_prefetch_map(&mq);
+    tma_prefetch_map(&mo);
+    tma_prefetch_map(&mk);
+    tma_prefetch_map(&mv);
+    load_weight(&mq, CI);
+  }
   stage_tokens(tk, tv, mb, tok_k, tok_v, mask_bias, b, 0, nslot, scale);
   stage_tile(As, x, p);
-  cp_async_wait<0>();
   __syncthreads();
+
+  // 1. q = bf16(keys + pe) . Wq^T + bq -> Fs (64 x CI fp32, stride LDQ)
+  mbar_wait(wbar, 0);
   {
-    float acc[8][4];
-    zero_acc(acc);
-    warp_gemm<8, C>(acc, As + wr * 16 * LDA, LDA, Ws + wc * 64 * LDW256, LDW256);
+    float acc[CI / 4];
+    project_wg<CI / 2, C>(acc, As, Wb, CI, wg * CI / 2);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = wc * 64 + j * 8 + 2 * t, r = wr * 16 + g;
-      Fs[r * LDQ + n] = acc[j][0] + bq[n];
-      Fs[r * LDQ + n + 1] = acc[j][1] + bq[n + 1];
-      Fs[(r + 8) * LDQ + n] = acc[j][2] + bq[n];
-      Fs[(r + 8) * LDQ + n + 1] = acc[j][3] + bq[n + 1];
+    for (int j = 0; j < CI / 16; ++j) {
+      const int n = wg * CI / 2 + j * 8 + 2 * t, r = wi * 16 + g;
+      const float2 bb = ld2(bq + n);
+      *reinterpret_cast<float2*>(Fs + r * LDQ + n) = make_float2(acc[4 * j] + bb.x, acc[4 * j + 1] + bb.y);
+      *reinterpret_cast<float2*>(Fs + (r + 8) * LDQ + n) =
+          make_float2(acc[4 * j + 2] + bb.x, acc[4 * j + 3] + bb.y);
     }
   }
-  __syncthreads();
+  __syncthreads();  // Wq is read out; q is in Fs
+  if (tid == 0) load_weight(&mo, C);  // Wo lands during the attention
 
   // 2. image -> token attention per (row, head) in fp32, online over the slot
   // blocks -> bf16 o in As (64 x CI)
-  load_rows_async<THREADS>(Ws, LDW128, Wo, C, CI);
-  cp_async_commit();
   float o[PAIRS][HD], mrun[PAIRS], den[PAIRS];
 #pragma unroll
   for (int i = 0; i < PAIRS; ++i) {
@@ -261,76 +348,103 @@ i2t_update_kernel(const float* __restrict__ keys, const float* __restrict__ pe,
     for (int d = 0; d < HD; d += 2)
       dst[d / 2] = __floats2bfloat162_rn(o[i][d] * inv, o[i][d + 1] * inv);
   }
-  cp_async_wait<0>();
   __syncthreads();
 
   // 3. out-projection + bias -> Fs (64 x C fp32, stride LDF)
+  mbar_wait(wbar, 1);
   {
-    float acc[16][4];
-    zero_acc(acc);
-    warp_gemm<16, CI>(acc, As + wr * 16 * LDA, LDA, Ws + wc * 128 * LDW128, LDW128);
+    float acc[C / 4];
+    project_wg<C / 2, CI>(acc, As, Wb, C, wg * C / 2);
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const int n = wc * 128 + j * 8 + 2 * t, r = wr * 16 + g;
-      const float b0 = bo[n], b1 = bo[n + 1];
-      *reinterpret_cast<float2*>(Fs + r * LDF + n) = make_float2(acc[j][0] + b0, acc[j][1] + b1);
+    for (int j = 0; j < C / 16; ++j) {
+      const int n = wg * C / 2 + j * 8 + 2 * t, r = wi * 16 + g;
+      const float2 bb = ld2(bo + n);
+      *reinterpret_cast<float2*>(Fs + r * LDF + n) = make_float2(acc[4 * j] + bb.x, acc[4 * j + 1] + bb.y);
       *reinterpret_cast<float2*>(Fs + (r + 8) * LDF + n) =
-          make_float2(acc[j][2] + b0, acc[j][3] + b1);
+          make_float2(acc[4 * j + 2] + bb.x, acc[4 * j + 3] + bb.y);
     }
   }
-  __syncthreads();
+  __syncthreads();  // Wo is read out
+  if (tid == 0) load_weight(&mk, CI);  // Wk lands during the LayerNorm
 
-  // 4. residual + two-pass LayerNorm -> keys2 (device memory and Fs), As = bf16(keys2 + pe)
-  load_rows_async<THREADS>(Ws, LDW256, Wk, CI, C);
-  cp_async_commit();
-  for (int rr = 0; rr < ROWS / 8; ++rr) {
-    const int r = warp * (ROWS / 8) + rr;
-    float v[8];
+  // 4. residual + two-pass LayerNorm -> keys2 (device memory and Fs), As = bf16(keys2 + pe);
+  // warp w takes rows 8w .. 8w + 7, lane the columns 4 lane + {0..3} and 128 + 4 lane + {0..3}
+  {
+    float4 xr[ROWS / 8][2], pr[ROWS / 8][2];
 #pragma unroll
-    for (int hlf = 0; hlf < 2; ++hlf) {
-      const int c = hlf * (C / 2) + lane * 4;
-      const float4 xr = *reinterpret_cast<const float4*>(x + (size_t)r * C + c);
-      const float4 fr = *reinterpret_cast<const float4*>(Fs + r * LDF + c);
-      v[4 * hlf] = xr.x + fr.x, v[4 * hlf + 1] = xr.y + fr.y;
-      v[4 * hlf + 2] = xr.z + fr.z, v[4 * hlf + 3] = xr.w + fr.w;
-    }
-    float sum = 0.f;
+    for (int rr = 0; rr < ROWS / 8; ++rr)
 #pragma unroll
-    for (int e = 0; e < 8; ++e) sum += v[e];
-    const float mean = warp_sum(sum) * (1.f / C);
-    float sq = 0.f;
-#pragma unroll
-    for (int e = 0; e < 8; ++e) sq += (v[e] - mean) * (v[e] - mean);
-    const float rstd = rsqrtf(warp_sum(sq) * (1.f / C) + eps);
-#pragma unroll
-    for (int hlf = 0; hlf < 2; ++hlf) {
-      const int c = hlf * (C / 2) + lane * 4;
-      float y[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) y[e] = (v[4 * hlf + e] - mean) * rstd * g4[c + e] + b4[c + e];
-      const size_t o = (orow + r) * C + c;
-      if (out_bf16) {
-        __nv_bfloat162* d = reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(keys2) + o);
-        d[0] = __floats2bfloat162_rn(y[0], y[1]);
-        d[1] = __floats2bfloat162_rn(y[2], y[3]);
-      } else {
-        *reinterpret_cast<float4*>(static_cast<float*>(keys2) + o) = make_float4(y[0], y[1], y[2], y[3]);
+      for (int hlf = 0; hlf < 2; ++hlf) {
+        const size_t off = (size_t)(warp * (ROWS / 8) + rr) * C + hlf * (C / 2) + lane * 4;
+        xr[rr][hlf] = *reinterpret_cast<const float4*>(x + off);
+        pr[rr][hlf] = *reinterpret_cast<const float4*>(p + off);
       }
-      *reinterpret_cast<float4*>(Fs + r * LDF + c) = make_float4(y[0], y[1], y[2], y[3]);
-      const float4 pr = *reinterpret_cast<const float4*>(p + (size_t)r * C + c);
-      __nv_bfloat162* a = reinterpret_cast<__nv_bfloat162*>(As + r * LDA + c);
-      a[0] = __floats2bfloat162_rn(y[0] + pr.x, y[1] + pr.y);
-      a[1] = __floats2bfloat162_rn(y[2] + pr.z, y[3] + pr.w);
+#pragma unroll
+    for (int rr = 0; rr < ROWS / 8; ++rr) {
+      const int r = warp * (ROWS / 8) + rr;
+      float v[8];
+#pragma unroll
+      for (int hlf = 0; hlf < 2; ++hlf) {
+        const int c = hlf * (C / 2) + lane * 4;
+        const float4 fr = *reinterpret_cast<const float4*>(Fs + r * LDF + c);
+        v[4 * hlf] = fr.x + xr[rr][hlf].x, v[4 * hlf + 1] = fr.y + xr[rr][hlf].y;
+        v[4 * hlf + 2] = fr.z + xr[rr][hlf].z, v[4 * hlf + 3] = fr.w + xr[rr][hlf].w;
+      }
+      float sum = 0.f;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) sum += v[e];
+      const float mean = warp_sum(sum) * (1.f / C);
+      float sq = 0.f;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) sq += (v[e] - mean) * (v[e] - mean);
+      const float rstd = rsqrtf(warp_sum(sq) * (1.f / C) + eps);
+#pragma unroll
+      for (int hlf = 0; hlf < 2; ++hlf) {
+        const int c = hlf * (C / 2) + lane * 4;
+        const float4 gg = *reinterpret_cast<const float4*>(g4 + c);
+        const float4 bb = *reinterpret_cast<const float4*>(b4 + c);
+        float y[4];
+        y[0] = (v[4 * hlf] - mean) * rstd * gg.x + bb.x;
+        y[1] = (v[4 * hlf + 1] - mean) * rstd * gg.y + bb.y;
+        y[2] = (v[4 * hlf + 2] - mean) * rstd * gg.z + bb.z;
+        y[3] = (v[4 * hlf + 3] - mean) * rstd * gg.w + bb.w;
+        const size_t o2 = (orow + r) * C + c;
+        if (out_bf16) {
+          __nv_bfloat162* d = reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(keys2) + o2);
+          d[0] = __floats2bfloat162_rn(y[0], y[1]);
+          d[1] = __floats2bfloat162_rn(y[2], y[3]);
+        } else {
+          *reinterpret_cast<float4*>(static_cast<float*>(keys2) + o2) =
+              make_float4(y[0], y[1], y[2], y[3]);
+        }
+        *reinterpret_cast<float4*>(Fs + r * LDF + c) = make_float4(y[0], y[1], y[2], y[3]);
+        __nv_bfloat162* a = reinterpret_cast<__nv_bfloat162*>(As + r * LDA + c);
+        a[0] = __floats2bfloat162_rn(y[0] + pr[rr][hlf].x, y[1] + pr[rr][hlf].y);
+        a[1] = __floats2bfloat162_rn(y[2] + pr[rr][hlf].z, y[3] + pr[rr][hlf].w);
+      }
     }
   }
-  cp_async_wait<0>();
   __syncthreads();
 
   // 5. the next attention's K = bf16(keys2 + pe) Wk^T + bk and V = bf16(keys2) Wv^T + bv
-  project_store(As, Ws, bk, kout + orow * CI);
-  __syncthreads();
-  load_rows_async<THREADS>(Ws, LDW256, Wv, CI, C);
-  cp_async_commit();
+  auto project_out = [&](const float* __restrict__ bias, bf16* __restrict__ dst) {
+    float acc[CI / 4];
+    project_wg<CI / 2, C>(acc, As, Wb, CI, wg * CI / 2);
+#pragma unroll
+    for (int j = 0; j < CI / 16; ++j) {
+      const int n = wg * CI / 2 + j * 8 + 2 * t, r = wi * 16 + g;
+      const float2 bb = ld2(bias + n);
+      *reinterpret_cast<__nv_bfloat162*>(dst + (orow + r) * CI + n) =
+          __floats2bfloat162_rn(acc[4 * j] + bb.x, acc[4 * j + 1] + bb.y);
+      *reinterpret_cast<__nv_bfloat162*>(dst + (orow + r + 8) * CI + n) =
+          __floats2bfloat162_rn(acc[4 * j + 2] + bb.x, acc[4 * j + 3] + bb.y);
+    }
+  };
+  mbar_wait(wbar, 0);
+  project_out(bk, kout);
+  __syncthreads();  // Wk and the K operand are read out
+  if (tid == 0) load_weight(&mv, CI);  // Wv lands while the V operand is built
+#pragma unroll 4
   for (int i = tid; i < ROWS * C / 4; i += THREADS) {
     const int r = i / (C / 4), c = (i % (C / 4)) * 4;
     const float4 y = *reinterpret_cast<const float4*>(Fs + r * LDF + c);
@@ -338,9 +452,16 @@ i2t_update_kernel(const float* __restrict__ keys, const float* __restrict__ pe,
     a[0] = __floats2bfloat162_rn(y.x, y.y);
     a[1] = __floats2bfloat162_rn(y.z, y.w);
   }
-  cp_async_wait<0>();
   __syncthreads();
-  project_store(As, Ws, bv, vout + orow * CI);
+  mbar_wait(wbar, 1);
+  project_out(bv, vout);
+}
+
+// A weight (rows x cols bf16, row-major) as a TMA map with boxes of 64 columns x `box_rows`.
+int weight_map(CUtensorMap* map, const void* w, int rows, int cols, int box_rows) {
+  const uint64_t dims[2] = {(uint64_t)cols, (uint64_t)rows}, stride[1] = {(uint64_t)cols * 2};
+  const uint32_t box[2] = {64, (uint32_t)box_rows};
+  return make_tensor_map(map, w, 2, dims, stride, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace
@@ -370,6 +491,7 @@ int samrs_t2i_kv(const void* keys, const void* pe, const void* Wk, const void* b
 // Wq (128, 256), Wo (256, 128), Wk/Wv (128, 256) bf16 with fp32 biases,
 // norm4 g4/b4 (256) fp32 ->
 // keys2 (B, N, 256) fp32 (bf16 if out_bf16), kout/vout (B, N, 128) bf16.
+// N % 64 == 0; the weights 16-byte aligned (TMA).
 int samrs_i2t_update(const void* keys, const void* pe, const void* tok_k, const void* tok_v,
                      const void* mask_bias, const void* Wq, const void* bq, const void* Wo,
                      const void* bo, const void* g4, const void* b4, const void* Wk,
@@ -377,20 +499,26 @@ int samrs_i2t_update(const void* keys, const void* pe, const void* tok_k, const 
                      void* vout, int B, int N, int nslot, int shared, int out_bf16, float scale,
                      float eps, void* stream) {
   using namespace samrs;
-  if (B <= 0 || N <= 0 || N % ROWS != 0 || nslot <= 0 || nslot % NTOK != 0)
+  const uintptr_t aligned = reinterpret_cast<uintptr_t>(Wq) | reinterpret_cast<uintptr_t>(Wo) |
+                            reinterpret_cast<uintptr_t>(Wk) | reinterpret_cast<uintptr_t>(Wv);
+  if (B <= 0 || N <= 0 || N % ROWS != 0 || nslot <= 0 || nslot % NTOK != 0 || aligned % 16 != 0)
     return cudaErrorInvalidValue;
+  CUtensorMap mq, mo, mk, mv;
+  int e = weight_map(&mq, Wq, CI, C, CI);
+  if (e == 0) e = weight_map(&mo, Wo, C, CI, C);
+  if (e == 0) e = weight_map(&mk, Wk, CI, C, CI);
+  if (e == 0) e = weight_map(&mv, Wv, CI, C, CI);
+  if (e != 0) return e;
   cudaError_t err = cudaFuncSetAttribute(
-      i2t_update_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, I2T_SMEM);
+      i2t_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, I2T_SMEM);
   if (err != cudaSuccess) return err;
-  i2t_update_kernel<<<dim3(B, N / ROWS), THREADS, I2T_SMEM, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(keys), static_cast<const float*>(pe),
+  i2t_wgmma_kernel<<<dim3(B, N / ROWS), THREADS, I2T_SMEM, static_cast<cudaStream_t>(stream)>>>(
+      mq, mo, mk, mv, static_cast<const float*>(keys), static_cast<const float*>(pe),
       static_cast<const float*>(tok_k), static_cast<const float*>(tok_v),
-      static_cast<const float*>(mask_bias), static_cast<const bf16*>(Wq),
-      static_cast<const float*>(bq), static_cast<const bf16*>(Wo), static_cast<const float*>(bo),
-      static_cast<const float*>(g4), static_cast<const float*>(b4), static_cast<const bf16*>(Wk),
-      static_cast<const float*>(bk), static_cast<const bf16*>(Wv), static_cast<const float*>(bv),
-      keys2, static_cast<bf16*>(kout), static_cast<bf16*>(vout), N, nslot, shared, out_bf16,
-      scale, eps);
+      static_cast<const float*>(mask_bias), static_cast<const float*>(bq),
+      static_cast<const float*>(bo), static_cast<const float*>(g4), static_cast<const float*>(b4),
+      static_cast<const float*>(bk), static_cast<const float*>(bv), keys2,
+      static_cast<bf16*>(kout), static_cast<bf16*>(vout), N, nslot, shared, out_bf16, scale, eps);
   return cudaGetLastError();
 }
 

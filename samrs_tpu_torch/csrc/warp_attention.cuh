@@ -1,6 +1,5 @@
-// Warp-level attention building blocks shared by K1 (window attention) and
-// K12 (split-head attention):
-// one warp owns 16 query rows and streams key blocks through the tensor cores
+// Warp-level attention building blocks of K12 (split-head attention): one
+// warp owns 16 query rows and streams key blocks through the tensor cores
 // with the logits kept in registers; `flash_key_loop` streams a whole key
 // sequence through two shared-memory stages for the query-tiled kernels.
 //

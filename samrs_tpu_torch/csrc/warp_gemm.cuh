@@ -1,7 +1,8 @@
-// Shared-memory GEMM pieces of the decoder kernels K4, K5 and K6: a warp
-// multiplies a 16-row bf16 tile held in shared memory by a bf16 weight
-// matrix held in shared memory, with fp32 accumulators left in registers in
-// the mma.sync C-fragment layout (see common.cuh) for the caller's epilogue.
+// Shared-memory GEMM pieces of the decoder kernels K4 and K6 (and the warp
+// reductions K5 uses): a warp multiplies a 16-row bf16 tile held in shared
+// memory by a bf16 weight matrix held in shared memory, with fp32
+// accumulators left in registers in the mma.sync C-fragment layout (see
+// common.cuh) for the caller's epilogue.
 #pragma once
 
 #include "common.cuh"

@@ -34,7 +34,7 @@ _SIGNATURES = {
     "samrs_layernorm": ([_P, _P, _P, _P, _I, _I, _F, _P], _I),
     "samrs_layernorm_tail": ([_P] * 6 + [_I] * 6 + [_F, _P], _I),
     "samrs_window_attention_smem": ([_I], ctypes.c_longlong),
-    "samrs_window_attention": ([_P] * 5 + [_I] * 11 + [_F, _P], _I),
+    "samrs_window_attention": ([_P] * 6 + [_I] * 11 + [_F, _P], _I),
     "samrs_flash_attention_relpos": ([_P] * 4 + [_I] * 7 + [_F, _I, _P], _I),
     "samrs_relpos_rows": ([_P] * 5 + [_I] * 8 + [_P], _I),
     "samrs_split_attention": ([_P] * 6 + [_I] * 5 + [_F, _I, _P], _I),

@@ -35,8 +35,9 @@ from samrs_tpu_torch.kernels import _build, window_attention
 launches = 0  # CUDA launches of this kernel (one per wrapper call)
 
 _HEAD_DIMS = (64, 80)  # instantiated in csrc/flash_attention.cu
-_TILE = 64  # key tile of the warp-level kernels (K1, K12: csrc/warp_attention.cuh)
+_TILE = 64  # key tile of the warp-level kernel K12 (csrc/warp_attention.cuh)
 K2_KEY_TILE = 128  # key tile of K2's kernel: its online softmax rounds per tile of this
+K1_KEY_TILE = 208  # K1's window kernel: one softmax over a window's 196 keys (padded to 208)
 MAX_TOKENS = 1 << 22  # the kernel splits keys into grid (row, column) by a float reciprocal
 VARIANTS = ("m", "split", "exp2", "aug")  # the JAX package's global_attn_impl values
 _MODE = {"m": 0, "split": 0, "exp2": 1, "aug": 2}  # the kernel's softmax / rounding mode

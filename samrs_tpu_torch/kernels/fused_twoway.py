@@ -13,8 +13,11 @@ box decode) the keys are shared and read once per row tile.
 
 On a CUDA tensor both launch the hand-written kernels of csrc/twoway.cu
 (bf16 operands, fp32 accumulation; bound by device-memory bytes, see the
-source).  On a CPU tensor they run the plain versions.  Weights use torch's
-``nn.Linear`` layout (out, in).
+source): K5's projections run on wgmma, its weights arrive by TMA
+(``check_i2t_layout`` states what it takes).  The wrappers keep one bf16
+copy of each weight and one fp32 copy of each vector per parameter version
+(``gemm._cached_copy``).  On a CPU tensor they run the plain versions.
+Weights use torch's ``nn.Linear`` layout (out, in).
 """
 
 from __future__ import annotations
@@ -22,9 +25,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from samrs_tpu_torch.kernels import _build
+from samrs_tpu_torch.kernels import _build, gemm
 
 NT = 16  # token slots per block (box prompts fill 7: iou + 4 mask tokens + 2 corners)
+ROW_TILE = 64  # image rows of a K4 / K5 tile: N must be a multiple
 C_KERNEL, CI_KERNEL, HEADS_KERNEL = 256, 128, 8  # widths csrc/twoway.cu is built for
 
 kv_launches = 0   # CUDA launches of K4 (one per wrapper call)
@@ -73,22 +77,45 @@ def i2t_update_plain(keys, key_pe, tok_k, tok_v, mask_bias, Wq, bq, Wout, bout, 
     return keys2.to(out_dtype), k_n.to(dtype), v_n.to(dtype)
 
 
+def check_i2t_layout(B: int, N: int, C: int, S: int, num_heads: int, keys_batch: int,
+                     pointers=()) -> None:
+    """Raise ValueError unless K5 takes ``keys (keys_batch, N, C)`` with
+    ``(B, S, Ci)`` token K / V of `num_heads` heads: the widths it is built
+    for (C 256, Ci 128, 8 heads), N a multiple of the 64-row tile, S a
+    positive multiple of the 16-slot block, keys of batch 1 or B, and every
+    pointer (the four bf16 weights, which arrive by TMA, and the fp32
+    tensors; device addresses as ints) 16-byte aligned."""
+    if C != C_KERNEL or num_heads != HEADS_KERNEL:
+        raise ValueError(f"the i2t kernel is built for C={C_KERNEL} and {HEADS_KERNEL} heads, "
+                         f"got C={C}, heads={num_heads}")
+    if B <= 0 or N <= 0 or N % ROW_TILE:
+        raise ValueError(f"the i2t kernel needs N % {ROW_TILE} == 0, got N={N} (B={B})")
+    if S <= 0 or S % NT:
+        raise ValueError(f"token slots must be a positive multiple of {NT}, got {S}")
+    if keys_batch not in (1, B):
+        raise ValueError(f"keys batch {keys_batch} is neither 1 nor the token batch {B}")
+    for p in pointers:
+        if p is not None and p % gemm.TMA_ALIGN:
+            raise ValueError(f"the i2t kernel's operands must be {gemm.TMA_ALIGN}-byte aligned "
+                             f"(TMA), got address {p:#x}")
+
+
 def _weight(w, shape, device):
     if tuple(w.shape) != shape:
         raise ValueError(f"weight: expected {shape}, got {tuple(w.shape)}")
-    return w.to(device=device, dtype=torch.bfloat16).contiguous()
+    return gemm._bf16_weight(w, device)
 
 
 def _vec(v, n, device):
     if tuple(v.shape) != (n,):
         raise ValueError(f"bias / scale: expected ({n},), got {tuple(v.shape)}")
-    return v.to(device=device, dtype=torch.float32).contiguous()
+    return gemm._cached_copy(v, device, torch.float32)
 
 
 def _check_image_side(keys, key_pe):
     _build.require_cuda("keys", keys, torch.float32)
-    if keys.dim() != 3 or keys.shape[2] != C_KERNEL or keys.shape[1] % 64:
-        raise ValueError(f"keys: expected (B, N, {C_KERNEL}) with N % 64 == 0, "
+    if keys.dim() != 3 or keys.shape[2] != C_KERNEL or keys.shape[1] % ROW_TILE:
+        raise ValueError(f"keys: expected (B, N, {C_KERNEL}) with N % {ROW_TILE} == 0, "
                          f"got {tuple(keys.shape)}")
     _build.require_cuda("key_pe", key_pe, torch.float32, (keys.shape[1], C_KERNEL))
 
@@ -117,17 +144,11 @@ def i2t_update_cuda(keys, key_pe, tok_k, tok_v, mask_bias, Wq, bq, Wout, bout, g
     v_next bf16)."""
     global i2t_launches
     _check_image_side(keys, key_pe)
-    if num_heads != HEADS_KERNEL:
-        raise ValueError(f"the i2t kernel is built for {HEADS_KERNEL} heads, got {num_heads}")
     B, S = tok_k.shape[:2]
     _, N, C = keys.shape
-    if S <= 0 or S % NT:
-        raise ValueError(f"token slots must be a positive multiple of {NT}, got {S}")
     _build.require_cuda("tok_k", tok_k, torch.float32, (B, S, CI_KERNEL))
     _build.require_cuda("tok_v", tok_v, torch.float32, (B, S, CI_KERNEL))
     _build.require_cuda("mask_bias", mask_bias, torch.float32, (S,))
-    if keys.shape[0] not in (1, B):
-        raise ValueError(f"keys batch {keys.shape[0]} is neither 1 nor the token batch {B}")
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
     dev = keys.device
@@ -136,11 +157,13 @@ def i2t_update_cuda(keys, key_pe, tok_k, tok_v, mask_bias, Wq, bq, Wout, bout, g
     bq_, bo_ = _vec(bq, CI_KERNEL, dev), _vec(bout, C, dev)
     g4_, b4_ = _vec(g4, C, dev), _vec(b4, C, dev)
     bk_, bv_ = _vec(bk_n, CI_KERNEL, dev), _vec(bv_n, CI_KERNEL, dev)
+    p = _build.ptr
+    check_i2t_layout(B, N, C, S, num_heads, keys.shape[0],
+                     (p(wq), p(wo), p(wk), p(wv), p(keys), p(key_pe), p(tok_k), p(tok_v)))
     keys2 = torch.empty(B, N, C, device=dev, dtype=out_dtype)
     k = torch.empty(B, N, CI_KERNEL, device=dev, dtype=torch.bfloat16)
     v = torch.empty_like(k)
     shared = int(keys.shape[0] == 1 and B > 1)
-    p = _build.ptr
     _build.launch("samrs_i2t_update", p(keys), p(key_pe), p(tok_k), p(tok_v), p(mask_bias),
                   p(wq), p(bq_), p(wo), p(bo_), p(g4_), p(b4_), p(wk), p(bk_), p(wv), p(bv_),
                   p(keys2), p(k), p(v), B, N, S, shared, int(out_dtype == torch.bfloat16),

@@ -41,22 +41,31 @@ def check_gemm_layout(T: int, K: int, N: int, pointers=()) -> None:
                              f"got address {p:#x}")
 
 
-_bf16_weights = WeakTensorKeyDictionary()  # weight -> (its version, bf16 copy on the card)
+_copies = WeakTensorKeyDictionary()  # tensor -> {dtype: (its version, copy on the card)}
+
+
+def _cached_copy(t: torch.Tensor, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """`t` as a contiguous `dtype` tensor on `device`.  A tensor in another
+    dtype or place keeps its converted copy while it lives and its version
+    counter (bumped by every in-place change) stands still, so a model's fp32
+    parameters are converted once and not on every call."""
+    if t.dtype == dtype and t.device == device and t.is_contiguous():
+        return t
+    per = _copies.get(t)
+    if per is None:
+        per = _copies[t] = {}
+    hit = per.get(dtype)
+    if hit is not None and hit[0] == t._version and hit[1].device == device:
+        return hit[1]
+    copy = t.detach().to(device=device, dtype=dtype).contiguous()
+    per[dtype] = (t._version, copy)
+    return copy
 
 
 def _bf16_weight(weight: torch.Tensor, device: torch.device) -> torch.Tensor:
-    """`weight` as a contiguous bf16 tensor on `device`.  A weight in another
-    dtype keeps its converted copy while it lives and its version counter
-    (bumped by every in-place change) stands still, so an encoder's fp32
-    parameters are converted once and not on every call."""
-    if weight.dtype == torch.bfloat16 and weight.device == device:
-        return weight.contiguous()
-    hit = _bf16_weights.get(weight)
-    if hit is not None and hit[0] == weight._version and hit[1].device == device:
-        return hit[1]
-    copy = weight.detach().to(device=device, dtype=torch.bfloat16).contiguous()
-    _bf16_weights[weight] = (weight._version, copy)
-    return copy
+    """`weight` as a contiguous bf16 tensor on `device`, converted once per
+    version (``_cached_copy``)."""
+    return _cached_copy(weight, device, torch.bfloat16)
 
 
 def linear_plain(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],

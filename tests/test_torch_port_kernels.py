@@ -573,3 +573,113 @@ def test_gemm_keeps_one_bf16_copy_per_weight():
     assert second is not first and torch.equal(second, w.detach().bfloat16())
     b = torch.zeros(4, 64, dtype=torch.bfloat16)
     assert gemm._bf16_weight(b, b.device) is b
+
+
+def test_online_softmax_one_pass_at_k1_key_tile():
+    """K1's plain version takes one softmax over a window's 196 keys
+    (K1_KEY_TILE covers them), as the wgmma kernel does: exp(s - max)
+    rounded to bf16 once, divided by the sum of the rounded values."""
+    rng = np.random.default_rng(16)
+    n = fused_window_layer.WINDOW ** 2
+    assert flash_attention.K1_KEY_TILE >= n
+    s = torch.from_numpy((rng.normal(size=(3, n)) * 3).astype(np.float32))
+    v = torch.from_numpy(rng.normal(size=(n, 8)).astype(np.float32)).bfloat16().float()
+    p = torch.exp(s - s.amax(-1, keepdim=True)).bfloat16().float()
+    want = (p @ v) / p.sum(-1, keepdim=True)
+    got = flash_attention.online_softmax_v(s, v, torch.bfloat16, tile=flash_attention.K1_KEY_TILE)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("variant,size,C,heads,g,win_tokens", list(_sam_shapes()),
+                         ids=lambda v: str(v))
+def test_window_layout_takes_every_sam_shape(variant, size, C, heads, g, win_tokens):
+    """The window kernel's TMA rules admit every map the encoder's windowed
+    blocks hand it -- the g x g map, and its partitioned windows under
+    ``window_attn_impl="fused"`` -- at a 16-byte aligned base, and give the
+    head dim."""
+    ws = fused_window_layer.WINDOW
+    base = 0x7F0000000000
+    hd = fused_window_layer.check_window_layout(1, g, g, 3 * C, heads, ws, "map", base)
+    assert hd == C // heads and hd in (64, 80)
+    nwin = win_tokens // (ws * ws)
+    assert fused_window_layer.check_window_layout(nwin, ws, ws, 3 * C, heads, ws, "windows",
+                                                  base) == hd
+
+
+@pytest.mark.parametrize("B,H,W,C3,heads,ws,layout,pointer", [
+    (1, 64, 64, 3 * 1536, 16, 14, "map", 0),               # head dim 96: no instantiation
+    (1, 64, 64, 3 * 1280, 16, 14, "map", 0x7F0000000008),  # base off 16 bytes
+    (1, 64, 64, 3 * 1280, 16, 8, "map", 0),                # window 8: the kernel is built for 14
+    (25, 14, 16, 3 * 1280, 16, 14, "windows", 0),          # partitioned windows not 14 x 14
+    (1, 64, 64, 3 * 1280 + 1, 16, 14, "map", 0),           # not a qkv width
+])
+def test_window_layout_refuses(B, H, W, C3, heads, ws, layout, pointer):
+    with pytest.raises(ValueError, match="window kernel"):
+        fused_window_layer.check_window_layout(B, H, W, C3, heads, ws, layout, pointer)
+
+
+@pytest.mark.parametrize("variant,size,C,heads,g,win_tokens", list(_sam_shapes()),
+                         ids=lambda v: str(v))
+def test_i2t_layout_takes_every_sam_shape(variant, size, C, heads, g, win_tokens):
+    """K5's rules admit the decoder's image side of every SAM configuration
+    (N = g^2 rows; the decoder is 256 wide with 8 heads in every variant) at
+    every prompt bucket of the predictor, for a box decode's 16 slots and
+    many point prompts' 32, with shared and per-prompt keys."""
+    from samrs_tpu_torch.sam.predictor import DEFAULT_BUCKETS
+
+    cfg = sam_config(variant, image_size=size)
+    width, dheads = cfg.prompt_embed_dim, cfg.decoder_num_heads
+    for bucket in DEFAULT_BUCKETS:
+        for slots in (16, 32):
+            for keys_batch in (1, bucket):
+                fused_twoway.check_i2t_layout(bucket, g * g, width, slots, dheads, keys_batch,
+                                              (0x7F0000000000, 0x7F0000100000))
+
+
+@pytest.mark.parametrize("B,N,C,S,heads,keys_batch,pointers", [
+    (64, 4000, 256, 16, 8, 64, ()),                  # N % 64 != 0
+    (64, 4096, 256, 20, 8, 64, ()),                  # slots not a multiple of 16
+    (64, 4096, 256, 16, 4, 64, ()),                  # 4 heads: the kernel is built for 8
+    (64, 4096, 384, 16, 8, 64, ()),                  # another width
+    (64, 4096, 256, 16, 8, 32, ()),                  # keys batch neither 1 nor B
+    (64, 4096, 256, 16, 8, 64, (0x7F0000000008,)),   # a weight off the TMA's alignment
+])
+def test_i2t_layout_refuses(B, N, C, S, heads, keys_batch, pointers):
+    with pytest.raises(ValueError, match="i2t kernel|token slots|keys batch"):
+        fused_twoway.check_i2t_layout(B, N, C, S, heads, keys_batch, pointers)
+
+
+def test_window_kernel_keeps_one_fp32_copy_per_table():
+    """K1's wrapper converts a rel-pos table to fp32 once and reuses the copy
+    until the table changes in place (its version counter moves); an fp32
+    table in place is used as it is."""
+    rng = np.random.default_rng(17)
+    table = torch.from_numpy(rng.normal(size=(14, 14, 16)).astype(np.float32)).bfloat16()
+    first = fused_window_layer._fp32_table(table, table.device)
+    assert first.dtype == torch.float32 and torch.equal(first, table.float())
+    assert fused_window_layer._fp32_table(table, table.device) is first
+    table.mul_(2.0)
+    second = fused_window_layer._fp32_table(table, table.device)
+    assert second is not first and torch.equal(second, table.float())
+    f32 = torch.zeros(14, 14, 16)
+    assert fused_window_layer._fp32_table(f32, f32.device) is f32
+
+
+def test_i2t_keeps_one_copy_per_weight_and_vector():
+    """K5's wrapper keeps one bf16 copy of each weight and one fp32 copy of
+    each vector while the parameter stands still, and makes a new one after
+    an in-place change."""
+    rng = np.random.default_rng(18)
+    w = torch.nn.Parameter(torch.from_numpy(rng.normal(size=(CI, C)).astype(np.float32)))
+    first = fused_twoway._weight(w, (CI, C), w.device)
+    assert first.dtype == torch.bfloat16 and torch.equal(first, w.detach().bfloat16())
+    assert fused_twoway._weight(w, (CI, C), w.device) is first
+    vec = torch.from_numpy(rng.normal(size=(CI,))).to(torch.float64)
+    v1 = fused_twoway._vec(vec, CI, vec.device)
+    assert v1.dtype == torch.float32 and fused_twoway._vec(vec, CI, vec.device) is v1
+    with torch.no_grad():
+        w.add_(1.0)
+    vec.mul_(3.0)
+    assert fused_twoway._weight(w, (CI, C), w.device) is not first
+    v2 = fused_twoway._vec(vec, CI, vec.device)
+    assert v2 is not v1 and torch.equal(v2, vec.float())
