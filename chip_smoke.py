@@ -84,7 +84,12 @@ checkout; it has no CPU path and raises on any failure.  Phases:
    version and ``F.grid_sample`` (forward, backward, both), with the bound;
    also at Mask2Former's shapes: one MSDeformAttn level (BG 520, 28x28, Gc
    32, 1029 queries, 4 taps) and the shared matching sample (BG 65, 56x56,
-   Gc 100 and 37, 12544 points);
+   Gc 100 and 37, 12544 points; F.grid_sample over a (BG, 1, P, 2) grid),
+   and InternImage-T's four DCNv3 levels (BG 260 .. 2080, 56^2 .. 7^2, Gc
+   16, 9 taps) and level 0 with zero offsets (every tap on a pixel); each
+   backward with its GB/s, bytes and operations bounds and its dX reductions
+   a tap, which must be at least 4x fewer than per-channel ones where
+   Gc % 4 == 0;
 5b. K9 phase: K9 forward and backward (dimg, dfx, dfy) against
    ``point_sample_plain`` at the FAST head's point losses (6500 masks of
    56x56 at 12544 points and at the 37632 candidates), on a 256x256 map (the
@@ -93,12 +98,13 @@ checkout; it has no CPU path and raises on any failure.  Phases:
    the one-channel maps, with the bound; then the MSDeformAttn wrapper
    (three K8 launches) forward and backward against its plain route at the
    pixel decoder's FAST shapes (rel-L2 <= 1e-5);
-6. K10 / K11 phase: K10 (plain attention) and K11 (fused MLP) in fp32
-   against their plain versions, forward and the autograd backward
-   (rel-L2 <= 1e-5), at vit_b 512^2 batch 8 (BH 96, N 1024; T 8192, C 768,
-   M 3072) and at the RVSA FAST head's 224^2 shape (N 196: a tail tile),
-   timed against the plain version, SDPA (K10) and the F.linear -> F.gelu
-   -> F.linear composition (K11), with the bound;
+6. K10 / K11 phase: K10 (plain attention) and K11 (fused MLP, split-TF32
+   wgmma) in fp32 against their plain versions, forward and the autograd
+   backward (rel-L2 <= 1e-5), at vit_b 512^2 batch 8 (BH 96, N 1024; T 8192,
+   C 768, M 3072) and at the RVSA FAST head's 224^2 shape (N 196: a tail
+   tile), timed against the plain version, SDPA (K10) and the F.linear ->
+   F.gelu -> F.linear composition (K11, with TFLOP/s and both bounds: the
+   split-TF32 tensor work and the fp32 CUDA-core one);
 7. train-step phase: vit_b_rvsa + UperNet with its own seeded init, one
    pretrain step on 17/12/65 seeded images at 224^2 (fp32, TF32 off) from
    identical state with the kernels (K8 24/24, K10 12, K11 36 launches),
@@ -134,8 +140,9 @@ checkout; it has no CPU path and raises on any failure.  Phases:
    56^2 .. 7^2, Gc 16, 9 taps, slab 7), level 0 with a bf16 map, the MSDA
    level, a scattered 64^2 map over the shared-memory budget, a 1024-wide
    map and Gc 6, timed beside dense K8 and the plain version with the
-   bound; K11 at C 64 / 128 / 256 / 512 on each level's tokens (rel-L2 <=
-   1e-5); one internimage_t + UperNet step (17/12/65 at 224^2, fp32) with
+   bound; K11 at C 64 / 128 / 256 / 512 on each level's tokens and at C
+   1024 / 1280 on 1000 tokens (rel-L2 <= 1e-5); one internimage_t + UperNet
+   step (17/12/65 at 224^2, fp32) with
    dense K8, with SAMRS_BILINEAR_SLAB=7, plain and the control, judged as
    in phase 7 (K8 or K8-slab 90 + 90, K11 90 launches), with s/step, img/s
    and peak memory of each; ``run_pretrain backbone=internimage_t`` for 3
@@ -161,7 +168,9 @@ checkout; it has no CPU path and raises on any failure.  Phases:
 
 ``--only`` runs just the named phases after the build (kernels: 2; gemm: 2a; modes, configs,
 sizes: 2b, 4b, 4c; slab: the K8-slab and K11-width checks of 9b;
-internimage: its step and driver runs), and prints no result lines.
+internimage: its step and driver runs; mlp: 6 and K11's widths; gather: 5
+and the MSDA wrapper of 5b; steps: 7, 7b, 8 and 9b's step), and prints no
+result lines.
 
 ``--profile`` adds a torch.profiler table of one warm generate image (and of
 one warm main-path image at image_size 768) with
@@ -197,7 +206,7 @@ GEN_BOX_PX = (16, 240)  # box sides, uniform; not taken from a DIOR statistic
 GEN_BUCKET = 256           # the prompt bucket of GEN_BOXES (sam/predictor.py DEFAULT_BUCKETS)
 MAIN_LAUNCHES = {"K1": 28, "K1pf": 0, "K1w": 0, "K2": 4, "K3": 32, "K3t": 0, "K12": 0, "K4": 1,
                  "K5": 2, "K6": 1, "K7": 0, "K8f": 0, "K8b": 0, "K9f": 0, "K9b": 0, "K10": 0,
-                 "K11": 0, "K8sf": 0, "K8sb": 0}
+                 "K11": 0, "K11s": 0, "K8sf": 0, "K8sb": 0}
 GEN_LAUNCHES = {**MAIN_LAUNCHES, "K7": 4}
 MAIN_GEMM_LAUNCHES = 128       # ViT-H: qkv + proj of 32 blocks, lin1 + lin2 of 32 MLPs
 # SEP pretraining: vit_b_rvsa + UperNet, 224^2, heads SOTA / SIOR / FAST
@@ -206,9 +215,11 @@ TRAIN_CLASSES = (18, 20, 37)
 RVSA_BLOCKS = 8                # of vit_b_rvsa's 12 (every third is full attention)
 FULL_BLOCKS = 4                # ... and its full-attention blocks: K10
 VIT_DEPTH = 12                 # blocks (and MLPs: K11) of vit_b and vit_b_rvsa
-# one launch per block and forward, three forwards (heads) a step; K and V in one K8 launch
+# one launch per block and forward, three forwards (heads) a step; K and V in one K8 launch;
+# K11's weights split once a step (K11s: w1 and w2 of every MLP, new versions after each
+# optimizer step, one version for the step's three forwards)
 STEP_LAUNCHES = {"K8f": RVSA_BLOCKS * 3, "K8b": RVSA_BLOCKS * 3, "K10": FULL_BLOCKS * 3,
-                 "K11": VIT_DEPTH * 3}
+                 "K11": VIT_DEPTH * 3, "K11s": VIT_DEPTH * 2}
 PRETRAIN_ITERS = 3
 # Mask2Former pretraining (decoder=mask2former): 6 MSDeformAttn layers x 3 levels through K8,
 # 10 decoder outputs a head, each with the shared matching sample (K8) of its masks and of
@@ -218,15 +229,18 @@ M2F_OUTPUTS = 10               # the initial queries' and 9 decoder layers' pred
 MSDA_CALLS = 6 * 3             # K8 launches of one pixel-decoder forward
 M2F_STEP_LAUNCHES = {
     "K8f": 3 * (RVSA_BLOCKS + MSDA_CALLS + 2 * M2F_OUTPUTS), "K8b": 3 * (RVSA_BLOCKS + MSDA_CALLS),
-    "K9f": 3 * 3 * M2F_OUTPUTS, "K9b": 3 * M2F_OUTPUTS, "K10": FULL_BLOCKS * 3, "K11": VIT_DEPTH * 3}
+    "K9f": 3 * 3 * M2F_OUTPUTS, "K9b": 3 * M2F_OUTPUTS, "K10": FULL_BLOCKS * 3, "K11": VIT_DEPTH * 3,
+    "K11s": VIT_DEPTH * 2}
 M2F_EVAL_LAUNCHES = {"K8f": RVSA_BLOCKS + MSDA_CALLS, "K10": FULL_BLOCKS, "K11": VIT_DEPTH}
 # InternImage-T SEP pretraining (backbone=internimage_t): 30 blocks, one DCNv3 (K8) and one
 # MLP (K11) each; three encoder passes (heads) a step
 II_DEPTHS, II_GROUPS, II_GC = (4, 4, 18, 4), (4, 8, 16, 32), 16
 II_BLOCKS = sum(II_DEPTHS)
 II_SLAB = 7                    # SAMRS_BILINEAR_SLAB of the slab runs: divides 56, 28, 14 and 7
-II_STEP_LAUNCHES = {"K8f": II_BLOCKS * 3, "K8b": II_BLOCKS * 3, "K11": II_BLOCKS * 3}
-II_SLAB_STEP_LAUNCHES = {"K8sf": II_BLOCKS * 3, "K8sb": II_BLOCKS * 3, "K11": II_BLOCKS * 3}
+II_STEP_LAUNCHES = {"K8f": II_BLOCKS * 3, "K8b": II_BLOCKS * 3, "K11": II_BLOCKS * 3,
+                    "K11s": II_BLOCKS * 2}
+II_SLAB_STEP_LAUNCHES = {"K8sf": II_BLOCKS * 3, "K8sb": II_BLOCKS * 3, "K11": II_BLOCKS * 3,
+                         "K11s": II_BLOCKS * 2}
 II_EVAL_LAUNCHES = {"K8f": II_BLOCKS, "K11": II_BLOCKS}
 K8_SLAB_FWD_RTOL = 1e-6        # K8-slab forward vs dense K8 (0 by design: K8's per-tap order)
 K9_RTOL = 1e-5                 # K9 vs its plain version: summation order (dimg by atomics)
@@ -254,7 +268,7 @@ FEATURE_RTOL = 2e-2    # 32 blocks with bf16 products, kernels vs plain versions
 IOU_MIN = 0.99         # kernels vs plain path: bf16 summation order flips pixels near 0
 K7_NEAR = 1e-4         # K7 pixels this close to a threshold may flip (fp32 sum order)
 HBM_BYTES_PER_S = 3.35e12
-PEAK = {"bf16": 989e12, "fp32": 67e12}
+PEAK = {"bf16": 989e12, "fp32": 67e12, "tf32": 495e12}
 
 
 def counters():
@@ -269,7 +283,8 @@ def counters():
             "K7": (amg_post, "launches"), "K8f": (bilinear_gather, "fwd_launches"),
             "K8b": (bilinear_gather, "bwd_launches"), "K9f": (bilinear_gather, "ps_fwd_launches"),
             "K9b": (bilinear_gather, "ps_bwd_launches"), "K10": (flash_attention, "full_launches"),
-            "K11": (fused_mlp, "mlp_launches"), "K8sf": (bilinear_gather, "slab_fwd_launches"),
+            "K11": (fused_mlp, "mlp_launches"), "K11s": (fused_mlp, "split_launches"),
+            "K8sf": (bilinear_gather, "slab_fwd_launches"),
             "K8sb": (bilinear_gather, "slab_bwd_launches")}
 
 
@@ -282,6 +297,17 @@ def reset_counts() -> None:
 
 def read_counts():
     return {k: getattr(mod, name) for k, (mod, name) in counters().items()}
+
+
+def checked_splits(label: str, launches, least: int) -> int:
+    """K11's weight splits (K11s) in a driver's run: one per weight and
+    version, so at least `least` (w1 and w2 of every MLP at every step whose
+    weights are new) and at most two a K11 call; returns the count, to stand
+    in the run's expected launches."""
+    n, calls = launches["K11s"], launches["K11"]
+    if not least <= n <= 2 * calls:
+        raise RuntimeError(f"{label}: {n} K11 weight splits, want {least} .. {2 * calls}")
+    return n
 
 
 def cuda_ms(fn, warmup: int = 2, reps: int = 7) -> float:
@@ -865,14 +891,24 @@ def k8_case(gen, BG, H, W, Gc, P, K, dtype, coords):
     """Seeded inputs of one K8 call: xg (BG, H, W*Gc) in `dtype`; fx, fy, mask
     (BG, P, K); dout (BG, P, Gc).  coords: "window" (generic, some taps off
     the map), "integer" (the identity grid on exact pixel centres) or
-    "deform" (taps around each output pixel, some off the map)."""
+    "deform" (taps around each output pixel, some off the map), "dcn"
+    (DCNv3's 3x3 base grid, P = H*W and K 9, plus offsets up to 1.5 px, as
+    InternImage's levels) or "dcn0" (the base grid alone: every tap on a
+    pixel, as at InternImage's initialisation)."""
     dev = "cuda"
     xg = torch.randn(BG, H, W * Gc, generator=gen, device=dev).to(dtype)
     u = lambda *s: torch.rand(*s, generator=gen, device=dev)
     ys, xs = torch.meshgrid(torch.arange(H, device=dev), torch.arange(W, device=dev),
                             indexing="ij")
     ys, xs = ys.reshape(1, -1, 1).float(), xs.reshape(1, -1, 1).float()
-    if coords == "integer":
+    if coords in ("dcn", "dcn0"):
+        from samrs_tpu_torch.kernels import bilinear_gather as bg
+
+        bx, by = (torch.from_numpy(b).to(dev) for b in
+                  bg._dcnv3_base_grid(H, W, 3, 3, 1, 1, 1, 1, 1, 1))
+        off = (lambda: u(BG, P, K) * 3 - 1.5) if coords == "dcn" else (lambda: 0.0)
+        fx, fy = bx.expand(BG, P, K) + off(), by.expand(BG, P, K) + off()
+    elif coords == "integer":
         fx, fy = xs.expand(BG, P, K), ys.expand(BG, P, K)
     elif coords == "window":
         fx = u(BG, P, K) * (W + 2.0) - 1.5
@@ -881,7 +917,8 @@ def k8_case(gen, BG, H, W, Gc, P, K, dtype, coords):
         ring = torch.arange(K, device=dev)
         fx = xs + (ring % 3 - 1) + (u(BG, P, K) * 5 - 2.5)
         fy = ys + (ring // 3 - 1) + (u(BG, P, K) * 5 - 2.5)
-    mask = torch.ones(BG, P, K, device=dev) if K == 1 and coords != "deform" else u(BG, P, K)
+    mask = (torch.ones(BG, P, K, device=dev) if K == 1 and coords in ("window", "integer")
+            else u(BG, P, K))
     dout = torch.randn(BG, P, Gc, generator=gen, device=dev)
     return xg, fx.contiguous(), fy.contiguous(), mask.contiguous(), dout
 
@@ -890,7 +927,14 @@ def k8_phase(gen):
     """K8 forward and backward against sample_weighted_plain on the same
     inputs: the RVSA shape of the FAST head (K and V of 65 x 12 heads in one
     launch, Gc 128; also Gc 64, one of K or V) in fp32 and with a bf16 xg, a
-    DCNv3-shaped case, and the identity grid on exact integers."""
+    DCNv3-shaped case, and the identity grid on exact integers; InternImage-T's
+    four DCNv3 levels at the FAST head (BG 260 .. 2080, 56^2 .. 7^2, Gc 16,
+    the 3x3 base grid plus offsets up to 1.5 px) and level 0 with zero
+    offsets (every tap on a pixel, as at initialisation); Mask2Former's MSDA
+    level and shared point sample.  Each backward line prints its GB/s, the
+    bytes and the operations bound and F.grid_sample's time where one call
+    computes the function (K 1: the RVSA grid, the shared point sample over a
+    (BG, 1, P, 2) grid)."""
     from samrs_tpu_torch.kernels import bilinear_gather as bg
 
     BG = TRAIN_BATCH[2] * 12
@@ -906,6 +950,10 @@ def k8_phase(gen):
              ("shared_masks", TRAIN_BATCH[2], 56, 56, 100, M2F_POINTS, 1, torch.float32,
               "window"),
              ("shared_gt", TRAIN_BATCH[2], 56, 56, 37, M2F_POINTS, 1, torch.float32, "window")]
+    cases += [(f"ii_l{lvl}", TRAIN_BATCH[2] * G, 56 >> lvl, 56 >> lvl, II_GC, (56 >> lvl) ** 2, 9,
+               torch.float32, "dcn") for lvl, G in enumerate(II_GROUPS)]
+    cases += [("ii_l0_zero", TRAIN_BATCH[2] * II_GROUPS[0], 56, 56, II_GC, 56 * 56, 9,
+               torch.float32, "dcn0")]
     names = ("out", "dxg", "dfx", "dfy", "dmask")
     out = {}
     for key, BGc, H, W, Gc, P, K, dtype, coords in cases:
@@ -931,28 +979,54 @@ def k8_phase(gen):
         if K == 1:  # F.grid_sample computes K8 at one tap (a yardstick; the port never calls it)
             img = xg.reshape(BGc, H, W, Gc).permute(0, 3, 1, 2).contiguous().requires_grad_()
             grid = torch.stack([fx[..., 0] / (W - 1) * 2 - 1, fy[..., 0] / (H - 1) * 2 - 1], -1)
-            grid = grid.reshape(BGc, H, W, 2).to(img.dtype).requires_grad_() if P == H * W else None
-            if grid is not None:
-                gs = lambda: F.grid_sample(img, grid, mode="bilinear", padding_mode="zeros",
-                                           align_corners=True)
-                y = gs()
-                g_out = dout.reshape(BGc, H, W, Gc).permute(0, 3, 1, 2).to(y.dtype)
-                lib["fwd"] = cuda_ms(gs)
-                lib["bwd"] = cuda_ms(lambda: torch.autograd.grad(y, (img, grid), g_out,
-                                                                 retain_graph=True))
-                lib["fwd_bwd"] = cuda_ms(lambda: torch.autograd.grad(gs(), (img, grid), g_out))
+            # the map's own grid (RVSA), or one row of P points (the shared point sample)
+            gshape = (BGc, H, W, 2) if P == H * W else (BGc, 1, P, 2)
+            grid = grid.reshape(gshape).to(img.dtype).requires_grad_()
+            gs = lambda: F.grid_sample(img, grid, mode="bilinear", padding_mode="zeros",
+                                       align_corners=True)
+            y = gs()
+            g_out = dout.reshape(BGc, *gshape[1:3], Gc).permute(0, 3, 1, 2).to(y.dtype)
+            lib["fwd"] = cuda_ms(gs)
+            lib["bwd"] = cuda_ms(lambda: torch.autograd.grad(y, (img, grid), g_out,
+                                                             retain_graph=True))
+            lib["fwd_bwd"] = cuda_ms(lambda: torch.autograd.grad(gs(), (img, grid), g_out))
+            del img, grid, y, g_out
         fb, fby = bound(fwd_bytes, fwd_ops, "fp32")
         bb, bby = bound(bwd_bytes, bwd_ops, "fp32")
+        # dX reductions the kernel issued, counted on the card in a launch of their own,
+        # against the first version's per-channel scatter (Gc scalar atomics for every
+        # corner on the map) and against one reduction a channel vector (4 channels where
+        # Gc % 4 == 0) for every corner on the map of nonzero weight
+        nred = torch.zeros(1, dtype=torch.int64, device=xg.device)
+        bg.sample_weighted_bwd_cuda(xg, fx, fy, mask, dout, Gc, reductions=nred)
+        n_red = int(nred.item())
+        wx, wy, corners = bg._corners(fx, fy, H, W)
+        weights = ((1 - wx) * (1 - wy), wx * (1 - wy), (1 - wx) * wy, wx * wy)
+        n_scalar = sum(int(v.sum()) for _, v in corners) * Gc
+        n_nonzero = sum(int((v & (w != 0) & (mask != 0)).sum())
+                        for (_, v), w in zip(corners, weights))
+        n_most = n_nonzero * (Gc // 4 if Gc % 4 == 0 else Gc)
         print(f"K8 {key} (BG {BGc}, {H}x{W}, Gc {Gc}, P {P}, K {K}, {str(dtype)[6:]}): rel_l2 "
               + " ".join(f"{n}={e:.3e}" for n, e in errs.items())
               + f" max_abs={max_abs:.3e}; fwd kernel/plain/library ms {fwd_ms:.4f}/"
               f"{plain_fwd_ms:.4f}/{lib.get('fwd')}, bound {fb:.4f} ({fby}, "
               f"{fwd_bytes / 1e6:.1f} MB); bwd kernel/plain/library ms {bwd_ms:.4f}/"
-              f"{plain_bwd_ms:.4f}/{lib.get('bwd')}, bound {bb:.4f} ({bby}, "
-              f"{bwd_bytes / 1e6:.1f} MB); library fwd+bwd ms {lib.get('fwd_bwd')}", flush=True)
+              f"{plain_bwd_ms:.4f}/{lib.get('bwd')} ({bwd_bytes / bwd_ms / 1e6:.1f} GB/s), "
+              f"bound {bb:.4f} ({bby}; bytes {bwd_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms of "
+              f"{bwd_bytes / 1e6:.1f} MB, operations {bwd_ops / PEAK['fp32'] * 1e3:.4f} ms); "
+              f"library fwd+bwd ms {lib.get('fwd_bwd')}; bwd dX reductions issued (device "
+              f"count) {n_red / (BGc * P * K):.2f} a tap against {n_scalar / (BGc * P * K):.2f} "
+              f"per-channel ({n_scalar / max(n_red, 1):.1f}x fewer), at most "
+              f"{n_most / (BGc * P * K):.2f} with zero-weight corners skipped", flush=True)
+        if Gc % 4 == 0 and n_scalar < 4 * n_red:
+            raise RuntimeError(f"K8 {key}: {n_red} backward reductions, not 4x fewer than the "
+                               f"{n_scalar} per-channel ones")
+        if n_red > n_most:
+            raise RuntimeError(f"K8 {key}: {n_red} backward reductions, more than the {n_most} "
+                               f"of the corners of nonzero weight")
         for n, e in errs.items():
             tol = K8_RTOL
-            if key == "identity" and n == "dfx":
+            if coords in ("integer", "dcn0") and n == "dfx":
                 tol = K8_INT_RTOL
             elif dtype == torch.bfloat16 and n == "dxg":
                 tol = K8_BF16_DXG_RTOL
@@ -960,15 +1034,19 @@ def k8_phase(gen):
                 raise RuntimeError(f"K8 {key}: {n} relative L2 {e:.3e} > {tol}")
         out[key] = dict(max_abs_err=max_abs, fwd_ms=fwd_ms, bwd_ms=bwd_ms,
                         plain_fwd_ms=plain_fwd_ms, plain_bwd_ms=plain_bwd_ms, fwd_bound=(fb, fby),
-                        bwd_bound=(bb, bby), lib=lib, errs=errs)
+                        bwd_bound=(bb, bby), lib=lib, errs=errs,
+                        reductions_per_tap=n_red / (BGc * P * K))
         del xg, fx, fy, mask, dout, got, want, leaves, ref
         torch.cuda.empty_cache()
     r = out["rvsa"]
     common = dict(route="cuda", source="samrs_tpu_torch/csrc/bilinear_gather.cu")
-    extra = lambda d: {f"{k}_ms": out[k][f"{d}_ms"] for k in (
-        "rvsa_bf16", "rvsa_gc64", "dcnv3", "msda_l28", "shared_masks", "shared_gt")}
-    extra_bound = lambda d: {f"{k}_bound_ms": out[k][f"{d}_bound"][0] for k in (
-        "msda_l28", "shared_masks", "shared_gt")}
+    extra = lambda d: {f"{k}_ms": out[k][f"{d}_ms"] for k in out if k != "rvsa"}
+    extra_bound = lambda d: {f"{k}_bound_ms": out[k][f"{d}_bound"][0] for k in out
+                             if k not in ("rvsa", "rvsa_bf16", "rvsa_gc64", "dcnv3", "identity")}
+    extra_lib = lambda d: {f"{k}_library_ms": out[k]["lib"][d]
+                           for k in ("shared_masks", "shared_gt")}
+    # (counted on the card in this run)
+    reductions = {f"{k}_reductions_per_tap": o["reductions_per_tap"] for k, o in out.items()}
     fwd = dict(name="K8 fwd weighted bilinear gather (RVSA FAST head: BG 780, 14x14, Gc 128, "
                     "K 1, fp32; bf16 / Gc 64 / DCNv3 shapes, Mask2Former's MSDA level "
                     "(BG 520, 28x28, Gc 32, P 1029, K 4) and shared point sample (BG 65, "
@@ -977,14 +1055,17 @@ def k8_phase(gen):
                max_abs_err=r["max_abs_err"], ms=r["fwd_ms"],
                plain_ms=r["plain_fwd_ms"], bound_ms=r["fwd_bound"][0],
                bound_by=r["fwd_bound"][1], library_ms=r["lib"]["fwd"], **extra("fwd"),
-               **extra_bound("fwd"))
-    bwd = dict(name="K8 bwd weighted bilinear gather (dxg, dfx, dfy, dmask; same shapes; "
-                    "library_ms: F.grid_sample backward, library_fwd_bwd_ms: forward + backward)",
+               **extra_bound("fwd"), **extra_lib("fwd"))
+    bwd = dict(name="K8 bwd weighted bilinear gather (dxg by 16-byte vector reductions, "
+                    "zero-weight corners skipped; dfx, dfy, dmask; same shapes, InternImage-T's "
+                    "levels in ii_l*, level 0 with zero offsets in ii_l0_zero; library_ms: "
+                    "F.grid_sample backward, library_fwd_bwd_ms: forward + backward)",
                replaces="samrs_tpu/kernels/bilinear_gather.py:467", **common,
                max_abs_err=r["max_abs_err"], ms=r["bwd_ms"],
                plain_ms=r["plain_bwd_ms"], bound_ms=r["bwd_bound"][0],
                bound_by=r["bwd_bound"][1], library_ms=r["lib"]["bwd"],
-               library_fwd_bwd_ms=r["lib"]["fwd_bwd"], **extra("bwd"), **extra_bound("bwd"))
+               library_fwd_bwd_ms=r["lib"]["fwd_bwd"], **extra("bwd"), **extra_bound("bwd"),
+               **extra_lib("bwd"), **reductions)
     return {"K8f": fwd, "K8b": bwd}
 
 
@@ -1234,57 +1315,98 @@ def k8_slab_phase(gen):
     return {"K8sf": fwd, "K8sb": bwd}
 
 
-def k11_widths_phase(gen):
-    """K11 at InternImage-T's four MLP widths (C 64 / 128 / 256 / 512, M 4C)
-    on the FAST head's tokens of each level (65 images at 56^2 .. 7^2)
-    against its plain version in fp32, forward and the autograd backward
-    (rel-L2 <= 1e-5); timed against the plain version and the F.linear ->
-    F.gelu -> F.linear composition, with the bound."""
+def k11_case(gen, label: str, T: int, C: int, M: int):
+    """K11 at (T, C, M) against its plain version in fp32, forward and the
+    autograd backward (rel-L2 <= K10_K11_RTOL); timed (CUDA events) against
+    the plain version and the F.linear -> F.gelu -> F.linear composition,
+    with TFLOP/s (counting 4 T C M) and both bounds: the split-TF32 tensor
+    work the kernel does (3 x 4 T C M at 495 TFLOP/s; the least time, and so
+    its ``bound``) and the fp32 CUDA-core one (4 T C M at 67 TFLOP/s, on the
+    log line).  ``ms`` reuses the weights' tf32 halves (a forward after the
+    first of a step); ``cold_ms`` gives the weights a new version before
+    each call, so it also splits them, as the first forward after an
+    optimizer step does.  Where the wrapper keeps the hidden on chip (C <=
+    128) the two-launch form is also held to the plain version, timed, and
+    compared with the fused one."""
     from samrs_tpu_torch.kernels import fused_mlp as fm
 
     rn = lambda *shape, std=1.0: torch.randn(*shape, generator=gen, device="cuda") * std
+    x, dy = rn(T, C), rn(T, C)
+    w = (rn(M, C, std=C ** -0.5), rn(M, std=0.1), rn(C, M, std=M ** -0.5), rn(C, std=0.1))
+    leaves = [t.clone().requires_grad_() for t in (x, *w)]
+    got = fm.fused_mlp(*leaves)
+    got = [got.detach()] + list(torch.autograd.grad(got, leaves, dy))
+    ref = fm.fused_mlp_plain(*leaves)
+    want = [ref.detach()] + list(torch.autograd.grad(ref, leaves, dy))
+    errs = {n: rel_l2([a], [b]) for n, a, b in zip(("out", "dx", "dw1", "db1", "dw2", "db2"),
+                                                    got, want)}
+    max_abs = float((got[0] - want[0]).abs().max())
+    extra = {}
+    if fm.hidden_on_chip(C):
+        two = fm.fused_mlp_cuda(x, *w, on_chip=False)
+        errs["out_two_launch"] = rel_l2([two], [want[0]])
+        extra = dict(two_launch_ms=cuda_ms(lambda: fm.fused_mlp_cuda(x, *w, on_chip=False)),
+                     two_launch_max_diff=float((two - got[0]).abs().max()))
+        del two
+    ms = cuda_ms(lambda: fm.fused_mlp_cuda(x, *w))
+
+    def cold():
+        for t in (w[0], w[2]):
+            torch.autograd.graph.increment_version(t)
+        return fm.fused_mlp_cuda(x, *w)
+
+    cold_ms = cuda_ms(cold)
+    plain_ms = cuda_ms(lambda: fm.fused_mlp_plain(x, *w))
+    comp_ms = cuda_ms(lambda: F.linear(F.gelu(F.linear(x, w[0], w[1])), w[2], w[3]))
+    flops, nbytes = 4 * T * C * M, 4 * (2 * T * C + 2 * C * M + M + C)
+    bound_ms, bound_by = bound(nbytes, 3 * flops, "tf32")
+    fp32_ms, _ = bound(nbytes, flops, "fp32")
+    form = "fused, hidden on chip" if fm.hidden_on_chip(C) else "two launches"
+    print(f"K11 {label} (T {T}, C {C}, M {M}, fp32, {form}): rel_l2 "
+          + " ".join(f"{n}={e:.3e}" for n, e in errs.items())
+          + f" max_abs={max_abs:.3e}; kernel_ms={ms:.4f} ({flops / ms / 1e9:.1f} TFLOP/s) "
+          f"cold_ms={cold_ms:.4f} plain_ms={plain_ms:.4f} linear_gelu_linear_ms={comp_ms:.4f} "
+          f"({flops / comp_ms / 1e9:.1f} TFLOP/s) bound_ms={bound_ms:.4f} (split-TF32 "
+          f"{bound_by}) fp32_bound_ms={fp32_ms:.4f}"
+          + "".join(f" {k}={v:.4e}" for k, v in extra.items()), flush=True)
+    for n, e in errs.items():
+        if not e <= K10_K11_RTOL:
+            raise RuntimeError(f"K11 {label}: {n} relative L2 {e:.3e} > {K10_K11_RTOL}")
+    del x, dy, w, leaves, got, ref, want
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=max_abs, ms=ms, cold_ms=cold_ms, plain_ms=plain_ms,
+                composition_ms=comp_ms, bound_ms=bound_ms, bound_by=bound_by,
+                tflops=flops / ms / 1e9, **extra)
+
+
+def k11_widths_phase(gen):
+    """K11 at InternImage-T's four MLP widths (C 64 / 128 / 256 / 512, M 4C)
+    on the FAST head's tokens of each level (65 images at 56^2 .. 7^2), and
+    at the vit_l / vit_h widths (C 1024 / 1280, M 4C) on a small T with a
+    ragged last tile, by ``k11_case``."""
     out = {}
     for lvl in range(4):
-        T, C = TRAIN_BATCH[2] * (56 >> lvl) ** 2, 64 << lvl
-        M = 4 * C
-        x, dy = rn(T, C), rn(T, C)
-        w = (rn(M, C, std=C ** -0.5), rn(M, std=0.1), rn(C, M, std=M ** -0.5), rn(C, std=0.1))
-        leaves = [t.clone().requires_grad_() for t in (x, *w)]
-        got = fm.fused_mlp(*leaves)
-        got = [got.detach()] + list(torch.autograd.grad(got, leaves, dy))
-        ref = fm.fused_mlp_plain(*leaves)
-        want = [ref.detach()] + list(torch.autograd.grad(ref, leaves, dy))
-        errs = {n: rel_l2([a], [b]) for n, a, b in zip(("out", "dx", "dw1", "db1", "dw2", "db2"),
-                                                        got, want)}
-        max_abs = float((got[0] - want[0]).abs().max())
-        ms = cuda_ms(lambda: fm.fused_mlp_cuda(x, *w))
-        plain_ms = cuda_ms(lambda: fm.fused_mlp_plain(x, *w))
-        comp_ms = cuda_ms(lambda: F.linear(F.gelu(F.linear(x, w[0], w[1])), w[2], w[3]))
-        bound_ms, bound_by = bound(4 * (2 * T * C + 2 * C * M + M + C), 4 * T * C * M, "fp32")
-        print(f"K11 internimage level {lvl} (T {T}, C {C}, M {M}, fp32): rel_l2 "
-              + " ".join(f"{n}={e:.3e}" for n, e in errs.items())
-              + f" max_abs={max_abs:.3e}; kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"linear_gelu_linear_ms={comp_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by})",
-              flush=True)
-        for n, e in errs.items():
-            if not e <= K10_K11_RTOL:
-                raise RuntimeError(f"K11 C {C}: {n} relative L2 {e:.3e} > {K10_K11_RTOL}")
-        out[C] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, composition_ms=comp_ms,
-                      bound=(bound_ms, bound_by))
-        del x, dy, w, leaves, got, ref, want
-        torch.cuda.empty_cache()
+        C = 64 << lvl
+        out[C] = k11_case(gen, f"internimage level {lvl}", TRAIN_BATCH[2] * (56 >> lvl) ** 2,
+                          C, 4 * C)
+    for C in (1024, 1280):
+        out[C] = k11_case(gen, f"width {C}", 1000, C, 4 * C)
     r = out[64]
+    keys = ("ms", "cold_ms", "plain_ms", "composition_ms", "bound_ms", "tflops", "two_launch_ms",
+            "two_launch_max_diff")
     return {"K11w": dict(
-        name="K11 fused MLP fp32 at InternImage-T's widths (level 0 at the FAST head: T 203840, "
-             "C 64, M 256; C 128 / 256 / 512 in c*_; library: none, composition in "
-             "composition_ms)", route="cuda", source="samrs_tpu_torch/csrc/fused_mlp.cu",
+        name="K11 fused MLP fp32 on split-TF32 wgmma at InternImage-T's widths (level 0 at the "
+             "FAST head: T 203840, C 64, M 256, hidden on chip; C 128 (on chip) / 256 / 512 "
+             "(two launches) and, at T 1000, C 1024 / 1280 in c*_; two_launch_*: the two-launch "
+             "form at C 64 / 128; cold_ms: with the weights' tf32 split; bound: the split-TF32 "
+             "tensor work; library: none, composition in composition_ms)", route="cuda",
+        source="samrs_tpu_torch/csrc/fused_mlp.cu",
         replaces="samrs_tpu/kernels/fused_mlp.py:105",
         max_abs_err=max(o["max_abs_err"] for o in out.values()), ms=r["ms"],
-        plain_ms=r["plain_ms"], bound_ms=r["bound"][0], bound_by=r["bound"][1], library_ms=None,
-        composition_ms=r["composition_ms"],
-        **{f"c{C}_{k}": o[k] for C, o in out.items() if C != 64
-           for k in ("ms", "plain_ms", "composition_ms")},
-        **{f"c{C}_bound_ms": o["bound"][0] for C, o in out.items() if C != 64})}
+        plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
+        composition_ms=r["composition_ms"], cold_ms=r["cold_ms"], tflops=r["tflops"],
+        two_launch_ms=r["two_launch_ms"], two_launch_max_diff=r["two_launch_max_diff"],
+        **{f"c{C}_{k}": o[k] for C, o in out.items() if C != 64 for k in keys if k in o})}
 
 
 def k10_k11_phase(gen):
@@ -1295,7 +1417,6 @@ def k10_k11_phase(gen):
     (K10) and the F.linear -> F.gelu -> F.linear composition (K11), with the
     bound."""
     from samrs_tpu_torch.kernels import flash_attention as fa
-    from samrs_tpu_torch.kernels import fused_mlp as fm
 
     rn = lambda *shape, std=1.0: torch.randn(*shape, generator=gen, device="cuda") * std
     scale = 64 ** -0.5
@@ -1326,34 +1447,9 @@ def k10_k11_phase(gen):
                                bound_ms=bound_ms, bound_by=bound_by)
         del q, k, v, g, leaves, got, ref, want
 
-        T, C, M = BH // 12 * N, 768, 3072
-        x, dy = rn(T, C), rn(T, C)
-        w = (rn(M, C, std=C ** -0.5), rn(M, std=0.1), rn(C, M, std=M ** -0.5), rn(C, std=0.1))
-        leaves = [t.clone().requires_grad_() for t in (x, *w)]
-        got = fm.fused_mlp(*leaves)
-        got = [got.detach()] + list(torch.autograd.grad(got, leaves, dy))
-        ref = fm.fused_mlp_plain(*leaves)
-        want = [ref.detach()] + list(torch.autograd.grad(ref, leaves, dy))
-        names = ("out", "dx", "dw1", "db1", "dw2", "db2")
-        errs = {n: rel_l2([a], [b]) for n, a, b in zip(names, got, want)}
-        max_abs = float((got[0] - want[0]).abs().max())
-        ms = cuda_ms(lambda: fm.fused_mlp_cuda(x, *w))
-        plain_ms = cuda_ms(lambda: fm.fused_mlp_plain(x, *w))
-        comp_ms = cuda_ms(lambda: F.linear(F.gelu(F.linear(x, w[0], w[1])), w[2], w[3]))
-        bound_ms, bound_by = bound(4 * (2 * T * C + 2 * C * M + M + C), 4 * T * C * M, "fp32")
-        print(f"K11 {key} (T {T}, C {C}, M {M}, fp32): rel_l2 "
-              + " ".join(f"{n}={e:.3e}" for n, e in errs.items())
-              + f" max_abs={max_abs:.3e}; kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"linear_gelu_linear_ms={comp_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by})",
-              flush=True)
-        for n, e in errs.items():
-            if not e <= K10_K11_RTOL:
-                raise RuntimeError(f"K11 {key}: {n} relative L2 {e:.3e} > {K10_K11_RTOL}")
-        out["K11"][key] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                               composition_ms=comp_ms, bound_ms=bound_ms, bound_by=bound_by)
-        del x, dy, w, leaves, got, ref, want
-        torch.cuda.empty_cache()
+        out["K11"][key] = k11_case(gen, key, BH // 12 * N, 768, 3072)
     r10, r11 = out["K10"]["vit_b_512"], out["K11"]["vit_b_512"]
+    split = k11_split_case(gen)
     tail10, tail11 = out["K10"]["rvsa_fast_224"], out["K11"]["rvsa_fast_224"]
     return {
         "K10": dict(name="K10 plain attention fp32 (vit_b 512^2 batch 8: BH 96, N 1024, d 64; "
@@ -1365,18 +1461,49 @@ def k10_k11_phase(gen):
                     bound_by=r10["bound_by"], library_ms=r10["library_ms"],
                     **{f"rvsa_{k}": tail10[k] for k in ("ms", "plain_ms", "library_ms",
                                                          "bound_ms")}),
-        "K11": dict(name="K11 fused MLP fp32 (vit_b 512^2 batch 8: T 8192, C 768, M 3072; "
-                         "RVSA FAST head in rvsa_*; composition_ms: F.linear -> F.gelu -> "
+        "K11": dict(name="K11 fused MLP fp32 on split-TF32 wgmma (vit_b 512^2 batch 8: T 8192, "
+                         "C 768, M 3072, two launches; RVSA FAST head in rvsa_*; launches: "
+                         "calls of the forward; cold_ms: with the weights' tf32 split; bound: "
+                         "the split-TF32 tensor work; composition_ms: F.linear -> F.gelu -> "
                          "F.linear, no single library call)", route="cuda",
                     source="samrs_tpu_torch/csrc/fused_mlp.cu",
                     replaces="samrs_tpu/kernels/fused_mlp.py:105",
                     max_abs_err=max(r11["max_abs_err"], tail11["max_abs_err"]), ms=r11["ms"],
                     plain_ms=r11["plain_ms"], bound_ms=r11["bound_ms"],
                     bound_by=r11["bound_by"], library_ms=None,
-                    composition_ms=r11["composition_ms"],
-                    **{f"rvsa_{k}": tail11[k] for k in ("ms", "plain_ms", "composition_ms",
-                                                         "bound_ms")}),
+                    composition_ms=r11["composition_ms"], cold_ms=r11["cold_ms"],
+                    tflops=r11["tflops"],
+                    **{f"rvsa_{k}": tail11[k] for k in ("ms", "cold_ms", "plain_ms",
+                                                         "composition_ms", "bound_ms", "tflops")}),
+        "K11s": split,
     }
+
+
+def k11_split_case(gen):
+    """K11's weight split (samrs_tf32_split) on vit_b's W1 (3072 x 768)
+    against ``tf32_split_plain``: the tf32 bits of hi (its low 13 bits, which
+    the tensor core does not read, left out) equal, and hi + lo equal to the
+    weight, both exactly; timed against the plain version, with its bytes
+    bound (the weight read once, both halves written once)."""
+    from samrs_tpu_torch.kernels import fused_mlp as fm
+
+    w = torch.randn(3072, 768, generator=gen, device="cuda") * 768 ** -0.5
+    hi, lo = fm.tf32_split_cuda(w)
+    want_hi, _ = fm.tf32_split_plain(w)
+    tf32 = lambda t: (t.view(torch.int32) & ~0x1FFF).view(torch.float32)
+    err = max(float((tf32(hi) - want_hi).abs().max()), float((hi + lo - w).abs().max()))
+    ms = cuda_ms(lambda: fm.tf32_split_cuda(w))
+    plain_ms = cuda_ms(lambda: fm.tf32_split_plain(w))
+    bound_ms, bound_by = bound(3 * w.numel() * 4, 2 * w.numel(), "fp32")
+    print(f"K11s tf32 split (3072 x 768 fp32): max_abs_err={err:.3e} kernel_ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by})", flush=True)
+    if err != 0.0:
+        raise RuntimeError(f"K11s: the split differs from the plain one by {err:.3e}")
+    return dict(name="K11s tf32 split of K11's weights (vit_b W1: 3072 x 768 fp32; once per "
+                     "weight version, so once a step for each of w1, w2 of every MLP; no "
+                     "library call)", route="cuda", source="samrs_tpu_torch/csrc/fused_mlp.cu",
+                replaces="samrs_tpu/kernels/fused_mlp.py:105", max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
 def mask_iou(a: np.ndarray, b: np.ndarray) -> np.ndarray:
@@ -2031,6 +2158,7 @@ def finetune_step_phase(profile: bool = False):
         model.use_kernels = True
     err = rel_l2([logits], [logits_p])
     want = {k: {"K10": VIT_DEPTH, "K11": VIT_DEPTH}.get(k, 0) for k in counts}
+    want["K11s"] = checked_splits("finetune eval forward", counts, 0)
     print(f"finetune eval forward (vit_b, {FT_BATCH} x {FT_SIZE}^2): launches {counts}; logits "
           f"{tuple(logits.shape)} kernels vs plain rel_l2={err:.3e}", flush=True)
     if counts != want:
@@ -2053,7 +2181,7 @@ def finetune_step_phase(profile: bool = False):
 
     step = lambda state: trainer.finetune_step(state, x, y, cfg.seed)
     compare_steps("finetune step", step_runs(model, fresh_state, step),
-                  {"K10": VIT_DEPTH, "K11": VIT_DEPTH})
+                  {"K10": VIT_DEPTH, "K11": VIT_DEPTH, "K11s": 2 * VIT_DEPTH})
     timing = time_steps(model, fresh_state, step, "finetune step", FT_BATCH, f"{FT_SIZE}^2")
     if profile:
         profile_step(model, fresh_state, step, "finetune step")
@@ -2128,7 +2256,8 @@ def pretrain_phase(tmp: str):
     want.update(K8f=PRETRAIN_ITERS * STEP_LAUNCHES["K8f"] + evals * RVSA_BLOCKS,
                 K8b=PRETRAIN_ITERS * STEP_LAUNCHES["K8b"],
                 K10=PRETRAIN_ITERS * STEP_LAUNCHES["K10"] + evals * FULL_BLOCKS,
-                K11=PRETRAIN_ITERS * STEP_LAUNCHES["K11"] + evals * VIT_DEPTH)
+                K11=PRETRAIN_ITERS * STEP_LAUNCHES["K11"] + evals * VIT_DEPTH,
+                K11s=checked_splits("pretrain", launches, PRETRAIN_ITERS * STEP_LAUNCHES["K11s"]))
     print(f"pretrain launches: {launches}", flush=True)
     if launches != want:
         raise RuntimeError(f"pretrain launches {launches} != {want}")
@@ -2202,6 +2331,7 @@ def internimage_pretrain_phase(tmp: str, slab: bool = False):
         per_eval = {"K8sf" if k == "K8f" else k: v for k, v in per_eval.items()}
     want = {k: PRETRAIN_ITERS * per_step.get(k, 0) + evals * per_eval.get(k, 0)
             for k in launches}
+    want["K11s"] = checked_splits(label, launches, PRETRAIN_ITERS * per_step["K11s"])
     print("\n".join([f"{label} " + ln for ln in handler.lines]), flush=True)
     print(f"{label} launches: {launches} ({PRETRAIN_ITERS} steps + eval in "
           f"{wall:.1f} s; lr {cfg.optim.lr}, wd {cfg.optim.weight_decay}, layer decay "
@@ -2257,6 +2387,8 @@ def mask2former_driver_phase(tmp: str):
     evals = len(cfg.data.datasets) * -(-n_val // 8)  # eval forwards of 8 images
     want = {k: PRETRAIN_ITERS * M2F_STEP_LAUNCHES.get(k, 0) + evals * M2F_EVAL_LAUNCHES.get(k, 0)
             for k in launches}
+    want["K11s"] = checked_splits("mask2former pretrain", launches,
+                                  PRETRAIN_ITERS * M2F_STEP_LAUNCHES["K11s"])
     print(f"mask2former pretrain launches: {launches}", flush=True)
     if launches != want:
         raise RuntimeError(f"mask2former pretrain launches {launches} != {want}")
@@ -2344,7 +2476,8 @@ def finetune_driver_phase(tmp: str, pretrained: str):
     steps, evals = FT_TRAIN // FT_BATCH, -(-FT_VAL // 8)
     want = {k: 0 for k in launches}
     want.update(K8f=(steps + evals) * RVSA_BLOCKS, K8b=steps * RVSA_BLOCKS,
-                K10=(steps + evals) * FULL_BLOCKS, K11=(steps + evals) * VIT_DEPTH)
+                K10=(steps + evals) * FULL_BLOCKS, K11=(steps + evals) * VIT_DEPTH,
+                K11s=checked_splits("finetune", launches, steps * 2 * VIT_DEPTH))
     print("\n".join(["finetune " + ln for ln in handler.lines]), flush=True)
     print(f"finetune launches: {launches} ({steps} steps + {evals} eval batch in {wall:.1f} s)",
           flush=True)
@@ -2386,7 +2519,8 @@ def test_phase(tmp: str, model):
     launches = read_counts()
     fwd = 2 * len(data)  # one batch of crops an image, and its flip
     want = {k: 0 for k in launches}
-    want.update(K8f=fwd * RVSA_BLOCKS, K10=fwd * FULL_BLOCKS, K11=fwd * VIT_DEPTH)
+    want.update(K8f=fwd * RVSA_BLOCKS, K10=fwd * FULL_BLOCKS, K11=fwd * VIT_DEPTH,
+                K11s=checked_splits("test", launches, 0))
     print(f"test launches: {launches}; {len(data)} images of {TEST_HW} in {wall:.2f} s; "
           f"mIoU {scores['miou']:.4f}", flush=True)
     if launches != want:
@@ -2424,13 +2558,15 @@ def main() -> None:
     ap.add_argument("--profile", action="store_true",
                     help="profile one generate image per path, one pretrain and one finetune step")
     ap.add_argument("--only", choices=("kernels", "gemm", "modes", "configs", "sizes", "slab",
-                                       "internimage"),
+                                       "internimage", "mlp", "gather", "steps"),
                     action="append",
                     help="run only these phases (a partial check: no result lines): K1-K7 at "
                          "the main path's shapes (kernels), the encoder's GEMM (gemm), the SAM "
                          "encoder's kernel configurations (modes, configs, sizes), K8-slab and "
                          "K11 at InternImage's widths (slab), the InternImage step and driver "
-                         "(internimage)")
+                         "(internimage), K10 and K11 at every width (mlp), K8 and the MSDA "
+                         "wrapper (gather), the UperNet, InternImage, Mask2Former and finetune "
+                         "steps (steps)")
     args = ap.parse_args()
     # the 94-image pretrain step peaks near 80 GB; growable segments keep the
     # caching allocator from failing on fragmentation (the values are the same)
@@ -2470,6 +2606,17 @@ def main() -> None:
         if "slab" in args.only:
             k8_slab_phase(gen)
             k11_widths_phase(gen)
+        if "mlp" in args.only:
+            k10_k11_phase(gen)
+            k11_widths_phase(gen)
+        if "gather" in args.only:
+            k8_phase(gen)
+            msda_phase(gen)
+        if "steps" in args.only:
+            train_step_phase(args.profile)
+            internimage_step_phase(args.profile)
+            mask2former_step_phase(args.profile)
+            finetune_step_phase(args.profile)
         if "internimage" in args.only:
             internimage_step_phase(args.profile)
             with tempfile.TemporaryDirectory() as tmp:
@@ -2549,10 +2696,10 @@ def main() -> None:
     for key in ("K9f", "K9b"):  # this slice's path: Mask2Former pretraining
         results[key]["launches"] = m2f_launches[key]
         results[key]["launches_per_step"] = M2F_STEP_LAUNCHES[key]
-    for key in ("K10", "K11"):  # finetuning, then the sliding-window test; both pretrainings
+    for key in ("K10", "K11", "K11s"):  # finetuning, the sliding-window test, both pretrainings
         results[key]["launches"] = ft_launches[key]
         results[key]["launches_test"] = test_launches[key]
-        results[key]["launches_per_finetune_step_vit_b"] = VIT_DEPTH
+        results[key]["launches_per_finetune_step_vit_b"] = VIT_DEPTH * (2 if key == "K11s" else 1)
         results[key]["launches_pretrain"] = pre_launches[key]
         results[key]["launches_per_pretrain_step"] = STEP_LAUNCHES[key]
         results[key]["launches_mask2former"] = m2f_launches[key]
@@ -2565,6 +2712,7 @@ def main() -> None:
     results["K11w"]["launches"] = ii_launches["K11"]
     results["K11w"]["launches_per_step"] = II_STEP_LAUNCHES["K11"]
     results["K11w"]["launches_slab_run"] = ii_slab_launches["K11"]
+    results["K11s"]["launches_internimage"] = ii_launches["K11s"]
     print("internimage summary: " + ", ".join(
         f"{k} {v[0]:.4f} s/step ({sum(TRAIN_BATCH) / v[0]:.2f} img/s, peak {v[1] / 2**30:.2f} GiB)"
         for k, v in ii_step.items()), flush=True)

@@ -26,14 +26,30 @@
 // by 1e-7 reaches the decoder's BatchNorms, whose channels' means dwarf their
 // spread at initialisation, and comes out ~1e3 times larger in the gradients.
 //
-// Backward: dfx, dfy and dmask reduce over the channels within the lane
-// group (shuffles); dX is a scatter, fp32 atomicAdd into a zeroed fp32 buffer
-// (the caller casts it to bf16 when xg is bf16).  The atomics' order is not
-// deterministic: dX differs from run to run by fp32 rounding (~1e-7
-// relative).  The coordinate derivative is the one-sided one of the floor
-// formula, exactly JAX's _dhat: at an integer coordinate the tap at t in
-// [0, 1) has slope -1, the tap at t in [-1, 0) slope +1 and the tap at t = 1
-// none.
+// Backward (replaces bwd_call's pallas_call, body _bwd_kernel): dfx, dfy and
+// dmask reduce over the channels within the lane group (shuffles); dX is a
+// scatter into a zeroed fp32 buffer (the caller casts it to bf16 when xg is
+// bf16).  On the TPU each bg's whole dX map stays in VMEM across the
+// sequential query-block axis; the card has no such axis, and the first
+// version here, one scalar fp32 atomicAdd per channel, corner and tap, ran
+// at ~150 G atomics/s, 6.5-31x its bytes bound (89% of the time in the
+// reductions at InternImage level 0).  This card's rates at that access
+// pattern (chip_breakdown.py --what rates; NVIDIA H100 80GB HBM3 at 700 W):
+// 165 G ops/s for scalar red.global.add.f32, 167 G ops/s (667 G values/s)
+// for the 16-byte red.global.add.v4.f32, 306 G values/s for shared-memory
+// fp32 atomics and 258 G values/s for a warp owning a row of a
+// shared-memory map (taps binned by row).  So each lane adds its channel
+// vector to a corner with one vector reduction (v4, where Gc % 4 == 0), and
+// skips a corner whose weight m * w is 0 (every corner but one of a tap on
+// an exact pixel, as InternImage's taps are at initialisation): at most
+// Gc / 4 reductions a corner where the first version issued Gc.  Each tap's
+// fx, fy and mask are loaded by one lane of its group and shuffled to the
+// others, and a query's dout is loaded once for all its taps (Gc <= 4 x
+// 32).  The reductions' order is not deterministic: dX differs from run to
+// run by fp32 rounding (~1e-7 relative).  The coordinate derivative is the
+// one-sided one of the floor formula, exactly JAX's _dhat: at an integer
+// coordinate the tap at t in [0, 1) has slope -1, the tap at t in [-1, 0)
+// slope +1 and the tap at t = 1 none.
 #include "bilinear_tap.cuh"
 
 namespace samrs {
@@ -108,24 +124,37 @@ bilinear_fwd_kernel(const T* __restrict__ xg, const float* __restrict__ fx,
   }
 }
 
+// One reduction of the channel vector g * w into dX at a corner (16 bytes
+// at once where V is 4), none for a corner off the map or of weight 0;
+// returns the count of reductions issued.
 template <int V>
-__device__ __forceinline__ void scatter(float* dimg, bool valid, int pix, int Gc, int c, float w,
-                                        const float (&g)[V]) {
-  if (!valid) return;
+__device__ __forceinline__ unsigned scatter(float* dimg, bool valid, int pix, int Gc, int c,
+                                            float w, const float (&g)[V]) {
+  if (!valid || w == 0.f) return 0;
   float* d = dimg + static_cast<size_t>(pix) * Gc + c;
-#pragma unroll
-  for (int j = 0; j < V; ++j) atomicAdd(d + j, g[j] * w);
+  if constexpr (V == 4) {
+    atomicAdd(reinterpret_cast<float4*>(d), make_float4(g[0] * w, g[1] * w, g[2] * w, g[3] * w));
+  } else {
+    atomicAdd(d, g[0] * w);
+  }
+  return 1;
 }
 
-template <typename T, int V>
+// ONE: the group's lanes cover Gc in one pass (Gc / V <= the group size), so
+// a lane loads its dout vector once for all the query's taps.  Where `nred`
+// is not null, the reductions the launch issues are added to *nred (a
+// measurement of the scatter; null on the training paths).
+template <typename T, int V, bool ONE>
 __global__ void __launch_bounds__(THREADS)
 bilinear_bwd_kernel(const T* __restrict__ xg, const float* __restrict__ fx,
                     const float* __restrict__ fy, const float* __restrict__ mask,
                     const float* __restrict__ dout, float* __restrict__ dxg,
                     float* __restrict__ dfx, float* __restrict__ dfy, float* __restrict__ dmask,
-                    int BG, int H, int W, int P, int K, int Gc, int tpg_log2) {
+                    unsigned long long* __restrict__ nred, int BG, int H, int W, int P, int K,
+                    int Gc, int tpg_log2) {
   const long long gid = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
   const long long q = gid >> tpg_log2;
+  unsigned issued = 0;
   const int tpg = 1 << tpg_log2;
   const int lane = static_cast<int>(gid & (tpg - 1));
   // every lane of a group takes part in the shuffles, so none returns early
@@ -135,17 +164,30 @@ bilinear_bwd_kernel(const T* __restrict__ xg, const float* __restrict__ fx,
   const T* img = xg + img_off;
   float* dimg = dxg + img_off;
   const int nvec = Gc / V;
+  const float* drow = dout + static_cast<size_t>(active ? q : 0) * Gc;
+  float r1[V];
+  if (ONE && active && lane < nvec) load_vec(drow + lane * V, r1);
   for (int k = 0; k < K; ++k) {
-    const size_t i = static_cast<size_t>(q) * K + k;
+    const size_t i = static_cast<size_t>(active ? q : 0) * K + k;
+    float tx = 0.f, ty = 0.f, tm = 0.f;
+    if (active && lane == 0) tx = fx[i], ty = fy[i], tm = mask[i];
+    tx = __shfl_sync(0xffffffffu, tx, 0, tpg);
+    ty = __shfl_sync(0xffffffffu, ty, 0, tpg);
+    tm = __shfl_sync(0xffffffffu, tm, 0, tpg);
     float gx = 0.f, gy = 0.f, gm = 0.f;
     if (active) {
-      const Tap t = make_tap(fx[i], fy[i], H, W);
-      const float m = mask[i];
+      const Tap t = make_tap(tx, ty, H, W);
+      const float m = tm;
       const float ax = 1.f - t.wx, ay = 1.f - t.wy;
       for (int cv = lane; cv < nvec; cv += tpg) {
         const int c = cv * V;
         float r[V], v00[V], v01[V], v10[V], v11[V], g[V];
-        load_vec(dout + static_cast<size_t>(q) * Gc + c, r);
+        if constexpr (ONE) {
+#pragma unroll
+          for (int j = 0; j < V; ++j) r[j] = r1[j];
+        } else {
+          load_vec(drow + c, r);
+        }
         load_corner<T, V>(img, t.v00, t.i00, Gc, c, v00);
         load_corner<T, V>(img, t.v01, t.i01, Gc, c, v01);
         load_corner<T, V>(img, t.v10, t.i10, Gc, c, v10);
@@ -159,10 +201,12 @@ bilinear_bwd_kernel(const T* __restrict__ xg, const float* __restrict__ fx,
           gx += g[j] * ((v01[j] - v00[j]) * ay + (v11[j] - v10[j]) * t.wy);
           gy += g[j] * (bot - top);
         }
-        scatter<V>(dimg, t.v00, t.i00, Gc, c, t.w00, g);
-        scatter<V>(dimg, t.v01, t.i01, Gc, c, t.w01, g);
-        scatter<V>(dimg, t.v10, t.i10, Gc, c, t.w10, g);
-        scatter<V>(dimg, t.v11, t.i11, Gc, c, t.w11, g);
+        if (m != 0.f) {
+          issued += scatter<V>(dimg, t.v00, t.i00, Gc, c, t.w00, g);
+          issued += scatter<V>(dimg, t.v01, t.i01, Gc, c, t.w01, g);
+          issued += scatter<V>(dimg, t.v10, t.i10, Gc, c, t.w10, g);
+          issued += scatter<V>(dimg, t.v11, t.i11, Gc, c, t.w11, g);
+        }
       }
     }
     for (int s = tpg >> 1; s > 0; s >>= 1) {
@@ -175,6 +219,10 @@ bilinear_bwd_kernel(const T* __restrict__ xg, const float* __restrict__ fx,
       dfy[i] = gy;
       dmask[i] = gm;
     }
+  }
+  if (nred != nullptr) {
+    const unsigned warp_total = __reduce_add_sync(0xffffffffu, issued);
+    if ((threadIdx.x & 31) == 0) atomicAdd(nred, static_cast<unsigned long long>(warp_total));
   }
 }
 
@@ -199,17 +247,20 @@ int launch_fwd(const void* xg, const void* fx, const void* fy, const void* mask,
 
 template <typename T, int V>
 int launch_bwd(const void* xg, const void* fx, const void* fy, const void* mask, const void* dout,
-               void* dxg, void* dfx, void* dfy, void* dmask, int BG, int H, int W, int P, int K,
-               int Gc, cudaStream_t stream) {
+               void* dxg, void* dfx, void* dfy, void* dmask, void* nred, int BG, int H, int W,
+               int P, int K, int Gc, cudaStream_t stream) {
   const int l = tpg_log2_for(Gc / V);
   const long long threads = (static_cast<long long>(BG) * P) << l;
   const long long blocks = (threads + THREADS - 1) / THREADS;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  bilinear_bwd_kernel<T, V><<<static_cast<unsigned>(blocks), THREADS, 0, stream>>>(
+  auto kernel = Gc / V <= (1 << l) ? bilinear_bwd_kernel<T, V, true>
+                                    : bilinear_bwd_kernel<T, V, false>;
+  kernel<<<static_cast<unsigned>(blocks), THREADS, 0, stream>>>(
       static_cast<const T*>(xg), static_cast<const float*>(fx), static_cast<const float*>(fy),
       static_cast<const float*>(mask), static_cast<const float*>(dout),
       static_cast<float*>(dxg), static_cast<float*>(dfx), static_cast<float*>(dfy),
-      static_cast<float*>(dmask), BG, H, W, P, K, Gc, l);
+      static_cast<float*>(dmask), static_cast<unsigned long long*>(nred), BG, H, W, P, K, Gc,
+      l);
   return cudaGetLastError();
 }
 
@@ -237,23 +288,24 @@ int samrs_bilinear_fwd(const void* xg, const void* fx, const void* fy, const voi
 }
 
 // K8 backward.  dout (BG, P, Gc) fp32; dxg (BG, H, W, Gc) fp32, zeroed by the
-// caller and accumulated with atomics; dfx, dfy, dmask (BG, P, K) fp32.
+// caller and accumulated with reductions (16-byte where Gc % 4 == 0, else
+// scalar); dfx, dfy, dmask (BG, P, K) fp32; nred null, or a uint64 on the
+// card to which the count of dX reductions issued is added.
 int samrs_bilinear_bwd(const void* xg, const void* fx, const void* fy, const void* mask,
-                       const void* dout, void* dxg, void* dfx, void* dfy, void* dmask, int BG,
-                       int H, int W, int P, int K, int Gc, int is_bf16, void* stream) {
+                       const void* dout, void* dxg, void* dfx, void* dfy, void* dmask, void* nred,
+                       int BG, int H, int W, int P, int K, int Gc, int is_bf16, void* stream) {
   using namespace samrs;
   if (bad_shape(BG, H, W, P, K, Gc)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Gc % 4 == 0)
-    return is_bf16
-               ? launch_bwd<bf16, 4>(xg, fx, fy, mask, dout, dxg, dfx, dfy, dmask, BG, H, W, P,
-                                     K, Gc, s)
-               : launch_bwd<float, 4>(xg, fx, fy, mask, dout, dxg, dfx, dfy, dmask, BG, H, W, P,
-                                      K, Gc, s);
-  return is_bf16 ? launch_bwd<bf16, 1>(xg, fx, fy, mask, dout, dxg, dfx, dfy, dmask, BG, H, W, P,
-                                       K, Gc, s)
-                 : launch_bwd<float, 1>(xg, fx, fy, mask, dout, dxg, dfx, dfy, dmask, BG, H, W,
-                                        P, K, Gc, s);
+    return is_bf16 ? launch_bwd<bf16, 4>(xg, fx, fy, mask, dout, dxg, dfx, dfy, dmask, nred, BG,
+                                         H, W, P, K, Gc, s)
+                   : launch_bwd<float, 4>(xg, fx, fy, mask, dout, dxg, dfx, dfy, dmask, nred, BG,
+                                          H, W, P, K, Gc, s);
+  return is_bf16 ? launch_bwd<bf16, 1>(xg, fx, fy, mask, dout, dxg, dfx, dfy, dmask, nred, BG, H,
+                                       W, P, K, Gc, s)
+                 : launch_bwd<float, 1>(xg, fx, fy, mask, dout, dxg, dfx, dfy, dmask, nred, BG, H,
+                                        W, P, K, Gc, s);
 }
 
 }  // extern "C"

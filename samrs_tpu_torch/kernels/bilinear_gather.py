@@ -12,9 +12,10 @@ which returns dX, dfx, dfy and dmask.
 
 On a CUDA tensor ``sample_weighted`` is a ``torch.autograd.Function`` whose
 forward and backward launch the hand-written kernels of
-csrc/bilinear_gather.cu (the direct four-corner gather; dX by fp32 atomics,
-so its summation order varies from run to run at fp32 rounding).  Both are
-bound by device-memory bytes.  On a CPU tensor it runs
+csrc/bilinear_gather.cu (the direct four-corner gather; dX by 16-byte
+vector reductions that skip zero-weight corners, so its summation order
+varies from run to run at fp32 rounding).  Both are bound by device-memory
+bytes.  On a CPU tensor it runs
 ``sample_weighted_plain``, the floor-based gather whose autograd gives the
 same one-sided coordinate derivative as the TPU kernel's ``_dhat``: at an
 integer coordinate the tap at t in [0, 1) has slope -1, the tap at
@@ -147,18 +148,26 @@ def sample_weighted_fwd_cuda(xg, fx, fy, mask, Gc: int):
     return out
 
 
-def sample_weighted_bwd_cuda(xg, fx, fy, mask, dout, Gc: int):
-    """The backward kernel: (dxg in xg's dtype, dfx, dfy, dmask fp32)."""
+def sample_weighted_bwd_cuda(xg, fx, fy, mask, dout, Gc: int, reductions=None):
+    """The backward kernel: (dxg in xg's dtype, dfx, dfy, dmask fp32).  dX
+    accumulates with 16-byte vector reductions (scalar where Gc % 4 != 0)
+    that skip zero-weight corners, into a zeroed fp32 buffer, so its
+    summation order varies from run to run.  `reductions`, a one-element
+    int64 CUDA tensor, gets the count of reductions the launch issued
+    added to it (the training paths pass none)."""
     global bwd_launches
     _check(xg, fx, fy, mask, Gc)
     BG, H, WGc = xg.shape
     _, P, K = fx.shape
     _build.require_cuda("dout", dout, torch.float32, (BG, P, Gc))
+    if reductions is not None:
+        _build.require_cuda("reductions", reductions, torch.int64, (1,))
     dxg = torch.zeros(BG, H, WGc, device=xg.device, dtype=torch.float32)
     dfx, dfy, dmask = (torch.empty_like(fx) for _ in range(3))
     p = _build.ptr
     _build.launch("samrs_bilinear_bwd", p(xg), p(fx), p(fy), p(mask), p(dout), p(dxg), p(dfx),
-                  p(dfy), p(dmask), BG, H, WGc // Gc, P, K, Gc, int(xg.dtype == torch.bfloat16))
+                  p(dfy), p(dmask), p(reductions), BG, H, WGc // Gc, P, K, Gc,
+                  int(xg.dtype == torch.bfloat16))
     bwd_launches += 1
     return dxg.to(xg.dtype), dfx, dfy, dmask
 

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.weak import WeakTensorKeyDictionary
 
 from samrs_tpu_torch.kernels import _build, gemm
 
@@ -132,23 +133,32 @@ def fused_tail_ln_mlp_residual(att_p, sc, g_ln, b_ln, w1, b1, w2, b2, eps: float
 
 
 # ---------------------------------------------------------------------------
-# K11: the MLP ``gelu_erf(x W1^T + b1) W2^T + b2`` in fp32 (the seg ViTs).
+# K11: the MLP ``gelu_erf(x W1^T + b1) W2^T + b2`` in fp32 (the seg ViTs and
+# InternImage).
 #
 # Replaces samrs_tpu/kernels/fused_mlp.py::fused_mlp (Pallas call
-# ``_fused_pallas``, :105).  On a CUDA tensor the forward launches the
-# hand-written kernel of csrc/fused_mlp.cu: the hidden activations stay on
-# chip and GELU (exact erf) runs once per element; fp32 on the CUDA cores,
-# bound by fp32 operations (4 T C M).  The backward recomputes the hidden
-# layer with plain PyTorch and takes the VJP there (cuBLAS), as the JAX
-# package's ``_bwd`` recomputes with its XLA oracle; it launches no kernel.
-# On a CPU tensor it runs the plain version.  Weights in nn.Linear's layout:
-# w1 (M, C), w2 (C, M).
+# ``_fused_pallas``, :105).  On a CUDA tensor the forward runs the
+# hand-written kernels of csrc/fused_mlp.cu on the tensor cores with
+# split-TF32 operands (each fp32 operand as a tf32 hi plus a tf32 lo, three
+# tf32 products a step into fp32 accumulators): at C <= 128 one kernel that
+# keeps the hidden on chip, else lin1 with a bias + exact GELU epilogue into
+# an fp32 hidden scratch, then lin2 with a bias epilogue
+# (``hidden_on_chip`` picks); bound by the tensor work, 3 x 4 T C M
+# operations at 495 TFLOP/s.  The weights' tf32 halves are split by a small
+# kernel once per weight version (``_tf32_halves``).  The backward
+# recomputes the hidden layer with plain PyTorch and takes the VJP there
+# (cuBLAS), as the JAX package's ``_bwd`` recomputes with its XLA oracle;
+# it launches no kernel.  On a CPU tensor it runs the plain version.
+# Weights in nn.Linear's layout: w1 (M, C), w2 (C, M).
 # ---------------------------------------------------------------------------
 
-mlp_launches = 0  # CUDA launches of K11 (one per forward)
+mlp_launches = 0    # calls of K11's forward on the card (each launches one or two kernels)
+split_launches = 0  # launches of the tf32 split of a weight (one per weight version)
 
-_MLP_WIDTHS = (64, 128, 256, 512, 768, 1024, 1280)  # instantiated in csrc/fused_mlp.cu
-_MLP_CHUNK = 128  # the kernel's hidden chunk; M must be a multiple
+_MLP_MULTIPLE = 64  # the kernel takes C and M that are multiples of this
+_ON_CHIP_MAX_C = 128  # widest C whose output tile fits in registers beside the hidden
+
+_halves = WeakTensorKeyDictionary()  # weight -> (its version, tf32 hi, tf32 lo)
 
 
 def fused_mlp_plain(x, w1, b1, w2, b2):
@@ -157,23 +167,71 @@ def fused_mlp_plain(x, w1, b1, w2, b2):
     return F.linear(F.gelu(F.linear(x, w1, b1)), w2, b2)
 
 
-def fused_mlp_cuda(x, w1, b1, w2, b2):
-    """The K11 kernel on a contiguous fp32 CUDA ``x (T, C)``."""
+def hidden_on_chip(C: int) -> bool:
+    """Whether K11 at width C runs the fused form, with the hidden kept in
+    registers (C 64 / 128), or the two launches with the hidden in device
+    memory (C >= 256)."""
+    return C <= _ON_CHIP_MAX_C
+
+
+def tf32_split_plain(w):
+    """The tf32 halves of fp32 `w` in plain PyTorch: hi = w rounded to tf32
+    (10 mantissa bits, to nearest, ties away from zero), lo = w - hi."""
+    hi = ((w.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+    return hi, w - hi
+
+
+def tf32_split_cuda(w):
+    """The split kernel on a contiguous fp32 CUDA tensor (the wrapper's
+    callers have checked its device): (hi, lo)."""
+    global split_launches
+    if w.dtype != torch.float32 or not w.is_contiguous():
+        raise ValueError(f"w: expected a contiguous fp32 tensor, got {w.dtype}")
+    hi, lo = torch.empty_like(w), torch.empty_like(w)
+    _build.launch("samrs_tf32_split", _build.ptr(w), _build.ptr(hi), _build.ptr(lo), w.numel())
+    split_launches += 1
+    return hi, lo
+
+
+def _tf32_halves(w):
+    """The tf32 halves (hi, lo) of an fp32 CUDA weight, w = hi + lo, split
+    by the kernel once per version of `w` (its version counter moves with
+    every in-place update, such as an optimizer step)."""
+    hit = _halves.get(w)
+    if hit is not None and hit[0] == w._version:
+        return hit[1], hit[2]
+    hi, lo = tf32_split_cuda(w.detach().contiguous())
+    _halves[w] = (w._version, hi, lo)
+    return hi, lo
+
+
+def fused_mlp_cuda(x, w1, b1, w2, b2, on_chip=None):
+    """The K11 kernels on a contiguous fp32 CUDA ``x (T, C)``; `on_chip`
+    (default ``hidden_on_chip(C)``) picks the fused form, which takes C 64
+    and 128 only."""
     global mlp_launches
     if x.dim() != 2:
         raise ValueError(f"x: expected (T, C), got {tuple(x.shape)}")
     T, C = x.shape
     M = w1.shape[0]
-    if C not in _MLP_WIDTHS or M % _MLP_CHUNK:
-        raise ValueError(f"K11 supports C in {_MLP_WIDTHS} and M % {_MLP_CHUNK} == 0, "
-                         f"got C={C}, M={M}")
+    if C % _MLP_MULTIPLE or M % _MLP_MULTIPLE:
+        raise ValueError(f"K11 needs C and M multiples of {_MLP_MULTIPLE}, got C={C}, M={M}")
+    on_chip = hidden_on_chip(C) if on_chip is None else on_chip
+    if on_chip and not hidden_on_chip(C):
+        raise ValueError(f"K11's fused form takes C <= {_ON_CHIP_MAX_C}, got C={C}")
     _build.require_cuda("x", x, torch.float32)
     for name, t, shape in (("w1", w1, (M, C)), ("b1", b1, (M,)), ("w2", w2, (C, M)),
                            ("b2", b2, (C,))):
         _build.require_cuda(name, t, torch.float32, shape)
+    if x.data_ptr() % 16:
+        raise ValueError("x: the kernel's TMA needs a 16-byte aligned base")
+    w1h, w1l = _tf32_halves(w1)
+    w2h, w2l = _tf32_halves(w2)
+    hidden = None if on_chip else torch.empty(T, M, device=x.device, dtype=torch.float32)
     out = torch.empty_like(x)
     p = _build.ptr
-    _build.launch("samrs_fused_mlp", p(x), p(w1), p(b1), p(w2), p(b2), p(out), T, C, M)
+    _build.launch("samrs_fused_mlp", p(x), p(w1h), p(w1l), p(b1), p(w2h), p(w2l), p(b2),
+                  p(hidden), p(out), T, C, M, int(on_chip))
     mlp_launches += 1
     return out
 
@@ -198,12 +256,12 @@ class _FusedMLP(torch.autograd.Function):
 
 
 def fused_mlp(x, w1, b1, w2, b2):
-    """K11 (JAX ``fused_mlp`` in fp32): x (..., C) -> (..., C).  The kernel
+    """K11 (JAX ``fused_mlp`` in fp32): x (..., C) -> (..., C).  The kernels
     for a CUDA tensor (backward: the plain version's VJP, the hidden layer
-    recomputed), the plain version for a CPU tensor."""
+    recomputed), the plain version for a CPU tensor.  The kernels take the
+    parameters as they are (fp32, contiguous: a model's nn.Linear weights)."""
     if not x.is_cuda:
         return fused_mlp_plain(x, w1, b1, w2, b2)
     C = x.shape[-1]
-    out = _FusedMLP.apply(x.float().reshape(-1, C).contiguous(), w1.contiguous(), b1.contiguous(),
-                          w2.contiguous(), b2.contiguous())
+    out = _FusedMLP.apply(x.float().reshape(-1, C).contiguous(), w1, b1, w2, b2)
     return out.reshape(x.shape)

@@ -667,7 +667,7 @@ def test_k11_plain_matches_jax_at_internimage_widths(C):
     got = _vjp_port(fused_mlp.fused_mlp, (x, w1, b1, w2, b2), dout)
     for name, g, w in zip(("out", "dx", "dw1", "db1", "dw2", "db2"), got, want):
         assert _rel_l2(g, w) <= 2e-6, (name, _rel_l2(g, w))
-    assert C in fused_mlp._MLP_WIDTHS
+    assert fused_mlp.hidden_on_chip(C) == (C <= 128)
     t = torch.zeros(4, C)
     with pytest.raises(ValueError, match="CUDA tensor"):
         fused_mlp.fused_mlp_cuda(t, torch.zeros(4 * C, C), torch.zeros(4 * C),
