@@ -44,8 +44,35 @@ every valid corner of every tap, Gc 16): scalar ``red.global.add.f32``, the
 16-byte ``red.global.add.v4.f32``, fp32 ``atomicAdd`` into a block's
 shared-memory copy of one map, and plain read-modify-write of that copy by
 the warp that owns a row (taps binned by corner row beforehand), each in
-ops and elements per second.  ``--what`` may be given more than once; the
-default runs all three parts.
+ops and elements per second.
+
+``--what decoder_tail`` profiles K6 (csrc/upscale.cu) and K7
+(csrc/amg_post.cu) by direct calls of their C entry points.  K6 at bucket
+64 and bucket 256 (64 / 256 prompts of a 64 x 64 map, one mask token), in
+variants with one stage switched off: ``no_conv1`` (the conv1 products),
+``no_ln_gelu1`` (LayerNorm2d and the first GELU: conv1's sums go to conv2
+as they are), ``no_conv2`` (the conv2 products), ``no_gelu2`` (the second
+GELU), ``no_hyper`` (the hypernetwork dots and their shuffles and staging,
+GELU2's values still computed) and ``no_stores`` (the logits' global
+stores, their computation kept).
+K7 on 32 masks (g 256, input 1024^2) to 800 x 800 with ``no_vertical``
+(the vertical banded sums), ``no_horizontal`` (the horizontal ones),
+``no_ballots_bits`` (the threshold ballots become per-lane bits and the
+packed bits are not stored; in the redesign ``no_bits``, the bytes not
+staged), ``no_stats`` (the stats atomics, or the cluster's stats
+reduction) and, in the redesign, ``no_packed_stores`` (the staged bits'
+16-byte global stores), ``no_rows`` (every row's sums, bits and stats: what
+is left is the launch, the copies, the staging and the cluster's
+reductions) and ``no_copies`` (the bulk copy of the input rows, and the
+tables' loads from device memory: zeros stand in).  Each variant's device time comes from
+torch.profiler (20 calls); the full K7 also gives the wall time of 20
+back-to-back calls of ``amg_postprocess_cuda`` with its library swapped in
+(the wrapper's host work and glue launches included; the wrapper of the
+profiled tree, ``DIR/../kernels/amg_post.py``), with the device time of
+everything that call launches.  The sources are told apart by their
+kernels (the mma.sync K6 and warp-per-row K7, or their Hopper redesigns),
+and each gets its own substitutions.  ``--what`` may be given more than
+once; the default runs all four parts.
 """
 
 from __future__ import annotations
@@ -53,7 +80,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import re
 import shutil
 import statistics
 import subprocess
@@ -61,6 +87,7 @@ from pathlib import Path
 
 import torch
 
+from chip_smoke import device_ms
 from samrs_tpu_torch.kernels import _build
 
 OFF = "(samrs_prof_off != 0)"  # false at run time; the compiler cannot fold it
@@ -165,6 +192,87 @@ K8B_NEW_VARIANTS = {
                           f"if (!valid || w == 0.f || !{OFF}) return 0;")],
     "no_corner_loads": K8B_VARIANTS["no_corner_loads"],
     "no_shuffles": K8B_VARIANTS["no_shuffles"],
+}
+
+
+# K6 and K7's first versions: csrc/upscale.cu on mma.sync over 32-pixel tiles, csrc/amg_post.cu
+# with a warp an output row
+K6_VARIANTS = {
+    "full": [],
+    "no_conv1": [("warp_gemm<8, C>(acc, As", f"if {OFF} warp_gemm<8, C>(acc, As")],
+    "no_ln_gelu1": [
+        ("const float y0 = gelu_erf((v[2 * j] - mean) * rstd * plw[d] + plb[d]);",
+         "const float y0 = v[2 * j];"),
+        ("const float y1 = gelu_erf((v[2 * j + 1] - mean) * rstd * plw[d + 1] + plb[d + 1]);",
+         "const float y1 = v[2 * j + 1];")],
+    "no_conv2": [("warp_gemm<16, C1>(acc, G, LDG, W2s, LDW2);",
+                  f"if {OFF} warp_gemm<16, C1>(acc, G, LDG, W2s, LDW2);")],
+    "no_gelu2": [(f"acc[j][{i}] = gelu_erf(acc[j][{i}] + pb2[e{'' if i % 2 == 0 else ' + 1'}]);",
+                  f"acc[j][{i}] = acc[j][{i}] + pb2[e{'' if i % 2 == 0 else ' + 1'}];")
+                 for i in range(4)],
+    "no_hyper": [("    for (int m = 0; m < M; ++m) {\n      const float* hy",
+                  "    for (int j = 0; j < 16; ++j)  // GELU2's values stay computed\n"
+                  "      for (int e = 0; e < 4; ++e) asm volatile(\"\" : \"+f\"(acc[j][e]));\n"
+                  f"    for (int m = 0; m < ({OFF} ? M : 0); ++m) {{\n      const float* hy")],
+    "no_stores": [("out[(((size_t)b * M + m) * 4 * h", f"if {OFF} out[(((size_t)b * M + m) * 4 * h")],
+}
+K7_VARIANTS = {
+    "full": [],
+    "no_vertical": [("for (int a = 0; a < TAPS; ++a) acc += w[a] * L[(size_t)a * g + j];",
+                     f"for (int a = 0; a < ({OFF} ? TAPS : 0); ++a) acc += w[a] * L[(size_t)a * g + j];")],
+    "no_horizontal": [("for (int b = 0; b < TAPS; ++b) v += wx[c * TAPS + b] * row_c[b];",
+                       f"for (int b = 0; b < ({OFF} ? TAPS : 0); ++b) v += wx[c * TAPS + b] * row_c[b];")],
+    "no_ballots_bits": [
+        ("const unsigned on = __ballot_sync(0xffffffffu, in && v > mt);",
+         "const unsigned on = (in && v > mt) ? 1u << lane : 0u;"),
+        ("hi += __popc(__ballot_sync(0xffffffffu, in && v > mt + off));", "hi += in && v > mt + off;"),
+        ("lo += __popc(__ballot_sync(0xffffffffu, in && v > mt - off));", "lo += in && v > mt - off;"),
+        ("if (lane < 4 && byte < Wp) prow[byte]", f"if (lane < 4 && byte < Wp && {OFF}) prow[byte]")],
+    "no_stats": [("  if (lane == 0) {\n    int* st = stats + m * 6;",
+                  f"  if (lane == 0 && {OFF}) {{\n    int* st = stats + m * 6;")],
+}
+
+# their Hopper redesigns: the wgmma K6 fed by TMA and the cluster-per-mask K7
+K6_NEW_VARIANTS = {
+    "full": [],
+    "no_conv1": [("    wgmma_ss_n64(d1, da, db, kk != 0);", f"    if {OFF} wgmma_ss_n64(d1, da, db, kk != 0);")],
+    "no_ln_gelu1": [("v = gelu_half(fmaf((v - mean) * rstd, plw[d], plb[d]));", "v = fmaf(v, plw[d], plb[d]);")],
+    "no_conv2": [("wgmma_rs_n128(d2, a2[kk],", f"if {OFF} wgmma_rs_n128(d2, a2[kk],")],
+    "no_gelu2": [("d2[4 * j + e] = gelu_half(fmaf(0.5f, d2[4 * j + e], pb2[8 * (j % 4) + 2 * t + (e & 1)]));",
+                  "d2[4 * j + e] = fmaf(0.5f, d2[4 * j + e], pb2[8 * (j % 4) + 2 * t + (e & 1)]);")],
+    "no_hyper": [("#pragma unroll 1\n      for (int m = 0; m < M; ++m) {",
+                  "      fence_regs(d2);  // GELU2's values stay computed\n#pragma unroll 1\n"
+                  f"      for (int m = 0; m < ({OFF} ? M : 0); ++m) {{")],
+    "no_stores": [("*reinterpret_cast<float4*>(out + ", f"if {OFF} *reinterpret_cast<float4*>(out + ")],
+}
+K7_NEW_VARIANTS = {
+    "full": [],
+    "no_vertical": [("for (int j = lane; j < g / 4; j += 32) {",
+                     f"for (int j = lane; j < ({OFF} ? g / 4 : 0); j += 32) {{")],
+    "no_horizontal": [("const float v = wt[0][q] * vc[0] + wt[1][q] * vc[1] + wt[2][q] * vc[2] + wt[3][q] * vc[3];",
+                       "const float v = wt[0][q];")],
+    "no_bits": [("if (!(lane & 1) && c0 < Wo) prow[c0 / 8]", f"if (!(lane & 1) && c0 < Wo && {OFF}) prow[c0 / 8]")],
+    "no_stats": [("if (tid < 6) {  // field tid over the warps",
+                  f"if (tid < 6 && {OFF}) {{  // field tid over the warps"),
+                 ("if (band == 0 && tid < 6) {\n    int v = bs[tid];",
+                  f"if (band == 0 && tid < 6 && {OFF}) {{\n    int v = bs[tid];")],
+    "no_packed_stores": [("for (int i = tid; i < words; i += THREADS)",
+                          f"for (int i = tid; i < ({OFF} ? words : 0); i += THREADS)")],
+    "no_rows": [("for (int rr = c0r + warp; rr < c0r + cr; rr += WARPS) {",
+                 f"for (int rr = c0r + warp; rr < ({OFF} ? c0r + cr : 0); rr += WARPS) {{")],
+    "no_copies": [("    mbar_expect_tx(bar, (unsigned)(nrows * g * 4));\n"
+                   "    bulk_load(Ls, low + ((size_t)m * g + iy0) * g, (unsigned)(nrows * g * 4), bar);",
+                   f"    if {OFF} {{\n      mbar_expect_tx(bar, (unsigned)(nrows * g * 4));\n"
+                   "      bulk_load(Ls, low + ((size_t)m * g + iy0) * g, (unsigned)(nrows * g * 4), bar);\n"
+                   "    } else {\n      mbar_arrive(bar);\n    }"),
+                  ("      xs[c] = c < Wo ? x0[c] : 0;\n"
+                   "      const float4 q = c < Wo ? reinterpret_cast<const float4*>(wx)[c] : make_float4(0.f, 0.f, 0.f, 0.f);",
+                   f"      xs[c] = c < Wo && {OFF} ? x0[c] : 0;\n"
+                   f"      const float4 q = c < Wo && {OFF} ? reinterpret_cast<const float4*>(wx)[c] : "
+                   "make_float4(0.f, 0.f, 0.f, 0.f);"),
+                  ("      ys[r] = y0[r0 + r] - iy0;\n      wys[r] = reinterpret_cast<const float4*>(wy)[r0 + r];",
+                   f"      ys[r] = 0;\n      wys[r] = {OFF} ? reinterpret_cast<const float4*>(wy)[r0 + r] : "
+                   "make_float4(0.f, 0.f, 0.f, 0.f);")],
 }
 
 
@@ -343,6 +451,11 @@ def is_redesigned_mlp(csrc: Path) -> bool:
     return "mlp_tf32x3_kernel" in (csrc / "fused_mlp.cu").read_text()
 
 
+def is_redesigned_tail(csrc: Path) -> bool:
+    """Whether `csrc` holds the wgmma K6 and the cluster K7 (else their first versions)."""
+    return "wgmma" in (csrc / "upscale.cu").read_text()
+
+
 def is_hopper(csrc: Path) -> bool:
     """Whether `csrc` holds the wgmma K1 / K5 (else the mma.sync / cp.async ones)."""
     return "window_wgmma_kernel" in (csrc / "window_attention.cu").read_text()
@@ -412,7 +525,8 @@ def loop_ms(fn, n: int = 20, reps: int = 5) -> float:
 # C entries whose signature changed since the first versions this script profiles
 _P, _I = ctypes.c_void_p, ctypes.c_int
 OLD_SIGNATURES = {"samrs_fused_mlp": ([_P] * 6 + [_I] * 3 + [_P], _I),
-                  "samrs_bilinear_bwd": ([_P] * 9 + [_I] * 7 + [_P], _I)}
+                  "samrs_bilinear_bwd": ([_P] * 9 + [_I] * 7 + [_P], _I),
+                  "samrs_amg_post": ([_P] * 7 + [_I] * 4 + [ctypes.c_float] * 2 + [_P], _I)}
 
 
 def call(lib, name: str, *args, old: bool = False) -> None:
@@ -421,24 +535,6 @@ def call(lib, name: str, *args, old: bool = False) -> None:
     code = fn(*args, torch.cuda.current_stream().cuda_stream)
     if code != 0:
         raise RuntimeError(f"{name}: CUDA error {code}")
-
-
-def device_ms(fn, n: int = 20):
-    """torch.profiler's device time per call of each kernel `fn` launches."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        if e.self_device_time_total > 0:
-            m = re.search(r"\w+_kernel(<\d+>)?", e.key)
-            out[m.group(0) if m else e.key[:48]] = e.self_device_time_total / 1e3 / n
-    return out
 
 
 def wrapper_cases():
@@ -615,6 +711,69 @@ def mlp_gather_part(libs, logs, new: bool):
     return results
 
 
+def tree_module(csrc: Path, name: str):
+    """The kernel wrapper module `name` of the tree whose csrc is `csrc`
+    (imported under another name; it uses this tree's ``_build``)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(f"profiled_{name}",
+                                                  csrc.parent / "kernels" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def decoder_tail_part(csrc: Path, libs, logs, new: bool):
+    """K6 and K7 with one stage switched off, by direct calls (`new`: the
+    redesigns' C signatures), and K7's full variant through the profiled
+    tree's own wrapper; {case: ms}."""
+    from samrs_tpu_torch.kernels import amg_post
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rn = lambda *s, std=1.0: torch.randn(*s, generator=gen, device="cuda") * std
+    p = _build.ptr
+    results = {}
+    D, C1, C2, G = 256, 64, 32, 64
+    w1 = rn(4 * C1, D, std=D ** -0.5).bfloat16()  # rows (2i + j) * 64 + d, columns the channel
+    w2 = rn(4 * C2, C1, std=C1 ** -0.5).bfloat16()
+    b1, lnw, lnb, b2 = rn(C1, std=0.1), 1 + rn(C1, std=0.1), rn(C1, std=0.1), rn(C2, std=0.1)
+    for B in (64, 256):
+        src = rn(B, G, G, D).bfloat16()
+        hyper = rn(B, 1, C2)
+        out = torch.empty(B, 1, 4 * G, 4 * G, device="cuda")
+        for name, lib in sorted((k[1], v) for k, v in libs.items() if k[0] == "K6"):
+            fn = lambda: call(lib, "samrs_upscale_hyper", p(src), p(w1), p(b1), p(lnw), p(lnb),
+                              p(w2), p(b2), p(hyper), p(out), B, G, G, 1, 1e-6)
+            r = results[f"K6 bucket{B} {name}"] = device_ms(fn)
+            if name == "full":
+                r["loop"] = loop_ms(fn)
+            print(f"K6 bucket{B} {name}: " + ", ".join(f"{a} {b:.4f}" for a, b in r.items()),
+                  flush=True)
+        del src, out
+    M, g, img, inp, orig = 32, 256, 1024, (1024, 1024), (800, 800)
+    low = rn(M, g, g, std=4.0)
+    y0, wy = (torch.from_numpy(a).cuda() for a in amg_post._band(g, img, inp[0], orig[0]))
+    x0, wx = (torch.from_numpy(a).cuda() for a in amg_post._band(g, img, inp[1], orig[1]))
+    packed = torch.empty(M, orig[0], (orig[1] + 7) // 8, device="cuda", dtype=torch.uint8)
+    stats = torch.zeros(M, 6, device="cuda", dtype=torch.int32)
+    rows = [amg_post._band_rows(g, img, inp[0], orig[0])] if new else []
+    for name, lib in sorted((k[1], v) for k, v in libs.items() if k[0] == "K7"):
+        fn = lambda: call(lib, "samrs_amg_post", p(low), p(y0), p(wy), p(x0), p(wx), p(packed),
+                          p(stats), M, g, orig[0], orig[1], *rows, 0.0, 1.0, old=not new)
+        r = results[f"K7 800x800 {name}"] = device_ms(fn)
+        if name == "full":  # and through the wrapper: host work and glue launches included
+            _build._lib = lib
+            if not new:
+                lib.samrs_amg_post.argtypes = OLD_SIGNATURES["samrs_amg_post"][0]
+            wrapper = tree_module(csrc, "amg_post")
+            wrap = lambda: wrapper.amg_postprocess_cuda(low, inp, orig, img, 0.0, 1.0)
+            r["wrapper_loop"] = loop_ms(wrap)
+            r.update({f"wrapper {k}": v for k, v in device_ms(wrap).items()})
+            _build._lib = None
+        print(f"K7 800x800 {name}: " + ", ".join(f"{a} {b:.4f}" for a, b in r.items()),
+              flush=True)
+    print_registers(logs, [("K6", "full"), ("K7", "full")])
+    return results
+
+
 def rates_part(lib):
     """The card's reduction rates at K8's level-0 access pattern; {case: ms}
     and, per case, G ops/s and G elements/s."""
@@ -687,10 +846,11 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--csrc", type=Path, required=True,
                     help="the csrc directory of the tree whose kernels are profiled")
-    ap.add_argument("--what", action="append", choices=("attention", "mlp_gather", "rates"),
+    ap.add_argument("--what", action="append",
+                    choices=("attention", "mlp_gather", "rates", "decoder_tail"),
                     help="the parts to run (default: all)")
     args = ap.parse_args()
-    what = args.what or ["attention", "mlp_gather", "rates"]
+    what = args.what or ["attention", "mlp_gather", "rates", "decoder_tail"]
     if not torch.cuda.is_available():
         raise SystemExit("chip_breakdown.py: no CUDA device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -706,6 +866,10 @@ def main() -> None:
         new = is_redesigned_mlp(csrc)
         specs += [("K11", "fused_mlp.cu", K11_NEW_VARIANTS if new else K11_VARIANTS),
                   ("K8b", "bilinear_gather.cu", K8B_NEW_VARIANTS if new else K8B_VARIANTS)]
+    if "decoder_tail" in what:
+        new = is_redesigned_tail(csrc)
+        specs += [("K6", "upscale.cu", K6_NEW_VARIANTS if new else K6_VARIANTS),
+                  ("K7", "amg_post.cu", K7_NEW_VARIANTS if new else K7_VARIANTS)]
     libs, logs = build(csrc, _build.BUILD_DIR / "breakdown", specs, rates="rates" in what)
     results = {}
     if "attention" in what:
@@ -714,6 +878,8 @@ def main() -> None:
         results.update(mlp_gather_part(libs, logs, is_redesigned_mlp(csrc)))
     if "rates" in what:
         results["rates"] = rates_part(libs[("rates", "all")])
+    if "decoder_tail" in what:
+        results.update(decoder_tail_part(csrc, libs, logs, is_redesigned_tail(csrc)))
     print(json.dumps({"device": smi, "ms": results}), flush=True)
 
 

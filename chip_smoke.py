@@ -17,11 +17,17 @@ checkout; it has no CPU path and raises on any failure.  Phases:
    composition (F.layer_norm -> F.linear -> F.gelu -> F.linear in bf16);
    K5 also with 21 live tokens in 32 slots (two slot blocks,
    as a decode with many point prompts gives it) and at bucket 256
-   (generate's 100 boxes).  K7 on 32 low-res masks
+   (generate's 100 boxes); K6 also at bucket 256, with 3 mask tokens
+   (multimask) and on the 48x48, 32x32 and 16x16 grids of image_size 768 /
+   512 / 256 with 1 and 3 tokens, beside its elementwise floor (768 GELUs a
+   source pixel, two special-function ops each, at 16 a cycle an SM at the
+   card's highest SM clock).  K7 on 32 low-res masks
    to an 800x800 original (input 1024x1024) and to a 768x1024 original
    (input 768x1024): counts, boxes and bits must equal the plain version's
    except at pixels whose plain logit lies within 1e-4 of a threshold
-   (counted and printed).  The plain versions round where the kernels
+   (counted and printed); timed one call at a time (CUDA events), by the
+   device time of its kernel (torch.profiler) and by the wall time of 20
+   back-to-back calls.  The plain versions round where the kernels
    round (bf16 products with fp32 epilogues, the online softmax's bf16
    probabilities), so the kernel and plain paths differ only in fp32
    summation order and the flips it causes.  Each kernel gets its bound:
@@ -166,7 +172,8 @@ checkout; it has no CPU path and raises on any failure.  Phases:
    with their per-step counts), then the card's name and power limit and the
    final status line.
 
-``--only`` runs just the named phases after the build (kernels: 2; gemm: 2a; modes, configs,
+``--only`` runs just the named phases after the build (kernels: 2; gemm: 2a; main: 3 and 4,
+the main path and the generate phase at the default image size; modes, configs,
 sizes: 2b, 4b, 4c; slab: the K8-slab and K11-width checks of 9b;
 internimage: its step and driver runs; mlp: 6 and K11's widths; gather: 5
 and the MSDA wrapper of 5b; steps: 7, 7b, 8 and 9b's step), and prints no
@@ -187,6 +194,7 @@ import json
 import logging
 import os
 import pickle
+import re
 import statistics
 import subprocess
 import sys
@@ -267,6 +275,19 @@ KERNEL_RTOL = 1e-2     # bf16 rounding of operands / intermediates vs an fp32 re
 FEATURE_RTOL = 2e-2    # 32 blocks with bf16 products, kernels vs plain versions
 IOU_MIN = 0.99         # kernels vs plain path: bf16 summation order flips pixels near 0
 K7_NEAR = 1e-4         # K7 pixels this close to a threshold may flip (fp32 sum order)
+K7_WIDE_HW = (7000, 7000)  # a DOTA-v2-sized scene: K7's tables no longer fit shared memory
+# K6 cases: key, title, prompts, grid, mask tokens.  The main path runs bucket 64 on 64x64 with
+# one token, generate bucket 256; M 3 is multimask output; image_size 768 / 512 / 256 give the
+# 48 / 32 / 16 grids
+K6_CASES = (("K6", "upscaling + hypernetwork dot", 64, 64, 1),
+            ("K6b256", f"upscaling + hypernetwork dot, bucket {GEN_BUCKET}", GEN_BUCKET, 64, 1),
+            ("K6m3", "upscaling + hypernetwork dot, 3 tokens", 64, 64, 3),
+            ("K6g48", "upscaling + hypernetwork dot, 48x48", 64, 48, 1),
+            ("K6g48m3", "upscaling + hypernetwork dot, 48x48, 3 tokens", 16, 48, 3),
+            ("K6g32", "upscaling + hypernetwork dot, 32x32", 64, 32, 1),
+            ("K6g32m3", "upscaling + hypernetwork dot, 32x32, 3 tokens", 16, 32, 3),
+            ("K6g16", "upscaling + hypernetwork dot, 16x16", 64, 16, 1),
+            ("K6g16m3", "upscaling + hypernetwork dot, 16x16, 3 tokens", 16, 16, 3))
 HBM_BYTES_PER_S = 3.35e12
 PEAK = {"bf16": 989e12, "fp32": 67e12, "tf32": 495e12}
 
@@ -449,20 +470,23 @@ def kernel_phase(gen: torch.Generator):
                           *a, dtype=torch.bfloat16, out_dtype=o),
                       kin_bytes + T * D * 4 + small + Bk * T * (D * osz + 2 * Ci * 2),
                       Bk * T * row_flops, None))
-    src = rn(Bp, G, G, D).bfloat16()
     upw = (rn(D, D // 4, 2, 2, std=D ** -0.5), rn(D // 4, std=0.1), 1.0 + rn(D // 4, std=0.1),
            rn(D // 4, std=0.1), rn(D // 4, D // 8, 2, 2, std=(D // 4) ** -0.5), rn(D // 8, std=0.1))
-    hyper = rn(Bp, 1, D // 8)
-    cases.append(("K6", "upscaling + hypernetwork dot", "samrs_tpu_torch/csrc/upscale.cu",
-                  "samrs_tpu/kernels/fused_upscale.py:153",
-                  lambda: fused_upscale.upscale_hyper(src, *upw, hyper),
-                  lambda: fused_upscale.upscale_hyper_plain(src.float(), *upw, hyper, torch.float32),
-                  lambda: fused_upscale.upscale_hyper_plain(src, *upw, hyper, torch.bfloat16),
-                  Bp * T * D * 2 + Bp * 16 * T * 4,
-                  2 * Bp * T * (D * D + D * D // 2 + 16 * (D // 8)), None))
+    for key, title, B6, G6, M6 in K6_CASES:
+        src, hyper = rn(B6, G6, G6, D).bfloat16(), rn(B6, M6, D // 8)
+        cases.append((key, title, "samrs_tpu_torch/csrc/upscale.cu",
+                      "samrs_tpu/kernels/fused_upscale.py:153",
+                      lambda s=src, y=hyper: fused_upscale.upscale_hyper(s, *upw, y),
+                      lambda s=src, y=hyper: fused_upscale.upscale_hyper_plain(s.float(), *upw, y,
+                                                                               torch.float32),
+                      lambda s=src, y=hyper: fused_upscale.upscale_hyper_plain(s, *upw, y,
+                                                                               torch.bfloat16),
+                      B6 * G6 * G6 * D * 2 + B6 * M6 * 16 * G6 * G6 * 4,
+                      2 * B6 * G6 * G6 * (D * D + D * D // 2 + 16 * (D // 8) * M6), None))
+    del src, hyper
 
     results = run_cases(cases)
-    del sdpa_mask, keysB, keysG, src
+    del cases, sdpa_mask, keysB, keysG
     torch.cuda.empty_cache()
     g_ln, b_ln, w1, b1, w2, b2, eps = k3
 
@@ -490,7 +514,56 @@ def kernel_phase(gen: torch.Generator):
         k5.update({f"{prefix}_{k}": other[k] for k in ("ms", "plain_ms", "bound_ms", "max_abs_err")})
         k5["max_abs_err"] = max(k5["max_abs_err"], other["max_abs_err"])
     results["K5"] = k5
+    # the line lists K6 once: bucket 64, one token, 64x64, with its other cases beside it
+    k6 = results["K6"]
+    k6["name"] = ("K6 upscaling + hypernetwork dot (bucket 64, one token, 64x64 grid; the other "
+                  "cases under their keys)")
+    for prompts, label in ((Bp, "K6"), (GEN_BUCKET, "K6b256")):  # a model, not a measurement
+        print(f"{label} elementwise floor (model: 768 GELUs a pixel x 2 MUFU ops at 16 a cycle an "
+              f"SM at the highest SM clock): {gelu_floor_ms(prompts * T):.4f} ms against the "
+              f"kernel's {k6['ms'] if label == 'K6' else results[label]['ms']:.4f}", flush=True)
+    for key, *_ in K6_CASES[1:]:
+        other = results.pop(key)
+        k6.update({f"{key[2:]}_{k}": other[k] for k in ("ms", "plain_ms", "bound_ms", "max_abs_err")})
+        k6["max_abs_err"] = max(k6["max_abs_err"], other["max_abs_err"])
     return {k: results[k] for k in sorted(results)}
+
+
+def gelu_floor_ms(pixels: int) -> float:
+    """K6's elementwise floor: 768 GELUs a source pixel (256 after conv1, 512
+    after conv2), each two special-function ops (the reciprocal and exp2 of
+    the Abramowitz-Stegun erf), at 16 a cycle on each SM at the card's
+    highest SM clock."""
+    mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                                "--format=csv,noheader,nounits"], check=True, capture_output=True,
+                               text=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return pixels * 768 * 2 / (sms * 16 * mhz * 1e6) * 1e3
+
+
+def device_ms(fn, n: int = 20):
+    """torch.profiler's device time per call of each kernel `fn` launches
+    ({kernel: ms}, `n` back-to-back calls after a warm one): the device rows
+    only, so a CPU op is not counted beside the kernels it launched; a kernel
+    is keyed by its `..._kernel` name, any other device row by its first 48
+    characters."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            m = re.search(r"\w+_kernel(<\d+>)?", e.key)
+            key = m.group(0) if m else e.key[:48]
+            out[key] = out.get(key, 0.0) + e.self_device_time_total / 1e3 / n
+    if not out:
+        raise RuntimeError("torch.profiler recorded no device time")
+    return out
 
 
 def run_cases(cases):
@@ -836,10 +909,18 @@ def sizes_phase(gen: torch.Generator, profile: bool = False):
 def k7_phase(gen: torch.Generator):
     from samrs_tpu_torch.kernels import amg_post
 
-    g, img_size, M, mt, off = 256, 1024, 32, 0.0, 1.0
-    low = (torch.randn(M, g, g, generator=gen, device="cuda") * 4.0).contiguous()
+    g, img_size, mt, off = 256, 1024, 0.0, 1.0
+    low32 = (torch.randn(32, g, g, generator=gen, device="cuda") * 4.0).contiguous()
     out = {}
-    for inp, orig in (((1024, 1024), GEN_HW), (IMAGE_HW, IMAGE_HW)):
+    # the generator's chunk to DIOR's 800^2, the main path's 768x1024, and a DOTA-v2-sized
+    # 7000^2 scene, whose row and column tables outgrow shared memory (read from global)
+    for inp, orig, M in (((1024, 1024), GEN_HW, 32), (IMAGE_HW, IMAGE_HW, 32),
+                         ((1024, 1024), K7_WIDE_HW, 8)):
+        low = low32[:M]
+        tables = amg_post._smem_layout(g, orig[0], orig[1],
+                                       amg_post._band_rows(g, img_size, inp[0], orig[0]))[1]
+        if tables != (orig != K7_WIDE_HW):
+            raise RuntimeError(f"K7 {orig}: tables in shared memory {tables}, want the opposite")
         run = lambda: amg_post.amg_postprocess(low, inp, orig, img_size, mt, off)
         plain = lambda: amg_post.amg_postprocess_plain(low, inp, orig, img_size, mt, off)
         hi, lo, boxes, packed = run()
@@ -862,29 +943,40 @@ def k7_phase(gen: torch.Generator):
         own_boxes = amg_post._boxes_from_masks(bits)
         box_diff = int((boxes - boxes_p).abs().max())
         max_abs = max(int((hi - hi_p).abs().max()), int((lo - lo_p).abs().max()), box_diff)
-        print(f"K7 postprocess {inp}->{orig}: {int(near.sum())} pixels within {K7_NEAR} of the "
-              f"threshold, {flips} bits differ ({flips_far} elsewhere), hi/lo within the near "
-              f"counts {hi_ok}/{lo_ok}, max |box diff| {box_diff}", flush=True)
+        print(f"K7 postprocess {M} masks {inp}->{orig} (tables in shared memory: {tables}): "
+              f"{int(near.sum())} pixels within {K7_NEAR} of the threshold, {flips} bits differ "
+              f"({flips_far} elsewhere), hi/lo within the near counts {hi_ok}/{lo_ok}, max |box "
+              f"diff| {box_diff}", flush=True)
         if flips_far or not (hi_ok and lo_ok) or not torch.equal(boxes, own_boxes):
             raise RuntimeError(f"K7 {orig}: disagrees with its plain version")
         if box_diff and not near.any():
             raise RuntimeError(f"K7 {orig}: boxes differ with no pixel near the threshold")
         ms, plain_ms = cuda_ms(run), cuda_ms(plain)
+        dev_ms, wall_ms = device_ms(run).get("amg_post_kernel"), loop_ms(run)
+        if dev_ms is None:
+            raise RuntimeError("K7: torch.profiler recorded no time for amg_post_kernel")
         # flops this data needs: the nonzero taps of both banded stages
         nnz_y = int((wy != 0).sum())
         nnz_x = int((wx != 0).sum())
         flops = M * 2 * (nnz_y * g + nnz_x * Ho)
         nbytes = M * g * g * 4 + packed.numel() + M * 6 * 4
         bound_ms, bound_by = bound(nbytes, flops, "fp32")
-        print(f"K7 {orig}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.5f} "
-              f"({bound_by}, {nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP)", flush=True)
-        out[orig] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                         bound_by=bound_by)
-    r = out[GEN_HW]
-    return {"K7": dict(name="K7 full-resolution mask postprocess (32 masks to 800x800)",
+        print(f"K7 {orig}: kernel_ms={ms:.4f} device_ms={dev_ms:.5f} wall_ms={wall_ms:.4f} "
+              f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.5f} ({bound_by}, "
+              f"{nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP)", flush=True)
+        out[orig] = dict(max_abs_err=max_abs, ms=ms, device_ms=dev_ms, wall_ms=wall_ms,
+                         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        del logits, near, bits, bits_p, packed, packed_p
+    r = dict(out[GEN_HW], max_abs_err=max(o["max_abs_err"] for o in out.values()))
+    wide = "x".join(map(str, K7_WIDE_HW))
+    return {"K7": dict(name="K7 full-resolution mask postprocess (32 masks to 800x800; ms one "
+                            "call, device_ms its kernel alone, wall_ms 20 back-to-back calls)",
                        route="cuda", source="samrs_tpu_torch/csrc/amg_post.cu",
                        replaces="samrs_tpu/kernels/amg_post.py:140", library_ms=None,
-                       ms_768x1024=out[IMAGE_HW]["ms"], **r)}
+                       **{f"{k}_768x1024": out[IMAGE_HW][k] for k in ("ms", "device_ms", "wall_ms")},
+                       **{f"{k}_{wide}_8masks": out[K7_WIDE_HW][k]
+                          for k in ("ms", "device_ms", "bound_ms")},
+                       **r)}
 
 
 def k8_case(gen, BG, H, W, Gc, P, K, dtype, coords):
@@ -2557,11 +2649,12 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="profile one generate image per path, one pretrain and one finetune step")
-    ap.add_argument("--only", choices=("kernels", "gemm", "modes", "configs", "sizes", "slab",
-                                       "internimage", "mlp", "gather", "steps"),
+    ap.add_argument("--only", choices=("kernels", "gemm", "main", "modes", "configs", "sizes",
+                                       "slab", "internimage", "mlp", "gather", "steps"),
                     action="append",
                     help="run only these phases (a partial check: no result lines): K1-K7 at "
-                         "the main path's shapes (kernels), the encoder's GEMM (gemm), the SAM "
+                         "the main path's shapes (kernels), the encoder's GEMM (gemm), the main "
+                         "path and the generate phase (main), the SAM "
                          "encoder's kernel configurations (modes, configs, sizes), K8-slab and "
                          "K11 at InternImage's widths (slab), the InternImage step and driver "
                          "(internimage), K10 and K11 at every width (mlp), K8 and the MSDA "
@@ -2594,6 +2687,12 @@ def main() -> None:
             kernel_phase(gen)
         if "gemm" in args.only:
             gemm_phase(gen)
+        if "main" in args.only:
+            model = build_model(gen)
+            main_path(model)
+            generate_phase(model, args.profile)
+            del model
+            torch.cuda.empty_cache()
         if "modes" in args.only:
             modes_kernel_phase(gen)
         if "configs" in args.only:

@@ -1,5 +1,5 @@
-// Shared-memory GEMM pieces of the decoder kernels K4 and K6 (and the warp
-// reductions K5 uses): a warp multiplies a 16-row bf16 tile held in shared
+// Shared-memory GEMM pieces of the decoder kernel K4 (and the warp
+// reductions K5 and K6 use): a warp multiplies a 16-row bf16 tile held in shared
 // memory by a bf16 weight matrix held in shared memory, with fp32
 // accumulators left in registers in the mma.sync C-fragment layout (see
 // common.cuh) for the caller's epilogue.

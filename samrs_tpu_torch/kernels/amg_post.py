@@ -9,9 +9,13 @@ np.packbits-order bit rows.  Returns (hi (M,) int32, lo (M,) int32, boxes
 uint8).
 
 On a CUDA tensor the wrapper launches the hand-written kernel of
-csrc/amg_post.cu (banded sums in fp32, bound by device-memory bytes and in
-practice by launch overhead).  On a CPU tensor it runs the plain version,
-two dense fp32 matmuls as the TPU kernel's oracle does.
+csrc/amg_post.cu (a cluster of 8 blocks a mask, each a band of output rows
+whose input rows arrive by one bulk copy; the row and column tables in
+shared memory where they fit, else read from global memory (an original
+width above ~6000 at g 256); banded sums in fp32; the final stats reduced
+across the cluster): one allocation and one launch a call.  On
+a CPU tensor it runs the plain version, two dense fp32 matmuls as the TPU
+kernel's oracle does.
 """
 
 from __future__ import annotations
@@ -27,6 +31,10 @@ from samrs_tpu_torch.kernels import _build
 launches = 0  # CUDA launches of this kernel (one per wrapper call)
 
 TAPS = 4  # band width per axis that csrc/amg_post.cu takes
+BANDS = 8  # blocks of the kernel's cluster for one mask, each ceil(H / BANDS) output rows
+WARPS = 16  # warps of a block
+STAGE_BYTES = 32768  # packed-bit staging of one chunk of a band's rows
+SMEM_MAX = 232448  # an H100 block's dynamic shared memory
 _BIT_WEIGHTS = (128, 64, 32, 16, 8, 4, 2, 1)  # np.packbits order
 
 
@@ -82,10 +90,39 @@ def _device_band(g: int, img_size: int, inp: int, out: int, device: torch.device
 
 
 @functools.lru_cache(maxsize=None)
-def _stats_preset(device: torch.device) -> torch.Tensor:
-    """One row of the kernel's stats preset: hi, lo, xmin, ymin, xmax, ymax."""
-    big = torch.iinfo(torch.int32).max
-    return torch.tensor([0, 0, big, big, -1, -1], dtype=torch.int32, device=device)
+def _band_rows(g: int, img_size: int, inp: int, out: int) -> int:
+    """The most input rows that one of the kernel's BANDS bands of
+    ceil(out / BANDS) output rows reads: the rows it brings into shared
+    memory with one copy (the bands' starts never decrease)."""
+    start, _ = _band(g, img_size, inp, out)
+    if (np.diff(start) < 0).any():
+        raise ValueError(f"postprocess band starts decrease for g={g}, img_size={img_size}, "
+                         f"{inp} -> {out}")
+    R = -(-out // BANDS)
+    return max(int(start[min(r0 + R, out) - 1]) + TAPS - int(start[r0]) for r0 in range(0, out, R))
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_layout(g: int, Ho: int, Wo: int, max_rows: int) -> Tuple[int, bool]:
+    """(shared-memory bytes of one block, row and column tables in shared
+    memory) for csrc/amg_post.cu's PostLayout, which this mirrors: the tables
+    (20 bytes a column, 20 a band row) move to global memory when the block
+    would outgrow SMEM_MAX with them."""
+    up = lambda x, n: -(-x // n) * n
+    R, Wp = -(-Ho // BANDS), -(-Wo // 8)
+    RC = min(max(STAGE_BYTES // Wp, 1), R)
+    total = 0
+    for tables in (True, False):
+        Wo4, Rt = (up(Wo, 4), R) if tables else (0, 0)
+        L = up(16 + WARPS * 6 * 4 + 6 * 4, 128)
+        V = up(L + max_rows * g * 4, 16)
+        x = up(V + WARPS * g * 4, 16)
+        y = up(up(x + Wo4 * 4, 16) + Wo4 * 16, 16)
+        P = up(up(y + Rt * 4, 16) + Rt * 16, 16)
+        total = up(P + 16 + RC * Wp, 16)
+        if total <= SMEM_MAX:
+            return total, tables
+    return total, False
 
 
 def packbits2d(m: torch.Tensor) -> torch.Tensor:
@@ -135,19 +172,27 @@ def amg_postprocess_cuda(lowres, input_size, original_size, img_size: int,
     if lowres.dim() != 3 or lowres.shape[1] != lowres.shape[2]:
         raise ValueError(f"lowres: expected (M, g, g), got {tuple(lowres.shape)}")
     M, g, _ = lowres.shape
+    if g % 4:
+        raise ValueError(f"lowres: the kernel takes g % 4 == 0 (16-byte rows), got g={g}")
     Ho, Wo = int(original_size[0]), int(original_size[1])
+    inp = (int(input_size[0]), int(input_size[1]))
     dev = lowres.device
-    y0, wy = _device_band(g, img_size, int(input_size[0]), Ho, dev)
-    x0, wx = _device_band(g, img_size, int(input_size[1]), Wo, dev)
-    packed = torch.empty(M, Ho, (Wo + 7) // 8, device=dev, dtype=torch.uint8)
-    stats = _stats_preset(dev).repeat(M, 1)
+    y0, wy = _device_band(g, img_size, inp[0], Ho, dev)
+    x0, wx = _device_band(g, img_size, inp[1], Wo, dev)
+    rows = _band_rows(g, img_size, inp[0], Ho)
+    if _smem_layout(g, Ho, Wo, rows)[0] > SMEM_MAX:
+        raise ValueError(f"postprocess to {Ho}x{Wo} from g={g} outgrows a block's shared memory")
+    # one allocation: the packed bits, then (16-byte aligned) the (M, 6) int32 stats
+    n_bits = M * Ho * ((Wo + 7) // 8)
+    n_pad = -(-n_bits // 16) * 16
+    buf = torch.empty(n_pad + M * 6 * 4, device=dev, dtype=torch.uint8)
+    packed = buf[:n_bits].view(M, Ho, (Wo + 7) // 8)
+    stats = buf[n_pad:].view(torch.int32).view(M, 6)
     p = _build.ptr
     _build.launch("samrs_amg_post", p(lowres), p(y0), p(wy), p(x0), p(wx), p(packed), p(stats),
-                  M, g, Ho, Wo, float(mask_threshold), float(offset))
+                  M, g, Ho, Wo, rows, float(mask_threshold), float(offset))
     launches += 1
-    boxes = stats[:, 2:6]
-    boxes = torch.where(boxes[:, 3:4] >= 0, boxes, torch.zeros_like(boxes))
-    return stats[:, 0], stats[:, 1], boxes, packed
+    return stats[:, 0], stats[:, 1], stats[:, 2:6], packed
 
 
 def amg_postprocess(lowres, input_size, original_size, img_size: int,

@@ -41,24 +41,27 @@ def check_gemm_layout(T: int, K: int, N: int, pointers=()) -> None:
                              f"got address {p:#x}")
 
 
-_copies = WeakTensorKeyDictionary()  # tensor -> {dtype: (its version, copy on the card)}
+_copies = WeakTensorKeyDictionary()  # tensor -> {(dtype, layout): (its version, copy on the card)}
 
 
-def _cached_copy(t: torch.Tensor, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
-    """`t` as a contiguous `dtype` tensor on `device`.  A tensor in another
-    dtype or place keeps its converted copy while it lives and its version
-    counter (bumped by every in-place change) stands still, so a model's fp32
+def _cached_copy(t: torch.Tensor, device: torch.device, dtype: torch.dtype,
+                 layout=None) -> torch.Tensor:
+    """`t` (rearranged by `layout`, a function of the tensor, if given) as a
+    contiguous `dtype` tensor on `device`.  A tensor in another dtype, place
+    or layout keeps its converted copy while it lives and its version counter
+    (bumped by every in-place change) stands still, so a model's fp32
     parameters are converted once and not on every call."""
-    if t.dtype == dtype and t.device == device and t.is_contiguous():
+    if layout is None and t.dtype == dtype and t.device == device and t.is_contiguous():
         return t
     per = _copies.get(t)
     if per is None:
         per = _copies[t] = {}
-    hit = per.get(dtype)
+    hit = per.get((dtype, layout))
     if hit is not None and hit[0] == t._version and hit[1].device == device:
         return hit[1]
-    copy = t.detach().to(device=device, dtype=dtype).contiguous()
-    per[dtype] = (t._version, copy)
+    src = t.detach() if layout is None else layout(t.detach())
+    copy = src.to(device=device, dtype=dtype).contiguous()
+    per[(dtype, layout)] = (t._version, copy)
     return copy
 
 
