@@ -1,78 +1,95 @@
 #!/usr/bin/env python3
-"""Where the time of K1's attention stage and of K5 goes, on one CUDA card,
-by timing variants of their sources with one stage switched off.
+"""Where the time of the port's Hopper kernels goes, on one CUDA card, by
+timing variants of their sources with one stage switched off.
 
-    python3 chip_breakdown.py --csrc DIR
+    python3 chip_breakdown.py --csrc DIR [--what PART ...]
 
-DIR is a ``samrs_tpu_torch/csrc``: this tree's (the wgmma K1 attention
-stage and K5) or that of a tree before their Hopper redesign (the
-one-block-per-(window, head, image) mma.sync K1 and the
-one-block-per-64-row-tile cp.async K5; unpack it with ``git archive`` into a
-directory that ``.gitignore`` lists).  The script copies
-window_attention.cu and twoway.cu into variants in which a stage is switched
-off at run time (a condition the compiler cannot fold: the work is skipped,
-the rest of the code stays), builds each with nvcc for sm_90a, and times
-each at the main path's shapes (ViT-H: one 64 x 64 x 3840 qkv map, 16 heads
-of 80; the decoder at bucket 64: 64 prompts x 4096 rows, 16 token slots):
-the old kernels by direct calls, 20 back-to-back launches between CUDA
-events, median of 5; the new ones through the wrappers with the variant's
-library swapped in, torch.profiler's device time per kernel.  The
-differences between variants are the stages' shares; a stage that overlaps
-another shows less than it costs alone.  The new kernels are timed at K1's
-attention stage in the fused2 and ijb orders, on partitioned windows and on
-a 70 x 70 map (no window pads), and at K5 per-prompt and shared; the full
-variant also by the wall time of 20 back-to-back calls (the wrappers' host
-work included), and its registers and spills (ptxas) are printed.  It
-checks nothing and prints one JSON line of ms per variant.
+DIR is a ``samrs_tpu_torch/csrc``: this tree's, or for ``gather_fwd`` and
+``plain_attention`` also that of a tree before K8's forward and K10 were
+redesigned for Hopper (unpack it with ``git archive`` into a directory that
+``.gitignore`` lists).  The script copies a kernel's source into variants
+in which a stage is switched off at run time (a condition the compiler
+cannot fold: the work is skipped, the rest of the code stays), builds each
+with nvcc for sm_90a, and times each at the paths' shapes.  The differences
+between variants are the stages' shares; a stage that overlaps another
+shows less than it costs alone.  The full variant's registers and spills
+(ptxas) are printed.  It checks nothing and prints one JSON line of ms per
+variant.  ``--what`` may be given more than once; the default runs every
+part.
 
-``--what mlp_gather`` profiles K11 (csrc/fused_mlp.cu) and K8's backward
-(csrc/bilinear_gather.cu) the same way, by direct calls of their C entry
-points: K11 with its lin1 products, its GELU, its lin2 products or its
-weight staging switched off, at vit_b 512^2 batch 8 (T 8192, C 768, M
-3072) and InternImage-T level 0 (T 203840, C 64, M 256; on the
-redesigned sources in both forms, the fused one the wrapper picks there and
-the two launches, with the variants' stages switched off in both where their
-code is shared); K8's backward with
-its dX reductions, its corner loads or its dfx / dfy / dmask shuffles
-switched off, at InternImage-T level 0 (BG 260, 56^2, Gc 16, 9 taps of a 3x3
-ring with offsets up to 1.5 px), the MSDeformAttn level (BG 520, 28^2, Gc
-32, 1029 queries, 4 taps) and the RVSA shape (BG 780, 14^2, Gc 128, one
-tap).  Only the sources of the first versions (the CUDA-core K11 and the
-per-channel atomic K8 backward) have these stages.  ``--what rates`` times
-this card's reduction rates at K8's level-0 access pattern (the taps above,
-every valid corner of every tap, Gc 16): scalar ``red.global.add.f32``, the
-16-byte ``red.global.add.v4.f32``, fp32 ``atomicAdd`` into a block's
-shared-memory copy of one map, and plain read-modify-write of that copy by
-the warp that owns a row (taps binned by corner row beforehand), each in
-ops and elements per second.
+``--what attention``: K1's attention stage (csrc/window_attention.cu) and
+K5 (csrc/twoway.cu) at the main path's shapes (ViT-H: one 64 x 64 x 3840
+qkv map, 16 heads of 80; the decoder at bucket 64: 64 prompts x 4096 rows,
+16 token slots), through the wrappers with the variant's library swapped in,
+torch.profiler's device time per kernel: K1 in the fused2 and ijb orders,
+on partitioned windows and on a 70 x 70 map (no window pads), with
+``loads_only``, ``no_s``, ``no_bias`` or ``no_pv``; K5 per-prompt and
+shared with ``no_attention`` or ``no_projections``; the full variant also by
+the wall time of 20 back-to-back calls (the wrappers' host work included).
 
-``--what decoder_tail`` profiles K6 (csrc/upscale.cu) and K7
-(csrc/amg_post.cu) by direct calls of their C entry points.  K6 at bucket
-64 and bucket 256 (64 / 256 prompts of a 64 x 64 map, one mask token), in
-variants with one stage switched off: ``no_conv1`` (the conv1 products),
-``no_ln_gelu1`` (LayerNorm2d and the first GELU: conv1's sums go to conv2
-as they are), ``no_conv2`` (the conv2 products), ``no_gelu2`` (the second
-GELU), ``no_hyper`` (the hypernetwork dots and their shuffles and staging,
-GELU2's values still computed) and ``no_stores`` (the logits' global
-stores, their computation kept).
-K7 on 32 masks (g 256, input 1024^2) to 800 x 800 with ``no_vertical``
-(the vertical banded sums), ``no_horizontal`` (the horizontal ones),
-``no_ballots_bits`` (the threshold ballots become per-lane bits and the
-packed bits are not stored; in the redesign ``no_bits``, the bytes not
-staged), ``no_stats`` (the stats atomics, or the cluster's stats
-reduction) and, in the redesign, ``no_packed_stores`` (the staged bits'
-16-byte global stores), ``no_rows`` (every row's sums, bits and stats: what
-is left is the launch, the copies, the staging and the cluster's
-reductions) and ``no_copies`` (the bulk copy of the input rows, and the
-tables' loads from device memory: zeros stand in).  Each variant's device time comes from
-torch.profiler (20 calls); the full K7 also gives the wall time of 20
-back-to-back calls of ``amg_postprocess_cuda`` with its library swapped in
-(the wrapper's host work and glue launches included; the wrapper of the
-profiled tree, ``DIR/../kernels/amg_post.py``), with the device time of
-everything that call launches.  The sources are told apart by their
-kernels (the mma.sync K6 and warp-per-row K7, or their Hopper redesigns),
-and each gets its own substitutions.  ``--what`` may be given more than
-once; the default runs all four parts.
+``--what mlp_gather``: K11 (csrc/fused_mlp.cu) through its wrapper, with its
+products, its second and third tf32 passes (``one_pass_tf32``), its split,
+its GELU or its stores switched off, at vit_b 512^2 batch 8 (T 8192, C 768,
+M 3072) and InternImage-T level 0 (T 203840, C 64, M 256; the fused form the
+wrapper picks there and the two launches); K8's backward
+(csrc/bilinear_gather.cu) by direct calls, with its dX reductions, its
+corner loads or its dfx / dfy / dmask shuffles switched off, at InternImage-T
+level 0 (BG 260, 56^2, Gc 16, 9 taps of a 3x3 ring with offsets up to 1.5
+px; also with zero offsets), the MSDeformAttn level (BG 520, 28^2, Gc 32,
+1029 queries, 4 taps) and the RVSA shape (BG 780, 14^2, Gc 128, one tap);
+20 back-to-back launches between CUDA events, median of 5.  ``--what
+rates`` times this card's reduction rates at K8's level-0 access pattern
+(the taps above, every valid corner of every tap, Gc 16): scalar
+``red.global.add.f32``, the 16-byte ``red.global.add.v4.f32``, fp32
+``atomicAdd`` into a block's shared-memory copy of one map, and plain
+read-modify-write of that copy by the warp that owns a row (taps binned by
+corner row beforehand), each in ops and elements per second.
+
+``--what decoder_tail``: K6 (csrc/upscale.cu) and K7 (csrc/amg_post.cu) by
+direct calls of their C entry points.  K6 at bucket 64 and bucket 256 (64 /
+256 prompts of a 64 x 64 map, one mask token): ``no_conv1`` (the conv1
+products), ``no_ln_gelu1`` (LayerNorm2d and the first GELU: conv1's sums go
+to conv2 as they are), ``no_conv2`` (the conv2 products), ``no_gelu2`` (the
+second GELU), ``no_hyper`` (the hypernetwork dots and their shuffles and
+staging, GELU2's values still computed) and ``no_stores`` (the logits'
+global stores, their computation kept).  K7 on 32 masks (g 256, input
+1024^2) to 800 x 800 with ``no_vertical`` (the vertical banded sums),
+``no_horizontal`` (the horizontal ones), ``no_bits`` (the threshold bytes
+not staged), ``no_stats`` (the cluster's stats reduction),
+``no_packed_stores`` (the staged bits' 16-byte global stores), ``no_rows``
+(every row's sums, bits and stats: what is left is the launch, the copies,
+the staging and the cluster's reductions) and ``no_copies`` (the bulk copy
+of the input rows, and the tables' loads from device memory: zeros stand
+in).  Each variant's device time comes from torch.profiler (20 calls); the
+full K7 also gives the wall time of 20 back-to-back calls of
+``amg_postprocess_cuda`` with its library swapped in (the wrapper's host
+work and glue launches included; the wrapper of the profiled tree,
+``DIR/../kernels/amg_post.py``), with the device time of everything that
+call launches.
+
+``--what gather_fwd`` profiles K8's forward (csrc/bilinear_gather.cu) by
+direct calls of ``samrs_bilinear_fwd`` (20 back-to-back launches between
+CUDA events, median of 5) at the smoke's K8 shapes: ``rvsa`` (BG 780, 14^2,
+Gc 128, P 196, K 1), ``msda_l28`` (BG 520, 28^2, Gc 32, P 1029, K 4),
+``shared_masks`` / ``shared_gt`` (BG 65, 56^2, Gc 100 / 37, P 12544, K 1)
+and InternImage-T's ``ii_l0`` .. ``ii_l3`` (BG 260 .. 2080, 56^2 .. 7^2, Gc
+16, K 9), with the inputs of ``chip_smoke.k8_case``.  Variants:
+``no_coords`` (the taps are not loaded: each query's taps sit at (q mod W +
+0.25, (q / W) mod H + 0.25) with weight 1, computed from its index q, so the
+corner reads stay as local as RVSA's and InternImage's grids but not as
+scattered as the shared samples'), ``no_corners`` (no corner loads: zeros
+stand in, the arithmetic stays) and ``no_stores`` (the output stores
+skipped, the sums kept alive).  ``--what plain_attention`` profiles K10
+(csrc/plain_attention.cu) at vit_b 512^2 batch 8 (BH 96, N 1024, d 64) and
+at the RVSA FAST head's 224^2 (BH 780, N 196, d 64), by torch.profiler's
+device time per kernel over 20 calls: ``no_qk`` (no Q.K^T products),
+``no_softmax`` (no running max, exponentials, row sums or rescaling: the
+logits go to P.V as they are) and ``no_pv`` (no P.V products); on the
+split-TF32 redesign also ``no_split`` (the K / V^T split pre-pass not
+launched: the main kernel reads the scratch as it is) and ``split_only``
+(the pre-pass alone).  These two parts take the first versions (the
+lane-group gather, the CUDA-core attention) or their Hopper redesigns, told
+apart by their sources.
 """
 
 from __future__ import annotations
@@ -87,37 +104,16 @@ from pathlib import Path
 
 import torch
 
-from chip_smoke import device_ms
+from chip_smoke import device_ms as smoke_device_ms
 from samrs_tpu_torch.kernels import _build
 
+PARTS = ("attention", "mlp_gather", "rates", "decoder_tail", "gather_fwd", "plain_attention")
 OFF = "(samrs_prof_off != 0)"  # false at run time; the compiler cannot fold it
 GUARD = "__device__ int samrs_prof_off;  // 0: the stages it guards are skipped\n"
 
 # variant -> the (old, new) substitutions made in its source
+# the Hopper K1 attention stage and K5 (window_wgmma_kernel, i2t_wgmma_kernel)
 K1_VARIANTS = {
-    "full": [],
-    "no_rel": [("if (t < NT) {", f"if (t < NT && {OFF}) {{")],
-    "no_products": [("for (int k0 = 0; k0 < L.np; k0 += 64) {",
-                     f"for (int k0 = 0; k0 < ({OFF} ? L.np : 0); k0 += 64) {{")],
-    "loads_stores": [("if (t < NT) {", f"if (t < NT && {OFF}) {{"),
-                     ("for (int k0 = 0; k0 < L.np; k0 += 64) {",
-                      f"for (int k0 = 0; k0 < ({OFF} ? L.np : 0); k0 += 64) {{")],
-}
-K5_ATTN = ("for (int sb = 0; sb < nslot / NTOK; ++sb) {",
-           f"for (int sb = 0; sb < ({OFF} ? nslot / NTOK : 0); ++sb) {{")
-K5_PROJ = ("warp_gemm<", f"if {OFF} warp_gemm<")
-K5_WLOAD = ("load_rows_async<THREADS>(Ws,", f"if {OFF} load_rows_async<THREADS>(Ws,")
-K5_VARIANTS = {
-    "full": [],
-    "no_attention": [K5_ATTN],
-    "no_products": [K5_PROJ],
-    "no_weight_loads": [K5_WLOAD],
-    "tile_io_and_layernorm": [K5_ATTN, K5_PROJ, K5_WLOAD],
-}
-
-
-# the same for the Hopper kernels (window_wgmma_kernel, i2t_wgmma_kernel)
-K1_NEW_VARIANTS = {
     "full": [],
     "loads_only": [("for (int u = lo; u < hi; ++u) {",
                     f"for (int u = lo; u < ({OFF} ? hi : lo); ++u) {{")],
@@ -129,9 +125,10 @@ K1_NEW_VARIANTS = {
     "no_pv": [("for (int kk = 0; kk < NPV / 16; ++kk) {",
                f"for (int kk = 0; kk < ({OFF} ? NPV / 16 : 0); ++kk) {{")],
 }
-K5_NEW_VARIANTS = {
+K5_VARIANTS = {
     "full": [],
-    "no_attention": [K5_ATTN],
+    "no_attention": [("for (int sb = 0; sb < nslot / NTOK; ++sb) {",
+                      f"for (int sb = 0; sb < ({OFF} ? nslot / NTOK : 0); ++sb) {{")],
     "no_projections": [("    if constexpr (NW == 128) wgmma_rs_n128(acc, af[kk], db, kk != 0);\n"
                         "    else wgmma_rs_n64(acc, af[kk], db, kk != 0);",
                         f"    if constexpr (NW == 128) {{ if {OFF} "
@@ -139,40 +136,9 @@ K5_NEW_VARIANTS = {
                         f"    else {{ if {OFF} wgmma_rs_n64(acc, af[kk], db, kk != 0); }}")],
 }
 
-
-# K11's first version (the 32-token CUDA-core kernel) and K8's per-channel atomic backward
+# the split-TF32 wgmma K11 and the vector-reduction K8 backward; the producer's TMA ring
+# stays on in every K11 variant
 K11_VARIANTS = {
-    "full": [],
-    "no_lin1": [("for (int cc = 0; cc < FM_KC; ++cc) {",
-                 f"for (int cc = 0; cc < ({OFF} ? FM_KC : 0); ++cc) {{")],
-    "no_gelu": [(f"g.{c} = gelu_erf(h[{i}][j] + bias);",
-                 f"g.{c} = {OFF} ? gelu_erf(h[{i}][j] + bias) : h[{i}][j] + bias;")
-                for i, c in enumerate("xyzw")],
-    "no_lin2": [("for (int mm = 0; mm < FM_MC; ++mm) {",
-                 f"for (int mm = 0; mm < ({OFF} ? FM_MC : 0); ++mm) {{")],
-    "no_weight_staging": [
-        ("for (int i = tid; i < FM_MK * FM_KC / 4; i += FM_THREADS) {",
-         f"for (int i = tid; i < ({OFF} ? FM_MK * FM_KC / 4 : 0); i += FM_THREADS) {{"),
-        ("for (int i = tid; i < C * FM_MC / 4; i += FM_THREADS) {",
-         f"for (int i = tid; i < ({OFF} ? C * FM_MC / 4 : 0); i += FM_THREADS) {{")],
-}
-K8B_VARIANTS = {
-    "full": [],
-    "no_dx_reductions": [("  if (!valid) return;\n  float* d = dimg",
-                          f"  if (!valid || !{OFF}) return;\n  float* d = dimg")],
-    "no_corner_loads": [(f"load_corner<T, V>(img, t.v{c}, t.i{c}, Gc, c, v{c});",
-                         f"load_corner<T, V>(img, t.v{c} && {OFF}, t.i{c}, Gc, c, v{c});")
-                        for c in ("00", "01", "10", "11")],
-    "no_shuffles": [("for (int s = tpg >> 1; s > 0; s >>= 1) {",
-                     f"for (int s = ({OFF} ? tpg >> 1 : 0); s > 0; s >>= 1) {{")],
-}
-
-# The reduction-rate micro-benchmark (--what rates): four ways to add g * w of every valid
-# corner of every tap into a (BG, H, W, Gc) fp32 map, Gc 16.  Each group of 4 lanes owns one
-# query and 4 channels; the owner kernel takes a row-binned entry list (entry = 2 * tap + dy).
-# the same for their Hopper redesigns (the split-TF32 wgmma K11, the vector-reduction K8
-# backward); the producer's TMA ring stays on in every K11 variant
-K11_NEW_VARIANTS = {
     "full": [],
     "no_products": [("for (int k = 0; k < 2; ++k) {  // small terms first",
                      f"for (int k = 0; k < ({OFF} ? 2 : 0); ++k) {{  // small terms first")],
@@ -186,54 +152,20 @@ K11_NEW_VARIANTS = {
                  f"if {OFF} {{ v0 = gelu_erf(v0);\n            v1 = gelu_erf(v1); }}")],
     "no_stores": [("if (row < T)\n", f"if (row < T && {OFF})\n")],
 }
-K8B_NEW_VARIANTS = {
+K8B_CORNER_LOADS = [(f"load_corner<T, V>(img, t.v{c}, t.i{c}, Gc, c, v{c});",
+                     f"load_corner<T, V>(img, t.v{c} && {OFF}, t.i{c}, Gc, c, v{c});")
+                    for c in ("00", "01", "10", "11")]
+K8B_VARIANTS = {
     "full": [],
     "no_dx_reductions": [("if (!valid || w == 0.f) return 0;",
                           f"if (!valid || w == 0.f || !{OFF}) return 0;")],
-    "no_corner_loads": K8B_VARIANTS["no_corner_loads"],
-    "no_shuffles": K8B_VARIANTS["no_shuffles"],
+    "no_corner_loads": K8B_CORNER_LOADS,
+    "no_shuffles": [("for (int s = tpg >> 1; s > 0; s >>= 1) {",
+                     f"for (int s = ({OFF} ? tpg >> 1 : 0); s > 0; s >>= 1) {{")],
 }
 
-
-# K6 and K7's first versions: csrc/upscale.cu on mma.sync over 32-pixel tiles, csrc/amg_post.cu
-# with a warp an output row
+# the wgmma K6 fed by TMA and the cluster-per-mask K7
 K6_VARIANTS = {
-    "full": [],
-    "no_conv1": [("warp_gemm<8, C>(acc, As", f"if {OFF} warp_gemm<8, C>(acc, As")],
-    "no_ln_gelu1": [
-        ("const float y0 = gelu_erf((v[2 * j] - mean) * rstd * plw[d] + plb[d]);",
-         "const float y0 = v[2 * j];"),
-        ("const float y1 = gelu_erf((v[2 * j + 1] - mean) * rstd * plw[d + 1] + plb[d + 1]);",
-         "const float y1 = v[2 * j + 1];")],
-    "no_conv2": [("warp_gemm<16, C1>(acc, G, LDG, W2s, LDW2);",
-                  f"if {OFF} warp_gemm<16, C1>(acc, G, LDG, W2s, LDW2);")],
-    "no_gelu2": [(f"acc[j][{i}] = gelu_erf(acc[j][{i}] + pb2[e{'' if i % 2 == 0 else ' + 1'}]);",
-                  f"acc[j][{i}] = acc[j][{i}] + pb2[e{'' if i % 2 == 0 else ' + 1'}];")
-                 for i in range(4)],
-    "no_hyper": [("    for (int m = 0; m < M; ++m) {\n      const float* hy",
-                  "    for (int j = 0; j < 16; ++j)  // GELU2's values stay computed\n"
-                  "      for (int e = 0; e < 4; ++e) asm volatile(\"\" : \"+f\"(acc[j][e]));\n"
-                  f"    for (int m = 0; m < ({OFF} ? M : 0); ++m) {{\n      const float* hy")],
-    "no_stores": [("out[(((size_t)b * M + m) * 4 * h", f"if {OFF} out[(((size_t)b * M + m) * 4 * h")],
-}
-K7_VARIANTS = {
-    "full": [],
-    "no_vertical": [("for (int a = 0; a < TAPS; ++a) acc += w[a] * L[(size_t)a * g + j];",
-                     f"for (int a = 0; a < ({OFF} ? TAPS : 0); ++a) acc += w[a] * L[(size_t)a * g + j];")],
-    "no_horizontal": [("for (int b = 0; b < TAPS; ++b) v += wx[c * TAPS + b] * row_c[b];",
-                       f"for (int b = 0; b < ({OFF} ? TAPS : 0); ++b) v += wx[c * TAPS + b] * row_c[b];")],
-    "no_ballots_bits": [
-        ("const unsigned on = __ballot_sync(0xffffffffu, in && v > mt);",
-         "const unsigned on = (in && v > mt) ? 1u << lane : 0u;"),
-        ("hi += __popc(__ballot_sync(0xffffffffu, in && v > mt + off));", "hi += in && v > mt + off;"),
-        ("lo += __popc(__ballot_sync(0xffffffffu, in && v > mt - off));", "lo += in && v > mt - off;"),
-        ("if (lane < 4 && byte < Wp) prow[byte]", f"if (lane < 4 && byte < Wp && {OFF}) prow[byte]")],
-    "no_stats": [("  if (lane == 0) {\n    int* st = stats + m * 6;",
-                  f"  if (lane == 0 && {OFF}) {{\n    int* st = stats + m * 6;")],
-}
-
-# their Hopper redesigns: the wgmma K6 fed by TMA and the cluster-per-mask K7
-K6_NEW_VARIANTS = {
     "full": [],
     "no_conv1": [("    wgmma_ss_n64(d1, da, db, kk != 0);", f"    if {OFF} wgmma_ss_n64(d1, da, db, kk != 0);")],
     "no_ln_gelu1": [("v = gelu_half(fmaf((v - mean) * rstd, plw[d], plb[d]));", "v = fmaf(v, plw[d], plb[d]);")],
@@ -245,7 +177,7 @@ K6_NEW_VARIANTS = {
                   f"      for (int m = 0; m < ({OFF} ? M : 0); ++m) {{")],
     "no_stores": [("*reinterpret_cast<float4*>(out + ", f"if {OFF} *reinterpret_cast<float4*>(out + ")],
 }
-K7_NEW_VARIANTS = {
+K7_VARIANTS = {
     "full": [],
     "no_vertical": [("for (int j = lane; j < g / 4; j += 32) {",
                      f"for (int j = lane; j < ({OFF} ? g / 4 : 0); j += 32) {{")],
@@ -276,6 +208,70 @@ K7_NEW_VARIANTS = {
 }
 
 
+# K8's forward and K10, first versions (the lane-group gather, the CUDA-core attention: the
+# sources before their Hopper redesigns)
+K8F_FIRST_VARIANTS = {
+    "full": [],
+    "no_coords": [("      const Tap t = make_tap(fx[i], fy[i], H, W);\n      const float m = mask[i];",
+                   f"      const Tap t = {OFF} ? make_tap(fx[i], fy[i], H, W)\n"
+                   "          : make_tap(0.25f + (float)(q % W), 0.25f + (float)((q / W) % H), H, W);\n"
+                   f"      const float m = {OFF} ? mask[i] : 1.f;")],
+    "no_corners": K8B_CORNER_LOADS,
+    "no_stores": [("    for (int j = 0; j < V; ++j) o[j] = acc[j];",
+                   "    for (int j = 0; j < V; ++j) {\n"
+                   "      asm volatile(\"\" ::\"f\"(acc[j]));  // the sums stay computed\n"
+                   f"      if {OFF} o[j] = acc[j];\n    }}")],
+}
+K10_FIRST_VARIANTS = {
+    "full": [],
+    "no_qk": [("#pragma unroll 8\n    for (int d = 0; d < D; ++d) {",
+               f"#pragma unroll 8\n    for (int d = 0; d < ({OFF} ? D : 0); ++d) {{")],
+    "no_softmax": [("#pragma unroll\n    for (int i = 0; i < 4; ++i) {\n      float mx",
+                    f"#pragma unroll\n    for (int i = 0; i < ({OFF} ? 4 : 0); ++i) {{\n      float mx")],
+    "no_pv": [("for (int kk = 0; kk < kn; ++kk) {", f"for (int kk = 0; kk < ({OFF} ? kn : 0); ++kk) {{")],
+}
+
+# their Hopper redesigns (the flat-mapped K8 forward, the split-TF32 wgmma K10)
+K8F_VARIANTS = {
+    "full": [],
+    "no_coords": [("    const I i0 = q * KT;\n    if constexpr (KT == 4) {",
+                   "    const I i0 = q * KT;\n"
+                   f"    if (!{OFF}) {{\n"
+                   "      for (int k = 0; k < KT; ++k)\n"
+                   "        tx[k] = 0.25f + (float)(q % W), ty[k] = 0.25f + (float)((q / W) % H), tm[k] = 1.f;\n"
+                   "    } else if constexpr (KT == 4) {"),
+                  ("const Tap t = make_tap(fx[i], fy[i], H, W);\n      const float m = mask[i];",
+                   f"const Tap t = {OFF} ? make_tap(fx[i], fy[i], H, W)\n"
+                   "          : make_tap(0.25f + (float)(q % W), 0.25f + (float)((q / W) % H), H, W);\n"
+                   f"      const float m = {OFF} ? mask[i] : 1.f;")],
+    "no_corners": [(f"  load_corner<T, V>(img, t.v{c}, t.i{c}, Gc, c, v[{i}]);",
+                    f"  load_corner<T, V>(img, t.v{c} && {OFF}, t.i{c}, Gc, c, v[{i}]);")
+                   for i, c in enumerate(("00", "01", "10", "11"))],
+    "no_stores": [("  store_out(o + c, acc);\n",
+                   "  for (int e = 0; e < V; ++e) asm volatile(\"\" ::\"f\"(acc[e]));  // kept\n"
+                   f"  if {OFF} store_out(o + c, acc);\n"),
+                  ("  if (n == 4) {\n    store_out(out + f0, acc);",
+                   "  for (int e = 0; e < 4; ++e) asm volatile(\"\" ::\"f\"(acc[e]));  // kept\n"
+                   f"  if (!{OFF}) {{\n  }} else if (n == 4) {{\n    store_out(out + f0, acc);")],
+}
+K10_VARIANTS = {
+    "full": [],
+    "no_qk": [("    if (ks < D / 8) {  // small terms first",
+               f"    if (ks < D / 8 && {OFF}) {{  // small terms first")],
+    "no_softmax": [("    for (int h = 0; h < 2; ++h) {\n      float mx = neg_inf();",
+                    f"    for (int h = 0; h < ({OFF} ? 2 : 0); ++h) {{\n      float mx = neg_inf();")],
+    "no_pv": [("      wgmma_pv<D>(pv, pl[jj], dvh, jj != 0);\n      wgmma_pv<D>(pv, ph[jj], dvl, 1);\n"
+               "      wgmma_pv<D>(pv, ph[jj], dvh, 1);",
+               f"      if {OFF} {{\n      wgmma_pv<D>(pv, pl[jj], dvh, jj != 0);\n"
+               "      wgmma_pv<D>(pv, ph[jj], dvl, 1);\n      wgmma_pv<D>(pv, ph[jj], dvh, 1); }")],
+    "no_split": [("  kv_split_kernel<D><<<", "  if (0) kv_split_kernel<D><<<")],
+    "split_only": [("  plain_attention_kernel<D><<<", "  if (0) plain_attention_kernel<D><<<")],
+}
+
+
+# The reduction-rate micro-benchmark (--what rates): four ways to add g * w of every valid
+# corner of every tap into a (BG, H, W, Gc) fp32 map, Gc 16.  Each group of 4 lanes owns one
+# query and 4 channels; the owner kernel takes a row-binned entry list (entry = 2 * tap + dy).
 RATES_CU = r"""
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -445,20 +441,14 @@ def variant_source(src: Path, subs, dst: Path) -> None:
     dst.write_text(text.replace(marker, marker + GUARD, 1) if subs else text)
 
 
-def is_redesigned_mlp(csrc: Path) -> bool:
-    """Whether `csrc` holds the split-TF32 K11 and the vector-reduction K8
-    backward (else their first versions)."""
-    return "mlp_tf32x3_kernel" in (csrc / "fused_mlp.cu").read_text()
+def is_redesigned_gather(csrc: Path) -> bool:
+    """Whether `csrc` holds K8's flat-mapped forward (else the first version's lane groups)."""
+    return "FastDiv" in (csrc / "bilinear_gather.cu").read_text()
 
 
-def is_redesigned_tail(csrc: Path) -> bool:
-    """Whether `csrc` holds the wgmma K6 and the cluster K7 (else their first versions)."""
-    return "wgmma" in (csrc / "upscale.cu").read_text()
-
-
-def is_hopper(csrc: Path) -> bool:
-    """Whether `csrc` holds the wgmma K1 / K5 (else the mma.sync / cp.async ones)."""
-    return "window_wgmma_kernel" in (csrc / "window_attention.cu").read_text()
+def is_redesigned_attention(csrc: Path) -> bool:
+    """Whether `csrc` holds the split-TF32 wgmma K10 (else the first, CUDA-core one)."""
+    return "kv_split_kernel" in (csrc / "plain_attention.cu").read_text()
 
 
 def build(csrc: Path, out: Path, specs, rates: bool = False):
@@ -507,6 +497,19 @@ def print_registers(logs, keys) -> None:
                 print("\n".join(x.strip() for x in lines[i:i + 4]), flush=True)
 
 
+def device_ms(fn, tries: int = 3):
+    """chip_smoke's ``device_ms``, taken again where torch.profiler recorded
+    no device time at all (it now and then drops a whole profile: a variant
+    that launched without error has run)."""
+    for i in range(tries):
+        try:
+            return smoke_device_ms(fn)
+        except RuntimeError as e:
+            if "no device time" not in str(e) or i == tries - 1:
+                raise
+            print("torch.profiler recorded no device time; profiling again", flush=True)
+
+
 def loop_ms(fn, n: int = 20, reps: int = 5) -> float:
     fn()
     torch.cuda.synchronize()
@@ -522,11 +525,9 @@ def loop_ms(fn, n: int = 20, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-# C entries whose signature changed since the first versions this script profiles
+# C entries whose signature changed since the first versions this script profiles (K10's)
 _P, _I = ctypes.c_void_p, ctypes.c_int
-OLD_SIGNATURES = {"samrs_fused_mlp": ([_P] * 6 + [_I] * 3 + [_P], _I),
-                  "samrs_bilinear_bwd": ([_P] * 9 + [_I] * 7 + [_P], _I),
-                  "samrs_amg_post": ([_P] * 7 + [_I] * 4 + [ctypes.c_float] * 2 + [_P], _I)}
+OLD_SIGNATURES = {"samrs_plain_attention": ([_P] * 4 + [_I] * 3 + [ctypes.c_float, _P], _I)}
 
 
 def call(lib, name: str, *args, old: bool = False) -> None:
@@ -570,65 +571,24 @@ def wrapper_cases():
     return cases
 
 
-def attention_part(csrc: Path, libs, logs):
-    """K1's attention stage and K5 with one stage switched off; {case: ms}."""
-    if is_hopper(csrc):  # the wrappers' calls, each variant's library swapped in
-        results = {}
-        for case, fn in wrapper_cases().items():
-            kernel = case.split()[0]
-            for (k, name), lib in libs.items():
-                if k != kernel:
-                    continue
-                _build._lib = lib
-                results[f"{case} {name}"] = device_ms(fn)
-                if name == "full":  # and the whole call, host work included
-                    results[f"{case} {name}"]["wall"] = loop_ms(fn)
-                print(f"{case} {name}: " + ", ".join(f"{a} {b:.4f}" for a, b in
-                                                    results[f"{case} {name}"].items()), flush=True)
-        _build._lib = None
-        print_registers(logs, [("K1", "full"), ("K5", "full")])
-        return results
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    rn = lambda *s, std=1.0: torch.randn(*s, generator=gen, device="cuda") * std
-    p = _build.ptr
-
-    # K1's attention stage: one ViT-H image, 64 x 64 map, 16 heads of 80 (pads to 70 x 70)
-    C, nH, hd, G, ws = 1280, 16, 80, 64, 14
-    qkv, bqkv = rn(1, G, G, 3 * C).bfloat16(), rn(3 * C, std=0.5).bfloat16()
-    rh, rw = rn(ws, hd, ws, std=0.1), rn(ws, hd, ws, std=0.1)
-    out = torch.empty(1, G, G, C, device="cuda", dtype=torch.bfloat16)
+def attention_part(libs, logs):
+    """K1's attention stage and K5 with one stage switched off, through the
+    wrappers' calls with each variant's library swapped in; {case: ms}."""
     results = {}
-    for order, label in ((1, "ijb"), (0, "plain")):
-        for name in K1_VARIANTS:
-            lib = libs[("K1", name)]
-            results[f"K1 {label} {name}"] = loop_ms(lambda: call(
-                lib, "samrs_window_attention", p(qkv), p(bqkv), p(rh), p(rw), p(out), 1, G, G, G,
-                G, C, nH, hd, ws, 0, order, hd ** -0.5))
-
-    # K5 at bucket 64: per-prompt keys with a bf16 keys2 (layer 1) and shared keys (layer 0)
-    Bp, N, D, Ci, S = 64, G * G, 256, 128, 16
-    keysB, keys1, pe = rn(Bp, N, D), rn(1, N, D), rn(N, D)
-    tok_k, tok_v = rn(Bp, S, Ci), rn(Bp, S, Ci)
-    mask = torch.where(torch.arange(S, device="cuda") < 7, 0.0, -1e9)
-    wq, wo, wk, wv = (rn(Ci, D, std=D ** -0.5).bfloat16(), rn(D, Ci, std=Ci ** -0.5).bfloat16(),
-                      rn(Ci, D, std=D ** -0.5).bfloat16(), rn(Ci, D, std=D ** -0.5).bfloat16())
-    bq, bo, g4, b4, bk, bv = rn(Ci), rn(D), 1 + rn(D, std=0.1), rn(D), rn(Ci), rn(Ci)
-    k_out = torch.empty(Bp, N, Ci, device="cuda", dtype=torch.bfloat16)
-    v_out = torch.empty_like(k_out)
-    for label, keys, out_bf16 in (("per-prompt", keysB, 1), ("shared", keys1, 0)):
-        keys2 = torch.empty(Bp, N, D, device="cuda",
-                            dtype=torch.bfloat16 if out_bf16 else torch.float32)
-        for name in K5_VARIANTS:
-            lib = libs[("K5", name)]
-            results[f"K5 {label} {name}"] = loop_ms(lambda: call(
-                lib, "samrs_i2t_update", p(keys), p(pe), p(tok_k), p(tok_v), p(mask), p(wq),
-                p(bq), p(wo), p(bo), p(g4), p(b4), p(wk), p(bk), p(wv), p(bv), p(keys2),
-                p(k_out), p(v_out), Bp, N, S, int(keys.shape[0] == 1), out_bf16, 0.25, 1e-5))
-    for k, v in results.items():
-        print(f"{k}: {v:.4f} ms", flush=True)
+    for case, fn in wrapper_cases().items():
+        kernel = case.split()[0]
+        for (k, name), lib in libs.items():
+            if k != kernel:
+                continue
+            _build._lib = lib
+            results[f"{case} {name}"] = device_ms(fn)
+            if name == "full":  # and the whole call, host work included
+                results[f"{case} {name}"]["wall"] = loop_ms(fn)
+            print(f"{case} {name}: " + ", ".join(f"{a} {b:.4f}" for a, b in
+                                                results[f"{case} {name}"].items()), flush=True)
+    _build._lib = None
+    print_registers(logs, [("K1", "full"), ("K5", "full")])
     return results
-
-
 
 
 def dcn_level0(gen, BG: int = 260, H: int = 56, Gc: int = 16, offsets: bool = True):
@@ -649,10 +609,10 @@ def dcn_level0(gen, BG: int = 260, H: int = 56, Gc: int = 16, offsets: bool = Tr
     return xg, fx, fy, mask, dout
 
 
-def mlp_gather_part(libs, logs, new: bool):
-    """K11 and K8's backward with one stage switched off: the first versions
-    by direct calls, the redesigns (`new`) through their wrappers with the
-    variant's library swapped in; {case: ms}."""
+def mlp_gather_part(libs, logs):
+    """K11 and K8's backward with one stage switched off: K11 through its
+    wrapper with the variant's library swapped in, K8's backward by direct
+    calls; {case: ms}."""
     from samrs_tpu_torch.kernels import fused_mlp as fm
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -662,23 +622,16 @@ def mlp_gather_part(libs, logs, new: bool):
     for label, T, C, on_chip in (("vit_b_512", 8192, 768, False),
                                  ("internimage_l0", 203840, 64, True),
                                  ("internimage_l0_two_launch", 203840, 64, False)):
-        if label.endswith("two_launch") and not new:
-            continue
         M = 4 * C
         x, w1, b1 = rn(T, C), rn(M, C, std=C ** -0.5), rn(M, std=0.1)
-        w2, b2, out = rn(C, M, std=M ** -0.5), rn(C, std=0.1), torch.empty(T, C, device="cuda")
-        for name in (K11_NEW_VARIANTS if new else K11_VARIANTS):
-            lib = libs[("K11", name)]
-            if new:
-                _build._lib = lib
-                fm._halves.clear()  # split by this variant's library
-                ms = loop_ms(lambda: fm.fused_mlp_cuda(x, w1, b1, w2, b2, on_chip=on_chip))
-            else:
-                ms = loop_ms(lambda: call(lib, "samrs_fused_mlp", p(x), p(w1), p(b1), p(w2),
-                                          p(b2), p(out), T, C, M, old=True))
+        w2, b2 = rn(C, M, std=M ** -0.5), rn(C, std=0.1)
+        for name in K11_VARIANTS:
+            _build._lib = libs[("K11", name)]
+            fm._halves.clear()  # split by this variant's library
+            ms = loop_ms(lambda: fm.fused_mlp_cuda(x, w1, b1, w2, b2, on_chip=on_chip))
             results[f"K11 {label} {name}"] = ms
             print(f"K11 {label} {name}: {ms:.4f} ms", flush=True)
-        del x, w1, b1, w2, b2, out
+        del x, w1, b1, w2, b2
     _build._lib = None
     cases = {"internimage_l0": dcn_level0(gen)}
     cases["internimage_l0_zero"] = dcn_level0(gen, offsets=False)
@@ -698,12 +651,12 @@ def mlp_gather_part(libs, logs, new: bool):
         Gc = dout.shape[2]
         dxg = torch.zeros_like(xg)
         dfx, dfy, dmask = (torch.empty_like(fx) for _ in range(3))
-        for name in (K8B_NEW_VARIANTS if new else K8B_VARIANTS):
+        for name in K8B_VARIANTS:
             lib = libs[("K8b", name)]
             results[f"K8b {label} {name}"] = ms = loop_ms(lambda: call(
                 lib, "samrs_bilinear_bwd", p(xg), p(fx.contiguous()), p(fy.contiguous()),
-                p(mask.contiguous()), p(dout), p(dxg), p(dfx), p(dfy), p(dmask),
-                *([] if not new else [None]), BG, H, WGc // Gc, P, K, Gc, 0, old=not new))
+                p(mask.contiguous()), p(dout), p(dxg), p(dfx), p(dfy), p(dmask), None,
+                BG, H, WGc // Gc, P, K, Gc, 0))
             print(f"K8b {label} {name}: {ms:.4f} ms", flush=True)
         results[f"K8b {label} dxg memset"] = ms = loop_ms(dxg.zero_)
         print(f"K8b {label} dxg memset: {ms:.4f} ms", flush=True)
@@ -722,10 +675,9 @@ def tree_module(csrc: Path, name: str):
     return mod
 
 
-def decoder_tail_part(csrc: Path, libs, logs, new: bool):
-    """K6 and K7 with one stage switched off, by direct calls (`new`: the
-    redesigns' C signatures), and K7's full variant through the profiled
-    tree's own wrapper; {case: ms}."""
+def decoder_tail_part(csrc: Path, libs, logs):
+    """K6 and K7 with one stage switched off, by direct calls, and K7's full
+    variant through the profiled tree's own wrapper; {case: ms}."""
     from samrs_tpu_torch.kernels import amg_post
     gen = torch.Generator(device="cuda").manual_seed(0)
     rn = lambda *s, std=1.0: torch.randn(*s, generator=gen, device="cuda") * std
@@ -754,15 +706,13 @@ def decoder_tail_part(csrc: Path, libs, logs, new: bool):
     x0, wx = (torch.from_numpy(a).cuda() for a in amg_post._band(g, img, inp[1], orig[1]))
     packed = torch.empty(M, orig[0], (orig[1] + 7) // 8, device="cuda", dtype=torch.uint8)
     stats = torch.zeros(M, 6, device="cuda", dtype=torch.int32)
-    rows = [amg_post._band_rows(g, img, inp[0], orig[0])] if new else []
+    rows = amg_post._band_rows(g, img, inp[0], orig[0])
     for name, lib in sorted((k[1], v) for k, v in libs.items() if k[0] == "K7"):
         fn = lambda: call(lib, "samrs_amg_post", p(low), p(y0), p(wy), p(x0), p(wx), p(packed),
-                          p(stats), M, g, orig[0], orig[1], *rows, 0.0, 1.0, old=not new)
+                          p(stats), M, g, orig[0], orig[1], rows, 0.0, 1.0)
         r = results[f"K7 800x800 {name}"] = device_ms(fn)
         if name == "full":  # and through the wrapper: host work and glue launches included
             _build._lib = lib
-            if not new:
-                lib.samrs_amg_post.argtypes = OLD_SIGNATURES["samrs_amg_post"][0]
             wrapper = tree_module(csrc, "amg_post")
             wrap = lambda: wrapper.amg_postprocess_cuda(low, inp, orig, img, 0.0, 1.0)
             r["wrapper_loop"] = loop_ms(wrap)
@@ -771,6 +721,64 @@ def decoder_tail_part(csrc: Path, libs, logs, new: bool):
         print(f"K7 800x800 {name}: " + ", ".join(f"{a} {b:.4f}" for a, b in r.items()),
               flush=True)
     print_registers(logs, [("K6", "full"), ("K7", "full")])
+    return results
+
+
+def gather_fwd_cases():
+    """K8's forward at the smoke's shapes: (key, BG, H = W, Gc, P, K, coords)."""
+    from chip_smoke import II_GC, II_GROUPS, M2F_POINTS, TRAIN_BATCH
+    B = TRAIN_BATCH[2]
+    cases = [("rvsa", B * 12, 14, 128, 196, 1, "window"),
+             ("msda_l28", B * 8, 28, 32, 1029, 4, "window"),
+             ("shared_masks", B, 56, 100, M2F_POINTS, 1, "window"),
+             ("shared_gt", B, 56, 37, M2F_POINTS, 1, "window")]
+    return cases + [(f"ii_l{lvl}", B * G, 56 >> lvl, II_GC, (56 >> lvl) ** 2, 9, "dcn")
+                    for lvl, G in enumerate(II_GROUPS)]
+
+
+def gather_fwd_part(libs, logs):
+    """K8's forward with one stage switched off, by direct calls; {case: ms}."""
+    from chip_smoke import k8_case
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p = _build.ptr
+    results = {}
+    for key, BG, H, Gc, P, K, coords in gather_fwd_cases():
+        xg, fx, fy, mask, _ = k8_case(gen, BG, H, H, Gc, P, K, torch.float32, coords)
+        out = torch.empty(BG, P, Gc, device="cuda")
+        for name, lib in sorted((k[1], v) for k, v in libs.items() if k[0] == "K8f"):
+            results[f"K8f {key} {name}"] = ms = loop_ms(lambda: call(
+                lib, "samrs_bilinear_fwd", p(xg), p(fx), p(fy), p(mask), p(out), BG, H, H, P, K,
+                Gc, 0))
+            print(f"K8f {key} {name}: {ms:.4f} ms", flush=True)
+        del xg, fx, fy, mask, out
+    print_registers(logs, [("K8f", "full")])
+    return results
+
+
+def plain_attention_part(libs, logs, new: bool):
+    """K10 with one stage switched off, by direct calls (`new`: the split-TF32
+    redesign's C signature, with its K / V^T scratch); {case: {kernel: ms}}."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p = _build.ptr
+    results = {}
+    for key, BH, N in (("vit_b_512", 96, 1024), ("rvsa_224", 780, 196)):
+        d = 64
+        q, k, v = (torch.randn(BH, N, d, generator=gen, device="cuda") for _ in range(3))
+        out = torch.empty_like(q)
+        nbytes = libs[("K10", "full")].samrs_plain_attention_scratch_bytes(BH, N, d) if new else 0
+        scratch = torch.empty(nbytes, dtype=torch.uint8, device="cuda") if new else None
+        extra = [p(scratch), scratch.numel()] if new else []
+        for name, lib in sorted((key_[1], lib_) for key_, lib_ in libs.items()
+                                if key_[0] == "K10"):
+            fn = lambda: call(lib, "samrs_plain_attention", p(q), p(k), p(v), *extra, p(out),
+                              BH, N, d, d ** -0.5, old=not new)
+            r = results[f"K10 {key} {name}"] = device_ms(fn)
+            if name == "full":
+                r["loop"] = loop_ms(fn)
+            print(f"K10 {key} {name}: " + ", ".join(f"{a} {b:.4f}" for a, b in r.items()),
+                  flush=True)
+        del q, k, v, out, scratch
+    print_registers(logs, [("K10", "full")])
     return results
 
 
@@ -847,10 +855,9 @@ def main() -> None:
     ap.add_argument("--csrc", type=Path, required=True,
                     help="the csrc directory of the tree whose kernels are profiled")
     ap.add_argument("--what", action="append",
-                    choices=("attention", "mlp_gather", "rates", "decoder_tail"),
-                    help="the parts to run (default: all)")
+                    choices=PARTS, help="the parts to run (default: all)")
     args = ap.parse_args()
-    what = args.what or ["attention", "mlp_gather", "rates", "decoder_tail"]
+    what = args.what or list(PARTS)
     if not torch.cuda.is_available():
         raise SystemExit("chip_breakdown.py: no CUDA device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -859,27 +866,31 @@ def main() -> None:
     csrc = args.csrc.resolve()
     specs = []
     if "attention" in what:
-        new = is_hopper(csrc)
-        specs += [("K1", "window_attention.cu", K1_NEW_VARIANTS if new else K1_VARIANTS),
-                  ("K5", "twoway.cu", K5_NEW_VARIANTS if new else K5_VARIANTS)]
+        specs += [("K1", "window_attention.cu", K1_VARIANTS), ("K5", "twoway.cu", K5_VARIANTS)]
     if "mlp_gather" in what:
-        new = is_redesigned_mlp(csrc)
-        specs += [("K11", "fused_mlp.cu", K11_NEW_VARIANTS if new else K11_VARIANTS),
-                  ("K8b", "bilinear_gather.cu", K8B_NEW_VARIANTS if new else K8B_VARIANTS)]
+        specs += [("K11", "fused_mlp.cu", K11_VARIANTS), ("K8b", "bilinear_gather.cu", K8B_VARIANTS)]
     if "decoder_tail" in what:
-        new = is_redesigned_tail(csrc)
-        specs += [("K6", "upscale.cu", K6_NEW_VARIANTS if new else K6_VARIANTS),
-                  ("K7", "amg_post.cu", K7_NEW_VARIANTS if new else K7_VARIANTS)]
+        specs += [("K6", "upscale.cu", K6_VARIANTS), ("K7", "amg_post.cu", K7_VARIANTS)]
+    if "gather_fwd" in what:
+        specs.append(("K8f", "bilinear_gather.cu",
+                      K8F_VARIANTS if is_redesigned_gather(csrc) else K8F_FIRST_VARIANTS))
+    if "plain_attention" in what:
+        specs.append(("K10", "plain_attention.cu",
+                      K10_VARIANTS if is_redesigned_attention(csrc) else K10_FIRST_VARIANTS))
     libs, logs = build(csrc, _build.BUILD_DIR / "breakdown", specs, rates="rates" in what)
     results = {}
     if "attention" in what:
-        results.update(attention_part(csrc, libs, logs))
+        results.update(attention_part(libs, logs))
     if "mlp_gather" in what:
-        results.update(mlp_gather_part(libs, logs, is_redesigned_mlp(csrc)))
+        results.update(mlp_gather_part(libs, logs))
     if "rates" in what:
         results["rates"] = rates_part(libs[("rates", "all")])
     if "decoder_tail" in what:
-        results.update(decoder_tail_part(csrc, libs, logs, is_redesigned_tail(csrc)))
+        results.update(decoder_tail_part(csrc, libs, logs))
+    if "gather_fwd" in what:
+        results.update(gather_fwd_part(libs, logs))
+    if "plain_attention" in what:
+        results.update(plain_attention_part(libs, logs, is_redesigned_attention(csrc)))
     print(json.dumps({"device": smi, "ms": results}), flush=True)
 
 

@@ -93,6 +93,10 @@ checkout; it has no CPU path and raises on any failure.  Phases:
    Gc 100 and 37, 12544 points; F.grid_sample over a (BG, 1, P, 2) grid),
    and InternImage-T's four DCNv3 levels (BG 260 .. 2080, 56^2 .. 7^2, Gc
    16, 9 taps) and level 0 with zero offsets (every tap on a pixel); each
+   forward with its GB/s, bytes and operations bounds, F.grid_sample's time
+   at one tap and its max abs error (in fp32 its bits must equal the plain
+   version's: the kernel rounds op by op in the plain order, also at odd Gc,
+   Gc 1, Gc 6 and K 2 / 3, the forms the paths' shapes do not reach); each
    backward with its GB/s, bytes and operations bounds and its dX reductions
    a tap, which must be at least 4x fewer than per-channel ones where
    Gc % 4 == 0;
@@ -104,13 +108,15 @@ checkout; it has no CPU path and raises on any failure.  Phases:
    the one-channel maps, with the bound; then the MSDeformAttn wrapper
    (three K8 launches) forward and backward against its plain route at the
    pixel decoder's FAST shapes (rel-L2 <= 1e-5);
-6. K10 / K11 phase: K10 (plain attention) and K11 (fused MLP, split-TF32
-   wgmma) in fp32 against their plain versions, forward and the autograd
-   backward (rel-L2 <= 1e-5), at vit_b 512^2 batch 8 (BH 96, N 1024; T 8192,
-   C 768, M 3072) and at the RVSA FAST head's 224^2 shape (N 196: a tail
-   tile), timed against the plain version, SDPA (K10) and the F.linear ->
-   F.gelu -> F.linear composition (K11, with TFLOP/s and both bounds: the
-   split-TF32 tensor work and the fp32 CUDA-core one);
+6. K10 / K11 phase: K10 (plain attention) and K11 (fused MLP), both on
+   split-TF32 wgmma, in fp32 against their plain versions, forward and the
+   autograd backward (rel-L2 <= 1e-5), at vit_b 512^2 batch 8 (BH 96, N
+   1024; T 8192, C 768, M 3072) and at the RVSA FAST head's 224^2 shape (N
+   196: a tail tile), K10 also with heads of 80 (BH 1040, N 196), timed
+   against the plain version,
+   SDPA (K10) and the F.linear -> F.gelu -> F.linear composition (K11), with
+   TFLOP/s and both bounds: the split-TF32 tensor work and the fp32
+   CUDA-core one;
 7. train-step phase: vit_b_rvsa + UperNet with its own seeded init, one
    pretrain step on 17/12/65 seeded images at 224^2 (fp32, TF32 off) from
    identical state with the kernels (K8 24/24, K10 12, K11 36 launches),
@@ -1058,6 +1064,9 @@ def k8_phase(gen):
         want = [ref.detach()] + list(torch.autograd.grad(ref, leaves, dout, retain_graph=True))
         errs = {n: rel_l2([g], [w]) for n, g, w in zip(names, got, want)}
         max_abs = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+        fwd_max_abs = float((got[0] - want[0]).abs().max())
+        # the forward rounds op by op in the plain version's order: equal bits in fp32
+        fwd_equal = bool(torch.equal(got[0], want[0]))
         esz = xg.element_size()
         n_in = BGc * H * W * Gc * esz + 3 * BGc * P * K * 4
         fwd_bytes, fwd_ops = n_in + BGc * P * Gc * 4, BGc * P * K * Gc * 10
@@ -1100,9 +1109,12 @@ def k8_phase(gen):
         n_most = n_nonzero * (Gc // 4 if Gc % 4 == 0 else Gc)
         print(f"K8 {key} (BG {BGc}, {H}x{W}, Gc {Gc}, P {P}, K {K}, {str(dtype)[6:]}): rel_l2 "
               + " ".join(f"{n}={e:.3e}" for n, e in errs.items())
-              + f" max_abs={max_abs:.3e}; fwd kernel/plain/library ms {fwd_ms:.4f}/"
-              f"{plain_fwd_ms:.4f}/{lib.get('fwd')}, bound {fb:.4f} ({fby}, "
-              f"{fwd_bytes / 1e6:.1f} MB); bwd kernel/plain/library ms {bwd_ms:.4f}/"
+              + f" max_abs={max_abs:.3e}; fwd max_abs={fwd_max_abs:.3e} bits equal to plain "
+              f"{fwd_equal}; fwd kernel/plain/F.grid_sample ms {fwd_ms:.4f}/"
+              f"{plain_fwd_ms:.4f}/{lib.get('fwd')} ({fwd_bytes / fwd_ms / 1e6:.1f} GB/s), "
+              f"bound {fb:.4f} ({fby}; bytes {fwd_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms of "
+              f"{fwd_bytes / 1e6:.1f} MB, operations {fwd_ops / PEAK['fp32'] * 1e3:.4f} ms); "
+              f"bwd kernel/plain/library ms {bwd_ms:.4f}/"
               f"{plain_bwd_ms:.4f}/{lib.get('bwd')} ({bwd_bytes / bwd_ms / 1e6:.1f} GB/s), "
               f"bound {bb:.4f} ({bby}; bytes {bwd_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms of "
               f"{bwd_bytes / 1e6:.1f} MB, operations {bwd_ops / PEAK['fp32'] * 1e3:.4f} ms); "
@@ -1116,6 +1128,9 @@ def k8_phase(gen):
         if n_red > n_most:
             raise RuntimeError(f"K8 {key}: {n_red} backward reductions, more than the {n_most} "
                                f"of the corners of nonzero weight")
+        if dtype == torch.float32 and not fwd_equal:
+            raise RuntimeError(f"K8 {key}: the fp32 forward differs from the plain version's "
+                               f"bits (max abs {fwd_max_abs:.3e})")
         for n, e in errs.items():
             tol = K8_RTOL
             if coords in ("integer", "dcn0") and n == "dfx":
@@ -1124,30 +1139,45 @@ def k8_phase(gen):
                 tol = K8_BF16_DXG_RTOL
             if not e <= tol:
                 raise RuntimeError(f"K8 {key}: {n} relative L2 {e:.3e} > {tol}")
-        out[key] = dict(max_abs_err=max_abs, fwd_ms=fwd_ms, bwd_ms=bwd_ms,
-                        plain_fwd_ms=plain_fwd_ms, plain_bwd_ms=plain_bwd_ms, fwd_bound=(fb, fby),
-                        bwd_bound=(bb, bby), lib=lib, errs=errs,
+        out[key] = dict(max_abs_err=max_abs, fwd_max_abs_err=fwd_max_abs, fwd_ms=fwd_ms,
+                        bwd_ms=bwd_ms, plain_fwd_ms=plain_fwd_ms, plain_bwd_ms=plain_bwd_ms,
+                        fwd_bound=(fb, fby), bwd_bound=(bb, bby), lib=lib, errs=errs,
+                        fwd_gbps=fwd_bytes / fwd_ms / 1e6,
                         reductions_per_tap=n_red / (BGc * P * K))
         del xg, fx, fy, mask, dout, got, want, leaves, ref
         torch.cuda.empty_cache()
+    # every form of the forward off the paths' shapes: flat-4 at odd Gc with 1 / 4 / 9 taps,
+    # one output a thread at Gc 1, 8-byte vectors at Gc 6, the runtime tap loop at K 2 and 3;
+    # fp32 and bf16 maps
+    for Gc, K in ((37, 9), (5, 4), (3, 1), (1, 1), (1, 9), (6, 9), (6, 2), (16, 3)):
+        for dtype in (torch.float32, torch.bfloat16):
+            xg, fx, fy, mask, _ = k8_case(gen, 7, 9, 11, Gc, 61, K, dtype, "window")
+            got = bg.sample_weighted_fwd_cuda(xg, fx, fy, mask, Gc)
+            want = bg.sample_weighted_plain(xg, fx, fy, mask, Gc)
+            if not torch.equal(got, want):
+                raise RuntimeError(f"K8 fwd at Gc {Gc}, K {K}, {dtype}: bits differ from the "
+                                   f"plain version (max abs {float((got - want).abs().max()):.3e})")
+    print("K8 fwd forms (Gc 37 / 5 / 3 / 1 / 1 / 6 / 6 / 16, K 9 / 4 / 1 / 1 / 9 / 9 / 2 / 3, "
+          "fp32 and bf16): bits equal to the plain version", flush=True)
     r = out["rvsa"]
     common = dict(route="cuda", source="samrs_tpu_torch/csrc/bilinear_gather.cu")
     extra = lambda d: {f"{k}_ms": out[k][f"{d}_ms"] for k in out if k != "rvsa"}
-    extra_bound = lambda d: {f"{k}_bound_ms": out[k][f"{d}_bound"][0] for k in out
-                             if k not in ("rvsa", "rvsa_bf16", "rvsa_gc64", "dcnv3", "identity")}
+    extra_bound = lambda d: {f"{k}_bound_ms": out[k][f"{d}_bound"][0] for k in out if k != "rvsa"}
     extra_lib = lambda d: {f"{k}_library_ms": out[k]["lib"][d]
-                           for k in ("shared_masks", "shared_gt")}
+                           for k in out if k != "rvsa" and out[k]["lib"]}
+    fwd_extra = {f"{k}_{n}": out[k][n] for k in out for n in ("fwd_max_abs_err", "fwd_gbps")}
     # (counted on the card in this run)
     reductions = {f"{k}_reductions_per_tap": o["reductions_per_tap"] for k, o in out.items()}
-    fwd = dict(name="K8 fwd weighted bilinear gather (RVSA FAST head: BG 780, 14x14, Gc 128, "
-                    "K 1, fp32; bf16 / Gc 64 / DCNv3 shapes, Mask2Former's MSDA level "
-                    "(BG 520, 28x28, Gc 32, P 1029, K 4) and shared point sample (BG 65, "
-                    "56x56, Gc 100 / 37, P 12544) in *_ms)",
+    fwd = dict(name="K8 fwd weighted bilinear gather, a thread a (query, channel vector) "
+                    "(RVSA FAST head: BG 780, 14x14, Gc 128, K 1, fp32; bf16 / Gc 64 / DCNv3 "
+                    "shapes, Mask2Former's MSDA level (BG 520, 28x28, Gc 32, P 1029, K 4) and "
+                    "shared point sample (BG 65, 56x56, Gc 100 / 37, P 12544), InternImage-T's "
+                    "levels in ii_l*, in *_ms; library_ms: F.grid_sample at one tap)",
                replaces="samrs_tpu/kernels/bilinear_gather.py:386", **common,
-               max_abs_err=r["max_abs_err"], ms=r["fwd_ms"],
+               max_abs_err=r["fwd_max_abs_err"], ms=r["fwd_ms"],
                plain_ms=r["plain_fwd_ms"], bound_ms=r["fwd_bound"][0],
-               bound_by=r["fwd_bound"][1], library_ms=r["lib"]["fwd"], **extra("fwd"),
-               **extra_bound("fwd"), **extra_lib("fwd"))
+               bound_by=r["fwd_bound"][1], library_ms=r["lib"]["fwd"], gbps=r["fwd_gbps"],
+               **extra("fwd"), **extra_bound("fwd"), **extra_lib("fwd"), **fwd_extra)
     bwd = dict(name="K8 bwd weighted bilinear gather (dxg by 16-byte vector reductions, "
                     "zero-weight corners skipped; dfx, dfy, dmask; same shapes, InternImage-T's "
                     "levels in ii_l*, level 0 with zero offsets in ii_l0_zero; library_ms: "
@@ -1505,17 +1535,19 @@ def k10_k11_phase(gen):
     """K10 and K11 against their plain versions in fp32, forward and the
     autograd backward (the kernels' Functions recompute with the plain
     version), at vit_b 512^2 batch 8 and at the RVSA FAST head's 224^2 shape
-    (N 196: a tail tile of 4 keys); timed against the plain version, SDPA
+    (N 196: a tail tile of 4 keys); K10 also with heads of 80 (vit_h_rvsa's,
+    16 heads at the FAST head's 224^2); timed against the plain version, SDPA
     (K10) and the F.linear -> F.gelu -> F.linear composition (K11), with the
-    bound."""
+    bound: the split-TF32 tensor work (3 x 4 N^2 d a head at the tf32 peak),
+    the fp32 CUDA-core bound beside it."""
     from samrs_tpu_torch.kernels import flash_attention as fa
 
     rn = lambda *shape, std=1.0: torch.randn(*shape, generator=gen, device="cuda") * std
-    scale = 64 ** -0.5
     out = {"K10": {}, "K11": {}}
-    for key, B, N in (("vit_b_512", FT_BATCH, (FT_SIZE // 16) ** 2),
-                      ("rvsa_fast_224", TRAIN_BATCH[2], 196)):
-        BH, d = B * 12, 64
+    for key, B, N, heads, d in (("vit_b_512", FT_BATCH, (FT_SIZE // 16) ** 2, 12, 64),
+                                ("rvsa_fast_224", TRAIN_BATCH[2], 196, 12, 64),
+                                ("d80_224", TRAIN_BATCH[2], 196, 16, 80)):
+        BH, scale = B * heads, d ** -0.5
         q, k, v, g = (rn(BH, N, d) for _ in range(4))
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
         got = fa.full_attention(*leaves, scale)
@@ -1527,32 +1559,41 @@ def k10_k11_phase(gen):
         ms = cuda_ms(lambda: fa.full_attention_cuda(q, k, v, scale))
         plain_ms = cuda_ms(lambda: fa.full_attention_plain(q, k, v, scale))
         lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
-        bound_ms, bound_by = bound(4 * 4 * BH * N * d, 4 * BH * N * N * d, "fp32")
+        flops = 4 * BH * N * N * d
+        bound_ms, bound_by = bound(4 * 4 * BH * N * d, 3 * flops, "tf32")
+        fp32_bound_ms = bound(4 * 4 * BH * N * d, flops, "fp32")[0]
         print(f"K10 {key} (BH {BH}, N {N}, d {d}, fp32): rel_l2 "
               + " ".join(f"{n}={e:.3e}" for n, e in errs.items())
-              + f" max_abs={max_abs:.3e}; kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"sdpa_ms={lib_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by})", flush=True)
+              + f" max_abs={max_abs:.3e}; kernel_ms={ms:.4f} ({flops / ms / 1e9:.1f} fp32 "
+              f"TFLOP/s) plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} bound_ms={bound_ms:.4f} "
+              f"({bound_by}, split-TF32) fp32_bound_ms={fp32_bound_ms:.4f}", flush=True)
         for n, e in errs.items():
             if not e <= K10_K11_RTOL:
                 raise RuntimeError(f"K10 {key}: {n} relative L2 {e:.3e} > {K10_K11_RTOL}")
         out["K10"][key] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                               bound_ms=bound_ms, bound_by=bound_by)
+                               bound_ms=bound_ms, bound_by=bound_by, tflops=flops / ms / 1e9)
         del q, k, v, g, leaves, got, ref, want
 
-        out["K11"][key] = k11_case(gen, key, BH // 12 * N, 768, 3072)
+        if d == 64:
+            out["K11"][key] = k11_case(gen, key, BH // 12 * N, 768, 3072)
     r10, r11 = out["K10"]["vit_b_512"], out["K11"]["vit_b_512"]
     split = k11_split_case(gen)
     tail10, tail11 = out["K10"]["rvsa_fast_224"], out["K11"]["rvsa_fast_224"]
     return {
-        "K10": dict(name="K10 plain attention fp32 (vit_b 512^2 batch 8: BH 96, N 1024, d 64; "
-                         "RVSA FAST head 224^2 in rvsa_*)", route="cuda",
+        "K10": dict(name="K10 plain attention fp32 on split-TF32 wgmma, K / V^T split by a "
+                         "pre-pass (vit_b 512^2 batch 8: BH 96, N 1024, d 64; RVSA FAST head "
+                         "224^2 in rvsa_*, heads of 80 in d80_*; bound: the split-TF32 tensor "
+                         "work, the fp32 CUDA-core one on the log lines)", route="cuda",
                     source="samrs_tpu_torch/csrc/plain_attention.cu",
                     replaces="samrs_tpu/kernels/flash_attention.py:618",
-                    max_abs_err=max(r10["max_abs_err"], tail10["max_abs_err"]), ms=r10["ms"],
+                    max_abs_err=max(o["max_abs_err"] for o in out["K10"].values()), ms=r10["ms"],
                     plain_ms=r10["plain_ms"], bound_ms=r10["bound_ms"],
                     bound_by=r10["bound_by"], library_ms=r10["library_ms"],
+                    tflops=r10["tflops"],
                     **{f"rvsa_{k}": tail10[k] for k in ("ms", "plain_ms", "library_ms",
-                                                         "bound_ms")}),
+                                                         "bound_ms", "tflops")},
+                    **{f"d80_{k}": out["K10"]["d80_224"][k]
+                       for k in ("ms", "plain_ms", "library_ms", "bound_ms")}),
         "K11": dict(name="K11 fused MLP fp32 on split-TF32 wgmma (vit_b 512^2 batch 8: T 8192, "
                          "C 768, M 3072, two launches; RVSA FAST head in rvsa_*; launches: "
                          "calls of the forward; cold_ms: with the weights' tf32 split; bound: "

@@ -1,7 +1,8 @@
 // Hopper plumbing shared by the wgmma kernels (csrc/gemm.cu, the dense
 // layers of K1 / K3; csrc/flash_attention.cu, K2; csrc/window_attention.cu,
 // K1's attention stage; csrc/twoway.cu, K5; csrc/upscale.cu, K6;
-// csrc/fused_mlp.cu, K11's split-TF32 products): TMA tensor maps built on
+// csrc/fused_mlp.cu, K11's split-TF32 products; csrc/plain_attention.cu,
+// K10's): TMA tensor maps built on
 // the host, mbarrier rings, TMA tile loads, wgmma shared-memory descriptors,
 // wgmma issue / commit / wait, and register hand-over between warpgroups.
 //
@@ -477,7 +478,8 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
 }
 
 // ---------------------------------------------------------------------------
-// tf32 wgmma (csrc/fused_mlp.cu, K11's split-TF32 products).  fp32 tiles of
+// tf32 wgmma (csrc/fused_mlp.cu, K11's split-TF32 products; K10's in
+// csrc/plain_attention.cu).  fp32 tiles of
 // 32 values a row (128 bytes) with the 128-byte swizzle, K-major (tf32
 // wgmma takes no transposed operand); the k-th 8-deep slice starts 32 * k
 // bytes in: add 2 * k to the descriptor, as for a 16-deep bf16 slice.  A
@@ -519,6 +521,24 @@ __device__ __forceinline__ void wgmma_rs_tf32_n128(float (&d)[64], const uint32_
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 80, fp32) (+)= A (registers, tf32) . B (smem, K-major)^T, tf32 operands, k 8.
+__device__ __forceinline__ void wgmma_rs_tf32_n80(float (&d)[40], const uint32_t (&a)[4],
+                                                  uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 

@@ -12,10 +12,11 @@ which returns dX, dfx, dfy and dmask.
 
 On a CUDA tensor ``sample_weighted`` is a ``torch.autograd.Function`` whose
 forward and backward launch the hand-written kernels of
-csrc/bilinear_gather.cu (the direct four-corner gather; dX by 16-byte
-vector reductions that skip zero-weight corners, so its summation order
-varies from run to run at fp32 rounding).  Both are bound by device-memory
-bytes.  On a CPU tensor it runs
+csrc/bilinear_gather.cu (the direct four-corner gather, one thread a (query,
+channel vector) of the flat output with a query's taps loaded together; dX
+by 16-byte vector reductions that skip zero-weight corners, so its
+summation order varies from run to run at fp32 rounding).  Both are bound by
+device-memory bytes.  On a CPU tensor it runs
 ``sample_weighted_plain``, the floor-based gather whose autograd gives the
 same one-sided coordinate derivative as the TPU kernel's ``_dhat``: at an
 integer coordinate the tap at t in [0, 1) has slope -1, the tap at
@@ -134,10 +135,21 @@ def _check(xg, fx, fy, mask, Gc: int):
                             xg.shape if name == "xg" else fx.shape)
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """`t`, or a copy of it where its address is not 16-byte aligned (K8's
+    forward reads the map's channels and a query's four taps as 16-byte
+    vectors)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def sample_weighted_fwd_cuda(xg, fx, fy, mask, Gc: int):
-    """The forward kernel: (BG, P, Gc) fp32."""
+    """The forward kernel: (BG, P, Gc) fp32.  The inputs' addresses must be
+    16-byte aligned (``sample_weighted`` copies them where they are not)."""
     global fwd_launches
     _check(xg, fx, fy, mask, Gc)
+    for name, t in (("xg", xg), ("fx", fx), ("fy", fy), ("mask", mask)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: K8's forward needs a 16-byte aligned address")
     BG, H, WGc = xg.shape
     _, P, K = fx.shape
     out = torch.empty(BG, P, Gc, device=xg.device, dtype=torch.float32)
@@ -262,8 +274,9 @@ def sample_weighted(xg, fx, fy, mask, group_channels: int, row_slab: int = 0):
         row_slab = 0
     if not xg.is_cuda:
         return sample_weighted_plain(xg, fx, fy, mask, group_channels)
-    args = (xg.contiguous(), fx.float().contiguous(), fy.float().contiguous(),
-            mask.float().contiguous(), int(group_channels))
+    args = (*(_aligned(t) for t in (xg.contiguous(), fx.float().contiguous(),
+                                     fy.float().contiguous(), mask.float().contiguous())),
+            int(group_channels))
     if row_slab > 0:
         return _SampleWeightedSlab.apply(*args, int(row_slab))
     return _SampleWeighted.apply(*args)

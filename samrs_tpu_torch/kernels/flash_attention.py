@@ -207,14 +207,19 @@ def flash_attention_relpos_plain(q, k, v, Rh, Rw, hw: Tuple[int, int], scale: fl
 #
 # Replaces samrs_tpu/kernels/flash_attention.py::flash_attention_plain
 # (Pallas call ``_plain_fwd_pallas``, :618).  On a CUDA tensor the forward
-# launches the hand-written online-softmax kernel of csrc/plain_attention.cu
-# (fp32 on the CUDA cores, bound by fp32 operations: 4 N^2 d per head); the
-# backward recomputes with ``full_attention_plain`` under autograd, as the JAX
-# package's ``_plain_bwd`` recomputes with its XLA oracle, and launches no
-# kernel.  On a CPU tensor it runs the plain version.
+# launches the hand-written kernels of csrc/plain_attention.cu: a pre-pass
+# that splits K and V^T into their tf32 halves (one 64-key stage image a
+# tile, into a scratch the wrapper allocates at the size the C side's
+# samrs_plain_attention_scratch_bytes gives), then a flash-attention
+# kernel on split-TF32 wgmma (fp32-accurate: three tf32 products an fp32
+# product, a fresh partial sum per 32-deep part of Q.K^T and per key tile of
+# P.V), bound by those tensor-core operations, 3 x 4 N^2 d per head; the
+# backward recomputes with ``full_attention_plain`` under autograd, as the
+# JAX package's ``_plain_bwd`` recomputes with its XLA oracle, and launches
+# no kernel.  On a CPU tensor it runs the plain version.
 # ---------------------------------------------------------------------------
 
-full_launches = 0  # CUDA launches of K10 (one per forward)
+full_launches = 0  # CUDA launches of K10 (one per forward: its split pre-pass and its kernel)
 
 _FULL_HEAD_DIMS = (64, 80)  # instantiated in csrc/plain_attention.cu
 
@@ -227,18 +232,25 @@ def full_attention_plain(q, k, v, scale: float):
 
 
 def full_attention_cuda(q, k, v, scale: float):
-    """The K10 kernel on contiguous fp32 CUDA ``q, k, v (BH, N, d)``."""
+    """The K10 kernels on contiguous fp32 CUDA ``q, k, v (BH, N, d)``, d 64
+    or 80, BH <= 65535 (the grid's second dimension)."""
     global full_launches
     if q.dim() != 3:
         raise ValueError(f"q: expected (BH, N, d), got {tuple(q.shape)}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        _build.require_cuda(name, t, torch.float32, q.shape)
     BH, N, d = q.shape
     if d not in _FULL_HEAD_DIMS:
         raise ValueError(f"K10 supports head_dim in {_FULL_HEAD_DIMS}, got {d}")
+    if not 0 < BH <= 65535:
+        raise ValueError(f"K10 takes 1 to 65535 heads (BH), got {BH}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _build.require_cuda(name, t, torch.float32, q.shape)
+    if q.data_ptr() % 8:
+        raise ValueError("q: K10 reads q as 8-byte pairs and needs an 8-byte aligned address")
     out = torch.empty_like(q)
+    nbytes = _build.library().samrs_plain_attention_scratch_bytes(BH, N, d)
+    scratch = torch.empty(nbytes, device=q.device, dtype=torch.uint8)
     _build.launch("samrs_plain_attention", _build.ptr(q), _build.ptr(k), _build.ptr(v),
-                  _build.ptr(out), BH, N, d, float(scale))
+                  _build.ptr(scratch), scratch.numel(), _build.ptr(out), BH, N, d, float(scale))
     full_launches += 1
     return out
 
