@@ -4,10 +4,9 @@ timing variants of their sources with one stage switched off.
 
     python3 chip_breakdown.py --csrc DIR [--what PART ...]
 
-DIR is a ``samrs_tpu_torch/csrc``: this tree's, or for ``gather_fwd`` and
-``plain_attention`` also that of a tree before K8's forward and K10 were
-redesigned for Hopper (unpack it with ``git archive`` into a directory that
-``.gitignore`` lists).  The script copies a kernel's source into variants
+DIR is a ``samrs_tpu_torch/csrc``: this tree's, or for ``point_sample``
+also that of a tree before K9 was redesigned for Hopper (unpack it with
+``git archive`` into a directory that ``.gitignore`` lists).  The script copies a kernel's source into variants
 in which a stage is switched off at run time (a condition the compiler
 cannot fold: the work is skipped, the rest of the code stays), builds each
 with nvcc for sm_90a, and times each at the paths' shapes.  The differences
@@ -87,9 +86,30 @@ device time per kernel over 20 calls: ``no_qk`` (no Q.K^T products),
 logits go to P.V as they are) and ``no_pv`` (no P.V products); on the
 split-TF32 redesign also ``no_split`` (the K / V^T split pre-pass not
 launched: the main kernel reads the scratch as it is) and ``split_only``
-(the pre-pass alone).  These two parts take the first versions (the
-lane-group gather, the CUDA-core attention) or their Hopper redesigns, told
-apart by their sources.
+(the pre-pass alone).
+
+``--what point_sample`` profiles K9 (csrc/point_sample.cu) by direct calls
+of its C entries (20 back-to-back launches between CUDA events, median of
+5) at the Mask2Former point loss's shapes: the FAST head (N 6500 masks of
+56^2, K 12544), its 37632 uncertainty candidates (forward only) and a 256^2
+map (N 300, K 12544), the backward both in the path's form (dimg only) and
+with the coordinate gradient, on the inputs of ``chip_smoke.k9_case``; at
+256^2 also the backward of dimg alone in the device-memory (GLOBAL) form
+beside the banded one (``bwd_global``) and on 8 bands (``bwd_bands8``).
+Variants: ``no_coords`` (the coordinates are not loaded: each point's are
+hashed from its index, uniform over the map as the loss draws them),
+``no_corners`` (no corner reads: zeros stand in), ``no_stores`` (the
+per-point outputs and dimg's write-out skipped, their values kept),
+``no_atomics`` (dimg's per-corner adds skipped) and ``no_staging`` (the
+image not copied into shared memory).  It takes the first version (fx / fy
+in pixels, a block per 8192-point chunk) or the Hopper redesign (the
+coordinates in [0, 1] read by the kernel, its forms chosen by
+``bilinear_gather.point_sample_plan``), told apart by its source, and
+prints the count of each atomic / reduction opcode in the full variant's
+SASS (cuobjdump).  The redesign's variants also include ``float_dimg``
+(dimg's shared partial in fp32, added by ``atomicAdd``, instead of fixed
+point) and its SMEM form at other points a thread / threads a block /
+blocks an SM (``fwd_v4_t512_b2`` ...).
 """
 
 from __future__ import annotations
@@ -97,6 +117,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import re
 import shutil
 import statistics
 import subprocess
@@ -104,10 +125,11 @@ from pathlib import Path
 
 import torch
 
-from chip_smoke import device_ms as smoke_device_ms
+from chip_smoke import device_ms
 from samrs_tpu_torch.kernels import _build
 
-PARTS = ("attention", "mlp_gather", "rates", "decoder_tail", "gather_fwd", "plain_attention")
+PARTS = ("attention", "mlp_gather", "rates", "decoder_tail", "gather_fwd", "plain_attention",
+         "point_sample")
 OFF = "(samrs_prof_off != 0)"  # false at run time; the compiler cannot fold it
 GUARD = "__device__ int samrs_prof_off;  // 0: the stages it guards are skipped\n"
 
@@ -208,30 +230,7 @@ K7_VARIANTS = {
 }
 
 
-# K8's forward and K10, first versions (the lane-group gather, the CUDA-core attention: the
-# sources before their Hopper redesigns)
-K8F_FIRST_VARIANTS = {
-    "full": [],
-    "no_coords": [("      const Tap t = make_tap(fx[i], fy[i], H, W);\n      const float m = mask[i];",
-                   f"      const Tap t = {OFF} ? make_tap(fx[i], fy[i], H, W)\n"
-                   "          : make_tap(0.25f + (float)(q % W), 0.25f + (float)((q / W) % H), H, W);\n"
-                   f"      const float m = {OFF} ? mask[i] : 1.f;")],
-    "no_corners": K8B_CORNER_LOADS,
-    "no_stores": [("    for (int j = 0; j < V; ++j) o[j] = acc[j];",
-                   "    for (int j = 0; j < V; ++j) {\n"
-                   "      asm volatile(\"\" ::\"f\"(acc[j]));  // the sums stay computed\n"
-                   f"      if {OFF} o[j] = acc[j];\n    }}")],
-}
-K10_FIRST_VARIANTS = {
-    "full": [],
-    "no_qk": [("#pragma unroll 8\n    for (int d = 0; d < D; ++d) {",
-               f"#pragma unroll 8\n    for (int d = 0; d < ({OFF} ? D : 0); ++d) {{")],
-    "no_softmax": [("#pragma unroll\n    for (int i = 0; i < 4; ++i) {\n      float mx",
-                    f"#pragma unroll\n    for (int i = 0; i < ({OFF} ? 4 : 0); ++i) {{\n      float mx")],
-    "no_pv": [("for (int kk = 0; kk < kn; ++kk) {", f"for (int kk = 0; kk < ({OFF} ? kn : 0); ++kk) {{")],
-}
-
-# their Hopper redesigns (the flat-mapped K8 forward, the split-TF32 wgmma K10)
+# the Hopper redesigns of K8's forward (flat-mapped) and K10 (split-TF32 wgmma)
 K8F_VARIANTS = {
     "full": [],
     "no_coords": [("    const I i0 = q * KT;\n    if constexpr (KT == 4) {",
@@ -266,6 +265,90 @@ K10_VARIANTS = {
                "      wgmma_pv<D>(pv, ph[jj], dvl, 1);\n      wgmma_pv<D>(pv, ph[jj], dvh, 1); }")],
     "no_split": [("  kv_split_kernel<D><<<", "  if (0) kv_split_kernel<D><<<")],
     "split_only": [("  plain_attention_kernel<D><<<", "  if (0) plain_attention_kernel<D><<<")],
+}
+
+
+# K9, first version (the sources before its Hopper redesign: fx / fy in pixels, a block per
+# 8192-point chunk, dimg by shared then global atomics); the next PR deletes this set
+_HASH_TAP = ("make_tap((float)(((unsigned)i * 2654435761u) >> 8) * 5.9604645e-8f * W - 0.5f, "
+             "(float)(((unsigned)i * 2246822519u) >> 8) * 5.9604645e-8f * H - 0.5f, H, W)")
+PS_FIRST_VARIANTS = {
+    "full": [],
+    "no_coords": [("const Tap t = make_tap(fx[i], fy[i], H, W);",
+                   f"const Tap t = {OFF} ? make_tap(fx[i], fy[i], H, W) : {_HASH_TAP};")],
+    "no_corners": [("    if (!valid) return 0.f;", f"    if (!valid || !{OFF}) return 0.f;")],
+    "no_stores": [("    out[i] = s;", "    asm volatile(\"\" ::\"f\"(s));  // kept\n"
+                   f"    if {OFF} out[i] = s;"),
+                  ("      dfx[i] = r * ((v01 - v00) * ay + (v11 - v10) * t.wy);\n"
+                   "      dfy[i] = r * (bot - top);",
+                   "      const float gx = r * ((v01 - v00) * ay + (v11 - v10) * t.wy);\n"
+                   "      const float gy = r * (bot - top);\n"
+                   "      asm volatile(\"\" ::\"f\"(gx), \"f\"(gy));  // kept\n"
+                   f"      if {OFF} {{ dfx[i] = gx; dfy[i] = gy; }}"),
+                  ("      if (nchunks == 1) {\n        d_img[i] = s_d[i];",
+                   f"      if (!{OFF}) {{\n      }} else if (nchunks == 1) {{\n        d_img[i] = s_d[i];")],
+    "no_atomics": [(f"    if (t.v{c}) atomicAdd(d + t.i{c}, r * t.w{c});",
+                    f"    if (t.v{c} && {OFF}) atomicAdd(d + t.i{c}, r * t.w{c});")
+                   for c in ("00", "01", "10", "11")],
+    "no_staging": [("    stage(s_img, g, H * W);", f"    if {OFF} stage(s_img, g, H * W);"),
+                   ("    stage(s_img, g, HW);", f"    if {OFF} stage(s_img, g, HW);")],
+}
+_P, _I = ctypes.c_void_p, ctypes.c_int
+PS_FIRST_SIGNATURES = {"samrs_point_sample_fwd": ([_P] * 4 + [_I] * 5 + [_P], _I),
+                       "samrs_point_sample_bwd": ([_P] * 7 + [_I] * 5 + [_P], _I)}
+# its Hopper redesign (the coordinates read by the kernel; SMEM / BANDS / GLOBAL forms), and
+# its SMEM form's points a thread / threads a block / blocks an SM (registers) in the forward
+# (fwd_*) and the backward of dimg alone (bwd_*; its points a thread also in the backward with
+# the coordinate gradient): "v<points>_t<threads>_b<blocks>"
+_PS_SHAPE = ("constexpr int FWD_VEC = 4, SMEM_FWD_THREADS = 512, SMEM_FWD_BLOCKS = 3;\n"
+             "constexpr int BWD_VEC = 2, SMEM_BWD_THREADS = 256, SMEM_BWD_BLOCKS = 6;")
+
+
+def _ps_shape(fwd=(4, 512, 3), bwd=(2, 256, 6)):
+    return [(_PS_SHAPE, "constexpr int FWD_VEC = %d, SMEM_FWD_THREADS = %d, SMEM_FWD_BLOCKS = %d;\n"
+             "constexpr int BWD_VEC = %d, SMEM_BWD_THREADS = %d, SMEM_BWD_BLOCKS = %d;"
+             % (*fwd, *bwd))]
+
+
+PS_VARIANTS = {
+    "full": [],
+    "no_coords": [("    if constexpr (COORDS) {\n      load_stream<2 * V>(a + 2 * f, r);",
+                   f"    if (!{OFF}) {{  // hashed points, uniform over the map\n"
+                   "      for (int e = 0; e < 2 * V; ++e) {\n"
+                   "        const float u = (float)(((unsigned)(2 * f + e) * 2654435761u) >> 8) "
+                   "* 5.9604645e-8f;\n"
+                   "        r[e] = COORDS ? u : u * ((e & 1) ? H : W) - 0.5f;\n      }\n"
+                   "      return;\n    }\n"
+                   "    if constexpr (COORDS) {\n      load_stream<2 * V>(a + 2 * f, r);")],
+    "no_corners": [("    if (!valid) return 0.f;", f"    if (!valid || !{OFF}) return 0.f;")],
+    "no_stores": [("    store_stream<V>(out + f, o);",
+                   "    for (int q = 0; q < V; ++q) asm volatile(\"\" ::\"f\"(o[q]));  // kept\n"
+                   f"    if {OFF} store_stream<V>(out + f, o);"),
+                  ("    if constexpr (GRAD) grads.template store<V>(f, gxy);",
+                   "    if constexpr (GRAD) {\n"
+                   "      for (int e = 0; e < 2 * V; ++e) asm volatile(\"\" ::\"f\"(gxy[e]));  // kept\n"
+                   f"      if {OFF} grads.template store<V>(f, gxy);\n"
+                   "    }"),
+                  ("  write_band(dgb, shi, slo, nel, to);",
+                   f"  if {OFF} write_band(dgb, shi, slo, nel, to);")],
+    "no_atomics": [("      if (h) atomicAdd(hi + (i - i0), h);\n      if (l) atomicAdd(lo + (i - i0), l);",
+                    f"      if (h && {OFF}) atomicAdd(hi + (i - i0), h);\n"
+                    f"      if (l && {OFF}) atomicAdd(lo + (i - i0), l);"),
+                   ("      if (v != 0.f) atomicAdd(p + i, v);",
+                    f"      if (v != 0.f && {OFF}) atomicAdd(p + i, v);")],
+    # dimg's partial in fp32 (shared atomicAdd: a CAS loop) instead of fixed point
+    "float_dimg": [("      if (h) atomicAdd(hi + (i - i0), h);\n      if (l) atomicAdd(lo + (i - i0), l);",
+                    "      atomicAdd(reinterpret_cast<float*>(hi) + (i - i0), v);"),
+                   ("  write_band(dgb, shi, slo, nel, to);",
+                    "  for (int e = threadIdx.x; e < nel; e += THREADS)\n"
+                    "    dgb[e] = reinterpret_cast<const float*>(shi)[e];")],
+    "no_staging": [("    mbar_expect_tx(bar, bytes);\n    if (bytes) bulk_load(s + h, g + h, bytes, bar);",
+                    f"    mbar_expect_tx(bar, {OFF} ? bytes : 0u);\n"
+                    f"    if (bytes && {OFF}) bulk_load(s + h, g + h, bytes, bar);")],
+    "fwd_v4_t512_b2": _ps_shape(fwd=(4, 512, 2)),
+    "fwd_v2_t256_b6": _ps_shape(fwd=(2, 256, 6)),
+    "bwd_v1_t256_b8": _ps_shape(bwd=(1, 256, 8)),
+    "bwd_v4_t512_b3": _ps_shape(bwd=(4, 512, 3)),
 }
 
 
@@ -441,16 +524,6 @@ def variant_source(src: Path, subs, dst: Path) -> None:
     dst.write_text(text.replace(marker, marker + GUARD, 1) if subs else text)
 
 
-def is_redesigned_gather(csrc: Path) -> bool:
-    """Whether `csrc` holds K8's flat-mapped forward (else the first version's lane groups)."""
-    return "FastDiv" in (csrc / "bilinear_gather.cu").read_text()
-
-
-def is_redesigned_attention(csrc: Path) -> bool:
-    """Whether `csrc` holds the split-TF32 wgmma K10 (else the first, CUDA-core one)."""
-    return "kv_split_kernel" in (csrc / "plain_attention.cu").read_text()
-
-
 def build(csrc: Path, out: Path, specs, rates: bool = False):
     """Builds every variant of `specs` ((kernel, source file, variants)) into
     its own shared library, and the rate micro-benchmark if `rates`; returns
@@ -497,19 +570,6 @@ def print_registers(logs, keys) -> None:
                 print("\n".join(x.strip() for x in lines[i:i + 4]), flush=True)
 
 
-def device_ms(fn, tries: int = 3):
-    """chip_smoke's ``device_ms``, taken again where torch.profiler recorded
-    no device time at all (it now and then drops a whole profile: a variant
-    that launched without error has run)."""
-    for i in range(tries):
-        try:
-            return smoke_device_ms(fn)
-        except RuntimeError as e:
-            if "no device time" not in str(e) or i == tries - 1:
-                raise
-            print("torch.profiler recorded no device time; profiling again", flush=True)
-
-
 def loop_ms(fn, n: int = 20, reps: int = 5) -> float:
     fn()
     torch.cuda.synchronize()
@@ -525,14 +585,11 @@ def loop_ms(fn, n: int = 20, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-# C entries whose signature changed since the first versions this script profiles (K10's)
-_P, _I = ctypes.c_void_p, ctypes.c_int
-OLD_SIGNATURES = {"samrs_plain_attention": ([_P] * 4 + [_I] * 3 + [ctypes.c_float, _P], _I)}
-
-
-def call(lib, name: str, *args, old: bool = False) -> None:
+def call(lib, name: str, *args, signatures=None) -> None:
+    """C entry `name` of `lib` on the current stream (`signatures`: those of
+    a parent tree's sources where they differ from this tree's)."""
     fn = getattr(lib, name)
-    fn.argtypes, fn.restype = (OLD_SIGNATURES if old else _build._SIGNATURES)[name]
+    fn.argtypes, fn.restype = (signatures or _build._SIGNATURES)[name]
     code = fn(*args, torch.cuda.current_stream().cuda_stream)
     if code != 0:
         raise RuntimeError(f"{name}: CUDA error {code}")
@@ -755,9 +812,8 @@ def gather_fwd_part(libs, logs):
     return results
 
 
-def plain_attention_part(libs, logs, new: bool):
-    """K10 with one stage switched off, by direct calls (`new`: the split-TF32
-    redesign's C signature, with its K / V^T scratch); {case: {kernel: ms}}."""
+def plain_attention_part(libs, logs):
+    """K10 with one stage switched off, by direct calls; {case: {kernel: ms}}."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     p = _build.ptr
     results = {}
@@ -765,13 +821,12 @@ def plain_attention_part(libs, logs, new: bool):
         d = 64
         q, k, v = (torch.randn(BH, N, d, generator=gen, device="cuda") for _ in range(3))
         out = torch.empty_like(q)
-        nbytes = libs[("K10", "full")].samrs_plain_attention_scratch_bytes(BH, N, d) if new else 0
-        scratch = torch.empty(nbytes, dtype=torch.uint8, device="cuda") if new else None
-        extra = [p(scratch), scratch.numel()] if new else []
+        nbytes = libs[("K10", "full")].samrs_plain_attention_scratch_bytes(BH, N, d)
+        scratch = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
         for name, lib in sorted((key_[1], lib_) for key_, lib_ in libs.items()
                                 if key_[0] == "K10"):
-            fn = lambda: call(lib, "samrs_plain_attention", p(q), p(k), p(v), *extra, p(out),
-                              BH, N, d, d ** -0.5, old=not new)
+            fn = lambda: call(lib, "samrs_plain_attention", p(q), p(k), p(v), p(scratch),
+                              scratch.numel(), p(out), BH, N, d, d ** -0.5)
             r = results[f"K10 {key} {name}"] = device_ms(fn)
             if name == "full":
                 r["loop"] = loop_ms(fn)
@@ -779,6 +834,91 @@ def plain_attention_part(libs, logs, new: bool):
                   flush=True)
         del q, k, v, out, scratch
     print_registers(logs, [("K10", "full")])
+    return results
+
+
+def is_redesigned_point_sample(csrc: Path) -> bool:
+    """Whether `csrc` holds the Hopper K9 (else the first version)."""
+    return "to_pixel" in (csrc / "point_sample.cu").read_text()
+
+
+# K9's shapes: (key, N masks, H = W, K points); the candidates have no backward
+PS_CASES = (("fast", 6500, 56, 12544), ("candidates", 6500, 56, 3 * 12544),
+            ("map256", 300, 256, 12544))
+
+
+def sass_ops(lib: Path, word: str):
+    """{kernel: {opcode: count}} of the atomic and reduction instructions in
+    the SASS of `lib`'s kernels whose name holds `word` (cuobjdump)."""
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(lib)], check=True, capture_output=True,
+                          text=True).stdout
+    out = {}
+    for part in text.split("Function : ")[1:]:
+        name = part.split("\n", 1)[0].strip()
+        if word in name:
+            ops = {}
+            for op in re.findall(r"\b((?:ATOMS|ATOMG|ATOM|REDG|RED)(?:\.[A-Z0-9_]+)*)", part):
+                ops[op] = ops.get(op, 0) + 1
+            out[name[:120]] = ops
+    return out
+
+
+def point_sample_part(libs, new: bool):
+    """K9 with one stage switched off, by direct calls (`new`: the Hopper
+    redesign's coordinate entry and forms, else the first version's fx / fy
+    entry); {case: ms}."""
+    from chip_smoke import k9_case
+    from samrs_tpu_torch.kernels import bilinear_gather as bg
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p = _build.ptr
+    sig = None if new else PS_FIRST_SIGNATURES
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    results = {}
+    for key, N, H, K in PS_CASES:
+        img, fx, fy, xy, dout = k9_case(gen, N, H, H, K, "loss")
+        out = torch.empty(N, K, device="cuda")
+        dimg = torch.zeros(N, H, H, device="cuda")
+        dfx, dfy, dxy = torch.empty_like(fx), torch.empty_like(fy), torch.empty_like(xy)
+        forms = [("fwd", None)] + ([] if key == "candidates" else [("bwd", False),
+                                                                   ("bwd_grad", True)])
+        if new and key == "map256":  # beside the plan's: the device-memory form, more bands
+            forms += [("bwd_global", False), ("bwd_bands8", False)]
+        for label, grad in forms:
+            plan = None
+            if new and label.endswith("_global"):
+                plan = (bg.PS_GLOBAL, 1)
+            elif new and "_bands" in label:
+                plan = (bg.PS_BANDS, int(label[-1]))
+            elif new:
+                plan = bg.point_sample_plan(N, H, H, K, 4, grad, sms)
+            for name, lib in sorted((k[1], v) for k, v in libs.items() if k[0] == "K9"):
+                if new and grad is None:
+                    fn = lambda: call(lib, "samrs_point_sample_fwd", p(img), p(xy), None, p(out),
+                                      N, H, H, K, 0, 1, *plan)
+                elif new:
+                    fn = lambda: call(lib, "samrs_point_sample_bwd", p(img), p(xy), None, p(dout),
+                                      p(dimg), p(dxy) if grad else None, None, N, H, H, K, 0, 1,
+                                      *plan)
+                elif grad is None:
+                    fn = lambda: call(lib, "samrs_point_sample_fwd", p(img), p(fx), p(fy), p(out),
+                                      N, H, H, K, 0, signatures=sig)
+                else:
+                    fn = lambda: call(lib, "samrs_point_sample_bwd", p(img), p(fx), p(fy), p(dout),
+                                      p(dimg), p(dfx) if grad else None, p(dfy) if grad else None,
+                                      N, H, H, K, 0, signatures=sig)
+                results[f"K9 {key} {label} {name}"] = ms = loop_ms(fn)
+                print(f"K9 {key} {label} (N {N}, {H}x{H}, K {K}"
+                      + (f", form {plan[0]} x{plan[1]}" if plan else "") + f") {name}: {ms:.4f} ms",
+                      flush=True)
+        results[f"K9 {key} dimg memset"] = ms = loop_ms(dimg.zero_)
+        print(f"K9 {key} dimg memset ({dimg.numel() * 4 / 1e6:.1f} MB): {ms:.4f} ms", flush=True)
+        del img, fx, fy, xy, dout, out, dimg, dfx, dfy, dxy
+        torch.cuda.empty_cache()
+    lib = _build.BUILD_DIR / "breakdown" / "K9_full" / "lib.so"
+    for kernel, ops in sass_ops(lib, "point_sample").items():
+        print(f"SASS {kernel}: {ops}", flush=True)
     return results
 
 
@@ -872,11 +1012,12 @@ def main() -> None:
     if "decoder_tail" in what:
         specs += [("K6", "upscale.cu", K6_VARIANTS), ("K7", "amg_post.cu", K7_VARIANTS)]
     if "gather_fwd" in what:
-        specs.append(("K8f", "bilinear_gather.cu",
-                      K8F_VARIANTS if is_redesigned_gather(csrc) else K8F_FIRST_VARIANTS))
+        specs.append(("K8f", "bilinear_gather.cu", K8F_VARIANTS))
     if "plain_attention" in what:
-        specs.append(("K10", "plain_attention.cu",
-                      K10_VARIANTS if is_redesigned_attention(csrc) else K10_FIRST_VARIANTS))
+        specs.append(("K10", "plain_attention.cu", K10_VARIANTS))
+    if "point_sample" in what:
+        specs.append(("K9", "point_sample.cu",
+                      PS_VARIANTS if is_redesigned_point_sample(csrc) else PS_FIRST_VARIANTS))
     libs, logs = build(csrc, _build.BUILD_DIR / "breakdown", specs, rates="rates" in what)
     results = {}
     if "attention" in what:
@@ -890,7 +1031,10 @@ def main() -> None:
     if "gather_fwd" in what:
         results.update(gather_fwd_part(libs, logs))
     if "plain_attention" in what:
-        results.update(plain_attention_part(libs, logs, is_redesigned_attention(csrc)))
+        results.update(plain_attention_part(libs, logs))
+    if "point_sample" in what:
+        results.update(point_sample_part(libs, is_redesigned_point_sample(csrc)))
+        print_registers(logs, [("K9", "full")])
     print(json.dumps({"device": smi, "ms": results}), flush=True)
 
 

@@ -175,8 +175,9 @@ checkout; it has no CPU path and raises on any failure.  Phases:
    configuration or image size that runs them, K8 from the pretrain phase
    with its per-step count, K9
    from the Mask2Former pretrain phase, K10 and K11 from the finetune driver
-   with their per-step counts), then the card's name and power limit and the
-   final status line.
+   with their per-step counts; an entry's other cases beside its main one
+   carry measured numbers only: their bounds are on the log lines), then
+   the card's name and power limit and the final status line.
 
 ``--only`` runs just the named phases after the build (kernels: 2; gemm: 2a; main: 3 and 4,
 the main path and the generate phase at the default image size; modes, configs,
@@ -257,6 +258,7 @@ II_SLAB_STEP_LAUNCHES = {"K8sf": II_BLOCKS * 3, "K8sb": II_BLOCKS * 3, "K11": II
                          "K11s": II_BLOCKS * 2}
 II_EVAL_LAUNCHES = {"K8f": II_BLOCKS, "K11": II_BLOCKS}
 K8_SLAB_FWD_RTOL = 1e-6        # K8-slab forward vs dense K8 (0 by design: K8's per-tap order)
+PROFILE_PAD_S = 0.05           # idle host time on each side of a device_ms profile (s)
 K9_RTOL = 1e-5                 # K9 vs its plain version: summation order (dimg by atomics)
 K8_RTOL = 1e-5                 # fp32 gather, kernel vs plain: summation order and atomics only
 K8_BF16_DXG_RTOL = 1e-2        # dxg returned in bf16: one bf16 rounding of the same fp32 sum
@@ -517,7 +519,7 @@ def kernel_phase(gen: torch.Generator):
                   f"bucket{GEN_BUCKET}_*)")
     for key, prefix in (("K5s", "shared"), ("K5w", "slots32"), ("K5b256", f"bucket{GEN_BUCKET}")):
         other = results.pop(key)
-        k5.update({f"{prefix}_{k}": other[k] for k in ("ms", "plain_ms", "bound_ms", "max_abs_err")})
+        k5.update({f"{prefix}_{k}": other[k] for k in ("ms", "plain_ms", "max_abs_err")})
         k5["max_abs_err"] = max(k5["max_abs_err"], other["max_abs_err"])
     results["K5"] = k5
     # the line lists K6 once: bucket 64, one token, 64x64, with its other cases beside it
@@ -530,7 +532,7 @@ def kernel_phase(gen: torch.Generator):
               f"kernel's {k6['ms'] if label == 'K6' else results[label]['ms']:.4f}", flush=True)
     for key, *_ in K6_CASES[1:]:
         other = results.pop(key)
-        k6.update({f"{key[2:]}_{k}": other[k] for k in ("ms", "plain_ms", "bound_ms", "max_abs_err")})
+        k6.update({f"{key[2:]}_{k}": other[k] for k in ("ms", "plain_ms", "max_abs_err")})
         k6["max_abs_err"] = max(k6["max_abs_err"], other["max_abs_err"])
     return {k: results[k] for k in sorted(results)}
 
@@ -547,29 +549,42 @@ def gelu_floor_ms(pixels: int) -> float:
     return pixels * 768 * 2 / (sms * 16 * mhz * 1e6) * 1e3
 
 
-def device_ms(fn, n: int = 20):
+def device_ms(fn, n: int = 20, tries: int = 5):
     """torch.profiler's device time per call of each kernel `fn` launches
     ({kernel: ms}, `n` back-to-back calls after a warm one): the device rows
     only, so a CPU op is not counted beside the kernels it launched; a kernel
     is keyed by its `..._kernel` name, any other device row by its first 48
-    characters."""
+    characters.  Late in a long run the profiler loses device records at
+    random (some or all of a profile's kernels, ours and PyTorch's alike,
+    with every launch on its host side), and a record's time, converted to
+    the host's clock, can fall ms past the calls: so the calls sit between
+    two idle PROFILE_PAD_S seconds inside the window, and a profile with no
+    device row, or with a row whose count is not a multiple of `n` (a call's
+    record lost), is taken again, up to `tries` times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
-            m = re.search(r"\w+_kernel(<\d+>)?", e.key)
-            key = m.group(0) if m else e.key[:48]
-            out[key] = out.get(key, 0.0) + e.self_device_time_total / 1e3 / n
-    if not out:
-        raise RuntimeError("torch.profiler recorded no device time")
-    return out
+    for i in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAD_S)
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
+        out, counts = {}, {}
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+                m = re.search(r"\w+_kernel(<\d+>)?", e.key)
+                key = m.group(0) if m else e.key[:48]
+                out[key] = out.get(key, 0.0) + e.self_device_time_total / 1e3 / n
+                counts[key] = counts.get(key, 0) + e.count
+        if out and all(c % n == 0 for c in counts.values()):
+            return out
+        print(f"torch.profiler recorded {counts or 'no device time'} over {n} calls; "
+              f"profiling again", flush=True)
+    raise RuntimeError(f"torch.profiler recorded no device time, or part of the calls' "
+                       f"({counts}), in {tries} profiles of {n} calls")
 
 
 def run_cases(cases):
@@ -661,7 +676,7 @@ def gemm_phase(gen: torch.Generator):
     entry["max_abs_err"] = max(r["max_abs_err"] for r in rows.values())
     for name in ("proj", "lin1", "lin2"):
         entry.update({f"{name}_{k}": v for k, v in rows[name].items()
-                      if k not in ("bound_by", "max_abs_err")})
+                      if k not in ("bound_ms", "bound_by", "max_abs_err")})
     return {"GEMM": entry}
 
 
@@ -981,7 +996,7 @@ def k7_phase(gen: torch.Generator):
                        replaces="samrs_tpu/kernels/amg_post.py:140", library_ms=None,
                        **{f"{k}_768x1024": out[IMAGE_HW][k] for k in ("ms", "device_ms", "wall_ms")},
                        **{f"{k}_{wide}_8masks": out[K7_WIDE_HW][k]
-                          for k in ("ms", "device_ms", "bound_ms")},
+                          for k in ("ms", "device_ms")},
                        **r)}
 
 
@@ -1162,7 +1177,6 @@ def k8_phase(gen):
     r = out["rvsa"]
     common = dict(route="cuda", source="samrs_tpu_torch/csrc/bilinear_gather.cu")
     extra = lambda d: {f"{k}_ms": out[k][f"{d}_ms"] for k in out if k != "rvsa"}
-    extra_bound = lambda d: {f"{k}_bound_ms": out[k][f"{d}_bound"][0] for k in out if k != "rvsa"}
     extra_lib = lambda d: {f"{k}_library_ms": out[k]["lib"][d]
                            for k in out if k != "rvsa" and out[k]["lib"]}
     fwd_extra = {f"{k}_{n}": out[k][n] for k in out for n in ("fwd_max_abs_err", "fwd_gbps")}
@@ -1177,7 +1191,7 @@ def k8_phase(gen):
                max_abs_err=r["fwd_max_abs_err"], ms=r["fwd_ms"],
                plain_ms=r["plain_fwd_ms"], bound_ms=r["fwd_bound"][0],
                bound_by=r["fwd_bound"][1], library_ms=r["lib"]["fwd"], gbps=r["fwd_gbps"],
-               **extra("fwd"), **extra_bound("fwd"), **extra_lib("fwd"), **fwd_extra)
+               **extra("fwd"), **extra_lib("fwd"), **fwd_extra)
     bwd = dict(name="K8 bwd weighted bilinear gather (dxg by 16-byte vector reductions, "
                     "zero-weight corners skipped; dfx, dfy, dmask; same shapes, InternImage-T's "
                     "levels in ii_l*, level 0 with zero offsets in ii_l0_zero; library_ms: "
@@ -1186,106 +1200,274 @@ def k8_phase(gen):
                max_abs_err=r["max_abs_err"], ms=r["bwd_ms"],
                plain_ms=r["plain_bwd_ms"], bound_ms=r["bwd_bound"][0],
                bound_by=r["bwd_bound"][1], library_ms=r["lib"]["bwd"],
-               library_fwd_bwd_ms=r["lib"]["fwd_bwd"], **extra("bwd"), **extra_bound("bwd"),
-               **extra_lib("bwd"), **reductions)
+               library_fwd_bwd_ms=r["lib"]["fwd_bwd"], **extra("bwd"), **extra_lib("bwd"),
+               **reductions)
     return {"K8f": fwd, "K8b": bwd}
 
 
 def k9_case(gen, N, H, W, K, coords):
-    """Seeded inputs of one K9 call: img (N, H, W) fp32; fx, fy, dout (N, K).
-    coords: "loss" (x * W - 0.5 for x uniform in [0, 1), as the point loss
-    draws them), "integer" (pixel centres, some on the last row and column
-    and one off each side) or "off" (a margin of 3 pixels off every side)."""
+    """Seeded inputs of one K9 call: img (N, H, W) fp32; fx, fy (N, K) in
+    pixels, xy (N, K, 2) in [0, 1] (the coordinate entry's); dout (N, K).
+    coords: "loss" (xy uniform in [0, 1), as the point loss draws them, and
+    fx, fy from them by ``pixel_coords``, the arithmetic the coordinate entry
+    does), "integer" (pixel centres, some on the last row and column and one
+    off each side) or "off" (a margin of 3 pixels off every side); for the
+    last two xy = (f + 0.5) / size."""
+    from samrs_tpu_torch.kernels import bilinear_gather as bg
     dev = "cuda"
     img = torch.randn(N, H, W, generator=gen, device=dev)
     u = lambda: torch.rand(N, K, generator=gen, device=dev)
     if coords == "loss":
-        fx, fy = u() * W - 0.5, u() * H - 0.5
-    elif coords == "integer":
-        fx = torch.floor(u() * (W + 2)) - 1
-        fy = torch.floor(u() * (H + 2)) - 1
+        xy = torch.rand(N, K, 2, generator=gen, device=dev)
+        fx, fy = bg.pixel_coords(xy, H, W)
     else:
-        fx, fy = u() * (W + 6) - 3.5, u() * (H + 6) - 3.5
-    return img, fx, fy, torch.randn(N, K, generator=gen, device=dev)
+        if coords == "integer":
+            fx = torch.floor(u() * (W + 2)) - 1
+            fy = torch.floor(u() * (H + 2)) - 1
+        else:
+            fx, fy = u() * (W + 6) - 3.5, u() * (H + 6) - 3.5
+        xy = torch.stack([(fx + 0.5) / W, (fy + 0.5) / H], -1)
+    return img, fx, fy, xy, torch.randn(N, K, generator=gen, device=dev)
+
+
+def k9_check(key, names, got, want, fwd: bool):
+    """K9 against its plain version: the forward bit for bit (max abs 0), the
+    gradients within K9_RTOL (dimg's atomics reorder fp32 sums); returns
+    ({name: rel-L2}, max abs)."""
+    errs = {n: rel_l2([g], [w]) for n, g, w in zip(names, got, want)}
+    max_abs = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    if fwd and max_abs != 0.0:
+        raise RuntimeError(f"K9 {key}: forward differs from the plain version (max abs "
+                           f"{max_abs:.3e}): it must equal it bit for bit")
+    for n, e in errs.items():
+        if not e <= K9_RTOL:
+            raise RuntimeError(f"K9 {key}: {n} relative L2 {e:.3e} > {K9_RTOL}")
+    return errs, max_abs
+
+
+GRAPH_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "child graph",
+                    5: "empty", 6: "event wait", 7: "event record", 8: "semaphore signal",
+                    9: "semaphore wait", 10: "mem alloc", 11: "mem free", 12: "batch mem op",
+                    13: "conditional"}  # the driver's CUgraphNodeType
+
+
+def graph_node_types(fn) -> list[str]:
+    """The type of every node of a CUDA graph captured from one call of `fn`
+    (after a warm call on a side stream, as torch.cuda.graph asks), read
+    from the driver: each kernel, copy and memset the call puts on the
+    device, whether its records reach a profiler or not."""
+    import ctypes
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    cu.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.POINTER(ctypes.c_size_t)]
+    cu.cuGraphNodeGetType.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    graph, n = ctypes.c_void_p(g.raw_cuda_graph()), ctypes.c_size_t(0)
+
+    def check(code):
+        if code != 0:
+            raise RuntimeError(f"reading the captured CUDA graph: CUresult {code}")
+
+    check(cu.cuGraphGetNodes(graph, None, ctypes.byref(n)))
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)))
+    types = []
+    for node in nodes[:n.value]:
+        t = ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(node, ctypes.byref(t)))
+        types.append(GRAPH_NODE_TYPES.get(t.value, f"type {t.value}"))
+    del g
+    return types
+
+
+def k9_only_launches(label: str, fn, want: dict) -> None:
+    """Raise unless K9 is every kernel one call of `fn` launches: a CUDA
+    graph of the call holds as many kernel nodes as the port's launch
+    counts rose by, those counts rose by `want` ({"K9f": n, "K9b": n}) and
+    nothing else, and it holds no copy, memset or host node.  (A graph, not
+    torch.profiler: late in a full run the profiler lost kernel records at
+    random, ours and PyTorch's alike, while the launches were on its host
+    side.)"""
+    from samrs_tpu_torch.kernels import gemm
+    before, gemm_before = read_counts(), gemm.launches
+    types = graph_node_types(fn)
+    rose = {k: v - before[k] for k, v in read_counts().items() if v != before[k]}
+    # the warm call and the captured one each count once
+    want2 = {k: 2 * v for k, v in want.items()}
+    work = [t for t in types if t not in ("empty", "event wait", "event record")]
+    if (rose != want2 or gemm.launches != gemm_before
+            or work != ["kernel"] * sum(want.values())):
+        raise RuntimeError(f"{label}: the port's counts rose by {rose} over a warm and a "
+                           f"captured call (want {want2}; GEMM {gemm.launches - gemm_before}), "
+                           f"the call's graph holds {types}: it launched other work than K9")
+    print(f"{label}: launches K9 only (a CUDA graph of one call holds {types}; the port's "
+          f"counts rose by {want} a call)", flush=True)
 
 
 def k9_phase(gen):
-    """K9 forward and backward against point_sample_plain on the same inputs:
+    """K9 forward and backward, both entries (pixel fx / fy; [0, 1] coords,
+    the Mask2Former path's) against their plain versions on the same inputs:
     the FAST head's point losses (6500 masks of 56x56 at 12544 points and at
-    the 37632 uncertainty candidates), a map above shared memory (256x256:
-    the kernel's device-memory path), points on exact integers and points
-    off the map; timed against the plain version and F.grid_sample (one
-    channel, align_corners=False), with the bound."""
+    the 37632 uncertainty candidates), a 256x256 map (the device-memory
+    forward, the banded backward),
+    points on exact integers and points off the map.  Forwards must equal
+    the plain versions bit for bit; dimg (and dfx, dfy, dcoords) are held to
+    K9_RTOL in both backward forms: dimg alone (the path's) and with the
+    coordinate gradient.  At the three point-loss shapes each form is timed
+    (CUDA events, one call at a time; and over 20 back-to-back calls)
+    against its plain version and F.grid_sample (one
+    channel, align_corners=False; its backward for the input alone, and for
+    the input and the grid), with its bound.  Then one mask2former.point_sample call
+    with the kernels, forward and backward, must launch K9 and nothing else
+    (read from a CUDA graph of the call)."""
     from samrs_tpu_torch.kernels import bilinear_gather as bg
+    from samrs_tpu_torch.seg.decoders import mask2former as m2f
 
     N = TRAIN_BATCH[2] * 100
     cases = [("fast", N, 56, 56, M2F_POINTS, "loss"), ("fast_candidates", N, 56, 56, 3 * M2F_POINTS,
                                                         "loss"),
              ("map256", 300, 256, 256, M2F_POINTS, "loss"), ("integer", 650, 56, 56, 4096, "integer"),
              ("off_map", 650, 56, 56, 4096, "off"), ("integer_map256", 40, 256, 256, 4096, "integer")]
-    names = ("out", "dimg", "dfx", "dfy")
-    out = {}
+    out, max_abs = {}, 0.0
     for key, Nc, H, W, K, coords in cases:
-        img, fx, fy, dout = k9_case(gen, Nc, H, W, K, coords)
-        got = [bg.point_sample_fwd_cuda(img, fx, fy)]
-        got += list(bg.point_sample_bwd_cuda(img, fx, fy, dout))
+        img, fx, fy, xy, dout = k9_case(gen, Nc, H, W, K, coords)
+        plan = {g: bg.point_sample_plan(Nc, H, W, K, 4, g, bg._sms(img.device))
+                for g in (None, False, True)}
+        # the pixel entry: forward, backward with dfx / dfy, backward of dimg alone
+        got = [bg.point_sample_fwd_cuda(img, fx, fy)] + list(bg.point_sample_bwd_cuda(
+            img, fx, fy, dout)) + [bg.point_sample_bwd_cuda(img, fx, fy, dout, False)[0]]
         torch.cuda.synchronize()
-        want = [bg.point_sample_plain_fwd(img, fx, fy)]
-        want += list(bg.point_sample_plain_bwd(img, fx, fy, dout))
-        errs = {n: rel_l2([g], [w]) for n, g, w in zip(names, got, want)}
-        max_abs = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        want = [bg.point_sample_plain_fwd(img, fx, fy)] + list(bg.point_sample_plain_bwd(
+            img, fx, fy, dout))
+        want.append(want[1])
+        errs, m0 = k9_check(key, ["out"], got[:1], want[:1], True)
+        e1, m1 = k9_check(key, ["dimg", "dfx", "dfy", "dimg_path"], got[1:], want[1:], False)
+        errs.update(e1)
+        del got, want
+        # the coordinate entry: forward, backward with dcoords, backward of dimg alone
+        c_img = img.clone().requires_grad_()
+        c_xy = xy.clone().requires_grad_()
+        want = [bg.point_sample_coords_plain(c_img, c_xy)]
+        want += list(torch.autograd.grad(want[0], (c_img, c_xy), dout))
+        want = [w.detach() for w in want] + [want[1].detach()]
+        got = [bg.point_sample_coords_fwd_cuda(img, xy)] + list(bg.point_sample_coords_bwd_cuda(
+            img, xy, dout, True)) + [bg.point_sample_coords_bwd_cuda(img, xy, dout)[0]]
+        torch.cuda.synchronize()
+        e2, m2 = k9_check(key + " coords", ["c_out"], got[:1], want[:1], True)
+        e3, m3 = k9_check(key + " coords", ["c_dimg", "c_dcoords", "c_dimg_path"], got[1:],
+                          want[1:], False)
+        errs.update(e2)
+        errs.update(e3)
+        max_abs = max(max_abs, m0, m1, m2, m3)
+        del got, want, c_img, c_xy
+        print(f"K9 {key} (N {Nc}, {H}x{W}, K {K}; forms fwd {plan[None]}, bwd {plan[False]}, "
+              f"bwd with coordinate gradient {plan[True]}): rel_l2 "
+              + " ".join(f"{n}={e:.3e}" for n, e in errs.items())
+              + f"; forward max abs {max(m0, m2):.1e}", flush=True)
+        if coords != "loss":
+            del img, fx, fy, xy, dout
+            torch.cuda.empty_cache()
+            continue
         fwd_bytes = 4 * (Nc * H * W + 3 * Nc * K)
-        bwd_bytes = 4 * (2 * Nc * H * W + 5 * Nc * K)
-        fb, fby = bound(fwd_bytes, 10 * Nc * K, "fp32")
-        bb, bby = bound(bwd_bytes, 24 * Nc * K, "fp32")
-        fwd_ms = cuda_ms(lambda: bg.point_sample_fwd_cuda(img, fx, fy))
-        bwd_ms = cuda_ms(lambda: bg.point_sample_bwd_cuda(img, fx, fy, dout))
-        plain_fwd_ms = cuda_ms(lambda: bg.point_sample_plain_fwd(img, fx, fy))
-        plain_bwd_ms = cuda_ms(lambda: bg.point_sample_plain_bwd(img, fx, fy, dout))
+        path_bytes = 4 * (Nc * H * W + 3 * Nc * K)
+        grad_bytes = 4 * (2 * Nc * H * W + 5 * Nc * K)
+        r = dict(fwd_bound=bound(fwd_bytes, 22 * Nc * K, "fp32"),
+                 path_bound=bound(path_bytes, 20 * Nc * K, "fp32"),
+                 grad_bound=bound(grad_bytes, 34 * Nc * K, "fp32"))
+        r["fwd_ms"] = cuda_ms(lambda: bg.point_sample_coords_fwd_cuda(img, xy))
+        r["path_ms"] = cuda_ms(lambda: bg.point_sample_coords_bwd_cuda(img, xy, dout))
+        r["coords_grad_ms"] = cuda_ms(lambda: bg.point_sample_coords_bwd_cuda(img, xy, dout, True))
+        r["pixel_fwd_ms"] = cuda_ms(lambda: bg.point_sample_fwd_cuda(img, fx, fy))
+        r["grad_ms"] = cuda_ms(lambda: bg.point_sample_bwd_cuda(img, fx, fy, dout))
+        r["pixel_path_ms"] = cuda_ms(lambda: bg.point_sample_bwd_cuda(img, fx, fy, dout, False))
+        r["plain_fwd_ms"] = cuda_ms(lambda: bg.point_sample_coords_plain(img, xy))
+        r["plain_path_ms"] = cuda_ms(lambda: bg.point_sample_plain_bwd(img, fx, fy, dout, False))
+        r["plain_grad_ms"] = cuda_ms(lambda: bg.point_sample_plain_bwd(img, fx, fy, dout))
         # F.grid_sample computes K9 on a one-channel (N, 1, H, W) map at a (N, 1, K) grid
         lib_img = img[:, None].clone().requires_grad_()
-        grid = torch.stack([(fx + 0.5) / W * 2 - 1, (fy + 0.5) / H * 2 - 1], -1)[:, None]
-        grid = grid.requires_grad_()
+        grid = (2 * xy - 1)[:, None].requires_grad_()
         gs = lambda: F.grid_sample(lib_img, grid, mode="bilinear", padding_mode="zeros",
                                    align_corners=False)
-        lib_err = rel_l2([gs().detach()[:, 0, 0]], [want[0]])
+        lib_err = rel_l2([gs().detach()[:, 0, 0]], [bg.point_sample_coords_plain(img, xy)])
         y = gs()
-        lib_fwd = cuda_ms(gs)
-        lib_bwd = cuda_ms(lambda: torch.autograd.grad(y, (lib_img, grid), dout[:, None, None],
-                                                      retain_graph=True))
+        r["lib_fwd"] = cuda_ms(gs)
+        r["lib_path"] = cuda_ms(lambda: torch.autograd.grad(y, lib_img, dout[:, None, None],
+                                                            retain_graph=True))
+        r["lib_grad"] = cuda_ms(lambda: torch.autograd.grad(y, (lib_img, grid), dout[:, None, None],
+                                                            retain_graph=True))
+        # 20 back-to-back calls between events: the card stays busy, so a call's host work
+        # (which one call at a time above includes) hides behind the one before
+        r["fwd_loop_ms"] = loop_ms(lambda: bg.point_sample_coords_fwd_cuda(img, xy))
+        r["path_loop_ms"] = loop_ms(lambda: bg.point_sample_coords_bwd_cuda(img, xy, dout))
+        r["grad_loop_ms"] = loop_ms(lambda: bg.point_sample_bwd_cuda(img, fx, fy, dout))
+        r["lib_fwd_loop_ms"] = loop_ms(gs)
+        r["lib_path_loop_ms"] = loop_ms(lambda: torch.autograd.grad(
+            y, lib_img, dout[:, None, None], retain_graph=True))
+        r["lib_grad_loop_ms"] = loop_ms(lambda: torch.autograd.grad(
+            y, (lib_img, grid), dout[:, None, None], retain_graph=True))
         del y, lib_img, grid
-        print(f"K9 {key} (N {Nc}, {H}x{W}, K {K}): rel_l2 "
-              + " ".join(f"{n}={e:.3e}" for n, e in errs.items())
-              + f" max_abs={max_abs:.3e} (F.grid_sample out rel_l2 {lib_err:.3e}); fwd "
-              f"kernel/plain/library ms {fwd_ms:.4f}/{plain_fwd_ms:.4f}/{lib_fwd:.4f}, bound "
-              f"{fb:.4f} ({fby}, {fwd_bytes / 1e6:.1f} MB); bwd kernel/plain/library ms "
-              f"{bwd_ms:.4f}/{plain_bwd_ms:.4f}/{lib_bwd:.4f}, bound {bb:.4f} ({bby}, "
-              f"{bwd_bytes / 1e6:.1f} MB)", flush=True)
-        for n, e in errs.items():
-            if not e <= K9_RTOL:
-                raise RuntimeError(f"K9 {key}: {n} relative L2 {e:.3e} > {K9_RTOL}")
-        out[key] = dict(max_abs_err=max_abs, fwd_ms=fwd_ms, bwd_ms=bwd_ms, plain_fwd_ms=plain_fwd_ms,
-                        plain_bwd_ms=plain_bwd_ms, fwd_bound=(fb, fby), bwd_bound=(bb, bby),
-                        lib_fwd=lib_fwd, lib_bwd=lib_bwd)
-        del img, fx, fy, dout, got, want
+        print(f"K9 {key} back-to-back ms, kernel / F.grid_sample: fwd "
+              f"{r['fwd_loop_ms']:.4f} / {r['lib_fwd_loop_ms']:.4f}; bwd dimg alone "
+              f"{r['path_loop_ms']:.4f} / {r['lib_path_loop_ms']:.4f}; bwd with the coordinate "
+              f"gradient {r['grad_loop_ms']:.4f} / {r['lib_grad_loop_ms']:.4f}", flush=True)
+        print(f"K9 {key} times, ms (F.grid_sample out rel_l2 {lib_err:.3e}): fwd coords / pixel "
+              f"entry / plain / library {r['fwd_ms']:.4f} / {r['pixel_fwd_ms']:.4f} / "
+              f"{r['plain_fwd_ms']:.4f} / {r['lib_fwd']:.4f}, bound {r['fwd_bound'][0]:.4f} "
+              f"({fwd_bytes / 1e6:.1f} MB); bwd dimg alone coords / pixel entry / plain / "
+              f"library {r['path_ms']:.4f} / {r['pixel_path_ms']:.4f} / {r['plain_path_ms']:.4f} / "
+              f"{r['lib_path']:.4f}, bound {r['path_bound'][0]:.4f} ({path_bytes / 1e6:.1f} MB); "
+              f"bwd with the coordinate gradient pixel entry (dfx, dfy) / coords (dcoords) / "
+              f"plain / library {r['grad_ms']:.4f} / {r['coords_grad_ms']:.4f} / "
+              f"{r['plain_grad_ms']:.4f} / {r['lib_grad']:.4f}, bound {r['grad_bound'][0]:.4f} "
+              f"({grad_bytes / 1e6:.1f} MB)", flush=True)
+        out[key] = r
+        if key == "fast":  # the path's call through the caller, with the kernels
+            logits = img.clone().requires_grad_()
+            k9_only_launches("mask2former.point_sample forward (N 6500, 56x56, K 12544)",
+                             lambda: m2f.point_sample(logits, xy), {"K9f": 1})
+            k9_only_launches("mask2former.point_sample forward and backward",
+                             lambda: torch.autograd.grad(m2f.point_sample(logits, xy), logits,
+                                                         dout), {"K9f": 1, "K9b": 1})
+            del logits
+        del img, fx, fy, xy, dout
         torch.cuda.empty_cache()
     r = out["fast"]
-    common = dict(route="cuda", source="samrs_tpu_torch/csrc/point_sample.cu",
-                  max_abs_err=max(o["max_abs_err"] for o in out.values()))
-    extra = lambda d: {**{f"{k}_ms": out[k][f"{d}_ms"] for k in ("fast_candidates", "map256")},
-                       **{f"{k}_bound_ms": out[k][f"{d}_bound"][0]
-                          for k in ("fast_candidates", "map256")}}
-    fwd = dict(name="K9 fwd per-mask point sample (FAST head: N 6500, 56x56, K 12544, fp32; "
-                    "the 37632 candidates and a 256x256 map (device-memory path) in *_ms; "
-                    "library: F.grid_sample on (N, 1, H, W))",
+    common = dict(route="cuda", source="samrs_tpu_torch/csrc/point_sample.cu", max_abs_err=max_abs)
+    extra = lambda names: {f"{k}_{n}": out[k][n] for k in ("fast_candidates", "map256")
+                           for n in names}
+    fwd = dict(name="K9 fwd per-mask point sample, coordinate entry (FAST head: N 6500, 56x56, "
+                    "K 12544, fp32 coords in [0, 1]; the 37632 candidates and a 256x256 map "
+                    "(device-memory form) in fast_candidates_* / map256_*; pixel_fwd_ms: the fx / fy "
+                    "entry; library: F.grid_sample on (N, 1, H, W))",
                replaces="samrs_tpu/kernels/bilinear_gather.py:762", **common, ms=r["fwd_ms"],
                plain_ms=r["plain_fwd_ms"], bound_ms=r["fwd_bound"][0], bound_by=r["fwd_bound"][1],
-               library_ms=r["lib_fwd"], **extra("fwd"))
-    bwd = dict(name="K9 bwd per-mask point sample (dimg, dfx, dfy; same shapes; library: "
-                    "F.grid_sample backward)",
-               replaces="samrs_tpu/kernels/bilinear_gather.py:786", **common, ms=r["bwd_ms"],
-               plain_ms=r["plain_bwd_ms"], bound_ms=r["bwd_bound"][0], bound_by=r["bwd_bound"][1],
-               library_ms=r["lib_bwd"], **extra("bwd"))
+               library_ms=r["lib_fwd"], pixel_fwd_ms=r["pixel_fwd_ms"],
+               loop_ms=r["fwd_loop_ms"], library_loop_ms=r["lib_fwd_loop_ms"],
+               **extra(("fwd_ms", "pixel_fwd_ms", "plain_fwd_ms", "lib_fwd", "fwd_loop_ms",
+                        "lib_fwd_loop_ms")))
+    bwd = dict(name="K9 bwd per-mask point sample, the path's form: dimg alone from the "
+                    "coordinate entry (same shapes; library: F.grid_sample backward for the "
+                    "input); grad_*: with dfx, dfy (pixel entry; library for input and grid), "
+                    "coords_grad_ms: with dcoords",
+               replaces="samrs_tpu/kernels/bilinear_gather.py:786", **common, ms=r["path_ms"],
+               plain_ms=r["plain_path_ms"], bound_ms=r["path_bound"][0],
+               bound_by=r["path_bound"][1], library_ms=r["lib_path"],
+               pixel_path_ms=r["pixel_path_ms"], grad_ms=r["grad_ms"],
+               grad_plain_ms=r["plain_grad_ms"], grad_library_ms=r["lib_grad"],
+               coords_grad_ms=r["coords_grad_ms"],
+               loop_ms=r["path_loop_ms"], library_loop_ms=r["lib_path_loop_ms"],
+               grad_loop_ms=r["grad_loop_ms"], grad_library_loop_ms=r["lib_grad_loop_ms"],
+               **extra(("path_ms", "plain_path_ms", "lib_path", "grad_ms", "plain_grad_ms",
+                        "lib_grad", "path_loop_ms", "lib_path_loop_ms", "grad_loop_ms",
+                        "lib_grad_loop_ms")))
     return {"K9f": fwd, "K9b": bwd}
 
 
@@ -1420,8 +1602,7 @@ def k8_slab_phase(gen):
                   max_abs_err=max(o["max_abs_err"] for o in out.values()))
     extra = lambda d: {**{f"{k}_ms": out[k][d] for k in out if k != "ii_l0"},
                        **{f"{k}_dense_ms": out[k][f"dense_{d}"] for k in out},
-                       **{f"{k}_plain_ms": out[k][f"plain_{d}"] for k in out if k != "ii_l0"},
-                       **{f"{k}_bound_ms": out[k][f"{d}_bound"][0] for k in out if k != "ii_l0"}}
+                       **{f"{k}_plain_ms": out[k][f"plain_{d}"] for k in out if k != "ii_l0"}}
     fwd = dict(name="K8-slab fwd weighted bilinear gather over active row slabs (InternImage-T "
                     "level 0 at the FAST head: BG 260, 56x56, Gc 16, K 9, Hs 7, fp32; the other "
                     "levels, bf16, the MSDA level and the scattered / wide / Gc 6 cases in *_ms, "
@@ -1514,7 +1695,7 @@ def k11_widths_phase(gen):
     for C in (1024, 1280):
         out[C] = k11_case(gen, f"width {C}", 1000, C, 4 * C)
     r = out[64]
-    keys = ("ms", "cold_ms", "plain_ms", "composition_ms", "bound_ms", "tflops", "two_launch_ms",
+    keys = ("ms", "cold_ms", "plain_ms", "composition_ms", "tflops", "two_launch_ms",
             "two_launch_max_diff")
     return {"K11w": dict(
         name="K11 fused MLP fp32 on split-TF32 wgmma at InternImage-T's widths (level 0 at the "
@@ -1590,10 +1771,8 @@ def k10_k11_phase(gen):
                     plain_ms=r10["plain_ms"], bound_ms=r10["bound_ms"],
                     bound_by=r10["bound_by"], library_ms=r10["library_ms"],
                     tflops=r10["tflops"],
-                    **{f"rvsa_{k}": tail10[k] for k in ("ms", "plain_ms", "library_ms",
-                                                         "bound_ms", "tflops")},
-                    **{f"d80_{k}": out["K10"]["d80_224"][k]
-                       for k in ("ms", "plain_ms", "library_ms", "bound_ms")}),
+                    **{f"rvsa_{k}": tail10[k] for k in ("ms", "plain_ms", "library_ms", "tflops")},
+                    **{f"d80_{k}": out["K10"]["d80_224"][k] for k in ("ms", "plain_ms", "library_ms")}),
         "K11": dict(name="K11 fused MLP fp32 on split-TF32 wgmma (vit_b 512^2 batch 8: T 8192, "
                          "C 768, M 3072, two launches; RVSA FAST head in rvsa_*; launches: "
                          "calls of the forward; cold_ms: with the weights' tf32 split; bound: "
@@ -1607,7 +1786,7 @@ def k10_k11_phase(gen):
                     composition_ms=r11["composition_ms"], cold_ms=r11["cold_ms"],
                     tflops=r11["tflops"],
                     **{f"rvsa_{k}": tail11[k] for k in ("ms", "cold_ms", "plain_ms",
-                                                         "composition_ms", "bound_ms", "tflops")}),
+                                                         "composition_ms", "tflops")}),
         "K11s": split,
     }
 
@@ -2227,17 +2406,47 @@ def mask2former_step_phase(profile: bool = False):
     print(f"mask2former Hungarian: {len(spent)} calls a step (costs {[t[3] for t in spent]}): "
           f"wait for the costs {wait * 1e3:.2f} ms, copy {copy * 1e3:.2f} ms, scipy "
           f"{host * 1e3:.2f} ms a step", flush=True)
-    if profile:
-        profile_step(model, fresh_state, step, "mask2former step")
+    if profile:  # the device time of mask2former.point_sample's own launches too
+        sample = m2f.point_sample
+
+        def ranged(*args, **kwargs):
+            with torch.profiler.record_function("mask2former.point_sample"):
+                return sample(*args, **kwargs)
+
+        m2f.point_sample = ranged
+        try:
+            profile_step(model, fresh_state, step, "mask2former step",
+                         ranges=("mask2former.point_sample",))
+        finally:
+            m2f.point_sample = sample
     del model, init, batches, state
     torch.cuda.empty_cache()
     return dict(timing=timing, dist=dist, flips=(flips, bits), assign=(changed, assigns),
                 hungarian_ms=host * 1e3)
 
 
-def profile_step(model, fresh_state, step, label: str) -> None:
+def kernels_under(events, name: str):
+    """{kernel name: device ms} of the kernels launched inside the
+    record_function ranges called `name` (their CPU ops' kernels)."""
+    out = {}
+
+    def walk(e):
+        for k in e.kernels:
+            out[k.name] = out.get(k.name, 0.0) + k.duration / 1e3
+        for c in e.cpu_children:
+            walk(c)
+
+    for e in events:
+        if e.name == name:
+            walk(e)
+    return out
+
+
+def profile_step(model, fresh_state, step, label: str, ranges=()) -> None:
     """torch.profiler over one warm train step with the kernels: device time
-    by operation and the device's busy share of the wall time."""
+    by operation and the device's busy share of the wall time; the device ms
+    of K9's kernels and of PyTorch's elementwise kernels in the step, and of
+    every kernel launched inside each record_function range in `ranges`."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2251,11 +2460,26 @@ def profile_step(model, fresh_state, step, label: str) -> None:
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t) * 1e3
     events = prof.key_averages()
-    device_ms = sum(e.self_device_time_total for e in events
-                    if e.device_type == DeviceType.CUDA) / 1e3
+    # device rows, without the device-side copies of record_function ranges
+    rows = [e for e in events if e.device_type == DeviceType.CUDA and e.key not in ranges
+            and not getattr(e, "is_user_annotation", False)]
+    device_ms = sum(e.self_device_time_total for e in rows) / 1e3
     print(f"profile ({label}): wall {wall_ms:.2f} ms under the profiler, device "
           f"{device_ms:.2f} ms, busy {100 * device_ms / wall_ms:.1f}% of the profiled wall",
           flush=True)
+    for kind, word in (("K9 (point_sample kernels)", "point_sample"),
+                       ("elementwise kernels", "elementwise_kernel")):
+        ms = sum(e.self_device_time_total for e in rows if word in e.key) / 1e3
+        n = sum(e.count for e in rows if word in e.key)
+        print(f"profile ({label}): {kind}: {ms:.3f} ms device in {n} launches "
+              f"({100 * ms / device_ms:.1f}% of device time)", flush=True)
+    for name in ranges:
+        inside = kernels_under(prof.events(), name)
+        k9 = sum(v for k, v in inside.items() if "point_sample" in k)
+        print(f"profile ({label}): inside {name}: {sum(inside.values()):.3f} ms device, K9 "
+              f"{k9:.3f} ms, other kernels {sum(inside.values()) - k9:.3f} ms: "
+              + ", ".join(f"{k[:60]} {v:.3f}" for k, v in
+                          sorted(inside.items(), key=lambda kv: -kv[1])[:8]), flush=True)
     print(events.table(sort_by="self_device_time_total", row_limit=25, max_name_column_width=70),
           flush=True)
 
@@ -2691,7 +2915,8 @@ def main() -> None:
     ap.add_argument("--profile", action="store_true",
                     help="profile one generate image per path, one pretrain and one finetune step")
     ap.add_argument("--only", choices=("kernels", "gemm", "main", "modes", "configs", "sizes",
-                                       "slab", "internimage", "mlp", "gather", "steps"),
+                                       "slab", "internimage", "mlp", "gather", "steps",
+                                       "point_sample", "mask2former"),
                     action="append",
                     help="run only these phases (a partial check: no result lines): K1-K7 at "
                          "the main path's shapes (kernels), the encoder's GEMM (gemm), the main "
@@ -2700,7 +2925,8 @@ def main() -> None:
                          "K11 at InternImage's widths (slab), the InternImage step and driver "
                          "(internimage), K10 and K11 at every width (mlp), K8 and the MSDA "
                          "wrapper (gather), the UperNet, InternImage, Mask2Former and finetune "
-                         "steps (steps)")
+                         "steps (steps), K9 and one mask2former.point_sample call "
+                         "(point_sample), the Mask2Former step alone (mask2former)")
     args = ap.parse_args()
     # the 94-image pretrain step peaks near 80 GB; growable segments keep the
     # caching allocator from failing on fragmentation (the values are the same)
@@ -2752,6 +2978,10 @@ def main() -> None:
         if "gather" in args.only:
             k8_phase(gen)
             msda_phase(gen)
+        if "point_sample" in args.only:
+            k9_phase(gen)
+        if "mask2former" in args.only:
+            mask2former_step_phase(args.profile)
         if "steps" in args.only:
             train_step_phase(args.profile)
             internimage_step_phase(args.profile)
@@ -2803,7 +3033,7 @@ def main() -> None:
     for key, prefix in (("K12s1024", "grid32"), ("K12s256", "grid16")):
         other = results.pop(key)
         results["K12"].update({f"{prefix}_{k}": other[k] for k in
-                               ("ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err")})
+                               ("ms", "plain_ms", "library_ms", "max_abs_err")})
     results["K1"]["launches_config_block_sg"] = configs["window_attn_impl=block_sg"]["launches"]["K1"]
     results["K1blk"]["launches_config_block_slab"] = \
         configs["window_attn_impl=block_slab"]["launches"]["K1"]

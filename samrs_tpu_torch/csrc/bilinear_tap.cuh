@@ -1,8 +1,9 @@
 // One bilinear tap at absolute pixel coordinates (fx, fy) with zero padding:
 // the four corners' clamped pixel indices, validity and weights.  Shared by
-// K8 (bilinear_gather.cu, bilinear_slab.cu) and K9 (point_sample.cu), so that all take the
-// floor, the weights and the validity exactly as their plain versions do
-// (samrs_tpu_torch/kernels/bilinear_gather.py::_corners).
+// K8 (bilinear_gather.cu, bilinear_slab.cu), so that both take the floor, the
+// weights and the validity exactly as their plain versions do
+// (samrs_tpu_torch/kernels/bilinear_gather.py::_corners); K9 (point_sample.cu)
+// takes them the same way without the clamped indices (``corners``).
 #pragma once
 
 #include "common.cuh"

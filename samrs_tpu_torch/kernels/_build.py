@@ -46,8 +46,8 @@ _SIGNATURES = {
     "samrs_bilinear_bwd": ([_P] * 10 + [_I] * 7 + [_P], _I),
     "samrs_bilinear_slab_fwd": ([_P] * 5 + [_I] * 8 + [_P], _I),
     "samrs_bilinear_slab_bwd": ([_P] * 9 + [_I] * 8 + [_P], _I),
-    "samrs_point_sample_fwd": ([_P] * 4 + [_I] * 5 + [_P], _I),
-    "samrs_point_sample_bwd": ([_P] * 7 + [_I] * 5 + [_P], _I),
+    "samrs_point_sample_fwd": ([_P] * 4 + [_I] * 8 + [_P], _I),
+    "samrs_point_sample_bwd": ([_P] * 7 + [_I] * 8 + [_P], _I),
     "samrs_plain_attention_scratch_bytes": ([_I, _I, _I], ctypes.c_longlong),
     "samrs_plain_attention": ([_P] * 4 + [ctypes.c_longlong, _P, _I, _I, _I, _F, _P], _I),
     "samrs_fused_mlp": ([_P] * 9 + [_I] * 4 + [_P], _I),

@@ -22,14 +22,19 @@ same one-sided coordinate derivative as the TPU kernel's ``_dhat``: at an
 integer coordinate the tap at t in [0, 1) has slope -1, the tap at
 t in [-1, 0) slope +1, and the tap at t = 1 none.
 
-K9 (``point_sample``, csrc/point_sample.cu) replaces
+K9 (``point_sample`` on pixel coordinates, ``point_sample_coords`` on
+[0, 1] points as Mask2Former's point losses pass them;
+csrc/point_sample.cu) replaces
 samrs_tpu/kernels/bilinear_gather.py::_make_point_sampler: its forward
 ``pallas_call`` (:762) and its backward (:786), which returns dimg, dfx and
-dfy.  Each of the N maps is sampled at its own K points.  Its plain version
-``point_sample_plain`` is an autograd Function of plain PyTorch that keeps
-only the map and the coordinates for its backward, as the kernel's does (an
-autograd graph of the gather would keep four int64 indices and four weights
-a point: ~5 GB a call at the FAST head's 6500 masks x 12544 points).
+dfy.  Each of the N maps is sampled at its own K points; the coordinate
+entry turns its points into pixels in the kernel (``pixel_coords`` is the
+same arithmetic in PyTorch).  ``point_sample_plan`` picks the kernel's form
+from the shape.  Its plain version ``point_sample_plain`` is an autograd
+Function of plain PyTorch that keeps only the map and the coordinates for
+its backward, as the kernel's does (an autograd graph of the gather would
+keep four int64 indices and four weights a point: ~5 GB a call at the FAST
+head's 6500 masks x 12544 points).
 
 K8's row-slab form (``row_slab`` > 0; csrc/bilinear_slab.cu) replaces the
 slab kernels of the same ``_make_sampler``: ``_fwd_kernel_slab`` (launched
@@ -52,6 +57,7 @@ core) on absolute coordinates ``fx = px - 0.5 + offset``: the base grid
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import Optional, Tuple
 
@@ -404,6 +410,75 @@ def ms_deform_attn(value, spatial_shapes, sampling_locations, attention_weights,
 
 _PS_POINTS = 1 << 24  # points of one pass of the plain version (bounds its int64 indices)
 
+# K9's forms (csrc/point_sample.cu), which point_sample_plan picks from the shape.  The C
+# side's plan_ok is the authority on what a form takes (the entries refuse any other);
+# these constants and _ps_smem_bytes are the model of it that the plan picks by.
+PS_SMEM, PS_BANDS, PS_GLOBAL = 0, 1, 2
+PS_SMEM_BUDGET = 227 * 1024  # dynamic shared memory a block can use on an H100 (bytes)
+PS_MAX_BLOCKS = 8            # blocks a mask: a forward's split, or the BANDS form's bands
+PS_VEC = 4                   # consecutive points a thread takes at once
+PS_THREADS = {PS_SMEM: 512, PS_BANDS: 1024, PS_GLOBAL: 256}
+PS_SPLIT_BLOCKS = 4          # forward blocks an SM below which a mask's points are split
+PS_MAX_SIDE = 1 << 22        # H, W below this: exact float pixel coordinates
+_I32 = 2 ** 31 - 1
+
+
+def _ps_smem_bytes(rows: int, W: int, arrays) -> int:
+    """Dynamic shared memory of a block that holds `rows` rows of the map in
+    each of `arrays` (their element sizes): a 144-byte header (the mbarrier,
+    32 floats of scratch), then each array at its device address's
+    16-byte phase (up to 15 bytes in), in a multiple of 16 bytes
+    (a model of csrc/point_sample.cu's ``smem_bytes``)."""
+    return 144 + sum(-(-rows * W * e // 16) * 16 + 16 for e in arrays)
+
+
+@functools.lru_cache(maxsize=256)
+def point_sample_plan(N: int, H: int, W: int, K: int, elem_bytes: int, grad=None,
+                      sms: int = 132):
+    """K9's form for a call on N (H, W) maps of `elem_bytes` (4 fp32, 2 bf16)
+    at K points each: (form, blocks).  ``grad`` None is the forward, False
+    the backward of dimg alone (the path's), True the backward with the
+    coordinate gradient; ``sms`` the card's SM count.
+
+    PS_SMEM: a block holds the whole map in shared memory (the backward:
+    dimg's fixed-point partial, and the map when ``grad``).  The forward takes
+    `blocks` blocks a mask, each with its own copy of the map and an equal
+    share of the points, where N alone would give the card fewer than
+    PS_SPLIT_BLOCKS blocks an SM; the backward takes one block a mask, which
+    owns the mask's whole dimg.  PS_BANDS (the backward of dimg alone): the
+    fewest `blocks` (2, 4 or 8) a mask whose bands of ceil(H / blocks) rows of
+    dimg's partial fit a block; every block reads all of the mask's points and
+    adds only into its own band.  PS_GLOBAL (blocks 1) for every other shape:
+    corners read from device memory, dimg added there by atomics.  Raises
+    where no form takes the shape: the wrapper never reroutes."""
+    if min(N, H, W, K) < 1 or H * W > _I32 or K > _I32 or max(H, W) >= PS_MAX_SIDE:
+        raise ValueError(f"point_sample: no K9 form takes N {N}, {H}x{W}, K {K}")
+    # the forward holds the map; the backward dimg's fixed-point partial (two int32 words a
+    # pixel) and, for the coordinate gradient, the map
+    arrays = [elem_bytes] if grad is None else [4, 4] + ([elem_bytes] if grad else [])
+    bands = (1, 2, 4, 8) if grad is False else (1,)
+    plan = (PS_GLOBAL, 1)
+    for blocks in bands:
+        if _ps_smem_bytes(-(-H // blocks), W, arrays) <= PS_SMEM_BUDGET:
+            plan = (PS_SMEM, 1) if blocks == 1 else (PS_BANDS, blocks)
+            break
+    if plan[0] == PS_SMEM and grad is None:
+        want = -(-PS_SPLIT_BLOCKS * sms // N)
+        plan = (PS_SMEM, max(1, min(PS_MAX_BLOCKS, want, K // (PS_THREADS[PS_SMEM] * PS_VEC))))
+    if N > _I32 // plan[1]:
+        raise ValueError(f"point_sample: no K9 form takes N {N} ({plan[1]} blocks a mask)")
+    return plan
+
+
+def pixel_coords(coords, H: int, W: int):
+    """(fx, fy): absolute pixel coordinates of (..., 2) xy points in [0, 1]
+    (align_corners=False) through the JAX package's [-1, 1] grid,
+    ``((2c - 1 + 1) * size - 1) * 0.5`` with each operation rounded on its
+    own: K9's coordinate entry does the same in registers, so its points
+    are these bit for bit."""
+    g = 2.0 * coords.float() - 1.0
+    return ((g[..., 0] + 1.0) * W - 1.0) * 0.5, ((g[..., 1] + 1.0) * H - 1.0) * 0.5
+
 
 def point_sample_plain_fwd(img, fx, fy):
     """K9's plain forward: img (N, H, W) fp32 or bf16; fx, fy (N, K) fp32
@@ -446,45 +521,115 @@ def point_sample_plain_bwd(img, fx, fy, dout, coords_grad: bool = True):
     return dimg.reshape(N, H, W).to(img.dtype), dfx, dfy
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _sms(device) -> int:
+    return _sm_count(device.index if device.index is not None else torch.cuda.current_device())
+
+
+def _ps_plan(img, K: int, grad):
+    N, H, W = img.shape
+    return point_sample_plan(N, H, W, K, img.element_size(), grad, _sms(img.device))
+
+
+def _ps_check_img(img):
+    if img.dim() != 3:
+        raise ValueError(f"point_sample: expected img (N, H, W), got {tuple(img.shape)}")
+    if img.dtype not in _DTYPES:
+        raise ValueError(f"img: the kernel takes {_DTYPES}, got {img.dtype}")
+    _build.require_cuda("img", img, img.dtype)
+
+
+def _ps_aligned16(**tensors):
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: K9 reads it as 16-byte vectors: needs a 16-byte aligned "
+                             f"address")
+
+
 def _ps_check(img, fx, fy):
     if img.dim() != 3 or fx.dim() != 2 or fx.shape[0] != img.shape[0]:
         raise ValueError(f"point_sample: expected img (N, H, W) and fx, fy (N, K), got "
                          f"{tuple(img.shape)} and {tuple(fx.shape)}")
-    if img.dtype not in _DTYPES:
-        raise ValueError(f"img: the kernel takes {_DTYPES}, got {img.dtype}")
-    _build.require_cuda("img", img, img.dtype)
+    _ps_check_img(img)
     _build.require_cuda("fx", fx, torch.float32)
     _build.require_cuda("fy", fy, torch.float32, fx.shape)
+    _ps_aligned16(fx=fx, fy=fy)
 
 
-def point_sample_fwd_cuda(img, fx, fy):
-    """K9's forward kernel: (N, K) fp32."""
+def _ps_check_coords(img, coords):
+    if (img.dim() != 3 or coords.dim() != 3 or coords.shape[0] != img.shape[0]
+            or coords.shape[2] != 2):
+        raise ValueError(f"point_sample_coords: expected img (N, H, W) and coords (N, K, 2), "
+                         f"got {tuple(img.shape)} and {tuple(coords.shape)}")
+    _ps_check_img(img)
+    _build.require_cuda("coords", coords, torch.float32)
+    _ps_aligned16(coords=coords)
+
+
+def _ps_fwd(img, a, b, K: int):
+    """One forward launch: a, b = fx, fy, or coords and None."""
     global ps_fwd_launches
-    _ps_check(img, fx, fy)
     N, H, W = img.shape
-    out = torch.empty(fx.shape, device=img.device, dtype=torch.float32)
+    plan = _ps_plan(img, K, None)
+    out = torch.empty(N, K, device=img.device, dtype=torch.float32)
     p = _build.ptr
-    _build.launch("samrs_point_sample_fwd", p(img), p(fx), p(fy), p(out), N, H, W, fx.shape[1],
-                  int(img.dtype == torch.bfloat16))
+    _build.launch("samrs_point_sample_fwd", p(img), p(a), p(b), p(out), N, H, W, K,
+                  int(img.dtype == torch.bfloat16), int(b is None), *plan)
     ps_fwd_launches += 1
     return out
 
 
-def point_sample_bwd_cuda(img, fx, fy, dout, coords_grad: bool = True):
-    """K9's backward kernel: (dimg in img's dtype, dfx, dfy); dfx and dfy are
-    None (and not computed) unless ``coords_grad``."""
+def _ps_bwd(img, a, b, dout, K: int, ga, gb):
+    """One backward launch into ga, gb (the coordinate gradients, or None):
+    dimg (N, H, W) fp32, written whole by the kernel (zeroed first only for
+    the device-memory form, whose atomics add into it)."""
     global ps_bwd_launches
-    _ps_check(img, fx, fy)
-    _build.require_cuda("dout", dout, torch.float32, fx.shape)
+    _build.require_cuda("dout", dout, torch.float32, (img.shape[0], K))
+    _ps_aligned16(dout=dout)
     N, H, W = img.shape
-    dimg = torch.zeros(N, H, W, device=img.device, dtype=torch.float32)
+    plan = _ps_plan(img, K, ga is not None)
+    alloc = torch.zeros if plan[0] == PS_GLOBAL else torch.empty
+    dimg = alloc(N, H, W, device=img.device, dtype=torch.float32)
+    p = _build.ptr
+    _build.launch("samrs_point_sample_bwd", p(img), p(a), p(b), p(dout), p(dimg), p(ga), p(gb),
+                  N, H, W, K, int(img.dtype == torch.bfloat16), int(b is None), *plan)
+    ps_bwd_launches += 1
+    return dimg
+
+
+def point_sample_fwd_cuda(img, fx, fy):
+    """K9's forward kernel on pixel coordinates: (N, K) fp32."""
+    _ps_check(img, fx, fy)
+    return _ps_fwd(img, fx, fy, fx.shape[1])
+
+
+def point_sample_bwd_cuda(img, fx, fy, dout, coords_grad: bool = True):
+    """K9's backward kernel on pixel coordinates: (dimg in img's dtype, dfx,
+    dfy); dfx and dfy are None (and not computed) unless ``coords_grad``."""
+    _ps_check(img, fx, fy)
     dfx = torch.empty_like(fx) if coords_grad else None
     dfy = torch.empty_like(fy) if coords_grad else None
-    p = _build.ptr
-    _build.launch("samrs_point_sample_bwd", p(img), p(fx), p(fy), p(dout), p(dimg), p(dfx),
-                  p(dfy), N, H, W, fx.shape[1], int(img.dtype == torch.bfloat16))
-    ps_bwd_launches += 1
+    dimg = _ps_bwd(img, fx, fy, dout, fx.shape[1], dfx, dfy)
     return dimg.to(img.dtype), dfx, dfy
+
+
+def point_sample_coords_fwd_cuda(img, coords):
+    """K9's forward kernel on (N, K, 2) xy points in [0, 1]: (N, K) fp32."""
+    _ps_check_coords(img, coords)
+    return _ps_fwd(img, coords, None, coords.shape[1])
+
+
+def point_sample_coords_bwd_cuda(img, coords, dout, coords_grad: bool = False):
+    """K9's backward kernel on [0, 1] points: (dimg in img's dtype, dcoords
+    (N, K, 2) or None unless ``coords_grad``)."""
+    _ps_check_coords(img, coords)
+    dcoords = torch.empty_like(coords) if coords_grad else None
+    dimg = _ps_bwd(img, coords, None, dout, coords.shape[1], dcoords, None)
+    return dimg.to(img.dtype), dcoords
 
 
 class _PointSample(torch.autograd.Function):
@@ -501,12 +646,28 @@ class _PointSample(torch.autograd.Function):
         img, fx, fy = ctx.saved_tensors
         bwd = point_sample_plain_bwd if ctx.plain else point_sample_bwd_cuda
         coords_grad = ctx.needs_input_grad[1] or ctx.needs_input_grad[2]
-        dimg, dfx, dfy = bwd(img, fx, fy, dout.float().contiguous(), coords_grad)
+        dimg, dfx, dfy = bwd(img, fx, fy, _aligned(dout.float().contiguous()), coords_grad)
         return dimg, dfx, dfy, None
 
 
+class _PointSampleCoords(torch.autograd.Function):
+    """K9's coordinate entry on the card; keeps img and coords for the
+    backward, which computes dcoords only where they need a gradient."""
+
+    @staticmethod
+    def forward(ctx, img, coords):
+        ctx.save_for_backward(img, coords)
+        return point_sample_coords_fwd_cuda(img, coords)
+
+    @staticmethod
+    def backward(ctx, dout):
+        img, coords = ctx.saved_tensors
+        return point_sample_coords_bwd_cuda(img, coords, _aligned(dout.float().contiguous()),
+                                            ctx.needs_input_grad[1])
+
+
 def _ps_args(img, fx, fy):
-    return img.contiguous(), fx.float().contiguous(), fy.float().contiguous()
+    return img.contiguous(), _aligned(fx.float().contiguous()), _aligned(fy.float().contiguous())
 
 
 def point_sample_plain(img, fx, fy):
@@ -521,3 +682,21 @@ def point_sample(img, fx, fy):
     if not img.is_cuda:
         return point_sample_plain(img, fx, fy)
     return _PointSample.apply(*_ps_args(img, fx, fy), False)
+
+
+def point_sample_coords_plain(img, coords):
+    """The coordinate entry's plain version on any device: ``pixel_coords``
+    (the caller's eager glue), then ``point_sample_plain``."""
+    return point_sample_plain(img, *pixel_coords(coords, img.shape[1], img.shape[2]))
+
+
+def point_sample_coords(img, coords):
+    """K9's coordinate entry (JAX ``mask2former.point_sample`` on its Pallas
+    route): img (N, H, W) fp32 or bf16 sampled at its own (N, K, 2) xy
+    points in [0, 1] (mmcv's ``point_sample``, align_corners=False) ->
+    (N, K) fp32.  A CUDA tensor takes the kernels, which turn the points
+    into pixel coordinates in registers (one launch a call, none of the
+    glue's elementwise passes); a CPU tensor takes the plain version."""
+    if not img.is_cuda:
+        return point_sample_coords_plain(img, coords)
+    return _PointSampleCoords.apply(img.contiguous(), _aligned(coords.float().contiguous()))

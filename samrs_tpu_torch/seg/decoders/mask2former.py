@@ -303,13 +303,12 @@ def dice_loss(pred_sigmoid: torch.Tensor, target: torch.Tensor, eps: float = 1.0
 def point_sample(masks: torch.Tensor, coords: torch.Tensor, plain: bool = False) -> torch.Tensor:
     """Bilinear sample (N, H, W) masks at their own (N, K, 2) xy points in
     [0, 1] (mmcv.ops.point_sample, align_corners=False) -> (N, K) fp32:
-    K9, or its plain version with ``plain``."""
-    N, H, W = masks.shape
-    g = 2.0 * coords.float() - 1.0  # the JAX package's [-1, 1] grid, rounded as there
-    fx = ((g[..., 0] + 1.0) * W - 1.0) * 0.5
-    fy = ((g[..., 1] + 1.0) * H - 1.0) * 0.5
-    sample = bilinear_gather.point_sample_plain if plain else bilinear_gather.point_sample
-    return sample(masks, fx, fy)
+    K9's coordinate entry (one launch on the card: the kernel turns the
+    points into pixels through the JAX package's [-1, 1] grid), or its
+    plain version with ``plain``."""
+    if plain:
+        return bilinear_gather.point_sample_coords_plain(masks, coords)
+    return bilinear_gather.point_sample_coords(masks, coords)
 
 
 def point_sample_shared(masks: torch.Tensor, coords: torch.Tensor,
