@@ -4,9 +4,10 @@ timing variants of their sources with one stage switched off.
 
     python3 chip_breakdown.py --csrc DIR [--what PART ...]
 
-DIR is a ``samrs_tpu_torch/csrc``: this tree's, or for ``point_sample``
-also that of a tree before K9 was redesigned for Hopper (unpack it with
-``git archive`` into a directory that ``.gitignore`` lists).  The script copies a kernel's source into variants
+DIR is a ``samrs_tpu_torch/csrc``: this tree's, or for ``split_attention``
+and ``t2i_kv`` also that of a tree before K12 and K4 were redesigned for
+Hopper (unpack it with ``git archive`` into a directory that ``.gitignore``
+lists).  The script copies a kernel's source into variants
 in which a stage is switched off at run time (a condition the compiler
 cannot fold: the work is skipped, the rest of the code stays), builds each
 with nvcc for sm_90a, and times each at the paths' shapes.  The differences
@@ -101,15 +102,36 @@ hashed from its index, uniform over the map as the loss draws them),
 ``no_corners`` (no corner reads: zeros stand in), ``no_stores`` (the
 per-point outputs and dimg's write-out skipped, their values kept),
 ``no_atomics`` (dimg's per-corner adds skipped) and ``no_staging`` (the
-image not copied into shared memory).  It takes the first version (fx / fy
-in pixels, a block per 8192-point chunk) or the Hopper redesign (the
-coordinates in [0, 1] read by the kernel, its forms chosen by
-``bilinear_gather.point_sample_plan``), told apart by its source, and
-prints the count of each atomic / reduction opcode in the full variant's
-SASS (cuobjdump).  The redesign's variants also include ``float_dimg``
+image not copied into shared memory), on the coordinate entry in the form
+``bilinear_gather.point_sample_plan`` picks, and prints the count of each
+atomic / reduction opcode in the full variant's SASS (cuobjdump).  The
+variants also include ``float_dimg``
 (dimg's shared partial in fp32, added by ``atomicAdd``, instead of fixed
 point) and its SMEM form at other points a thread / threads a block /
 blocks an SM (``fwd_v4_t512_b2`` ...).
+
+``--what split_attention`` profiles K12 at one ViT-H image's four shapes
+(16 heads of 80): the windows of ``window_attn_impl=pallas`` (B' 400, 14 x
+14), the globals of ``window_attn_impl=xla`` (B' 16, 64 x 64) and the global
+grids of image_size 512 and 256 (32^2, 16^2), 20 back-to-back launches
+between CUDA events (median of 5) and torch.profiler's device time of the
+full variant, with ``no_kv_loads`` (K and V not loaded), ``no_products``
+(neither Q.K^T nor P.V), ``no_softmax`` (no exponentials: the logits go to
+P.V as they are), ``no_bias`` (the rel-pos terms not added) and
+``no_stores``; and, by device time, the glue the wrapper ran before the
+redesign (the plain ``rel_rows``: q in fp32 and two einsums) and, on the
+redesign, the path's ``window_attention_relpos`` (the rel-row kernel and
+the attention) and, at the windows, K2's rel-row kernel beside K1's.
+Before the redesign it takes csrc/split_attention.cu (the warp-level
+kernels, with csrc/warp_attention.cuh inlined) by direct calls;
+on the redesign the window form (csrc/window_attention.cu) or the
+query-tiled form (csrc/flash_attention.cu) through the wrapper, each shape
+in the form ``window_attention.split_form`` gives.  ``--what t2i_kv``
+profiles K4 (csrc/twoway.cu) at the main path's 4096 rows by direct calls,
+with ``no_tile_loads`` (zeros for the keys and pe), ``no_weight_loads``,
+``no_products`` and ``no_stores`` (before the redesign also
+``no_second_weight``: Wv not loaded).  The two source sets are told apart by
+whether csrc/split_attention.cu exists.
 """
 
 from __future__ import annotations
@@ -129,7 +151,7 @@ from chip_smoke import device_ms
 from samrs_tpu_torch.kernels import _build
 
 PARTS = ("attention", "mlp_gather", "rates", "decoder_tail", "gather_fwd", "plain_attention",
-         "point_sample")
+         "point_sample", "split_attention", "t2i_kv")
 OFF = "(samrs_prof_off != 0)"  # false at run time; the compiler cannot fold it
 GUARD = "__device__ int samrs_prof_off;  // 0: the stages it guards are skipped\n"
 
@@ -268,34 +290,130 @@ K10_VARIANTS = {
 }
 
 
-# K9, first version (the sources before its Hopper redesign: fx / fy in pixels, a block per
-# 8192-point chunk, dimg by shared then global atomics); the next PR deletes this set
-_HASH_TAP = ("make_tap((float)(((unsigned)i * 2654435761u) >> 8) * 5.9604645e-8f * W - 0.5f, "
-             "(float)(((unsigned)i * 2246822519u) >> 8) * 5.9604645e-8f * H - 0.5f, H, W)")
-PS_FIRST_VARIANTS = {
+# K12's Hopper forms: the window form (K1's pipeline, csrc/window_attention.cu) and the
+# query-tiled form (K2's, csrc/flash_attention.cu); the switched-off stages are those of the
+# split-head paths where the pipelines part (the loads, the bias, the stores), else shared
+_EX2 = "ex2(fmaf(sacc[4 * j + 2 * half{}], kLog2e, mb[half]))"
+_NO_EXP = [(_EX2.format(x), f"({OFF} ? {_EX2.format(x)} : sacc[4 * j + 2 * half{x}])")
+           for x in ("", " + 1")]
+SAW_VARIANTS = {
     "full": [],
-    "no_coords": [("const Tap t = make_tap(fx[i], fy[i], H, W);",
-                   f"const Tap t = {OFF} ? make_tap(fx[i], fy[i], H, W) : {_HASH_TAP};")],
-    "no_corners": [("    if (!valid) return 0.f;", f"    if (!valid || !{OFF}) return 0.f;")],
-    "no_stores": [("    out[i] = s;", "    asm volatile(\"\" ::\"f\"(s));  // kept\n"
-                   f"    if {OFF} out[i] = s;"),
-                  ("      dfx[i] = r * ((v01 - v00) * ay + (v11 - v10) * t.wy);\n"
-                   "      dfy[i] = r * (bot - top);",
-                   "      const float gx = r * ((v01 - v00) * ay + (v11 - v10) * t.wy);\n"
-                   "      const float gy = r * (bot - top);\n"
-                   "      asm volatile(\"\" ::\"f\"(gx), \"f\"(gy));  // kept\n"
-                   f"      if {OFF} {{ dfx[i] = gx; dfy[i] = gy; }}"),
-                  ("      if (nchunks == 1) {\n        d_img[i] = s_d[i];",
-                   f"      if (!{OFF}) {{\n      }} else if (nchunks == 1) {{\n        d_img[i] = s_d[i];")],
-    "no_atomics": [(f"    if (t.v{c}) atomicAdd(d + t.i{c}, r * t.w{c});",
-                    f"    if (t.v{c} && {OFF}) atomicAdd(d + t.i{c}, r * t.w{c});")
-                   for c in ("00", "01", "10", "11")],
-    "no_staging": [("    stage(s_img, g, H * W);", f"    if {OFF} stage(s_img, g, H * W);"),
-                   ("    stage(s_img, g, HW);", f"    if {OFF} stage(s_img, g, HW);")],
+    "no_kv_loads": [("          mbar_expect_tx(&full[s], 3 * nbox * (128 + (S::TAIL ? 32 : 0)));\n"
+                     "#pragma unroll\n          for (int part = 0; part < 3; ++part) {",
+                     f"          mbar_expect_tx(&full[s], ({OFF} ? 3 : 1) * nbox * (128 + (S::TAIL ? 32 : 0)));\n"
+                     f"#pragma unroll\n          for (int part = 0; part < ({OFF} ? 3 : 1); ++part) {{")],
+    "no_products": [("for (int kk = 0; kk < 4; ++kk) wgmma_ss_n200(",
+                     f"for (int kk = 0; kk < ({OFF} ? 4 : 0); ++kk) wgmma_ss_n200("),
+                    ("for (int kk = 0; kk < NPV / 16; ++kk) {",
+                     f"for (int kk = 0; kk < ({OFF} ? NPV / 16 : 0); ++kk) {{")],
+    "no_softmax": _NO_EXP,
+    "no_bias": [("v = fmaf(sacc[4 * j + e], scale, rrow[kx] + rrow[GH + kc - kx * GW]);",
+                 f"v = {OFF} ? fmaf(sacc[4 * j + e], scale, rrow[kx] + rrow[GH + kc - kx * GW])"
+                 " : sacc[4 * j + e] * scale;")],
+    "no_stores": [("          if (lr >= rows) continue;", f"          if (lr >= rows || !{OFF}) continue;")],
 }
-_P, _I = ctypes.c_void_p, ctypes.c_int
-PS_FIRST_SIGNATURES = {"samrs_point_sample_fwd": ([_P] * 4 + [_I] * 5 + [_P], _I),
-                       "samrs_point_sample_bwd": ([_P] * 7 + [_I] * 5 + [_P], _I)}
+SAT_VARIANTS = {
+    "full": [],
+    "no_kv_loads": [("        load_head_tile<HD>(Ks(s), &maps.main[1], &maps.tail[1], &full_k[s], col(1), tile * BKT, b);\n"
+                     "        load_head_tile<HD>(Vs(s), &maps.main[2], &maps.tail[2], &full_v[s], col(2), tile * BKT, b);",
+                     f"        if ({OFF}) {{\n"
+                     "        load_head_tile<HD>(Ks(s), &maps.main[1], &maps.tail[1], &full_k[s], col(1), tile * BKT, b);\n"
+                     "        load_head_tile<HD>(Vs(s), &maps.main[2], &maps.tail[2], &full_v[s], col(2), tile * BKT, b);\n"
+                     "        } else {\n          mbar_arrive(&full_k[s]);\n          mbar_arrive(&full_v[s]);\n        }")],
+    "no_products": [("for (int kk = 0; kk < 4; ++kk) wgmma_s_tile(",
+                     f"for (int kk = 0; kk < ({OFF} ? 4 : 0); ++kk) wgmma_s_tile("),
+                    ("    for (int kk = 0; kk < BKT / 16; ++kk) {",
+                     f"    for (int kk = 0; kk < ({OFF} ? BKT / 16 : 0); ++kk) {{")],
+    "no_softmax": _NO_EXP + [("      alpha[half] = ex2((m[half] - m_new) * kLog2e);",
+                              f"      alpha[half] = {OFF} ? ex2((m[half] - m_new) * kLog2e) : 1.f;")],
+    "no_bias": [("            v = fmaf(sacc[4 * j + e], s_scale, rh[half][r] + rw[half][key - r * KW]);",
+                 f"            v = {OFF} ? fmaf(sacc[4 * j + e], s_scale, rh[half][r] + rw[half][key - r * KW])"
+                 " : sacc[4 * j + e] * s_scale;"),
+                ("                                 bh[half][j / JW] + wreg[half][2 * (j % JW) + (e & 1)]);",
+                 f"                                 {OFF} ? bh[half][j / JW] + wreg[half][2 * (j % JW) + (e & 1)]"
+                 " : 0.f);")],
+    "no_stores": [("    if (r >= N) continue;\n    const float inv = 1.f / l[half];\n    if constexpr (SPLIT) {",
+                   f"    if (r >= N) continue;\n    const float inv = 1.f / l[half];\n    if constexpr (SPLIT) {{\n"
+                   f"      if (!{OFF}) continue;")],
+}
+# K4's Hopper form (32-row blocks, both weights by TMA, wgmma)
+KV_VARIANTS = {
+    "full": [],
+    "no_tile_loads": [("    xv[k] = *reinterpret_cast<const float4*>(x + (size_t)i * 4);\n"
+                       "    pv[k] = *reinterpret_cast<const float4*>(p + (size_t)i * 4);",
+                       f"    xv[k] = {OFF} ? *reinterpret_cast<const float4*>(x + (size_t)i * 4) : make_float4(0.f, 0.f, 0.f, 0.f);\n"
+                       f"    pv[k] = {OFF} ? *reinterpret_cast<const float4*>(p + (size_t)i * 4) : make_float4(0.f, 0.f, 0.f, 0.f);")],
+    "no_weight_loads": [("    mbar_expect_tx(wbar, 2 * WB_BYTES);\n    for (int kc = 0; kc < C / 64; ++kc) {",
+                         f"    mbar_expect_tx(wbar, {OFF} ? 2 * WB_BYTES : 0);\n"
+                         f"    for (int kc = 0; kc < ({OFF} ? C / 64 : 0); ++kc) {{")],
+    "no_products": K5_VARIANTS["no_projections"],
+    "no_stores": [("  if (wi * 16 >= KV_ROWS) return;", f"  if (wi * 16 >= KV_ROWS || !{OFF}) return;")],
+}
+
+
+# K12 and K4 before their Hopper redesign (csrc/split_attention.cu: warp-level mma.sync kernels
+# built from csrc/warp_attention.cuh, inlined into the variant so that its stages can be
+# switched off; csrc/twoway.cu's t2i_kv_kernel: cp.async weights, mma.sync from shared memory);
+# the next PR deletes these two sets
+SA_PARENT_VARIANTS = {
+    "full": [],
+    "no_kv_loads": [("    cp_async16(Ks + r * LD + c * 8, kb + src, r < N);\n"
+                     "    cp_async16(Vs + r * LD + c * 8, vb + src, r < N);",
+                     f"    cp_async16(Ks + r * LD + c * 8, kb + src, r < N && {OFF});\n"
+                     f"    cp_async16(Vs + r * LD + c * 8, vb + src, r < N && {OFF});"),
+                    ("    load_tile_rows_async<HD>(Ks[stage], kb, k0, N, HD, 0, LD);\n"
+                     "    load_tile_rows_async<HD>(Vs[stage], vb, k0, N, HD, 0, LD);",
+                     f"    if ({OFF}) {{\n"
+                     "    load_tile_rows_async<HD>(Ks[stage], kb, k0, N, HD, 0, LD);\n"
+                     "    load_tile_rows_async<HD>(Vs[stage], vb, k0, N, HD, 0, LD); }")],
+    "no_products": [("        mma_16816(s[2 * kb], qa[kk], b[0], b[1]);\n"
+                     "        mma_16816(s[2 * kb + 1], qa[kk], b[2], b[3]);",
+                     f"        if ({OFF}) {{ mma_16816(s[2 * kb], qa[kk], b[0], b[1]);\n"
+                     "        mma_16816(s[2 * kb + 1], qa[kk], b[2], b[3]); }"),
+                    ("        mma_16816(st.o[2 * dp], pa[kb], b[0], b[1]);\n"
+                     "        mma_16816(st.o[2 * dp + 1], pa[kb], b[2], b[3]);",
+                     f"        if ({OFF}) {{ mma_16816(st.o[2 * dp], pa[kb], b[0], b[1]);\n"
+                     "        mma_16816(st.o[2 * dp + 1], pa[kb], b[2], b[3]); }")],
+    "no_softmax": [("    alpha[half] = softmax_exp<EXP2>(st.m[half] - m_new);",
+                    f"    alpha[half] = {OFF} ? softmax_exp<EXP2>(st.m[half] - m_new) : 1.f;"),
+                   ("          const __nv_bfloat162 p =\n"
+                    "              __floats2bfloat162_rn(softmax_exp<EXP2>(s[j][2 * half] - st.m[half]),\n"
+                    "                                    softmax_exp<EXP2>(s[j][2 * half + 1] - st.m[half]));",
+                    f"          const __nv_bfloat162 p = !{OFF} ? __floats2bfloat162_rn(s[j][2 * half], "
+                    "s[j][2 * half + 1]) :\n"
+                    "              __floats2bfloat162_rn(softmax_exp<EXP2>(s[j][2 * half] - st.m[half]),\n"
+                    "                                    softmax_exp<EXP2>(s[j][2 * half + 1] - st.m[half]));")],
+    "no_bias": [("        const float v = s[j][e] * scale + bias(half, j * 8 + 2 * t + (e & 1));",
+                 f"        const float v = {OFF} ? s[j][e] * scale + bias(half, j * 8 + 2 * t + (e & 1))"
+                 " : s[j][e] * scale;")],
+    "no_stores": [("    if (r >= n) continue;\n    const float inv = 1.f / st.l[half];",
+                   f"    if (r >= n || !{OFF}) continue;\n    const float inv = 1.f / st.l[half];")],
+}
+SA_PARENT_SIGNATURES = {"samrs_split_attention": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 +
+                                                  [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+                                                  ctypes.c_int)}
+KV_PARENT_VARIANTS = {
+    "full": [],
+    "no_tile_loads": [("    v[k] = *reinterpret_cast<const float4*>(x + (size_t)r * C + c);",
+                       f"    v[k] = {OFF} ? *reinterpret_cast<const float4*>(x + (size_t)r * C + c)"
+                       " : make_float4(0.f, 0.f, 0.f, 0.f);"),
+                      ("      q[k] = *reinterpret_cast<const float4*>(p + (size_t)r * C + c);",
+                       f"      q[k] = {OFF} ? *reinterpret_cast<const float4*>(p + (size_t)r * C + c)"
+                       " : make_float4(0.f, 0.f, 0.f, 0.f);")],
+    "no_weight_loads": [("  load_rows_async<THREADS>(Ws, LDW256, Wk, CI, C);",
+                         f"  if ({OFF}) load_rows_async<THREADS>(Ws, LDW256, Wk, CI, C);"),
+                        ("  load_rows_async<THREADS>(Ws, LDW256, Wv, CI, C);",
+                         f"  if ({OFF}) load_rows_async<THREADS>(Ws, LDW256, Wv, CI, C);")],
+    "no_second_weight": [("  load_rows_async<THREADS>(Ws, LDW256, Wv, CI, C);",
+                          f"  if ({OFF}) load_rows_async<THREADS>(Ws, LDW256, Wv, CI, C);")],
+    "no_products": [("  warp_gemm<8, C>(acc, As + wr * 16 * LDA, LDA, Ws + wc * 64 * LDW256, LDW256);",
+                     f"  if ({OFF}) warp_gemm<8, C>(acc, As + wr * 16 * LDA, LDA, Ws + wc * 64 * LDW256,"
+                     " LDW256);")],
+    "no_stores": [("    const float b0 = bias[n], b1 = bias[n + 1];",
+                   f"    if (!{OFF}) continue;\n    const float b0 = bias[n], b1 = bias[n + 1];")],
+}
+
+
 # its Hopper redesign (the coordinates read by the kernel; SMEM / BANDS / GLOBAL forms), and
 # its SMEM form's points a thread / threads a block / blocks an SM (registers) in the forward
 # (fwd_*) and the backward of dimg alone (bwd_*; its points a thread also in the backward with
@@ -512,31 +630,39 @@ int rates_shared(const void* fx, const void* fy, const void* mask, const void* d
 }
 """
 
-def variant_source(src: Path, subs, dst: Path) -> None:
+def variant_source(src: Path, subs, dst: Path, inline=()) -> None:
+    """`src` with the substitutions `subs` (each old text must be there) and
+    the run-time guard of the switched-off stages, written to `dst`; the
+    headers named in `inline` are copied in place of their includes first,
+    so that the substitutions reach them too."""
     text = src.read_text()
+    for header in inline:
+        body = (src.parent / header).read_text().replace("#pragma once\n", "", 1)
+        text = text.replace(f'#include "{header}"\n', body, 1)
     for old, new in subs:
         if old not in text:
             raise SystemExit(f"{src.name}: '{old}' not found: not the kernel this script profiles")
         text = text.replace(old, new)
-    marker = "namespace samrs {\nnamespace {\n"
+    marker = "namespace samrs {\n"
     if subs and marker not in text:
-        raise SystemExit(f"{src.name}: no anonymous namespace to put the guard in")
+        raise SystemExit(f"{src.name}: no namespace samrs to put the guard in")
     dst.write_text(text.replace(marker, marker + GUARD, 1) if subs else text)
 
 
 def build(csrc: Path, out: Path, specs, rates: bool = False):
-    """Builds every variant of `specs` ((kernel, source file, variants)) into
-    its own shared library, and the rate micro-benchmark if `rates`; returns
-    {(kernel, variant): CDLL} and the nvcc logs under the same keys."""
+    """Builds every variant of `specs` ((kernel, source file, variants[,
+    headers to inline])) into its own shared library, and the rate
+    micro-benchmark if `rates`; returns {(kernel, variant): CDLL} and the
+    nvcc logs under the same keys."""
     if out.exists():
         shutil.rmtree(out)
     out.mkdir(parents=True)
     jobs = []
-    for kernel, fname, variants in specs:
+    for kernel, fname, variants, *inline in specs:
         for name, subs in variants.items():
             d = out / f"{kernel}_{name}"
             shutil.copytree(csrc, d)
-            variant_source(csrc / fname, subs, d / fname)
+            variant_source(csrc / fname, subs, d / fname, *inline)
             lib = d / "lib.so"
             jobs.append(((kernel, name), lib, [_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
                                                "-o", str(lib), str(d / fname)]))
@@ -837,11 +963,6 @@ def plain_attention_part(libs, logs):
     return results
 
 
-def is_redesigned_point_sample(csrc: Path) -> bool:
-    """Whether `csrc` holds the Hopper K9 (else the first version)."""
-    return "to_pixel" in (csrc / "point_sample.cu").read_text()
-
-
 # K9's shapes: (key, N masks, H = W, K points); the candidates have no backward
 PS_CASES = (("fast", 6500, 56, 12544), ("candidates", 6500, 56, 3 * 12544),
             ("map256", 300, 256, 12544))
@@ -864,61 +985,148 @@ def sass_ops(lib: Path, word: str):
     return out
 
 
-def point_sample_part(libs, new: bool):
-    """K9 with one stage switched off, by direct calls (`new`: the Hopper
-    redesign's coordinate entry and forms, else the first version's fx / fy
-    entry); {case: ms}."""
+def point_sample_part(libs):
+    """K9 with one stage switched off, by direct calls of its coordinate
+    entry in the form ``point_sample_plan`` picks; {case: ms}."""
     from chip_smoke import k9_case
     from samrs_tpu_torch.kernels import bilinear_gather as bg
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     p = _build.ptr
-    sig = None if new else PS_FIRST_SIGNATURES
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     results = {}
     for key, N, H, K in PS_CASES:
-        img, fx, fy, xy, dout = k9_case(gen, N, H, H, K, "loss")
+        img, _, _, xy, dout = k9_case(gen, N, H, H, K, "loss")
         out = torch.empty(N, K, device="cuda")
         dimg = torch.zeros(N, H, H, device="cuda")
-        dfx, dfy, dxy = torch.empty_like(fx), torch.empty_like(fy), torch.empty_like(xy)
+        dxy = torch.empty_like(xy)
         forms = [("fwd", None)] + ([] if key == "candidates" else [("bwd", False),
                                                                    ("bwd_grad", True)])
-        if new and key == "map256":  # beside the plan's: the device-memory form, more bands
+        if key == "map256":  # beside the plan's: the device-memory form, more bands
             forms += [("bwd_global", False), ("bwd_bands8", False)]
         for label, grad in forms:
-            plan = None
-            if new and label.endswith("_global"):
+            if label.endswith("_global"):
                 plan = (bg.PS_GLOBAL, 1)
-            elif new and "_bands" in label:
+            elif "_bands" in label:
                 plan = (bg.PS_BANDS, int(label[-1]))
-            elif new:
+            else:
                 plan = bg.point_sample_plan(N, H, H, K, 4, grad, sms)
             for name, lib in sorted((k[1], v) for k, v in libs.items() if k[0] == "K9"):
-                if new and grad is None:
+                if grad is None:
                     fn = lambda: call(lib, "samrs_point_sample_fwd", p(img), p(xy), None, p(out),
                                       N, H, H, K, 0, 1, *plan)
-                elif new:
+                else:
                     fn = lambda: call(lib, "samrs_point_sample_bwd", p(img), p(xy), None, p(dout),
                                       p(dimg), p(dxy) if grad else None, None, N, H, H, K, 0, 1,
                                       *plan)
-                elif grad is None:
-                    fn = lambda: call(lib, "samrs_point_sample_fwd", p(img), p(fx), p(fy), p(out),
-                                      N, H, H, K, 0, signatures=sig)
-                else:
-                    fn = lambda: call(lib, "samrs_point_sample_bwd", p(img), p(fx), p(fy), p(dout),
-                                      p(dimg), p(dfx) if grad else None, p(dfy) if grad else None,
-                                      N, H, H, K, 0, signatures=sig)
                 results[f"K9 {key} {label} {name}"] = ms = loop_ms(fn)
-                print(f"K9 {key} {label} (N {N}, {H}x{H}, K {K}"
-                      + (f", form {plan[0]} x{plan[1]}" if plan else "") + f") {name}: {ms:.4f} ms",
-                      flush=True)
+                print(f"K9 {key} {label} (N {N}, {H}x{H}, K {K}, form {plan[0]} x{plan[1]}) "
+                      f"{name}: {ms:.4f} ms", flush=True)
         results[f"K9 {key} dimg memset"] = ms = loop_ms(dimg.zero_)
         print(f"K9 {key} dimg memset ({dimg.numel() * 4 / 1e6:.1f} MB): {ms:.4f} ms", flush=True)
-        del img, fx, fy, xy, dout, out, dimg, dfx, dfy, dxy
+        del img, xy, dout, out, dimg, dxy
         torch.cuda.empty_cache()
     lib = _build.BUILD_DIR / "breakdown" / "K9_full" / "lib.so"
     for kernel, ops in sass_ops(lib, "point_sample").items():
         print(f"SASS {kernel}: {ops}", flush=True)
+    return results
+
+
+# K12's shapes at one ViT-H image (16 heads of 80): (key, B', kh = kw): the windows of
+# window_attn_impl=pallas, the globals of window_attn_impl=xla, the global grids of
+# image_size 512 and 256
+SA_CASES = (("windows", 400, 14), ("globals", 16, 64), ("grid32", 16, 32), ("grid16", 16, 16))
+
+
+def split_attention_part(csrc: Path, libs, logs):
+    """K12 with one stage switched off at its four shapes, 20 back-to-back
+    launches (CUDA events, median of 5) and torch.profiler's device time of
+    the full variant; and the glue its wrapper runs around it: the plain rel
+    rows (q's fp32 copy and two einsums), by device time; {case: ms}."""
+    from samrs_tpu_torch.kernels import window_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rn = lambda *s, std=1.0: torch.randn(*s, generator=gen, device="cuda") * std
+    p = _build.ptr
+    parent = is_parent_split(csrc)
+    d = 80
+    results = {}
+    for key, B, g in SA_CASES:
+        N = g * g
+        kernel = "K12" if parent else {"window": "K12w", "tiled": "K12t"}[
+            window_attention.split_form(N, g, g)]
+        q, k, v = (rn(B, N, d).bfloat16() for _ in range(3))
+        rh, rw = rn(B, N, g, std=0.5), rn(B, N, g, std=0.5)
+        Rh, Rw = rn(g, g, d, std=0.1), rn(g, g, d, std=0.1)
+        out = torch.empty(B, N, d, device="cuda")
+        for name, lib in sorted((k_[1], v_) for k_, v_ in libs.items() if k_[0] == kernel):
+            if parent:
+                fn = lambda: call(lib, "samrs_split_attention", p(q), p(k), p(v), p(rh), p(rw),
+                                  p(out), B, N, d, g, g, d ** -0.5, int(N <= 256),
+                                  signatures=SA_PARENT_SIGNATURES)
+            else:
+                _build._lib = lib
+                fn = lambda: window_attention.split_attention_cuda(q, k, v, rh, rw, d ** -0.5)
+            results[f"K12 {key} {name}"] = r = {"loop": loop_ms(fn)}
+            if name == "full":
+                r.update(device_ms(fn))
+            print(f"K12 {key} (B' {B}, N {N}) {name}: " + ", ".join(
+                f"{a} {b:.4f}" for a, b in r.items()), flush=True)
+        _build._lib = None
+        glue = lambda: window_attention.rel_rows(q, Rh, Rw, (g, g))
+        results[f"K12 {key} glue rel_rows"] = r = device_ms(glue)
+        r["loop"] = loop_ms(glue)
+        print(f"K12 {key} glue (plain rel rows: q in fp32, two einsums): " + ", ".join(
+            f"{a} {b:.4f}" for a, b in r.items()), flush=True)
+        if not parent:  # the path's call: the rel-row kernel and the attention
+            _build._lib = libs[(kernel, "full")]
+            path = lambda: window_attention.window_attention_relpos(q, k, v, Rh, Rw, (g, g),
+                                                                    d ** -0.5)
+            results[f"K12 {key} window_attention_relpos"] = r = device_ms(path)
+            r["loop"] = loop_ms(path)
+            _build._lib = None
+            print(f"K12 {key} window_attention_relpos: " + ", ".join(
+                f"{a} {b:.4f}" for a, b in r.items()), flush=True)
+            if key == "windows":  # beside K1's rel kernel: K2's, which takes any other grid
+                out_h, out_w = torch.empty_like(rh), torch.empty_like(rw)
+                other = lambda: call(libs[("K12t", "full")], "samrs_split_relpos_rows", p(q),
+                                     p(Rh), p(Rw), p(out_h), p(out_w), B, N, d, g, g)
+                results[f"K12 {key} rel rows by relpos_rows_kernel"] = r = device_ms(other)
+                print(f"K12 {key} rel rows by relpos_rows_kernel: " + ", ".join(
+                    f"{a} {b:.4f}" for a, b in r.items()), flush=True)
+        del q, k, v, rh, rw, out
+        torch.cuda.empty_cache()
+    print_registers(logs, [("K12", "full")] if parent else [("K12w", "full"), ("K12t", "full")])
+    return results
+
+
+def is_parent_split(csrc: Path) -> bool:
+    """Whether `csrc` holds K12 and K4 from before their Hopper redesign."""
+    return (csrc / "split_attention.cu").exists()
+
+
+def t2i_kv_part(libs, logs):
+    """K4 with one stage switched off at the main path's shape (batch-1
+    keys, 4096 rows), by direct calls: 20 back-to-back launches (CUDA
+    events, median of 5) and torch.profiler's device time; {case: ms}."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rn = lambda *s, std=1.0: torch.randn(*s, generator=gen, device="cuda") * std
+    p = _build.ptr
+    N, D, Ci = 4096, 256, 128
+    keys, pe = rn(1, N, D), rn(N, D)
+    wk, wv = rn(Ci, D, std=D ** -0.5).bfloat16(), rn(Ci, D, std=D ** -0.5).bfloat16()
+    bk, bv = rn(Ci, std=0.1), rn(Ci, std=0.1)
+    kout = torch.empty(1, N, Ci, device="cuda", dtype=torch.bfloat16)
+    vout = torch.empty_like(kout)
+    results = {}
+    for name, lib in sorted((k[1], v) for k, v in libs.items() if k[0] == "K4"):
+        fn = lambda: call(lib, "samrs_t2i_kv", p(keys), p(pe), p(wk), p(bk), p(wv), p(bv),
+                          p(kout), p(vout), 1, N)
+        results[f"K4 {name}"] = r = {"loop": loop_ms(fn)}
+        r.update(device_ms(fn))
+        print(f"K4 (N {N}) {name}: " + ", ".join(f"{a} {b:.4f}" for a, b in r.items()),
+              flush=True)
+    print_registers(logs, [("K4", "full")])
     return results
 
 
@@ -1016,8 +1224,15 @@ def main() -> None:
     if "plain_attention" in what:
         specs.append(("K10", "plain_attention.cu", K10_VARIANTS))
     if "point_sample" in what:
-        specs.append(("K9", "point_sample.cu",
-                      PS_VARIANTS if is_redesigned_point_sample(csrc) else PS_FIRST_VARIANTS))
+        specs.append(("K9", "point_sample.cu", PS_VARIANTS))
+    if "split_attention" in what and is_parent_split(csrc):
+        specs.append(("K12", "split_attention.cu", SA_PARENT_VARIANTS, ("warp_attention.cuh",)))
+    elif "split_attention" in what:
+        specs += [("K12w", "window_attention.cu", SAW_VARIANTS),
+                  ("K12t", "flash_attention.cu", SAT_VARIANTS)]
+    if "t2i_kv" in what:
+        specs.append(("K4", "twoway.cu",
+                      KV_PARENT_VARIANTS if is_parent_split(csrc) else KV_VARIANTS))
     libs, logs = build(csrc, _build.BUILD_DIR / "breakdown", specs, rates="rates" in what)
     results = {}
     if "attention" in what:
@@ -1033,8 +1248,12 @@ def main() -> None:
     if "plain_attention" in what:
         results.update(plain_attention_part(libs, logs))
     if "point_sample" in what:
-        results.update(point_sample_part(libs, is_redesigned_point_sample(csrc)))
+        results.update(point_sample_part(libs))
         print_registers(logs, [("K9", "full")])
+    if "split_attention" in what:
+        results.update(split_attention_part(csrc, libs, logs))
+    if "t2i_kv" in what:
+        results.update(t2i_kv_part(libs, logs))
     print(json.dumps({"device": smi, "ms": results}), flush=True)
 
 

@@ -11,7 +11,8 @@ checkout; it has no CPU path and raises on any failure.  Phases:
 2. kernel phase: K1-K6 at the shapes of one ViT-H image and a 64-prompt
    bucket on seeded inputs, each compared with its plain PyTorch version run
    in fp32 on the same bf16-rounded inputs (relative L2 must stay <= 1e-2),
-   and timed against the plain version in bf16 (CUDA events, median of 7);
+   and timed against the plain version in bf16 (CUDA events, median of 7;
+   the kernel also over 20 back-to-back calls, ``loop_ms``);
    K2 also against ``F.scaled_dot_product_attention`` with the rel-pos bias
    as its mask (both with TFLOP/s), K3 also against the ``mlp_impl="xla"``
    composition (F.layer_norm -> F.linear -> F.gelu -> F.linear in bf16);
@@ -51,9 +52,12 @@ checkout; it has no CPU path and raises on any failure.  Phases:
 2b. modes phase (the SAM encoder's kernel configurations), at the same
    shapes against the fp32 plain versions (rel-L2 <= 1e-2) with kernel,
    bf16 plain and SDPA times and the bound: K12 (split-head rel-pos
-   attention) at the windows (B' 400, N 196: the whole-window launch), the
-   globals (16, 4096: the query-tiled launch) and the global grids of
-   image_size 512 and 256 (16, 1024; 16, 256); K2 in its modes split, exp2
+   attention) at the windows (B' 400, N 196: the window form, K1's
+   pipeline), the globals (16, 4096: the query-tiled form, K2's) and the
+   global grids of image_size 512 and 256 (16, 1024; 16, 256: query-tiled),
+   each at heads of 80 and 64, and ``window_attention_relpos`` end to end
+   (the rel rows made on the card from bf16 q) at the windows and the 32^2
+   grid; K2 in its modes split, exp2
    and aug and on a 48x48 grid (key tiles straddling grid rows); K3's tail
    mode on a 70^2 padded map cropped to 64^2; K1's window orders (plain, one
    block per window row), blockq, the padded output, the residual form
@@ -74,8 +78,10 @@ checkout; it has no CPU path and raises on any failure.  Phases:
    global_attn_impl mode, tail_impl=fused and mlp_impl=xla: launches per
    image (pallas K12 28 / K2 4 / K3 32; xla K12 4 / K3 32; tail K1 28 /
    K3-tail 28 / K3 4 / K2 4; mlp xla K1 28 / K2 4; every other value its K1
-   mode 28 / K2 4 / K3 32), encoder ms (CUDA events, median of 7) and the
-   feature rel-L2 against the default configuration (<= 2e-2);
+   mode 28 / K2 4 / K3 32), encoder ms (CUDA events, median of 7; also 5
+   back-to-back calls, and with ``--only configs`` the summed device time
+   of one call) and the feature rel-L2 against the default configuration
+   (<= 2e-2);
 4c. image sizes: the generate phase at image_size 512 and 256 (global grids
    of 1024 and 256 tokens: K12 4 launches an image instead of K2; cover and
    gray agreement >= 0.99), then the main path at image_size 768 (K2 on a
@@ -296,6 +302,9 @@ K6_CASES = (("K6", "upscaling + hypernetwork dot", 64, 64, 1),
             ("K6g32m3", "upscaling + hypernetwork dot, 32x32, 3 tokens", 16, 32, 3),
             ("K6g16", "upscaling + hypernetwork dot, 16x16", 64, 16, 1),
             ("K6g16m3", "upscaling + hypernetwork dot, 16x16, 3 tokens", 16, 16, 3))
+# K12's two forms (window_attention.split_form) and the sources that hold them
+SPLIT_SOURCES = {"window": "samrs_tpu_torch/csrc/window_attention.cu",
+                 "tiled": "samrs_tpu_torch/csrc/flash_attention.cu"}
 HBM_BYTES_PER_S = 3.35e12
 PEAK = {"bf16": 989e12, "fp32": 67e12, "tf32": 495e12}
 
@@ -603,20 +612,22 @@ def run_cases(cases):
         max_abs = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
         err_bf16 = rel_l2(got, as_tuple(plain()))
         ms = cuda_ms(kernel)
+        back_to_back = loop_ms(kernel)
         plain_ms = cuda_ms(plain)
         lib_ms = cuda_ms(library) if library is not None else None
         bound_ms, bound_by = bound(nbytes, flops, "bf16")
         lib_rate = f" ({flops / lib_ms / 1e9:.1f} TFLOP/s)" if lib_ms else ""
         print(f"{key} {title}: rel_l2={err:.3e} max_abs={max_abs:.3e} "
               f"rel_l2_to_bf16_plain={err_bf16:.3e} kernel_ms={ms:.4f} "
-              f"({flops / ms / 1e9:.1f} TFLOP/s) plain_bf16_ms={plain_ms:.4f} "
+              f"({flops / ms / 1e9:.1f} TFLOP/s) loop_ms={back_to_back:.4f} "
+              f"plain_bf16_ms={plain_ms:.4f} "
               f"library_ms={lib_ms}{lib_rate} bound_ms={bound_ms:.4f} "
               f"({bound_by}, {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)", flush=True)
         if not err <= KERNEL_RTOL:
             raise RuntimeError(f"{key}: relative L2 {err:.3e} > {KERNEL_RTOL}")
         results[key] = dict(name=f"{key} {title}", route="cuda", source=source, replaces=replaces,
                             max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                            bound_by=bound_by, library_ms=lib_ms)
+                            bound_by=bound_by, library_ms=lib_ms, loop_ms=back_to_back)
         del got, want
     return results
 
@@ -698,30 +709,59 @@ def modes_kernel_phase(gen: torch.Generator):
 
     cases = []
 
-    def split_case(key, title, replaces, Bq, kh, kw):
+    # the cases at heads of 64 and window_attention_relpos draw from a generator of their own,
+    # so that every later phase builds the same weights as without them
+    own = torch.Generator(device="cuda").manual_seed(SEED + 1)
+
+    def split_case(key, title, replaces, Bq, kh, kw, d=hd, source=gen):
         N = kh * kw
-        q, k, v = (rn(Bq, N, hd).bfloat16() for _ in range(3))
-        rh, rw = rn(Bq, N, kh, std=0.5), rn(Bq, N, kw, std=0.5)
+        form = window_attention.split_form(N, kh, kw)
+        rs = lambda *shape, std=1.0: (torch.randn(*shape, generator=source, device="cuda")
+                                      * std).bfloat16().float()
+        q, k, v = (rs(Bq, N, d).bfloat16() for _ in range(3))
+        rh, rw = rs(Bq, N, kh, std=0.5), rs(Bq, N, kw, std=0.5)
         mask = (rh[..., :, None] + rw[..., None, :]).reshape(Bq, N, N).bfloat16()
-        args = (rh, rw, hd ** -0.5)
-        cases.append((key, title, "samrs_tpu_torch/csrc/split_attention.cu", replaces,
+        args = (rh, rw, d ** -0.5)
+        cases.append((key, f"{title} ({form} form, head {d})", SPLIT_SOURCES[form], replaces,
                       lambda: window_attention.split_attention(q, k, v, *args),
                       lambda: window_attention.split_attention_plain(q.float(), k.float(),
                                                                      v.float(), *args),
                       lambda: window_attention.split_attention_plain(q, k, v, *args),
-                      3 * Bq * N * hd * 2 + Bq * N * (kh + kw) * 4 + Bq * N * hd * 4,
-                      4 * Bq * N * N * hd,
+                      3 * Bq * N * d * 2 + Bq * N * (kh + kw) * 4 + Bq * N * d * 4,
+                      4 * Bq * N * N * d,
                       lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
-                                                             scale=hd ** -0.5)))
+                                                             scale=d ** -0.5)))
 
-    split_case("K12", "split-head rel-pos attention, ViT-H windows (whole-window launch)",
-               "samrs_tpu/kernels/window_attention.py:83", nwin * nH, ws, ws)
-    split_case("K12g", "split-head rel-pos attention, ViT-H globals (query-tiled launch)",
-               "samrs_tpu/kernels/flash_attention.py:105", nH, G, G)
-    split_case("K12s1024", "split-head rel-pos attention, 32x32 grid (image_size 512)",
-               "samrs_tpu/kernels/window_attention.py:83", nH, 32, 32)
-    split_case("K12s256", "split-head rel-pos attention, 16x16 grid (image_size 256)",
-               "samrs_tpu/kernels/window_attention.py:83", nH, 16, 16)
+    def relpos_case(key, title, Bq, g):
+        """window_attention_relpos end to end: the rel-row kernel reading bf16
+        q in place, then K12, against the plain route in fp32."""
+        N = g * g
+        form = window_attention.split_form(N, g, g)
+        rs = lambda *shape, std=1.0: (torch.randn(*shape, generator=own, device="cuda")
+                                      * std).bfloat16().float()
+        q, k, v = (rs(Bq, N, hd).bfloat16() for _ in range(3))
+        Rh, Rw = rs(g, g, hd, std=0.1), rs(g, g, hd, std=0.1)
+        args = (Rh, Rw, (g, g), hd ** -0.5)
+        cases.append((key, f"{title} ({form} form, rel rows on the card)", SPLIT_SOURCES[form],
+                      "samrs_tpu/kernels/window_attention.py:83",
+                      lambda: window_attention.window_attention_relpos(q, k, v, *args),
+                      lambda: window_attention.window_attention_relpos_plain(
+                          q.float(), k.float(), v.float(), *args),
+                      lambda: window_attention.window_attention_relpos_plain(q, k, v, *args),
+                      3 * Bq * N * hd * 2 + 2 * g * g * hd * 4 + Bq * N * hd * 4,
+                      4 * Bq * N * N * hd + 4 * Bq * N * g * hd, None))
+
+    for d, sfx, source in ((hd, "", gen), (64, "d64", own)):
+        split_case(f"K12{sfx}", "split-head rel-pos attention, ViT-H windows",
+                   "samrs_tpu/kernels/window_attention.py:83", nwin * nH, ws, ws, d, source)
+        split_case(f"K12g{sfx}", "split-head rel-pos attention, ViT-H globals",
+                   "samrs_tpu/kernels/flash_attention.py:105", nH, G, G, d, source)
+        split_case(f"K12s1024{sfx}", "split-head rel-pos attention, 32x32 grid (image_size 512)",
+                   "samrs_tpu/kernels/window_attention.py:83", nH, 32, 32, d, source)
+        split_case(f"K12s256{sfx}", "split-head rel-pos attention, 16x16 grid (image_size 256)",
+                   "samrs_tpu/kernels/window_attention.py:83", nH, 16, 16, d, source)
+    relpos_case("K12rpw", "window_attention_relpos, ViT-H windows", nwin * nH, ws)
+    relpos_case("K12rp32", "window_attention_relpos, 32x32 grid", nH, 32)
 
     def k2_case(key, title, replaces, variant, g):
         N = g * g
@@ -863,11 +903,15 @@ CONFIGS += [("tail_impl=fused", dict(tail_impl="fused")), ("mlp_impl=xla", dict(
 CONFIG_REPS = 7
 
 
-def configs_phase(model, gen: torch.Generator):
+def configs_phase(model, gen: torch.Generator, device_time: bool = False):
     """The ViT-H encoder on one 1024^2 image under every kernel
     configuration, from the weights of `model`: launches per image, encoder
-    ms (CUDA events, median of CONFIG_REPS) and the feature rel-L2 against
-    the default configuration (<= FEATURE_RTOL)."""
+    ms (CUDA events, median of CONFIG_REPS; also over 5 back-to-back calls)
+    and the feature rel-L2 against the default configuration (<=
+    FEATURE_RTOL).  With `device_time` also the device time of every kernel
+    of a call summed by torch.profiler (one call's events carry the host's
+    dispatch where it falls behind); a partial run only, since late in a
+    full run the profiler loses records."""
     from samrs_tpu_torch.sam.image_encoder import ImageEncoderViT
 
     c = model.cfg
@@ -889,24 +933,30 @@ def configs_phase(model, gen: torch.Generator):
             torch.cuda.synchronize()
             counts = {k: v for k, v in read_counts().items() if v}
             ms = cuda_ms(lambda: enc(x, True), warmup=1, reps=CONFIG_REPS)
+            back_to_back = loop_ms(lambda: enc(x, True), n=5, warmup=1)
+            device = (sum(device_ms(lambda: enc(x, True), n=2).values()) if device_time
+                      else None)
         want = _config_launches(knobs)
         if ref is None:
             ref = feats
         err = rel_l2([feats], [ref])
-        print(f"config {label}: encoder_ms={ms:.3f} feature_rel_l2_vs_default={err:.3e} "
-              f"launches={counts}", flush=True)
+        dev = f" device_ms={device:.3f}" if device_time else ""
+        print(f"config {label}: encoder_ms={ms:.3f} loop_ms={back_to_back:.3f}{dev} "
+              f"feature_rel_l2_vs_default={err:.3e} launches={counts}", flush=True)
         if counts != want:
             raise RuntimeError(f"config {label}: launches {counts} != {want}")
         if not (torch.isfinite(feats).all() and err <= FEATURE_RTOL):
             raise RuntimeError(f"config {label}: feature rel-L2 {err:.3e} > {FEATURE_RTOL}")
-        out[label] = dict(ms=ms, rel_l2=err, launches=counts)
+        out[label] = dict(ms=ms, loop_ms=back_to_back, rel_l2=err, launches=counts)
+        if device_time:
+            out[label]["device_ms"] = device
         del enc, feats
     torch.cuda.empty_cache()
     return out
 
 
 # the generator at other image sizes: global grids of 32^2 and 16^2 tokens take
-# K12 (query-tiled / whole-window); at 768 (48^2 = 2304 tokens) K2 with key
+# K12 (query-tiled form); at 768 (48^2 = 2304 tokens) K2 with key
 # tiles that straddle grid rows
 SIZE_GEN_LAUNCHES = {**GEN_LAUNCHES, "K2": 0, "K12": 4}
 
@@ -2964,7 +3014,7 @@ def main() -> None:
             modes_kernel_phase(gen)
         if "configs" in args.only:
             model = build_model(gen)
-            configs_phase(model, gen)
+            configs_phase(model, gen, device_time=True)
             del model
             torch.cuda.empty_cache()
         if "sizes" in args.only:
@@ -3030,10 +3080,17 @@ def main() -> None:
         results[key]["launches"] = counts.get(counter, 0)
     results["K12"]["launches_image_size_256"] = sizes[256]["K12"]
     results["K12"]["launches_config_pallas"] = configs["window_attn_impl=pallas"]["launches"]["K12"]
-    for key, prefix in (("K12s1024", "grid32"), ("K12s256", "grid16")):
+    for key, prefix in (("K12s1024", "grid32"), ("K12s256", "grid16"), ("K12d64", "windows_d64"),
+                        ("K12s1024d64", "grid32_d64"), ("K12s256d64", "grid16_d64"),
+                        ("K12rpw", "relpos_windows"), ("K12rp32", "relpos_grid32")):
         other = results.pop(key)
         results["K12"].update({f"{prefix}_{k}": other[k] for k in
-                               ("ms", "plain_ms", "library_ms", "max_abs_err")})
+                               ("ms", "loop_ms", "plain_ms", "library_ms", "max_abs_err")})
+        results["K12"]["max_abs_err"] = max(results["K12"]["max_abs_err"], other["max_abs_err"])
+    other = results.pop("K12gd64")
+    results["K12g"].update({f"d64_{k}": other[k] for k in
+                            ("ms", "loop_ms", "plain_ms", "library_ms", "max_abs_err")})
+    results["K12g"]["max_abs_err"] = max(results["K12g"]["max_abs_err"], other["max_abs_err"])
     results["K1"]["launches_config_block_sg"] = configs["window_attn_impl=block_sg"]["launches"]["K1"]
     results["K1blk"]["launches_config_block_slab"] = \
         configs["window_attn_impl=block_slab"]["launches"]["K1"]

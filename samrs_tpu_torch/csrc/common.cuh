@@ -1,9 +1,7 @@
 // Shared helpers for the port's hand-written Hopper kernels.
 //
-// The warp-level kernels multiply bf16 tensors with fp32 accumulation
-// through mma.sync m16n8k16 with operands loaded by ldmatrix (the wgmma
-// kernels -- K1's window attention, K2, K5 and the dense GEMM -- use
-// hopper.cuh instead).  Host
+// The mma.sync m16n8k16 fragment layouts below are those of the wgmma
+// accumulators and register operands of hopper.cuh's kernels.  Host
 // entry points are plain C functions (loaded with ctypes); each launches on
 // the caller's stream and returns cudaGetLastError() so the Python wrapper
 // can raise on a refused launch.
@@ -49,7 +47,7 @@ __device__ __forceinline__ void store16(bf16* p, uint4 v) { *reinterpret_cast<ui
 //   B (16x8, "col"):      b0 = B[2t..2t+1][g],   b1 = B[2t+8..2t+9][g]
 //   C (16x8):             c0, c1 = C[g][2t..2t+1], c2, c3 = C[g+8][2t..2t+1]
 // ldmatrix.x4 gives lane L row L/4, columns 2(L%4)..+1 of each addressed 8x8
-// matrix; with .trans it gives rows 2(L%4)..+1 of column L/4.
+// matrix.
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -62,23 +60,20 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
                : "r"(smem_addr(p)));
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// c += a . b  (m16n8k16, bf16 x bf16 -> fp32)
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ float neg_inf() { return __int_as_float(static_cast<int>(0xff800000u)); }
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Sum over the four lanes of a quad (the lanes sharing one C-fragment row).
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  v += __shfl_xor_sync(0xffffffffu, v, 2);
+  return v;
+}
 
 // Exact erf GELU, as torch.nn.GELU() and the JAX oracle compute it.
 __device__ __forceinline__ float gelu_erf(float x) {

@@ -45,6 +45,20 @@
 // the q.k product (in shared memory) and adds rel rows that the wrapper
 // rounded to bf16.  The running sum l adds the bf16-rounded probabilities
 // that P.V consumes (flash_attention.online_softmax_v is the plain form).
+//
+// K12's query-tiled form is this kernel on split heads (SPLIT): q, k and v
+// (B', N, d), each behind its own 3-d map (d, N, B'), so that keys past N
+// read zeros as they do here; the natural softmax over 128-key tiles; the
+// given fp32 rel rows (B', N, kh) / (B', N, kw), held in registers also on
+// grids 32 and 16 wide (a key tile of four or eight whole grid rows: the
+// global path's per-key loads took a third of the 32 x 32 grid's time);
+// fp32 rows out.  It replaces
+// samrs_tpu/kernels/flash_attention.py::_flash_attention_fwd_pallas (the
+// globals of window_attn_impl="xla") and window_attention.py::
+// _window_attention_pallas on the grids the window form of
+// csrc/window_attention.cu does not take (the global grids of image_size
+// 512 and 256).  Its rel rows come from relpos_rows_kernel with one head a
+// row of B' (samrs_split_relpos_rows), reading bf16 q in place.
 #include "hopper.cuh"
 
 namespace samrs {
@@ -100,22 +114,35 @@ __device__ __forceinline__ void wgmma_s_tile(float (&d)[R], uint64_t da, uint64_
 }
 
 // Where the bias terms come from: registers, for grids 64 or 48 wide (key
-// tiles of two grid rows: 128 or 96 keys); global memory for any other grid.
-enum RelSource { kRelKw64 = 0, kRelKw48 = 1, kRelGlobal = 2 };
+// tiles of two grid rows: 128 or 96 keys) and, in K12's form, 32 or 16 wide
+// (four or eight grid rows of a 128-key tile); global memory for any other
+// grid.
+enum RelSource { kRelKw64 = 0, kRelKw48 = 1, kRelGlobal = 2, kRelKw32 = 3, kRelKw16 = 4 };
 
-// qkv (B, N, 3C) bf16 behind the 3-d tensor maps main_map (box 64 x 64 x 1,
-// 128-byte swizzle) and tail_map (box 16 x 64 x 1, 32-byte swizzle; unused
-// for head_dim 64); rel_h (B, nH, N, KH), rel_w (B, nH, N, KW) fp32; out
-// (B, N, C) bf16.
-template <int HD, bool EXP2, int REL>
+// The operands' 3-d tensor maps, Q, K, V in turn: `main` a box of 64 x 64 x 1
+// (128-byte swizzle), `tail` one of 16 x 64 x 1 (32-byte swizzle; unused for
+// head_dim 64).  K2 gives the raw qkv map (3C, N, B) three times and reads
+// head h at columns h HD, C + h HD, 2C + h HD; K12 gives one map (HD, N, B')
+// of each split-head operand, read at column 0.
+struct QkvMaps {
+  CUtensorMap main[3];
+  CUtensorMap tail[3];
+};
+
+// K2 (SPLIT false): qkv (B, N, 3C) bf16; rel_h (B, nH, N, KH), rel_w (B, nH,
+// N, KW) fp32; out (B, N, C) bf16; grid (N / 128, nH, B).  K12 (SPLIT true):
+// q, k, v (B', N, HD) bf16; rel_h (B', N, KH), rel_w (B', N, KW) fp32; out
+// (B', N, HD) fp32; grid (N / 128, 1, B').
+template <int HD, bool EXP2, int REL, bool SPLIT>
 __global__ void __launch_bounds__(FW_THREADS, 1)
-flash_wgmma_kernel(const __grid_constant__ CUtensorMap main_map,
-                   const __grid_constant__ CUtensorMap tail_map, const float* __restrict__ rel_h,
-                   const float* __restrict__ rel_w, bf16* __restrict__ out, int N, int C, int KH,
+flash_wgmma_kernel(const __grid_constant__ QkvMaps maps, const float* __restrict__ rel_h,
+                   const float* __restrict__ rel_w, void* __restrict__ out, int N, int C, int KH,
                    int KW, float scale, int aug) {
   using T = FlashTile<HD>;
-  constexpr int KWA = REL == kRelKw64 ? 64 : REL == kRelKw48 ? 48 : 0;  // a grid width in registers
+  constexpr int KWA = REL == kRelKw64 ? 64 : REL == kRelKw48 ? 48 : REL == kRelKw32 ? 32
+                      : REL == kRelKw16 ? 16 : 0;  // a grid width in registers
   constexpr int BKT = KWA == 48 ? 96 : FW_BK;  // keys of a tile (the smem tile holds FW_BK rows)
+  constexpr int RPT = KWA > 0 ? BKT / KWA : 1;  // grid rows of a key tile
   constexpr int NJ = BKT / 8;                  // 8-key column blocks of a tile
   constexpr int JW = KWA / 8;                  // ... of a grid row
   extern __shared__ unsigned char smem_raw[];
@@ -130,6 +157,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap main_map,
   uint64_t* empty = full_v + FW_STAGES;
   const int q0 = blockIdx.x * FW_BQ, h = blockIdx.y, b = blockIdx.z;
   const int nH = gridDim.y;
+  auto col = [&](int part) { return SPLIT ? 0 : part * C + h * HD; };  // the head's first column
   const int ntiles = (N + BKT - 1) / BKT;
   const int wg = threadIdx.x >> 7;
 
@@ -147,14 +175,16 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap main_map,
   if (wg == 0) {  // producer
     setmaxnreg_dec<40>();
     if (threadIdx.x == 0) {
-      tma_prefetch_map(&main_map);
-      if constexpr (HD == 80) tma_prefetch_map(&tail_map);
-      load_head_tile<HD>(Qs, &main_map, &tail_map, bar_q, h * HD, q0, b);
+      for (int part = 0; part < (SPLIT ? 3 : 1); ++part) {
+        tma_prefetch_map(&maps.main[part]);
+        if constexpr (HD == 80) tma_prefetch_map(&maps.tail[part]);
+      }
+      load_head_tile<HD>(Qs, &maps.main[0], &maps.tail[0], bar_q, col(0), q0, b);
       for (int tile = 0; tile < ntiles; ++tile) {
         const int s = tile % FW_STAGES;
         mbar_wait(&empty[s], ((tile / FW_STAGES) & 1) ^ 1);
-        load_head_tile<HD>(Ks(s), &main_map, &tail_map, &full_k[s], C + h * HD, tile * BKT, b);
-        load_head_tile<HD>(Vs(s), &main_map, &tail_map, &full_v[s], 2 * C + h * HD, tile * BKT, b);
+        load_head_tile<HD>(Ks(s), &maps.main[1], &maps.tail[1], &full_k[s], col(1), tile * BKT, b);
+        load_head_tile<HD>(Vs(s), &maps.main[2], &maps.tail[2], &full_v[s], col(2), tile * BKT, b);
       }
     }
     return;
@@ -231,15 +261,14 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap main_map,
   for (int tile = 0; tile < ntiles; ++tile) {
     const int s = tile % FW_STAGES, k0 = tile * BKT;
     const unsigned parity = (tile / FW_STAGES) & 1;
-    // aligned grids: the tile's two grid rows' terms, loaded while Q.K^T runs
-    float bh[2][2];
+    // aligned grids: the tile's RPT grid rows' terms, loaded while Q.K^T runs
+    float bh[2][RPT];
     if constexpr (ALIGNED) {
-      const int r0 = 2 * tile;
+      const int r0 = RPT * tile;
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        bh[half][0] = rh[half][r0];
-        bh[half][1] = r0 + 1 < KH ? rh[half][r0 + 1] : 0.f;
-      }
+      for (int half = 0; half < 2; ++half)
+#pragma unroll
+        for (int rr = 0; rr < RPT; ++rr) bh[half][rr] = r0 + rr < KH ? rh[half][r0 + rr] : 0.f;
     }
 
     // S = Q K^T
@@ -363,7 +392,20 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap main_map,
     const int r = q0 + c * 64 + warp * 16 + g + 8 * half;
     if (r >= N) continue;
     const float inv = 1.f / l[half];
-    bf16* orow = out + ((size_t)b * N + r) * C + h * HD + 2 * t;
+    if constexpr (SPLIT) {  // fp32 rows of HD
+      float* orow = static_cast<float*>(out) + ((size_t)b * N + r) * HD + 2 * t;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<float2*>(orow + 8 * j) =
+            make_float2(o[4 * j + 2 * half] * inv, o[4 * j + 2 * half + 1] * inv);
+      if constexpr (HD == 80)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          *reinterpret_cast<float2*>(orow + 64 + 8 * j) =
+              make_float2(ot[4 * j + 2 * half] * inv, ot[4 * j + 2 * half + 1] * inv);
+      continue;
+    }
+    bf16* orow = static_cast<bf16*>(out) + ((size_t)b * N + r) * C + h * HD + 2 * t;
 #pragma unroll
     for (int j = 0; j < 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
@@ -376,19 +418,52 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap main_map,
   }
 }
 
-template <int HD, bool EXP2, int REL>
-int launch_flash(const CUtensorMap& main_map, const CUtensorMap& tail_map, const void* rel_h,
-                 const void* rel_w, void* out, int B, int N, int C, int num_heads, int kh, int kw,
-                 float scale, int aug, cudaStream_t stream) {
+template <int HD, bool EXP2, int REL, bool SPLIT>
+int launch_flash(const QkvMaps& maps, const void* rel_h, const void* rel_w, void* out, int B, int N,
+                 int C, int num_heads, int kh, int kw, float scale, int aug, cudaStream_t stream) {
   constexpr int smem = FlashTile<HD>::SMEM;
-  auto kernel = flash_wgmma_kernel<HD, EXP2, REL>;
+  auto kernel = flash_wgmma_kernel<HD, EXP2, REL, SPLIT>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((N + FW_BQ - 1) / FW_BQ, num_heads, B);
-  kernel<<<grid, FW_THREADS, smem, stream>>>(
-      main_map, tail_map, static_cast<const float*>(rel_h), static_cast<const float*>(rel_w),
-      static_cast<bf16*>(out), N, C, kh, kw, scale, aug);
+  kernel<<<grid, FW_THREADS, smem, stream>>>(maps, static_cast<const float*>(rel_h),
+                                             static_cast<const float*>(rel_w), out, N, C, kh, kw,
+                                             scale, aug);
   return cudaGetLastError();
+}
+
+// Where a grid's bias terms come from (flash_wgmma_kernel's REL); the
+// narrower grids in registers only in K12's form (`split`).
+inline int rel_source(int kw, bool split = false) {
+  if (kw == 64) return kRelKw64;
+  if (kw == 48) return kRelKw48;
+  if (split && kw == 32) return kRelKw32;
+  if (split && kw == 16) return kRelKw16;
+  return kRelGlobal;
+}
+
+// The 3-d maps (width, N, B) of the bf16 operands q, k and v (rows of `width`
+// elements, 16-byte aligned bases and rows): a 64-column box with the
+// 128-byte swizzle, and for a head of 80 a 16-column one with the 32-byte
+// swizzle.  Rows past N read zeros.
+template <int HD>
+int operand_maps(QkvMaps* maps, const void* q, const void* k, const void* v, int width, int N,
+                 int B) {
+  const void* base[3] = {q, k, v};
+  const uint64_t dims[3] = {(uint64_t)width, (uint64_t)N, (uint64_t)B};
+  const uint64_t strides[2] = {(uint64_t)width * 2, (uint64_t)N * width * 2};
+  const uint32_t box_main[3] = {64, 64, 1}, box_tail[3] = {16, 64, 1};
+  for (int i = 0; i < 3; ++i) {
+    int err = make_tensor_map(&maps->main[i], base[i], 3, dims, strides, box_main,
+                              CU_TENSOR_MAP_SWIZZLE_128B);
+    if (err == 0 && HD == 80)
+      err = make_tensor_map(&maps->tail[i], base[i], 3, dims, strides, box_tail,
+                            CU_TENSOR_MAP_SWIZZLE_32B);
+    else
+      maps->tail[i] = maps->main[i];
+    if (err != 0) return err;
+  }
+  return 0;
 }
 
 template <int HD>
@@ -396,20 +471,14 @@ int launch_flash_mode(int mode, const void* qkv, const void* rel_h, const void* 
                       int B, int N, int C, int num_heads, int kh, int kw, float scale,
                       cudaStream_t st) {
   if (mode != kFlashNatural && mode != kFlashExp2 && mode != kFlashAug) return cudaErrorInvalidValue;
-  CUtensorMap main_map, tail_map;
-  const uint64_t dims[3] = {(uint64_t)3 * C, (uint64_t)N, (uint64_t)B};
-  const uint64_t strides[2] = {(uint64_t)3 * C * 2, (uint64_t)N * 3 * C * 2};
-  const uint32_t box_main[3] = {64, 64, 1}, box_tail[3] = {16, 64, 1};
-  int err = make_tensor_map(&main_map, qkv, 3, dims, strides, box_main, CU_TENSOR_MAP_SWIZZLE_128B);
-  if (err != 0) return err;
-  tail_map = main_map;
-  if (HD == 80) err = make_tensor_map(&tail_map, qkv, 3, dims, strides, box_tail, CU_TENSOR_MAP_SWIZZLE_32B);
+  QkvMaps maps;
+  const int err = operand_maps<HD>(&maps, qkv, qkv, qkv, 3 * C, N, B);
   if (err != 0) return err;
   const int aug = mode == kFlashAug;
-  const int rel = kw == 64 ? kRelKw64 : kw == 48 ? kRelKw48 : kRelGlobal;
-#define SAMRS_FLASH(E, R)                                                                       \
-  return launch_flash<HD, E, R>(main_map, tail_map, rel_h, rel_w, out, B, N, C, num_heads, kh, \
-                                kw, scale, aug, st)
+  const int rel = rel_source(kw);
+#define SAMRS_FLASH(E, R)                                                                        \
+  return launch_flash<HD, E, R, false>(maps, rel_h, rel_w, out, B, N, C, num_heads, kh, kw, scale, \
+                                       aug, st)
 #define SAMRS_FLASH_REL(E)                       \
   if (rel == kRelKw64) SAMRS_FLASH(E, kRelKw64); \
   if (rel == kRelKw48) SAMRS_FLASH(E, kRelKw48); \
@@ -422,8 +491,34 @@ int launch_flash_mode(int mode, const void* qkv, const void* rel_h, const void* 
 #undef SAMRS_FLASH
 }
 
+// K12's query-tiled form: split-head q, k, v (B', N, HD) through K2's
+// pipeline (natural softmax, fp32 rows out).
+template <int HD>
+int launch_split_tiled(const void* q, const void* k, const void* v, const void* rel_h,
+                       const void* rel_w, void* out, int B, int N, int kh, int kw, float scale,
+                       cudaStream_t st) {
+  QkvMaps maps;
+  const int err = operand_maps<HD>(&maps, q, k, v, HD, N, B);
+  if (err != 0) return err;
+  switch (rel_source(kw, true)) {
+#define SAMRS_SPLIT(R)                                                                     \
+  case R:                                                                                  \
+    return launch_flash<HD, false, R, true>(maps, rel_h, rel_w, out, B, N, HD, 1, kh, kw, \
+                                            scale, 0, st)
+    SAMRS_SPLIT(kRelKw64);
+    SAMRS_SPLIT(kRelKw48);
+    SAMRS_SPLIT(kRelKw32);
+    SAMRS_SPLIT(kRelKw16);
+#undef SAMRS_SPLIT
+    default:
+      return launch_flash<HD, false, kRelGlobal, true>(maps, rel_h, rel_w, out, B, N, HD, 1, kh,
+                                                       kw, scale, 0, st);
+  }
+}
+
 // The decomposed rel-pos rows K2 adds, in fp32 from the raw qkv (the q
-// columns of head h, read in place):
+// columns of head h, read in place; rows `ld` = 3C elements apart), and
+// K12's from split-head q (B', N, hd) (one head, rows `ld` = hd apart):
 //   rel_h[b, h, x * kw + y, k] = sum_d q[b, x * kw + y, h, d] * Th[x, k, d]
 //   rel_w[b, h, x * kw + y, k] = sum_d q[b, x * kw + y, h, d] * Tw[y, k, d]
 // Block i < kh takes grid row x = i against Th[x], block kh + y grid column
@@ -435,7 +530,7 @@ int launch_flash_mode(int mode, const void* qkv, const void* rel_h, const void* 
 __global__ void __launch_bounds__(256)
 relpos_rows_kernel(const bf16* __restrict__ qkv, const float* __restrict__ Th,
                    const float* __restrict__ Tw, float* __restrict__ rel_h,
-                   float* __restrict__ rel_w, int N, int C, int hd, int kh, int kw,
+                   float* __restrict__ rel_w, int N, int ld, int hd, int kh, int kw,
                    int round_out) {
   constexpr int LD = 84;  // head dims up to 80; 84-float rows: conflict-free 16-byte reads
   __shared__ __align__(16) float qs[64][LD];
@@ -446,7 +541,7 @@ relpos_rows_kernel(const bf16* __restrict__ qkv, const float* __restrict__ Th,
   const int nq = row ? kw : kh, K = row ? kh : kw;
   const float* table = (row ? Th : Tw) + (size_t)sel * K * hd;
   float* out = (row ? rel_h : rel_w) + ((size_t)b * nH + h) * N * K;
-  const bf16* qbase = qkv + (size_t)b * N * 3 * C + h * hd;
+  const bf16* qbase = qkv + (size_t)b * N * ld + h * hd;
   // this thread's outputs: queries tq + 16 i, table rows tk + 16 j (i, j < 4)
   const int tq = threadIdx.x >> 4, tk = threadIdx.x & 15;
   const int hp = hd / 2, h4 = hd / 4;
@@ -456,7 +551,7 @@ relpos_rows_kernel(const bf16* __restrict__ qkv, const float* __restrict__ Th,
       const int qi = i / hp, d = 2 * (i - qi * hp), qq = q0 + qi;
       const int n = row ? sel * kw + qq : qq * kw + sel;
       const float2 v = qq < nq ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-                                     qbase + (size_t)n * 3 * C + d))
+                                     qbase + (size_t)n * ld + d))
                                : make_float2(0.f, 0.f);
       qs[qi][d] = v.x;
       qs[qi][d + 1] = v.y;
@@ -545,7 +640,47 @@ int samrs_relpos_rows(const void* qkv, const void* Th, const void* Tw, void* rel
   dim3 grid(kh + kw, num_heads, B);
   relpos_rows_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(qkv), static_cast<const float*>(Th), static_cast<const float*>(Tw),
-      static_cast<float*>(rel_h), static_cast<float*>(rel_w), N, C, head_dim, kh, kw, round_out);
+      static_cast<float*>(rel_h), static_cast<float*>(rel_w), N, 3 * C, head_dim, kh, kw,
+      round_out);
+  return cudaGetLastError();
+}
+
+// K12's query-tiled form: q, k, v (B', N, head_dim) bf16 (16-byte aligned
+// bases), rel_h (B', N, kh) and rel_w (B', N, kw) fp32 with N = kh * kw ->
+// out (B', N, head_dim) fp32.  head_dim 64 or 80; B' <= 65535 (the grid's
+// third dimension); N < 2^22 (keys split into grid row and column by a
+// float reciprocal).
+int samrs_split_attention_tiled(const void* q, const void* k, const void* v, const void* rel_h,
+                                const void* rel_w, void* out, int B, int N, int head_dim, int kh,
+                                int kw, float scale, void* stream) {
+  using namespace samrs;
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                          reinterpret_cast<uintptr_t>(v);
+  if (B <= 0 || B > 65535 || N <= 0 || N >= (1 << 22) || kh <= 0 || kw <= 0 || kh * kw != N ||
+      bases % 16 != 0)
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (head_dim == 80) return launch_split_tiled<80>(q, k, v, rel_h, rel_w, out, B, N, kh, kw, scale, st);
+  if (head_dim == 64) return launch_split_tiled<64>(q, k, v, rel_h, rel_w, out, B, N, kh, kw, scale, st);
+  return cudaErrorInvalidValue;
+}
+
+// K12's rel rows on any grid: split-head q (B', N, head_dim) bf16 with
+// N = kh * kw, Th (kh, kh, head_dim), Tw (kw, kw, head_dim) fp32 (16-byte
+// aligned) -> rel_h (B', N, kh), rel_w (B', N, kw) fp32; relpos_rows_kernel
+// with one head a row of B'.  head_dim 64 or 80; B' <= 65535.
+int samrs_split_relpos_rows(const void* q, const void* Th, const void* Tw, void* rel_h,
+                            void* rel_w, int B, int N, int head_dim, int kh, int kw,
+                            void* stream) {
+  using namespace samrs;
+  const uintptr_t tables = reinterpret_cast<uintptr_t>(Th) | reinterpret_cast<uintptr_t>(Tw);
+  if (B <= 0 || B > 65535 || kh <= 0 || kw <= 0 || kh * kw != N ||
+      (head_dim != 64 && head_dim != 80) || reinterpret_cast<uintptr_t>(q) % 4 != 0 ||
+      tables % 16 != 0)
+    return cudaErrorInvalidValue;
+  relpos_rows_kernel<<<dim3(kh + kw, 1, B), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const float*>(Th), static_cast<const float*>(Tw),
+      static_cast<float*>(rel_h), static_cast<float*>(rel_w), N, head_dim, head_dim, kh, kw, 0);
   return cudaGetLastError();
 }
 

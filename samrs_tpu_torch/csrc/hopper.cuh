@@ -1,6 +1,7 @@
 // Hopper plumbing shared by the wgmma kernels (csrc/gemm.cu, the dense
-// layers of K1 / K3; csrc/flash_attention.cu, K2; csrc/window_attention.cu,
-// K1's attention stage; csrc/twoway.cu, K5; csrc/upscale.cu, K6;
+// layers of K1 / K3; csrc/flash_attention.cu, K2 and K12's query-tiled
+// form; csrc/window_attention.cu, K1's attention stage and K12's window
+// form; csrc/twoway.cu, K4 and K5; csrc/upscale.cu, K6;
 // csrc/fused_mlp.cu, K11's split-TF32 products; csrc/plain_attention.cu,
 // K10's): TMA tensor maps built on
 // the host, mbarrier rings, TMA tile loads, wgmma shared-memory descriptors,

@@ -8,7 +8,7 @@
 // the stream's one read and its writes on chip:
 //
 //   K4  one pass over the batch-1 keys: K = (keys + pe) Wk^T + bk and
-//       V = keys Wv^T + bv, written in bf16 (mma.sync from shared memory).
+//       V = keys Wv^T + bv, written in bf16.
 //   K5  one pass per two-way layer over 64-row tiles: q-projection of
 //       bf16(keys + pe), 8-head attention over the padded token slots in
 //       fp32 (blocks of 16 slots with an online softmax; a box decode fills
@@ -45,8 +45,21 @@
 //   * the attention over the token slots stays fp32 on the CUDA cores, as
 //     the plain version computes it: each thread takes two (row, head)
 //     pairs, online over blocks of 16 slots.
+//
+// K4 on Hopper.  The kernel it replaces ran 64 blocks on 132 SMs, loaded Wk
+// by cp.async, waited, multiplied on mma.sync, loaded Wv into the same
+// buffer, waited again, and read its keys tile twice: 0.0107 ms of device
+// time against a 0.0032 bound (ViT-H, 4096 rows, H100; chip_breakdown.py).
+// Here:
+//   * 32-row tiles (128 blocks at 4096 rows), one block an SM;
+//   * both weights (2 x 64 KB) by TMA when the block starts, landing while
+//     the tile is read;
+//   * the tile's keys and pe read once, every load issued before the first
+//     conversion, giving bf16(keys + pe) and bf16(keys) in shared memory;
+//   * warpgroup 0 projects K, warpgroup 1 V, each on wgmma m64n128 with A
+//     from registers (project_wg, shared with K5; warps 2-3 of a warpgroup
+//     repeat rows 0-31 and store nothing).
 #include "hopper.cuh"
-#include "warp_gemm.cuh"
 
 namespace samrs {
 namespace {
@@ -61,44 +74,42 @@ constexpr int THREADS = 256;
 constexpr int PAIRS = ROWS * NH / THREADS;  // (row, head) pairs per thread
 static_assert(PAIRS * THREADS == ROWS * NH, "attention pairs");
 
-constexpr int LDW256 = C + 8;    // smem row stride of a (CI x C) weight (K4)
-constexpr int LDA = C + 8;       // of the bf16 activation tile
+constexpr int KV_ROWS = 32;      // image rows of a K4 block
+constexpr int LDA = C + 8;       // smem row stride of the bf16 activation tile
 constexpr int LDQ = CI + 4;      // of the fp32 q tile
 constexpr int LDF = C + 8;       // of the fp32 residual / keys2 tile
 constexpr int HS = NTOK * HD + 4;  // per-head stride of the token K/V (conflict-free float4)
 
-constexpr int W_BYTES = CI * LDW256 * 2;   // K4's weight buffer
 constexpr int A_BYTES = ROWS * LDA * 2;
 constexpr int F_BYTES = ROWS * LDF * 4;
 constexpr int T_BYTES = (2 * NH * HS + NTOK) * 4;
-constexpr int KV_SMEM = W_BYTES + A_BYTES;
-constexpr int WB_BYTES = C * CI * 2;       // K5's weight buffer: one weight in 64-column boxes
+constexpr int WB_BYTES = C * CI * 2;       // one weight in 64-column boxes
+constexpr int KV_A_BYTES = KV_ROWS * LDA * 2;
+constexpr int KV_SMEM = 1024 + 2 * WB_BYTES + 2 * KV_A_BYTES + 64;
 constexpr int I2T_SMEM = 1024 + WB_BYTES + A_BYTES + F_BYTES + T_BYTES + 64;
-static_assert(W_BYTES % 128 == 0 && A_BYTES % 128 == 0 && F_BYTES % 128 == 0, "smem carve");
+static_assert(A_BYTES % 128 == 0 && F_BYTES % 128 == 0 && KV_A_BYTES % 128 == 0, "smem carve");
+static_assert(KV_SMEM <= 232448, "K4 shared memory");
 static_assert(I2T_SMEM <= 232448, "K5 shared memory");
 
-// As[r][c] = bf16(x[r][c] + p[r][c]) (p may be null) for the 64 x 256 tile;
-// x and p are fp32 rows of C in device memory.  A thread issues all of its
-// loads before it converts one.
+// As[r][c] = bf16(x[r][c] + p[r][c]) for the 64 x 256 tile; x and p are fp32
+// rows of C in device memory.  A thread issues all of its loads before it
+// converts one.
 __device__ __forceinline__ void stage_tile(bf16* As, const float* __restrict__ x,
                                            const float* __restrict__ p) {
   constexpr int PER = ROWS * C / 4 / THREADS;
-  float4 v[PER];
+  float4 v[PER], q[PER];
 #pragma unroll
   for (int k = 0; k < PER; ++k) {
     const int i = threadIdx.x + k * THREADS, r = i / (C / 4), c = (i % (C / 4)) * 4;
     v[k] = *reinterpret_cast<const float4*>(x + (size_t)r * C + c);
   }
-  if (p != nullptr) {
-    float4 q[PER];
 #pragma unroll
-    for (int k = 0; k < PER; ++k) {
-      const int i = threadIdx.x + k * THREADS, r = i / (C / 4), c = (i % (C / 4)) * 4;
-      q[k] = *reinterpret_cast<const float4*>(p + (size_t)r * C + c);
-    }
-#pragma unroll
-    for (int k = 0; k < PER; ++k) v[k].x += q[k].x, v[k].y += q[k].y, v[k].z += q[k].z, v[k].w += q[k].w;
+  for (int k = 0; k < PER; ++k) {
+    const int i = threadIdx.x + k * THREADS, r = i / (C / 4), c = (i % (C / 4)) * 4;
+    q[k] = *reinterpret_cast<const float4*>(p + (size_t)r * C + c);
   }
+#pragma unroll
+  for (int k = 0; k < PER; ++k) v[k].x += q[k].x, v[k].y += q[k].y, v[k].z += q[k].z, v[k].w += q[k].w;
 #pragma unroll
   for (int k = 0; k < PER; ++k) {
     const int i = threadIdx.x + k * THREADS, r = i / (C / 4), c = (i % (C / 4)) * 4;
@@ -124,56 +135,6 @@ __device__ __forceinline__ void stage_tokens(float* tk, float* tv, float* mb,
   if (threadIdx.x < NTOK) mb[threadIdx.x] = mask_bias[sb * NTOK + threadIdx.x];
 }
 
-// out[r][n] = bf16(As[r] . Ws[n] + bias[n]) for the 64 x CI tile, Ws a
-// (CI x C) weight in shared memory; out is the tile's first row (stride CI).
-// Warp w multiplies rows 16*(w%4).. by the columns 64*(w/4)..
-__device__ __forceinline__ void project_store(const bf16* As, const bf16* Ws,
-                                              const float* __restrict__ bias,
-                                              bf16* __restrict__ out) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wr = warp & 3, wc = warp >> 2, g = lane >> 2, t = lane & 3;
-  float acc[8][4];
-  zero_acc(acc);
-  warp_gemm<8, C>(acc, As + wr * 16 * LDA, LDA, Ws + wc * 64 * LDW256, LDW256);
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int n = wc * 64 + j * 8 + 2 * t, r = wr * 16 + g;
-    const float b0 = bias[n], b1 = bias[n + 1];
-    *reinterpret_cast<__nv_bfloat162*>(out + (size_t)r * CI + n) =
-        __floats2bfloat162_rn(acc[j][0] + b0, acc[j][1] + b1);
-    *reinterpret_cast<__nv_bfloat162*>(out + (size_t)(r + 8) * CI + n) =
-        __floats2bfloat162_rn(acc[j][2] + b0, acc[j][3] + b1);
-  }
-}
-
-// K4.  Grid (B, N / ROWS).
-__global__ void __launch_bounds__(THREADS)
-t2i_kv_kernel(const float* __restrict__ keys, const float* __restrict__ pe,
-              const bf16* __restrict__ Wk, const float* __restrict__ bk,
-              const bf16* __restrict__ Wv, const float* __restrict__ bv,
-              bf16* __restrict__ kout, bf16* __restrict__ vout, int N) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Ws = reinterpret_cast<bf16*>(smem);
-  bf16* As = reinterpret_cast<bf16*>(smem + W_BYTES);
-  const int r0 = blockIdx.y * ROWS;
-  const size_t row = (size_t)blockIdx.x * N + r0;
-  const float* x = keys + row * C;
-
-  load_rows_async<THREADS>(Ws, LDW256, Wk, CI, C);
-  cp_async_commit();
-  stage_tile(As, x, pe + (size_t)r0 * C);
-  cp_async_wait<0>();
-  __syncthreads();
-  project_store(As, Ws, bk, kout + row * CI);
-  __syncthreads();
-  load_rows_async<THREADS>(Ws, LDW256, Wv, CI, C);
-  cp_async_commit();
-  stage_tile(As, x, nullptr);
-  cp_async_wait<0>();
-  __syncthreads();
-  project_store(As, Ws, bv, vout + row * CI);
-}
-
 // ---------------------------------------------------------------------------
 // K5: one 64-row tile per block, wgmma with A from registers, weights by TMA
 // ---------------------------------------------------------------------------
@@ -186,15 +147,17 @@ __device__ __forceinline__ float2 ld2(const float* p) {
 // weight in `W` (boxes of 64 k-columns x `box_rows` rows, 128-byte swizzle),
 // starting at row n0: wgmma m64nNWk16, A fragments from As with ldmatrix,
 // all loaded before the first product (a product reads its A registers
-// after it is issued).
-template <int NW, int K>
+// after it is issued).  An A tile of AROWS < 64 rows is read again by the
+// warps past its rows, whose sums the caller drops.
+template <int NW, int K, int AROWS = 64>
 __device__ __forceinline__ void project_wg(float (&acc)[NW / 2], const bf16* As,
                                            const unsigned char* W, int box_rows, int n0) {
   const int wi = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int ar = (wi % (AROWS / 16)) * 16;  // the warp's first row of A
   uint32_t af[K / 16][4];
 #pragma unroll
   for (int kk = 0; kk < K / 16; ++kk)
-    ldmatrix_x4(af[kk], As + (wi * 16 + (lane & 15)) * LDA + kk * 16 + ((lane >> 4) << 3));
+    ldmatrix_x4(af[kk], As + (ar + (lane & 15)) * LDA + kk * 16 + ((lane >> 4) << 3));
   fence_regs(acc);
   wgmma_fence();
 #pragma unroll
@@ -207,6 +170,77 @@ __device__ __forceinline__ void project_wg(float (&acc)[NW / 2], const bf16* As,
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(acc);
+}
+
+// K4.  Grid (B, N / KV_ROWS).  Warpgroup 0 writes K = bf16(keys + pe) Wk^T +
+// bk, warpgroup 1 V = bf16(keys) Wv^T + bv, for the block's 32 rows; mk / mv
+// are the (CI x C) weights with boxes of 64 k-columns x 128 rows.
+__global__ void __launch_bounds__(THREADS, 1)
+t2i_kv_kernel(const __grid_constant__ CUtensorMap mk, const __grid_constant__ CUtensorMap mv,
+              const float* __restrict__ keys, const float* __restrict__ pe,
+              const float* __restrict__ bk, const float* __restrict__ bv, bf16* __restrict__ kout,
+              bf16* __restrict__ vout, int N) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(align_up(
+      reinterpret_cast<size_t>(smem_raw), 1024));
+  unsigned char* Wks = smem;  // Wk, then Wv: 4 boxes of 64 k-columns each
+  unsigned char* Wvs = smem + WB_BYTES;
+  bf16* Akp = reinterpret_cast<bf16*>(smem + 2 * WB_BYTES);  // bf16(keys + pe)
+  bf16* Ak = reinterpret_cast<bf16*>(smem + 2 * WB_BYTES + KV_A_BYTES);  // bf16(keys)
+  uint64_t* wbar = reinterpret_cast<uint64_t*>(smem + 2 * WB_BYTES + 2 * KV_A_BYTES);
+  const int b = blockIdx.x, r0 = blockIdx.y * KV_ROWS;
+  const size_t row = (size_t)b * N + r0;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wg = warp >> 2, wi = warp & 3, g = lane >> 2, t = lane & 3;
+
+  if (tid == 0) {
+    mbar_init(wbar, 1);
+    mbar_fence_init();
+    tma_prefetch_map(&mk);
+    tma_prefetch_map(&mv);
+    mbar_expect_tx(wbar, 2 * WB_BYTES);
+    for (int kc = 0; kc < C / 64; ++kc) {
+      tma_load_2d(Wks + kc * CI * 128, &mk, wbar, kc * 64, 0);
+      tma_load_2d(Wvs + kc * CI * 128, &mv, wbar, kc * 64, 0);
+    }
+  }
+  // the tile's keys and pe, read once: every load issued before the first conversion
+  constexpr int PER = KV_ROWS * C / 4 / THREADS;
+  const float* x = keys + row * C;
+  const float* p = pe + (size_t)r0 * C;
+  float4 xv[PER], pv[PER];
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int i = tid + k * THREADS;
+    xv[k] = *reinterpret_cast<const float4*>(x + (size_t)i * 4);
+    pv[k] = *reinterpret_cast<const float4*>(p + (size_t)i * 4);
+  }
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int i = tid + k * THREADS, r = i / (C / 4), c = (i % (C / 4)) * 4;
+    __nv_bfloat162* dk = reinterpret_cast<__nv_bfloat162*>(Ak + r * LDA + c);
+    dk[0] = __floats2bfloat162_rn(xv[k].x, xv[k].y);
+    dk[1] = __floats2bfloat162_rn(xv[k].z, xv[k].w);
+    __nv_bfloat162* dkp = reinterpret_cast<__nv_bfloat162*>(Akp + r * LDA + c);
+    dkp[0] = __floats2bfloat162_rn(xv[k].x + pv[k].x, xv[k].y + pv[k].y);
+    dkp[1] = __floats2bfloat162_rn(xv[k].z + pv[k].z, xv[k].w + pv[k].w);
+  }
+  __syncthreads();  // the tiles are written (and the barrier initialised)
+  mbar_wait(wbar, 0);
+
+  float acc[CI / 2];
+  project_wg<CI, C, KV_ROWS>(acc, wg == 0 ? Akp : Ak, wg == 0 ? Wks : Wvs, CI, 0);
+  if (wi * 16 >= KV_ROWS) return;  // rows past the tile
+  const float* bias = wg == 0 ? bk : bv;
+  bf16* dst = (wg == 0 ? kout : vout) + (row + wi * 16 + g) * CI + 2 * t;
+#pragma unroll
+  for (int j = 0; j < CI / 8; ++j) {
+    const float2 bb = ld2(bias + j * 8 + 2 * t);
+    *reinterpret_cast<__nv_bfloat162*>(dst + j * 8) =
+        __floats2bfloat162_rn(acc[4 * j] + bb.x, acc[4 * j + 1] + bb.y);
+    *reinterpret_cast<__nv_bfloat162*>(dst + 8 * CI + j * 8) =
+        __floats2bfloat162_rn(acc[4 * j + 2] + bb.x, acc[4 * j + 3] + bb.y);
+  }
 }
 
 // K5.  Grid (B, N / ROWS); blockIdx.x is the prompt, so in the shared-keys
@@ -469,20 +503,28 @@ int weight_map(CUtensorMap* map, const void* w, int rows, int cols, int box_rows
 
 extern "C" {
 
-// K4: keys (B, N, 256) fp32, pe (N, 256) fp32, Wk/Wv (128, 256) bf16,
-// bk/bv (128) fp32 -> kout/vout (B, N, 128) bf16.  N % 64 == 0.
+// K4: keys (B, N, 256) fp32, pe (N, 256) fp32, Wk/Wv (128, 256) bf16
+// (16-byte aligned: TMA), bk/bv (128) fp32 -> kout/vout (B, N, 128) bf16.
+// N % 32 == 0.
 int samrs_t2i_kv(const void* keys, const void* pe, const void* Wk, const void* bk,
                  const void* Wv, const void* bv, void* kout, void* vout, int B, int N,
                  void* stream) {
   using namespace samrs;
-  if (B <= 0 || N <= 0 || N % ROWS != 0) return cudaErrorInvalidValue;
+  const uintptr_t aligned = reinterpret_cast<uintptr_t>(Wk) | reinterpret_cast<uintptr_t>(Wv) |
+                            reinterpret_cast<uintptr_t>(keys) | reinterpret_cast<uintptr_t>(pe);
+  if (B <= 0 || N <= 0 || N % KV_ROWS != 0 || N / KV_ROWS > 65535 || aligned % 16 != 0)
+    return cudaErrorInvalidValue;
+  CUtensorMap mk, mv;
+  int e = weight_map(&mk, Wk, CI, C, CI);
+  if (e == 0) e = weight_map(&mv, Wv, CI, C, CI);
+  if (e != 0) return e;
   cudaError_t err = cudaFuncSetAttribute(t2i_kv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          KV_SMEM);
   if (err != cudaSuccess) return err;
-  t2i_kv_kernel<<<dim3(B, N / ROWS), THREADS, KV_SMEM, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(keys), static_cast<const float*>(pe), static_cast<const bf16*>(Wk),
-      static_cast<const float*>(bk), static_cast<const bf16*>(Wv), static_cast<const float*>(bv),
-      static_cast<bf16*>(kout), static_cast<bf16*>(vout), N);
+  t2i_kv_kernel<<<dim3(B, N / KV_ROWS), THREADS, KV_SMEM, static_cast<cudaStream_t>(stream)>>>(
+      mk, mv, static_cast<const float*>(keys), static_cast<const float*>(pe),
+      static_cast<const float*>(bk), static_cast<const float*>(bv), static_cast<bf16*>(kout),
+      static_cast<bf16*>(vout), N);
   return cudaGetLastError();
 }
 

@@ -44,7 +44,6 @@
 //     pair) and leave as coalesced 16-byte stores: a warp writes 512
 //     contiguous bytes of an output row.
 #include "hopper.cuh"
-#include "warp_gemm.cuh"
 
 namespace samrs {
 namespace {

@@ -55,6 +55,18 @@
 // windows (B * nW, 14, 14, 3C), which is the map layout with one window per
 // image; and the output map may be the padded (Hp, Wp) one (return_padded),
 // where the pad tokens' queries are written too.
+//
+// K12's window form is the same two launches on split heads (SPLIT): q, k,
+// v (B', N, d) with N = kh * kw <= 196 and kh + kw <= 32, an item a row of
+// B' (one window and head), each operand behind its own 3-d map (d, N, B')
+// with a box of N rows (the stage's V rows past N stay zero); no pad tokens,
+// so nothing is patched; the rel rows are given, rel_h (B', N, kh) and rel_w
+// (B', N, kw) fp32, and parked per tile as in K1; the keys past N masked;
+// fp32 rows out.  It replaces samrs_tpu/kernels/window_attention.py::
+// _window_attention_pallas on the windows of window_attn_impl="pallas" and
+// the global grids of up to 196 tokens.  Its rel rows on 14 x 14 windows
+// come from window_rel_kernel reading bf16 q in place (samrs_split_window_rel;
+// other grids take csrc/flash_attention.cu's relpos_rows_kernel).
 #include "hopper.cuh"
 
 namespace samrs {
@@ -66,6 +78,7 @@ constexpr int NKEY = 200;         // columns of S (n200): keys 196..199 are mask
 constexpr int NPV = 208;          // depth of P.V: 13 steps of 16 keys, V's rows 196.. zero
 constexpr int QTILES = 4;         // 64-row query tiles of a window (the last: 4 queries)
 constexpr int NREL = 2 * WIN;     // rel terms of a token: 14 row terms, then 14 column terms
+constexpr int SPLIT_REL_MAX = 32; // K12's window form: kh + kw rel terms a token at most
 constexpr int WA_THREADS = 384;   // producer warpgroup + two consumer warpgroups
 constexpr int REL_THREADS = 224;  // two windows at a time, 112 threads each
 
@@ -86,7 +99,7 @@ struct WinStage {
   static constexpr int VM = align1k(KT + TAILB), VT = VM + NPV * 128;
   static constexpr int BYTES = align1k(VT + (TAIL ? NPV * 32 : 0));
   static constexpr int TX = 3 * (MAIN + TAILB);   // bytes the TMA delivers for a window
-  static constexpr int REL_BYTES = 64 * NREL * 4;  // a consumer's tile of rel rows
+  static constexpr int REL_BYTES = 64 * SPLIT_REL_MAX * 4;  // a consumer's tile of rel rows
   static constexpr int SMEM = 1024 + 2 * BYTES + 2 * REL_BYTES + 64;
   static_assert(SMEM <= 232448, "K1 shared memory");
   static_assert(NKEY % 8 == 0 && NKEY >= NT && NPV % 16 == 0 && NPV >= NKEY, "key padding");
@@ -126,12 +139,15 @@ __device__ __forceinline__ WinItem win_item(int i, int order, int B, int nH, int
 // the window's q from shared memory (bf16), the table rows through L1 (the
 // tables are the same for every window), 49 sums in registers (14 loads
 // feed 196 FMAs).  A block takes two windows at a time, 112 threads each;
-// two blocks share an SM.
-template <int HD>
+// two blocks share an SM.  SPLIT (K12): an item is a row of split-head q
+// (B', 196, HD) (B items, nH = nW = 1), and the rows leave as rel_h (B',
+// 196, 14) into `rel` and rel_w (B', 196, 14) into `rel_w`.
+template <int HD, bool SPLIT>
 __global__ void __launch_bounds__(REL_THREADS, 2)
 window_rel_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ bqkv,
                   const float* __restrict__ Rh, const float* __restrict__ Rw,
-                  float* __restrict__ rel, int B, int H, int W, int C, int nH, int nww, int nW) {
+                  float* __restrict__ rel, float* __restrict__ rel_w, int B, int H, int W, int C,
+                  int nH, int nww, int nW) {
   constexpr int LDQ = HD + 8;  // bf16 q rows (elements; 16-byte aligned)
   constexpr int CH = HD / 8;
   extern __shared__ __align__(16) unsigned char rel_smem[];
@@ -145,7 +161,13 @@ window_rel_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ bqkv,
     const int item = base + slot;
     const bool live = item < items;
     __syncthreads();  // the previous windows' rows are read out
-    if (live) {
+    if (live && SPLIT) {
+      const bf16* qi = qkv + (size_t)item * NT * HD;
+      for (int idx = lt; idx < NT * CH; idx += 112) {
+        const int tok = idx / CH, ch = idx % CH;
+        cp_async16(q_own + tok * LDQ + ch * 8, qi + tok * HD + ch * 8, true);
+      }
+    } else if (live) {
       const int w = item % nW, h = (item / nW) % nH, b = item / (nW * nH);
       const int x0 = (w / nww) * WIN, y0 = (w % nww) * WIN;
       for (int idx = lt; idx < NT * CH; idx += 112) {  // asynchronous; a pad without bias reads 0
@@ -191,13 +213,21 @@ window_rel_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ bqkv,
     }
     // the window's rel rows, gathered in its q buffer, leave in 16-byte stores
     __syncthreads();  // both windows' q is read out (their threads share the barrier)
-    float* rs = reinterpret_cast<float*>(q_own);
+    float* rs = reinterpret_cast<float*>(q_own);  // K1: [token][28]; SPLIT: [T][token][14]
 #pragma unroll
     for (int i = 0; i < 7; ++i)
 #pragma unroll
-      for (int k = 0; k < 7; ++k) rs[tok[i] * NREL + T * WIN + ub * 7 + k] = acc[i][k];
+      for (int k = 0; k < 7; ++k)
+        rs[SPLIT ? (T * NT + tok[i]) * WIN + ub * 7 + k : tok[i] * NREL + T * WIN + ub * 7 + k] =
+            acc[i][k];
     __syncthreads();
-    if (live) {
+    if (live && SPLIT) {  // the item's rel_h rows, then its rel_w rows
+      constexpr int PLANE = NT * WIN / 4;
+      float4* oh = reinterpret_cast<float4*>(rel) + (size_t)item * PLANE;
+      float4* ow = reinterpret_cast<float4*>(rel_w) + (size_t)item * PLANE;
+      for (int i = lt; i < 2 * PLANE; i += 112)
+        (i < PLANE ? oh[i] : ow[i - PLANE]) = reinterpret_cast<const float4*>(rs)[i];
+    } else if (live) {
       float4* out = reinterpret_cast<float4*>(rel + (size_t)item * NT * NREL);
       for (int i = lt; i < NT * NREL / 4; i += 112) out[i] = reinterpret_cast<const float4*>(rs)[i];
     }
@@ -216,15 +246,34 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// The attention.  qkv (B, H, W, 3C) behind main_map (box 64 x 14 x 14 x 1,
-// 128-byte swizzle) and tail_map (box 16 x 14 x 14 x 1, 32-byte swizzle;
-// head dim 80 only); rel from window_rel_kernel; out (B, Ho, Wo, C).
-template <int HD>
+// The operands' tensor maps (main: 64 columns, 128-byte swizzle; tail: the
+// last 16 columns of a head of 80, 32-byte swizzle).  K1: the qkv map (B, H,
+// W, 3C) in main[0] / tail[0], box 64 (16) x 14 x 14 x 1, a head a column
+// offset.  K12: q, k, v (B', N, HD) in turn, box 64 (16) x N x 1.
+struct WinMaps {
+  CUtensorMap main[3];
+  CUtensorMap tail[3];
+};
+
+// The work of a launch.  K1: B, H, W, the output map Ho x Wo, C, nH and the
+// window grid (nww windows a row, nW in all) of the qkv map, the item order;
+// K12: B = B' items of N = H * W tokens (kh = H, kw = W).  Every item has
+// `qtiles` 64-row query tiles, its operands boxes of `nbox` rows.
+struct WinGeom {
+  int B, H, W, Ho, Wo, C, nH, nww, nW, order;
+  int items, qtiles, nbox;
+};
+
+// The attention.  K1 (SPLIT false): Q, K, V of a window from the qkv map,
+// rel from window_rel_kernel, out (B, Ho, Wo, C) bf16.  K12 (SPLIT true): a
+// row of B' from q, k, v, rel = rel_h (B', N, kh) and rel_w (B', N, kw), out
+// (B', N, HD) fp32; KG > 0 fixes the grid at KG x KG when compiled (the
+// windows), 0 reads it from `geo`.
+template <int HD, bool SPLIT, int KG = 0>
 __global__ void __launch_bounds__(WA_THREADS, 1)
-window_wgmma_kernel(const __grid_constant__ CUtensorMap main_map,
-                    const __grid_constant__ CUtensorMap tail_map, const bf16* __restrict__ bqkv,
-                    const float* __restrict__ rel, bf16* __restrict__ out, int B, int H, int W,
-                    int Ho, int Wo, int C, int nH, int nww, int nW, int order, float scale) {
+window_wgmma_kernel(const __grid_constant__ WinMaps maps, const bf16* __restrict__ bqkv,
+                    const float* __restrict__ rel, const float* __restrict__ rel_w,
+                    void* __restrict__ out, const WinGeom geo, float scale) {
   using S = WinStage<HD>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(align_up(
@@ -232,7 +281,13 @@ window_wgmma_kernel(const __grid_constant__ CUtensorMap main_map,
   float* rel_s = reinterpret_cast<float*>(smem + 2 * S::BYTES);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + 2 * S::BYTES + 2 * S::REL_BYTES);
   uint64_t* empty = full + 2;
-  const int units = B * nH * nW * QTILES;
+  const int B = geo.B, H = geo.H, W = geo.W, Ho = geo.Ho, Wo = geo.Wo, C = geo.C, nH = geo.nH;
+  const int nww = geo.nww, nW = geo.nW;
+  const int order = geo.order, QT = geo.qtiles, nbox = geo.nbox;
+  const int GH = KG ? KG : H, GW = KG ? KG : W;  // K12's grid (kh, kw)
+  const int ntok = SPLIT ? GH * GW : NT;    // tokens (keys) of an item
+  const int nrel = SPLIT ? GH + GW : NREL;  // rel terms of a token
+  const int units = geo.items * QT;
   const int u0 = (int)((long long)units * blockIdx.x / gridDim.x);
   const int u1 = (int)((long long)units * (blockIdx.x + 1) / gridDim.x);
   const int wg = threadIdx.x >> 7;
@@ -244,36 +299,51 @@ window_wgmma_kernel(const __grid_constant__ CUtensorMap main_map,
     }
     mbar_fence_init();
   }
-  // V's rows 196..207 of both stages: zero for P.V's last step (0 x stale data could be NaN)
-  for (int i = threadIdx.x; i < 2 * (NPV - NT) * 8; i += WA_THREADS)
-    reinterpret_cast<uint4*>(smem + (i / ((NPV - NT) * 8)) * S::BYTES + S::VM +
-                             NT * 128)[i % ((NPV - NT) * 8)] = make_uint4(0u, 0u, 0u, 0u);
+  // V's rows nbox..207 of both stages (K1: 196..): zero for P.V's last steps
+  // (0 x stale data could be NaN); the TMA never writes them
+  const int vz = NPV - nbox;
+  for (int i = threadIdx.x; i < 2 * vz * 8; i += WA_THREADS)
+    reinterpret_cast<uint4*>(smem + (i / (vz * 8)) * S::BYTES + S::VM +
+                             nbox * 128)[i % (vz * 8)] = make_uint4(0u, 0u, 0u, 0u);
   if constexpr (S::TAIL)
-    for (int i = threadIdx.x; i < 2 * (NPV - NT) * 2; i += WA_THREADS)
-      reinterpret_cast<uint4*>(smem + (i / ((NPV - NT) * 2)) * S::BYTES + S::VT +
-                               NT * 32)[i % ((NPV - NT) * 2)] = make_uint4(0u, 0u, 0u, 0u);
+    for (int i = threadIdx.x; i < 2 * vz * 2; i += WA_THREADS)
+      reinterpret_cast<uint4*>(smem + (i / (vz * 2)) * S::BYTES + S::VT +
+                               nbox * 32)[i % (vz * 2)] = make_uint4(0u, 0u, 0u, 0u);
   fence_proxy_async();
   __syncthreads();
   if (u0 >= u1) return;
-  const int i_first = u0 / QTILES, i_last = (u1 - 1) / QTILES;
+  const int i_first = u0 / QT, i_last = (u1 - 1) / QT;
 
   if (wg == 0) {  // producer
     setmaxnreg_dec<40>();
     if (threadIdx.x == 0) {
-      tma_prefetch_map(&main_map);
-      if constexpr (S::TAIL) tma_prefetch_map(&tail_map);
+      for (int part = 0; part < (SPLIT ? 3 : 1); ++part) {
+        tma_prefetch_map(&maps.main[part]);
+        if constexpr (S::TAIL) tma_prefetch_map(&maps.tail[part]);
+      }
       for (int i = i_first, n = 0; i <= i_last; ++i, ++n) {
         const int s = n & 1;
         mbar_wait(&empty[s], ((n >> 1) & 1) ^ 1);
-        const WinItem it = win_item(i, order, B, nH, nww, nW);
         unsigned char* st = smem + s * S::BYTES;
+        if constexpr (SPLIT) {  // rows [0, N) of item i of q, k and v
+          mbar_expect_tx(&full[s], 3 * nbox * (128 + (S::TAIL ? 32 : 0)));
+#pragma unroll
+          for (int part = 0; part < 3; ++part) {
+            tma_load_3d(st + S::main_off(part), &maps.main[part], &full[s], 0, 0, i);
+            if constexpr (S::TAIL)
+              tma_load_3d(st + S::tail_off(part), &maps.tail[part], &full[s], 64, 0, i);
+          }
+          continue;
+        }
+        const WinItem it = win_item(i, order, B, nH, nww, nW);
         mbar_expect_tx(&full[s], S::TX);
 #pragma unroll
         for (int part = 0; part < 3; ++part) {
           const int col = part * C + it.h * HD;
-          tma_load_4d(st + S::main_off(part), &main_map, &full[s], col, it.y0, it.x0, it.b);
+          tma_load_4d(st + S::main_off(part), &maps.main[0], &full[s], col, it.y0, it.x0, it.b);
           if constexpr (S::TAIL)
-            tma_load_4d(st + S::tail_off(part), &tail_map, &full[s], col + 64, it.y0, it.x0, it.b);
+            tma_load_4d(st + S::tail_off(part), &maps.tail[0], &full[s], col + 64, it.y0, it.x0,
+                        it.b);
         }
       }
     }
@@ -284,8 +354,9 @@ window_wgmma_kernel(const __grid_constant__ CUtensorMap main_map,
   setmaxnreg_inc<232>();
   const int c = wg - 1, tid = threadIdx.x & 127;
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-  float* rs = rel_s + c * 64 * NREL;
+  float* rs = rel_s + c * 64 * SPLIT_REL_MAX;
   constexpr float kLog2e = 1.4426950408889634f;
+  const float inv_kw = 1.f / GW;  // K12 off KG: a key's grid row by a float reciprocal
   float sacc[NKEY / 2], o[32], ot[S::TAIL ? 8 : 1];
 #pragma unroll
   for (int i = 0; i < NKEY / 2; ++i) sacc[i] = 0.f;
@@ -297,9 +368,9 @@ window_wgmma_kernel(const __grid_constant__ CUtensorMap main_map,
   for (int i = i_first, n = 0; i <= i_last; ++i, ++n) {
     const int s = n & 1;
     unsigned char* st = smem + s * S::BYTES;
-    const WinItem it = win_item(i, order, B, nH, nww, nW);
+    const WinItem it = SPLIT ? WinItem{i, 0, 0, 0, i} : win_item(i, order, B, nH, nww, nW);
     mbar_wait(&full[s], (n >> 1) & 1);
-    if (bqkv != nullptr && (it.x0 + WIN > H || it.y0 + WIN > W)) {
+    if (!SPLIT && bqkv != nullptr && (it.x0 + WIN > H || it.y0 + WIN > W)) {
       // map-pad tokens: the TMA read zeros, the zero-padded map gives them the
       // bias.  Thread (phase, chunk) loads one 16-byte chunk of the head's q /
       // k / v bias once and writes it into that chunk of every pad row
@@ -321,21 +392,34 @@ window_wgmma_kernel(const __grid_constant__ CUtensorMap main_map,
       fence_proxy_async();
       named_barrier_sync(1 + c, 128);
     }
-    const int lo = u0 > i * QTILES ? u0 : i * QTILES;
-    const int hi = u1 < (i + 1) * QTILES ? u1 : (i + 1) * QTILES;
+    const int lo = u0 > i * QT ? u0 : i * QT;
+    const int hi = u1 < (i + 1) * QT ? u1 : (i + 1) * QT;
     for (int u = lo; u < hi; ++u) {
       if (((u - u0) & 1) != c) continue;
-      const int tq = u - i * QTILES, r0 = tq * 64;
-      const int rows = NT - r0 < 64 ? NT - r0 : 64;
+      const int tq = u - i * QT, r0 = tq * 64;
+      const int rows = ntok - r0 < 64 ? ntok - r0 : 64;
       // this tile's rel rows: loaded now, parked in shared memory while S runs
-      const int n4 = rows * NREL / 4;
-      const float4* relg =
-          reinterpret_cast<const float4*>(rel + ((size_t)it.rel * NT + r0) * NREL);
+      // (K1: rows of 28 from its scratch in 16-byte loads; K12: the rel_h and
+      // rel_w terms of a row side by side, rows of kh + kw <= 32)
+      const int n4 = rows * NREL / 4, nsp = rows * nrel;
       float4 rv[4];
+      if constexpr (SPLIT) {
+        const float* rhg = rel + ((size_t)i * ntok + r0) * GH;
+        const float* rwg = rel_w + ((size_t)i * ntok + r0) * GW;
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int idx = tid + 128 * k;
-        rv[k] = idx < n4 ? __ldg(relg + idx) : make_float4(0.f, 0.f, 0.f, 0.f);
+        for (int k = 0; k < 16; ++k) {
+          const int idx = tid + 128 * k, r = idx / nrel, cc = idx - r * nrel;
+          reinterpret_cast<float*>(rv)[k] =
+              idx >= nsp ? 0.f : cc < GH ? __ldg(rhg + r * GH + cc) : __ldg(rwg + r * GW + cc - GH);
+        }
+      } else {
+        const float4* relg =
+            reinterpret_cast<const float4*>(rel + ((size_t)it.rel * NT + r0) * NREL);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int idx = tid + 128 * k;
+          rv[k] = idx < n4 ? __ldg(relg + idx) : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
       }
 
       // S = Q K^T (keys 0..199)
@@ -352,16 +436,24 @@ window_wgmma_kernel(const __grid_constant__ CUtensorMap main_map,
       }
       wgmma_commit();
       named_barrier_sync(1 + c, 128);  // the previous tile's bias reads are done
+      if constexpr (SPLIT) {
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int idx = tid + 128 * k;
-        if (idx < n4) reinterpret_cast<float4*>(rs)[idx] = rv[k];
+        for (int k = 0; k < 16; ++k) {
+          const int idx = tid + 128 * k;
+          if (idx < nsp) rs[idx] = reinterpret_cast<const float*>(rv)[k];
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int idx = tid + 128 * k;
+          if (idx < n4) reinterpret_cast<float4*>(rs)[idx] = rv[k];
+        }
       }
       named_barrier_sync(1 + c, 128);
       wgmma_wait<0>();
       fence_regs(sacc);
 
-      // logits s * scale + rel_h[q, k / 14] + rel_w[q, k % 14]; keys >= 196 masked.
+      // logits s * scale + rel_h[q, k / kw] + rel_w[q, k % kw]; keys >= N masked (K1: 196, kw 14).
       // A warp whose 16 rows are all past the window (the last tile's warps
       // 1..3) only feeds zeros to the warpgroup's P.V
       uint32_t pa[NPV / 16][4];
@@ -373,9 +465,16 @@ window_wgmma_kernel(const __grid_constant__ CUtensorMap main_map,
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int half = e >> 1, kc = 8 * j + 2 * t + (e & 1);
-            const float* rrow = rs + (warp * 16 + g + 8 * half) * NREL;
+            const float* rrow = rs + (warp * 16 + g + 8 * half) * nrel;
             float v = neg_inf();
-            if (8 * j + 8 <= NT || kc < NT) {
+            if constexpr (SPLIT) {
+              if (kc < ntok) {
+                int kx;
+                if constexpr (KG > 0) kx = kc / KG;
+                else kx = __float2int_rz((kc + 0.5f) * inv_kw);
+                v = fmaf(sacc[4 * j + e], scale, rrow[kx] + rrow[GH + kc - kx * GW]);
+              }
+            } else if (8 * j + 8 <= NT || kc < NT) {
               const int kx = kc / WIN;
               v = fmaf(sacc[4 * j + e], scale, rrow[kx] + rrow[WIN + kc - kx * WIN]);
             }
@@ -437,10 +536,26 @@ window_wgmma_kernel(const __grid_constant__ CUtensorMap main_map,
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int lr = warp * 16 + g + 8 * half, tok = r0 + lr;
+        if constexpr (SPLIT) {  // fp32 rows of HD
+          if (lr >= rows) continue;
+          const float inv = 1.f / l[half];
+          float* orow = static_cast<float*>(out) + ((size_t)i * ntok + tok) * HD + 2 * t;
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj)
+            *reinterpret_cast<float2*>(orow + 8 * jj) =
+                make_float2(o[4 * jj + 2 * half] * inv, o[4 * jj + 2 * half + 1] * inv);
+          if constexpr (S::TAIL)
+#pragma unroll
+            for (int jj = 0; jj < 2; ++jj)
+              *reinterpret_cast<float2*>(orow + 64 + 8 * jj) =
+                  make_float2(ot[4 * jj + 2 * half] * inv, ot[4 * jj + 2 * half + 1] * inv);
+          continue;
+        }
         const int x = it.x0 + tok / WIN, y = it.y0 + tok % WIN;
         if (lr >= rows || x >= Ho || y >= Wo) continue;
         const float inv = 1.f / l[half];
-        bf16* orow = out + (((size_t)it.b * Ho + x) * Wo + y) * C + it.h * HD + 2 * t;
+        bf16* orow = static_cast<bf16*>(out) + (((size_t)it.b * Ho + x) * Wo + y) * C + it.h * HD +
+                     2 * t;
 #pragma unroll
         for (int jj = 0; jj < 8; ++jj)
           *reinterpret_cast<__nv_bfloat162*>(orow + 8 * jj) =
@@ -457,6 +572,38 @@ window_wgmma_kernel(const __grid_constant__ CUtensorMap main_map,
   }
 }
 
+// window_rel_kernel over `items` items (two a block, two blocks an SM at most).
+template <int HD, bool SPLIT>
+cudaError_t launch_window_rel(const bf16* q, const bf16* bias, const void* Rh, const void* Rw,
+                              void* rel, void* rel_w, int items, int B, int H, int W, int C,
+                              int num_heads, int nww, int nW, cudaStream_t stream) {
+  constexpr int rel_smem = rel_smem_bytes<HD>();
+  auto rk = window_rel_kernel<HD, SPLIT>;
+  cudaError_t err = cudaFuncSetAttribute(rk, cudaFuncAttributeMaxDynamicSharedMemorySize, rel_smem);
+  if (err != cudaSuccess) return err;
+  const int pairs = (items + 1) / 2;
+  rk<<<pairs < 2 * sm_count() ? pairs : 2 * sm_count(), REL_THREADS, rel_smem, stream>>>(
+      q, bias, static_cast<const float*>(Rh), static_cast<const float*>(Rw),
+      static_cast<float*>(rel), static_cast<float*>(rel_w), B, H, W, C, num_heads, nww, nW);
+  return cudaGetLastError();
+}
+
+// The persistent attention kernel: one block an SM at most over the
+// launch's items x query tiles.
+template <int HD, bool SPLIT, int KG = 0>
+int launch_window_attention(const WinMaps& maps, const bf16* bias, const void* rel,
+                            const float* rel_w, void* out, const WinGeom& geo, float scale,
+                            cudaStream_t stream) {
+  using S = WinStage<HD>;
+  auto kernel = window_wgmma_kernel<HD, SPLIT, KG>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
+  if (err != cudaSuccess) return err;
+  const int units = geo.items * geo.qtiles;
+  kernel<<<units < sm_count() ? units : sm_count(), WA_THREADS, S::SMEM, stream>>>(
+      maps, bias, static_cast<const float*>(rel), rel_w, out, geo, scale);
+  return cudaGetLastError();
+}
+
 template <int HD>
 int launch_window(const void* qkv, const void* bqkv, const void* Rh, const void* Rw, void* rel,
                   void* out, int B, int H, int W, int Ho, int Wo, int C, int num_heads, int order,
@@ -467,36 +614,51 @@ int launch_window(const void* qkv, const void* bqkv, const void* Rh, const void*
   const bf16* q = static_cast<const bf16*>(qkv);
   const bf16* bias = static_cast<const bf16*>(bqkv);
 
-  constexpr int rel_smem = rel_smem_bytes<HD>();
-  auto rk = window_rel_kernel<HD>;
-  cudaError_t err = cudaFuncSetAttribute(rk, cudaFuncAttributeMaxDynamicSharedMemorySize, rel_smem);
-  if (err != cudaSuccess) return err;
-  const int pairs = (items + 1) / 2;
-  rk<<<pairs < 2 * sm_count() ? pairs : 2 * sm_count(), REL_THREADS, rel_smem, stream>>>(
-      q, bias, static_cast<const float*>(Rh), static_cast<const float*>(Rw),
-      static_cast<float*>(rel), B, H, W, C, num_heads, nww, nW);
-  err = cudaGetLastError();
+  cudaError_t err = launch_window_rel<HD, false>(q, bias, Rh, Rw, rel, nullptr, items, B, H, W, C,
+                                                 num_heads, nww, nW, stream);
   if (err != cudaSuccess) return err;
 
-  CUtensorMap main_map, tail_map;
+  WinMaps maps;
   const uint64_t dims[4] = {(uint64_t)3 * C, (uint64_t)W, (uint64_t)H, (uint64_t)B};
   const uint64_t strides[3] = {(uint64_t)3 * C * 2, (uint64_t)W * 3 * C * 2,
                                (uint64_t)H * W * 3 * C * 2};
   const uint32_t box_main[4] = {64, WIN, WIN, 1}, box_tail[4] = {16, WIN, WIN, 1};
-  int e = make_tensor_map(&main_map, qkv, 4, dims, strides, box_main, CU_TENSOR_MAP_SWIZZLE_128B);
+  int e = make_tensor_map(&maps.main[0], qkv, 4, dims, strides, box_main,
+                          CU_TENSOR_MAP_SWIZZLE_128B);
   if (e != 0) return e;
-  tail_map = main_map;
+  maps.tail[0] = maps.main[0];
   if (S::TAIL)
-    e = make_tensor_map(&tail_map, qkv, 4, dims, strides, box_tail, CU_TENSOR_MAP_SWIZZLE_32B);
+    e = make_tensor_map(&maps.tail[0], qkv, 4, dims, strides, box_tail, CU_TENSOR_MAP_SWIZZLE_32B);
   if (e != 0) return e;
-  auto kernel = window_wgmma_kernel<HD>;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
-  if (err != cudaSuccess) return err;
-  const int units = items * QTILES;
-  kernel<<<units < sm_count() ? units : sm_count(), WA_THREADS, S::SMEM, stream>>>(
-      main_map, tail_map, bias, static_cast<const float*>(rel), static_cast<bf16*>(out), B, H, W,
-      Ho, Wo, C, num_heads, nww, nW, order, scale);
-  return cudaGetLastError();
+  const WinGeom geo{B, H, W, Ho, Wo, C, num_heads, nww, nW, order, items, QTILES, NT};
+  return launch_window_attention<HD, false>(maps, bias, rel, nullptr, out, geo, scale, stream);
+}
+
+// K12's window form: q, k, v (B, N, HD) behind 3-d maps with a box of N rows.
+template <int HD>
+int launch_split_window(const void* q, const void* k, const void* v, const void* rel_h,
+                        const void* rel_w, void* out, int B, int N, int kh, int kw, float scale,
+                        cudaStream_t stream) {
+  WinMaps maps;
+  const void* base[3] = {q, k, v};
+  const uint64_t dims[3] = {(uint64_t)HD, (uint64_t)N, (uint64_t)B};
+  const uint64_t strides[2] = {(uint64_t)HD * 2, (uint64_t)N * HD * 2};
+  const uint32_t box_main[3] = {64, (uint32_t)N, 1}, box_tail[3] = {16, (uint32_t)N, 1};
+  for (int i = 0; i < 3; ++i) {
+    int e = make_tensor_map(&maps.main[i], base[i], 3, dims, strides, box_main,
+                            CU_TENSOR_MAP_SWIZZLE_128B);
+    maps.tail[i] = maps.main[i];
+    if (e == 0 && WinStage<HD>::TAIL)
+      e = make_tensor_map(&maps.tail[i], base[i], 3, dims, strides, box_tail,
+                          CU_TENSOR_MAP_SWIZZLE_32B);
+    if (e != 0) return e;
+  }
+  const WinGeom geo{B, kh, kw, 0, 0, HD, 1, 1, 1, kOrderPlain, B, (N + 63) / 64, N};
+  const float* rh = static_cast<const float*>(rel_h);
+  const float* rw = static_cast<const float*>(rel_w);
+  if (kh == WIN && kw == WIN)  // the windows: the grid fixed when compiled
+    return launch_window_attention<HD, true, WIN>(maps, nullptr, rh, rw, out, geo, scale, stream);
+  return launch_window_attention<HD, true>(maps, nullptr, rh, rw, out, geo, scale, stream);
 }
 
 }  // namespace
@@ -538,6 +700,46 @@ int samrs_window_attention(const void* qkv, const void* bqkv, const void* Rh, co
   if (head_dim == 64)
     return launch_window<64>(qkv, bqkv, Rh, Rw, rel, out, B, H, W, Ho, Wo, C, num_heads, order,
                              scale, st);
+  return cudaErrorInvalidValue;
+}
+
+// K12's window form: q, k, v (B', N, head_dim) bf16 (16-byte aligned
+// bases), rel_h (B', N, kh) and rel_w (B', N, kw) fp32 with N = kh * kw <= 196
+// and kh + kw <= 32 -> out (B', N, head_dim) fp32.  head_dim 64 or 80.
+int samrs_split_attention_window(const void* q, const void* k, const void* v, const void* rel_h,
+                                 const void* rel_w, void* out, int B, int N, int head_dim, int kh,
+                                 int kw, float scale, void* stream) {
+  using namespace samrs;
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                          reinterpret_cast<uintptr_t>(v);
+  if (B <= 0 || N <= 0 || N > NT || kh <= 0 || kw <= 0 || kh * kw != N ||
+      kh + kw > SPLIT_REL_MAX || bases % 16 != 0)
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (head_dim == 80) return launch_split_window<80>(q, k, v, rel_h, rel_w, out, B, N, kh, kw, scale, st);
+  if (head_dim == 64) return launch_split_window<64>(q, k, v, rel_h, rel_w, out, B, N, kh, kw, scale, st);
+  return cudaErrorInvalidValue;
+}
+
+// K12's rel rows on 14 x 14 windows: split-head q (B', 196, head_dim) bf16,
+// Rh / Rw (14, 14, head_dim) fp32 -> rel_h (B', 196, 14), rel_w (B', 196,
+// 14) fp32; window_rel_kernel with an item a row of B'.  Every pointer
+// 16-byte aligned; head_dim 64 or 80.
+int samrs_split_window_rel(const void* q, const void* Rh, const void* Rw, void* rel_h,
+                           void* rel_w, int B, int head_dim, void* stream) {
+  using namespace samrs;
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(Rh) |
+                         reinterpret_cast<uintptr_t>(Rw) | reinterpret_cast<uintptr_t>(rel_h) |
+                         reinterpret_cast<uintptr_t>(rel_w);
+  if (B <= 0 || ptrs % 16 != 0) return cudaErrorInvalidValue;
+  const bf16* qp = static_cast<const bf16*>(q);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (head_dim == 80)
+    return launch_window_rel<80, true>(qp, nullptr, Rh, Rw, rel_h, rel_w, B, B, WIN, WIN, 80, 1, 1,
+                                       1, st);
+  if (head_dim == 64)
+    return launch_window_rel<64, true>(qp, nullptr, Rh, Rw, rel_h, rel_w, B, B, WIN, WIN, 64, 1, 1,
+                                       1, st);
   return cudaErrorInvalidValue;
 }
 

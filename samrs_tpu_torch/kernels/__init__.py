@@ -11,7 +11,7 @@ launches its CUDA kernel (or raises) for a CUDA tensor.
   K3 fused_mlp.ln_mlp_residual                   (LayerNorm + MLP + residual;
      the tail mode fused_tail_ln_mlp_residual; its GEMM, gemm.linear, also
      K1's: wgmma + TMA)
-  K4 fused_twoway.t2i_kv_proj                    (decoder K/V projection)
+  K4 fused_twoway.t2i_kv_proj                    (decoder K/V projection; wgmma + TMA)
   K5 fused_twoway.i2t_update                     (decoder image->token update)
   K6 fused_upscale.upscale_hyper                 (upscaling + hypernetwork dot)
   K7 amg_post.amg_postprocess                    (full-resolution mask postprocess)
@@ -20,5 +20,7 @@ launches its CUDA kernel (or raises) for a CUDA tensor.
   K10 flash_attention.full_attention             (plain softmax attention, fp32)
   K11 fused_mlp.fused_mlp                        (fc1 -> GELU -> fc2, fp32)
   K12 window_attention.split_attention           (split-head rel-pos attention;
-      window_attention_relpos, flash_attention.flash_attention_relpos)
+      window_attention_relpos, flash_attention.flash_attention_relpos; K1's
+      window kernel up to 196 tokens, K2's flash kernel above, rel rows on
+      the card)
 """

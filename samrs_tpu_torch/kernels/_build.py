@@ -37,7 +37,10 @@ _SIGNATURES = {
     "samrs_window_attention": ([_P] * 6 + [_I] * 11 + [_F, _P], _I),
     "samrs_flash_attention_relpos": ([_P] * 4 + [_I] * 7 + [_F, _I, _P], _I),
     "samrs_relpos_rows": ([_P] * 5 + [_I] * 8 + [_P], _I),
-    "samrs_split_attention": ([_P] * 6 + [_I] * 5 + [_F, _I, _P], _I),
+    "samrs_split_attention_window": ([_P] * 6 + [_I] * 5 + [_F, _P], _I),
+    "samrs_split_attention_tiled": ([_P] * 6 + [_I] * 5 + [_F, _P], _I),
+    "samrs_split_window_rel": ([_P] * 5 + [_I, _I, _P], _I),
+    "samrs_split_relpos_rows": ([_P] * 5 + [_I] * 5 + [_P], _I),
     "samrs_t2i_kv": ([_P] * 8 + [_I, _I, _P], _I),
     "samrs_i2t_update": ([_P] * 18 + [_I, _I, _I, _I, _I, _F, _F, _P], _I),
     "samrs_upscale_hyper": ([_P] * 9 + [_I, _I, _I, _I, _F, _P], _I),

@@ -1,7 +1,8 @@
 """K2: global attention of the encoder with the decomposed rel-pos bias,
 heads read in place from the raw ``(B, N, 3C)`` qkv tensor, in the four
 modes of the JAX package's ``global_attn_impl``; ``flash_attention_relpos``,
-the same attention on split heads over K12 (window_attention.py); and K10,
+the same attention on split heads over K12 (window_attention.py, whose
+query-tiled form is K2's kernel on split heads); and K10,
 plain softmax attention in fp32 for the seg ViTs' full-attention blocks (at
 the end of this module).
 
@@ -35,7 +36,6 @@ from samrs_tpu_torch.kernels import _build, window_attention
 launches = 0  # CUDA launches of this kernel (one per wrapper call)
 
 _HEAD_DIMS = (64, 80)  # instantiated in csrc/flash_attention.cu
-_TILE = 64  # key tile of the warp-level kernel K12 (csrc/warp_attention.cuh)
 K2_KEY_TILE = 128  # key tile of K2's kernel: its online softmax rounds per tile of this
 K1_KEY_TILE = 208  # K1's window kernel: one softmax over a window's 196 keys (padded to 208)
 MAX_TOKENS = 1 << 22  # the kernel splits keys into grid (row, column) by a float reciprocal
@@ -55,12 +55,12 @@ def _rel_rows(q: torch.Tensor, Rh: torch.Tensor, Rw: torch.Tensor, hw: Tuple[int
 
 
 def online_softmax_v(s: torch.Tensor, v: torch.Tensor, dtype: torch.dtype,
-                     tile: int = _TILE, base2: bool = False) -> torch.Tensor:
+                     tile: int = K2_KEY_TILE, base2: bool = False) -> torch.Tensor:
     """``softmax(s) @ v`` in fp32, rounded as the kernels' online softmax
-    rounds it (csrc/warp_attention.cuh): keys in tiles of `tile`, each
-    tile's probabilities exp(s - running max) rounded to `dtype` (the P of
-    the P.V product), row sum of the rounded values, rescaled to the final
-    max.  For fp32 this is the exact softmax.  With `base2` the logits are in
+    rounds it (K2's and K12's; K1's takes one tile): keys in tiles of
+    `tile`, each tile's probabilities exp(s - running max) rounded to `dtype`
+    (the P of the P.V product), row sum of the rounded values, rescaled to
+    the final max.  For fp32 this is the exact softmax.  With `base2` the logits are in
     units of log2 e and the powers are of 2.  s (..., n), v (..., n, d)."""
     n = s.shape[-1]
     exp = torch.exp2 if base2 else torch.exp
@@ -190,16 +190,15 @@ def attention_qkv_relpos(qkv, Rh, Rw, hw: Tuple[int, int], scale: float, num_hea
 def flash_attention_relpos(q, k, v, Rh, Rw, hw: Tuple[int, int], scale: float) -> torch.Tensor:
     """JAX ``flash_attention_relpos``: attention with the decomposed rel-pos
     bias over an (H, W) grid on split heads, q, k, v (B', N, d), the
-    gathered Rh (H, H, d) / Rw (W, W, d) -> (B', N, d) fp32; K12's
-    query-tiled launch on the card (the whole-window one for N <= 256)."""
-    rel_h, rel_w = window_attention.rel_rows(q, Rh, Rw, hw)
-    return window_attention.split_attention(q, k, v, rel_h, rel_w, scale)
+    gathered Rh (H, H, d) / Rw (W, W, d) -> (B', N, d) fp32; on the card the
+    rel-row kernel and K12 (its query-tiled form for a grid over 196
+    tokens)."""
+    return window_attention.window_attention_relpos(q, k, v, Rh, Rw, hw, scale)
 
 
 def flash_attention_relpos_plain(q, k, v, Rh, Rw, hw: Tuple[int, int], scale: float):
     """``flash_attention_relpos`` with K12's plain version on any device."""
-    rel_h, rel_w = window_attention.rel_rows(q, Rh, Rw, hw)
-    return window_attention.split_attention_plain(q, k, v, rel_h, rel_w, scale)
+    return window_attention.window_attention_relpos_plain(q, k, v, Rh, Rw, hw, scale)
 
 
 # ---------------------------------------------------------------------------

@@ -13,10 +13,10 @@ box decode) the keys are shared and read once per row tile.
 
 On a CUDA tensor both launch the hand-written kernels of csrc/twoway.cu
 (bf16 operands, fp32 accumulation; bound by device-memory bytes, see the
-source): K5's projections run on wgmma, its weights arrive by TMA
-(``check_i2t_layout`` states what it takes).  The wrappers keep one bf16
-copy of each weight and one fp32 copy of each vector per parameter version
-(``gemm._cached_copy``).  On a CPU tensor they run the plain versions.
+source): their projections run on wgmma, their weights arrive by TMA
+(``check_kv_layout`` and ``check_i2t_layout`` state what they take).  The
+wrappers keep one bf16 copy of each weight and one fp32 copy of each vector
+per parameter version (``gemm._cached_copy``).  On a CPU tensor they run the plain versions.
 Weights use torch's ``nn.Linear`` layout (out, in).
 """
 
@@ -28,7 +28,9 @@ import torch.nn.functional as F
 from samrs_tpu_torch.kernels import _build, gemm
 
 NT = 16  # token slots per block (box prompts fill 7: iou + 4 mask tokens + 2 corners)
-ROW_TILE = 64  # image rows of a K4 / K5 tile: N must be a multiple
+ROW_TILE = 64  # image rows of a K5 tile: N must be a multiple
+KV_ROW_TILE = 32  # image rows of a K4 block (128 blocks at N 4096): N must be a multiple
+KV_MAX_TILES = 65535  # K4's row tiles of an image (a grid dimension)
 C_KERNEL, CI_KERNEL, HEADS_KERNEL = 256, 128, 8  # widths csrc/twoway.cu is built for
 
 kv_launches = 0   # CUDA launches of K4 (one per wrapper call)
@@ -112,25 +114,40 @@ def _vec(v, n, device):
     return gemm._cached_copy(v, device, torch.float32)
 
 
-def _check_image_side(keys, key_pe):
+def _check_image_side(keys, key_pe, tile=ROW_TILE):
     _build.require_cuda("keys", keys, torch.float32)
-    if keys.dim() != 3 or keys.shape[2] != C_KERNEL or keys.shape[1] % ROW_TILE:
-        raise ValueError(f"keys: expected (B, N, {C_KERNEL}) with N % {ROW_TILE} == 0, "
+    if keys.dim() != 3 or keys.shape[2] != C_KERNEL or keys.shape[1] % tile:
+        raise ValueError(f"keys: expected (B, N, {C_KERNEL}) with N % {tile} == 0, "
                          f"got {tuple(keys.shape)}")
     _build.require_cuda("key_pe", key_pe, torch.float32, (keys.shape[1], C_KERNEL))
+
+
+def check_kv_layout(B: int, N: int, pointers=()) -> None:
+    """Raise ValueError unless K4 takes ``keys (B, N, 256)``: N a positive
+    multiple of its 32-row block (at most 65535 blocks an image), and every
+    pointer (the two bf16 weights, which arrive by TMA, the keys and pe,
+    read in 16-byte loads; device addresses as ints) 16-byte aligned."""
+    if B <= 0 or N <= 0 or N % KV_ROW_TILE or N // KV_ROW_TILE > KV_MAX_TILES:
+        raise ValueError(f"the K/V kernel needs N a positive multiple of {KV_ROW_TILE} (at most "
+                         f"{KV_MAX_TILES} tiles), got N={N} (B={B})")
+    for p in pointers:
+        if p is not None and p % gemm.TMA_ALIGN:
+            raise ValueError(f"the K/V kernel's operands must be {gemm.TMA_ALIGN}-byte aligned, "
+                             f"got address {p:#x}")
 
 
 def t2i_kv_proj_cuda(keys, key_pe, Wk, bk, Wv, bv):
     """K4 on CUDA fp32 ``keys (B, N, 256)`` -> bf16 (k, v) each (B, N, 128)."""
     global kv_launches
-    _check_image_side(keys, key_pe)
+    _check_image_side(keys, key_pe, KV_ROW_TILE)
     B, N, C = keys.shape
     dev = keys.device
     wk, wv = _weight(Wk, (CI_KERNEL, C), dev), _weight(Wv, (CI_KERNEL, C), dev)
     bk_, bv_ = _vec(bk, CI_KERNEL, dev), _vec(bv, CI_KERNEL, dev)
+    p = _build.ptr
+    check_kv_layout(B, N, (p(wk), p(wv), p(keys), p(key_pe)))
     k = torch.empty(B, N, CI_KERNEL, device=dev, dtype=torch.bfloat16)
     v = torch.empty_like(k)
-    p = _build.ptr
     _build.launch("samrs_t2i_kv", p(keys), p(key_pe), p(wk), p(bk_), p(wv), p(bv_), p(k), p(v),
                   B, N)
     kv_launches += 1

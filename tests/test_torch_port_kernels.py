@@ -325,8 +325,8 @@ def test_plain_port_matches_jax(kernel, reference):
 
 def test_online_softmax_follows_the_kernel_loop():
     """The plain attention's probabilities: equal to a key-tile by key-tile
-    run of the kernels' online softmax (csrc/warp_attention.cuh: running max,
-    P rounded to bf16, row sums of the rounded values, rescaled), and in fp32
+    run of the kernels' online softmax (running max, P rounded to bf16, row
+    sums of the rounded values, rescaled) at a tile of 64 keys, and in fp32
     to the exact softmax."""
     rng = np.random.default_rng(12)
     s = torch.from_numpy((rng.normal(size=(3, 150)) * 3).astype(np.float32))
@@ -339,9 +339,9 @@ def test_online_softmax_follows_the_kernel_loop():
         alpha = torch.exp(m - m_new)
         p = torch.exp(tile - m_new).bfloat16().float()
         den, o, m = den * alpha + p.sum(-1, keepdim=True), o * alpha + p @ v[k0:k0 + 64], m_new
-    got = flash_attention.online_softmax_v(s, v, torch.bfloat16)
+    got = flash_attention.online_softmax_v(s, v, torch.bfloat16, tile=64)
     np.testing.assert_allclose(got.numpy(), (o / den).numpy(), rtol=1e-5, atol=1e-6)
-    exact = flash_attention.online_softmax_v(s, v, torch.float32)
+    exact = flash_attention.online_softmax_v(s, v, torch.float32, tile=64)
     np.testing.assert_allclose(exact.numpy(), (s.softmax(-1) @ v).numpy(), rtol=1e-5, atol=1e-6)
 
 
