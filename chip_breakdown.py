@@ -4,10 +4,10 @@ timing variants of their sources with one stage switched off.
 
     python3 chip_breakdown.py --csrc DIR [--what PART ...]
 
-DIR is a ``samrs_tpu_torch/csrc``: this tree's, or for ``split_attention``
-and ``t2i_kv`` also that of a tree before K12 and K4 were redesigned for
-Hopper (unpack it with ``git archive`` into a directory that ``.gitignore``
-lists).  The script copies a kernel's source into variants
+DIR is a ``samrs_tpu_torch/csrc``: this tree's, or for ``slab`` also that
+of a tree before K8-slab was redesigned for Hopper (unpack it with ``git
+archive`` into a directory that ``.gitignore`` lists).  The script copies a
+kernel's source into variants
 in which a stage is switched off at run time (a condition the compiler
 cannot fold: the work is skipped, the rest of the code stays), builds each
 with nvcc for sm_90a, and times each at the paths' shapes.  The differences
@@ -119,19 +119,32 @@ full variant, with ``no_kv_loads`` (K and V not loaded), ``no_products``
 (neither Q.K^T nor P.V), ``no_softmax`` (no exponentials: the logits go to
 P.V as they are), ``no_bias`` (the rel-pos terms not added) and
 ``no_stores``; and, by device time, the glue the wrapper ran before the
-redesign (the plain ``rel_rows``: q in fp32 and two einsums) and, on the
-redesign, the path's ``window_attention_relpos`` (the rel-row kernel and
-the attention) and, at the windows, K2's rel-row kernel beside K1's.
-Before the redesign it takes csrc/split_attention.cu (the warp-level
-kernels, with csrc/warp_attention.cuh inlined) by direct calls;
-on the redesign the window form (csrc/window_attention.cu) or the
-query-tiled form (csrc/flash_attention.cu) through the wrapper, each shape
-in the form ``window_attention.split_form`` gives.  ``--what t2i_kv``
-profiles K4 (csrc/twoway.cu) at the main path's 4096 rows by direct calls,
-with ``no_tile_loads`` (zeros for the keys and pe), ``no_weight_loads``,
-``no_products`` and ``no_stores`` (before the redesign also
-``no_second_weight``: Wv not loaded).  The two source sets are told apart by
-whether csrc/split_attention.cu exists.
+redesign (the plain ``rel_rows``: q in fp32 and two einsums) and the path's
+``window_attention_relpos`` (the rel-row kernel and the attention) and, at
+the windows, K2's rel-row kernel beside K1's; the window form
+(csrc/window_attention.cu) or the query-tiled form
+(csrc/flash_attention.cu) through the wrapper, each shape in the form
+``window_attention.split_form`` gives.  ``--what t2i_kv`` profiles K4
+(csrc/twoway.cu) at the main path's 4096 rows by direct calls, with
+``no_tile_loads`` (zeros for the keys and pe), ``no_weight_loads``,
+``no_products`` and ``no_stores``.
+
+``--what slab`` profiles K8-slab (csrc/bilinear_slab.cu) by direct calls of
+its C entries (20 back-to-back launches between CUDA events, median of 5;
+dX is not zeroed between the backward's launches) at the smoke's InternImage
+level 0 (BG 260, 56^2, Gc 16, K 9), level 2 (BG 1040, 14^2) and MSDeformAttn
+level (BG 520, 28^2, Gc 32, 1029 queries, K 4), slab 7, on the inputs of
+``chip_smoke.slab_case``, beside dense K8 of this tree's library on the same
+inputs.  Before the redesign (told apart by its text, ``is_parent_slab``):
+``band_only`` (the kernel ends after ``block_band``), ``no_staging`` (no
+cp.async copies), ``no_gather`` (no tap loop), ``no_dx_atomics`` (the fp32
+shared tile's atomics skipped) and ``no_flush`` (its flush skipped), and the
+share of blocks that took plan 2 (a counting variant).  On the redesign (with
+csrc/bilinear_tap.cuh inlined): ``no_gather`` (the consumers' gather or
+scatter loops skipped: what is left is the producer's planning and copies
+and the flush), ``no_dx_atomics`` (the fixed-point adds skipped),
+``no_flush`` and ``no_band`` (nothing placed on chip: every tap reads and
+adds to device memory).
 """
 
 from __future__ import annotations
@@ -151,7 +164,7 @@ from chip_smoke import device_ms
 from samrs_tpu_torch.kernels import _build
 
 PARTS = ("attention", "mlp_gather", "rates", "decoder_tail", "gather_fwd", "plain_attention",
-         "point_sample", "split_attention", "t2i_kv")
+         "point_sample", "split_attention", "t2i_kv", "slab")
 OFF = "(samrs_prof_off != 0)"  # false at run time; the compiler cannot fold it
 GUARD = "__device__ int samrs_prof_off;  // 0: the stages it guards are skipped\n"
 
@@ -196,9 +209,9 @@ K11_VARIANTS = {
                  f"if {OFF} {{ v0 = gelu_erf(v0);\n            v1 = gelu_erf(v1); }}")],
     "no_stores": [("if (row < T)\n", f"if (row < T && {OFF})\n")],
 }
-K8B_CORNER_LOADS = [(f"load_corner<T, V>(img, t.v{c}, t.i{c}, Gc, c, v{c});",
-                     f"load_corner<T, V>(img, t.v{c} && {OFF}, t.i{c}, Gc, c, v{c});")
-                    for c in ("00", "01", "10", "11")]
+K8B_CORNER_LOADS = [(f"  load_corner<T, V>(img, t.v{c}, t.i{c}, Gc, c, v[{i}]);",
+                     f"  load_corner<T, V>(img, t.v{c} && {OFF}, t.i{c}, Gc, c, v[{i}]);")
+                    for i, c in enumerate(("00", "01", "10", "11"))]
 K8B_VARIANTS = {
     "full": [],
     "no_dx_reductions": [("if (!valid || w == 0.f) return 0;",
@@ -255,19 +268,16 @@ K7_VARIANTS = {
 # the Hopper redesigns of K8's forward (flat-mapped) and K10 (split-TF32 wgmma)
 K8F_VARIANTS = {
     "full": [],
-    "no_coords": [("    const I i0 = q * KT;\n    if constexpr (KT == 4) {",
-                   "    const I i0 = q * KT;\n"
+    "no_coords": [("    load_taps<KT>(tp, fx, fy, mask, q);\n",
                    f"    if (!{OFF}) {{\n"
                    "      for (int k = 0; k < KT; ++k)\n"
-                   "        tx[k] = 0.25f + (float)(q % W), ty[k] = 0.25f + (float)((q / W) % H), tm[k] = 1.f;\n"
-                   "    } else if constexpr (KT == 4) {"),
+                   "        tp.x[k] = 0.25f + (float)(q % W), tp.y[k] = 0.25f + (float)((q / W) % H), tp.m[k] = 1.f;\n"
+                   "    } else {\n      load_taps<KT>(tp, fx, fy, mask, q);\n    }\n"),
                   ("const Tap t = make_tap(fx[i], fy[i], H, W);\n      const float m = mask[i];",
                    f"const Tap t = {OFF} ? make_tap(fx[i], fy[i], H, W)\n"
                    "          : make_tap(0.25f + (float)(q % W), 0.25f + (float)((q / W) % H), H, W);\n"
                    f"      const float m = {OFF} ? mask[i] : 1.f;")],
-    "no_corners": [(f"  load_corner<T, V>(img, t.v{c}, t.i{c}, Gc, c, v[{i}]);",
-                    f"  load_corner<T, V>(img, t.v{c} && {OFF}, t.i{c}, Gc, c, v[{i}]);")
-                   for i, c in enumerate(("00", "01", "10", "11"))],
+    "no_corners": K8B_CORNER_LOADS,
     "no_stores": [("  store_out(o + c, acc);\n",
                    "  for (int e = 0; e < V; ++e) asm volatile(\"\" ::\"f\"(acc[e]));  // kept\n"
                    f"  if {OFF} store_out(o + c, acc);\n"),
@@ -351,66 +361,44 @@ KV_VARIANTS = {
 }
 
 
-# K12 and K4 before their Hopper redesign (csrc/split_attention.cu: warp-level mma.sync kernels
-# built from csrc/warp_attention.cuh, inlined into the variant so that its stages can be
-# switched off; csrc/twoway.cu's t2i_kv_kernel: cp.async weights, mma.sync from shared memory);
-# the next PR deletes these two sets
-SA_PARENT_VARIANTS = {
+# K8-slab (csrc/bilinear_slab.cu) before its Hopper redesign: 128-query blocks, plan 1 (the
+# union of the active slabs staged by cp.async) or plan 2 (tap by tap, in cells), dX in an fp32
+# shared-memory tile; the variants stay until the redesign is merged
+_SLAB_OLD_COUNT = "  if (threadIdx.x == 0) atomicAdd(&samrs_plan2_blocks, 1ull);\n"
+SLAB_PARENT_VARIANTS = {
     "full": [],
-    "no_kv_loads": [("    cp_async16(Ks + r * LD + c * 8, kb + src, r < N);\n"
-                     "    cp_async16(Vs + r * LD + c * 8, vb + src, r < N);",
-                     f"    cp_async16(Ks + r * LD + c * 8, kb + src, r < N && {OFF});\n"
-                     f"    cp_async16(Vs + r * LD + c * 8, vb + src, r < N && {OFF});"),
-                    ("    load_tile_rows_async<HD>(Ks[stage], kb, k0, N, HD, 0, LD);\n"
-                     "    load_tile_rows_async<HD>(Vs[stage], vb, k0, N, HD, 0, LD);",
-                     f"    if ({OFF}) {{\n"
-                     "    load_tile_rows_async<HD>(Ks[stage], kb, k0, N, HD, 0, LD);\n"
-                     "    load_tile_rows_async<HD>(Vs[stage], vb, k0, N, HD, 0, LD); }")],
-    "no_products": [("        mma_16816(s[2 * kb], qa[kk], b[0], b[1]);\n"
-                     "        mma_16816(s[2 * kb + 1], qa[kk], b[2], b[3]);",
-                     f"        if ({OFF}) {{ mma_16816(s[2 * kb], qa[kk], b[0], b[1]);\n"
-                     "        mma_16816(s[2 * kb + 1], qa[kk], b[2], b[3]); }"),
-                    ("        mma_16816(st.o[2 * dp], pa[kb], b[0], b[1]);\n"
-                     "        mma_16816(st.o[2 * dp + 1], pa[kb], b[2], b[3]);",
-                     f"        if ({OFF}) {{ mma_16816(st.o[2 * dp], pa[kb], b[0], b[1]);\n"
-                     "        mma_16816(st.o[2 * dp + 1], pa[kb], b[2], b[3]); }")],
-    "no_softmax": [("    alpha[half] = softmax_exp<EXP2>(st.m[half] - m_new);",
-                    f"    alpha[half] = {OFF} ? softmax_exp<EXP2>(st.m[half] - m_new) : 1.f;"),
-                   ("          const __nv_bfloat162 p =\n"
-                    "              __floats2bfloat162_rn(softmax_exp<EXP2>(s[j][2 * half] - st.m[half]),\n"
-                    "                                    softmax_exp<EXP2>(s[j][2 * half + 1] - st.m[half]));",
-                    f"          const __nv_bfloat162 p = !{OFF} ? __floats2bfloat162_rn(s[j][2 * half], "
-                    "s[j][2 * half + 1]) :\n"
-                    "              __floats2bfloat162_rn(softmax_exp<EXP2>(s[j][2 * half] - st.m[half]),\n"
-                    "                                    softmax_exp<EXP2>(s[j][2 * half + 1] - st.m[half]));")],
-    "no_bias": [("        const float v = s[j][e] * scale + bias(half, j * 8 + 2 * t + (e & 1));",
-                 f"        const float v = {OFF} ? s[j][e] * scale + bias(half, j * 8 + 2 * t + (e & 1))"
-                 " : s[j][e] * scale;")],
-    "no_stores": [("    if (r >= n) continue;\n    const float inv = 1.f / st.l[half];",
-                   f"    if (r >= n || !{OFF}) continue;\n    const float inv = 1.f / st.l[half];")],
-}
-SA_PARENT_SIGNATURES = {"samrs_split_attention": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 +
-                                                  [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
-                                                  ctypes.c_int)}
-KV_PARENT_VARIANTS = {
-    "full": [],
-    "no_tile_loads": [("    v[k] = *reinterpret_cast<const float4*>(x + (size_t)r * C + c);",
-                       f"    v[k] = {OFF} ? *reinterpret_cast<const float4*>(x + (size_t)r * C + c)"
-                       " : make_float4(0.f, 0.f, 0.f, 0.f);"),
-                      ("      q[k] = *reinterpret_cast<const float4*>(p + (size_t)r * C + c);",
-                       f"      q[k] = {OFF} ? *reinterpret_cast<const float4*>(p + (size_t)r * C + c)"
-                       " : make_float4(0.f, 0.f, 0.f, 0.f);")],
-    "no_weight_loads": [("  load_rows_async<THREADS>(Ws, LDW256, Wk, CI, C);",
-                         f"  if ({OFF}) load_rows_async<THREADS>(Ws, LDW256, Wk, CI, C);"),
-                        ("  load_rows_async<THREADS>(Ws, LDW256, Wv, CI, C);",
-                         f"  if ({OFF}) load_rows_async<THREADS>(Ws, LDW256, Wv, CI, C);")],
-    "no_second_weight": [("  load_rows_async<THREADS>(Ws, LDW256, Wv, CI, C);",
-                          f"  if ({OFF}) load_rows_async<THREADS>(Ws, LDW256, Wv, CI, C);")],
-    "no_products": [("  warp_gemm<8, C>(acc, As + wr * 16 * LDA, LDA, Ws + wc * 64 * LDW256, LDW256);",
-                     f"  if ({OFF}) warp_gemm<8, C>(acc, As + wr * 16 * LDA, LDA, Ws + wc * 64 * LDW256,"
-                     " LDW256);")],
-    "no_stores": [("    const float b0 = bias[n], b1 = bias[n + 1];",
-                   f"    if (!{OFF}) continue;\n    const float b0 = bias[n], b1 = bias[n + 1];")],
+    "band_only": [("  block_band(fy, bg, p0, P, K, H, Hs, meta);\n",
+                   f"  block_band(fy, bg, p0, P, K, H, Hs, meta);\n  if (!{OFF}) return;\n")],
+    "no_staging": [("__device__ __forceinline__ void copy_span(T* dst, const T* src, int n, bool vec) {\n",
+                    "__device__ __forceinline__ void copy_span(T* dst, const T* src, int n, bool vec) {\n"
+                    f"  if (!{OFF}) return;\n")],
+    "no_gather": [("        for (int k = 0; k < K; ++k) {\n          const size_t i = q * K + k;",
+                   f"        for (int k = 0; k < ({OFF} ? K : 0); ++k) {{\n          const size_t i = q * K + k;"),
+                  ("if (!owns(t, ra, rb, RC, nchunks, WT, W, ch, tl)) continue;",
+                   f"if (!owns(t, ra, rb, RC, nchunks, WT, W, ch, tl) || !{OFF}) continue;"),
+                  ("  for (int cv = lane; cv < nvec; cv += tpg) {\n    const int c = cv * V;\n"
+                   "    float r[V], v00[V]",
+                   f"  for (int cv = lane; cv < ({OFF} ? nvec : 0); cv += tpg) {{\n    const int c = cv * V;\n"
+                   "    float r[V], v00[V]")],
+    "no_dx_atomics": [(f"if (t.v{c}) atomicAdd(dacc", f"if (t.v{c} && {OFF}) atomicAdd(dacc")
+                      for c in ("00", "01", "10", "11")],
+    "no_flush": [("if (src[e] != 0.f) atomicAdd(dst + e, src[e]);",
+                  f"if (src[e] != 0.f && {OFF}) atomicAdd(dst + e, src[e]);"),
+                 ("if (dacc[e] == 0.f) continue;", f"if (dacc[e] == 0.f || !{OFF}) continue;")],
+    # the blocks that take plan 2, counted (samrs_plan2_read returns and resets the count)
+    "count_plan2": [("constexpr int SL_THREADS = 256;",
+                     "__device__ unsigned long long samrs_plan2_blocks;\nconstexpr int SL_THREADS = 256;"),
+                    ("  // plan 2: tap by tap, cell by cell, accumulating in `out`\n",
+                     "  // plan 2: tap by tap, cell by cell, accumulating in `out`\n" + _SLAB_OLD_COUNT),
+                    ("  // plan 2: tap by tap, cell by cell, each cell's dX tile flushed after it\n",
+                     "  // plan 2: tap by tap, cell by cell, each cell's dX tile flushed after it\n"
+                     + _SLAB_OLD_COUNT),
+                    ('}  // extern "C"',
+                     "int samrs_plan2_read(unsigned long long* n) {\n"
+                     "  unsigned long long z = 0;\n"
+                     "  cudaMemcpyFromSymbol(n, samrs::samrs_plan2_blocks, sizeof(z));\n"
+                     "  cudaMemcpyToSymbol(samrs::samrs_plan2_blocks, &z, sizeof(z));\n"
+                     "  return cudaGetLastError();\n}\n\n}  // extern \"C\"")],
 }
 
 
@@ -1038,35 +1026,28 @@ def point_sample_part(libs):
 SA_CASES = (("windows", 400, 14), ("globals", 16, 64), ("grid32", 16, 32), ("grid16", 16, 16))
 
 
-def split_attention_part(csrc: Path, libs, logs):
+def split_attention_part(libs, logs):
     """K12 with one stage switched off at its four shapes, 20 back-to-back
     launches (CUDA events, median of 5) and torch.profiler's device time of
-    the full variant; and the glue its wrapper runs around it: the plain rel
-    rows (q's fp32 copy and two einsums), by device time; {case: ms}."""
+    the full variant; and the glue the wrapper ran before the redesign (the
+    plain rel rows: q's fp32 copy and two einsums) beside the path's
+    ``window_attention_relpos``, by device time; {case: ms}."""
     from samrs_tpu_torch.kernels import window_attention
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rn = lambda *s, std=1.0: torch.randn(*s, generator=gen, device="cuda") * std
     p = _build.ptr
-    parent = is_parent_split(csrc)
     d = 80
     results = {}
     for key, B, g in SA_CASES:
         N = g * g
-        kernel = "K12" if parent else {"window": "K12w", "tiled": "K12t"}[
-            window_attention.split_form(N, g, g)]
+        kernel = {"window": "K12w", "tiled": "K12t"}[window_attention.split_form(N, g, g)]
         q, k, v = (rn(B, N, d).bfloat16() for _ in range(3))
         rh, rw = rn(B, N, g, std=0.5), rn(B, N, g, std=0.5)
         Rh, Rw = rn(g, g, d, std=0.1), rn(g, g, d, std=0.1)
-        out = torch.empty(B, N, d, device="cuda")
         for name, lib in sorted((k_[1], v_) for k_, v_ in libs.items() if k_[0] == kernel):
-            if parent:
-                fn = lambda: call(lib, "samrs_split_attention", p(q), p(k), p(v), p(rh), p(rw),
-                                  p(out), B, N, d, g, g, d ** -0.5, int(N <= 256),
-                                  signatures=SA_PARENT_SIGNATURES)
-            else:
-                _build._lib = lib
-                fn = lambda: window_attention.split_attention_cuda(q, k, v, rh, rw, d ** -0.5)
+            _build._lib = lib
+            fn = lambda: window_attention.split_attention_cuda(q, k, v, rh, rw, d ** -0.5)
             results[f"K12 {key} {name}"] = r = {"loop": loop_ms(fn)}
             if name == "full":
                 r.update(device_ms(fn))
@@ -1078,31 +1059,25 @@ def split_attention_part(csrc: Path, libs, logs):
         r["loop"] = loop_ms(glue)
         print(f"K12 {key} glue (plain rel rows: q in fp32, two einsums): " + ", ".join(
             f"{a} {b:.4f}" for a, b in r.items()), flush=True)
-        if not parent:  # the path's call: the rel-row kernel and the attention
-            _build._lib = libs[(kernel, "full")]
-            path = lambda: window_attention.window_attention_relpos(q, k, v, Rh, Rw, (g, g),
-                                                                    d ** -0.5)
-            results[f"K12 {key} window_attention_relpos"] = r = device_ms(path)
-            r["loop"] = loop_ms(path)
-            _build._lib = None
-            print(f"K12 {key} window_attention_relpos: " + ", ".join(
+        _build._lib = libs[(kernel, "full")]
+        path = lambda: window_attention.window_attention_relpos(q, k, v, Rh, Rw, (g, g),
+                                                                d ** -0.5)
+        results[f"K12 {key} window_attention_relpos"] = r = device_ms(path)
+        r["loop"] = loop_ms(path)
+        _build._lib = None
+        print(f"K12 {key} window_attention_relpos: " + ", ".join(
+            f"{a} {b:.4f}" for a, b in r.items()), flush=True)
+        if key == "windows":  # beside K1's rel kernel: K2's, which takes any other grid
+            out_h, out_w = torch.empty_like(rh), torch.empty_like(rw)
+            other = lambda: call(libs[("K12t", "full")], "samrs_split_relpos_rows", p(q),
+                                 p(Rh), p(Rw), p(out_h), p(out_w), B, N, d, g, g)
+            results[f"K12 {key} rel rows by relpos_rows_kernel"] = r = device_ms(other)
+            print(f"K12 {key} rel rows by relpos_rows_kernel: " + ", ".join(
                 f"{a} {b:.4f}" for a, b in r.items()), flush=True)
-            if key == "windows":  # beside K1's rel kernel: K2's, which takes any other grid
-                out_h, out_w = torch.empty_like(rh), torch.empty_like(rw)
-                other = lambda: call(libs[("K12t", "full")], "samrs_split_relpos_rows", p(q),
-                                     p(Rh), p(Rw), p(out_h), p(out_w), B, N, d, g, g)
-                results[f"K12 {key} rel rows by relpos_rows_kernel"] = r = device_ms(other)
-                print(f"K12 {key} rel rows by relpos_rows_kernel: " + ", ".join(
-                    f"{a} {b:.4f}" for a, b in r.items()), flush=True)
-        del q, k, v, rh, rw, out
+        del q, k, v, rh, rw
         torch.cuda.empty_cache()
-    print_registers(logs, [("K12", "full")] if parent else [("K12w", "full"), ("K12t", "full")])
+    print_registers(logs, [("K12w", "full"), ("K12t", "full")])
     return results
-
-
-def is_parent_split(csrc: Path) -> bool:
-    """Whether `csrc` holds K12 and K4 from before their Hopper redesign."""
-    return (csrc / "split_attention.cu").exists()
 
 
 def t2i_kv_part(libs, logs):
@@ -1127,6 +1102,88 @@ def t2i_kv_part(libs, logs):
         print(f"K4 (N {N}) {name}: " + ", ".join(f"{a} {b:.4f}" for a, b in r.items()),
               flush=True)
     print_registers(logs, [("K4", "full")])
+    return results
+
+
+# K8-slab's shapes: (key, BG, H = W, Gc, P, K, coords of chip_smoke.slab_case), slab 7
+SLAB_CASES = (("ii_l0", 260, 56, 16, 56 * 56, 9, "dcn"), ("ii_l2", 1040, 14, 16, 14 * 14, 9, "dcn"),
+              ("msda_l28", 520, 28, 32, 1029, 4, "window"))
+
+
+# K8-slab's Hopper redesign (csrc/bilinear_tap.cuh inlined): the gather loops, the fixed-point
+# adds into the band's dX, the flush, or every band (all taps read and add to device memory)
+SLAB_VARIANTS = {
+    "full": [],
+    "no_gather": [("for (int e = tid; e < ne; e += nth) {",
+                   f"for (int e = tid; e < ({OFF} ? ne : 0); e += nth) {{"),
+                  ("      for (; e < ne; e += nth) {", f"      for (; e < ({OFF} ? ne : 0); e += nth) {{"),
+                  ("g < g1; g += nth)", f"g < ({OFF} ? g1 : g0); g += nth)"),
+                  ("for (int e0 = 0; e0 < ne; e0 += SL_CONSUMERS) {",
+                   f"for (int e0 = 0; e0 < ({OFF} ? ne : 0); e0 += SL_CONSUMERS) {{")],
+    "no_dx_atomics": [("      if (h) atomicAdd(hi + at + j, h);\n      if (l) atomicAdd(lo + at + j, l);",
+                       f"      if (h && {OFF}) atomicAdd(hi + at + j, h);\n"
+                       f"      if (l && {OFF}) atomicAdd(lo + at + j, l);")],
+    "no_flush": [("  for (int j = 0; j < m.runs[0]; ++j) {\n    float* g = dimg + m.runs[1 + 3 * j];",
+                  f"  for (int j = 0; j < ({OFF} ? m.runs[0] : 0); ++j) {{\n"
+                  "    float* g = dimg + m.runs[1 + 3 * j];")],
+    "no_band": [("!BWD || *m.S <= 3.402823466e38f);", f"(!BWD || *m.S <= 3.402823466e38f) && {OFF});")],
+}
+
+
+def is_parent_slab(csrc: Path) -> bool:
+    """Whether `csrc` holds K8-slab from before its Hopper redesign."""
+    return "cell_shape" in (csrc / "bilinear_slab.cu").read_text()
+
+
+def slab_part(libs, logs):
+    """K8-slab with one part switched off, forward and backward by direct
+    calls (20 back-to-back launches between CUDA events, median of 5; dX is
+    not zeroed between the backward's launches), beside dense K8 of this
+    tree's library on the same inputs; before the redesign also the share of
+    blocks that took plan 2; {case: ms}."""
+    from chip_smoke import II_SLAB, slab_case
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p = _build.ptr
+    dense = _build.library()
+    results = {}
+    for key, BG, H, Gc, P, K, coords in SLAB_CASES:
+        xg, fx, fy, mask, dout = slab_case(gen, BG, H, H, Gc, P, K, torch.float32, coords)
+        out = torch.empty(BG, P, Gc, device="cuda")
+        dxg = torch.zeros_like(xg)
+        dfx, dfy, dmask = (torch.empty_like(fx) for _ in range(3))
+        fwd_args = (p(xg), p(fx), p(fy), p(mask), p(out), BG, H, H, P, K, Gc)
+        bwd_args = (p(xg), p(fx), p(fy), p(mask), p(dout), p(dxg), p(dfx), p(dfy), p(dmask))
+        shape = f"BG {BG}, {H}x{H}, Gc {Gc}, P {P}, K {K}, Hs {II_SLAB}"
+        for name, lib in sorted((k[1], v) for k, v in libs.items() if k[0] == "K8s"):
+            fwd = lambda: call(lib, "samrs_bilinear_slab_fwd", *fwd_args, II_SLAB, 0)
+            bwd = lambda: call(lib, "samrs_bilinear_slab_bwd", *bwd_args, BG, H, H, P, K, Gc,
+                               II_SLAB, 0)
+            if name == "count_plan2":
+                read = lib.samrs_plan2_read
+                read.argtypes, read.restype = [ctypes.c_void_p], ctypes.c_int
+                n = ctypes.c_ulonglong(0)
+                blocks = BG * -(-P // 128)
+                for label, fn in (("fwd", fwd), ("bwd", bwd)):
+                    read(ctypes.byref(n))
+                    fn()
+                    torch.cuda.synchronize()
+                    read(ctypes.byref(n))
+                    results[f"K8s {key} {label} plan2_share"] = share = n.value / blocks
+                    print(f"K8-slab {key} ({shape}) {label}: {n.value} of {blocks} blocks took "
+                          f"plan 2 ({share:.3f})", flush=True)
+                continue
+            for label, fn in (("fwd", fwd), ("bwd", bwd)):
+                results[f"K8s {key} {label} {name}"] = ms = loop_ms(fn)
+                print(f"K8-slab {key} ({shape}) {label} {name}: {ms:.4f} ms", flush=True)
+        for label, fn in (("fwd", lambda: call(dense, "samrs_bilinear_fwd", *fwd_args, 0)),
+                          ("bwd", lambda: call(dense, "samrs_bilinear_bwd", *bwd_args, None, BG,
+                                               H, H, P, K, Gc, 0))):
+            results[f"K8 dense {key} {label}"] = ms = loop_ms(fn)
+            print(f"K8 dense {key} ({shape}) {label}: {ms:.4f} ms", flush=True)
+        del xg, fx, fy, mask, dout, out, dxg, dfx, dfy, dmask
+        torch.cuda.empty_cache()
+    print_registers(logs, [("K8s", "full")])
     return results
 
 
@@ -1216,23 +1273,24 @@ def main() -> None:
     if "attention" in what:
         specs += [("K1", "window_attention.cu", K1_VARIANTS), ("K5", "twoway.cu", K5_VARIANTS)]
     if "mlp_gather" in what:
-        specs += [("K11", "fused_mlp.cu", K11_VARIANTS), ("K8b", "bilinear_gather.cu", K8B_VARIANTS)]
+        specs += [("K11", "fused_mlp.cu", K11_VARIANTS),
+                  ("K8b", "bilinear_gather.cu", K8B_VARIANTS, ("bilinear_tap.cuh",))]
     if "decoder_tail" in what:
         specs += [("K6", "upscale.cu", K6_VARIANTS), ("K7", "amg_post.cu", K7_VARIANTS)]
     if "gather_fwd" in what:
-        specs.append(("K8f", "bilinear_gather.cu", K8F_VARIANTS))
+        specs.append(("K8f", "bilinear_gather.cu", K8F_VARIANTS, ("bilinear_tap.cuh",)))
     if "plain_attention" in what:
         specs.append(("K10", "plain_attention.cu", K10_VARIANTS))
     if "point_sample" in what:
         specs.append(("K9", "point_sample.cu", PS_VARIANTS))
-    if "split_attention" in what and is_parent_split(csrc):
-        specs.append(("K12", "split_attention.cu", SA_PARENT_VARIANTS, ("warp_attention.cuh",)))
-    elif "split_attention" in what:
+    if "split_attention" in what:
         specs += [("K12w", "window_attention.cu", SAW_VARIANTS),
                   ("K12t", "flash_attention.cu", SAT_VARIANTS)]
     if "t2i_kv" in what:
-        specs.append(("K4", "twoway.cu",
-                      KV_PARENT_VARIANTS if is_parent_split(csrc) else KV_VARIANTS))
+        specs.append(("K4", "twoway.cu", KV_VARIANTS))
+    if "slab" in what:
+        specs.append(("K8s", "bilinear_slab.cu", SLAB_PARENT_VARIANTS) if is_parent_slab(csrc)
+                     else ("K8s", "bilinear_slab.cu", SLAB_VARIANTS, ("bilinear_tap.cuh",)))
     libs, logs = build(csrc, _build.BUILD_DIR / "breakdown", specs, rates="rates" in what)
     results = {}
     if "attention" in what:
@@ -1251,9 +1309,11 @@ def main() -> None:
         results.update(point_sample_part(libs))
         print_registers(logs, [("K9", "full")])
     if "split_attention" in what:
-        results.update(split_attention_part(csrc, libs, logs))
+        results.update(split_attention_part(libs, logs))
     if "t2i_kv" in what:
         results.update(t2i_kv_part(libs, logs))
+    if "slab" in what:
+        results.update(slab_part(libs, logs))
     print(json.dumps({"device": smi, "ms": results}), flush=True)
 
 

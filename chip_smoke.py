@@ -156,9 +156,12 @@ checkout; it has no CPU path and raises on any failure.  Phases:
    bit-equal by design) and against sample_weighted_plain (K8's bounds) at
    the four DCNv3 levels of the FAST head (BG 260 / 520 / 1040 / 2080,
    56^2 .. 7^2, Gc 16, 9 taps, slab 7), level 0 with a bf16 map, the MSDA
-   level, a scattered 64^2 map over the shared-memory budget, a 1024-wide
-   map and Gc 6, timed beside dense K8 and the plain version with the
-   bound; K11 at C 64 / 128 / 256 / 512 on each level's tokens and at C
+   level, a scattered 64^2 map over a stage, a 1024-wide map, Gc 6, a
+   112^2 DCNv3 map with two of every query's nine taps half the map away
+   (taps on and off the band in one launch; the share from
+   ``bilinear_gather.slab_bands``) and Gc 5 (flat-4), timed (one call, and
+   20 back to back) beside dense K8 and the plain version with the bound;
+   K11 at C 64 / 128 / 256 / 512 on each level's tokens and at C
    1024 / 1280 on 1000 tokens (rel-L2 <= 1e-5); one internimage_t + UperNet
    step (17/12/65 at 224^2, fp32) with
    dense K8, with SAMRS_BILINEAR_SLAB=7, plain and the control, judged as
@@ -166,6 +169,7 @@ checkout; it has no CPU path and raises on any failure.  Phases:
    and peak memory of each; ``run_pretrain backbone=internimage_t`` for 3
    steps with eval and checkpoints, dense and with SAMRS_BILINEAR_SLAB=7
    (the slab kernels' launches in the result line come from that run);
+   ``--profile`` adds torch.profiler tables of a dense and a slab step;
 10. finetune-driver phase: ``run_finetune`` at the defaults (vit_b_rvsa +
    UperNet, Potsdam, 512^2, batch 8) for one epoch (2 steps, one eval batch)
    on a synthetic Potsdam layout with RGB labels in ISPRS_PALETTE, grafting
@@ -1563,6 +1567,28 @@ def msda_phase(gen):
                 plain_fwd_bwd_ms=timed[True][1])
 
 
+def slab_case(gen, BG, H, W, Gc, P, K, dtype, coords):
+    """Seeded inputs of one K8-slab call: ``k8_case``'s, or for coords "dcn"
+    DCNv3's 3x3 base grid (P = H*W, K 9) plus offsets of up to 1.5 px, as
+    InternImage's levels; "dcn_far" the same with the taps k = 7, 8 of every
+    query moved H/2 rows into the other half of the map (down from the top
+    half, up from the bottom one), so that two of the nine taps land away
+    from the rest."""
+    if coords not in ("dcn", "dcn_far"):
+        return k8_case(gen, BG, H, W, Gc, P, K, dtype, coords)
+    from samrs_tpu_torch.kernels import bilinear_gather as bg
+
+    xg, _, _, mask, dout = k8_case(gen, BG, H, W, Gc, P, K, dtype, "window")
+    bx, by = (torch.from_numpy(b).cuda() for b in bg._dcnv3_base_grid(H, W, 3, 3, 1, 1, 1, 1,
+                                                                      1, 1))
+    u = lambda: torch.rand(BG, P, K, generator=gen, device="cuda") * 3 - 1.5
+    fx, fy = bx + u(), by + u()
+    if coords == "dcn_far":
+        row = torch.arange(P, device="cuda").reshape(1, P, 1) // W
+        fy[..., 7:] += torch.where(row < H // 2, H // 2, -(H // 2))
+    return xg, fx.contiguous(), fy.contiguous(), mask, dout
+
+
 def k8_slab_phase(gen):
     """K8's row-slab form (slab height 7 but where a case says otherwise)
     forward and backward against dense K8 and against sample_weighted_plain
@@ -1571,13 +1597,18 @@ def k8_slab_phase(gen):
     with offsets up to 1.5 px) in fp32 and level 0 with a bf16 map;
     Mask2Former's MSDeformAttn level (BG 520, 28^2, Gc 32, 1029 queries, 4
     taps anywhere on the map); a scattered case whose every slab is active
-    (a 64^2 map over the staging budget: tap by tap in row chunks), with
-    taps off the map and a padded last block; a map whose two rows exceed the
-    budget (W in tiles) and one with Gc 6 in bf16 (rows not 16-byte aligned).
-    The forward must equal dense K8's (rel-L2 <= K8_SLAB_FWD_RTOL; the design
-    keeps K8's per-tap order, so 0 is expected); the backward within K8's
-    bounds of the plain version.  Timed (CUDA events) beside dense K8 and the
-    plain version, with the bound."""
+    (a 64^2 map over a stage: nothing staged), with taps off the map; a map
+    whose slab exceeds a stage (1024 wide); one with Gc 6 in bf16 (rows not
+    16-byte aligned); a DCNv3 map of 112^2 (Gc 8) with two of the nine taps
+    of every query moved half the map away (``slab_case`` "dcn_far"), so that
+    taps read the band and device memory in one launch; and a DCNv3 level
+    at Gc 5 (the flat-4 form).  ``bilinear_gather.slab_bands`` gives the
+    share of taps that read the band (a model of the kernels' bands); the
+    off-band case must have both kinds.  The forward must equal dense K8's
+    (rel-L2 <= K8_SLAB_FWD_RTOL; the design keeps K8's per-tap order, so 0 is
+    expected); the backward within K8's bounds of the plain version.  Timed
+    (CUDA events: one call at a time, and 20 back to back) beside dense K8
+    and the plain version, with the bound."""
     from samrs_tpu_torch.kernels import bilinear_gather as bg
 
     B = TRAIN_BATCH[2]
@@ -1588,19 +1619,16 @@ def k8_slab_phase(gen):
               ("msda_l28", B * 8, 28, 28, 32, 1029, 4, torch.float32, "window", II_SLAB),
               ("scatter", 64, 64, 64, 16, 1000, 4, torch.float32, "window", 8),
               ("wide", 4, 8, 1024, 16, 2000, 4, torch.float32, "window", 2),
-              ("gc6_bf16", 8, 16, 20, 6, 300, 3, torch.bfloat16, "window", 4)]
+              ("gc6_bf16", 8, 16, 20, 6, 300, 3, torch.bfloat16, "window", 4),
+              ("dcn_far", 64, 112, 112, 8, 112 * 112, 9, torch.float32, "dcn_far", II_SLAB),
+              ("dcn_gc5", 16, 14, 14, 5, 14 * 14, 9, torch.float32, "dcn", II_SLAB)]
     names = ("out", "dxg", "dfx", "dfy", "dmask")
     out = {}
     for key, BGc, H, W, Gc, P, K, dtype, coords, Hs in cases:
-        if coords == "dcn":
-            xg, _, _, mask, dout = k8_case(gen, BGc, H, W, Gc, P, K, dtype, "window")
-            bx, by = bg._dcnv3_base_grid(H, W, 3, 3, 1, 1, 1, 1, 1, 1)
-            u = lambda: torch.rand(BGc, P, K, generator=gen, device="cuda") * 3 - 1.5
-            fx = (torch.from_numpy(bx).cuda() + u()).contiguous()
-            fy = (torch.from_numpy(by).cuda() + u()).contiguous()
-        else:
-            xg, fx, fy, mask, dout = k8_case(gen, BGc, H, W, Gc, P, K, dtype, coords)
+        xg, fx, fy, mask, dout = slab_case(gen, BGc, H, W, Gc, P, K, dtype, coords)
         args = (xg, fx, fy, mask)
+        staged = {d: float(bg.slab_bands(fy.cpu().numpy(), H, W, Gc, Hs, xg.element_size(),
+                                         d == "bwd")[1].mean()) for d in ("fwd", "bwd")}
         got = [bg.sample_weighted_slab_fwd_cuda(*args, Gc, Hs)]
         got += list(bg.sample_weighted_slab_bwd_cuda(*args, dout, Gc, Hs))
         dense = [bg.sample_weighted_fwd_cuda(*args, Gc)]
@@ -1618,23 +1646,28 @@ def k8_slab_phase(gen):
         fwd_bytes, fwd_ops = n_in + BGc * P * Gc * 4, BGc * P * K * Gc * 10
         bwd_bytes = n_in + BGc * P * Gc * 4 + BGc * H * W * Gc * esz + 3 * BGc * P * K * 4
         bwd_ops = BGc * P * K * Gc * 24
-        t = dict(fwd=cuda_ms(lambda: bg.sample_weighted_slab_fwd_cuda(*args, Gc, Hs)),
-                 bwd=cuda_ms(lambda: bg.sample_weighted_slab_bwd_cuda(*args, dout, Gc, Hs)),
-                 dense_fwd=cuda_ms(lambda: bg.sample_weighted_fwd_cuda(*args, Gc)),
-                 dense_bwd=cuda_ms(lambda: bg.sample_weighted_bwd_cuda(*args, dout, Gc)),
-                 plain_fwd=cuda_ms(lambda: bg.sample_weighted_plain(*args, Gc)),
+        calls = dict(fwd=lambda: bg.sample_weighted_slab_fwd_cuda(*args, Gc, Hs),
+                     bwd=lambda: bg.sample_weighted_slab_bwd_cuda(*args, dout, Gc, Hs),
+                     dense_fwd=lambda: bg.sample_weighted_fwd_cuda(*args, Gc),
+                     dense_bwd=lambda: bg.sample_weighted_bwd_cuda(*args, dout, Gc))
+        t = {k: cuda_ms(fn) for k, fn in calls.items()}
+        t.update({f"{k}_loop": loop_ms(fn) for k, fn in calls.items()})
+        t.update(plain_fwd=cuda_ms(lambda: bg.sample_weighted_plain(*args, Gc)),
                  plain_bwd=cuda_ms(lambda: torch.autograd.grad(ref, leaves, dout,
                                                                retain_graph=True)))
         fb, fby = bound(fwd_bytes, fwd_ops, "fp32")
         bb, bby = bound(bwd_bytes, bwd_ops, "fp32")
         print(f"K8-slab {key} (BG {BGc}, {H}x{W}, Gc {Gc}, P {P}, K {K}, Hs {Hs}, "
-              f"{str(dtype)[6:]}): vs plain rel_l2 "
+              f"{str(dtype)[6:]}): taps on the band fwd {staged['fwd']:.4f} bwd "
+              f"{staged['bwd']:.4f}; vs plain rel_l2 "
               + " ".join(f"{n}={e:.3e}" for n, e in errs.items())
               + f" max_abs={max_abs:.3e}; vs dense K8 rel_l2 "
               + " ".join(f"{n}={e:.3e}" for n, e in vs_dense.items())
               + f" (forward bit-equal {fwd_equal}); fwd slab/dense/plain ms {t['fwd']:.4f}/"
-              f"{t['dense_fwd']:.4f}/{t['plain_fwd']:.4f}, bound {fb:.4f} ({fby}); bwd "
+              f"{t['dense_fwd']:.4f}/{t['plain_fwd']:.4f}, loop slab/dense {t['fwd_loop']:.4f}/"
+              f"{t['dense_fwd_loop']:.4f}, bound {fb:.4f} ({fby}); bwd "
               f"slab/dense/plain ms {t['bwd']:.4f}/{t['dense_bwd']:.4f}/{t['plain_bwd']:.4f}, "
+              f"loop slab/dense {t['bwd_loop']:.4f}/{t['dense_bwd_loop']:.4f}, "
               f"bound {bb:.4f} ({bby})", flush=True)
         if not vs_dense["out"] <= K8_SLAB_FWD_RTOL:
             raise RuntimeError(f"K8-slab {key}: forward vs dense K8 relative L2 "
@@ -1643,25 +1676,31 @@ def k8_slab_phase(gen):
             tol = K8_BF16_DXG_RTOL if dtype == torch.bfloat16 and n == "dxg" else K8_RTOL
             if not e <= tol:
                 raise RuntimeError(f"K8-slab {key}: {n} relative L2 {e:.3e} > {tol}")
+        if coords == "dcn_far" and not all(0 < v < 1 for v in staged.values()):
+            raise RuntimeError(f"K8-slab {key}: taps on the band {staged}: want both routes")
         out[key] = dict(max_abs_err=max_abs, fwd_bound=(fb, fby), bwd_bound=(bb, bby),
-                        fwd_equal=fwd_equal, **t)
+                        fwd_equal=fwd_equal, staged=staged, **t)
         del xg, fx, fy, mask, dout, args, got, dense, want, leaves, ref
         torch.cuda.empty_cache()
     r = out["ii_l0"]
     common = dict(route="cuda", source="samrs_tpu_torch/csrc/bilinear_slab.cu", library_ms=None,
                   max_abs_err=max(o["max_abs_err"] for o in out.values()))
     extra = lambda d: {**{f"{k}_ms": out[k][d] for k in out if k != "ii_l0"},
+                       **{f"{k}_loop_ms": out[k][f"{d}_loop"] for k in out},
                        **{f"{k}_dense_ms": out[k][f"dense_{d}"] for k in out},
-                       **{f"{k}_plain_ms": out[k][f"plain_{d}"] for k in out if k != "ii_l0"}}
-    fwd = dict(name="K8-slab fwd weighted bilinear gather over active row slabs (InternImage-T "
-                    "level 0 at the FAST head: BG 260, 56x56, Gc 16, K 9, Hs 7, fp32; the other "
-                    "levels, bf16, the MSDA level and the scattered / wide / Gc 6 cases in *_ms, "
-                    "dense K8 in *_dense_ms; no single library call)",
+                       **{f"{k}_dense_loop_ms": out[k][f"dense_{d}_loop"] for k in out},
+                       **{f"{k}_plain_ms": out[k][f"plain_{d}"] for k in out if k != "ii_l0"},
+                       **{f"{k}_taps_on_band": out[k]["staged"][d] for k in out}}
+    fwd = dict(name="K8-slab fwd weighted bilinear gather from a band of row slabs staged by "
+                    "bulk copies (InternImage-T level 0 at the FAST head: BG 260, 56x56, Gc 16, "
+                    "K 9, Hs 7, fp32; the other levels, bf16, the MSDA level and the scattered / "
+                    "wide / Gc 6 / off-band / Gc 5 cases in *_ms, 20 back-to-back launches in "
+                    "*_loop_ms, dense K8 in *_dense_ms; no single library call)",
                replaces="samrs_tpu/kernels/bilinear_gather.py:164", **common, ms=r["fwd"],
                plain_ms=r["plain_fwd"], bound_ms=r["fwd_bound"][0], bound_by=r["fwd_bound"][1],
                forward_bit_equal_dense=all(o["fwd_equal"] for o in out.values()), **extra("fwd"))
-    bwd = dict(name="K8-slab bwd (dxg by a shared-memory tile per block, dfx, dfy, dmask; same "
-                    "shapes)",
+    bwd = dict(name="K8-slab bwd (the band's dX summed on chip in fixed point, one 16-byte "
+                    "flush an item; dfx, dfy, dmask; same shapes)",
                replaces="samrs_tpu/kernels/bilinear_gather.py:419", **common, ms=r["bwd"],
                plain_ms=r["plain_bwd"], bound_ms=r["bwd_bound"][0], bound_by=r["bwd_bound"][1],
                **extra("bwd"))
@@ -2352,6 +2391,11 @@ def internimage_step_phase(profile: bool = False):
         os.environ.pop("SAMRS_BILINEAR_SLAB", None)
     if profile:
         profile_step(model, fresh_state, step, "internimage step")
+        os.environ["SAMRS_BILINEAR_SLAB"] = str(II_SLAB)
+        try:
+            profile_step(model, fresh_state, step, "internimage step, K8-slab")
+        finally:
+            os.environ.pop("SAMRS_BILINEAR_SLAB", None)
     del model, init, batches, runs
     torch.cuda.empty_cache()
     return {"dense": timing[True], "slab": slab[True], "plain": timing[False]}

@@ -80,193 +80,16 @@
 // one-sided one of the floor formula, exactly JAX's _dhat: at an integer
 // coordinate the tap at t in [0, 1) has slope -1, the tap at t in [-1, 0)
 // slope +1 and the tap at t = 1 none.
+//
+// The per-thread code (the tap, a thread's gather, a query's backward) is in
+// bilinear_tap.cuh, shared with K8-slab (bilinear_slab.cu); here it reads and
+// adds device memory (MapCorners, MapSink).
 #include "bilinear_tap.cuh"
 
 namespace samrs {
 namespace {
 
 constexpr int THREADS = 256;
-
-__device__ __forceinline__ void load_vec(const float* p, float (&v)[4]) {
-  const float4 t = *reinterpret_cast<const float4*>(p);
-  v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-}
-__device__ __forceinline__ void load_vec(const bf16* p, float (&v)[4]) {
-  const uint2 t = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&t.x);
-  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&t.y);
-  v[0] = __low2float(a); v[1] = __high2float(a); v[2] = __low2float(b); v[3] = __high2float(b);
-}
-__device__ __forceinline__ void load_vec(const float* p, float (&v)[2]) {
-  const float2 t = *reinterpret_cast<const float2*>(p);
-  v[0] = t.x; v[1] = t.y;
-}
-__device__ __forceinline__ void load_vec(const bf16* p, float (&v)[2]) {
-  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(p);
-  v[0] = __low2float(a); v[1] = __high2float(a);
-}
-__device__ __forceinline__ void load_vec(const float* p, float (&v)[1]) { v[0] = *p; }
-__device__ __forceinline__ void load_vec(const bf16* p, float (&v)[1]) { v[0] = __bfloat162float(*p); }
-
-template <typename T, int V>
-__device__ __forceinline__ void load_corner(const T* img, bool valid, int pix, int Gc, int c,
-                                            float (&v)[V]) {
-  if (valid) {
-    load_vec(img + static_cast<size_t>(pix) * Gc + c, v);
-  } else {
-#pragma unroll
-    for (int j = 0; j < V; ++j) v[j] = 0.f;
-  }
-}
-
-// V output values with the streaming (evict-first) store policy.
-__device__ __forceinline__ void store_out(float* o, const float (&a)[4]) {
-  __stcs(reinterpret_cast<float4*>(o), make_float4(a[0], a[1], a[2], a[3]));
-}
-__device__ __forceinline__ void store_out(float* o, const float (&a)[2]) {
-  __stcs(reinterpret_cast<float2*>(o), make_float2(a[0], a[1]));
-}
-__device__ __forceinline__ void store_out(float* o, const float (&a)[1]) { __stcs(o, a[0]); }
-
-// n / d for n < 2^31 by a multiply-high and a shift, d fixed at launch
-// (the magic-number division of PyTorch's IntDivider).
-struct FastDiv {
-  unsigned mul, shift;
-};
-
-FastDiv make_fastdiv(unsigned d) {
-  unsigned shift = 0;
-  while ((1ull << shift) < d) ++shift;
-  const uint64_t one = 1;
-  return {static_cast<unsigned>(((one << 32) * ((one << shift) - d)) / d + 1), shift};
-}
-
-__device__ __forceinline__ unsigned fast_div(unsigned n, FastDiv f) {
-  return (__umulhi(n, f.mul) + n) >> f.shift;
-}
-
-// The four corners' V channels from c of one tap (zeros off the map).
-template <typename T, int V>
-__device__ __forceinline__ void load_corners(const T* img, const Tap& t, int Gc, int c,
-                                             float (&v)[4][V]) {
-  load_corner<T, V>(img, t.v00, t.i00, Gc, c, v[0]);
-  load_corner<T, V>(img, t.v01, t.i01, Gc, c, v[1]);
-  load_corner<T, V>(img, t.v10, t.i10, Gc, c, v[2]);
-  load_corner<T, V>(img, t.v11, t.i11, Gc, c, v[3]);
-}
-
-// acc += m (v00 w00 + v01 w01 + v10 w10 + v11 w11) for one tap, rounded op
-// by op (no fused multiply-add), in the plain version's order.
-template <int V>
-__device__ __forceinline__ void add_tap(float (&acc)[V], const float (&v)[4][V], const Tap& t,
-                                        float m) {
-#pragma unroll
-  for (int e = 0; e < V; ++e) {
-    float s = __fmul_rn(v[0][e], t.w00);
-    s = __fadd_rn(s, __fmul_rn(v[1][e], t.w01));
-    s = __fadd_rn(s, __fmul_rn(v[2][e], t.w10));
-    s = __fadd_rn(s, __fmul_rn(v[3][e], t.w11));
-    acc[e] = __fadd_rn(acc[e], __fmul_rn(m, s));
-  }
-}
-
-template <typename T, int V>
-__device__ __forceinline__ void gather_tap(float (&acc)[V], const T* img, float x, float y,
-                                           float m, int H, int W, int Gc, int c) {
-  const Tap t = make_tap(x, y, H, W);
-  float v[4][V];
-  load_corners<T, V>(img, t, Gc, c, v);
-  add_tap<V>(acc, v, t, m);
-}
-
-// The forward of one thread of the per-vector form: query q, channels c ..
-// c + V - 1, over KT taps (the path's K) loaded together, or K of a runtime
-// loop where KT is 0.  I is the index type (int where every flat index fits
-// 31 bits, long long else).
-template <typename T, int V, int KT, typename I>
-__device__ __forceinline__ void gather_vector(const T* __restrict__ img,
-                                              const float* __restrict__ fx,
-                                              const float* __restrict__ fy,
-                                              const float* __restrict__ mask,
-                                              float* __restrict__ o, I q, int c, int H, int W,
-                                              int K, int Gc) {
-  float acc[V];
-#pragma unroll
-  for (int e = 0; e < V; ++e) acc[e] = 0.f;
-  if constexpr (KT == 0) {
-    for (int k = 0; k < K; ++k) {
-      const I i = q * K + k;
-      gather_tap<T, V>(acc, img, fx[i], fy[i], mask[i], H, W, Gc, c);
-    }
-  } else {
-    float tx[KT], ty[KT], tm[KT];
-    const I i0 = q * KT;
-    if constexpr (KT == 4) {
-      const float4 a = *reinterpret_cast<const float4*>(fx + i0);
-      const float4 b = *reinterpret_cast<const float4*>(fy + i0);
-      const float4 w = *reinterpret_cast<const float4*>(mask + i0);
-      tx[0] = a.x, tx[1] = a.y, tx[2] = a.z, tx[3] = a.w;
-      ty[0] = b.x, ty[1] = b.y, ty[2] = b.z, ty[3] = b.w;
-      tm[0] = w.x, tm[1] = w.y, tm[2] = w.z, tm[3] = w.w;
-    } else {
-#pragma unroll
-      for (int k = 0; k < KT; ++k) tx[k] = fx[i0 + k], ty[k] = fy[i0 + k], tm[k] = mask[i0 + k];
-    }
-#pragma unroll
-    for (int k = 0; k < KT; ++k) gather_tap<T, V>(acc, img, tx[k], ty[k], tm[k], H, W, Gc, c);
-  }
-  store_out(o + c, acc);
-}
-
-// The flat-4 form (odd Gc >= 3, scalar channels): a thread takes the outputs
-// 4e .. 4e + 3 of the flat (BG, P, Gc) output -- one 16-byte store -- which
-// lie in at most two queries, and does each query's tap arithmetic once for
-// its channels among them.
-template <typename T, int KT>
-__device__ __forceinline__ void gather_flat4(const T* __restrict__ img0,
-                                             const float* __restrict__ fx,
-                                             const float* __restrict__ fy,
-                                             const float* __restrict__ mask,
-                                             float* __restrict__ out, int f0, int total_out,
-                                             FastDiv by_gc, FastDiv by_p, int H, int W,
-                                             int Gc) {
-  const int qa = static_cast<int>(fast_div(f0, by_gc));
-  const int ca = f0 - qa * Gc;
-  const int n = min(4, total_out - f0);  // outputs of this thread
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-  for (int part = 0; part < 2; ++part) {
-    // part 0: query qa, channels ca .. ; part 1: query qa + 1, channels 0 ..
-    const int q = qa + part;
-    const int lo = part == 0 ? 0 : Gc - ca;   // outputs of this part: [lo, hi)
-    const int hi = part == 0 ? min(n, Gc - ca) : n;
-    if (lo >= hi) continue;
-    const T* img = img0 + static_cast<size_t>(fast_div(q, by_p)) * (H * W * Gc);
-#pragma unroll
-    for (int k = 0; k < KT; ++k) {
-      const int i = q * KT + k;
-      const Tap t = make_tap(fx[i], fy[i], H, W);
-      const float m = mask[i];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        if (e >= lo && e < hi) {
-          float v[4][1], a[1] = {acc[e]};
-          load_corners<T, 1>(img, t, Gc, ca + e - (part == 0 ? 0 : Gc), v);
-          add_tap<1>(a, v, t, m);
-          acc[e] = a[0];
-        }
-      }
-    }
-  }
-  if (n == 4) {
-    store_out(out + f0, acc);
-  } else {
-    for (int e = 0; e < n; ++e) __stcs(out + f0 + e, acc[e]);
-  }
-}
-
-// Forms of the forward (see the note): per channel vector, and flat-4 (odd Gc >= 3).
-enum FwdForm { kVector = 0, kFlat4 = 1 };
 
 // One thread per element e of `total`: a (query, channel vector) of the flat
 // space (query q = e / n, n = Gc / V vectors a query, vector e mod n; bg = q
@@ -284,36 +107,21 @@ bilinear_fwd_kernel(const T* __restrict__ xg, const float* __restrict__ fx,
     if (e >= total) return;
     const long long q = e / n;
     const int c = static_cast<int>(e - q * n) * V;
-    const T* img = xg + static_cast<size_t>(q / P) * H * W * Gc;
-    gather_vector<T, V, KT, long long>(img, fx, fy, mask, out + q * Gc, q, c, H, W, K, Gc);
+    const MapCorners<T> src{xg + static_cast<size_t>(q / P) * H * W * Gc};
+    gather_vector<V, KT, long long>(src, fx, fy, mask, out + q * Gc, q, c, H, W, K, Gc);
   } else if constexpr (FORM == kFlat4) {
     const int e = blockIdx.x * THREADS + threadIdx.x;
     if (e >= total) return;
-    gather_flat4<T, KT>(xg, fx, fy, mask, out, 4 * e, n, by_n, by_p, H, W, Gc);
+    const MapFamily<T> maps{xg, static_cast<size_t>(H) * W * Gc};
+    gather_flat4<T, KT>(maps, fx, fy, mask, out, 4 * e, n, by_n, by_p, H, W, Gc);
   } else {
     const int e = blockIdx.x * THREADS + threadIdx.x;
     if (e >= total) return;
     const int q = static_cast<int>(fast_div(e, by_n));
     const int c = (e - q * n) * V;
-    const T* img = xg + static_cast<size_t>(fast_div(q, by_p)) * (H * W * Gc);
-    gather_vector<T, V, KT, int>(img, fx, fy, mask, out + q * Gc, q, c, H, W, K, Gc);
+    const MapCorners<T> src{xg + static_cast<size_t>(fast_div(q, by_p)) * (H * W * Gc)};
+    gather_vector<V, KT, int>(src, fx, fy, mask, out + q * Gc, q, c, H, W, K, Gc);
   }
-}
-
-// One reduction of the channel vector g * w into dX at a corner (16 bytes
-// at once where V is 4), none for a corner off the map or of weight 0;
-// returns the count of reductions issued.
-template <int V>
-__device__ __forceinline__ unsigned scatter(float* dimg, bool valid, int pix, int Gc, int c,
-                                            float w, const float (&g)[V]) {
-  if (!valid || w == 0.f) return 0;
-  float* d = dimg + static_cast<size_t>(pix) * Gc + c;
-  if constexpr (V == 4) {
-    atomicAdd(reinterpret_cast<float4*>(d), make_float4(g[0] * w, g[1] * w, g[2] * w, g[3] * w));
-  } else {
-    atomicAdd(d, g[0] * w);
-  }
-  return 1;
 }
 
 // ONE: the group's lanes cover Gc in one pass (Gc / V <= the group size), so
@@ -330,7 +138,6 @@ bilinear_bwd_kernel(const T* __restrict__ xg, const float* __restrict__ fx,
                     int Gc, int tpg_log2) {
   const long long gid = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
   const long long q = gid >> tpg_log2;
-  unsigned issued = 0;
   const int tpg = 1 << tpg_log2;
   const int lane = static_cast<int>(gid & (tpg - 1));
   // every lane of a group takes part in the shuffles, so none returns early
@@ -339,73 +146,15 @@ bilinear_bwd_kernel(const T* __restrict__ xg, const float* __restrict__ fx,
   const size_t img_off = static_cast<size_t>(bg) * H * W * Gc;
   const T* img = xg + img_off;
   float* dimg = dxg + img_off;
-  const int nvec = Gc / V;
   const float* drow = dout + static_cast<size_t>(active ? q : 0) * Gc;
-  float r1[V];
-  if (ONE && active && lane < nvec) load_vec(drow + lane * V, r1);
-  for (int k = 0; k < K; ++k) {
-    const size_t i = static_cast<size_t>(active ? q : 0) * K + k;
-    float tx = 0.f, ty = 0.f, tm = 0.f;
-    if (active && lane == 0) tx = fx[i], ty = fy[i], tm = mask[i];
-    tx = __shfl_sync(0xffffffffu, tx, 0, tpg);
-    ty = __shfl_sync(0xffffffffu, ty, 0, tpg);
-    tm = __shfl_sync(0xffffffffu, tm, 0, tpg);
-    float gx = 0.f, gy = 0.f, gm = 0.f;
-    if (active) {
-      const Tap t = make_tap(tx, ty, H, W);
-      const float m = tm;
-      const float ax = 1.f - t.wx, ay = 1.f - t.wy;
-      for (int cv = lane; cv < nvec; cv += tpg) {
-        const int c = cv * V;
-        float r[V], v00[V], v01[V], v10[V], v11[V], g[V];
-        if constexpr (ONE) {
-#pragma unroll
-          for (int j = 0; j < V; ++j) r[j] = r1[j];
-        } else {
-          load_vec(drow + c, r);
-        }
-        load_corner<T, V>(img, t.v00, t.i00, Gc, c, v00);
-        load_corner<T, V>(img, t.v01, t.i01, Gc, c, v01);
-        load_corner<T, V>(img, t.v10, t.i10, Gc, c, v10);
-        load_corner<T, V>(img, t.v11, t.i11, Gc, c, v11);
-#pragma unroll
-        for (int j = 0; j < V; ++j) {
-          const float top = v00[j] * ax + v01[j] * t.wx;
-          const float bot = v10[j] * ax + v11[j] * t.wx;
-          gm += r[j] * (top * ay + bot * t.wy);
-          g[j] = m * r[j];
-          gx += g[j] * ((v01[j] - v00[j]) * ay + (v11[j] - v10[j]) * t.wy);
-          gy += g[j] * (bot - top);
-        }
-        if (m != 0.f) {
-          issued += scatter<V>(dimg, t.v00, t.i00, Gc, c, t.w00, g);
-          issued += scatter<V>(dimg, t.v01, t.i01, Gc, c, t.w01, g);
-          issued += scatter<V>(dimg, t.v10, t.i10, Gc, c, t.w10, g);
-          issued += scatter<V>(dimg, t.v11, t.i11, Gc, c, t.w11, g);
-        }
-      }
-    }
-    for (int s = tpg >> 1; s > 0; s >>= 1) {
-      gx += __shfl_xor_sync(0xffffffffu, gx, s);
-      gy += __shfl_xor_sync(0xffffffffu, gy, s);
-      gm += __shfl_xor_sync(0xffffffffu, gm, s);
-    }
-    if (active && lane == 0) {
-      dfx[i] = gx;
-      dfy[i] = gy;
-      dmask[i] = gm;
-    }
-  }
+  const unsigned issued = bwd_query<V, ONE>(MapCorners<T>{img}, MapSink{dimg}, fx, fy, mask,
+                                            drow, dfx, dfy, dmask,
+                                            static_cast<size_t>(active ? q : 0), active, lane,
+                                            tpg, H, W, K, Gc);
   if (nred != nullptr) {
     const unsigned warp_total = __reduce_add_sync(0xffffffffu, issued);
     if ((threadIdx.x & 31) == 0) atomicAdd(nred, static_cast<unsigned long long>(warp_total));
   }
-}
-
-int tpg_log2_for(int nvec) {
-  int l = 0;
-  while ((1 << l) < nvec && l < 5) ++l;
-  return l;
 }
 
 template <typename T, int V, int KT, int FORM, bool WIDE>

@@ -1,581 +1,656 @@
-// K8's row-slab form: the weighted bilinear gather of bilinear_gather.cu,
-// forward and backward, over the row slabs of the map that a block of
-// queries touches.
+// K8-slab: K8's weighted bilinear gather (bilinear_gather.cu), forward and backward, with
+// the row slabs of the map that a run of queries touches held on chip.
 //
 //   out[bg, p, :] = sum_k mask[bg, p, k] * bilinear(xg[bg], fy[bg, p, k], fx[bg, p, k])
 //
-// xg (BG, H, W, Gc) fp32 or bf16, channels contiguous; fx, fy, mask (BG, P, K)
-// fp32; zero padding outside the map; Hs (the slab height) divides H.
+// xg (BG, H, W, Gc) fp32 or bf16, channels contiguous; fx, fy, mask (BG, P, K) fp32; zero
+// padding outside the map; Hs (the slab height) divides H.
 //
-// Replaces samrs_tpu/kernels/bilinear_gather.py::_make_sampler's slab
-// kernels: _fwd_kernel_slab (launched by fwd_call's pallas_call, :386, when
-// slab > 0) and bwd_call_slab's pallas_call (:419, _bwd_kernel_slab).  On the
-// TPU each query block's hat matmul runs only over the Hs-row slabs that the
-// block's rows [min fy - 1, max fy + 1] touch (the predicate of :189, :233,
-// :250), which saves matrix-unit row reductions.  Here the saving is shared
-// memory: one block of 256 threads takes one bg and 128 raster-contiguous
-// queries (JAX's _block_size; the tail block's missing queries count as
-// copies of the last one, as _pad_p(edge=True) pads them, so they do not
-// widen the band), computes each tap's band with the JAX predicate, and
-// stages only the active slabs of xg in shared memory with cp.async.  No halo
-// row is needed: the predicate's +-1 puts both corner rows of every tap that
-// touches the map in an active slab of that tap.
+// Replaces samrs_tpu/kernels/bilinear_gather.py::_make_sampler's slab kernels:
+// _fwd_kernel_slab (launched by fwd_call's pallas_call, :386, when slab > 0) and
+// bwd_call_slab's pallas_call (:419, _bwd_kernel_slab).  On the TPU each 128-query block's
+// hat matmul runs only over the Hs-row slabs that its rows [min fy - 1, max fy + 1] touch,
+// tap by tap (the predicate of :189, :233, :250), which saves matrix-unit row reductions.
+// The predicate skips only slabs whose hat weights are all zero, so the function is dense
+// K8's whatever the block; the 128-query block and the edge padding shape the TPU's work,
+// not the result.
 //
-//   Plan 1: the union of all taps' active slabs fits the block's shared
-//           memory (every InternImage-T and MSDeformAttn shape at 224^2):
-//           stage it once, then each (query, channel vector) walks its taps
-//           as bilinear_gather.cu does, reading the corners from shared memory.
-//   Plan 2: it does not fit: tap by tap, the tap's active rows are staged in
-//           chunks of RC rows plus a one-row halo (and W in tiles of WT
-//           columns plus a one-column halo when two rows do not fit); each
-//           (query, tap) is evaluated in the one chunk and tile that hold its
-//           floor corner, and added to the output in device memory, which
-//           only its own thread touches.
+// Here the work item is a run of L consecutive queries of one map, L chosen at launch from
+// the shape (item_plan: at a query a pixel, L spans the output rows of all but two of the
+// slabs a stage holds, so that the item's taps reaching a slab beyond either side still fit;
+// the whole map where it fits one stage).  An item's band is the union of its taps' active
+// slabs under the JAX predicate, from one pass over the item's fy (every tap's extremes kept
+// in registers, then one redux a tap).  Each contiguous run of active slabs is one contiguous
+// span of the map, staged by one bulk copy (cp.async.bulk on an mbarrier) at its address's
+// 16-byte phase (the few elements before and after the 16-byte boundaries by the threads).
+// Where the runs do not all fit, whole runs are staged in order of the number of taps whose
+// support meets them.  A tap whose two corner rows are both staged reads its corners on chip
+// (one run: at an offset from the map's own flat index, no table); any other tap (offsets
+// that reach far, a band over the budget, the flat-4 form's second query in the next map)
+// reads device memory in the same pass, as dense K8 does.
 //
-// Either way every tap's sum is formed in K8's order and rounding (corners
-// 00, 01, 10, 11, then acc += m * s, each product and sum rounded on its own)
-// and the taps are added in order k, so the forward is bit-equal to K8's
-// dense forward.
+// Both kernels are persistent: one block of 512 threads an SM, its last warp the producer,
+// which plans item j + 1 (the pass, the band, the placement, the bulk copies) into the second
+// of two metas while the other 15 warps work on item j; an mbarrier pair a meta hands it over
+// (full: planned and, in the forward, landed; empty: done with).
 //
-// Backward: dfx, dfy and dmask are owned per (query, tap) (a group of lanes
-// reduces over the channels with shuffles, in bilinear_gather.cu's order, so
-// they equal the dense kernel's); dX of the staged rows accumulates in a
-// fp32 shared-memory tile (shared atomics) and is added to device memory
-// once per block (or per cell in plan 2), one atomicAdd per nonzero element.
-// Neighbouring blocks' bands overlap, so the global adds stay atomic and dX's
-// summation order varies from run to run at fp32 rounding.  Both kernels are
-// bound by device-memory bytes; this first version puts correctness first
-// (one or two blocks an SM: up to 112 KB of shared memory each).
+// Forward: two stages of map rows, so item j + 1's band lands while item j is gathered.  The
+// gather is dense K8's (bilinear_tap.cuh: a thread a (query, channel vector), flat-4 at odd Gc,
+// the taps' count a template parameter at the paths' K, a query's taps loaded together; here
+// the next element's taps load while this one is gathered), with the band as its corner
+// source.  Each tap's sum keeps K8's corner order and rounding and the taps add in order k, so
+// the forward is bit-equal to dense K8's (and to sample_weighted_plain).
+//
+// Backward: the same items and bands; the band's dX is summed on chip in a fixed-point partial
+// (fixed_point.cuh: two int32 words an element on native integer shared atomics; a shared fp32
+// atomicAdd is a CAS loop on sm_90), its scale S from the item's sum over queries of sum_k
+// |mask| times sum_c |dout|, and flushed once an item with 16-byte red.global.add.v4.f32 of
+// nonzero 4-vectors (scalar at the runs' unaligned ends).  The corners come from device memory
+// (L2), as in dense K8: at InternImage level 0 the partial (8 bytes an element) and the rows
+// (4) of a band do not fit one block, and with the rows staged beside the partial (a third of
+// the items' length) the kernel was no faster.  dfx, dfy and dmask are dense K8's (a group of
+// lanes a query, reduced over the channels by shuffles; lane 0 loads each tap a tap ahead).
+// Taps off the band, and every tap of an item whose S is not finite, reduce into device
+// memory directly.  Neighbouring items' bands overlap, so dX is added, not stored: the wrapper
+// zeroes it, and its summation order varies from run to run at fp32 rounding.
+//
+// Bound: device-memory bytes, as dense K8; both kernels stay bound, as dense K8's, by the
+// per-tap arithmetic (make_tap, repeated by every lane of a query), and the backward also by
+// the instructions of its fixed-point adds (a split and two atomics a value, where a 16-byte
+// device reduction takes four values): PERF.md, Findings.
+#include <climits>
+
 #include "bilinear_tap.cuh"
+#include "hopper.cuh"
 
 namespace samrs {
 namespace {
 
-constexpr int SL_THREADS = 256;
-constexpr int SL_WARPS = SL_THREADS / 32;
-constexpr int SL_PB = 128;                     // queries per block
-constexpr size_t SL_BUDGET = 112 * 1024;       // shared memory of one block, at most
+constexpr int SL_THREADS = 512;
+constexpr int SL_WARPS = SL_THREADS / 32;   // the last plans the items, the others gather
+constexpr int SL_CONSUMERS = SL_THREADS - 32;
+constexpr int SL_BUDGET = 227 * 1024;  // dynamic shared memory a block can use on sm_90
+constexpr int SL_MAX_K = 32;           // taps: a band is at most K runs of slabs
 
-// per-block metadata in front of the staged data: per-warp and per-tap
-// minima / maxima of fy, each slab's place in the staged union (-1: not
-// staged) and the count of staged slabs
-__host__ __device__ inline size_t slab_meta_bytes(int K, int nslab) {
-  return align_up(static_cast<size_t>(2 * SL_WARPS * K + 2 * K + nslab + 4) * 4, 16);
-}
+// The launch's plan (item_plan) and shape.
+struct SlabArgs {
+  int H, W, P, K, Gc, Hs, nslab;
+  int L;      // queries an item
+  int nitem;  // items a map, ceil(P / L)
+  int items;  // BG * nitem
+  int cap;    // elements a stage holds (a multiple of 8): each of the forward's two stages
+              // of map rows; the backward's fixed-point partial (two int32 arrays)
+  int meta;   // ints of an item's metadata (meta_ints)
+  int n;      // forward: Gc / V vectors a query; flat-4: the flat output's length
+  FastDiv by_n, by_p;
+};
 
-__device__ __forceinline__ float pos_inf() { return __int_as_float(0x7f800000); }
-
-// JAX's predicate: slab rows [s*Hs, s*Hs+Hs-1] against the tap's support [lo-1, hi+1]
-__device__ __forceinline__ bool slab_active(int s, int Hs, float lo, float hi) {
-  const float top = static_cast<float>(s * Hs);
-  return top <= hi + 1.0f && top + static_cast<float>(Hs) - 1.0f >= lo - 1.0f;
+// An item's metadata in shared memory: per tap the extremes of fy (lohi, as order_key ints),
+// the staged runs (runs[0] their count; then per run its first element in the map, its
+// elements and its element offset on chip), per slab its element offset on chip (-1: not
+// staged; a flag before place_runs), per map row its element offset on chip (-1), and the
+// backward's scale S; a multiple of 16 bytes.
+inline int meta_ints(int K, int H, int nslab) {
+  return (2 * K + 1 + 3 * K + nslab + H + 1 + 3) / 4 * 4;
 }
 
 struct Meta {
-  float *wlo, *whi, *lo, *hi;
-  int *slot, *misc;
+  int *lohi, *runs, *slab, *rowoff;
+  float* S;
+  __device__ Meta(int* base, int K, int nslab, int H)
+      : lohi(base), runs(base + 2 * K), slab(runs + 1 + 3 * K), rowoff(slab + nslab),
+        S(reinterpret_cast<float*>(rowoff + H)) {}
 };
 
-__device__ __forceinline__ Meta carve_meta(unsigned char* smem, int K, int nslab) {
-  Meta m;
-  m.wlo = reinterpret_cast<float*>(smem);
-  m.whi = m.wlo + SL_WARPS * K;
-  m.lo = m.whi + SL_WARPS * K;
-  m.hi = m.lo + K;
-  m.slot = reinterpret_cast<int*>(m.hi + K);
-  m.misc = m.slot + nslab;
-  return m;
+struct Item {
+  int bg, p0, nq;
+  int q0;  // flat query index bg * P + p0
+};
+
+__device__ __forceinline__ Item item_at(int i, const SlabArgs& a) {
+  const int bg = i / a.nitem, p0 = (i - bg * a.nitem) * a.L;
+  return {bg, p0, min(a.L, a.P - p0), bg * a.P + p0};
 }
 
-// Each tap's [lo, hi] over the block's queries, and the union of the taps'
-// active slabs (slot[s] its place in the staged union, misc[0] their count).
-__device__ void block_band(const float* __restrict__ fy, int bg, int p0, int P, int K, int H,
-                           int Hs, const Meta& m) {
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int nslab = H / Hs;
-  for (int k = 0; k < K; ++k) {
-    float a = pos_inf(), b = -pos_inf();
-    if (tid < SL_PB) {
-      const int p = min(p0 + tid, P - 1);  // the tail repeats the last query
-      a = b = fy[(static_cast<size_t>(bg) * P + p) * K + k];
-    }
-    for (int s = 16; s > 0; s >>= 1) {
-      a = fminf(a, __shfl_xor_sync(0xffffffffu, a, s));
-      b = fmaxf(b, __shfl_xor_sync(0xffffffffu, b, s));
-    }
-    if (lane == 0) {
-      m.wlo[warp * K + k] = a;
-      m.whi[warp * K + k] = b;
-    }
-  }
-  __syncthreads();
-  for (int k = tid; k < K; k += SL_THREADS) {
-    float a = pos_inf(), b = -pos_inf();
-    for (int w = 0; w < SL_WARPS; ++w) {
-      a = fminf(a, m.wlo[w * K + k]);
-      b = fmaxf(b, m.whi[w * K + k]);
-    }
-    m.lo[k] = a;
-    m.hi[k] = b;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    int n = 0;
-    for (int s = 0; s < nslab; ++s) {
-      bool on = false;
-      for (int k = 0; k < K && !on; ++k) on = slab_active(s, Hs, m.lo[k], m.hi[k]);
-      m.slot[s] = on ? n++ : -1;
-    }
-    m.misc[0] = n;
-  }
-  __syncthreads();
+// Order-preserving int of a float (NaN above +inf), and back.
+__device__ __forceinline__ int order_key(float f) {
+  const int i = __float_as_int(f);
+  return i >= 0 ? i : i ^ 0x7fffffff;
+}
+__device__ __forceinline__ float from_key(int k) { return __int_as_float(k >= 0 ? k : k ^ 0x7fffffff); }
+
+// JAX's predicate: map rows [top, bottom] against a tap's support [lo - 1, hi + 1].
+__device__ __forceinline__ bool rows_active(int top, int bottom, float lo, float hi) {
+  return static_cast<float>(top) <= hi + 1.f && static_cast<float>(bottom) >= lo - 1.f;
 }
 
-// Rows [ra, rb) of tap k's active slabs (a contiguous run; ra == rb: none).
-__device__ __forceinline__ void tap_rows(const Meta& m, int k, int nslab, int Hs, int& ra,
-                                         int& rb) {
-  int a = -1, b = -1;
-  for (int s = 0; s < nslab; ++s) {
-    if (slab_active(s, Hs, m.lo[k], m.hi[k])) {
-      if (a < 0) a = s;
-      b = s;
+// The producer warp's pass over the item's queries [q0, q0 + nq): every tap's extremes of fy
+// (kept in registers, then one redux a tap) into m.lohi; BWD also the item's scale S (the sum
+// over queries of sum_k |mask| times sum_c |dout|, V channels a load) into *m.S.
+template <int KT, bool BWD, int V>
+__device__ __forceinline__ void item_pass(const float* __restrict__ fy,
+                                          const float* __restrict__ mask,
+                                          const float* __restrict__ dout, int q0, int nq, int K,
+                                          int Gc, int lane, const Meta& m) {
+  if constexpr (KT > 0) {
+    int lo[KT], hi[KT];
+#pragma unroll
+    for (int k = 0; k < KT; ++k) lo[k] = INT_MAX, hi[k] = INT_MIN;
+#pragma unroll 4
+    for (int j = lane; j < nq; j += 32) {
+      const float* row = fy + static_cast<size_t>(q0 + j) * KT;
+#pragma unroll
+      for (int k = 0; k < KT; ++k) {
+        const int v = order_key(__ldg(row + k));
+        lo[k] = min(lo[k], v);
+        hi[k] = max(hi[k], v);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < KT; ++k) {
+      const int a = __reduce_min_sync(0xffffffffu, lo[k]), b = __reduce_max_sync(0xffffffffu, hi[k]);
+      if (lane == 0) m.lohi[2 * k] = a, m.lohi[2 * k + 1] = b;
+    }
+  } else {
+    for (int k = 0; k < K; ++k) {
+      int lo = INT_MAX, hi = INT_MIN;
+      for (int j = lane; j < nq; j += 32) {
+        const int v = order_key(__ldg(fy + static_cast<size_t>(q0 + j) * K + k));
+        lo = min(lo, v);
+        hi = max(hi, v);
+      }
+      lo = __reduce_min_sync(0xffffffffu, lo);
+      hi = __reduce_max_sync(0xffffffffu, hi);
+      if (lane == 0) m.lohi[2 * k] = lo, m.lohi[2 * k + 1] = hi;
     }
   }
-  ra = a < 0 ? 0 : a * Hs;
-  rb = a < 0 ? 0 : (b + 1) * Hs;
+  if constexpr (BWD) {
+    float part = 0.f;
+    for (int j = lane; j < nq; j += 32) {
+      const size_t q = static_cast<size_t>(q0 + j);
+      float sm = 0.f, sd = 0.f;
+      for (int k = 0; k < K; ++k) sm += fabsf(__ldg(mask + q * K + k));
+      for (int c = 0; c < Gc; c += V) {
+        float r[V];
+        load_vec(dout + q * Gc + c, r);
+#pragma unroll
+        for (int e = 0; e < V; ++e) sd += fabsf(r[e]);
+      }
+      part += sm * sd;
+    }
+    part = warp_sum(part);
+    if (lane == 0) *m.S = part;
+  }
 }
 
-// dst[i] = src[i] for i < n, all threads of the block; cp.async in 16-byte
-// pieces where `vec` (n * sizeof(T) a multiple of 16, both ends aligned).
-// The caller commits, waits and synchronises.
+// m.slab[s] = 1 where slab s is active for some tap (threads tid of nth).
+__device__ __forceinline__ void mark_slabs(const Meta& m, int K, int nslab, int Hs, int tid,
+                                           int nth) {
+  for (int s = tid; s < nslab; s += nth) {
+    bool on = false;
+    for (int k = 0; k < K && !on; ++k)
+      on = rows_active(s * Hs, s * Hs + Hs - 1, from_key(m.lohi[2 * k]), from_key(m.lohi[2 * k + 1]));
+    m.slab[s] = on;
+  }
+}
+
+// Thread 0: the runs of active slabs (m.slab's flags; none where `any` is false) and the ones
+// the chip holds, in `cap` elements: all of them in slab order where they fit, else whole runs
+// in order of the count of taps whose support meets them (most first, then the lower), each
+// where it still fits.  A run starts at an element offset congruent mod 8 to its element index
+// f in the maps (f0: the map's first), so that a 16-byte boundary of the map (fp32 or bf16)
+// or of dX (fp32) falls on one of the stage and of the partial.  Writes m.runs and turns
+// m.slab into the slabs' offsets.
+__device__ void place_runs(const Meta& m, int K, int nslab, int Hs, int WGc, long long f0,
+                           int cap, bool any) {
+  int ra[SL_MAX_K], rb[SL_MAX_K], order[SL_MAX_K], R = 0;
+  for (int s = 0; any && s < nslab; ++s) {
+    if (!m.slab[s]) continue;
+    if (R == 0 || rb[R - 1] != s - 1) {
+      if (R == SL_MAX_K) break;  // more runs than taps cannot happen; the rest reads device memory
+      ra[R++] = s;
+    }
+    rb[R - 1] = s;
+  }
+  const int slab_el = Hs * WGc;
+  auto phase = [&](int r) { return static_cast<int>((f0 + static_cast<long long>(ra[r]) * slab_el) & 7); };
+  auto size = [&](int r) { return static_cast<long long>(rb[r] - ra[r] + 1) * slab_el; };
+  long long cur = 0;
+  for (int r = 0; r < R; ++r) {
+    order[r] = r;
+    cur = static_cast<long long>(align_up(cur, 8)) + phase(r) + size(r);
+  }
+  if (cur > cap) {
+    int taps[SL_MAX_K];
+    for (int r = 0; r < R; ++r) {
+      taps[r] = 0;
+      for (int k = 0; k < K; ++k)
+        taps[r] += rows_active(ra[r] * Hs, rb[r] * Hs + Hs - 1, from_key(m.lohi[2 * k]),
+                               from_key(m.lohi[2 * k + 1]));
+    }
+    for (int r = 1; r < R; ++r)  // insertion sort, stable: most taps first
+      for (int j = r; j > 0 && taps[order[j]] > taps[order[j - 1]]; --j) {
+        const int t = order[j];
+        order[j] = order[j - 1];
+        order[j - 1] = t;
+      }
+  }
+  for (int s = 0; s < nslab; ++s) m.slab[s] = -1;
+  int placed = 0;
+  cur = 0;
+  for (int j = 0; j < R; ++j) {
+    const int r = order[j];
+    const long long off = static_cast<long long>(align_up(cur, 8)) + phase(r);
+    if (off + size(r) > cap) continue;
+    cur = off + size(r);
+    m.runs[1 + 3 * placed] = ra[r] * slab_el;
+    m.runs[2 + 3 * placed] = static_cast<int>(size(r));
+    m.runs[3 + 3 * placed] = static_cast<int>(off);
+    for (int s = ra[r]; s <= rb[r]; ++s) m.slab[s] = static_cast<int>(off) + (s - ra[r]) * slab_el;
+    ++placed;
+  }
+  m.runs[0] = placed;
+}
+
+// Thread 0: the bulk copies of the placed runs' aligned middles from the map `img` to the
+// stage `st`, completing on bar.
 template <typename T>
-__device__ __forceinline__ void copy_span(T* dst, const T* src, int n, bool vec) {
-  if (vec) {
-    const int nv = n * static_cast<int>(sizeof(T)) / 16;
-    for (int i = threadIdx.x; i < nv; i += SL_THREADS)
-      cp_async16(reinterpret_cast<char*>(dst) + 16 * i, reinterpret_cast<const char*>(src) + 16 * i,
-                 true);
+__device__ void issue_copies(const Meta& m, const T* img, T* st, uint64_t* bar) {
+  unsigned total = 0;
+  for (int j = 0; j < m.runs[0]; ++j) {
+    int h, t;
+    split16(img + m.runs[1 + 3 * j], m.runs[2 + 3 * j], h, t);
+    total += static_cast<unsigned>((t - h) * sizeof(T));
+  }
+  mbar_expect_tx(bar, total);
+  for (int j = 0; j < m.runs[0]; ++j) {
+    const T* g = img + m.runs[1 + 3 * j];
+    int h, t;
+    split16(g, m.runs[2 + 3 * j], h, t);
+    if (t > h) bulk_load(st + m.runs[3 + 3 * j] + h, g + h, static_cast<unsigned>((t - h) * sizeof(T)), bar);
+  }
+}
+
+// The runs' elements before and after their 16-byte boundaries (threads tid of nth).
+template <typename T>
+__device__ __forceinline__ void copy_ends(const Meta& m, const T* img, T* st, int tid, int nth) {
+  for (int j = 0; j < m.runs[0]; ++j) {
+    const T* g = img + m.runs[1 + 3 * j];
+    T* s = st + m.runs[3 + 3 * j];
+    const int n = m.runs[2 + 3 * j];
+    int h, t;
+    split16(g, n, h, t);
+    for (int e = tid; e < h + n - t; e += nth) {
+      const int f = e < h ? e : t + (e - h);  // the head, then the tail
+      s[f] = g[f];
+    }
+  }
+}
+
+// Where the rows of the item's map sit on chip: one run by arithmetic (its first map element
+// m.runs[1] is element m.runs[3] on chip), several by m.rowoff.
+__device__ __forceinline__ Rows rows_of(const Meta& m, int WGc) {
+  if (m.runs[0] == 1) return {nullptr, m.runs[1] / WGc, m.runs[2] / WGc, m.runs[3] - m.runs[1]};
+  return {m.runs[0] > 1 ? m.rowoff : nullptr, 0, 0, 0};
+}
+
+// m.rowoff from the slabs' offsets (threads tid of nth).
+__device__ __forceinline__ void fill_rowoff(const Meta& m, int H, int Hs, int WGc, int tid,
+                                            int nth) {
+  for (int y = tid; y < H; y += nth) {
+    const int s = y / Hs, o = m.slab[s];
+    m.rowoff[y] = o < 0 ? -1 : o + (y - s * Hs) * WGc;
+  }
+}
+
+// The producer warp plans item `it` into meta m: the pass, the active slabs, lane 0's
+// placement in a.cap elements, the rows' offsets and, with `st` (the forward), the runs' ends
+// copied there.  Ends with a __syncwarp: lane 0 then arrives on
+// the item's barrier (in the forward with the runs' bulk copies), releasing every lane's
+// writes to the consumers.
+template <typename T, int KT, bool BWD, int V>
+__device__ void plan_item(const Item& it, const SlabArgs& a, const Meta& m, const T* img,
+                          const float* fy, const float* mask, const float* dout, T* st,
+                          int lane) {
+  const int WGc = a.W * a.Gc;
+  item_pass<KT, BWD, V>(fy, mask, dout, it.q0, it.nq, a.K, a.Gc, lane, m);
+  __syncwarp();
+  mark_slabs(m, a.K, a.nslab, a.Hs, lane, 32);
+  __syncwarp();
+  // the backward adds on chip only where its scale S is finite; else every tap goes to
+  // device memory, as in dense K8
+  if (lane == 0)
+    place_runs(m, a.K, a.nslab, a.Hs, WGc, static_cast<long long>(it.bg) * a.H * WGc, a.cap,
+               !BWD || *m.S <= 3.402823466e38f);
+  __syncwarp();
+  fill_rowoff(m, a.H, a.Hs, WGc, lane, 32);
+  if (st != nullptr) copy_ends(m, img, st, lane, 32);
+  __syncwarp();
+}
+
+// ---------------------------------------------------------------------------
+// Forward.
+// ---------------------------------------------------------------------------
+
+template <typename T, int V, int KT, int FORM>
+__device__ __forceinline__ void gather_item(const Item& it, const SlabArgs& a,
+                                            const T* __restrict__ xg,
+                                            const float* __restrict__ fx,
+                                            const float* __restrict__ fy,
+                                            const float* __restrict__ mask,
+                                            float* __restrict__ out, const T* st,
+                                            const Rows& rows, int tid, int nth) {
+  const size_t map = static_cast<size_t>(a.H) * a.W * a.Gc;
+  if constexpr (FORM == kFlat4) {
+    // group g (outputs 4g .. 4g + 3) belongs to the item that holds query floor(4g / Gc)
+    const BandFamily<T> maps{xg, map, st, rows, a.W * a.Gc, static_cast<unsigned>(it.bg)};
+    const int g0 = (it.q0 * a.Gc + 3) / 4, g1 = ((it.q0 + it.nq) * a.Gc + 3) / 4;
+    for (int g = g0 + tid; g < g1; g += nth)
+      gather_flat4<T, KT>(maps, fx, fy, mask, out, 4 * g, a.n, a.by_n, a.by_p, a.H, a.W, a.Gc);
   } else {
-    for (int i = threadIdx.x; i < n; i += SL_THREADS) dst[i] = src[i];
+    const BandCorners<T> src{xg + it.bg * map, st, rows, a.W * a.Gc};
+    const int ne = it.nq * a.n;
+    auto query = [&](int e) { return it.q0 + static_cast<int>(fast_div(e, a.by_n)); };
+    if constexpr (KT == 0) {
+      for (int e = tid; e < ne; e += nth) {
+        const int q = query(e), c = (e - (q - it.q0) * a.n) * V;
+        gather_vector<V, KT, int>(src, fx, fy, mask, out + static_cast<size_t>(q) * a.Gc, q, c,
+                                  a.H, a.W, a.K, a.Gc);
+      }
+    } else {  // the next element's taps load while this one is gathered
+      int e = tid;
+      Taps<KT> cur, nxt;
+      if (e < ne) load_taps<KT>(cur, fx, fy, mask, query(e));
+      for (; e < ne; e += nth) {
+        const int q = query(e), c = (e - (q - it.q0) * a.n) * V;
+        if (e + nth < ne) load_taps<KT>(nxt, fx, fy, mask, query(e + nth));
+        gather_taps<V, KT>(src, cur, out + static_cast<size_t>(q) * a.Gc, c, a.H, a.W, a.Gc);
+        cur = nxt;
+      }
+    }
   }
 }
 
-__device__ __forceinline__ void copy_done(bool vec) {
-  if (vec) {
-    cp_async_commit();
-    cp_async_wait<0>();
-  }
-  __syncthreads();
-}
-
-__device__ __forceinline__ bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
-
-__device__ __forceinline__ void ld(const float* p, float (&v)[4]) {
-  const float4 t = *reinterpret_cast<const float4*>(p);
-  v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-}
-__device__ __forceinline__ void ld(const bf16* p, float (&v)[4]) {
-  const uint2 t = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&t.x);
-  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&t.y);
-  v[0] = __low2float(a); v[1] = __high2float(a); v[2] = __low2float(b); v[3] = __high2float(b);
-}
-__device__ __forceinline__ void ld(const float* p, float (&v)[1]) { v[0] = *p; }
-__device__ __forceinline__ void ld(const bf16* p, float (&v)[1]) { v[0] = __bfloat162float(*p); }
-
-// One corner's V channels from the staged rows: row `r` and column `x` of
-// the staged array (row stride `ld_row` elements), or zeros off the map.
-template <typename T, int V>
-__device__ __forceinline__ void corner(const T* data, bool valid, int r, int x, int ld_row, int Gc,
-                                       int c, float (&v)[V]) {
-  if (valid) {
-    ld(data + static_cast<size_t>(r) * ld_row + x * Gc + c, v);
-  } else {
-#pragma unroll
-    for (int j = 0; j < V; ++j) v[j] = 0.f;
-  }
-}
-
-// The tap's sum in K8's order and rounding (bilinear_gather.cu:96-102).
-template <int V>
-__device__ __forceinline__ void tap_sum(const Tap& t, const float (&v00)[V], const float (&v01)[V],
-                                        const float (&v10)[V], const float (&v11)[V],
-                                        float (&s)[V]) {
-#pragma unroll
-  for (int j = 0; j < V; ++j) {
-    float u = __fmul_rn(v00[j], t.w00);
-    u = __fadd_rn(u, __fmul_rn(v01[j], t.w01));
-    u = __fadd_rn(u, __fmul_rn(v10[j], t.w10));
-    s[j] = __fadd_rn(u, __fmul_rn(v11[j], t.w11));
-  }
-}
-
-// Geometry of plan 2's cells: RC rows (+1 halo) by WT columns (+1 halo),
-// `bytes` per element, in `cap` bytes.
-__device__ __forceinline__ void cell_shape(size_t cap, int W, int Gc, size_t bytes, int& RC,
-                                           int& WT) {
-  const size_t row = static_cast<size_t>(W) * Gc * bytes;
-  if (2 * row <= cap) {
-    WT = W;
-    RC = static_cast<int>(cap / row) - 1;
-  } else {
-    RC = 1;
-    WT = static_cast<int>(cap / (2 * static_cast<size_t>(Gc) * bytes)) - 1;
-  }
-}
-
-// The chunk and tile that own a tap: those holding its floor corner, clamped
-// into the tap's rows [ra, rb) and the map's columns.
-__device__ __forceinline__ bool owns(const Tap& t, int ra, int rb, int RC, int nchunks, int WT,
-                                     int W, int ch, int tl) {
-  const int oy = min(max(t.y0, ra), max(ra, rb - 1));
-  const int ox = min(max(t.x0, 0), W - 1);
-  return min((oy - ra) / RC, nchunks - 1) == ch && ox / WT == tl;
-}
-
-template <typename T, int V>
-__global__ void __launch_bounds__(SL_THREADS)
+// Shared memory: four mbarriers (32 bytes: full and empty of two stages), two metas, two
+// stages of a.cap elements.  The last warp plans item j + 1 (its band by bulk copies) while
+// the others gather item j.
+template <typename T, int V, int KT, int FORM>
+__global__ void __launch_bounds__(SL_THREADS, 1)
 slab_fwd_kernel(const T* __restrict__ xg, const float* __restrict__ fx,
                 const float* __restrict__ fy, const float* __restrict__ mask,
-                float* __restrict__ out, int H, int W, int P, int K, int Gc, int Hs,
-                int tpg_log2, int smem_bytes) {
+                float* __restrict__ out, const SlabArgs a) {
   extern __shared__ __align__(16) unsigned char sl_smem[];
-  const int nblk = (P + SL_PB - 1) / SL_PB;
-  const int bg = blockIdx.x / nblk, p0 = (blockIdx.x % nblk) * SL_PB;
-  const int nslab = H / Hs, WGc = W * Gc;
-  const Meta meta = carve_meta(sl_smem, K, nslab);
-  const size_t meta_b = slab_meta_bytes(K, nslab);
-  T* data = reinterpret_cast<T*>(sl_smem + meta_b);
-  const size_t cap = static_cast<size_t>(smem_bytes) - meta_b;
-  block_band(fy, bg, p0, P, K, H, Hs, meta);
-
-  const T* img = xg + static_cast<size_t>(bg) * H * WGc;
-  const int tpg = 1 << tpg_log2, group = threadIdx.x >> tpg_log2, lane = threadIdx.x & (tpg - 1);
-  const int ngroups = SL_THREADS >> tpg_log2, nvec = Gc / V;
-  const int nact = meta.misc[0];
-
-  if (static_cast<size_t>(nact) * Hs * WGc * sizeof(T) <= cap) {  // plan 1
-    const bool vec = (WGc * sizeof(T)) % 16 == 0 && aligned16(img);
-    for (int s = 0; s < nslab; ++s)
-      if (meta.slot[s] >= 0)
-        copy_span(data + static_cast<size_t>(meta.slot[s]) * Hs * WGc,
-                  img + static_cast<size_t>(s) * Hs * WGc, Hs * WGc, vec);
-    copy_done(vec);
-    const int* slot = meta.slot;
-    auto srow = [&](int y) { return slot[y / Hs] * Hs + y % Hs; };
-    for (int qi = group; qi < SL_PB && p0 + qi < P; qi += ngroups) {
-      const size_t q = static_cast<size_t>(bg) * P + p0 + qi;
-      for (int cv = lane; cv < nvec; cv += tpg) {
-        const int c = cv * V;
-        float acc[V];
-#pragma unroll
-        for (int j = 0; j < V; ++j) acc[j] = 0.f;
-        for (int k = 0; k < K; ++k) {
-          const size_t i = q * K + k;
-          const Tap t = make_tap(fx[i], fy[i], H, W);
-          const float m = mask[i];
-          float v00[V], v01[V], v10[V], v11[V], s[V];
-          corner<T, V>(data, t.v00, t.v00 ? srow(t.cy0) : 0, t.cx0, WGc, Gc, c, v00);
-          corner<T, V>(data, t.v01, t.v01 ? srow(t.cy0) : 0, t.cx1, WGc, Gc, c, v01);
-          corner<T, V>(data, t.v10, t.v10 ? srow(t.cy1) : 0, t.cx0, WGc, Gc, c, v10);
-          corner<T, V>(data, t.v11, t.v11 ? srow(t.cy1) : 0, t.cx1, WGc, Gc, c, v11);
-          tap_sum<V>(t, v00, v01, v10, v11, s);
-#pragma unroll
-          for (int j = 0; j < V; ++j) acc[j] = __fadd_rn(acc[j], __fmul_rn(m, s[j]));
-        }
-        float* o = out + q * Gc + c;
-#pragma unroll
-        for (int j = 0; j < V; ++j) o[j] = acc[j];
-      }
+  uint64_t* full = reinterpret_cast<uint64_t*>(sl_smem);
+  uint64_t* empty = full + 2;
+  int* mb = reinterpret_cast<int*>(sl_smem + 32);
+  auto meta = [&](int s) { return Meta(mb + s * a.meta, a.K, a.nslab, a.H); };
+  auto stage = [&](int s) { return reinterpret_cast<T*>(sl_smem + 32 + 8 * a.meta) + s * a.cap; };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], SL_WARPS - 1);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+  const size_t map = static_cast<size_t>(a.H) * a.W * a.Gc;
+  if (warp == SL_WARPS - 1) {  // the producer
+    int j = 0;
+    for (int i = blockIdx.x; i < a.items; i += gridDim.x, ++j) {
+      const int s = j & 1;
+      if (j >= 2) mbar_wait(&empty[s], ((j - 2) >> 1) & 1);  // item j - 2 is gathered
+      const Item it = item_at(i, a);
+      const T* img = xg + it.bg * map;
+      plan_item<T, KT, false, 1>(it, a, meta(s), img, fy, nullptr, nullptr, stage(s), lane);
+      if (lane == 0) issue_copies(meta(s), img, stage(s), &full[s]);
     }
     return;
   }
-
-  // plan 2: tap by tap, cell by cell, accumulating in `out`
-  for (int qi = group; qi < SL_PB && p0 + qi < P; qi += ngroups) {
-    const size_t q = static_cast<size_t>(bg) * P + p0 + qi;
-    for (int cv = lane; cv < nvec; cv += tpg)
-#pragma unroll
-      for (int j = 0; j < V; ++j) out[q * Gc + cv * V + j] = 0.f;
+  int j = 0;
+  for (int i = blockIdx.x; i < a.items; i += gridDim.x, ++j) {
+    const int s = j & 1;
+    mbar_wait(&full[s], (j >> 1) & 1);
+    gather_item<T, V, KT, FORM>(item_at(i, a), a, xg, fx, fy, mask, out, stage(s),
+                                rows_of(meta(s), a.W * a.Gc), threadIdx.x, SL_CONSUMERS);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
   }
-  int RC, WT;
-  cell_shape(cap, W, Gc, sizeof(T), RC, WT);
-  const bool vec = (Gc * sizeof(T)) % 16 == 0 && aligned16(img);
-  const int ntiles = (W + WT - 1) / WT;
-  for (int k = 0; k < K; ++k) {
-    int ra, rb;
-    tap_rows(meta, k, nslab, Hs, ra, rb);
-    const int nchunks = ra < rb ? (rb - ra + RC - 1) / RC : 1;
-    for (int ch = 0; ch < nchunks; ++ch) {
-      const int cs = ra + ch * RC, ce = ra < rb ? min(cs + RC + 1, H) : cs;
-      for (int tl = 0; tl < ntiles; ++tl) {
-        const int ts = tl * WT, te = min(ts + WT + 1, W), ncols = te - ts;
-        __syncthreads();  // the previous cell is no longer read
-        for (int r = cs; r < ce; ++r)
-          copy_span(data + static_cast<size_t>(r - cs) * ncols * Gc,
-                    img + (static_cast<size_t>(r) * W + ts) * Gc, ncols * Gc, vec);
-        copy_done(vec);
-        for (int qi = group; qi < SL_PB && p0 + qi < P; qi += ngroups) {
-          const size_t q = static_cast<size_t>(bg) * P + p0 + qi;
-          const size_t i = q * K + k;
-          const Tap t = make_tap(fx[i], fy[i], H, W);
-          if (!owns(t, ra, rb, RC, nchunks, WT, W, ch, tl)) continue;
-          const float m = mask[i];
-          const int ld_row = ncols * Gc;
-          for (int cv = lane; cv < nvec; cv += tpg) {
-            const int c = cv * V;
-            float v00[V], v01[V], v10[V], v11[V], s[V];
-            corner<T, V>(data, t.v00, t.cy0 - cs, t.cx0 - ts, ld_row, Gc, c, v00);
-            corner<T, V>(data, t.v01, t.cy0 - cs, t.cx1 - ts, ld_row, Gc, c, v01);
-            corner<T, V>(data, t.v10, t.cy1 - cs, t.cx0 - ts, ld_row, Gc, c, v10);
-            corner<T, V>(data, t.v11, t.cy1 - cs, t.cx1 - ts, ld_row, Gc, c, v11);
-            tap_sum<V>(t, v00, v01, v10, v11, s);
-            float* o = out + q * Gc + c;
-#pragma unroll
-            for (int j = 0; j < V; ++j) o[j] = __fadd_rn(o[j], __fmul_rn(m, s[j]));
-          }
-        }
-      }
+}
+
+// ---------------------------------------------------------------------------
+// Backward.
+// ---------------------------------------------------------------------------
+
+// Adds the item's partial (the staged runs, hi / lo at the 16-byte phase of dX's address)
+// into dX in device memory and zeroes it: 16-byte reductions of the nonzero 4-vectors of the
+// aligned middle, scalar ones at the ends.
+__device__ void flush_runs(const Meta& m, float* dimg, int* hi, int* lo, const FixedOut& to,
+                           int tid, int nth) {
+  for (int j = 0; j < m.runs[0]; ++j) {
+    float* g = dimg + m.runs[1 + 3 * j];
+    const int n = m.runs[2 + 3 * j];
+    int* ph = hi + m.runs[3 + 3 * j];
+    int* pl = lo + m.runs[3 + 3 * j];
+    int h, t;
+    split16(g, n, h, t);
+    for (int e = h + 4 * tid; e < t; e += 4 * nth) {
+      const int4 x = *reinterpret_cast<const int4*>(ph + e);
+      const int4 y = *reinterpret_cast<const int4*>(pl + e);
+      if ((x.x | x.y | x.z | x.w | y.x | y.y | y.z | y.w) == 0) continue;
+      atomicAdd(reinterpret_cast<float4*>(g + e),
+                make_float4(to(x.x, y.x), to(x.y, y.y), to(x.z, y.z), to(x.w, y.w)));
+      *reinterpret_cast<int4*>(ph + e) = make_int4(0, 0, 0, 0);
+      *reinterpret_cast<int4*>(pl + e) = make_int4(0, 0, 0, 0);
+    }
+    for (int e = tid; e < h + n - t; e += nth) {
+      const int f = e < h ? e : t + (e - h);  // the head, then the tail
+      if ((ph[f] | pl[f]) == 0) continue;
+      atomicAdd(g + f, to(ph[f], pl[f]));
+      ph[f] = pl[f] = 0;
     }
   }
 }
 
-// One (query, tap) of the backward for the lanes of a group: the partial
-// dfx / dfy / dmask sums over this lane's channels, and g * w of each valid
-// corner added to the fp32 dX tile (shared atomics).  `row(y)` and `col(x)`
-// place a map row / column in the staged arrays (row stride ld_row).
-template <typename T, int V, typename RowFn, typename ColFn>
-__device__ __forceinline__ void bwd_tap(const T* data, float* dacc, int ld_row, const Tap& t,
-                                        float m, const float* r_row, int Gc, int lane, int tpg,
-                                        RowFn row, ColFn col, float& gx, float& gy, float& gm) {
-  const float ax = 1.f - t.wx, ay = 1.f - t.wy;
-  const int nvec = Gc / V;
-  const int r0 = t.v00 || t.v01 ? row(t.cy0) : 0, r1 = t.v10 || t.v11 ? row(t.cy1) : 0;
-  const int c0 = col(t.cx0), c1 = col(t.cx1);
-  for (int cv = lane; cv < nvec; cv += tpg) {
-    const int c = cv * V;
-    float r[V], v00[V], v01[V], v10[V], v11[V], g[V];
-    ld(r_row + c, r);
-    corner<T, V>(data, t.v00, r0, c0, ld_row, Gc, c, v00);
-    corner<T, V>(data, t.v01, r0, c1, ld_row, Gc, c, v01);
-    corner<T, V>(data, t.v10, r1, c0, ld_row, Gc, c, v10);
-    corner<T, V>(data, t.v11, r1, c1, ld_row, Gc, c, v11);
-#pragma unroll
-    for (int j = 0; j < V; ++j) {
-      const float top = v00[j] * ax + v01[j] * t.wx;
-      const float bot = v10[j] * ax + v11[j] * t.wx;
-      gm += r[j] * (top * ay + bot * t.wy);
-      g[j] = m * r[j];
-      gx += g[j] * ((v01[j] - v00[j]) * ay + (v11[j] - v10[j]) * t.wy);
-      gy += g[j] * (bot - top);
-    }
-#pragma unroll
-    for (int j = 0; j < V; ++j) {
-      if (t.v00) atomicAdd(dacc + static_cast<size_t>(r0) * ld_row + c0 * Gc + c + j, g[j] * t.w00);
-      if (t.v01) atomicAdd(dacc + static_cast<size_t>(r0) * ld_row + c1 * Gc + c + j, g[j] * t.w01);
-      if (t.v10) atomicAdd(dacc + static_cast<size_t>(r1) * ld_row + c0 * Gc + c + j, g[j] * t.w10);
-      if (t.v11) atomicAdd(dacc + static_cast<size_t>(r1) * ld_row + c1 * Gc + c + j, g[j] * t.w11);
-    }
-  }
-}
-
-__device__ __forceinline__ void group_reduce(unsigned gmask, int tpg, float& gx, float& gy,
-                                             float& gm) {
-  for (int s = tpg >> 1; s > 0; s >>= 1) {
-    gx += __shfl_xor_sync(gmask, gx, s);
-    gy += __shfl_xor_sync(gmask, gy, s);
-    gm += __shfl_xor_sync(gmask, gm, s);
-  }
-}
-
-template <typename T, int V>
-__global__ void __launch_bounds__(SL_THREADS)
+// Shared memory: four mbarriers (32 bytes: full and empty of two metas), two metas, then the
+// partial's hi and lo words (a.cap each, zero between items).  The last warp plans item j + 1
+// while the others add item j's dX; those flush it and zero the partial before item j + 1.
+// ONE as in bwd_query.
+template <typename T, int V, bool ONE>
+__global__ void __launch_bounds__(SL_THREADS, 1)
 slab_bwd_kernel(const T* __restrict__ xg, const float* __restrict__ fx,
                 const float* __restrict__ fy, const float* __restrict__ mask,
                 const float* __restrict__ dout, float* __restrict__ dxg,
                 float* __restrict__ dfx, float* __restrict__ dfy, float* __restrict__ dmask,
-                int H, int W, int P, int K, int Gc, int Hs, int tpg_log2, int smem_bytes) {
+                const SlabArgs a, int tpg_log2) {
   extern __shared__ __align__(16) unsigned char sl_smem[];
-  const int nblk = (P + SL_PB - 1) / SL_PB;
-  const int bg = blockIdx.x / nblk, p0 = (blockIdx.x % nblk) * SL_PB;
-  const int nslab = H / Hs, WGc = W * Gc;
-  const Meta meta = carve_meta(sl_smem, K, nslab);
-  const size_t meta_b = slab_meta_bytes(K, nslab);
-  unsigned char* base = sl_smem + meta_b;
-  const size_t cap = static_cast<size_t>(smem_bytes) - meta_b;
-  block_band(fy, bg, p0, P, K, H, Hs, meta);
-
-  const size_t img_off = static_cast<size_t>(bg) * H * WGc;
-  const T* img = xg + img_off;
-  float* dimg = dxg + img_off;
-  const int tpg = 1 << tpg_log2, group = threadIdx.x >> tpg_log2, lane = threadIdx.x & (tpg - 1);
-  const int ngroups = SL_THREADS >> tpg_log2;
-  const unsigned gmask = tpg == 32 ? 0xffffffffu
-                                   : ((1u << tpg) - 1u) << ((threadIdx.x & 31) & ~(tpg - 1));
-  const int nact = meta.misc[0];
-  const size_t n1 = static_cast<size_t>(nact) * Hs * WGc;
-
-  if (align_up(n1 * sizeof(T), 16) + n1 * 4 <= cap) {  // plan 1
-    T* data = reinterpret_cast<T*>(base);
-    float* dacc = reinterpret_cast<float*>(base + align_up(n1 * sizeof(T), 16));
-    const bool vec = (WGc * sizeof(T)) % 16 == 0 && aligned16(img);
-    for (int s = 0; s < nslab; ++s)
-      if (meta.slot[s] >= 0)
-        copy_span(data + static_cast<size_t>(meta.slot[s]) * Hs * WGc,
-                  img + static_cast<size_t>(s) * Hs * WGc, Hs * WGc, vec);
-    for (size_t e = threadIdx.x; e < n1; e += SL_THREADS) dacc[e] = 0.f;
-    copy_done(vec);
-    const int* slot = meta.slot;
-    auto row = [&](int y) { return slot[y / Hs] * Hs + y % Hs; };
-    auto col = [](int x) { return x; };
-    for (int qi = group; qi < SL_PB; qi += ngroups) {
-      const bool active = p0 + qi < P;  // the same for every lane of the group
-      const size_t q = static_cast<size_t>(bg) * P + (active ? p0 + qi : 0);
-      for (int k = 0; k < K; ++k) {
-        const size_t i = q * K + k;
-        float gx = 0.f, gy = 0.f, gm = 0.f;
-        if (active) {
-          const Tap t = make_tap(fx[i], fy[i], H, W);
-          bwd_tap<T, V>(data, dacc, WGc, t, mask[i], dout + q * Gc, Gc, lane, tpg, row, col, gx,
-                        gy, gm);
-        }
-        group_reduce(gmask, tpg, gx, gy, gm);
-        if (active && lane == 0) {
-          dfx[i] = gx;
-          dfy[i] = gy;
-          dmask[i] = gm;
-        }
-      }
+  uint64_t* full = reinterpret_cast<uint64_t*>(sl_smem);
+  uint64_t* empty = full + 2;
+  int* mb = reinterpret_cast<int*>(sl_smem + 32);
+  auto meta = [&](int s) { return Meta(mb + s * a.meta, a.K, a.nslab, a.H); };
+  int* hi = mb + 2 * a.meta;
+  int* lo = hi + a.cap;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], SL_WARPS - 1);
     }
-    __syncthreads();
-    for (int s = 0; s < nslab; ++s) {
-      if (meta.slot[s] < 0) continue;
-      const float* src = dacc + static_cast<size_t>(meta.slot[s]) * Hs * WGc;
-      float* dst = dimg + static_cast<size_t>(s) * Hs * WGc;
-      for (int e = threadIdx.x; e < Hs * WGc; e += SL_THREADS)
-        if (src[e] != 0.f) atomicAdd(dst + e, src[e]);
+    mbar_fence_init();
+  }
+  for (int e = threadIdx.x; e < a.cap; e += SL_THREADS) hi[e] = lo[e] = 0;
+  __syncthreads();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+  const int WGc = a.W * a.Gc, tpg = 1 << tpg_log2;
+  const size_t map = static_cast<size_t>(a.H) * WGc;
+  if (warp == SL_WARPS - 1) {  // the producer
+    int j = 0;
+    for (int i = blockIdx.x; i < a.items; i += gridDim.x, ++j) {
+      const int s = j & 1;
+      if (j >= 2) mbar_wait(&empty[s], ((j - 2) >> 1) & 1);  // item j - 2 is flushed
+      const Item it = item_at(i, a);
+      plan_item<T, 0, true, V>(it, a, meta(s), xg + it.bg * map, fy, mask, dout, nullptr,
+                               lane);
+      if (lane == 0) mbar_arrive(&full[s]);
     }
     return;
   }
-
-  // plan 2: tap by tap, cell by cell, each cell's dX tile flushed after it
-  int RC, WT;
-  cell_shape(cap - 16, W, Gc, sizeof(T) + 4, RC, WT);
-  const bool vec = (Gc * sizeof(T)) % 16 == 0 && aligned16(img);
-  const int ntiles = (W + WT - 1) / WT;
-  for (int k = 0; k < K; ++k) {
-    int ra, rb;
-    tap_rows(meta, k, nslab, Hs, ra, rb);
-    const int nchunks = ra < rb ? (rb - ra + RC - 1) / RC : 1;
-    for (int ch = 0; ch < nchunks; ++ch) {
-      const int cs = ra + ch * RC, ce = ra < rb ? min(cs + RC + 1, H) : cs;
-      for (int tl = 0; tl < ntiles; ++tl) {
-        const int ts = tl * WT, te = min(ts + WT + 1, W), ncols = te - ts;
-        const int ld_row = ncols * Gc;
-        const size_t n2 = static_cast<size_t>(ce - cs) * ld_row;
-        T* data = reinterpret_cast<T*>(base);
-        float* dacc = reinterpret_cast<float*>(base + align_up(n2 * sizeof(T), 16));
-        __syncthreads();  // the previous cell is flushed
-        for (int r = cs; r < ce; ++r)
-          copy_span(data + static_cast<size_t>(r - cs) * ld_row,
-                    img + (static_cast<size_t>(r) * W + ts) * Gc, ld_row, vec);
-        for (size_t e = threadIdx.x; e < n2; e += SL_THREADS) dacc[e] = 0.f;
-        copy_done(vec);
-        auto row = [&](int y) { return y - cs; };
-        auto col = [&](int x) { return x - ts; };
-        for (int qi = group; qi < SL_PB; qi += ngroups) {
-          if (p0 + qi >= P) continue;  // the same for every lane of the group
-          const size_t q = static_cast<size_t>(bg) * P + p0 + qi;
-          const size_t i = q * K + k;
-          const Tap t = make_tap(fx[i], fy[i], H, W);
-          if (!owns(t, ra, rb, RC, nchunks, WT, W, ch, tl)) continue;
-          float gx = 0.f, gy = 0.f, gm = 0.f;
-          bwd_tap<T, V>(data, dacc, ld_row, t, mask[i], dout + q * Gc, Gc, lane, tpg, row, col, gx,
-                        gy, gm);
-          group_reduce(gmask, tpg, gx, gy, gm);
-          if (lane == 0) {
-            dfx[i] = gx;
-            dfy[i] = gy;
-            dmask[i] = gm;
-          }
-        }
-        __syncthreads();
-        for (size_t e = threadIdx.x; e < n2; e += SL_THREADS) {
-          if (dacc[e] == 0.f) continue;
-          const int r = static_cast<int>(e / ld_row), rem = static_cast<int>(e % ld_row);
-          atomicAdd(dimg + static_cast<size_t>(cs + r) * WGc + static_cast<size_t>(ts) * Gc + rem,
-                    dacc[e]);
-        }
-      }
+  int j = 0;
+  for (int i = blockIdx.x; i < a.items; i += gridDim.x, ++j) {
+    const int s = j & 1;
+    mbar_wait(&full[s], (j >> 1) & 1);
+    const Item it = item_at(i, a);
+    const Meta m = meta(s);
+    const T* img = xg + it.bg * map;
+    float* dimg = dxg + it.bg * map;
+    const float S = *m.S;
+    int sh, lob;
+    const BandSink sink{dimg, hi, lo, rows_of(m, WGc), WGc, fixed_for(S, it.nq * a.K, sh, lob)};
+    const MapCorners<T> src{img};
+    // every lane of a warp takes part in the shuffles: the loop's trip count is the warps'
+    const int ne = it.nq << tpg_log2;
+    for (int e0 = 0; e0 < ne; e0 += SL_CONSUMERS) {
+      const int e = e0 + static_cast<int>(threadIdx.x);
+      const int ql = e >> tpg_log2;
+      const bool active = ql < it.nq;
+      const size_t q = static_cast<size_t>(it.q0 + (active ? ql : 0));
+      bwd_query<V, ONE, true>(src, sink, fx, fy, mask, dout + q * a.Gc, dfx, dfy, dmask, q,
+                              active, e & (tpg - 1), tpg, a.H, a.W, a.K, a.Gc);
     }
+    named_barrier_sync(1, SL_CONSUMERS);  // every add of the item is in the partial
+    flush_runs(m, dimg, hi, lo, fixed_out(S, sh, lob), threadIdx.x, SL_CONSUMERS);
+    named_barrier_sync(1, SL_CONSUMERS);  // the partial is zero again
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
   }
 }
 
-int slab_tpg_log2(int nvec) {
-  int l = 0;
-  while ((1 << l) < nvec && l < 5) ++l;
-  return l;
+// ---------------------------------------------------------------------------
+// Launch.
+// ---------------------------------------------------------------------------
+
+// The plan of a launch (a model of it: samrs_tpu_torch/kernels/bilinear_gather.py::
+// slab_plan): false where none takes the shape.  `cap` elements a stage: the whole map where it
+// fits (one item a map), else as many slabs as fit (8 elements each for the run's phase), and
+// an item spans the output rows of all but two of them (one slab where fewer than three fit).
+// The forward has two stages of map rows; the backward one stage of the fixed-point partial
+// (8 bytes an element; its corners come from L2, as dense K8's).
+bool item_plan(int BG, int H, int W, int P, int K, int Gc, int Hs, int esz, bool bwd,
+               SlabArgs& a, int& smem) {
+  if (BG <= 0 || H <= 0 || W <= 0 || P <= 0 || K <= 0 || Gc <= 0 || Hs <= 0 || H % Hs ||
+      K > SL_MAX_K)
+    return false;
+  const long long lim = 1LL << 31, BP = static_cast<long long>(BG) * P;
+  if (BP * K >= lim || BP * Gc + 4 >= lim || static_cast<long long>(H) * W * Gc >= lim)
+    return false;
+  a.H = H, a.W = W, a.P = P, a.K = K, a.Gc = Gc, a.Hs = Hs, a.nslab = H / Hs;
+  a.meta = meta_ints(K, H, a.nslab);
+  const long long fixed = 32 + 8LL * a.meta;  // four mbarriers, two metas
+  if (fixed + 1024 > SL_BUDGET) return false;
+  const long long slab_el = static_cast<long long>(Hs) * W * Gc, whole = a.nslab * slab_el + 8;
+  const int per = bwd ? 8 : 2 * esz;  // bytes an element: two stages, or the partial's words
+  const long long cmax = (SL_BUDGET - fixed) / per / 8 * 8;
+  long long L = P, cap = align_up(whole, 8);
+  if (whole > cmax) {
+    const long long C = cmax / (slab_el + 8);
+    L = (C >= 3 ? C - 2 : 1) * Hs * W;
+    cap = C * (slab_el + 8);
+  }
+  a.L = static_cast<int>(L < P ? L : P);
+  a.nitem = (P + a.L - 1) / a.L;
+  a.items = static_cast<int>(BG * static_cast<long long>(a.nitem));
+  a.cap = static_cast<int>(cap);
+  smem = static_cast<int>(fixed + cap * per);
+  return true;
 }
 
-template <typename T, int V, bool BWD>
-int launch_slab(const void* xg, const void* fx, const void* fy, const void* mask, const void* dout,
-                void* out, void* dfx, void* dfy, void* dmask, int BG, int H, int W, int P, int K,
-                int Gc, int Hs, cudaStream_t stream) {
-  const int nslab = H / Hs;
-  const int l = slab_tpg_log2(Gc / V);
-  const size_t meta = slab_meta_bytes(K, nslab);
-  const size_t n = static_cast<size_t>(H) * W * Gc;
-  // the whole map staged (plan 1 always fits), or the budget
-  const size_t full = meta + (BWD ? align_up(n * sizeof(T), 16) + n * 4 : n * sizeof(T));
-  const size_t smem = full < SL_BUDGET ? full : SL_BUDGET;
-  // plan 2's least cell, two rows of two pixels (+ alignment in the backward)
-  const size_t least = meta + 4 * static_cast<size_t>(Gc) * (BWD ? sizeof(T) + 4 : sizeof(T)) +
-                       (BWD ? 16 : 0);
-  if (smem < full && least > smem) return cudaErrorInvalidValue;
-  const long long nblk = (P + SL_PB - 1) / SL_PB;
-  const long long blocks = nblk * BG;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  if (BWD) {
-    cudaError_t err = cudaFuncSetAttribute(slab_bwd_kernel<T, V>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    slab_bwd_kernel<T, V><<<static_cast<unsigned>(blocks), SL_THREADS, smem, stream>>>(
-        static_cast<const T*>(xg), static_cast<const float*>(fx), static_cast<const float*>(fy),
-        static_cast<const float*>(mask), static_cast<const float*>(dout), static_cast<float*>(out),
-        static_cast<float*>(dfx), static_cast<float*>(dfy), static_cast<float*>(dmask), H, W, P, K,
-        Gc, Hs, l, static_cast<int>(smem));
-  } else {
-    cudaError_t err = cudaFuncSetAttribute(slab_fwd_kernel<T, V>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    slab_fwd_kernel<T, V><<<static_cast<unsigned>(blocks), SL_THREADS, smem, stream>>>(
-        static_cast<const T*>(xg), static_cast<const float*>(fx), static_cast<const float*>(fy),
-        static_cast<const float*>(mask), static_cast<float*>(out), H, W, P, K, Gc, Hs, l,
-        static_cast<int>(smem));
-  }
+template <typename K>
+int grid_for(K kernel, int smem, int items, int& grid) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  int occ = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, SL_THREADS, smem);
+  if (err != cudaSuccess) return err;
+  if (occ < 1) return cudaErrorInvalidConfiguration;
+  grid = min(items, occ * sm_count());
+  return cudaSuccess;
+}
+
+template <typename T, int V, int KT, int FORM>
+int launch_fwd_k(const void* xg, const void* fx, const void* fy, const void* mask, void* out,
+                 SlabArgs a, int smem, cudaStream_t stream) {
+  auto kernel = slab_fwd_kernel<T, V, KT, FORM>;
+  int grid = 0;
+  const int err = grid_for(kernel, smem, a.items, grid);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, SL_THREADS, smem, stream>>>(
+      static_cast<const T*>(xg), static_cast<const float*>(fx), static_cast<const float*>(fy),
+      static_cast<const float*>(mask), static_cast<float*>(out), a);
   return cudaGetLastError();
 }
 
-template <bool BWD>
-int dispatch_slab(const void* xg, const void* fx, const void* fy, const void* mask,
-                  const void* dout, void* out, void* dfx, void* dfy, void* dmask, int BG, int H,
-                  int W, int P, int K, int Gc, int Hs, int is_bf16, void* stream) {
-  if (BG <= 0 || H <= 0 || W <= 0 || P <= 0 || K <= 0 || Gc <= 0 || Hs <= 0 || H % Hs)
-    return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (Gc % 4 == 0)
-    return is_bf16 ? launch_slab<bf16, 4, BWD>(xg, fx, fy, mask, dout, out, dfx, dfy, dmask, BG,
-                                               H, W, P, K, Gc, Hs, s)
-                   : launch_slab<float, 4, BWD>(xg, fx, fy, mask, dout, out, dfx, dfy, dmask, BG,
-                                                H, W, P, K, Gc, Hs, s);
-  return is_bf16 ? launch_slab<bf16, 1, BWD>(xg, fx, fy, mask, dout, out, dfx, dfy, dmask, BG, H,
-                                             W, P, K, Gc, Hs, s)
-                 : launch_slab<float, 1, BWD>(xg, fx, fy, mask, dout, out, dfx, dfy, dmask, BG,
-                                              H, W, P, K, Gc, Hs, s);
+template <typename T, int V, int FORM>
+int launch_fwd_taps(const void* xg, const void* fx, const void* fy, const void* mask, void* out,
+                    SlabArgs a, int smem, cudaStream_t stream) {
+  switch (a.K) {
+    case 4: return launch_fwd_k<T, V, 4, FORM>(xg, fx, fy, mask, out, a, smem, stream);
+    case 9: return launch_fwd_k<T, V, 9, FORM>(xg, fx, fy, mask, out, a, smem, stream);
+    default: return launch_fwd_k<T, V, 0, FORM>(xg, fx, fy, mask, out, a, smem, stream);
+  }
+}
+
+// dense K8's forms: V = 4 / 2 / 1 by Gc, flat-4 at odd Gc >= 3
+template <typename T>
+int launch_fwd(const void* xg, const void* fx, const void* fy, const void* mask, void* out,
+               int BG, int H, int W, int P, int K, int Gc, int Hs, cudaStream_t stream) {
+  SlabArgs a;
+  int smem = 0;
+  if (!item_plan(BG, H, W, P, K, Gc, Hs, sizeof(T), false, a, smem)) return cudaErrorInvalidValue;
+  a.by_p = make_fastdiv(static_cast<unsigned>(P));
+  if (Gc % 2 && Gc >= 3) {
+    a.n = BG * P * Gc;
+    a.by_n = make_fastdiv(static_cast<unsigned>(Gc));
+    return launch_fwd_taps<T, 1, kFlat4>(xg, fx, fy, mask, out, a, smem, stream);
+  }
+  const int V = Gc % 4 == 0 ? 4 : Gc % 2 == 0 ? 2 : 1;
+  a.n = Gc / V;
+  a.by_n = make_fastdiv(static_cast<unsigned>(a.n));
+  if (V == 4) return launch_fwd_taps<T, 4, kVector>(xg, fx, fy, mask, out, a, smem, stream);
+  if (V == 2) return launch_fwd_taps<T, 2, kVector>(xg, fx, fy, mask, out, a, smem, stream);
+  return launch_fwd_taps<T, 1, kVector>(xg, fx, fy, mask, out, a, smem, stream);
+}
+
+template <typename T, int V, bool ONE>
+int launch_bwd_k(const void* xg, const void* fx, const void* fy, const void* mask,
+                 const void* dout, void* dxg, void* dfx, void* dfy, void* dmask, SlabArgs a,
+                 int smem, int l, cudaStream_t stream) {
+  auto kernel = slab_bwd_kernel<T, V, ONE>;
+  int grid = 0;
+  const int err = grid_for(kernel, smem, a.items, grid);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, SL_THREADS, smem, stream>>>(
+      static_cast<const T*>(xg), static_cast<const float*>(fx), static_cast<const float*>(fy),
+      static_cast<const float*>(mask), static_cast<const float*>(dout), static_cast<float*>(dxg),
+      static_cast<float*>(dfx), static_cast<float*>(dfy), static_cast<float*>(dmask), a, l);
+  return cudaGetLastError();
+}
+
+// dense K8's backward mapping: a group of tpg = min(32, pow2ceil(Gc / V)) lanes a query,
+// V = 4 where Gc % 4 == 0, else 1
+template <typename T>
+int launch_bwd(const void* xg, const void* fx, const void* fy, const void* mask,
+               const void* dout, void* dxg, void* dfx, void* dfy, void* dmask, int BG, int H,
+               int W, int P, int K, int Gc, int Hs, cudaStream_t stream) {
+  SlabArgs a;
+  int smem = 0;
+  if (!item_plan(BG, H, W, P, K, Gc, Hs, sizeof(T), true, a, smem)) return cudaErrorInvalidValue;
+  const int V = Gc % 4 == 0 ? 4 : 1, nvec = Gc / V;
+  const int l = tpg_log2_for(nvec);
+  const bool one = nvec <= (1 << l);
+  if (V == 4)
+    return one ? launch_bwd_k<T, 4, true>(xg, fx, fy, mask, dout, dxg, dfx, dfy, dmask, a, smem, l, stream)
+               : launch_bwd_k<T, 4, false>(xg, fx, fy, mask, dout, dxg, dfx, dfy, dmask, a, smem, l, stream);
+  return one ? launch_bwd_k<T, 1, true>(xg, fx, fy, mask, dout, dxg, dfx, dfy, dmask, a, smem, l, stream)
+             : launch_bwd_k<T, 1, false>(xg, fx, fy, mask, dout, dxg, dfx, dfy, dmask, a, smem, l, stream);
 }
 
 }  // namespace
@@ -583,25 +658,28 @@ int dispatch_slab(const void* xg, const void* fx, const void* fy, const void* ma
 
 extern "C" {
 
-// K8 row-slab forward.  xg (BG, H, W, Gc) fp32 (is_bf16 = 0) or bf16
-// (is_bf16 = 1); fx, fy, mask (BG, P, K) fp32; out (BG, P, Gc) fp32; Hs
-// divides H.  All contiguous.
+// K8 row-slab forward.  xg (BG, H, W, Gc) fp32 (is_bf16 = 0) or bf16 (is_bf16 = 1); fx, fy,
+// mask (BG, P, K) fp32; out (BG, P, Gc) fp32; Hs divides H.  All contiguous, with 16-byte
+// aligned bases (torch's allocations).  cudaErrorInvalidValue where no plan takes the shape.
 int samrs_bilinear_slab_fwd(const void* xg, const void* fx, const void* fy, const void* mask,
                             void* out, int BG, int H, int W, int P, int K, int Gc, int Hs,
                             int is_bf16, void* stream) {
-  return samrs::dispatch_slab<false>(xg, fx, fy, mask, nullptr, out, nullptr, nullptr, nullptr,
-                                     BG, H, W, P, K, Gc, Hs, is_bf16, stream);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_bf16 ? samrs::launch_fwd<samrs::bf16>(xg, fx, fy, mask, out, BG, H, W, P, K, Gc, Hs, s)
+                 : samrs::launch_fwd<float>(xg, fx, fy, mask, out, BG, H, W, P, K, Gc, Hs, s);
 }
 
-// K8 row-slab backward.  dout (BG, P, Gc) fp32; dxg (BG, H, W, Gc) fp32,
-// zeroed by the caller and accumulated with atomics; dfx, dfy, dmask (BG, P,
-// K) fp32.
+// K8 row-slab backward.  dout (BG, P, Gc) fp32; dxg (BG, H, W, Gc) fp32, zeroed by the
+// caller and accumulated with reductions; dfx, dfy, dmask (BG, P, K) fp32.
 int samrs_bilinear_slab_bwd(const void* xg, const void* fx, const void* fy, const void* mask,
                             const void* dout, void* dxg, void* dfx, void* dfy, void* dmask, int BG,
                             int H, int W, int P, int K, int Gc, int Hs, int is_bf16,
                             void* stream) {
-  return samrs::dispatch_slab<true>(xg, fx, fy, mask, dout, dxg, dfx, dfy, dmask, BG, H, W, P, K,
-                                    Gc, Hs, is_bf16, stream);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_bf16 ? samrs::launch_bwd<samrs::bf16>(xg, fx, fy, mask, dout, dxg, dfx, dfy, dmask,
+                                                 BG, H, W, P, K, Gc, Hs, s)
+                 : samrs::launch_bwd<float>(xg, fx, fy, mask, dout, dxg, dfx, dfy, dmask, BG, H,
+                                            W, P, K, Gc, Hs, s);
 }
 
 }  // extern "C"

@@ -172,6 +172,17 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned b
       : "memory");
 }
 
+// Where elements [0, n) of device memory at g meet 16-byte boundaries: [0, h) before the
+// first, [t, n) after the last ([0, n) when none lies inside).
+template <typename T>
+__device__ __forceinline__ void split16(const T* g, int n, int& h, int& t) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(g);
+  const uintptr_t lo = (a + 15) & ~uintptr_t(15);
+  const uintptr_t hi = (a + static_cast<size_t>(n) * sizeof(T)) & ~uintptr_t(15);
+  h = lo < hi ? static_cast<int>((lo - a) / sizeof(T)) : n;
+  t = lo < hi ? static_cast<int>((hi - a) / sizeof(T)) : n;
+}
+
 // TMA tile store: the box at (c0, c1) from `src`; past the edges nothing is
 // written.  Completion: bulk_commit, then bulk_wait_read (the source may be
 // reused) for this thread's stores.
