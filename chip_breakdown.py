@@ -140,11 +140,10 @@ inputs.  Before the redesign (told apart by its text, ``is_parent_slab``):
 cp.async copies), ``no_gather`` (no tap loop), ``no_dx_atomics`` (the fp32
 shared tile's atomics skipped) and ``no_flush`` (its flush skipped), and the
 share of blocks that took plan 2 (a counting variant).  On the redesign (with
-csrc/bilinear_tap.cuh inlined): ``no_gather`` (the consumers' gather or
-scatter loops skipped: what is left is the producer's planning and copies
-and the flush), ``no_dx_atomics`` (the fixed-point adds skipped),
-``no_flush`` and ``no_band`` (nothing placed on chip: every tap reads and
-adds to device memory).
+csrc/bilinear_tap.cuh inlined), the forward with ``no_gather`` (the
+consumers' gather loops skipped: what is left is the producer's planning
+and copies) and ``no_band`` (nothing placed on chip: every tap reads device
+memory); its backward, dense K8's kernel, in the full variant only.
 """
 
 from __future__ import annotations
@@ -1110,23 +1109,15 @@ SLAB_CASES = (("ii_l0", 260, 56, 16, 56 * 56, 9, "dcn"), ("ii_l2", 1040, 14, 16,
               ("msda_l28", 520, 28, 32, 1029, 4, "window"))
 
 
-# K8-slab's Hopper redesign (csrc/bilinear_tap.cuh inlined): the gather loops, the fixed-point
-# adds into the band's dX, the flush, or every band (all taps read and add to device memory)
+# K8-slab's Hopper redesign (csrc/bilinear_tap.cuh inlined): the forward's gather loops, or
+# every band (all taps read device memory); its backward is dense K8's kernel
 SLAB_VARIANTS = {
     "full": [],
     "no_gather": [("for (int e = tid; e < ne; e += nth) {",
                    f"for (int e = tid; e < ({OFF} ? ne : 0); e += nth) {{"),
                   ("      for (; e < ne; e += nth) {", f"      for (; e < ({OFF} ? ne : 0); e += nth) {{"),
-                  ("g < g1; g += nth)", f"g < ({OFF} ? g1 : g0); g += nth)"),
-                  ("for (int e0 = 0; e0 < ne; e0 += SL_CONSUMERS) {",
-                   f"for (int e0 = 0; e0 < ({OFF} ? ne : 0); e0 += SL_CONSUMERS) {{")],
-    "no_dx_atomics": [("      if (h) atomicAdd(hi + at + j, h);\n      if (l) atomicAdd(lo + at + j, l);",
-                       f"      if (h && {OFF}) atomicAdd(hi + at + j, h);\n"
-                       f"      if (l && {OFF}) atomicAdd(lo + at + j, l);")],
-    "no_flush": [("  for (int j = 0; j < m.runs[0]; ++j) {\n    float* g = dimg + m.runs[1 + 3 * j];",
-                  f"  for (int j = 0; j < ({OFF} ? m.runs[0] : 0); ++j) {{\n"
-                  "    float* g = dimg + m.runs[1 + 3 * j];")],
-    "no_band": [("!BWD || *m.S <= 3.402823466e38f);", f"(!BWD || *m.S <= 3.402823466e38f) && {OFF});")],
+                  ("g < g1; g += nth)", f"g < ({OFF} ? g1 : g0); g += nth)")],
+    "no_band": [("    if (!m.slab[s]) continue;", f"    if (!m.slab[s] || !{OFF}) continue;")],
 }
 
 
@@ -1146,6 +1137,7 @@ def slab_part(libs, logs):
     gen = torch.Generator(device="cuda").manual_seed(0)
     p = _build.ptr
     dense = _build.library()
+    parent = ("K8s", "count_plan2") in libs
     results = {}
     for key, BG, H, Gc, P, K, coords in SLAB_CASES:
         xg, fx, fy, mask, dout = slab_case(gen, BG, H, H, Gc, P, K, torch.float32, coords)
@@ -1173,7 +1165,8 @@ def slab_part(libs, logs):
                     print(f"K8-slab {key} ({shape}) {label}: {n.value} of {blocks} blocks took "
                           f"plan 2 ({share:.3f})", flush=True)
                 continue
-            for label, fn in (("fwd", fwd), ("bwd", bwd)):
+            # the redesign's variants change only the forward
+            for label, fn in (("fwd", fwd), ("bwd", bwd))[:2 if parent or name == "full" else 1]:
                 results[f"K8s {key} {label} {name}"] = ms = loop_ms(fn)
                 print(f"K8-slab {key} ({shape}) {label} {name}: {ms:.4f} ms", flush=True)
         for label, fn in (("fwd", lambda: call(dense, "samrs_bilinear_fwd", *fwd_args, 0)),

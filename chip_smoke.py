@@ -158,8 +158,8 @@ checkout; it has no CPU path and raises on any failure.  Phases:
    56^2 .. 7^2, Gc 16, 9 taps, slab 7), level 0 with a bf16 map, the MSDA
    level, a scattered 64^2 map over a stage, a 1024-wide map, Gc 6, a
    112^2 DCNv3 map with two of every query's nine taps half the map away
-   (taps on and off the band in one launch; the share from
-   ``bilinear_gather.slab_bands``) and Gc 5 (flat-4), timed (one call, and
+   (taps on and off the band in one launch; both routes counted by the
+   kernel's counting build) and Gc 5 (flat-4), timed (one call, and
    20 back to back) beside dense K8 and the plain version with the bound;
    K11 at C 64 / 128 / 256 / 512 on each level's tokens and at C
    1024 / 1280 on 1000 tokens (rel-L2 <= 1e-5); one internimage_t + UperNet
@@ -1602,8 +1602,9 @@ def k8_slab_phase(gen):
     16-byte aligned); a DCNv3 map of 112^2 (Gc 8) with two of the nine taps
     of every query moved half the map away (``slab_case`` "dcn_far"), so that
     taps read the band and device memory in one launch; and a DCNv3 level
-    at Gc 5 (the flat-4 form).  ``bilinear_gather.slab_bands`` gives the
-    share of taps that read the band (a model of the kernels' bands); the
+    at Gc 5 (the flat-4 form).  The forward's counting build
+    (``sample_weighted_slab_routes_cuda``) counts the (query, tap) pairs it
+    read from the band and from device memory: every pair once, and the
     off-band case must have both kinds.  The forward must equal dense K8's
     (rel-L2 <= K8_SLAB_FWD_RTOL; the design keeps K8's per-tap order, so 0 is
     expected); the backward within K8's bounds of the plain version.  Timed
@@ -1627,8 +1628,7 @@ def k8_slab_phase(gen):
     for key, BGc, H, W, Gc, P, K, dtype, coords, Hs in cases:
         xg, fx, fy, mask, dout = slab_case(gen, BGc, H, W, Gc, P, K, dtype, coords)
         args = (xg, fx, fy, mask)
-        staged = {d: float(bg.slab_bands(fy.cpu().numpy(), H, W, Gc, Hs, xg.element_size(),
-                                         d == "bwd")[1].mean()) for d in ("fwd", "bwd")}
+        counted, band, device = bg.sample_weighted_slab_routes_cuda(*args, Gc, Hs)
         got = [bg.sample_weighted_slab_fwd_cuda(*args, Gc, Hs)]
         got += list(bg.sample_weighted_slab_bwd_cuda(*args, dout, Gc, Hs))
         dense = [bg.sample_weighted_fwd_cuda(*args, Gc)]
@@ -1639,7 +1639,7 @@ def k8_slab_phase(gen):
         want = [ref.detach()] + list(torch.autograd.grad(ref, leaves, dout, retain_graph=True))
         errs = {n: rel_l2([g], [w]) for n, g, w in zip(names, got, want)}
         vs_dense = {n: rel_l2([g], [d]) for n, g, d in zip(names, got, dense)}
-        fwd_equal = bool(torch.equal(got[0], dense[0]))
+        fwd_equal = bool(torch.equal(got[0], dense[0]) and torch.equal(counted, dense[0]))
         max_abs = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
         esz = xg.element_size()
         n_in = BGc * H * W * Gc * esz + 3 * BGc * P * K * 4
@@ -1658,8 +1658,8 @@ def k8_slab_phase(gen):
         fb, fby = bound(fwd_bytes, fwd_ops, "fp32")
         bb, bby = bound(bwd_bytes, bwd_ops, "fp32")
         print(f"K8-slab {key} (BG {BGc}, {H}x{W}, Gc {Gc}, P {P}, K {K}, Hs {Hs}, "
-              f"{str(dtype)[6:]}): taps on the band fwd {staged['fwd']:.4f} bwd "
-              f"{staged['bwd']:.4f}; vs plain rel_l2 "
+              f"{str(dtype)[6:]}): forward taps read from the band {band}, from device "
+              f"memory {device} (counted by the kernel); vs plain rel_l2 "
               + " ".join(f"{n}={e:.3e}" for n, e in errs.items())
               + f" max_abs={max_abs:.3e}; vs dense K8 rel_l2 "
               + " ".join(f"{n}={e:.3e}" for n, e in vs_dense.items())
@@ -1676,11 +1676,15 @@ def k8_slab_phase(gen):
             tol = K8_BF16_DXG_RTOL if dtype == torch.bfloat16 and n == "dxg" else K8_RTOL
             if not e <= tol:
                 raise RuntimeError(f"K8-slab {key}: {n} relative L2 {e:.3e} > {tol}")
-        if coords == "dcn_far" and not all(0 < v < 1 for v in staged.values()):
-            raise RuntimeError(f"K8-slab {key}: taps on the band {staged}: want both routes")
+        if band + device != BGc * P * K:
+            raise RuntimeError(f"K8-slab {key}: the counting build took {band} + {device} "
+                               f"(query, tap) pairs, not each of {BGc * P * K} once")
+        if coords == "dcn_far" and not (band > 0 and device > 0):
+            raise RuntimeError(f"K8-slab {key}: taps read from the band {band}, from device "
+                               f"memory {device}: want both routes")
         out[key] = dict(max_abs_err=max_abs, fwd_bound=(fb, fby), bwd_bound=(bb, bby),
-                        fwd_equal=fwd_equal, staged=staged, **t)
-        del xg, fx, fy, mask, dout, args, got, dense, want, leaves, ref
+                        fwd_equal=fwd_equal, **t)
+        del xg, fx, fy, mask, dout, args, got, counted, dense, want, leaves, ref
         torch.cuda.empty_cache()
     r = out["ii_l0"]
     common = dict(route="cuda", source="samrs_tpu_torch/csrc/bilinear_slab.cu", library_ms=None,
@@ -1689,8 +1693,7 @@ def k8_slab_phase(gen):
                        **{f"{k}_loop_ms": out[k][f"{d}_loop"] for k in out},
                        **{f"{k}_dense_ms": out[k][f"dense_{d}"] for k in out},
                        **{f"{k}_dense_loop_ms": out[k][f"dense_{d}_loop"] for k in out},
-                       **{f"{k}_plain_ms": out[k][f"plain_{d}"] for k in out if k != "ii_l0"},
-                       **{f"{k}_taps_on_band": out[k]["staged"][d] for k in out}}
+                       **{f"{k}_plain_ms": out[k][f"plain_{d}"] for k in out if k != "ii_l0"}}
     fwd = dict(name="K8-slab fwd weighted bilinear gather from a band of row slabs staged by "
                     "bulk copies (InternImage-T level 0 at the FAST head: BG 260, 56x56, Gc 16, "
                     "K 9, Hs 7, fp32; the other levels, bf16, the MSDA level and the scattered / "
@@ -1699,9 +1702,11 @@ def k8_slab_phase(gen):
                replaces="samrs_tpu/kernels/bilinear_gather.py:164", **common, ms=r["fwd"],
                plain_ms=r["plain_fwd"], bound_ms=r["fwd_bound"][0], bound_by=r["fwd_bound"][1],
                forward_bit_equal_dense=all(o["fwd_equal"] for o in out.values()), **extra("fwd"))
-    bwd = dict(name="K8-slab bwd (the band's dX summed on chip in fixed point, one 16-byte "
-                    "flush an item; dfx, dfy, dmask; same shapes)",
-               replaces="samrs_tpu/kernels/bilinear_gather.py:419", **common, ms=r["bwd"],
+    bwd = dict(name="K8-slab bwd (dense K8's backward kernel on the slab's shapes: a group of "
+                    "lanes a query, dX by 16-byte device reductions; dfx, dfy, dmask; same "
+                    "shapes)",
+               replaces="samrs_tpu/kernels/bilinear_gather.py:419",
+               **{**common, "source": "samrs_tpu_torch/csrc/bilinear_tap.cuh"}, ms=r["bwd"],
                plain_ms=r["plain_bwd"], bound_ms=r["bwd_bound"][0], bound_by=r["bwd_bound"][1],
                **extra("bwd"))
     return {"K8sf": fwd, "K8sb": bwd}

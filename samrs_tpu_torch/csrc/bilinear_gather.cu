@@ -81,9 +81,9 @@
 // coordinate the tap at t in [0, 1) has slope -1, the tap at t in [-1, 0)
 // slope +1 and the tap at t = 1 none.
 //
-// The per-thread code (the tap, a thread's gather, a query's backward) is in
-// bilinear_tap.cuh, shared with K8-slab (bilinear_slab.cu); here it reads and
-// adds device memory (MapCorners, MapSink).
+// The per-thread code (the tap, a thread's gather) and the backward kernel
+// are in bilinear_tap.cuh, shared with K8-slab (bilinear_slab.cu); here the
+// forward reads its corners from device memory (MapCorners).
 #include "bilinear_tap.cuh"
 
 namespace samrs {
@@ -121,39 +121,6 @@ bilinear_fwd_kernel(const T* __restrict__ xg, const float* __restrict__ fx,
     const int c = (e - q * n) * V;
     const MapCorners<T> src{xg + static_cast<size_t>(fast_div(q, by_p)) * (H * W * Gc)};
     gather_vector<V, KT, int>(src, fx, fy, mask, out + q * Gc, q, c, H, W, K, Gc);
-  }
-}
-
-// ONE: the group's lanes cover Gc in one pass (Gc / V <= the group size), so
-// a lane loads its dout vector once for all the query's taps.  Where `nred`
-// is not null, the reductions the launch issues are added to *nred (a
-// measurement of the scatter; null on the training paths).
-template <typename T, int V, bool ONE>
-__global__ void __launch_bounds__(THREADS)
-bilinear_bwd_kernel(const T* __restrict__ xg, const float* __restrict__ fx,
-                    const float* __restrict__ fy, const float* __restrict__ mask,
-                    const float* __restrict__ dout, float* __restrict__ dxg,
-                    float* __restrict__ dfx, float* __restrict__ dfy, float* __restrict__ dmask,
-                    unsigned long long* __restrict__ nred, int BG, int H, int W, int P, int K,
-                    int Gc, int tpg_log2) {
-  const long long gid = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
-  const long long q = gid >> tpg_log2;
-  const int tpg = 1 << tpg_log2;
-  const int lane = static_cast<int>(gid & (tpg - 1));
-  // every lane of a group takes part in the shuffles, so none returns early
-  const bool active = q < static_cast<long long>(BG) * P;
-  const int bg = active ? static_cast<int>(q / P) : 0;
-  const size_t img_off = static_cast<size_t>(bg) * H * W * Gc;
-  const T* img = xg + img_off;
-  float* dimg = dxg + img_off;
-  const float* drow = dout + static_cast<size_t>(active ? q : 0) * Gc;
-  const unsigned issued = bwd_query<V, ONE>(MapCorners<T>{img}, MapSink{dimg}, fx, fy, mask,
-                                            drow, dfx, dfy, dmask,
-                                            static_cast<size_t>(active ? q : 0), active, lane,
-                                            tpg, H, W, K, Gc);
-  if (nred != nullptr) {
-    const unsigned warp_total = __reduce_add_sync(0xffffffffu, issued);
-    if ((threadIdx.x & 31) == 0) atomicAdd(nred, static_cast<unsigned long long>(warp_total));
   }
 }
 
@@ -207,25 +174,6 @@ int launch_fwd(const void* xg, const void* fx, const void* fy, const void* mask,
   return launch_fwd_taps<T, V, kVector>(xg, fx, fy, mask, out, BG, H, W, P, K, Gc, stream);
 }
 
-template <typename T, int V>
-int launch_bwd(const void* xg, const void* fx, const void* fy, const void* mask, const void* dout,
-               void* dxg, void* dfx, void* dfy, void* dmask, void* nred, int BG, int H, int W,
-               int P, int K, int Gc, cudaStream_t stream) {
-  const int l = tpg_log2_for(Gc / V);
-  const long long threads = (static_cast<long long>(BG) * P) << l;
-  const long long blocks = (threads + THREADS - 1) / THREADS;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  auto kernel = Gc / V <= (1 << l) ? bilinear_bwd_kernel<T, V, true>
-                                    : bilinear_bwd_kernel<T, V, false>;
-  kernel<<<static_cast<unsigned>(blocks), THREADS, 0, stream>>>(
-      static_cast<const T*>(xg), static_cast<const float*>(fx), static_cast<const float*>(fy),
-      static_cast<const float*>(mask), static_cast<const float*>(dout),
-      static_cast<float*>(dxg), static_cast<float*>(dfx), static_cast<float*>(dfy),
-      static_cast<float*>(dmask), static_cast<unsigned long long*>(nred), BG, H, W, P, K, Gc,
-      l);
-  return cudaGetLastError();
-}
-
 bool bad_shape(int BG, int H, int W, int P, int K, int Gc) {
   return BG <= 0 || H <= 0 || W <= 0 || P <= 0 || K <= 0 || Gc <= 0;
 }
@@ -263,15 +211,10 @@ int samrs_bilinear_bwd(const void* xg, const void* fx, const void* fy, const voi
   using namespace samrs;
   if (bad_shape(BG, H, W, P, K, Gc)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (Gc % 4 == 0)
-    return is_bf16 ? launch_bwd<bf16, 4>(xg, fx, fy, mask, dout, dxg, dfx, dfy, dmask, nred, BG,
-                                         H, W, P, K, Gc, s)
-                   : launch_bwd<float, 4>(xg, fx, fy, mask, dout, dxg, dfx, dfy, dmask, nred, BG,
-                                          H, W, P, K, Gc, s);
-  return is_bf16 ? launch_bwd<bf16, 1>(xg, fx, fy, mask, dout, dxg, dfx, dfy, dmask, nred, BG, H,
-                                       W, P, K, Gc, s)
-                 : launch_bwd<float, 1>(xg, fx, fy, mask, dout, dxg, dfx, dfy, dmask, nred, BG, H,
-                                        W, P, K, Gc, s);
+  return is_bf16 ? launch_bilinear_bwd<bf16>(xg, fx, fy, mask, dout, dxg, dfx, dfy, dmask, nred,
+                                             BG, H, W, P, K, Gc, s)
+                 : launch_bilinear_bwd<float>(xg, fx, fy, mask, dout, dxg, dfx, dfy, dmask, nred,
+                                              BG, H, W, P, K, Gc, s);
 }
 
 }  // extern "C"

@@ -29,35 +29,28 @@
 // that reach far, a band over the budget, the flat-4 form's second query in the next map)
 // reads device memory in the same pass, as dense K8 does.
 //
-// Both kernels are persistent: one block of 512 threads an SM, its last warp the producer,
-// which plans item j + 1 (the pass, the band, the placement, the bulk copies) into the second
-// of two metas while the other 15 warps work on item j; an mbarrier pair a meta hands it over
-// (full: planned and, in the forward, landed; empty: done with).
+// The forward is persistent: one block of 512 threads an SM, its last warp the producer, which
+// plans item j + 1 (the pass, the band, the placement, the bulk copies) into the second of two
+// metas and stages while the other 15 warps gather item j; an mbarrier pair a meta hands it
+// over (full: planned and landed; empty: gathered).  The gather is dense K8's (bilinear_tap.cuh:
+// a thread a (query, channel vector), flat-4 at odd Gc, the taps' count a template parameter
+// at the paths' K, a query's taps loaded together; here the next element's taps load while
+// this one is gathered), with the band as its corner source.  Each tap's sum keeps K8's corner
+// order and rounding and the taps add in order k, so the forward is bit-equal to dense K8's
+// (and to sample_weighted_plain).  A build with COUNT counts each (query, tap) by the route it
+// took (samrs_bilinear_slab_fwd_count: a measurement, not the paths' launch).
 //
-// Forward: two stages of map rows, so item j + 1's band lands while item j is gathered.  The
-// gather is dense K8's (bilinear_tap.cuh: a thread a (query, channel vector), flat-4 at odd Gc,
-// the taps' count a template parameter at the paths' K, a query's taps loaded together; here
-// the next element's taps load while this one is gathered), with the band as its corner
-// source.  Each tap's sum keeps K8's corner order and rounding and the taps add in order k, so
-// the forward is bit-equal to dense K8's (and to sample_weighted_plain).
+// The backward is dense K8's kernel (bilinear_tap.cuh: a group of lanes a query, corners from
+// device memory, dX by 16-byte red.global.add.v4.f32 of nonzero vectors), launched on the
+// shapes the forward's plan takes.  A band's dX summed on chip (a fixed-point partial on
+// native integer shared atomics, one 16-byte flush an item) was built and measured no faster
+// than every tap reduced into device memory, and slower at the MSDA level: a value costs a
+// split and two shared atomics where one device reduction takes four values (PERF.md,
+// Findings).  dX is added, not stored: the wrapper zeroes it, and its summation order varies
+// from run to run at fp32 rounding.
 //
-// Backward: the same items and bands; the band's dX is summed on chip in a fixed-point partial
-// (fixed_point.cuh: two int32 words an element on native integer shared atomics; a shared fp32
-// atomicAdd is a CAS loop on sm_90), its scale S from the item's sum over queries of sum_k
-// |mask| times sum_c |dout|, and flushed once an item with 16-byte red.global.add.v4.f32 of
-// nonzero 4-vectors (scalar at the runs' unaligned ends).  The corners come from device memory
-// (L2), as in dense K8: at InternImage level 0 the partial (8 bytes an element) and the rows
-// (4) of a band do not fit one block, and with the rows staged beside the partial (a third of
-// the items' length) the kernel was no faster.  dfx, dfy and dmask are dense K8's (a group of
-// lanes a query, reduced over the channels by shuffles; lane 0 loads each tap a tap ahead).
-// Taps off the band, and every tap of an item whose S is not finite, reduce into device
-// memory directly.  Neighbouring items' bands overlap, so dX is added, not stored: the wrapper
-// zeroes it, and its summation order varies from run to run at fp32 rounding.
-//
-// Bound: device-memory bytes, as dense K8; both kernels stay bound, as dense K8's, by the
-// per-tap arithmetic (make_tap, repeated by every lane of a query), and the backward also by
-// the instructions of its fixed-point adds (a split and two atomics a value, where a 16-byte
-// device reduction takes four values): PERF.md, Findings.
+// Bound: device-memory bytes, as dense K8; the forward stays bound, as dense K8's, by the
+// per-tap arithmetic (make_tap, repeated by every lane of a query): PERF.md, Findings.
 #include <climits>
 
 #include "bilinear_tap.cuh"
@@ -78,8 +71,7 @@ struct SlabArgs {
   int L;      // queries an item
   int nitem;  // items a map, ceil(P / L)
   int items;  // BG * nitem
-  int cap;    // elements a stage holds (a multiple of 8): each of the forward's two stages
-              // of map rows; the backward's fixed-point partial (two int32 arrays)
+  int cap;    // elements each of the two stages of map rows holds (a multiple of 8)
   int meta;   // ints of an item's metadata (meta_ints)
   int n;      // forward: Gc / V vectors a query; flat-4: the flat output's length
   FastDiv by_n, by_p;
@@ -88,18 +80,16 @@ struct SlabArgs {
 // An item's metadata in shared memory: per tap the extremes of fy (lohi, as order_key ints),
 // the staged runs (runs[0] their count; then per run its first element in the map, its
 // elements and its element offset on chip), per slab its element offset on chip (-1: not
-// staged; a flag before place_runs), per map row its element offset on chip (-1), and the
-// backward's scale S; a multiple of 16 bytes.
+// staged; a flag before place_runs) and per map row its element offset on chip (-1); a
+// multiple of 16 bytes.
 inline int meta_ints(int K, int H, int nslab) {
-  return (2 * K + 1 + 3 * K + nslab + H + 1 + 3) / 4 * 4;
+  return (2 * K + 1 + 3 * K + nslab + H + 3) / 4 * 4;
 }
 
 struct Meta {
   int *lohi, *runs, *slab, *rowoff;
-  float* S;
-  __device__ Meta(int* base, int K, int nslab, int H)
-      : lohi(base), runs(base + 2 * K), slab(runs + 1 + 3 * K), rowoff(slab + nslab),
-        S(reinterpret_cast<float*>(rowoff + H)) {}
+  __device__ Meta(int* base, int K, int nslab)
+      : lohi(base), runs(base + 2 * K), slab(runs + 1 + 3 * K), rowoff(slab + nslab) {}
 };
 
 struct Item {
@@ -125,13 +115,10 @@ __device__ __forceinline__ bool rows_active(int top, int bottom, float lo, float
 }
 
 // The producer warp's pass over the item's queries [q0, q0 + nq): every tap's extremes of fy
-// (kept in registers, then one redux a tap) into m.lohi; BWD also the item's scale S (the sum
-// over queries of sum_k |mask| times sum_c |dout|, V channels a load) into *m.S.
-template <int KT, bool BWD, int V>
-__device__ __forceinline__ void item_pass(const float* __restrict__ fy,
-                                          const float* __restrict__ mask,
-                                          const float* __restrict__ dout, int q0, int nq, int K,
-                                          int Gc, int lane, const Meta& m) {
+// (kept in registers, then one redux a tap) into m.lohi.
+template <int KT>
+__device__ __forceinline__ void item_pass(const float* __restrict__ fy, int q0, int nq, int K,
+                                          int lane, const Meta& m) {
   if constexpr (KT > 0) {
     int lo[KT], hi[KT];
 #pragma unroll
@@ -164,23 +151,6 @@ __device__ __forceinline__ void item_pass(const float* __restrict__ fy,
       if (lane == 0) m.lohi[2 * k] = lo, m.lohi[2 * k + 1] = hi;
     }
   }
-  if constexpr (BWD) {
-    float part = 0.f;
-    for (int j = lane; j < nq; j += 32) {
-      const size_t q = static_cast<size_t>(q0 + j);
-      float sm = 0.f, sd = 0.f;
-      for (int k = 0; k < K; ++k) sm += fabsf(__ldg(mask + q * K + k));
-      for (int c = 0; c < Gc; c += V) {
-        float r[V];
-        load_vec(dout + q * Gc + c, r);
-#pragma unroll
-        for (int e = 0; e < V; ++e) sd += fabsf(r[e]);
-      }
-      part += sm * sd;
-    }
-    part = warp_sum(part);
-    if (lane == 0) *m.S = part;
-  }
 }
 
 // m.slab[s] = 1 where slab s is active for some tap (threads tid of nth).
@@ -194,17 +164,16 @@ __device__ __forceinline__ void mark_slabs(const Meta& m, int K, int nslab, int 
   }
 }
 
-// Thread 0: the runs of active slabs (m.slab's flags; none where `any` is false) and the ones
-// the chip holds, in `cap` elements: all of them in slab order where they fit, else whole runs
+// Thread 0: the runs of active slabs (m.slab's flags) and the ones the chip holds, in `cap`
+// elements: all of them in slab order where they fit, else whole runs
 // in order of the count of taps whose support meets them (most first, then the lower), each
 // where it still fits.  A run starts at an element offset congruent mod 8 to its element index
 // f in the maps (f0: the map's first), so that a 16-byte boundary of the map (fp32 or bf16)
-// or of dX (fp32) falls on one of the stage and of the partial.  Writes m.runs and turns
-// m.slab into the slabs' offsets.
+// falls on one of the stage.  Writes m.runs and turns m.slab into the slabs' offsets.
 __device__ void place_runs(const Meta& m, int K, int nslab, int Hs, int WGc, long long f0,
-                           int cap, bool any) {
+                           int cap) {
   int ra[SL_MAX_K], rb[SL_MAX_K], order[SL_MAX_K], R = 0;
-  for (int s = 0; any && s < nslab; ++s) {
+  for (int s = 0; s < nslab; ++s) {
     if (!m.slab[s]) continue;
     if (R == 0 || rb[R - 1] != s - 1) {
       if (R == SL_MAX_K) break;  // more runs than taps cannot happen; the rest reads device memory
@@ -304,27 +273,22 @@ __device__ __forceinline__ void fill_rowoff(const Meta& m, int H, int Hs, int WG
 }
 
 // The producer warp plans item `it` into meta m: the pass, the active slabs, lane 0's
-// placement in a.cap elements, the rows' offsets and, with `st` (the forward), the runs' ends
-// copied there.  Ends with a __syncwarp: lane 0 then arrives on
-// the item's barrier (in the forward with the runs' bulk copies), releasing every lane's
-// writes to the consumers.
-template <typename T, int KT, bool BWD, int V>
+// placement in a.cap elements, the rows' offsets and the runs' ends copied to the stage `st`.
+// Ends with a __syncwarp: lane 0 then arrives on the item's barrier with the runs' bulk
+// copies, releasing every lane's writes to the consumers.
+template <typename T, int KT>
 __device__ void plan_item(const Item& it, const SlabArgs& a, const Meta& m, const T* img,
-                          const float* fy, const float* mask, const float* dout, T* st,
-                          int lane) {
+                          const float* fy, T* st, int lane) {
   const int WGc = a.W * a.Gc;
-  item_pass<KT, BWD, V>(fy, mask, dout, it.q0, it.nq, a.K, a.Gc, lane, m);
+  item_pass<KT>(fy, it.q0, it.nq, a.K, lane, m);
   __syncwarp();
   mark_slabs(m, a.K, a.nslab, a.Hs, lane, 32);
   __syncwarp();
-  // the backward adds on chip only where its scale S is finite; else every tap goes to
-  // device memory, as in dense K8
   if (lane == 0)
-    place_runs(m, a.K, a.nslab, a.Hs, WGc, static_cast<long long>(it.bg) * a.H * WGc, a.cap,
-               !BWD || *m.S <= 3.402823466e38f);
+    place_runs(m, a.K, a.nslab, a.Hs, WGc, static_cast<long long>(it.bg) * a.H * WGc, a.cap);
   __syncwarp();
   fill_rowoff(m, a.H, a.Hs, WGc, lane, 32);
-  if (st != nullptr) copy_ends(m, img, st, lane, 32);
+  copy_ends(m, img, st, lane, 32);
   __syncwarp();
 }
 
@@ -332,23 +296,24 @@ __device__ void plan_item(const Item& it, const SlabArgs& a, const Meta& m, cons
 // Forward.
 // ---------------------------------------------------------------------------
 
-template <typename T, int V, int KT, int FORM>
+template <typename T, int V, int KT, int FORM, bool COUNT>
 __device__ __forceinline__ void gather_item(const Item& it, const SlabArgs& a,
                                             const T* __restrict__ xg,
                                             const float* __restrict__ fx,
                                             const float* __restrict__ fy,
                                             const float* __restrict__ mask,
                                             float* __restrict__ out, const T* st,
-                                            const Rows& rows, int tid, int nth) {
+                                            const Rows& rows, unsigned* tally, int tid, int nth) {
   const size_t map = static_cast<size_t>(a.H) * a.W * a.Gc;
   if constexpr (FORM == kFlat4) {
     // group g (outputs 4g .. 4g + 3) belongs to the item that holds query floor(4g / Gc)
-    const BandFamily<T> maps{xg, map, st, rows, a.W * a.Gc, static_cast<unsigned>(it.bg)};
+    const BandFamily<T, COUNT> maps{xg, map, st, rows, a.W * a.Gc,
+                                    static_cast<unsigned>(it.bg), tally};
     const int g0 = (it.q0 * a.Gc + 3) / 4, g1 = ((it.q0 + it.nq) * a.Gc + 3) / 4;
     for (int g = g0 + tid; g < g1; g += nth)
       gather_flat4<T, KT>(maps, fx, fy, mask, out, 4 * g, a.n, a.by_n, a.by_p, a.H, a.W, a.Gc);
   } else {
-    const BandCorners<T> src{xg + it.bg * map, st, rows, a.W * a.Gc};
+    const BandCorners<T, COUNT> src{xg + it.bg * map, st, rows, a.W * a.Gc, tally};
     const int ne = it.nq * a.n;
     auto query = [&](int e) { return it.q0 + static_cast<int>(fast_div(e, a.by_n)); };
     if constexpr (KT == 0) {
@@ -373,17 +338,18 @@ __device__ __forceinline__ void gather_item(const Item& it, const SlabArgs& a,
 
 // Shared memory: four mbarriers (32 bytes: full and empty of two stages), two metas, two
 // stages of a.cap elements.  The last warp plans item j + 1 (its band by bulk copies) while
-// the others gather item j.
-template <typename T, int V, int KT, int FORM>
+// the others gather item j.  COUNT: routes[0] / routes[1] += the taps read from the band /
+// from device memory.
+template <typename T, int V, int KT, int FORM, bool COUNT>
 __global__ void __launch_bounds__(SL_THREADS, 1)
 slab_fwd_kernel(const T* __restrict__ xg, const float* __restrict__ fx,
                 const float* __restrict__ fy, const float* __restrict__ mask,
-                float* __restrict__ out, const SlabArgs a) {
+                float* __restrict__ out, const SlabArgs a, unsigned long long* routes) {
   extern __shared__ __align__(16) unsigned char sl_smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(sl_smem);
   uint64_t* empty = full + 2;
   int* mb = reinterpret_cast<int*>(sl_smem + 32);
-  auto meta = [&](int s) { return Meta(mb + s * a.meta, a.K, a.nslab, a.H); };
+  auto meta = [&](int s) { return Meta(mb + s * a.meta, a.K, a.nslab); };
   auto stage = [&](int s) { return reinterpret_cast<T*>(sl_smem + 32 + 8 * a.meta) + s * a.cap; };
   if (threadIdx.x == 0) {
     for (int s = 0; s < 2; ++s) {
@@ -402,125 +368,25 @@ slab_fwd_kernel(const T* __restrict__ xg, const float* __restrict__ fx,
       if (j >= 2) mbar_wait(&empty[s], ((j - 2) >> 1) & 1);  // item j - 2 is gathered
       const Item it = item_at(i, a);
       const T* img = xg + it.bg * map;
-      plan_item<T, KT, false, 1>(it, a, meta(s), img, fy, nullptr, nullptr, stage(s), lane);
+      plan_item<T, KT>(it, a, meta(s), img, fy, stage(s), lane);
       if (lane == 0) issue_copies(meta(s), img, stage(s), &full[s]);
     }
     return;
   }
+  unsigned tally[2] = {0, 0};
   int j = 0;
   for (int i = blockIdx.x; i < a.items; i += gridDim.x, ++j) {
     const int s = j & 1;
     mbar_wait(&full[s], (j >> 1) & 1);
-    gather_item<T, V, KT, FORM>(item_at(i, a), a, xg, fx, fy, mask, out, stage(s),
-                                rows_of(meta(s), a.W * a.Gc), threadIdx.x, SL_CONSUMERS);
+    gather_item<T, V, KT, FORM, COUNT>(item_at(i, a), a, xg, fx, fy, mask, out, stage(s),
+                                       rows_of(meta(s), a.W * a.Gc), tally, threadIdx.x,
+                                       SL_CONSUMERS);
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[s]);
   }
-}
-
-// ---------------------------------------------------------------------------
-// Backward.
-// ---------------------------------------------------------------------------
-
-// Adds the item's partial (the staged runs, hi / lo at the 16-byte phase of dX's address)
-// into dX in device memory and zeroes it: 16-byte reductions of the nonzero 4-vectors of the
-// aligned middle, scalar ones at the ends.
-__device__ void flush_runs(const Meta& m, float* dimg, int* hi, int* lo, const FixedOut& to,
-                           int tid, int nth) {
-  for (int j = 0; j < m.runs[0]; ++j) {
-    float* g = dimg + m.runs[1 + 3 * j];
-    const int n = m.runs[2 + 3 * j];
-    int* ph = hi + m.runs[3 + 3 * j];
-    int* pl = lo + m.runs[3 + 3 * j];
-    int h, t;
-    split16(g, n, h, t);
-    for (int e = h + 4 * tid; e < t; e += 4 * nth) {
-      const int4 x = *reinterpret_cast<const int4*>(ph + e);
-      const int4 y = *reinterpret_cast<const int4*>(pl + e);
-      if ((x.x | x.y | x.z | x.w | y.x | y.y | y.z | y.w) == 0) continue;
-      atomicAdd(reinterpret_cast<float4*>(g + e),
-                make_float4(to(x.x, y.x), to(x.y, y.y), to(x.z, y.z), to(x.w, y.w)));
-      *reinterpret_cast<int4*>(ph + e) = make_int4(0, 0, 0, 0);
-      *reinterpret_cast<int4*>(pl + e) = make_int4(0, 0, 0, 0);
-    }
-    for (int e = tid; e < h + n - t; e += nth) {
-      const int f = e < h ? e : t + (e - h);  // the head, then the tail
-      if ((ph[f] | pl[f]) == 0) continue;
-      atomicAdd(g + f, to(ph[f], pl[f]));
-      ph[f] = pl[f] = 0;
-    }
-  }
-}
-
-// Shared memory: four mbarriers (32 bytes: full and empty of two metas), two metas, then the
-// partial's hi and lo words (a.cap each, zero between items).  The last warp plans item j + 1
-// while the others add item j's dX; those flush it and zero the partial before item j + 1.
-// ONE as in bwd_query.
-template <typename T, int V, bool ONE>
-__global__ void __launch_bounds__(SL_THREADS, 1)
-slab_bwd_kernel(const T* __restrict__ xg, const float* __restrict__ fx,
-                const float* __restrict__ fy, const float* __restrict__ mask,
-                const float* __restrict__ dout, float* __restrict__ dxg,
-                float* __restrict__ dfx, float* __restrict__ dfy, float* __restrict__ dmask,
-                const SlabArgs a, int tpg_log2) {
-  extern __shared__ __align__(16) unsigned char sl_smem[];
-  uint64_t* full = reinterpret_cast<uint64_t*>(sl_smem);
-  uint64_t* empty = full + 2;
-  int* mb = reinterpret_cast<int*>(sl_smem + 32);
-  auto meta = [&](int s) { return Meta(mb + s * a.meta, a.K, a.nslab, a.H); };
-  int* hi = mb + 2 * a.meta;
-  int* lo = hi + a.cap;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < 2; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], SL_WARPS - 1);
-    }
-    mbar_fence_init();
-  }
-  for (int e = threadIdx.x; e < a.cap; e += SL_THREADS) hi[e] = lo[e] = 0;
-  __syncthreads();
-  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
-  const int WGc = a.W * a.Gc, tpg = 1 << tpg_log2;
-  const size_t map = static_cast<size_t>(a.H) * WGc;
-  if (warp == SL_WARPS - 1) {  // the producer
-    int j = 0;
-    for (int i = blockIdx.x; i < a.items; i += gridDim.x, ++j) {
-      const int s = j & 1;
-      if (j >= 2) mbar_wait(&empty[s], ((j - 2) >> 1) & 1);  // item j - 2 is flushed
-      const Item it = item_at(i, a);
-      plan_item<T, 0, true, V>(it, a, meta(s), xg + it.bg * map, fy, mask, dout, nullptr,
-                               lane);
-      if (lane == 0) mbar_arrive(&full[s]);
-    }
-    return;
-  }
-  int j = 0;
-  for (int i = blockIdx.x; i < a.items; i += gridDim.x, ++j) {
-    const int s = j & 1;
-    mbar_wait(&full[s], (j >> 1) & 1);
-    const Item it = item_at(i, a);
-    const Meta m = meta(s);
-    const T* img = xg + it.bg * map;
-    float* dimg = dxg + it.bg * map;
-    const float S = *m.S;
-    int sh, lob;
-    const BandSink sink{dimg, hi, lo, rows_of(m, WGc), WGc, fixed_for(S, it.nq * a.K, sh, lob)};
-    const MapCorners<T> src{img};
-    // every lane of a warp takes part in the shuffles: the loop's trip count is the warps'
-    const int ne = it.nq << tpg_log2;
-    for (int e0 = 0; e0 < ne; e0 += SL_CONSUMERS) {
-      const int e = e0 + static_cast<int>(threadIdx.x);
-      const int ql = e >> tpg_log2;
-      const bool active = ql < it.nq;
-      const size_t q = static_cast<size_t>(it.q0 + (active ? ql : 0));
-      bwd_query<V, ONE, true>(src, sink, fx, fy, mask, dout + q * a.Gc, dfx, dfy, dmask, q,
-                              active, e & (tpg - 1), tpg, a.H, a.W, a.K, a.Gc);
-    }
-    named_barrier_sync(1, SL_CONSUMERS);  // every add of the item is in the partial
-    flush_runs(m, dimg, hi, lo, fixed_out(S, sh, lob), threadIdx.x, SL_CONSUMERS);
-    named_barrier_sync(1, SL_CONSUMERS);  // the partial is zero again
-    __syncwarp();
-    if (lane == 0) mbar_arrive(&empty[s]);
+  if constexpr (COUNT) {
+    atomicAdd(routes, static_cast<unsigned long long>(tally[0]));
+    atomicAdd(routes + 1, static_cast<unsigned long long>(tally[1]));
   }
 }
 
@@ -528,14 +394,13 @@ slab_bwd_kernel(const T* __restrict__ xg, const float* __restrict__ fx,
 // Launch.
 // ---------------------------------------------------------------------------
 
-// The plan of a launch (a model of it: samrs_tpu_torch/kernels/bilinear_gather.py::
-// slab_plan): false where none takes the shape.  `cap` elements a stage: the whole map where it
-// fits (one item a map), else as many slabs as fit (8 elements each for the run's phase), and
-// an item spans the output rows of all but two of them (one slab where fewer than three fit).
-// The forward has two stages of map rows; the backward one stage of the fixed-point partial
-// (8 bytes an element; its corners come from L2, as dense K8's).
-bool item_plan(int BG, int H, int W, int P, int K, int Gc, int Hs, int esz, bool bwd,
-               SlabArgs& a, int& smem) {
+// The plan of a launch (the wrapper's samrs_tpu_torch/kernels/bilinear_gather.py::slab_plan
+// refuses the same shapes): false where none takes the shape.  `cap` elements a stage: the
+// whole map where it fits (one item a map), else as many slabs as fit (8 elements each for
+// the run's phase), and an item spans the output rows of all but two of them (one slab where
+// fewer than three fit).  Two stages of map rows.
+bool item_plan(int BG, int H, int W, int P, int K, int Gc, int Hs, int esz, SlabArgs& a,
+               int& smem) {
   if (BG <= 0 || H <= 0 || W <= 0 || P <= 0 || K <= 0 || Gc <= 0 || Hs <= 0 || H % Hs ||
       K > SL_MAX_K)
     return false;
@@ -547,7 +412,7 @@ bool item_plan(int BG, int H, int W, int P, int K, int Gc, int Hs, int esz, bool
   const long long fixed = 32 + 8LL * a.meta;  // four mbarriers, two metas
   if (fixed + 1024 > SL_BUDGET) return false;
   const long long slab_el = static_cast<long long>(Hs) * W * Gc, whole = a.nslab * slab_el + 8;
-  const int per = bwd ? 8 : 2 * esz;  // bytes an element: two stages, or the partial's words
+  const int per = 2 * esz;  // bytes an element: two stages
   const long long cmax = (SL_BUDGET - fixed) / per / 8 * 8;
   long long L = P, cap = align_up(whole, 8);
   if (whole > cmax) {
@@ -575,82 +440,65 @@ int grid_for(K kernel, int smem, int items, int& grid) {
   return cudaSuccess;
 }
 
-template <typename T, int V, int KT, int FORM>
+template <typename T, int V, int KT, int FORM, bool COUNT>
 int launch_fwd_k(const void* xg, const void* fx, const void* fy, const void* mask, void* out,
-                 SlabArgs a, int smem, cudaStream_t stream) {
-  auto kernel = slab_fwd_kernel<T, V, KT, FORM>;
+                 SlabArgs a, int smem, void* routes, cudaStream_t stream) {
+  auto kernel = slab_fwd_kernel<T, V, KT, FORM, COUNT>;
   int grid = 0;
   const int err = grid_for(kernel, smem, a.items, grid);
   if (err != cudaSuccess) return err;
   kernel<<<grid, SL_THREADS, smem, stream>>>(
       static_cast<const T*>(xg), static_cast<const float*>(fx), static_cast<const float*>(fy),
-      static_cast<const float*>(mask), static_cast<float*>(out), a);
+      static_cast<const float*>(mask), static_cast<float*>(out), a,
+      static_cast<unsigned long long*>(routes));
   return cudaGetLastError();
 }
 
 template <typename T, int V, int FORM>
 int launch_fwd_taps(const void* xg, const void* fx, const void* fy, const void* mask, void* out,
-                    SlabArgs a, int smem, cudaStream_t stream) {
+                    SlabArgs a, int smem, void* routes, cudaStream_t stream) {
+  if (routes != nullptr) {  // the measurement build
+    switch (a.K) {
+      case 4: return launch_fwd_k<T, V, 4, FORM, true>(xg, fx, fy, mask, out, a, smem, routes, stream);
+      case 9: return launch_fwd_k<T, V, 9, FORM, true>(xg, fx, fy, mask, out, a, smem, routes, stream);
+      default: return launch_fwd_k<T, V, 0, FORM, true>(xg, fx, fy, mask, out, a, smem, routes, stream);
+    }
+  }
   switch (a.K) {
-    case 4: return launch_fwd_k<T, V, 4, FORM>(xg, fx, fy, mask, out, a, smem, stream);
-    case 9: return launch_fwd_k<T, V, 9, FORM>(xg, fx, fy, mask, out, a, smem, stream);
-    default: return launch_fwd_k<T, V, 0, FORM>(xg, fx, fy, mask, out, a, smem, stream);
+    case 4: return launch_fwd_k<T, V, 4, FORM, false>(xg, fx, fy, mask, out, a, smem, routes, stream);
+    case 9: return launch_fwd_k<T, V, 9, FORM, false>(xg, fx, fy, mask, out, a, smem, routes, stream);
+    default: return launch_fwd_k<T, V, 0, FORM, false>(xg, fx, fy, mask, out, a, smem, routes, stream);
   }
 }
 
 // dense K8's forms: V = 4 / 2 / 1 by Gc, flat-4 at odd Gc >= 3
 template <typename T>
 int launch_fwd(const void* xg, const void* fx, const void* fy, const void* mask, void* out,
-               int BG, int H, int W, int P, int K, int Gc, int Hs, cudaStream_t stream) {
+               int BG, int H, int W, int P, int K, int Gc, int Hs, void* routes,
+               cudaStream_t stream) {
   SlabArgs a;
   int smem = 0;
-  if (!item_plan(BG, H, W, P, K, Gc, Hs, sizeof(T), false, a, smem)) return cudaErrorInvalidValue;
+  if (!item_plan(BG, H, W, P, K, Gc, Hs, sizeof(T), a, smem)) return cudaErrorInvalidValue;
   a.by_p = make_fastdiv(static_cast<unsigned>(P));
   if (Gc % 2 && Gc >= 3) {
     a.n = BG * P * Gc;
     a.by_n = make_fastdiv(static_cast<unsigned>(Gc));
-    return launch_fwd_taps<T, 1, kFlat4>(xg, fx, fy, mask, out, a, smem, stream);
+    return launch_fwd_taps<T, 1, kFlat4>(xg, fx, fy, mask, out, a, smem, routes, stream);
   }
   const int V = Gc % 4 == 0 ? 4 : Gc % 2 == 0 ? 2 : 1;
   a.n = Gc / V;
   a.by_n = make_fastdiv(static_cast<unsigned>(a.n));
-  if (V == 4) return launch_fwd_taps<T, 4, kVector>(xg, fx, fy, mask, out, a, smem, stream);
-  if (V == 2) return launch_fwd_taps<T, 2, kVector>(xg, fx, fy, mask, out, a, smem, stream);
-  return launch_fwd_taps<T, 1, kVector>(xg, fx, fy, mask, out, a, smem, stream);
+  if (V == 4) return launch_fwd_taps<T, 4, kVector>(xg, fx, fy, mask, out, a, smem, routes, stream);
+  if (V == 2) return launch_fwd_taps<T, 2, kVector>(xg, fx, fy, mask, out, a, smem, routes, stream);
+  return launch_fwd_taps<T, 1, kVector>(xg, fx, fy, mask, out, a, smem, routes, stream);
 }
 
-template <typename T, int V, bool ONE>
-int launch_bwd_k(const void* xg, const void* fx, const void* fy, const void* mask,
-                 const void* dout, void* dxg, void* dfx, void* dfy, void* dmask, SlabArgs a,
-                 int smem, int l, cudaStream_t stream) {
-  auto kernel = slab_bwd_kernel<T, V, ONE>;
-  int grid = 0;
-  const int err = grid_for(kernel, smem, a.items, grid);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, SL_THREADS, smem, stream>>>(
-      static_cast<const T*>(xg), static_cast<const float*>(fx), static_cast<const float*>(fy),
-      static_cast<const float*>(mask), static_cast<const float*>(dout), static_cast<float*>(dxg),
-      static_cast<float*>(dfx), static_cast<float*>(dfy), static_cast<float*>(dmask), a, l);
-  return cudaGetLastError();
-}
-
-// dense K8's backward mapping: a group of tpg = min(32, pow2ceil(Gc / V)) lanes a query,
-// V = 4 where Gc % 4 == 0, else 1
-template <typename T>
-int launch_bwd(const void* xg, const void* fx, const void* fy, const void* mask,
-               const void* dout, void* dxg, void* dfx, void* dfy, void* dmask, int BG, int H,
-               int W, int P, int K, int Gc, int Hs, cudaStream_t stream) {
-  SlabArgs a;
-  int smem = 0;
-  if (!item_plan(BG, H, W, P, K, Gc, Hs, sizeof(T), true, a, smem)) return cudaErrorInvalidValue;
-  const int V = Gc % 4 == 0 ? 4 : 1, nvec = Gc / V;
-  const int l = tpg_log2_for(nvec);
-  const bool one = nvec <= (1 << l);
-  if (V == 4)
-    return one ? launch_bwd_k<T, 4, true>(xg, fx, fy, mask, dout, dxg, dfx, dfy, dmask, a, smem, l, stream)
-               : launch_bwd_k<T, 4, false>(xg, fx, fy, mask, dout, dxg, dfx, dfy, dmask, a, smem, l, stream);
-  return one ? launch_bwd_k<T, 1, true>(xg, fx, fy, mask, dout, dxg, dfx, dfy, dmask, a, smem, l, stream)
-             : launch_bwd_k<T, 1, false>(xg, fx, fy, mask, dout, dxg, dfx, dfy, dmask, a, smem, l, stream);
+int slab_fwd(const void* xg, const void* fx, const void* fy, const void* mask, void* out, int BG,
+             int H, int W, int P, int K, int Gc, int Hs, int is_bf16, void* routes,
+             void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_bf16 ? launch_fwd<bf16>(xg, fx, fy, mask, out, BG, H, W, P, K, Gc, Hs, routes, s)
+                 : launch_fwd<float>(xg, fx, fy, mask, out, BG, H, W, P, K, Gc, Hs, routes, s);
 }
 
 }  // namespace
@@ -664,22 +512,37 @@ extern "C" {
 int samrs_bilinear_slab_fwd(const void* xg, const void* fx, const void* fy, const void* mask,
                             void* out, int BG, int H, int W, int P, int K, int Gc, int Hs,
                             int is_bf16, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? samrs::launch_fwd<samrs::bf16>(xg, fx, fy, mask, out, BG, H, W, P, K, Gc, Hs, s)
-                 : samrs::launch_fwd<float>(xg, fx, fy, mask, out, BG, H, W, P, K, Gc, Hs, s);
+  return samrs::slab_fwd(xg, fx, fy, mask, out, BG, H, W, P, K, Gc, Hs, is_bf16, nullptr,
+                         stream);
 }
 
-// K8 row-slab backward.  dout (BG, P, Gc) fp32; dxg (BG, H, W, Gc) fp32, zeroed by the
-// caller and accumulated with reductions; dfx, dfy, dmask (BG, P, K) fp32.
+// The row-slab forward built to count its taps by route (a measurement): as
+// samrs_bilinear_slab_fwd, and routes (two uint64 on the card) += the (query, tap) pairs whose
+// corners were read from the band and from device memory.
+int samrs_bilinear_slab_fwd_count(const void* xg, const void* fx, const void* fy,
+                                  const void* mask, void* out, int BG, int H, int W, int P, int K,
+                                  int Gc, int Hs, int is_bf16, void* routes, void* stream) {
+  if (routes == nullptr) return cudaErrorInvalidValue;
+  return samrs::slab_fwd(xg, fx, fy, mask, out, BG, H, W, P, K, Gc, Hs, is_bf16, routes,
+                         stream);
+}
+
+// K8 row-slab backward: dense K8's backward kernel on the shapes the forward's plan takes.
+// dout (BG, P, Gc) fp32; dxg (BG, H, W, Gc) fp32, zeroed by the caller and accumulated with
+// reductions; dfx, dfy, dmask (BG, P, K) fp32.
 int samrs_bilinear_slab_bwd(const void* xg, const void* fx, const void* fy, const void* mask,
                             const void* dout, void* dxg, void* dfx, void* dfy, void* dmask, int BG,
                             int H, int W, int P, int K, int Gc, int Hs, int is_bf16,
                             void* stream) {
+  samrs::SlabArgs a;
+  int smem = 0;
+  if (!samrs::item_plan(BG, H, W, P, K, Gc, Hs, is_bf16 ? 2 : 4, a, smem))
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? samrs::launch_bwd<samrs::bf16>(xg, fx, fy, mask, dout, dxg, dfx, dfy, dmask,
-                                                 BG, H, W, P, K, Gc, Hs, s)
-                 : samrs::launch_bwd<float>(xg, fx, fy, mask, dout, dxg, dfx, dfy, dmask, BG, H,
-                                            W, P, K, Gc, Hs, s);
+  return is_bf16 ? samrs::launch_bilinear_bwd<samrs::bf16>(xg, fx, fy, mask, dout, dxg, dfx, dfy,
+                                                          dmask, nullptr, BG, H, W, P, K, Gc, s)
+                 : samrs::launch_bilinear_bwd<float>(xg, fx, fy, mask, dout, dxg, dfx, dfy, dmask,
+                                                     nullptr, BG, H, W, P, K, Gc, s);
 }
 
 }  // extern "C"

@@ -2,16 +2,14 @@
 // (bilinear_slab.cu): one bilinear tap at absolute pixel coordinates (fx, fy) with zero
 // padding (the four corners' clamped pixel indices, validity and weights, taken exactly as
 // the plain version takes them: samrs_tpu_torch/kernels/bilinear_gather.py::_corners), the
-// forward of one thread (a (query, channel vector), or four consecutive outputs: flat-4) and
-// the backward of one query's group of lanes.  Where a tap's corners are read (the forward)
-// and where its dX goes (the backward) is a template parameter: device memory (dense K8), or
-// K8-slab's band of map rows in shared memory, with device memory for a tap whose rows the
-// band does not hold.  K9 (point_sample.cu) takes the corners the same way without the
-// clamped indices (``corners``).
+// forward of one thread (a (query, channel vector), or four consecutive outputs: flat-4), and
+// the backward kernel (a group of lanes a query), which both run.  Where the forward reads a
+// tap's corners is a template parameter: device memory (dense K8), or K8-slab's band of map
+// rows in shared memory, with device memory for a tap whose rows the band does not hold.  K9
+// (point_sample.cu) takes the corners the same way without the clamped indices (``corners``).
 #pragma once
 
 #include "common.cuh"
-#include "fixed_point.cuh"
 
 namespace samrs {
 
@@ -164,17 +162,24 @@ __device__ __forceinline__ void load_at(const T* band, bool valid, int i, float 
 }
 
 // K8-slab: a tap whose two corner rows are both on chip reads its corners from the band
-// (shared memory), any other tap from the map in device memory (img).
-template <typename T>
+// (shared memory), any other tap from the map in device memory (img).  COUNT (a measurement
+// build): each (query, tap) is counted once, at channel 0, by the route it took: tally[0]
+// from the band, tally[1] from device memory.
+template <typename T, bool COUNT = false>
 struct BandCorners {
   const T* img;
   const T* band;
   Rows rows;
   int WGc;
+  unsigned* tally;
   template <int V>
   __device__ __forceinline__ void load(const Tap& t, int Gc, int c, float (&v)[4][V]) const {
     int s0, s1;
-    if (rows.at(t.cy0, t.cy1, WGc, s0, s1)) {
+    const bool on = rows.at(t.cy0, t.cy1, WGc, s0, s1);
+    if constexpr (COUNT) {
+      if (c == 0) ++tally[on ? 0 : 1];
+    }
+    if (on) {
       load_at<T, V>(band, t.v00, s0 + t.i00 * Gc + c, v[0]);
       load_at<T, V>(band, t.v01, s0 + t.i01 * Gc + c, v[1]);
       load_at<T, V>(band, t.v10, s1 + t.i10 * Gc + c, v[2]);
@@ -193,7 +198,7 @@ struct MapFamily {
   __device__ __forceinline__ MapCorners<T> at(unsigned bg) const { return {xg + bg * map}; }
 };
 
-template <typename T>
+template <typename T, bool COUNT = false>
 struct BandFamily {
   const T* xg;
   size_t map;
@@ -201,8 +206,9 @@ struct BandFamily {
   Rows rows;
   int WGc;
   unsigned bg;  // the map the band holds rows of
-  __device__ __forceinline__ BandCorners<T> at(unsigned b) const {
-    return {xg + b * map, band, b == bg ? rows : Rows{nullptr, 0, 0, 0}, WGc};
+  unsigned* tally;
+  __device__ __forceinline__ BandCorners<T, COUNT> at(unsigned b) const {
+    return {xg + b * map, band, b == bg ? rows : Rows{nullptr, 0, 0, 0}, WGc, tally};
   }
 };
 
@@ -378,50 +384,6 @@ __device__ __forceinline__ unsigned scatter_corners(float* dimg, const Tap& t, i
   return n;
 }
 
-// Where a tap's dX goes.  Dense K8: reductions into the query's dX map in device memory.
-struct MapSink {
-  float* dimg;
-  template <int V>
-  __device__ __forceinline__ unsigned add(const Tap& t, int Gc, int c, const float (&g)[V]) const {
-    return scatter_corners<V>(dimg, t, Gc, c, g);
-  }
-};
-
-// K8-slab: a tap whose two corner rows are on chip (`rows`: offsets into the fixed-point
-// partial hi / lo) adds g * w of each corner of nonzero weight there, by native integer
-// shared atomics; any other tap reduces into dimg in device memory.
-struct BandSink {
-  float* dimg;
-  int* hi;
-  int* lo;
-  Rows rows;
-  int WGc;
-  Fixed fixed;
-
-  template <int V>
-  __device__ __forceinline__ static void add_fixed(int* hi, int* lo, int at, float w,
-                                                   const float (&g)[V], const Fixed& f) {
-#pragma unroll
-    for (int j = 0; j < V; ++j) {
-      int h, l;
-      f.split(g[j] * w, h, l);
-      if (h) atomicAdd(hi + at + j, h);
-      if (l) atomicAdd(lo + at + j, l);
-    }
-  }
-
-  template <int V>
-  __device__ __forceinline__ unsigned add(const Tap& t, int Gc, int c, const float (&g)[V]) const {
-    int s0, s1;
-    if (!rows.at(t.cy0, t.cy1, WGc, s0, s1)) return scatter_corners<V>(dimg, t, Gc, c, g);
-    if (t.v00 && t.w00 != 0.f) add_fixed<V>(hi, lo, s0 + t.i00 * Gc + c, t.w00, g, fixed);
-    if (t.v01 && t.w01 != 0.f) add_fixed<V>(hi, lo, s0 + t.i01 * Gc + c, t.w01, g, fixed);
-    if (t.v10 && t.w10 != 0.f) add_fixed<V>(hi, lo, s1 + t.i10 * Gc + c, t.w10, g, fixed);
-    if (t.v11 && t.w11 != 0.f) add_fixed<V>(hi, lo, s1 + t.i11 * Gc + c, t.w11, g, fixed);
-    return 0;
-  }
-};
-
 // log2 of the lanes of a query's group in the backward: min(32, pow2ceil(Gc / V)).
 inline int tpg_log2_for(int nvec) {
   int l = 0;
@@ -429,37 +391,42 @@ inline int tpg_log2_for(int nvec) {
   return l;
 }
 
-// The backward of query q for the tpg lanes of its group (this lane: `lane`), V channels a
-// lane: for each tap, its corners from `src`, dfx, dfy and dmask reduced over the group's
-// channels (shuffles; lane 0 stores them) and dX through `sink`.  Every lane of the warp calls it (the shuffles), with
-// `active` false past the queries.  ONE: the group's lanes cover Gc in one pass (Gc / V <=
-// tpg), so a lane loads its dout vector once for all the query's taps.  PREFETCH: lane 0
-// loads each tap's fx, fy, mask while the tap before it is processed.  Returns the count of
-// device-memory reductions issued.
-template <int V, bool ONE, bool PREFETCH = false, class Src, class Sink>
-__device__ __forceinline__ unsigned bwd_query(const Src& src, const Sink& sink,
-                                              const float* __restrict__ fx,
-                                              const float* __restrict__ fy,
-                                              const float* __restrict__ mask,
-                                              const float* __restrict__ drow,
-                                              float* __restrict__ dfx, float* __restrict__ dfy,
-                                              float* __restrict__ dmask, size_t q, bool active,
-                                              int lane, int tpg, int H, int W, int K, int Gc) {
+constexpr int K8_BWD_THREADS = 256;
+
+// K8's backward (dense K8's, and K8-slab's): a group of tpg = 2^tpg_log2 lanes a query, V
+// channels a lane; for each tap, its corners from the query's map in device memory, dfx, dfy
+// and dmask reduced over the group's channels (shuffles; lane 0 stores them) and dX reduced
+// into device memory (scatter).  ONE: the group's lanes cover Gc in one pass (Gc / V <= the
+// group size), so a lane loads its dout vector once for all the query's taps.  Where `nred`
+// is not null, the reductions the launch issues are added to *nred (a measurement of the
+// scatter; null on the training paths).
+template <typename T, int V, bool ONE>
+__global__ void __launch_bounds__(K8_BWD_THREADS)
+bilinear_bwd_kernel(const T* __restrict__ xg, const float* __restrict__ fx,
+                    const float* __restrict__ fy, const float* __restrict__ mask,
+                    const float* __restrict__ dout, float* __restrict__ dxg,
+                    float* __restrict__ dfx, float* __restrict__ dfy, float* __restrict__ dmask,
+                    unsigned long long* __restrict__ nred, int BG, int H, int W, int P, int K,
+                    int Gc, int tpg_log2) {
+  const long long gid = static_cast<long long>(blockIdx.x) * K8_BWD_THREADS + threadIdx.x;
+  const long long q = gid >> tpg_log2;
   unsigned issued = 0;
+  const int tpg = 1 << tpg_log2;
+  const int lane = static_cast<int>(gid & (tpg - 1));
+  // every lane of a group takes part in the shuffles, so none returns early
+  const bool active = q < static_cast<long long>(BG) * P;
+  const int bg = active ? static_cast<int>(q / P) : 0;
+  const size_t img_off = static_cast<size_t>(bg) * H * W * Gc;
+  const T* img = xg + img_off;
+  float* dimg = dxg + img_off;
   const int nvec = Gc / V;
+  const float* drow = dout + static_cast<size_t>(active ? q : 0) * Gc;
   float r1[V];
   if (ONE && active && lane < nvec) load_vec(drow + lane * V, r1);
-  float px = 0.f, py = 0.f, pm = 0.f;  // PREFETCH: the next tap, loaded a tap ahead
-  if (PREFETCH && active && lane == 0) px = fx[q * K], py = fy[q * K], pm = mask[q * K];
   for (int k = 0; k < K; ++k) {
-    const size_t i = q * K + k;
+    const size_t i = static_cast<size_t>(active ? q : 0) * K + k;
     float tx = 0.f, ty = 0.f, tm = 0.f;
-    if constexpr (PREFETCH) {
-      tx = px, ty = py, tm = pm;
-      if (active && lane == 0 && k + 1 < K) px = fx[i + 1], py = fy[i + 1], pm = mask[i + 1];
-    } else {
-      if (active && lane == 0) tx = fx[i], ty = fy[i], tm = mask[i];
-    }
+    if (active && lane == 0) tx = fx[i], ty = fy[i], tm = mask[i];
     tx = __shfl_sync(0xffffffffu, tx, 0, tpg);
     ty = __shfl_sync(0xffffffffu, ty, 0, tpg);
     tm = __shfl_sync(0xffffffffu, tm, 0, tpg);
@@ -477,7 +444,7 @@ __device__ __forceinline__ unsigned bwd_query(const Src& src, const Sink& sink,
         } else {
           load_vec(drow + c, r);
         }
-        src.template load<V>(t, Gc, c, v);
+        load_corners<T, V>(img, t, Gc, c, v);
 #pragma unroll
         for (int j = 0; j < V; ++j) {
           const float top = v[0][j] * ax + v[1][j] * t.wx;
@@ -487,7 +454,7 @@ __device__ __forceinline__ unsigned bwd_query(const Src& src, const Sink& sink,
           gx += g[j] * ((v[1][j] - v[0][j]) * ay + (v[3][j] - v[2][j]) * t.wy);
           gy += g[j] * (bot - top);
         }
-        if (m != 0.f) issued += sink.template add<V>(t, Gc, c, g);
+        if (m != 0.f) issued += scatter_corners<V>(dimg, t, Gc, c, g);
       }
     }
     for (int s = tpg >> 1; s > 0; s >>= 1) {
@@ -501,7 +468,32 @@ __device__ __forceinline__ unsigned bwd_query(const Src& src, const Sink& sink,
       dmask[i] = gm;
     }
   }
-  return issued;
+  if (nred != nullptr) {
+    const unsigned warp_total = __reduce_add_sync(0xffffffffu, issued);
+    if ((threadIdx.x & 31) == 0) atomicAdd(nred, static_cast<unsigned long long>(warp_total));
+  }
+}
+
+// The backward's launch: V = 4 where Gc % 4 == 0, else 1.
+template <typename T>
+int launch_bilinear_bwd(const void* xg, const void* fx, const void* fy, const void* mask,
+                        const void* dout, void* dxg, void* dfx, void* dfy, void* dmask, void* nred,
+                        int BG, int H, int W, int P, int K, int Gc, cudaStream_t stream) {
+  const int V = Gc % 4 == 0 ? 4 : 1;
+  const int l = tpg_log2_for(Gc / V);
+  const long long threads = (static_cast<long long>(BG) * P) << l;
+  const long long blocks = (threads + K8_BWD_THREADS - 1) / K8_BWD_THREADS;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const bool one = Gc / V <= (1 << l);
+  auto kernel = V == 4 ? (one ? bilinear_bwd_kernel<T, 4, true> : bilinear_bwd_kernel<T, 4, false>)
+                       : (one ? bilinear_bwd_kernel<T, 1, true> : bilinear_bwd_kernel<T, 1, false>);
+  kernel<<<static_cast<unsigned>(blocks), K8_BWD_THREADS, 0, stream>>>(
+      static_cast<const T*>(xg), static_cast<const float*>(fx), static_cast<const float*>(fy),
+      static_cast<const float*>(mask), static_cast<const float*>(dout),
+      static_cast<float*>(dxg), static_cast<float*>(dfx), static_cast<float*>(dfy),
+      static_cast<float*>(dmask), static_cast<unsigned long long*>(nred), BG, H, W, P, K, Gc,
+      l);
+  return cudaGetLastError();
 }
 
 }  // namespace samrs

@@ -57,7 +57,6 @@
 // _dhat (see K8).  dimg's fixed-point sums do not depend on the order of the adds; the GLOBAL
 // form's fp32 atomics make its summation order vary from run to run.
 #include "common.cuh"
-#include "fixed_point.cuh"
 #include "hopper.cuh"
 
 namespace samrs {
@@ -220,8 +219,40 @@ struct Image {
   }
 };
 
-// dimg's partial in shared memory (SMEM, BANDS) is fixed point (fixed_point.cuh), scaled
-// from S = sum |dout| over the mask's points, with N = K contributions at most a pixel.
+// dimg's partial in shared memory (SMEM, BANDS) is fixed point, two int32 words a pixel
+// added by native integer atomics: a shared-memory fp32 atomicAdd is a compare-and-swap loop
+// on sm_90 (ATOMS.CAST.SPIN: a read and a CAS a value).  A contribution v becomes x = v 2^sh,
+// hi = rint(x) and lo = rint((x - hi) 2^lob).  sh is set from S = sum |dout| over the mask's
+// points, so that every pixel's sum stays below 2^21 in hi units (|sum v| <= S), and lob
+// (<= 22) so that K lo words stay below 2^31.  The pixel's value (hi + lo 2^-lob) 2^-sh is
+// rounded once to fp32; its resolution, S 2^-(21 + lob), is ~2^-39 S at K 12544, far below
+// fp32's own rounding of the sum.  Both roundings to an integer use the 1.5 2^23 trick
+// (|x| < 2^22): full-rate fp32 adds, no conversion instructions.
+struct Fixed {
+  float to_x;   // 2^sh
+  float to_lo;  // 2^lob
+  __device__ __forceinline__ void split(float v, int& hi, int& lo) const {
+    constexpr float M = 12582912.f;  // 1.5 2^23
+    // x = v 2^sh is exact (a power of two, |x| < 2^21), so each fma rounds once, as a plain add
+    const float xr = __fmaf_rn(v, to_x, M);
+    hi = __float_as_int(xr) - __float_as_int(M);
+    const float rem = __fmaf_rn(v, to_x, -__fsub_rn(xr, M));  // x - rint(x), exact
+    lo = __float_as_int(__fmaf_rn(rem, to_lo, M)) - __float_as_int(M);
+  }
+};
+
+__device__ __forceinline__ float exp2f_int(int k) {  // 2^k, -126 <= k <= 127
+  return __int_as_float((k + 127) << 23);
+}
+
+// The fixed point of a mask whose points' |dout| sum to S (K points a mask).
+__device__ __forceinline__ Fixed fixed_for(float S, int K, int& sh, int& lob) {
+  lob = min(22, __clz(K));  // K < 2^(32 - lob): K lo words of at most 2^(lob - 1) fit 2^31
+  int e = 0;
+  if (S > 0.f && S <= 3.402823466e38f) frexpf(S, &e);  // S < 2^e
+  sh = max(-126, min(127, 21 - e));
+  return Fixed{exp2f_int(sh), exp2f_int(lob)};
+}
 
 // A mask's dimg: add into one pixel (row y).  In the BANDS form every block sees every point
 // of the mask and adds only into its own band, rows [r0, r1) (so no add crosses to another
@@ -331,8 +362,19 @@ __device__ __forceinline__ void stage(T* s, const T* g, int n, uint64_t* bar) {
 }
 
 // Writes the n pixels of a fixed-point partial (hi, lo in shared memory at g's 16-byte phase)
-// to device memory g as fp32 (FixedOut).  16-byte stores of the aligned middle, the head and
-// the tail element by element.
+// to device memory g as fp32, (hi 2^lob + lo) 2^-(sh + lob) rounded once (exact in double
+// before that: |hi| < 2^22, lob <= 22); NaN where dout was not finite.  16-byte stores of the
+// aligned middle, the head and the tail element by element.
+struct FixedOut {
+  double unit;   // 2^lob
+  double scale;  // 2^-(sh + lob)
+  bool finite;
+  __device__ __forceinline__ float operator()(int h, int l) const {
+    return finite ? __double2float_rn(fma(static_cast<double>(h), unit, static_cast<double>(l)) * scale)
+                  : __int_as_float(0x7fc00000);
+  }
+};
+
 __device__ __forceinline__ void write_band(float* g, const int* hi, const int* lo, int n,
                                            const FixedOut& to) {
   int h, t;
@@ -534,7 +576,9 @@ point_sample_bwd_kernel(const T* __restrict__ img, const Points<COORDS> pts,
     if constexpr (GRAD) grads.template store<1>(f, gxy);
   }
   __syncthreads();
-  const FixedOut to = fixed_out(S, sh, lob);
+  const FixedOut to{static_cast<double>(exp2f_int(lob)),
+                    __longlong_as_double(static_cast<long long>(1023 - sh - lob) << 52),
+                    S <= 3.402823466e38f};
   write_band(dgb, shi, slo, nel, to);
 }
 

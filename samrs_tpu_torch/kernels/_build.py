@@ -48,6 +48,7 @@ _SIGNATURES = {
     "samrs_bilinear_fwd": ([_P] * 5 + [_I] * 7 + [_P], _I),
     "samrs_bilinear_bwd": ([_P] * 10 + [_I] * 7 + [_P], _I),
     "samrs_bilinear_slab_fwd": ([_P] * 5 + [_I] * 8 + [_P], _I),
+    "samrs_bilinear_slab_fwd_count": ([_P] * 5 + [_I] * 8 + [_P, _P], _I),
     "samrs_bilinear_slab_bwd": ([_P] * 9 + [_I] * 8 + [_P], _I),
     "samrs_point_sample_fwd": ([_P] * 4 + [_I] * 8 + [_P], _I),
     "samrs_point_sample_bwd": ([_P] * 7 + [_I] * 8 + [_P], _I),

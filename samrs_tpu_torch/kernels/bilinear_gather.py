@@ -40,14 +40,14 @@ K8's row-slab form (``row_slab`` > 0; csrc/bilinear_slab.cu) replaces the
 slab kernels of the same ``_make_sampler``: ``_fwd_kernel_slab`` (launched
 by ``fwd_call``, :386, when ``slab > 0``) and ``bwd_call_slab`` (:419).  It
 computes K8's function with the map rows a run of queries touches held on
-chip: its work item is a run of consecutive queries of one map (``slab_plan``
-gives its length), whose band is the union of the Hs-row slabs that its taps
-touch under the JAX predicate (slab rows [s*Hs, s*Hs+Hs-1] against [min fy -
-1, max fy + 1], tap by tap); ``slab_bands`` models which slabs the chip holds
-and which taps read them.  The forward gathers as dense K8 does, from the band
-staged by bulk copies (bit-equal to dense K8); the backward sums the band's
-dX on chip in fixed point and adds it to device memory once per item.  Taps
-whose rows the band does not hold read (and add to) device memory.
+chip: its forward's work item is a run of consecutive queries of one map
+(``slab_plan`` gives its length), whose band is the union of the Hs-row slabs
+that its taps touch under the JAX predicate (slab rows [s*Hs, s*Hs+Hs-1]
+against [min fy - 1, max fy + 1], tap by tap).  The forward gathers as dense
+K8 does, from the band staged by bulk copies (bit-equal to dense K8); taps
+whose rows the band does not hold read device memory
+(``sample_weighted_slab_routes_cuda`` counts both routes on the card).  Its
+backward is dense K8's backward kernel, on the shapes the forward takes.
 ``row_slab`` follows the JAX package: ``None`` in ``dcnv3`` and
 ``ms_deform_attn`` means ``_auto_slab(H)`` (dense unless
 ``SAMRS_BILINEAR_SLAB`` names a height that divides H), 0 dense, and a
@@ -209,29 +209,27 @@ class _SampleWeighted(torch.autograd.Function):
         return dxg, dfx, dfy, dmask, None
 
 
-# K8-slab's launch (csrc/bilinear_slab.cu's item_plan is the authority: the C entries refuse
-# a shape it does not take; slab_plan and slab_bands are its model)
-SLAB_THREADS = 512           # threads a block: one producer warp, the rest gather
+# K8-slab's forward launch (csrc/bilinear_slab.cu's item_plan; the C entries refuse the same
+# shapes)
 SLAB_BUDGET = 227 * 1024     # dynamic shared memory a block can use on an H100 (bytes)
 SLAB_MAX_K = 32              # taps: a band is at most K runs of slabs
 
 
 @functools.lru_cache(maxsize=256)
-def slab_plan(BG: int, H: int, W: int, P: int, K: int, Gc: int, Hs: int, elem_bytes: int,
-              bwd: bool) -> dict:
-    """K8-slab's plan for a launch on BG (H, W*Gc) maps of `elem_bytes` (4
-    fp32, 2 bf16) at P queries of K taps, slab height Hs; ``bwd`` the
-    backward.  A stage holds ``cap`` elements (a multiple of 8): the whole
-    map where it fits (one item a map), else as many slabs as fit (each with
-    8 elements for its run's phase), and an item's ``L`` queries span the
-    output rows of all but two of them (one slab where fewer than three
-    fit), so that its taps may reach one slab beyond either side.  Both
-    hold four mbarriers and two metas of ``meta`` ints (the producer warp
-    plans the next item while the others work on this one); the forward two
-    stages of map rows, the backward one stage of the fixed-point partial
-    (two int32 words an element).  ``smem``: the dynamic shared memory the
-    launch asks for.  Raises where no plan takes the shape: Hs
-    not dividing H, K over SLAB_MAX_K, flat indices past 31 bits."""
+def slab_plan(BG: int, H: int, W: int, P: int, K: int, Gc: int, Hs: int,
+              elem_bytes: int) -> dict:
+    """K8-slab's forward plan for a launch on BG (H, W*Gc) maps of
+    `elem_bytes` (4 fp32, 2 bf16) at P queries of K taps, slab height Hs.
+    Each of two stages of map rows holds ``cap`` elements (a multiple of 8):
+    the whole map where it fits (one item a map), else as many slabs as fit
+    (each with 8 elements for its run's phase), and an item's ``L`` queries
+    span the output rows of all but two of them (one slab where fewer than
+    three fit), so that its taps may reach one slab beyond either side.
+    Beside them, four mbarriers and two metas of ``meta`` ints (the producer
+    warp plans the next item while the others gather this one).  ``smem``:
+    the dynamic shared memory the launch asks for.  Raises where no plan
+    takes the shape (the backward too): Hs not dividing H, K over
+    SLAB_MAX_K, flat indices past 31 bits, metadata that fills the block."""
     if min(BG, H, W, P, K, Gc, Hs) < 1 or H % Hs or K > SLAB_MAX_K:
         raise ValueError(f"no K8-slab plan takes BG {BG}, {H}x{W}, P {P}, K {K}, Gc {Gc}, "
                          f"slab {Hs}: the slab must divide H, K <= {SLAB_MAX_K}")
@@ -240,12 +238,12 @@ def slab_plan(BG: int, H: int, W: int, P: int, K: int, Gc: int, Hs: int, elem_by
         raise ValueError(f"no K8-slab plan takes BG {BG}, {H}x{W}, P {P}, K {K}, Gc {Gc}: "
                          f"its flat indices pass 31 bits")
     nslab = H // Hs
-    meta = (2 * K + 1 + 3 * K + nslab + H + 1 + 3) // 4 * 4
+    meta = (2 * K + 1 + 3 * K + nslab + H + 3) // 4 * 4
     fixed = 32 + 8 * meta  # four mbarriers, two metas
     if fixed + 1024 > SLAB_BUDGET:
         raise ValueError(f"no K8-slab plan takes {H} rows of {nslab} slabs: their metadata "
                          f"fills the block's shared memory")
-    per = 8 if bwd else 2 * elem_bytes  # bytes an element: two stages, or the partial's words
+    per = 2 * elem_bytes  # bytes an element: two stages
     slab_el = Hs * W * Gc
     whole = nslab * slab_el + 8
     cmax = (SLAB_BUDGET - fixed) // per // 8 * 8
@@ -258,67 +256,10 @@ def slab_plan(BG: int, H: int, W: int, P: int, K: int, Gc: int, Hs: int, elem_by
     return dict(L=L, nitem=nitem, items=BG * nitem, cap=cap, meta=meta, smem=fixed + per * cap)
 
 
-def _rows_active(top, bottom, lo, hi):
-    """JAX's predicate in fp32: map rows [top, bottom] against [lo - 1, hi + 1]."""
-    one = np.float32(1)
-    return (np.float32(top) <= hi + one) & (np.float32(bottom) >= lo - one)
-
-
-def slab_bands(fy, H: int, W: int, Gc: int, Hs: int, elem_bytes: int, bwd: bool = False):
-    """A model of K8-slab's bands (csrc/bilinear_slab.cu: item_pass,
-    mark_slabs, place_runs) on fy (BG, P, K): per item (bg, p0, nq, the
-    active slabs, the staged slabs, the elements the staged runs take on
-    chip), and for every tap whether both its corner rows (clamped into the
-    map) are staged, (BG, P, K) bool: in the forward those taps read their
-    corners on chip, in the backward they add their dX there."""
-    fy = np.asarray(fy, np.float32)
-    BG, P, K = fy.shape
-    plan = slab_plan(BG, H, W, P, K, Gc, Hs, elem_bytes, bwd)
-    nslab, slab_el = H // Hs, Hs * W * Gc
-    y0 = np.clip(np.floor(fy), -2, H).astype(np.int64)
-    slab0, slab1 = np.clip(y0, 0, H - 1) // Hs, np.clip(y0 + 1, 0, H - 1) // Hs
-    staged = np.zeros(fy.shape, bool)
-    items = []
-    tops = np.arange(nslab) * Hs
-    up8 = lambda n: -(-n // 8) * 8
-    for bg in range(BG):
-        for p0 in range(0, P, plan["L"]):
-            f = fy[bg, p0:p0 + plan["L"]]
-            with np.errstate(invalid="ignore"):
-                lo = np.where(np.isnan(f).all(0), np.nan, np.nanmin(np.where(np.isnan(f), np.inf, f), 0))
-                hi = np.where(np.isnan(f).any(0), np.nan, f.max(0))
-            active = _rows_active(tops[:, None], tops[:, None] + Hs - 1, lo[None], hi[None]).any(1)
-            runs = []
-            for s in np.flatnonzero(active):
-                if runs and runs[-1][1] == s - 1:
-                    runs[-1][1] = s
-                else:
-                    runs.append([s, s])
-            phase = lambda r: (bg * H * W * Gc + r[0] * slab_el) % 8
-            size = lambda r: (r[1] - r[0] + 1) * slab_el
-            cur = 0
-            for r in runs:
-                cur = up8(cur) + phase(r) + size(r)
-            order = list(range(len(runs)))
-            if cur > plan["cap"]:
-                taps = [int(_rows_active(a * Hs, b * Hs + Hs - 1, lo, hi).sum()) for a, b in runs]
-                order.sort(key=lambda r: -taps[r])
-            keep, cur = np.zeros(nslab, bool), 0
-            for r in order:
-                off = up8(cur) + phase(runs[r])
-                if off + size(runs[r]) <= plan["cap"]:
-                    cur = off + size(runs[r])
-                    keep[runs[r][0]:runs[r][1] + 1] = True
-            items.append(dict(bg=bg, p0=p0, nq=len(f), active=active, staged=keep, elements=cur))
-            rows = slice(p0, p0 + plan["L"])
-            staged[bg, rows] = keep[slab0[bg, rows]] & keep[slab1[bg, rows]]
-    return items, staged
-
-
-def _check_slab(xg, fx, Gc: int, Hs: int, bwd: bool):
+def _check_slab(xg, fx, Gc: int, Hs: int):
     BG, H, WGc = xg.shape
     _, P, K = fx.shape
-    slab_plan(BG, H, WGc // Gc, P, K, Gc, Hs, xg.element_size(), bwd)
+    slab_plan(BG, H, WGc // Gc, P, K, Gc, Hs, xg.element_size())
 
 
 def sample_weighted_slab_fwd_cuda(xg, fx, fy, mask, Gc: int, Hs: int):
@@ -327,7 +268,7 @@ def sample_weighted_slab_fwd_cuda(xg, fx, fy, mask, Gc: int, Hs: int):
     plan takes the shape (``slab_plan``); never reroutes."""
     global slab_fwd_launches
     _check(xg, fx, fy, mask, Gc)
-    _check_slab(xg, fx, Gc, Hs, False)
+    _check_slab(xg, fx, Gc, Hs)
     BG, H, WGc = xg.shape
     _, P, K = fx.shape
     out = torch.empty(BG, P, Gc, device=xg.device, dtype=torch.float32)
@@ -339,12 +280,13 @@ def sample_weighted_slab_fwd_cuda(xg, fx, fy, mask, Gc: int, Hs: int):
 
 
 def sample_weighted_slab_bwd_cuda(xg, fx, fy, mask, dout, Gc: int, Hs: int):
-    """The row-slab backward kernel: (dxg in xg's dtype, dfx, dfy, dmask fp32).
-    dX is added by reductions into a zeroed fp32 buffer (neighbouring items'
-    bands overlap), so its summation order varies from run to run."""
+    """The row-slab backward (dense K8's backward kernel, on the shapes the
+    forward takes): (dxg in xg's dtype, dfx, dfy, dmask fp32).  dX is added
+    by reductions into a zeroed fp32 buffer, so its summation order varies
+    from run to run.  Raises where no plan takes the shape."""
     global slab_bwd_launches
     _check(xg, fx, fy, mask, Gc)
-    _check_slab(xg, fx, Gc, Hs, True)
+    _check_slab(xg, fx, Gc, Hs)
     BG, H, WGc = xg.shape
     _, P, K = fx.shape
     _build.require_cuda("dout", dout, torch.float32, (BG, P, Gc))
@@ -356,6 +298,24 @@ def sample_weighted_slab_bwd_cuda(xg, fx, fy, mask, dout, Gc: int, Hs: int):
                   int(xg.dtype == torch.bfloat16))
     slab_bwd_launches += 1
     return dxg.to(xg.dtype), dfx, dfy, dmask
+
+
+def sample_weighted_slab_routes_cuda(xg, fx, fy, mask, Gc: int, Hs: int):
+    """The row-slab forward kernel built to count its taps by route (a
+    measurement, not counted in ``slab_fwd_launches``): (out, the (query,
+    tap) pairs whose corners it read from the staged band, those it read from
+    device memory), each pair counted once."""
+    _check(xg, fx, fy, mask, Gc)
+    _check_slab(xg, fx, Gc, Hs)
+    BG, H, WGc = xg.shape
+    _, P, K = fx.shape
+    out = torch.empty(BG, P, Gc, device=xg.device, dtype=torch.float32)
+    routes = torch.zeros(2, device=xg.device, dtype=torch.int64)
+    p = _build.ptr
+    _build.launch("samrs_bilinear_slab_fwd_count", p(xg), p(fx), p(fy), p(mask), p(out),
+                  BG, H, WGc // Gc, P, K, Gc, Hs, int(xg.dtype == torch.bfloat16), p(routes))
+    band, device = routes.tolist()
+    return out, band, device
 
 
 class _SampleWeightedSlab(torch.autograd.Function):

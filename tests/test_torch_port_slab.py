@@ -1,8 +1,8 @@
 """K8-slab (``sample_weighted(..., row_slab=h)``: the DCNv3 / MSDeformAttn row-slab gather)
 against the JAX package on the CPU, and CPU models of its Hopper kernels
-(csrc/bilinear_slab.cu): the work split into items, the bands and the taps that read them
-(``bilinear_gather.slab_bands``), the shared memory a launch asks for (``slab_plan``), the
-backward's fixed-point dX partial, and the wrappers' refusals.
+(csrc/bilinear_slab.cu): the forward's work split into items and the backward's lanes, each
+item's band (its taps' active slabs under the JAX predicate) and whether it fits a stage,
+the shared memory a launch asks for (``slab_plan``), and the wrappers' refusals.
 
 The plain version (the slab mode's CPU route) is held against JAX ``sample_weighted(...,
 interpret=True, row_slab=7)`` at the suite's tolerance: fp32 on both sides, only the
@@ -17,7 +17,6 @@ import torch
 
 from samrs_tpu.kernels.bilinear_gather import sample_weighted as jax_sample_weighted
 from samrs_tpu_torch.kernels import _build, bilinear_gather as bg
-from test_torch_port_point_sample import _fixed_for, _split
 
 TOL = 1e-4
 HS = 7  # the slab height of the InternImage runs (SAMRS_BILINEAR_SLAB=7)
@@ -53,12 +52,12 @@ def _dcn_coords(rng, BG, H, W, p0=0, P=None):
                                       (7, 2, False)])
 def test_slab_sample_weighted_matches_pallas_interpret(H, BG, far):
     """``sample_weighted(row_slab=7)`` against JAX ``sample_weighted(interpret=True,
-    row_slab=7)`` on InternImage's four map sizes: DCNv3 coordinates of up to 128 output
+    row_slab=7)`` on InternImage's four map sizes: DCNv3 coordinates of up to 64 output
     pixels from the map's middle row (one JAX query block), on 28^2 with tap 8 of every
     query moved half the map away; the forward and the gradients in xg, fx, fy and mask."""
     rng = np.random.default_rng(H + 100 * far)
     Gc, W = 4, H
-    P = min(H * W, 128)
+    P = min(H * W, 64)
     p0 = min((H // 2) * W, H * W - P)
     fx, fy = _dcn_coords(rng, BG, H, W, p0, P)
     if far:
@@ -105,46 +104,43 @@ def _items(plan, BG, P):
 
 @pytest.mark.parametrize("case", SMOKE_CASES, ids=CASE_IDS)
 def test_work_split_evaluates_every_query_and_output_once(case):
-    """The items (runs of L queries of one map) partition every map's queries, so each
-    (query, tap) is evaluated by one item; within an item the forward's threads take each
-    (query, channel vector) once (flat-4 at odd Gc: each group of four outputs belongs to
-    the item that holds its first query, so every output is written once), and the
-    backward's lanes each (query, lane of its group) once, with a group inside a warp."""
+    """The forward's items (runs of L queries of one map) partition every map's queries, so
+    each (query, tap) is evaluated by one item; within an item the threads take each (query,
+    channel vector) once (flat-4 at odd Gc: each group of four outputs belongs to the item
+    that holds its first query, so every output is written once).  The backward (dense K8's
+    kernel) gives each query a group of tpg lanes inside one warp, whose channel vectors
+    cover Gc."""
     _, BG, H, W, Gc, P, K, esz, _, Hs = case
-    for bwd in (False, True):
-        plan = bg.slab_plan(BG, H, W, P, K, Gc, Hs, esz, bwd)
-        items = _items(plan, BG, P)
-        assert len(items) == plan["items"] == BG * plan["nitem"]
-        queries = np.zeros(BG * P, np.int64)
+    plan = bg.slab_plan(BG, H, W, P, K, Gc, Hs, esz)
+    items = _items(plan, BG, P)
+    assert len(items) == plan["items"] == BG * plan["nitem"]
+    queries = np.zeros(BG * P, np.int64)
+    for bg_, p0, nq in items:
+        queries[bg_ * P + p0:bg_ * P + p0 + nq] += 1
+    assert (queries == 1).all()
+    if Gc % 2 and Gc >= 3:  # flat-4
+        groups = np.zeros(-(-BG * P * Gc // 4), np.int64)
         for bg_, p0, nq in items:
-            queries[bg_ * P + p0:bg_ * P + p0 + nq] += 1
-        assert (queries == 1).all()
-        if not bwd and Gc % 2 and Gc >= 3:  # flat-4
-            groups = np.zeros(-(-BG * P * Gc // 4), np.int64)
-            for bg_, p0, nq in items:
-                q0 = bg_ * P + p0
-                groups[-(-q0 * Gc // 4):-(-(q0 + nq) * Gc // 4)] += 1
-            assert (groups == 1).all()
-        elif not bwd:
-            V = 4 if Gc % 4 == 0 else 2 if Gc % 2 == 0 else 1
-            n = Gc // V
-            outs = np.zeros(BG * P * Gc, np.int64)
-            for bg_, p0, nq in items:
-                e = np.arange(nq * n)
-                q = bg_ * P + p0 + e // n
-                for j in range(V):
-                    np.add.at(outs, q * Gc + (e % n) * V + j, 1)
-            assert (outs == 1).all()
-        else:
-            V = 4 if Gc % 4 == 0 else 1
-            l = min(5, int(np.ceil(np.log2(Gc // V)))) if Gc // V > 1 else 0
-            tpg = 1 << l
-            consumers = bg.SLAB_THREADS - 32  # the warps that take the item's queries
-            assert 32 % tpg == 0 and consumers % 32 == 0
-            nq = items[0][2]
-            e = np.arange(-(-(nq << l) // consumers) * consumers)
-            lanes = np.bincount((e >> l)[(e >> l) < nq], minlength=nq)
-            assert (lanes == tpg).all() and tpg * -(-(Gc // V) // tpg) >= Gc // V
+            q0 = bg_ * P + p0
+            groups[-(-q0 * Gc // 4):-(-(q0 + nq) * Gc // 4)] += 1
+        assert (groups == 1).all()
+    else:
+        V = 4 if Gc % 4 == 0 else 2 if Gc % 2 == 0 else 1
+        n = Gc // V
+        outs = np.zeros(BG * P * Gc, np.int64)
+        for bg_, p0, nq in items:
+            e = np.arange(nq * n)
+            q = bg_ * P + p0 + e // n
+            for j in range(V):
+                np.add.at(outs, q * Gc + (e % n) * V + j, 1)
+        assert (outs == 1).all()
+    V = 4 if Gc % 4 == 0 else 1
+    l = min(5, int(np.ceil(np.log2(Gc // V)))) if Gc // V > 1 else 0
+    tpg, threads = 1 << l, 256
+    assert 32 % tpg == 0 and tpg * -(-(Gc // V) // tpg) >= Gc // V
+    gid = np.arange(-(-(BG * P << l) // threads) * threads)
+    lanes = np.bincount((gid >> l)[(gid >> l) < BG * P], minlength=BG * P)
+    assert (lanes == tpg).all()
 
 
 def _smoke_coords(rng, key, BG, H, W, P, K, coords):
@@ -155,45 +151,69 @@ def _smoke_coords(rng, key, BG, H, W, P, K, coords):
     return (rng.random((BG, P, K)) * (H + 2.0) - 1.5).astype(np.float32)
 
 
+def _active_slabs(fy, H: int, Hs: int):
+    """JAX's predicate in fp32 (samrs_tpu/kernels/bilinear_gather.py:70-74) over an item's
+    fy (nq, K): the slabs whose rows [s*Hs, s*Hs+Hs-1] meet some tap's [min fy - 1, max fy +
+    1]."""
+    lo, hi, one = fy.min(0), fy.max(0), np.float32(1)
+    top = (np.arange(H // Hs) * Hs).astype(np.float32)[:, None]
+    return ((top <= hi + one) & (top + np.float32(Hs - 1) >= lo - one)).any(1)
+
+
+def _band_elements(active, Hs: int, W: int, Gc: int) -> int:
+    """The stage elements the runs of `active` slabs take, each run with 8 for its phase."""
+    runs = np.count_nonzero(np.diff(np.concatenate([[0], active.astype(np.int8)])) == 1)
+    return int(active.sum()) * Hs * W * Gc + 8 * runs
+
+
 @pytest.mark.parametrize("case", SMOKE_CASES, ids=CASE_IDS)
 def test_bands_hold_the_staged_taps_and_fit_the_launch(case):
-    """``slab_bands`` at the smoke's shapes (the first maps of each; the plan at the full
-    BG): the active slabs (JAX's predicate, tap by tap) hold every corner on the map;
-    a tap marked staged has both rows in its item's staged slabs; the staged runs fit the
-    stage (forward: two stages of map rows; backward: the partial's two words; both beside
-    two metas and four mbarriers) within the shared memory the launch asks for, and that
-    within the card's.
-    Every DCNv3 and MSDeformAttn tap reads the band; the scattered 64^2 and the 1024-wide
-    maps stage nothing; the off-band case stages exactly taps 0-6."""
+    """Each item's band at the smoke's shapes (the first maps of each; the plan at the full
+    BG): its active slabs (JAX's predicate, tap by tap) hold both rows of every corner on
+    the map, so any tap may be staged; the two stages and two metas fit the shared memory
+    the launch asks for, and that the card's.  Every DCNv3 and MSDeformAttn band fits a
+    stage whole; the scattered 64^2 and the 1024-wide maps' bands do not; in the off-band
+    case the band of taps 0-6 fits and the whole band does not (the chip counts which taps
+    the kernel staged: chip_smoke.k8_slab_phase)."""
     key, BG, H, W, Gc, P, K, esz, coords, Hs = case
     rng = np.random.default_rng(len(key))
     n = min(BG, 4)
     fy = _smoke_coords(rng, key, n, H, W, P, K, coords)
     y0 = np.clip(np.floor(fy), -2, H).astype(np.int64)
-    rows = (np.clip(y0, 0, H - 1), np.clip(y0 + 1, 0, H - 1))
-    for bwd in (False, True):
-        plan = bg.slab_plan(BG, H, W, P, K, Gc, Hs, esz, bwd)
-        per = 8 if bwd else 2 * esz
-        assert plan["cap"] % 8 == 0
-        assert plan["smem"] == 32 + 8 * plan["meta"] + per * plan["cap"]
-        assert plan["smem"] <= bg.SLAB_BUDGET
-        items, staged = bg.slab_bands(fy, H, W, Gc, Hs, esz, bwd)
-        assert [(i["bg"], i["p0"], i["nq"]) for i in items] == _items(plan, n, P)
-        for it in items:
-            assert it["elements"] <= plan["cap"]
-            assert not (it["staged"] & ~it["active"]).any()
-            sl = (it["bg"], slice(it["p0"], it["p0"] + it["nq"]))
-            for r, y in zip(rows, (y0[sl], y0[sl] + 1)):  # the rows of the corners on the map
-                assert it["active"][r[sl] // Hs][(y >= 0) & (y < H)].all()
-            both = it["staged"][rows[0][sl] // Hs] & it["staged"][rows[1][sl] // Hs]
-            np.testing.assert_array_equal(staged[sl], both)
-        per_tap = staged.mean((0, 1))
+    plan = bg.slab_plan(BG, H, W, P, K, Gc, Hs, esz)
+    assert plan["cap"] % 8 == 0
+    assert plan["smem"] == 32 + 8 * plan["meta"] + 2 * esz * plan["cap"]
+    assert plan["smem"] <= bg.SLAB_BUDGET
+    for bg_, p0, nq in _items(plan, n, P):
+        f = fy[bg_, p0:p0 + nq]
+        active = _active_slabs(f, H, Hs)
+        for y in (y0[bg_, p0:p0 + nq], y0[bg_, p0:p0 + nq] + 1):  # the corners' rows on the map
+            assert active[np.clip(y, 0, H - 1) // Hs][(y >= 0) & (y < H)].all()
+        fits = _band_elements(active, Hs, W, Gc) <= plan["cap"]
         if key in ("scatter", "wide"):
-            assert (per_tap == 0).all()
+            assert not fits
         elif key == "dcn_far":
-            np.testing.assert_array_equal(per_tap, [1] * 7 + [0] * 2)
+            assert not fits
+            assert _band_elements(_active_slabs(f[:, :7], H, Hs), Hs, W, Gc) <= plan["cap"]
         else:
-            assert (per_tap == 1).all()
+            assert fits
+
+
+@pytest.mark.parametrize("case", SMOKE_CASES, ids=CASE_IDS)
+def test_plan_item_spans_its_slabs_and_one_either_side(case):
+    """``slab_plan``: the whole map in one stage where it fits (one item a map); else an
+    item's L queries are whole rows of whole slabs (at a query a pixel; or every query, where
+    there are fewer), and those slabs plus one on either side fit a stage, so that taps
+    reaching one slab beyond still stage."""
+    _, BG, H, W, Gc, P, K, esz, _, Hs = case
+    plan = bg.slab_plan(BG, H, W, P, K, Gc, Hs, esz)
+    slab_el = Hs * W * Gc
+    if plan["L"] == P and plan["nitem"] == 1 and plan["cap"] >= H * W * Gc + 8:
+        return
+    assert plan["cap"] % (slab_el + 8) == 0
+    slabs = plan["cap"] // (slab_el + 8)
+    assert plan["L"] == P or plan["L"] % (Hs * W) == 0
+    assert -(-plan["L"] // (Hs * W)) + 2 <= slabs or (slabs < 3 and plan["L"] <= Hs * W)
 
 
 def test_plan_refuses_what_no_plan_takes():
@@ -201,80 +221,8 @@ def test_plan_refuses_what_no_plan_takes():
     and a map whose metadata fills the block raise."""
     for args in ((4, 56, 56, 3136, 9, 16, 5), (4, 56, 56, 3136, bg.SLAB_MAX_K + 1, 16, 7),
                  (1 << 16, 56, 56, 3136, 9, 16, 7), (1, 1 << 16, 64, 100, 4, 16, 1)):
-        for bwd in (False, True):
-            with pytest.raises(ValueError, match="no K8-slab plan"):
-                bg.slab_plan(*args, 4, bwd)
-
-
-# --------------------------------------------------------- dX's fixed point ----
-
-
-def _item_contributions(rng, nq, H, W, Gc, K):
-    """One level-0 item's dX contributions as the kernel forms them: per (query, tap,
-    corner on the map, channel) the pixel element and v = (m * r) * w in fp32; and S, the
-    item's sum over queries of sum_k |m| times sum_c |r|."""
-    fx, fy = _dcn_coords(rng, 1, H, W, (H // 2) * W, nq)
-    fx, fy = fx[0], fy[0]
-    m = rng.random((nq, K)).astype(np.float32)
-    r = rng.normal(size=(nq, Gc)).astype(np.float32)
-    r[:2] *= 40  # a few large gradients
-    x0, y0 = np.floor(fx), np.floor(fy)
-    wx, wy = fx - x0, fy - y0
-    ax, ay = np.float32(1) - wx, np.float32(1) - wy
-    g = m[:, :, None] * r[:, None, :]  # (nq, K, Gc), rounded as m * r
-    elem, val = [], []
-    for dy, dx, w in ((0, 0, ax * ay), (0, 1, wx * ay), (1, 0, ax * wy), (1, 1, wx * wy)):
-        x, y = x0.astype(int) + dx, y0.astype(int) + dy
-        ok = ((x >= 0) & (x < W) & (y >= 0) & (y < H) & (w != 0))
-        e = ((y * W + x)[..., None] * Gc + np.arange(Gc))[ok]
-        elem.append(e.ravel())
-        val.append((g * w.astype(np.float32)[..., None]).astype(np.float32)[ok].ravel())
-    S = float(np.float32((np.abs(m).sum(1, dtype=np.float32) * np.abs(r).sum(1, dtype=np.float32))
-                         .sum(dtype=np.float32)))
-    return np.concatenate(elem), np.concatenate(val), S
-
-
-@pytest.mark.parametrize("scale", [1.0, 3e-6, 50.0])
-def test_fixed_point_dx_rounds_the_sum_once(scale):
-    """The backward's dX partial (two int32 words an element on native integer atomics,
-    fixed_point.cuh) at a level-0 item (784 queries, 9 taps, Gc 16): its scale from S
-    bounds every element's sum, each word stays inside int32, the sum does not depend on the
-    order of the adds, and every element lies within half an fp32 ulp plus its adds'
-    resolution (S 2^-(21 + lob) each) of the exact sum."""
-    rng = np.random.default_rng(int(scale * 10))
-    H = W = 56
-    Gc, K = 16, 9
-    nq = bg.slab_plan(260, H, W, H * W, K, Gc, HS, 4, True)["L"]
-    elem, val, S = _item_contributions(rng, nq, H, W, Gc, K)
-    val = (val * np.float32(scale)).astype(np.float32)
-    S = float(np.float32(S * scale))
-    sh, lob = _fixed_for(S, nq * K)
-    hi, lo = _split(val, sh, lob)
-    n = H * W * Gc
-    exact = np.bincount(elem, val.astype(np.float64), n)
-    assert np.abs(exact).max() < S
-    got = []
-    for order in (np.arange(len(elem)), rng.permutation(len(elem))):
-        hs = np.bincount(elem[order], hi[order], n).astype(np.int64)
-        ls = np.bincount(elem[order], lo[order], n).astype(np.int64)
-        assert np.abs(hs).max() < 2 ** 31 and np.abs(ls).max() < 2 ** 31
-        got.append(np.float32((hs * 2.0 ** lob + ls) * 2.0 ** -(sh + lob)))
-    np.testing.assert_array_equal(got[0], got[1])
-    resolution = np.bincount(elem, minlength=n) * S * 2.0 ** -(21 + lob)
-    ulp = np.spacing(np.abs(exact).astype(np.float32)).astype(np.float64)
-    assert (np.abs(got[0] - exact) <= ulp / 2 + resolution).all()
-
-
-def test_fixed_point_dx_words_hold_the_worst_element():
-    """Every contribution of an item on one element, each as large as S allows (S / N for
-    N = L K contributions): the hi and lo words stay inside int32 and the element is exact."""
-    for nq, K in ((784, 9), (1029, 4), (49, 9), (2000, 4)):
-        N = nq * K
-        v = np.full(N, -1.75, np.float32)
-        sh, lob = _fixed_for(float(np.abs(v).sum(dtype=np.float32)), N)
-        hi, lo = _split(v, sh, lob)
-        assert abs(int(hi.sum())) < 2 ** 31 and abs(int(lo.sum())) < 2 ** 31
-        assert np.float32((hi.sum() * 2.0 ** lob + lo.sum()) * 2.0 ** -(sh + lob)) == np.float32(-1.75 * N)
+        with pytest.raises(ValueError, match="no K8-slab plan"):
+            bg.slab_plan(*args, 4)
 
 
 # ------------------------------------------------------------- the wrappers ----
@@ -318,11 +266,25 @@ def test_wrappers_pass_the_shape_and_count_one_launch(monkeypatch):
     assert (bg.slab_fwd_launches, bg.slab_bwd_launches) == (1, 1)
 
 
+def test_route_count_passes_the_shape_and_counts_no_launch(monkeypatch):
+    """The forward's counting build (a measurement of which taps read the band) takes the
+    forward's arguments and a device counter, and is not counted as a launch of the path."""
+    calls = []
+    _fake_build(monkeypatch, calls)
+    xg, fx, fy, mask, _ = _inputs(260, 56, 56, 16, 3136, 9)
+    out, band, device = bg.sample_weighted_slab_routes_cuda(xg, fx, fy, mask, 16, 7)
+    assert out.shape == (260, 3136, 16) and (band, device) == (0, 0)
+    ((name, args),) = calls
+    assert name == "samrs_bilinear_slab_fwd_count"
+    assert args[5:13] == (260, 56, 56, 3136, 9, 16, 7, 0) and args[13] == (2,)
+    assert (bg.slab_fwd_launches, bg.slab_bwd_launches) == (0, 0)
+
+
 @pytest.mark.parametrize("shape", [(4, 56, 56, 16, 3136, 9, 5), (2, 28, 28, 32, 1029, 33, 7),
                                    (1 << 16, 56, 56, 16, 3136, 9, 7)])
 def test_wrappers_refuse_what_no_plan_takes_before_building(monkeypatch, shape):
     """A slab that does not divide H, more than SLAB_MAX_K taps, flat indices past 31 bits:
-    both wrappers raise before anything is built or launched, and never reroute to dense K8
+    the wrappers raise before anything is built or launched, and never reroute to dense K8
     or the plain version."""
     calls = []
     _fake_build(monkeypatch, calls)
@@ -332,6 +294,8 @@ def test_wrappers_refuse_what_no_plan_takes_before_building(monkeypatch, shape):
         bg.sample_weighted_slab_fwd_cuda(xg, fx, fy, mask, Gc, Hs)
     with pytest.raises(ValueError, match="no K8-slab plan"):
         bg.sample_weighted_slab_bwd_cuda(xg, fx, fy, mask, dout, Gc, Hs)
+    with pytest.raises(ValueError, match="no K8-slab plan"):
+        bg.sample_weighted_slab_routes_cuda(xg, fx, fy, mask, Gc, Hs)
     assert calls == [] and (bg.slab_fwd_launches, bg.slab_bwd_launches) == (0, 0)
 
 
