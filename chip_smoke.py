@@ -170,6 +170,24 @@ checkout; it has no CPU path and raises on any failure.  Phases:
    steps with eval and checkpoints, dense and with SAMRS_BILINEAR_SLAB=7
    (the slab kernels' launches in the result line come from that run);
    ``--profile`` adds torch.profiler tables of a dense and a slab step;
+9c. ViT-Adapter-B (this slice's path; run after phase 6, before the other
+   train steps): K8 forward and backward against sample_weighted_plain at
+   the adapter's FAST-head shapes (65 images x 12 heads of 32: the
+   injector's 28^2 / 14^2 / 7^2 levels with the 196 ViT tokens, the
+   extractor's 14^2 level with the 1029 conv tokens; 4 points), rel-L2 <=
+   1e-5, forward bit-equal, with times and the bound; one vit_adapter_b +
+   UperNet step (17/12/65 at 224^2, fp32, the family's optimizer row) with
+   the kernels (K8 54 + 54, K10 36, K11 36 launches counted on the card),
+   the plain versions and the control, judged as in phase 7, with s/step,
+   img/s, peak memory and the device's busy share of a warm step
+   (torch.profiler, taken again where it lost K8 records); ``python -m
+   samrs_tpu_torch.train.pretrain backbone=vit_adapter_b decoder=unetpp``
+   for 2 steps with eval and checkpoints on a synthetic SAMRS layout; the
+   finetune CLI with ``backbone=vit_adapter_b decoder=unet`` (Potsdam,
+   512^2, batch 8, one epoch of 2 steps) from that run's
+   ``best_encoder.pt``, and the evaluate CLI with the same backbone and
+   decoder on its ``last.pt`` (two 600x600 images, flip TTA, PNGs read
+   back); launches of each;
 10. finetune-driver phase: ``run_finetune`` at the defaults (vit_b_rvsa +
    UperNet, Potsdam, 512^2, batch 8) for one epoch (2 steps, one eval batch)
    on a synthetic Potsdam layout with RGB labels in ISPRS_PALETTE, grafting
@@ -183,8 +201,8 @@ checkout; it has no CPU path and raises on any failure.  Phases:
    JSON line of per-kernel results (launches: K1-K7 from the generate
    phase, K12 from the generate phase at image_size 512, the modes from the
    configuration or image size that runs them, K8 from the pretrain phase
-   with its per-step count, K9
-   from the Mask2Former pretrain phase, K10 and K11 from the finetune driver
+   with its per-step count and the adapter's cases and launches (phase 9c),
+   K9 from the Mask2Former pretrain phase, K10 and K11 from the finetune driver
    with their per-step counts; an entry's other cases beside its main one
    carry measured numbers only: their bounds are on the log lines), then
    the card's name and power limit and the final status line.
@@ -193,8 +211,8 @@ checkout; it has no CPU path and raises on any failure.  Phases:
 the main path and the generate phase at the default image size; modes, configs,
 sizes: 2b, 4b, 4c; slab: the K8-slab and K11-width checks of 9b;
 internimage: its step and driver runs; mlp: 6 and K11's widths; gather: 5
-and the MSDA wrapper of 5b; steps: 7, 7b, 8 and 9b's step), and prints no
-result lines.
+and the MSDA wrapper of 5b; steps: 7, 7b, 8 and 9b's step; adapter: 9c),
+and prints no result lines.
 
 ``--profile`` adds a torch.profiler table of one warm generate image (and of
 one warm main-path image at image_size 768) with
@@ -267,6 +285,21 @@ II_STEP_LAUNCHES = {"K8f": II_BLOCKS * 3, "K8b": II_BLOCKS * 3, "K11": II_BLOCKS
 II_SLAB_STEP_LAUNCHES = {"K8sf": II_BLOCKS * 3, "K8sb": II_BLOCKS * 3, "K11": II_BLOCKS * 3,
                          "K11s": II_BLOCKS * 2}
 II_EVAL_LAUNCHES = {"K8f": II_BLOCKS, "K11": II_BLOCKS}
+# ViT-Adapter-B SEP pretraining (backbone=vit_adapter_b): 4 interactions, each an injector
+# (a three-level MSDeformAttn: one K8 launch a level) before its 3 ViT blocks and an
+# extractor (one level) after them, 2 extra extractors after the last; the 12 blocks'
+# attention through K10, their MLPs through K11; three encoder passes (heads) a step
+ADAPTER_MSDA = 4 * 3 + 4 + 2   # K8 launches of one ViT-Adapter forward
+ADAPTER_STEP_LAUNCHES = {"K8f": ADAPTER_MSDA * 3, "K8b": ADAPTER_MSDA * 3, "K10": VIT_DEPTH * 3,
+                         "K11": VIT_DEPTH * 3, "K11s": VIT_DEPTH * 2}
+ADAPTER_EVAL_LAUNCHES = {"K8f": ADAPTER_MSDA, "K10": VIT_DEPTH, "K11": VIT_DEPTH}
+# per-channel shifts that a BatchNorm removes next (the spatial prior's fc1 and up into
+# norm1; norm1..norm3 into UperNet's 1x1 laterals): no true gradient, rounding noise on
+# both paths
+ADAPTER_ZERO_GRAD = ("encoder.spm.fc1.bias", "encoder.up.bias", "encoder.norm1.bias",
+                     "encoder.norm2.bias", "encoder.norm3.bias")
+ADAPTER_ITERS = 2              # run_pretrain steps of the adapter phase, one eval after them
+ADAPTER_FT_TRAIN, ADAPTER_FT_VAL = 16, 2   # its Potsdam layout: 2 steps, 2 eval / test images
 K8_SLAB_FWD_RTOL = 1e-6        # K8-slab forward vs dense K8 (0 by design: K8's per-tap order)
 PROFILE_PAD_S = 0.05           # idle host time on each side of a device_ms profile (s)
 K9_RTOL = 1e-5                 # K9 vs its plain version: summation order (dimg by atomics)
@@ -1090,37 +1123,15 @@ def k8_case(gen, BG, H, W, Gc, P, K, dtype, coords):
     return xg, fx.contiguous(), fy.contiguous(), mask.contiguous(), dout
 
 
-def k8_phase(gen):
-    """K8 forward and backward against sample_weighted_plain on the same
-    inputs: the RVSA shape of the FAST head (K and V of 65 x 12 heads in one
-    launch, Gc 128; also Gc 64, one of K or V) in fp32 and with a bf16 xg, a
-    DCNv3-shaped case, and the identity grid on exact integers; InternImage-T's
-    four DCNv3 levels at the FAST head (BG 260 .. 2080, 56^2 .. 7^2, Gc 16,
-    the 3x3 base grid plus offsets up to 1.5 px) and level 0 with zero
-    offsets (every tap on a pixel, as at initialisation); Mask2Former's MSDA
-    level and shared point sample.  Each backward line prints its GB/s, the
-    bytes and the operations bound and F.grid_sample's time where one call
-    computes the function (K 1: the RVSA grid, the shared point sample over a
-    (BG, 1, P, 2) grid)."""
+def k8_cases(gen, cases, loop: bool = False):
+    """K8 forward and backward against sample_weighted_plain at each case
+    (key, BG, H, W, Gc, P, K, dtype, coords): errors, times, the bound, the
+    dX reductions counted on the card; raises on a bound missed.  Under
+    `loop` also the kernel's and the plain version's ms a call over 20
+    back-to-back calls (``*_loop_ms``: a call shorter than its wrapper's
+    host work is not timed as that host work).  Returns {key: results}."""
     from samrs_tpu_torch.kernels import bilinear_gather as bg
 
-    BG = TRAIN_BATCH[2] * 12
-    cases = [("rvsa", BG, 14, 14, 128, 196, 1, torch.float32, "window"),
-             ("rvsa_bf16", BG, 14, 14, 128, 196, 1, torch.bfloat16, "window"),
-             ("rvsa_gc64", BG, 14, 14, 64, 196, 1, torch.float32, "window"),
-             ("dcnv3", 12 * 4, 56, 56, 16, 56 * 56, 9, torch.float32, "deform"),
-             ("identity", BG, 14, 14, 128, 196, 1, torch.float32, "integer"),
-             # Mask2Former at the FAST head: one MSDeformAttn level (65 x 8 heads, the 28^2
-             # level, head dim 32, 1029 queries, 4 points) and the shared matching sample
-             # of the 100 mask logits and of the 37 gt masks at 12544 points
-             ("msda_l28", TRAIN_BATCH[2] * 8, 28, 28, 32, 1029, 4, torch.float32, "window"),
-             ("shared_masks", TRAIN_BATCH[2], 56, 56, 100, M2F_POINTS, 1, torch.float32,
-              "window"),
-             ("shared_gt", TRAIN_BATCH[2], 56, 56, 37, M2F_POINTS, 1, torch.float32, "window")]
-    cases += [(f"ii_l{lvl}", TRAIN_BATCH[2] * G, 56 >> lvl, 56 >> lvl, II_GC, (56 >> lvl) ** 2, 9,
-               torch.float32, "dcn") for lvl, G in enumerate(II_GROUPS)]
-    cases += [("ii_l0_zero", TRAIN_BATCH[2] * II_GROUPS[0], 56, 56, II_GC, 56 * 56, 9,
-               torch.float32, "dcn0")]
     names = ("out", "dxg", "dfx", "dfy", "dmask")
     out = {}
     for key, BGc, H, W, Gc, P, K, dtype, coords in cases:
@@ -1145,6 +1156,19 @@ def k8_phase(gen):
         bwd_ms = cuda_ms(lambda: bg.sample_weighted_bwd_cuda(xg, fx, fy, mask, dout, Gc))
         plain_fwd_ms = cuda_ms(lambda: bg.sample_weighted_plain(xg, fx, fy, mask, Gc))
         plain_bwd_ms = cuda_ms(lambda: torch.autograd.grad(ref, leaves, dout, retain_graph=True))
+        loops = {}
+        if loop:
+            loops = dict(
+                fwd_loop_ms=loop_ms(lambda: bg.sample_weighted_fwd_cuda(xg, fx, fy, mask, Gc)),
+                bwd_loop_ms=loop_ms(lambda: bg.sample_weighted_bwd_cuda(xg, fx, fy, mask, dout,
+                                                                        Gc)),
+                plain_fwd_loop_ms=loop_ms(lambda: bg.sample_weighted_plain(xg, fx, fy, mask, Gc)),
+                plain_bwd_loop_ms=loop_ms(lambda: torch.autograd.grad(ref, leaves, dout,
+                                                                      retain_graph=True)))
+            print(f"K8 {key} over 20 back-to-back calls, ms a call: kernel fwd "
+                  f"{loops['fwd_loop_ms']:.4f} bwd {loops['bwd_loop_ms']:.4f}, plain fwd "
+                  f"{loops['plain_fwd_loop_ms']:.4f} bwd {loops['plain_bwd_loop_ms']:.4f}",
+                  flush=True)
         lib = {}
         if K == 1:  # F.grid_sample computes K8 at one tap (a yardstick; the port never calls it)
             img = xg.reshape(BGc, H, W, Gc).permute(0, 3, 1, 2).contiguous().requires_grad_()
@@ -1212,9 +1236,44 @@ def k8_phase(gen):
                         bwd_ms=bwd_ms, plain_fwd_ms=plain_fwd_ms, plain_bwd_ms=plain_bwd_ms,
                         fwd_bound=(fb, fby), bwd_bound=(bb, bby), lib=lib, errs=errs,
                         fwd_gbps=fwd_bytes / fwd_ms / 1e6,
-                        reductions_per_tap=n_red / (BGc * P * K))
+                        reductions_per_tap=n_red / (BGc * P * K), **loops)
         del xg, fx, fy, mask, dout, got, want, leaves, ref
         torch.cuda.empty_cache()
+    return out
+
+
+def k8_phase(gen):
+    """K8 forward and backward against sample_weighted_plain on the same
+    inputs: the RVSA shape of the FAST head (K and V of 65 x 12 heads in one
+    launch, Gc 128; also Gc 64, one of K or V) in fp32 and with a bf16 xg, a
+    DCNv3-shaped case, and the identity grid on exact integers; InternImage-T's
+    four DCNv3 levels at the FAST head (BG 260 .. 2080, 56^2 .. 7^2, Gc 16,
+    the 3x3 base grid plus offsets up to 1.5 px) and level 0 with zero
+    offsets (every tap on a pixel, as at initialisation); Mask2Former's MSDA
+    level and shared point sample.  Each backward line prints its GB/s, the
+    bytes and the operations bound and F.grid_sample's time where one call
+    computes the function (K 1: the RVSA grid, the shared point sample over a
+    (BG, 1, P, 2) grid)."""
+    from samrs_tpu_torch.kernels import bilinear_gather as bg
+
+    BG = TRAIN_BATCH[2] * 12
+    cases = [("rvsa", BG, 14, 14, 128, 196, 1, torch.float32, "window"),
+             ("rvsa_bf16", BG, 14, 14, 128, 196, 1, torch.bfloat16, "window"),
+             ("rvsa_gc64", BG, 14, 14, 64, 196, 1, torch.float32, "window"),
+             ("dcnv3", 12 * 4, 56, 56, 16, 56 * 56, 9, torch.float32, "deform"),
+             ("identity", BG, 14, 14, 128, 196, 1, torch.float32, "integer"),
+             # Mask2Former at the FAST head: one MSDeformAttn level (65 x 8 heads, the 28^2
+             # level, head dim 32, 1029 queries, 4 points) and the shared matching sample
+             # of the 100 mask logits and of the 37 gt masks at 12544 points
+             ("msda_l28", TRAIN_BATCH[2] * 8, 28, 28, 32, 1029, 4, torch.float32, "window"),
+             ("shared_masks", TRAIN_BATCH[2], 56, 56, 100, M2F_POINTS, 1, torch.float32,
+              "window"),
+             ("shared_gt", TRAIN_BATCH[2], 56, 56, 37, M2F_POINTS, 1, torch.float32, "window")]
+    cases += [(f"ii_l{lvl}", TRAIN_BATCH[2] * G, 56 >> lvl, 56 >> lvl, II_GC, (56 >> lvl) ** 2, 9,
+               torch.float32, "dcn") for lvl, G in enumerate(II_GROUPS)]
+    cases += [("ii_l0_zero", TRAIN_BATCH[2] * II_GROUPS[0], 56, 56, II_GC, 56 * 56, 9,
+               torch.float32, "dcn0")]
+    out = k8_cases(gen, cases)
     # every form of the forward off the paths' shapes: flat-4 at odd Gc with 1 / 4 / 9 taps,
     # one output a thread at Gc 1, 8-byte vectors at Gc 6, the runtime tap loop at K 2 and 3;
     # fp32 and bf16 maps
@@ -2541,31 +2600,46 @@ def kernels_under(events, name: str):
     return out
 
 
-def profile_step(model, fresh_state, step, label: str, ranges=()) -> None:
+def profile_step(model, fresh_state, step, label: str, ranges=(), k8_records=None,
+                 table: bool = True):
     """torch.profiler over one warm train step with the kernels: device time
     by operation and the device's busy share of the wall time; the device ms
     of K9's kernels and of PyTorch's elementwise kernels in the step, and of
-    every kernel launched inside each record_function range in `ranges`."""
+    every kernel launched inside each record_function range in `ranges`;
+    the table of operations under `table`.  Returns (profiled wall ms,
+    device ms).  Late in a long run the profiler loses records: given
+    `k8_records` (the step's K8 launches), a profile holding another count
+    of K8 kernel records is taken again, and after three None is
+    returned."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     model.use_kernels = True
     state = fresh_state()
     step(state)
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        step(state)
+    for _ in range(3):
         torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t) * 1e3
-    events = prof.key_averages()
-    # device rows, without the device-side copies of record_function ranges
-    rows = [e for e in events if e.device_type == DeviceType.CUDA and e.key not in ranges
-            and not getattr(e, "is_user_annotation", False)]
+        t = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step(state)
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+        events = prof.key_averages()
+        # device rows, without the device-side copies of record_function ranges
+        rows = [e for e in events if e.device_type == DeviceType.CUDA and e.key not in ranges
+                and not getattr(e, "is_user_annotation", False)]
+        k8 = sum(e.count for e in rows if re.search(r"bilinear_(fwd|bwd)_kernel", e.key))
+        if k8_records is None or k8 == k8_records:
+            break
+        print(f"profile ({label}): {k8} of {k8_records} K8 records; profiling again", flush=True)
+    else:
+        print(f"profile ({label}): busy share not measured (3 profiles lost K8 records)",
+              flush=True)
+        return None
     device_ms = sum(e.self_device_time_total for e in rows) / 1e3
     print(f"profile ({label}): wall {wall_ms:.2f} ms under the profiler, device "
-          f"{device_ms:.2f} ms, busy {100 * device_ms / wall_ms:.1f}% of the profiled wall",
-          flush=True)
+          f"{device_ms:.2f} ms, busy {100 * device_ms / wall_ms:.1f}% of the profiled wall "
+          f"({k8} K8 records)", flush=True)
     for kind, word in (("K9 (point_sample kernels)", "point_sample"),
                        ("elementwise kernels", "elementwise_kernel")):
         ms = sum(e.self_device_time_total for e in rows if word in e.key) / 1e3
@@ -2579,8 +2653,10 @@ def profile_step(model, fresh_state, step, label: str, ranges=()) -> None:
               f"{k9:.3f} ms, other kernels {sum(inside.values()) - k9:.3f} ms: "
               + ", ".join(f"{k[:60]} {v:.3f}" for k, v in
                           sorted(inside.items(), key=lambda kv: -kv[1])[:8]), flush=True)
-    print(events.table(sort_by="self_device_time_total", row_limit=25, max_name_column_width=70),
-          flush=True)
+    if table:
+        print(events.table(sort_by="self_device_time_total", row_limit=25,
+                           max_name_column_width=70), flush=True)
+    return wall_ms, device_ms
 
 
 def finetune_step_phase(profile: bool = False):
@@ -2882,6 +2958,213 @@ def mask2former_driver_phase(tmp: str):
     return launches
 
 
+def adapter_k8_phase(gen):
+    """K8 forward and backward at the ViT-Adapter's FAST-head shapes (65
+    images x 12 deformable heads of 32 channels, generic coordinates): the
+    injector's three levels (28^2, 14^2, 7^2 maps; the 196 ViT tokens, 4
+    points) and the extractor's one (14^2; the 1029 conv tokens, 4 points)."""
+    BG = TRAIN_BATCH[2] * 12
+    cases = [(f"adapter_inj_l{h}", BG, h, h, 32, 196, 4, torch.float32, "window")
+             for h in (28, 14, 7)]
+    cases.append(("adapter_ext", BG, 14, 14, 32, 1029, 4, torch.float32, "window"))
+    return k8_cases(gen, cases, loop=True)
+
+
+def adapter_step_phase(profile: bool = False):
+    """One SEP pretrain step of vit_adapter_b + UperNet at full width and
+    depth (ViT-B, 12 deformable heads, 4 interactions and 2 extra
+    extractors, the 64-wide spatial prior; UperNet at 768; three heads,
+    17/12/65 images at 224^2, fp32, TF32 off; the family's lr / wd / layer
+    decay 0.95) from identical state with the kernels (K8 54 + 54, K10 36,
+    K11 36 launches, counted on the card), the plain versions and the
+    control, judged by the rule of the train-step phase; then s/step, img/s
+    and peak memory of both paths and the device's busy share of a warm
+    kernel step."""
+    from samrs_tpu_torch.core.config import PretrainConfig
+    from samrs_tpu_torch.seg.frameworks import build_multihead_model
+    from samrs_tpu_torch.train import optim, trainer
+
+    cfg = PretrainConfig()
+    t0 = time.perf_counter()
+    model = build_multihead_model("vit_adapter_b", device="cuda",
+                                  generator=torch.Generator(device="cuda").manual_seed(SEED))
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"built vit_adapter_b + UperNet ({n_params / 1e6:.1f} M parameters) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    batches = train_batches(SEED + 8)
+    bset = optim.backbone_optim_settings("vit_adapter_b", model.encoder)
+    sched = optim.warmup_cosine_schedule(bset["lr"], cfg.total_iters, cfg.optim.warmup_iters)
+
+    def fresh_state():
+        model.load_state_dict(init)
+        opt = optim.Optimizer(model, sched, weight_decay=bset["weight_decay"],
+                              grad_clip=cfg.optim.grad_clip, layer_decay=bset["layer_decay"],
+                              num_layers=bset["num_layers"], layer_id_scheme=bset["scheme"])
+        return trainer.TrainState(0, model, opt)
+
+    step = lambda state: trainer.pretrain_step(state, batches, cfg.seed)
+    runs = step_runs(model, fresh_state, step)
+    counted = runs["kernels"]["counts"]
+    compare_steps("adapter step", runs, ADAPTER_STEP_LAUNCHES, zero_grad=ADAPTER_ZERO_GRAD)
+    timing = time_steps(model, fresh_state, step, "adapter step", sum(TRAIN_BATCH), "224^2")
+    busy = profile_step(model, fresh_state, step, "adapter step",
+                        k8_records=ADAPTER_STEP_LAUNCHES["K8f"] + ADAPTER_STEP_LAUNCHES["K8b"],
+                        table=profile)
+    del model, init, batches, runs
+    torch.cuda.empty_cache()
+    return {"timing": timing, "busy": busy, "counts": counted}
+
+
+def adapter_pretrain_phase(tmp: str):
+    """``python -m samrs_tpu_torch.train.pretrain backbone=vit_adapter_b
+    decoder=unetpp`` at the defaults otherwise (17/12/65 at 224^2, the
+    family's optimizer row) on the synthetic SAMRS layout under `tmp`:
+    ADAPTER_ITERS steps, the evaluation with a per-dataset mIoU line,
+    ``last`` / ``best`` checkpoints with their encoder copies.  Returns the
+    launches and the path of ``best_encoder.pt``."""
+    from samrs_tpu_torch.train import pretrain
+
+    handler = _Lines()
+    log = logging.getLogger("samrs_tpu_torch.pretrain")
+    log.addHandler(handler)
+    log.setLevel(logging.INFO)
+    n_val = 8
+    ckpt = os.path.join(tmp, "adapter_pretrain")
+    reset_counts()
+    t = time.perf_counter()
+    try:
+        pretrain.main(["backbone=vit_adapter_b", "decoder=unetpp",
+                       f"data.root={os.path.join(tmp, 'samrs')}", f"total_iters={ADAPTER_ITERS}",
+                       f"eval_interval={ADAPTER_ITERS}", f"data.val_images={n_val}",
+                       f"ckpt_dir={ckpt}"])
+        torch.cuda.synchronize()
+    finally:
+        log.removeHandler(handler)
+    wall = time.perf_counter() - t
+    launches = read_counts()
+    evals = 3 * -(-n_val // 8)
+    want = {k: ADAPTER_ITERS * ADAPTER_STEP_LAUNCHES.get(k, 0) + evals *
+            ADAPTER_EVAL_LAUNCHES.get(k, 0) for k in launches}
+    want["K11s"] = checked_splits("adapter pretrain", launches,
+                                  ADAPTER_ITERS * ADAPTER_STEP_LAUNCHES["K11s"])
+    print("\n".join(["adapter pretrain " + ln for ln in handler.lines]), flush=True)
+    print(f"adapter pretrain (unetpp) launches: {launches} ({ADAPTER_ITERS} steps + eval in "
+          f"{wall:.1f} s)", flush=True)
+    if launches != want:
+        raise RuntimeError(f"adapter pretrain launches {launches} != {want}")
+    vals = [ln for ln in handler.lines if ln.startswith("val[")]
+    if sorted(v.split("]")[0][4:] for v in vals) != ["fast", "sior", "sota"]:
+        raise RuntimeError(f"per-dataset mIoU lines: {vals}")
+    for v in vals:
+        if not 0.0 <= float(v.split("mIoU ")[1].split()[0]) <= 1.0:
+            raise RuntimeError(f"mIoU out of range: {v}")
+    if not any(ln.startswith(f"iter {ADAPTER_ITERS} eval") for ln in handler.lines):
+        raise RuntimeError("run_pretrain(vit_adapter_b) logged no eval at its last step")
+    files = sorted(os.listdir(ckpt))
+    if not {"last.pt", "last_encoder.pt", "best.pt", "best_encoder.pt"} <= set(files):
+        raise RuntimeError(f"checkpoints written: {files}")
+    saved = torch.load(os.path.join(ckpt, "last.pt"), map_location="cpu", weights_only=True)
+    if saved["step"] != ADAPTER_ITERS or not all(
+            torch.isfinite(v).all() for v in saved["model"].values() if v.is_floating_point()):
+        raise RuntimeError(f"last.pt at step {saved['step']} or with non-finite weights")
+    return launches, os.path.join(ckpt, "best_encoder.pt")
+
+
+def adapter_finetune_phase(tmp: str, pretrained: str):
+    """``python -m samrs_tpu_torch.train.finetune backbone=vit_adapter_b
+    decoder=unet`` (Potsdam at 512^2, batch 8) for one epoch of a synthetic
+    Potsdam layout, grafting the adapter pretrain's ``best_encoder.pt`` (its
+    pos-embed resized 14^2 -> 32^2), then ``python -m
+    samrs_tpu_torch.train.evaluate`` with the same backbone and decoder on
+    its ``last.pt`` over the layout's test images (flip TTA): launches, the
+    epoch line, the checkpoints, the gray and colour PNGs.  Returns the
+    finetune's and the test's launches."""
+    from PIL import Image
+
+    from samrs_tpu_torch.train import evaluate, finetune
+
+    data = os.path.join(tmp, "adapter_data")
+    write_potsdam_layout(data, ADAPTER_FT_TRAIN, ADAPTER_FT_VAL)
+    handler = _Lines()
+    log = logging.getLogger("samrs_tpu_torch.finetune")
+    log.addHandler(handler)
+    log.setLevel(logging.INFO)
+    ckpt = os.path.join(tmp, "adapter_finetune")
+    reset_counts()
+    t = time.perf_counter()
+    try:
+        finetune.main(["backbone=vit_adapter_b", "decoder=unet", f"data.root={data}", "epochs=1",
+                       f"data.val_images={ADAPTER_FT_VAL}", f"pretrained={pretrained}",
+                       f"ckpt_dir={ckpt}"])
+        torch.cuda.synchronize()
+    finally:
+        log.removeHandler(handler)
+    wall = time.perf_counter() - t
+    ft = read_counts()
+    steps = ADAPTER_FT_TRAIN // FT_BATCH
+    want = {k: (steps + 1) * ADAPTER_EVAL_LAUNCHES.get(k, 0) for k in ft}
+    want.update(K8b=steps * ADAPTER_MSDA,
+                K11s=checked_splits("adapter finetune", ft, steps * 2 * VIT_DEPTH))
+    print("\n".join(["adapter finetune " + ln for ln in handler.lines]), flush=True)
+    print(f"adapter finetune (unet) launches: {ft} ({steps} steps + 1 eval batch in {wall:.1f} "
+          f"s)", flush=True)
+    if ft != want:
+        raise RuntimeError(f"adapter finetune launches {ft} != {want}")
+    epochs = [ln for ln in handler.lines if ln.startswith("epoch 1/1")]
+    if len(epochs) != 1 or not 0.0 <= float(epochs[0].split("mIoU ")[1].split()[0]) <= 1.0:
+        raise RuntimeError(f"epoch lines: {epochs}")
+    if not any(ln.startswith("loaded pretrained encoder") for ln in handler.lines):
+        raise RuntimeError("the adapter's SEP encoder was not grafted")
+    if not {"last.pt", "best.pt"} <= set(os.listdir(ckpt)):
+        raise RuntimeError(f"finetune checkpoints written: {os.listdir(ckpt)}")
+    out = os.path.join(tmp, "adapter_test")
+    reset_counts()
+    t = time.perf_counter()
+    evaluate.main(["--backbone", "vit_adapter_b", "--decoder", "unet", "--checkpoint",
+                   os.path.join(ckpt, "last.pt"), "--data-root", data, "--save-dir", out])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    test = read_counts()
+    fwd = 2 * ADAPTER_FT_VAL  # one batch of crops an image, and its flip
+    want = {k: fwd * ADAPTER_EVAL_LAUNCHES.get(k, 0) for k in test}
+    want["K11s"] = checked_splits("adapter test", test, 0)
+    print(f"adapter test (unet) launches: {test}; {ADAPTER_FT_VAL} images in {wall:.2f} s",
+          flush=True)
+    if test != want:
+        raise RuntimeError(f"adapter test launches {test} != {want}")
+    for sub in ("gray", "color"):
+        files = sorted(os.listdir(os.path.join(out, sub)))
+        if len(files) != ADAPTER_FT_VAL:
+            raise RuntimeError(f"adapter test {sub} PNGs: {files}")
+        with Image.open(os.path.join(out, sub, files[0])) as im:
+            if im.size != (600, 600):
+                raise RuntimeError(f"adapter test {sub} PNG of size {im.size}")
+    return ft, test
+
+
+def adapter_phase(gen, profile: bool = False):
+    """This slice's path: K8 at the ViT-Adapter's shapes, one vit_adapter_b +
+    UperNet SEP step by the control rule, the pretrain driver with UNet++ on
+    a synthetic SAMRS layout of its own, the finetune and evaluate drivers
+    with UNet.  Returns their results."""
+    t0 = time.perf_counter()
+    k8 = adapter_k8_phase(gen)
+    step = adapter_step_phase(profile)
+    with tempfile.TemporaryDirectory() as tmp:
+        write_samrs_layout(os.path.join(tmp, "samrs"), {"sota": 20, "sior": 15, "fast": 70}, 8)
+        pre, encoder = adapter_pretrain_phase(tmp)
+        ft, test = adapter_finetune_phase(tmp, encoder)
+    (s_k, peak_k), (s_p, peak_p) = step["timing"][True], step["timing"][False]
+    busy = "not measured" if step["busy"] is None else \
+        f"{100 * step['busy'][1] / step['busy'][0]:.1f}%"
+    print(f"adapter summary: kernels {s_k:.4f} s/step ({sum(TRAIN_BATCH) / s_k:.2f} img/s, peak "
+          f"{peak_k / 2**30:.2f} GiB, busy {busy}), plain {s_p:.4f} s/step "
+          f"({sum(TRAIN_BATCH) / s_p:.2f} img/s, peak {peak_p / 2**30:.2f} GiB); phase "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(k8=k8, step=step, pretrain=pre, finetune=ft, test=test)
+
+
 def write_potsdam_layout(root: str, n_train: int, n_val: int, hw=(600, 600)) -> None:
     """A Potsdam tree under `root`/potsdam (FINETUNE_DATASETS' layout): seeded
     noise images and RGB-coded labels uniform over ISPRS_PALETTE."""
@@ -3015,7 +3298,7 @@ def main() -> None:
                     help="profile one generate image per path, one pretrain and one finetune step")
     ap.add_argument("--only", choices=("kernels", "gemm", "main", "modes", "configs", "sizes",
                                        "slab", "internimage", "mlp", "gather", "steps",
-                                       "point_sample", "mask2former"),
+                                       "point_sample", "mask2former", "adapter"),
                     action="append",
                     help="run only these phases (a partial check: no result lines): K1-K7 at "
                          "the main path's shapes (kernels), the encoder's GEMM (gemm), the main "
@@ -3025,8 +3308,10 @@ def main() -> None:
                          "(internimage), K10 and K11 at every width (mlp), K8 and the MSDA "
                          "wrapper (gather), the UperNet, InternImage, Mask2Former and finetune "
                          "steps (steps), K9 and one mask2former.point_sample call "
-                         "(point_sample), the Mask2Former step alone (mask2former)")
+                         "(point_sample), the Mask2Former step alone (mask2former), K8 at the "
+                         "ViT-Adapter's shapes, its step and its drivers (adapter)")
     args = ap.parse_args()
+    t_start = time.perf_counter()
     # the 94-image pretrain step peaks near 80 GB; growable segments keep the
     # caching allocator from failing on fragmentation (the values are the same)
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
@@ -3081,6 +3366,8 @@ def main() -> None:
             k9_phase(gen)
         if "mask2former" in args.only:
             mask2former_step_phase(args.profile)
+        if "adapter" in args.only:
+            adapter_phase(gen, args.profile)
         if "steps" in args.only:
             train_step_phase(args.profile)
             internimage_step_phase(args.profile)
@@ -3150,6 +3437,7 @@ def main() -> None:
     results.update(k10_k11_phase(gen))
     results.update(k8_slab_phase(gen))
     results.update(k11_widths_phase(gen))
+    adapter = adapter_phase(gen, args.profile)
     train_step_phase(args.profile)
     ii_step = internimage_step_phase(args.profile)
     m2f = mask2former_step_phase(args.profile)
@@ -3189,6 +3477,25 @@ def main() -> None:
     results["K11w"]["launches_per_step"] = II_STEP_LAUNCHES["K11"]
     results["K11w"]["launches_slab_run"] = ii_slab_launches["K11"]
     results["K11s"]["launches_internimage"] = ii_launches["K11s"]
+    for key, d in (("K8f", "fwd"), ("K8b", "bwd")):  # this slice's path: ViT-Adapter-B
+        results[key]["launches_adapter"] = adapter["pretrain"][key]
+        results[key]["launches_per_adapter_step"] = adapter["step"]["counts"][key]
+        results[key]["launches_adapter_finetune"] = adapter["finetune"][key]
+        results[key]["launches_adapter_test"] = adapter["test"][key]
+        for case, o in adapter["k8"].items():
+            # ms a call over 20 back-to-back calls; *_call_ms one call between events
+            results[key].update({f"{case}_ms": o[f"{d}_loop_ms"],
+                                 f"{case}_plain_ms": o[f"plain_{d}_loop_ms"],
+                                 f"{case}_call_ms": o[f"{d}_ms"],
+                                 f"{case}_plain_call_ms": o[f"plain_{d}_ms"],
+                                 f"{case}_bound_ms": o[f"{d}_bound"][0],
+                                 f"{case}_bound_by": o[f"{d}_bound"][1],
+                                 f"{case}_max_abs_err": o["fwd_max_abs_err" if d == "fwd"
+                                                          else "max_abs_err"],
+                                 f"{case}_library_ms": None})
+    for key in ("K10", "K11", "K11s"):
+        results[key]["launches_adapter"] = adapter["pretrain"][key]
+        results[key]["launches_per_adapter_step"] = adapter["step"]["counts"][key]
     print("internimage summary: " + ", ".join(
         f"{k} {v[0]:.4f} s/step ({sum(TRAIN_BATCH) / v[0]:.2f} img/s, peak {v[1] / 2**30:.2f} GiB)"
         for k, v in ii_step.items()), flush=True)
@@ -3199,6 +3506,7 @@ def main() -> None:
           f"{m2f['flips'][0]} of {m2f['flips'][1]}, assignments {m2f['assign'][0]} of "
           f"{m2f['assign'][1]}", flush=True)
     print("encoder configurations: " + json.dumps(configs), flush=True)
+    print(f"smoke wall time {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": list(results.values())}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -54,6 +54,12 @@ backward is dense K8's backward kernel, on the shapes the forward takes.
 height that does not divide H dense, per call and per level.  On a CPU
 tensor the slab mode runs the plain version: the function is the same.
 
+``ms_deform_attn`` is JAX ``ms_deform_attn_pallas`` (one K8 launch a level);
+``ms_deform_attn_hybrid`` JAX's per-level split of it (levels of at least
+``min_rows_xla`` rows on the plain version, or on dense K8 for
+``big_impl="ghb"``; the others on K8), which ``SAMRS_MSDA_IMPL=hybrid``
+selects in the MSDeformAttn module.
+
 ``dcnv3`` is JAX ``dcnv3_pallas`` (DCNv3 over K8, InternImage's sampling
 core) on absolute coordinates ``fx = px - 0.5 + offset``: the base grid
 ``_dcnv3_base_grid`` with the taps column-major (``k = iw * kh + ih``).
@@ -478,6 +484,30 @@ def ms_deform_attn(value, spatial_shapes, sampling_locations, attention_weights,
         o = sampler(xg, loc[..., 0] * w - 0.5, loc[..., 1] * h - 0.5, wts, D, h=h)
         out = o if out is None else out + o
     return out.reshape(B, nH, Q, D).transpose(1, 2).reshape(B, Q, nH * D)
+
+
+def ms_deform_attn_hybrid(value, spatial_shapes, sampling_locations, attention_weights,
+                          min_rows_xla: int = 128, big_impl: str = "xla"):
+    """Multi-scale deformable attention split per level (JAX
+    ``ms_deform_attn_hybrid``, samrs_tpu/kernels/bilinear_gather.py:888-935):
+    the sum over levels of ``ms_deform_attn`` on each level alone.  A level of
+    at least `min_rows_xla` rows takes dense K8 (``row_slab=0``) for
+    ``big_impl="ghb"`` and the plain version otherwise (the JAX function's
+    XLA gather); the smaller levels take K8 as ``_auto_slab`` chooses.  Same
+    arguments and (B, Q, nH * D) fp32 result as ``ms_deform_attn``."""
+    bounds = np.cumsum([0] + [h * w for h, w in spatial_shapes])
+    out = None
+    for i, (h, w) in enumerate(spatial_shapes):
+        args = (value[:, bounds[i]:bounds[i + 1]], [(h, w)],
+                sampling_locations[:, :, :, i:i + 1], attention_weights[:, :, :, i:i + 1])
+        if h < min_rows_xla:
+            o = ms_deform_attn(*args)
+        elif big_impl == "ghb":
+            o = ms_deform_attn(*args, row_slab=0)
+        else:
+            o = ms_deform_attn(*args, plain=True)
+        out = o if out is None else out + o
+    return out
 
 
 # ---------------------------------------------------------------- K9 ----

@@ -1,5 +1,5 @@
 """Shared decoder blocks (mirrors samrs_tpu/seg/decoders/blocks.py; reference
-ED/modules.py).  NCHW.
+ED/modules.py: Conv2dReLU, SCSEModule).  NCHW.
 
 ``BatchNorm`` follows flax's ``nn.BatchNorm`` as the JAX package uses it,
 not torch's default: momentum 0.9 on the running average (torch's 0.1 on the
@@ -15,7 +15,8 @@ from torch import nn
 
 from samrs_tpu_torch.nn.layers import resize_bilinear
 
-__all__ = ["BatchNorm", "ConvBNReLU", "adaptive_avg_pool", "resize_bilinear"]
+__all__ = ["BatchNorm", "ConvBNReLU", "SCSEModule", "adaptive_avg_pool", "resize_bilinear",
+           "upsample_nearest_2x"]
 
 
 class BatchNorm(nn.Module):
@@ -65,3 +66,25 @@ def adaptive_avg_pool(x: torch.Tensor, out_hw) -> torch.Tensor:
     """torch AdaptiveAvgPool2d bins (the JAX package's pooling matrices
     compute the same bins)."""
     return F.adaptive_avg_pool2d(x, tuple(out_hw))
+
+
+class SCSEModule(nn.Module):
+    """Spatial + channel squeeze-excitation (ED/modules.py:50): x * sigmoid of
+    a bottleneck of the channel means (``cse_fc1`` / ``cse_fc2``) plus x *
+    sigmoid of a 1x1 conv to one channel (``sse_conv``)."""
+
+    def __init__(self, channels: int, reduction: int = 16) -> None:
+        super().__init__()
+        mid = max(channels // reduction, 1)
+        self.cse_fc1 = nn.Conv2d(channels, mid, 1)
+        self.cse_fc2 = nn.Conv2d(mid, channels, 1)
+        self.sse_conv = nn.Conv2d(channels, 1, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        s = self.cse_fc2(F.relu(self.cse_fc1(x.mean((2, 3), keepdim=True))))
+        return x * torch.sigmoid(s) + x * torch.sigmoid(self.sse_conv(x))
+
+
+def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
+    """Each pixel of an NCHW map repeated 2 x 2."""
+    return F.interpolate(x, scale_factor=2, mode="nearest")

@@ -12,6 +12,9 @@ and the logits come out NHWC, as in the JAX package.  ``use_kernels``
 in the Mask2Former loss, which the trainer routes by it) and their plain
 versions on the card; only the smoke's comparison and the tests turn it
 off.  Dropout and drop-path draw from the generator passed to ``forward``.
+Heads follow the reference (models.py:14-21, :184-197): the UNet-style
+decoders (``unet``, ``unetpp``) get a 3x3 conv with no dropout, UperNet
+dropout 0.1 and a 1x1 conv.
 """
 
 from __future__ import annotations
@@ -23,7 +26,14 @@ from torch import nn
 
 from samrs_tpu_torch.nn.layers import Dropout, checkpoint_with_generator
 from samrs_tpu_torch.seg.backbones.internimage import DCNv3Module
+from samrs_tpu_torch.seg.backbones.vit_adapter import MSDeformAttnModule, ViTAdapter
 from samrs_tpu_torch.seg.registry import get_backbone, get_decoder
+
+
+def _head(decoder: str, in_channels: int, num_classes: int) -> "SegHead":
+    if decoder in ("unet", "unetpp"):
+        return SegHead(in_channels, num_classes, kernel=3, dropout=0.0)
+    return SegHead(in_channels, num_classes, kernel=1, dropout=0.1)
 
 
 class SegHead(nn.Module):
@@ -46,8 +56,6 @@ class MultiHeadSegModel(nn.Module):
         super().__init__()
         if decoder == "mask2former":
             raise KeyError("decoder 'mask2former' has its own model: MultiHeadMask2FormerModel")
-        if decoder != "upernet":
-            raise KeyError(f"decoder {decoder!r} is not ported yet (ROADMAP.md)")
         self.backbone, self.decoder = backbone, decoder
         self.num_classes = tuple(num_classes)
         self.image_size = image_size
@@ -56,8 +64,7 @@ class MultiHeadSegModel(nn.Module):
         self.encoder = get_backbone(backbone, image_size=image_size, use_checkpoint=remat)
         self.seg_decoder = get_decoder(decoder, self.encoder.out_channels)
         ch = self.seg_decoder.out_features
-        self.heads = nn.ModuleList(SegHead(ch, nc, kernel=1, dropout=0.1)
-                                   for nc in self.num_classes)
+        self.heads = nn.ModuleList(_head(decoder, ch, nc) for nc in self.num_classes)
 
     def forward_one(self, x: torch.Tensor, head_idx: int,
                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -126,20 +133,19 @@ def _encode_decode(model: nn.Module, head: nn.Module, x: torch.Tensor,
 
 class SegModel(nn.Module):
     """Single-head model of finetuning and testing (frameworks.py:156-177):
-    encoder, decoder, and the head (dropout 0.1 + 1x1 conv after UperNet)."""
+    encoder, decoder, and the head (dropout 0.1 + 1x1 conv after UperNet, a
+    3x3 conv after UNet / UNet++)."""
 
     def __init__(self, backbone: str = "vit_b_rvsa", decoder: str = "upernet",
                  num_classes: int = 6, image_size: int = 512, use_kernels: bool = True) -> None:
         super().__init__()
-        if decoder != "upernet":
-            raise KeyError(f"decoder {decoder!r} is not ported yet (ROADMAP.md)")
         self.backbone, self.decoder = backbone, decoder
         self.num_classes = num_classes
         self.image_size = image_size
         self.use_kernels = use_kernels
         self.encoder = get_backbone(backbone, image_size=image_size)
         self.seg_decoder = get_decoder(decoder, self.encoder.out_channels)
-        self.head = SegHead(self.seg_decoder.out_features, num_classes, kernel=1, dropout=0.1)
+        self.head = _head(decoder, self.seg_decoder.out_features, num_classes)
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """(B, H, W, 3) normalized images -> (B, H, W, classes) logits."""
@@ -156,9 +162,11 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded init in the JAX package's style: dense and conv weights
     lecun-normal, biases zero, norms ones/zeros (torch's default), the Swin
     bias tables and pos_embed normal(0.02); RVSA's sampling nets, DCNv3's
-    offset and mask linears and the rel-pos tables stay zero, as the JAX
-    modules initialise them (so the sampling grid starts as the identity or
-    the 3x3 grid); layer scales keep their constant."""
+    offset and mask linears, MSDeformAttn's sampling nets and the rel-pos
+    tables start as the JAX modules initialise them (so the sampling grid
+    starts as the identity, the 3x3 grid or the rotated grid); the
+    ViT-Adapter's ``level_embed`` normal(1.0); layer scales keep their
+    constant."""
     for name, m in model.named_modules():
         if isinstance(m, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
             fan_in = m.weight[:, 0].numel() if isinstance(m, nn.ConvTranspose2d) \
@@ -173,8 +181,10 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
             p.copy_(torch.randn(p.shape, generator=generator, device=generator.device)
                     .to(p.device) * 0.02)
     for m in model.modules():
-        if isinstance(m, DCNv3Module):
+        if isinstance(m, (DCNv3Module, MSDeformAttnModule)):
             m.reset_sampling()
+        elif isinstance(m, ViTAdapter):
+            m.reset_parameters(generator)
 
 
 @torch.no_grad()
@@ -183,8 +193,6 @@ def init_mask2former(model: nn.Module, generator: torch.Generator) -> None:
     MSDeformAttn sampling offsets a zero kernel and the rotated-grid bias,
     the attention weights zero, ``level_embed`` / ``query_feat`` /
     ``query_embed`` normal(1.0); GroupNorm stays ones and zeros."""
-    from samrs_tpu_torch.seg.backbones.vit_adapter import MSDeformAttnModule
-
     for m in model.modules():
         if isinstance(m, MSDeformAttnModule):
             m.reset_sampling()

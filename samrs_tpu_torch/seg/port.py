@@ -23,7 +23,18 @@ output_proj}, norm2, mlp/lin{1,2}, gamma{1,2}}``, ``level_norm{l}``,
 ``norm{1,2}.1``, ``levels.{l}.blocks.{b}.{norm1.0, dcn.dw_conv.0,
 dcn.dw_conv.1.1, ...}``, ``levels.{l}.norm.0``, ``levels.{l}.downsample.{conv,
 norm.1}``; the depthwise kernel (3, 3, 1, C) becomes (C, 1, 3, 3) by the conv
-rule.
+rule.  The ViT-Adapter's flax names map to its reference key layout
+(samrs_tpu/seg/port.py:564-790): ``spm/stem{1,2,3}`` and ``_bn`` ->
+``spm.stem.{0,3,6}`` / ``{1,4,7}``, ``spm/conv{n}`` / ``_bn`` ->
+``spm.conv{n}.0`` / ``.1``, ``injector{i}`` (the MSDeformAttn) ->
+``interactions.{i}.injector.attn``, ``injector{i}_qnorm`` / ``_vnorm`` /
+``_gamma`` -> ``...injector.query_norm`` / ``feat_norm`` / ``gamma``,
+``extractor{i}`` -> ``interactions.{i}.extractor`` (its ``ffn/dwconv`` ->
+``ffn.dwconv.dwconv``), ``extra_extractor{j}`` ->
+``interactions.{last}.extra_extractors.{j}``, ``blocks_{i}_gamma{1,2}`` ->
+``blocks.{i}.gamma{1,2}``; ``up`` is a transposed conv.  The UNet / UNet++
+decoders' flax names (``block{i}/conv1/conv``, ``attention1/cse_fc1``,
+``node_{l}_{j}_conv1/bn``, ``final_conv``) are the port's.
 
 Layout conversions (flax -> torch):
   dense   kernel (in, out)        -> weight (out, in)
@@ -42,9 +53,23 @@ from typing import Any, Dict, Mapping, Tuple
 import numpy as np
 import torch
 
+# flax parameters held by the ViT-Adapter itself -> a module path and a leaf
+_LEAF_RENAMES: Tuple[Tuple[str, str], ...] = (
+    (r"^encoder/injector(\d+)_gamma$", r"encoder/interactions.\1.injector/gamma"),
+    (r"^encoder/blocks_(\d+)_gamma([12])$", r"encoder/blocks.\1/gamma\2"),
+)
 # flax module path (with '/') -> torch module path, applied in order
-_RENAMES: Tuple[Tuple[str, str], ...] = (
+_RENAMES: Tuple[Tuple[str, Any], ...] = (
     (r"^encoder/patch_embed$", "encoder.patch_embed.proj"),
+    (r"^encoder/spm/stem([123])(_bn)?$",
+     lambda m: f"encoder.spm.stem.{3 * int(m[1]) - 3 + bool(m[2])}"),
+    (r"^encoder/spm/conv(\d)_bn$", r"encoder.spm.conv\1.1"),
+    (r"^encoder/spm/conv(\d)$", r"encoder.spm.conv\1.0"),
+    (r"^encoder/injector(\d+)_qnorm$", r"encoder.interactions.\1.injector.query_norm"),
+    (r"^encoder/injector(\d+)_vnorm$", r"encoder.interactions.\1.injector.feat_norm"),
+    (r"^encoder/injector(\d+)(/|$)", r"encoder.interactions.\1.injector.attn\2"),
+    (r"^encoder/extractor(\d+)(/|$)", r"encoder.interactions.\1.extractor\2"),
+    (r"(extractors?(?:\.\d+)?)/ffn/dwconv$", r"\1.ffn.dwconv.dwconv"),
     (r"^encoder/stem_conv([12])$", r"encoder.patch_embed.conv\1"),
     (r"^encoder/stem_norm([12])$", r"encoder.patch_embed.norm\1.1"),
     (r"^encoder/level(\d+)_block(\d+)/(norm[12])$", r"encoder.levels.\1.blocks.\2.\3.0"),
@@ -66,7 +91,7 @@ _RENAMES: Tuple[Tuple[str, str], ...] = (
     (r"mask_embed_mlp/layers_(\d+)$", r"mask_embed_mlp.layers.\1"),
     (r"^head_(\d+)/", r"heads.\1."),
 )
-_DECONVS = ("fpn1_deconv1", "fpn1_deconv2", "fpn2_deconv")
+_DECONV = re.compile(r"(^|/)(fpn1_deconv1|fpn1_deconv2|fpn2_deconv)$|^encoder/up$")
 _LEAVES = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
 
 
@@ -81,7 +106,9 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]
     return out
 
 
-def _torch_module(path: str) -> str:
+def _torch_module(path: str, last_interaction: int = 0) -> str:
+    path = re.sub(r"^encoder/extra_extractor(\d+)(/|$)",
+                  rf"encoder.interactions.{last_interaction}.extra_extractors.\1\2", path)
     for pat, rep in _RENAMES:
         path = re.sub(pat, rep, path)
     return path.replace("/", ".")
@@ -92,7 +119,7 @@ def _convert(path: str, leaf: str, v: np.ndarray) -> Tuple[str, np.ndarray]:
         return _LEAVES.get(leaf, leaf), v
     if v.ndim == 2:                                   # dense
         return "weight", v.T
-    if path.split("/")[-1] in _DECONVS:               # convT: undo flax's flip
+    if _DECONV.search(path):                          # convT: undo flax's flip
         return "weight", v[::-1, ::-1].transpose(2, 3, 0, 1)
     return "weight", v.transpose(3, 2, 0, 1)          # conv HWIO -> OIHW
 
@@ -103,11 +130,15 @@ def jax_params_to_torch(params: Mapping[str, Any],
     port's state dict (fp32 tensors on the CPU)."""
     flat = _flatten(params)
     flat.update(_flatten(batch_stats or {}))
+    last = max((int(m[1]) for m in map(re.compile(r"^encoder/extractor(\d+)/").match, flat)
+                if m), default=0)
     sd = {}
     for full, v in flat.items():
+        for pat, rep in _LEAF_RENAMES:
+            full = re.sub(pat, rep, full)
         path, leaf = full.rsplit("/", 1)
         name, value = _convert(path, leaf, v)
-        key = f"{_torch_module(path)}.{name}" if path else name
+        key = f"{_torch_module(path, last)}.{name}" if path else name
         if key in sd:
             raise KeyError(f"two flax leaves map to {key}")
         sd[key] = torch.from_numpy(np.array(value, dtype=np.float32))

@@ -34,15 +34,22 @@ def _internimage_t(**kw) -> nn.Module:
     return internimage_t(**kw)
 
 
+def _vit_adapter_b(**kw) -> nn.Module:
+    from samrs_tpu_torch.seg.backbones.vit_adapter import vit_adapter_b
+
+    return vit_adapter_b(**kw)
+
+
 BACKBONES: Dict[str, Callable[..., nn.Module]] = {
     "vit_b": _vit_b,
     "vit_b_rvsa": _rvsa("vit_b_rvsa"),
     "vit_l_rvsa": _rvsa("vit_l_rvsa"),
     "vit_h_rvsa": _rvsa("vit_h_rvsa"),
     "internimage_t": _internimage_t,
+    "vit_adapter_b": _vit_adapter_b,
 }
 
-DECODERS = ("upernet", "mask2former")
+DECODERS = ("unet", "unetpp", "upernet", "mask2former")
 
 
 def get_backbone(name: str, image_size: int = 224, **kw: Any) -> nn.Module:
@@ -54,7 +61,16 @@ def get_backbone(name: str, image_size: int = 224, **kw: Any) -> nn.Module:
 
 def get_decoder(name: str, encoder_channels: Sequence[int], **kw: Any) -> nn.Module:
     """UperNet's width is the backbone's out_channels[2] (ED/models.py:176-182);
-    Mask2Former takes c1..c4 (``MultiHeadMask2FormerModel`` builds it)."""
+    UNet / UNet++ and Mask2Former take c1..c4's channels
+    (``MultiHeadMask2FormerModel`` builds Mask2Former)."""
+    if name == "unet":
+        from samrs_tpu_torch.seg.decoders.unet import UnetDecoder
+
+        return UnetDecoder(encoder_channels[1:], **kw)
+    if name == "unetpp":
+        from samrs_tpu_torch.seg.decoders.unetpp import UnetPlusPlusDecoder
+
+        return UnetPlusPlusDecoder(encoder_channels[1:], **kw)
     if name == "upernet":
         from samrs_tpu_torch.seg.decoders.upernet import UPerHead
 

@@ -36,7 +36,9 @@ from torch import nn
 
 
 def vit_layer_id(name: str, num_layers: int) -> int:
-    """Layer id of a ViT-family parameter (layer_decay_optimizer_constructor_vit.py:7-17)."""
+    """Layer id of a ViT-family parameter (layer_decay_optimizer_constructor_vit.py:7-17;
+    the ViT-Adapter's constructor is the same): the ViT-Adapter's ``spm.stem`` is
+    not the trunk's patch embedding and takes L+1."""
     if "pos_embed" in name or "patch_embed" in name:
         return 0
     m = re.search(r"blocks\.(\d+)\.", name)
@@ -186,6 +188,9 @@ BACKBONE_OPTIM_DEFAULTS: Dict[str, Dict[str, Any]] = {
     # rate 1.0 (no decay) with the reference's depth-aware ids
     # (custom_layer_decay_optimizer_constructor: num_layers 30, depths 4/4/18/4)
     "internimage_t": dict(lr=6e-5, weight_decay=0.05, layer_decay=1.0, scheme="depthwise"),
+    # the ViT ids on the reference key layout: blocks.{i} (gammas too) i+1, the spatial
+    # prior (its stem included), level_embed, the interactions, up and the norms L+1
+    "vit_adapter_b": dict(lr=6e-5, weight_decay=0.01, layer_decay=0.95, scheme="vit"),
 }
 
 
