@@ -170,8 +170,8 @@ checkout; it has no CPU path and raises on any failure.  Phases:
    steps with eval and checkpoints, dense and with SAMRS_BILINEAR_SLAB=7
    (the slab kernels' launches in the result line come from that run);
    ``--profile`` adds torch.profiler tables of a dense and a slab step;
-9c. ViT-Adapter-B (this slice's path; run after phase 6, before the other
-   train steps): K8 forward and backward against sample_weighted_plain at
+9c. ViT-Adapter-B (run after phase 6, before the other train steps): K8
+   forward and backward against sample_weighted_plain at
    the adapter's FAST-head shapes (65 images x 12 heads of 32: the
    injector's 28^2 / 14^2 / 7^2 levels with the 196 ViT tokens, the
    extractor's 14^2 level with the 1029 conv tokens; 4 points), rel-L2 <=
@@ -188,6 +188,20 @@ checkout; it has no CPU path and raises on any failure.  Phases:
    ``best_encoder.pt``, and the evaluate CLI with the same backbone and
    decoder on its ``last.pt`` (two 600x600 images, flip TTA, PNGs read
    back); launches of each;
+9d. Swin-T, ViTAEv2-S and ResNet-50 (this slice's path; run after 9c): K11
+   at Swin-T's four MLP shapes (C 96 in the fused form, 192 / 384 / 768 in
+   two launches; M 4C) and ViTAEv2-S's ReductionCells (C = M = 64 .. 512)
+   on the FAST head's tokens of each stage, against the plain version
+   (rel-L2 <= 1e-5), timed one call at a time and 20 back to back beside the
+   composition and the bound; one SEP step of each of swin_t, vitaev2_s and
+   resnet50 + UperNet (17/12/65 at 224^2, fp32, the family's optimizer row)
+   with the kernels (K11 36 / 54 / 0 launches, every weight split once),
+   the plain versions and the control, judged as in phase 7, with s/step,
+   img/s, peak memory and the busy share of a warm step; a swin_t + UperNet
+   finetune step at 8 x 512^2 (every stage pads to a window multiple and
+   rolls the padded map), eval logits and the step against the plain path;
+   ``python -m samrs_tpu_torch.train.pretrain backbone=<each>`` for 2 steps
+   with eval and checkpoints on a synthetic SAMRS layout, with launches;
 10. finetune-driver phase: ``run_finetune`` at the defaults (vit_b_rvsa +
    UperNet, Potsdam, 512^2, batch 8) for one epoch (2 steps, one eval batch)
    on a synthetic Potsdam layout with RGB labels in ISPRS_PALETTE, grafting
@@ -203,15 +217,17 @@ checkout; it has no CPU path and raises on any failure.  Phases:
    configuration or image size that runs them, K8 from the pretrain phase
    with its per-step count and the adapter's cases and launches (phase 9c),
    K9 from the Mask2Former pretrain phase, K10 and K11 from the finetune driver
-   with their per-step counts; an entry's other cases beside its main one
-   carry measured numbers only: their bounds are on the log lines), then
+   with their per-step counts, K11 also with phase 9d's cases and launches;
+   an entry's other cases beside its main one carry measured numbers only,
+   their bounds are on the log lines, but K11's 9d cases carry theirs), then
    the card's name and power limit and the final status line.
 
 ``--only`` runs just the named phases after the build (kernels: 2; gemm: 2a; main: 3 and 4,
 the main path and the generate phase at the default image size; modes, configs,
 sizes: 2b, 4b, 4c; slab: the K8-slab and K11-width checks of 9b;
 internimage: its step and driver runs; mlp: 6 and K11's widths; gather: 5
-and the MSDA wrapper of 5b; steps: 7, 7b, 8 and 9b's step; adapter: 9c),
+and the MSDA wrapper of 5b; steps: 7, 7b, 8 and 9b's step; adapter: 9c;
+backbones: 9d),
 and prints no result lines.
 
 ``--profile`` adds a torch.profiler table of one warm generate image (and of
@@ -300,6 +316,15 @@ ADAPTER_ZERO_GRAD = ("encoder.spm.fc1.bias", "encoder.up.bias", "encoder.norm1.b
                      "encoder.norm2.bias", "encoder.norm3.bias")
 ADAPTER_ITERS = 2              # run_pretrain steps of the adapter phase, one eval after them
 ADAPTER_FT_TRAIN, ADAPTER_FT_VAL = 16, 2   # its Potsdam layout: 2 steps, 2 eval / test images
+# Swin-T / ViTAEv2-S / ResNet-50 SEP pretraining (backbone=swin_t | vitaev2_s | resnet50, UperNet
+# at out_channels[2]): their MLPs through K11 (Swin-T's 12 blocks; ViTAEv2-S's 4 ReductionCells
+# and 14 NormalCells; ResNet-50 has none), attention and convolutions in torch / cuDNN; three
+# encoder passes (heads) a step
+BACKBONE_MLPS = {"swin_t": 12, "vitaev2_s": 18, "resnet50": 0}
+BACKBONE_ITERS = 2             # run_pretrain steps of each backbone's driver run, one eval after
+# no true gradient: Swin's out-norm biases of c1..c3 (UperNet's 1x1 laterals and BatchNorms
+# follow), the convs before ViTAE's PCM BatchNorms; rounding noise on every path
+BACKBONE_ZERO_GRAD = r"encoder\.(norm[0-2]\.bias|.*PCM\.[03]\.bias)"
 K8_SLAB_FWD_RTOL = 1e-6        # K8-slab forward vs dense K8 (0 by design: K8's per-tap order)
 PROFILE_PAD_S = 0.05           # idle host time on each side of a device_ms profile (s)
 K9_RTOL = 1e-5                 # K9 vs its plain version: summation order (dimg by atomics)
@@ -1781,9 +1806,10 @@ def k11_case(gen, label: str, T: int, C: int, M: int):
     log line).  ``ms`` reuses the weights' tf32 halves (a forward after the
     first of a step); ``cold_ms`` gives the weights a new version before
     each call, so it also splits them, as the first forward after an
-    optimizer step does.  Where the wrapper keeps the hidden on chip (C <=
-    128) the two-launch form is also held to the plain version, timed, and
-    compared with the fused one."""
+    optimizer step does.  Where the wrapper keeps the hidden on chip (C 64 /
+    96 / 128) the two-launch form is also held to the plain version, timed, and
+    compared with the fused one (not at C 96, which has no two-launch
+    form).  ``loop_ms``: 20 back-to-back calls."""
     from samrs_tpu_torch.kernels import fused_mlp as fm
 
     rn = lambda *shape, std=1.0: torch.randn(*shape, generator=gen, device="cuda") * std
@@ -1798,13 +1824,14 @@ def k11_case(gen, label: str, T: int, C: int, M: int):
                                                     got, want)}
     max_abs = float((got[0] - want[0]).abs().max())
     extra = {}
-    if fm.hidden_on_chip(C):
+    if fm.hidden_on_chip(C) and C % 64 == 0:  # C 96 has no two-launch form
         two = fm.fused_mlp_cuda(x, *w, on_chip=False)
         errs["out_two_launch"] = rel_l2([two], [want[0]])
         extra = dict(two_launch_ms=cuda_ms(lambda: fm.fused_mlp_cuda(x, *w, on_chip=False)),
                      two_launch_max_diff=float((two - got[0]).abs().max()))
         del two
     ms = cuda_ms(lambda: fm.fused_mlp_cuda(x, *w))
+    back_to_back = loop_ms(lambda: fm.fused_mlp_cuda(x, *w))
 
     def cold():
         for t in (w[0], w[2]):
@@ -1821,7 +1848,8 @@ def k11_case(gen, label: str, T: int, C: int, M: int):
     print(f"K11 {label} (T {T}, C {C}, M {M}, fp32, {form}): rel_l2 "
           + " ".join(f"{n}={e:.3e}" for n, e in errs.items())
           + f" max_abs={max_abs:.3e}; kernel_ms={ms:.4f} ({flops / ms / 1e9:.1f} TFLOP/s) "
-          f"cold_ms={cold_ms:.4f} plain_ms={plain_ms:.4f} linear_gelu_linear_ms={comp_ms:.4f} "
+          f"loop_ms={back_to_back:.4f} cold_ms={cold_ms:.4f} plain_ms={plain_ms:.4f} "
+          f"linear_gelu_linear_ms={comp_ms:.4f} "
           f"({flops / comp_ms / 1e9:.1f} TFLOP/s) bound_ms={bound_ms:.4f} (split-TF32 "
           f"{bound_by}) fp32_bound_ms={fp32_ms:.4f}"
           + "".join(f" {k}={v:.4e}" for k, v in extra.items()), flush=True)
@@ -1830,8 +1858,8 @@ def k11_case(gen, label: str, T: int, C: int, M: int):
             raise RuntimeError(f"K11 {label}: {n} relative L2 {e:.3e} > {K10_K11_RTOL}")
     del x, dy, w, leaves, got, ref, want
     torch.cuda.empty_cache()
-    return dict(max_abs_err=max_abs, ms=ms, cold_ms=cold_ms, plain_ms=plain_ms,
-                composition_ms=comp_ms, bound_ms=bound_ms, bound_by=bound_by,
+    return dict(max_abs_err=max_abs, ms=ms, loop_ms=back_to_back, cold_ms=cold_ms,
+                plain_ms=plain_ms, composition_ms=comp_ms, bound_ms=bound_ms, bound_by=bound_by,
                 tflops=flops / ms / 1e9, **extra)
 
 
@@ -1927,10 +1955,13 @@ def k10_k11_phase(gen):
                     **{f"rvsa_{k}": tail10[k] for k in ("ms", "plain_ms", "library_ms", "tflops")},
                     **{f"d80_{k}": out["K10"]["d80_224"][k] for k in ("ms", "plain_ms", "library_ms")}),
         "K11": dict(name="K11 fused MLP fp32 on split-TF32 wgmma (vit_b 512^2 batch 8: T 8192, "
-                         "C 768, M 3072, two launches; RVSA FAST head in rvsa_*; launches: "
-                         "calls of the forward; cold_ms: with the weights' tf32 split; bound: "
-                         "the split-TF32 tensor work; composition_ms: F.linear -> F.gelu -> "
-                         "F.linear, no single library call)", route="cuda",
+                         "C 768, M 3072, two launches; RVSA FAST head in rvsa_*; Swin-T's "
+                         "stages at the FAST head in swin_c96 (fused, hidden on chip) .. "
+                         "swin_c768, M 4C; ViTAEv2-S's ReductionCells (C = M) in vitae_rc*; "
+                         "launches: calls of the forward; loop_ms: 20 back to back; cold_ms: "
+                         "with the weights' tf32 split; bound: the split-TF32 tensor work; "
+                         "composition_ms: F.linear -> F.gelu -> F.linear, no single library "
+                         "call)", route="cuda",
                     source="samrs_tpu_torch/csrc/fused_mlp.cu",
                     replaces="samrs_tpu/kernels/fused_mlp.py:105",
                     max_abs_err=max(r11["max_abs_err"], tail11["max_abs_err"]), ms=r11["ms"],
@@ -2338,13 +2369,17 @@ def compare_steps(label: str, runs, want_counts, zero_grad=ZERO_GRAD):
 def time_steps(model, fresh_state, step, label: str, n_img: int, shape: str,
                order=(True, False, True)):
     """Warm s/step, img/s and peak memory with the kernels and with the plain
-    versions (in `order`: kernels, plain, kernels); returns {use_kernels:
-    (s/step, bytes)}."""
+    versions (in `order`: kernels, plain, kernels); each path's first step
+    is not timed (lazy module loads, the caching allocator's growth after
+    the step comparison emptied it); returns {use_kernels: (s/step,
+    bytes)}."""
     times = {True: [], False: []}
     peak = {}
     for use_kernels in order:
         model.use_kernels = use_kernels
         state = fresh_state()
+        if not times[use_kernels]:
+            step(state)
         torch.cuda.reset_peak_memory_stats()
         for _ in range(2):
             torch.cuda.synchronize()
@@ -3165,6 +3200,214 @@ def adapter_phase(gen, profile: bool = False):
     return dict(k8=k8, step=step, pretrain=pre, finetune=ft, test=test)
 
 
+def backbone_k11_phase(gen):
+    """K11 at the new backbones' MLP shapes on the FAST head's tokens (65
+    images at 56^2 .. 7^2): Swin-T's four stages (C 96 / 192 / 384 / 768, M
+    4C; C 96 in the fused form) and ViTAEv2-S's ReductionCells (C = M = 64 /
+    128 / 256 / 512), by ``k11_case``."""
+    out = {}
+    for s, C in enumerate((96, 192, 384, 768)):
+        out[f"swin_c{C}"] = k11_case(gen, f"swin_t stage {s}", TRAIN_BATCH[2] * (56 >> s) ** 2,
+                                     C, 4 * C)
+    for s, C in enumerate((64, 128, 256, 512)):
+        out[f"vitae_rc{C}"] = k11_case(gen, f"vitaev2_s reduction cell {s}",
+                                       TRAIN_BATCH[2] * (56 >> s) ** 2, C, C)
+    return out
+
+
+def backbone_zero_grad(model):
+    return tuple(n for n, _ in model.named_parameters() if re.fullmatch(BACKBONE_ZERO_GRAD, n))
+
+
+def backbone_step_phase(name: str, profile: bool = False):
+    """One SEP pretrain step of `name` + UperNet at full width and depth
+    (17/12/65 images at 224^2, fp32, TF32 off, the family's optimizer row at
+    the global batch of 94) from identical state with the kernels (K11 3 x
+    BACKBONE_MLPS[name] launches and every weight split once, counted on the
+    card), the plain versions and the control, judged by the rule of the
+    train-step phase; then s/step, img/s and peak memory of both paths and
+    the device's busy share of a warm kernel step."""
+    from samrs_tpu_torch.core.config import PretrainConfig
+    from samrs_tpu_torch.seg.frameworks import build_multihead_model
+    from samrs_tpu_torch.train import optim, trainer
+
+    cfg = PretrainConfig()
+    t0 = time.perf_counter()
+    model = build_multihead_model(name, device="cuda",
+                                  generator=torch.Generator(device="cuda").manual_seed(SEED))
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"built {name} + UperNet ({n_params / 1e6:.1f} M parameters) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    batches = train_batches(SEED + 9)
+    bset = optim.backbone_optim_settings(name, model.encoder, sum(TRAIN_BATCH))
+    sched = optim.warmup_cosine_schedule(bset["lr"], cfg.total_iters, cfg.optim.warmup_iters)
+
+    def fresh_state():
+        model.load_state_dict(init)
+        opt = optim.Optimizer(model, sched, weight_decay=bset["weight_decay"],
+                              grad_clip=cfg.optim.grad_clip, layer_decay=bset["layer_decay"],
+                              num_layers=bset["num_layers"], layer_id_scheme=bset["scheme"],
+                              depths=bset["depths"])
+        return trainer.TrainState(0, model, opt)
+
+    step = lambda state: trainer.pretrain_step(state, batches, cfg.seed)
+    runs = step_runs(model, fresh_state, step)
+    counted = runs["kernels"]["counts"]
+    n = BACKBONE_MLPS[name]
+    compare_steps(f"{name} step", runs, {"K11": 3 * n, "K11s": 2 * n},
+                  zero_grad=backbone_zero_grad(model))
+    timing = time_steps(model, fresh_state, step, f"{name} step", sum(TRAIN_BATCH), "224^2")
+    busy = profile_step(model, fresh_state, step, f"{name} step", table=profile)
+    del model, init, batches, runs
+    torch.cuda.empty_cache()
+    return {"timing": timing, "busy": busy, "counts": counted}
+
+
+def swin_finetune_step_phase():
+    """SegModel(swin_t, upernet, 6 classes) at 512^2, batch 8, fp32: every
+    stage pads its map to a window multiple (128 -> 133, 64 -> 70, 32 -> 35,
+    16 -> 21) and rolls the padded map.  Eval-mode logits with the kernels
+    against the plain versions (K11 12 launches a forward), one finetune step
+    from identical state with the kernels, the plain versions and the
+    control by the rule of the train-step phase, then s/step and peak
+    memory."""
+    from samrs_tpu_torch.core.config import FinetuneConfig
+    from samrs_tpu_torch.seg.frameworks import build_seg_model
+    from samrs_tpu_torch.train import optim, trainer
+
+    cfg = FinetuneConfig()
+    model = build_seg_model("swin_t", "upernet", FT_CLASSES, FT_SIZE, "cuda",
+                            torch.Generator(device="cuda").manual_seed(SEED + 10))
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    rng = np.random.default_rng(SEED + 11)
+    x = torch.from_numpy(rng.normal(size=(FT_BATCH, FT_SIZE, FT_SIZE, 3)).astype(np.float32)).cuda()
+    y = rng.integers(0, FT_CLASSES, (FT_BATCH, FT_SIZE, FT_SIZE))
+    y[:, :16] = 255  # some ignored pixels
+    y = torch.from_numpy(y).cuda()
+    n = BACKBONE_MLPS["swin_t"]
+    model.eval()
+    with torch.no_grad():
+        reset_counts()
+        logits = model(x)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        model.use_kernels = False
+        logits_p = model(x)
+        model.use_kernels = True
+    err = rel_l2([logits], [logits_p])
+    want = {k: {"K11": n}.get(k, 0) for k in counts}
+    want["K11s"] = checked_splits("swin_t finetune eval forward", counts, 0)
+    print(f"swin_t finetune eval forward ({FT_BATCH} x {FT_SIZE}^2): launches {counts}; logits "
+          f"{tuple(logits.shape)} kernels vs plain rel_l2={err:.3e}", flush=True)
+    if counts != want:
+        raise RuntimeError(f"swin_t finetune eval forward launches {counts} != {want}")
+    if tuple(logits.shape) != (FT_BATCH, FT_SIZE, FT_SIZE, FT_CLASSES) or \
+            not torch.isfinite(logits).all():
+        raise RuntimeError(f"swin_t finetune logits {tuple(logits.shape)} or non-finite")
+    if not err <= EVAL_RTOL:
+        raise RuntimeError(f"swin_t finetune eval logits rel-L2 {err:.3e} > {EVAL_RTOL}")
+    del logits, logits_p
+    sched = optim.warmup_cosine_schedule(cfg.optim.lr, 1000, cfg.optim.warmup_iters)
+    bset = optim.backbone_optim_settings("swin_t", model.encoder)
+
+    def fresh_state():
+        model.load_state_dict(init)
+        opt = optim.Optimizer(model, sched, weight_decay=cfg.optim.weight_decay,
+                              grad_clip=cfg.optim.grad_clip, layer_decay=cfg.optim.layer_decay,
+                              num_layers=bset["num_layers"])
+        return trainer.TrainState(0, model, opt)
+
+    step = lambda state: trainer.finetune_step(state, x, y, cfg.seed)
+    compare_steps("swin_t finetune step", step_runs(model, fresh_state, step),
+                  {"K11": n, "K11s": 2 * n}, zero_grad=backbone_zero_grad(model))
+    timing = time_steps(model, fresh_state, step, "swin_t finetune step", FT_BATCH,
+                        f"{FT_SIZE}^2")
+    del model, init, x, y
+    torch.cuda.empty_cache()
+    return timing
+
+
+def backbone_pretrain_phase(tmp: str, name: str):
+    """``python -m samrs_tpu_torch.train.pretrain backbone=<name>`` at the
+    defaults otherwise (UperNet, 17/12/65 at 224^2, the family's optimizer
+    row) on the synthetic SAMRS layout under `tmp`: BACKBONE_ITERS steps, the
+    evaluation with a per-dataset mIoU line, ``last`` / ``best`` checkpoints
+    with finite weights.  Returns the launches."""
+    from samrs_tpu_torch.train import pretrain
+
+    handler = _Lines()
+    log = logging.getLogger("samrs_tpu_torch.pretrain")
+    log.addHandler(handler)
+    log.setLevel(logging.INFO)
+    n_val = 8
+    ckpt = os.path.join(tmp, f"{name}_pretrain")
+    reset_counts()
+    t = time.perf_counter()
+    try:
+        pretrain.main([f"backbone={name}", f"data.root={os.path.join(tmp, 'samrs')}",
+                       f"total_iters={BACKBONE_ITERS}", f"eval_interval={BACKBONE_ITERS}",
+                       f"data.val_images={n_val}", f"ckpt_dir={ckpt}"])
+        torch.cuda.synchronize()
+    finally:
+        log.removeHandler(handler)
+    wall = time.perf_counter() - t
+    launches = read_counts()
+    n = BACKBONE_MLPS[name]
+    evals = 3 * -(-n_val // 8)
+    want = {k: 0 for k in launches}
+    want["K11"] = (3 * BACKBONE_ITERS + evals) * n
+    want["K11s"] = checked_splits(f"{name} pretrain", launches, BACKBONE_ITERS * 2 * n)
+    print("\n".join([f"{name} pretrain " + ln for ln in handler.lines]), flush=True)
+    print(f"{name} pretrain launches: {launches} ({BACKBONE_ITERS} steps + eval in {wall:.1f} s)",
+          flush=True)
+    if launches != want:
+        raise RuntimeError(f"{name} pretrain launches {launches} != {want}")
+    vals = [ln for ln in handler.lines if ln.startswith("val[")]
+    if sorted(v.split("]")[0][4:] for v in vals) != ["fast", "sior", "sota"]:
+        raise RuntimeError(f"{name} per-dataset mIoU lines: {vals}")
+    for v in vals:
+        if not 0.0 <= float(v.split("mIoU ")[1].split()[0]) <= 1.0:
+            raise RuntimeError(f"mIoU out of range: {v}")
+    if not any(ln.startswith(f"iter {BACKBONE_ITERS} eval") for ln in handler.lines):
+        raise RuntimeError(f"run_pretrain({name}) logged no eval at its last step")
+    files = sorted(os.listdir(ckpt))
+    if not {"last.pt", "last_encoder.pt", "best.pt", "best_encoder.pt"} <= set(files):
+        raise RuntimeError(f"{name} checkpoints written: {files}")
+    saved = torch.load(os.path.join(ckpt, "last.pt"), map_location="cpu", weights_only=True)
+    if saved["step"] != BACKBONE_ITERS or not all(
+            torch.isfinite(v).all() for v in saved["model"].values() if v.is_floating_point()):
+        raise RuntimeError(f"{name} last.pt at step {saved['step']} or with non-finite weights")
+    return launches
+
+
+def backbones_phase(gen, profile: bool = False):
+    """This slice's path: K11 at Swin-T's and ViTAEv2-S's MLP shapes (C 96 in
+    the fused form), one SEP step of each of swin_t, vitaev2_s and resnet50
+    with UperNet by the control rule, a swin_t finetune step at 512^2 (the
+    padded windows), and the pretrain driver with each backbone on a
+    synthetic SAMRS layout of its own.  Returns their results."""
+    t0 = time.perf_counter()
+    k11 = backbone_k11_phase(gen)
+    steps = {name: backbone_step_phase(name, profile) for name in BACKBONE_MLPS}
+    finetune = swin_finetune_step_phase()
+    with tempfile.TemporaryDirectory() as tmp:
+        write_samrs_layout(os.path.join(tmp, "samrs"), {"sota": 20, "sior": 15, "fast": 70}, 8)
+        drivers = {name: backbone_pretrain_phase(tmp, name) for name in BACKBONE_MLPS}
+    for name, st in steps.items():
+        (s_k, peak_k), (s_p, peak_p) = st["timing"][True], st["timing"][False]
+        busy = "not measured" if st["busy"] is None else \
+            f"{100 * st['busy'][1] / st['busy'][0]:.1f}%"
+        print(f"{name} summary: kernels {s_k:.4f} s/step ({sum(TRAIN_BATCH) / s_k:.2f} img/s, "
+              f"peak {peak_k / 2**30:.2f} GiB, busy {busy}), plain {s_p:.4f} s/step "
+              f"({sum(TRAIN_BATCH) / s_p:.2f} img/s, peak {peak_p / 2**30:.2f} GiB)", flush=True)
+    (s_k, peak_k), (s_p, peak_p) = finetune[True], finetune[False]
+    print(f"swin_t finetune summary ({FT_BATCH} x {FT_SIZE}^2): kernels {s_k:.4f} s/step, peak "
+          f"{peak_k / 2**30:.2f} GiB; plain {s_p:.4f} s/step, peak {peak_p / 2**30:.2f} GiB; "
+          f"phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(k11=k11, steps=steps, finetune=finetune, drivers=drivers)
+
+
 def write_potsdam_layout(root: str, n_train: int, n_val: int, hw=(600, 600)) -> None:
     """A Potsdam tree under `root`/potsdam (FINETUNE_DATASETS' layout): seeded
     noise images and RGB-coded labels uniform over ISPRS_PALETTE."""
@@ -3298,7 +3541,7 @@ def main() -> None:
                     help="profile one generate image per path, one pretrain and one finetune step")
     ap.add_argument("--only", choices=("kernels", "gemm", "main", "modes", "configs", "sizes",
                                        "slab", "internimage", "mlp", "gather", "steps",
-                                       "point_sample", "mask2former", "adapter"),
+                                       "point_sample", "mask2former", "adapter", "backbones"),
                     action="append",
                     help="run only these phases (a partial check: no result lines): K1-K7 at "
                          "the main path's shapes (kernels), the encoder's GEMM (gemm), the main "
@@ -3309,7 +3552,9 @@ def main() -> None:
                          "wrapper (gather), the UperNet, InternImage, Mask2Former and finetune "
                          "steps (steps), K9 and one mask2former.point_sample call "
                          "(point_sample), the Mask2Former step alone (mask2former), K8 at the "
-                         "ViT-Adapter's shapes, its step and its drivers (adapter)")
+                         "ViT-Adapter's shapes, its step and its drivers (adapter), K11 at the "
+                         "Swin-T / ViTAEv2-S shapes, the swin_t / vitaev2_s / resnet50 steps, "
+                         "the swin_t finetune step at 512^2 and their drivers (backbones)")
     args = ap.parse_args()
     t_start = time.perf_counter()
     # the 94-image pretrain step peaks near 80 GB; growable segments keep the
@@ -3368,6 +3613,8 @@ def main() -> None:
             mask2former_step_phase(args.profile)
         if "adapter" in args.only:
             adapter_phase(gen, args.profile)
+        if "backbones" in args.only:
+            backbones_phase(gen, args.profile)
         if "steps" in args.only:
             train_step_phase(args.profile)
             internimage_step_phase(args.profile)
@@ -3438,6 +3685,7 @@ def main() -> None:
     results.update(k8_slab_phase(gen))
     results.update(k11_widths_phase(gen))
     adapter = adapter_phase(gen, args.profile)
+    backbones = backbones_phase(gen, args.profile)
     train_step_phase(args.profile)
     ii_step = internimage_step_phase(args.profile)
     m2f = mask2former_step_phase(args.profile)
@@ -3496,6 +3744,15 @@ def main() -> None:
     for key in ("K10", "K11", "K11s"):
         results[key]["launches_adapter"] = adapter["pretrain"][key]
         results[key]["launches_per_adapter_step"] = adapter["step"]["counts"][key]
+    for name in BACKBONE_MLPS:  # this slice's path: Swin-T, ViTAEv2-S, ResNet-50 (K11 only)
+        for key in ("K11", "K11s"):
+            results[key][f"launches_{name}"] = backbones["drivers"][name][key]
+            results[key][f"launches_per_{name}_step"] = backbones["steps"][name]["counts"][key]
+    for case, o in backbones["k11"].items():
+        results["K11"].update({f"{case}_{k}": o[k] for k in (
+            "ms", "loop_ms", "cold_ms", "plain_ms", "composition_ms", "bound_ms", "bound_by",
+            "max_abs_err", "tflops")})
+        results["K11"]["max_abs_err"] = max(results["K11"]["max_abs_err"], o["max_abs_err"])
     print("internimage summary: " + ", ".join(
         f"{k} {v[0]:.4f} s/step ({sum(TRAIN_BATCH) / v[0]:.2f} img/s, peak {v[1] / 2**30:.2f} GiB)"
         for k, v in ii_step.items()), flush=True)

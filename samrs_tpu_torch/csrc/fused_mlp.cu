@@ -4,8 +4,9 @@
 //   out = gelu_erf(x . W1^T + b1) . W2^T + b2
 //
 // x (T, C), out (T, C); W1 (M, C), b1 (M), W2 (C, M), b2 (C) in nn.Linear's
-// layout; all fp32 and contiguous.  C a multiple of 64 (the vit_b / l / h
-// widths 768 / 1024 / 1280, InternImage-T's 64 / 128 / 256 / 512), M a
+// layout; all fp32 and contiguous.  C 96 (Swin-T's first stage) or a
+// multiple of 64 (the vit_b / l / h widths 768 / 1024 / 1280, InternImage-T's
+// and ViTAEv2-S's 64 / 128 / 256 / 512, Swin-T's 192 / 384 / 768), M a
 // multiple of 64, any T.
 //
 // Replaces samrs_tpu/kernels/fused_mlp.py::_fused_pallas (its pallas_call,
@@ -31,14 +32,16 @@
 // erf form, once per hidden element, as in the TPU kernel's oracle and
 // F.gelu.
 //
-// Structure.  At C <= 128 (InternImage-T's levels 0 and 1) one persistent
-// kernel, mlp_fused_kernel, keeps the hidden on chip, as the TPU kernel
-// does: a block takes a 128-token tile of x into shared memory once and
-// walks the hidden in 64-column chunks; each chunk's lin1 (K = C) goes into
-// registers, gets its bias and GELU there, and is moved by quad shuffles
-// from the accumulator layout into the register A fragments of lin2 (K =
-// the chunk's 64 columns), whose products add into the 64 x C output
-// accumulator.  Per thread that is C / 2 output registers, C / 2 for the
+// Structure.  At C 64 / 96 / 128 (InternImage-T's and ViTAEv2-S's levels 0
+// and 1, Swin-T's stage 0) one persistent kernel, mlp_fused_kernel, keeps
+// the hidden on chip, as the TPU kernel does: a block takes a 128-token
+// tile of x into shared memory once and walks the hidden in 64-column
+// chunks; each chunk's lin1 (K = C) goes into registers, gets its bias and
+// GELU there, and is moved by quad shuffles from the accumulator layout into
+// the register A fragments of lin2 (K = the chunk's 64 columns), whose
+// products add into the 64 x C output accumulator (wgmma m64nCk8; tf32 takes
+// any N that is a multiple of 8, so C 96 is three 32-deep stages of lin1 and
+// an m64n96k8 lin2).  Per thread that is C / 2 output registers, C / 2 for the
 // stage's partial sum (lin1 uses 32 of them), 32 for the hidden chunk and
 // 16 for the split fragments.  A block of two consumer warpgroups and a
 // producer warp (288 threads) puts three warps on one of the SM's four
@@ -127,13 +130,14 @@ struct FusedTile {
   static constexpr int FIT = (MT_SMEM_MAX - 1024 - X_BYTES - BAR_BYTES) / STAGE_BYTES;
   static constexpr int STAGES = FIT < 8 ? FIT : 8;
   static constexpr int SMEM = 1024 + X_BYTES + STAGES * STAGE_BYTES + BAR_BYTES;
-  static_assert(STAGES >= 3 && (C == 64 || C == 128), "tile");
+  static_assert(STAGES >= 3 && (C == 64 || C == 96 || C == 128), "tile");
 };
 
 template <int BN>
 __device__ __forceinline__ void wgmma_tf32(float (&acc)[BN / 2], const uint32_t (&a)[4],
                                            uint64_t db, int scale_d) {
   if constexpr (BN == 128) wgmma_rs_tf32_n128(acc, a, db, scale_d);
+  else if constexpr (BN == 96) wgmma_rs_tf32_n96(acc, a, db, scale_d);
   else wgmma_rs_tf32_n64(acc, a, db, scale_d);
 }
 
@@ -317,7 +321,7 @@ mlp_tf32x3_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant
 }
 
 // out = gelu(x . W1^T + b1) . W2^T + b2 with the hidden on chip, for C 64 /
-// 128: tmX (box 32 x 128 over x (T, C)), tmW1h / tmW1l (box 32 x FU_HN over
+// 96 / 128: tmX (box 32 x 128 over x (T, C)), tmW1h / tmW1l (box 32 x FU_HN over
 // W1 (M, C)), tmW2h / tmW2l (box 32 x C over W2 (C, M)); M % FU_HN == 0.
 // A ragged last token tile loads zeros and its stores are masked.
 template <int C>
@@ -582,20 +586,23 @@ int samrs_tf32_split(const void* w, void* hi, void* lo, long long n, void* strea
 
 // out = gelu(x . W1^T + b1) . W2^T + b2: x (T, C), W1 (M, C) as its halves
 // w1h / w1l, b1 (M), W2 (C, M) as w2h / w2l, b2 (C), out (T, C); fp32,
-// contiguous, 16-byte aligned; C and M multiples of 64.  on_chip = 1 (C 64
-// or 128): one launch of the fused form, `hidden` unused; on_chip = 0: two
-// launches, lin1 + GELU into the (T, M) scratch `hidden`, lin2 into out.
+// contiguous, 16-byte aligned; M a multiple of 64.  on_chip = 1 (C 64, 96
+// or 128): one launch of the fused form, `hidden` unused; on_chip = 0 (C a
+// multiple of 64): two launches, lin1 + GELU into the (T, M) scratch
+// `hidden`, lin2 into out.
 int samrs_fused_mlp(const void* x, const void* w1h, const void* w1l, const void* b1,
                     const void* w2h, const void* w2l, const void* b2, void* hidden, void* out,
                     int T, int C, int M, int on_chip, void* stream) {
   using namespace samrs;
-  if (T <= 0 || C <= 0 || M <= 0 || C % 64 != 0 || M % 64 != 0) return cudaErrorInvalidValue;
+  if (T <= 0 || C <= 0 || M <= 0 || M % 64 != 0) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (on_chip) {
     if (C == 64) return launch_fused<64>(x, w1h, w1l, b1, w2h, w2l, b2, out, T, M, st);
+    if (C == 96) return launch_fused<96>(x, w1h, w1l, b1, w2h, w2l, b2, out, T, M, st);
     if (C == 128) return launch_fused<128>(x, w1h, w1l, b1, w2h, w2l, b2, out, T, M, st);
     return cudaErrorInvalidValue;
   }
+  if (C % 64 != 0) return cudaErrorInvalidValue;
   int err = launch_linear<true>(x, w1h, w1l, b1, hidden, T, M, C, st);
   if (err != 0) return err;
   return launch_linear<false>(hidden, w2h, w2l, b2, out, T, C, M, st);

@@ -140,8 +140,8 @@ def fused_tail_ln_mlp_residual(att_p, sc, g_ln, b_ln, w1, b1, w2, b2, eps: float
 # ``_fused_pallas``, :105).  On a CUDA tensor the forward runs the
 # hand-written kernels of csrc/fused_mlp.cu on the tensor cores with
 # split-TF32 operands (each fp32 operand as a tf32 hi plus a tf32 lo, three
-# tf32 products a step into fp32 accumulators): at C <= 128 one kernel that
-# keeps the hidden on chip, else lin1 with a bias + exact GELU epilogue into
+# tf32 products a step into fp32 accumulators): at C 64 / 96 / 128 one kernel
+# that keeps the hidden on chip, else lin1 with a bias + exact GELU epilogue into
 # an fp32 hidden scratch, then lin2 with a bias epilogue
 # (``hidden_on_chip`` picks); bound by the tensor work, 3 x 4 T C M
 # operations at 495 TFLOP/s.  The weights' tf32 halves are split by a small
@@ -155,8 +155,8 @@ def fused_tail_ln_mlp_residual(att_p, sc, g_ln, b_ln, w1, b1, w2, b2, eps: float
 mlp_launches = 0    # calls of K11's forward on the card (each launches one or two kernels)
 split_launches = 0  # launches of the tf32 split of a weight (one per weight version)
 
-_MLP_MULTIPLE = 64  # the kernel takes C and M that are multiples of this
-_ON_CHIP_MAX_C = 128  # widest C whose output tile fits in registers beside the hidden
+_MLP_MULTIPLE = 64  # M, and C in the two-launch form, are multiples of this
+_ON_CHIP_WIDTHS = (64, 96, 128)  # the fused form's instantiations (csrc/fused_mlp.cu)
 
 _halves = WeakTensorKeyDictionary()  # weight -> (its version, tf32 hi, tf32 lo)
 
@@ -169,9 +169,9 @@ def fused_mlp_plain(x, w1, b1, w2, b2):
 
 def hidden_on_chip(C: int) -> bool:
     """Whether K11 at width C runs the fused form, with the hidden kept in
-    registers (C 64 / 128), or the two launches with the hidden in device
-    memory (C >= 256)."""
-    return C <= _ON_CHIP_MAX_C
+    registers (C 64 / 96 / 128), or the two launches with the hidden in
+    device memory (C a multiple of 64 from 192)."""
+    return C in _ON_CHIP_WIDTHS
 
 
 def tf32_split_plain(w):
@@ -207,18 +207,20 @@ def _tf32_halves(w):
 
 def fused_mlp_cuda(x, w1, b1, w2, b2, on_chip=None):
     """The K11 kernels on a contiguous fp32 CUDA ``x (T, C)``; `on_chip`
-    (default ``hidden_on_chip(C)``) picks the fused form, which takes C 64
-    and 128 only."""
+    (default ``hidden_on_chip(C)``) picks the fused form, which takes C 64,
+    96 and 128 only; the two launches take C a multiple of 64.  Both take M
+    a multiple of 64."""
     global mlp_launches
     if x.dim() != 2:
         raise ValueError(f"x: expected (T, C), got {tuple(x.shape)}")
     T, C = x.shape
     M = w1.shape[0]
-    if C % _MLP_MULTIPLE or M % _MLP_MULTIPLE:
-        raise ValueError(f"K11 needs C and M multiples of {_MLP_MULTIPLE}, got C={C}, M={M}")
-    on_chip = hidden_on_chip(C) if on_chip is None else on_chip
     if on_chip and not hidden_on_chip(C):
-        raise ValueError(f"K11's fused form takes C <= {_ON_CHIP_MAX_C}, got C={C}")
+        raise ValueError(f"K11's fused form takes C in {_ON_CHIP_WIDTHS}, got C={C}")
+    on_chip = hidden_on_chip(C) if on_chip is None else on_chip
+    if M % _MLP_MULTIPLE or not (on_chip or C % _MLP_MULTIPLE == 0):
+        raise ValueError(f"K11 takes C in {_ON_CHIP_WIDTHS} or a multiple of {_MLP_MULTIPLE} "
+                         f"and M a multiple of {_MLP_MULTIPLE}, got C={C}, M={M}")
     _build.require_cuda("x", x, torch.float32)
     for name, t, shape in (("w1", w1, (M, C)), ("b1", b1, (M,)), ("w2", w2, (C, M)),
                            ("b2", b2, (C,))):

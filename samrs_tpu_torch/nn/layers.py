@@ -11,6 +11,7 @@ flip is flax's) and ``nn.Conv2d``.  Dropout and drop-path take an explicit
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple
 
 import numpy as np
@@ -177,11 +178,32 @@ def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
     return out.to(x.dtype)
 
 
+_recomputes = 0  # checkpointed functions being run again in the backward
+
+
+@contextlib.contextmanager
+def _recomputing():
+    global _recomputes
+    _recomputes += 1
+    try:
+        yield
+    finally:
+        _recomputes -= 1
+
+
+def recomputing() -> bool:
+    """True while ``checkpoint_with_generator`` runs a function again in the
+    backward: a BatchNorm there must not update its running statistics a
+    second time."""
+    return _recomputes > 0
+
+
 def checkpoint_with_generator(fn, x: torch.Tensor, generator: Optional[torch.Generator]):
     """``fn(x, generator)`` under activation checkpointing: only `x` is kept
     for the backward, which runs `fn` again.  Its random draws (dropout,
     drop-path) come from a copy of `generator`'s state at the call, so the
-    recompute draws the same masks; `generator` ends as `fn` left it."""
+    recompute draws the same masks; `generator` ends as `fn` left it.  During
+    the recompute ``recomputing()`` is true."""
     state = None if generator is None else generator.get_state()
     used = []
 
@@ -193,7 +215,18 @@ def checkpoint_with_generator(fn, x: torch.Tensor, generator: Optional[torch.Gen
             used.append(g)
         return fn(x, g)
 
-    out = checkpoint(run, x, use_reentrant=False)
+    out = checkpoint(run, x, use_reentrant=False,
+                     context_fn=lambda: (contextlib.nullcontext(), _recomputing()))
     if used:
         generator.set_state(used[0].get_state())
     return out
+
+
+def run_block(blk: nn.Module, x: torch.Tensor, generator: Optional[torch.Generator],
+              use_kernels: bool, checkpointed: bool) -> torch.Tensor:
+    """``blk(x, generator, use_kernels)``, under ``checkpoint_with_generator``
+    when `checkpointed` (a backbone's per-block activation checkpointing, the
+    reference's use_checkpoint)."""
+    if not checkpointed:
+        return blk(x, generator, use_kernels)
+    return checkpoint_with_generator(lambda t, g: blk(t, g, use_kernels), x, generator)

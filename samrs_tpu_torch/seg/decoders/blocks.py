@@ -13,14 +13,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from samrs_tpu_torch.nn.layers import resize_bilinear
+from samrs_tpu_torch.nn.layers import recomputing, resize_bilinear
 
 __all__ = ["BatchNorm", "ConvBNReLU", "SCSEModule", "adaptive_avg_pool", "resize_bilinear",
            "upsample_nearest_2x"]
 
 
 class BatchNorm(nn.Module):
-    """Batch statistics in training, running statistics in eval."""
+    """Batch statistics in training, running statistics in eval; the running
+    statistics are updated once a forward, not again when a checkpointed
+    block runs a second time in the backward."""
 
     def __init__(self, features: int, momentum: float = 0.9, eps: float = 1e-5) -> None:
         super().__init__()
@@ -43,6 +45,8 @@ class BatchNorm(nn.Module):
                 + self.bias[:, None, None]
         else:
             y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        if recomputing():
+            return y
         with torch.no_grad():
             var, mean = torch.var_mean(x.float(), (0, 2, 3), unbiased=False)
             self.running_mean.mul_(self.momentum).add_(mean, alpha=1.0 - self.momentum)

@@ -34,7 +34,19 @@ rule.  The ViT-Adapter's flax names map to its reference key layout
 ``interactions.{last}.extra_extractors.{j}``, ``blocks_{i}_gamma{1,2}`` ->
 ``blocks.{i}.gamma{1,2}``; ``up`` is a transposed conv.  The UNet / UNet++
 decoders' flax names (``block{i}/conv1/conv``, ``attention1/cse_fc1``,
-``node_{l}_{j}_conv1/bn``, ``final_conv``) are the port's.
+``node_{l}_{j}_conv1/bn``, ``final_conv``) are the port's.  Swin's
+(``patch_embed``, ``patch_norm``, ``stage{s}_block{b}``, ``merge{s}``,
+``norm{s}``) map to the reference layout of samrs_tpu/seg/port.py:144-232
+(``patch_embed.proj`` / ``.norm``, ``layers.{s}.blocks.{b}``,
+``layers.{s}.downsample``, ``norm{s}``); ResNet's (``stem_conv``,
+``stem_bn``, ``layer{l}_block{b}/{conv,bn}{j}``, ``downsample_{conv,bn}``)
+to torchvision's (:235-322: ``conv1``, ``bn1``, ``layer{l}.{b}.conv{j}`` /
+``bn{j}``, ``layer{l}.{b}.downsample.{0,1}``); ViTAEv2's (``rc{s}/
+{prm_conv{d}, pcm/conv{i}, pcm/bn{i}, norm1, attn[/attn]/{qkv,proj}, norm2,
+mlp}``, ``nc{s}_{b}/...``) to the reference's (:418-563:
+``layers.{s}.RC.{PRM.convs.{d - 1}.0, PCM.{3i} / {3i + 1}, attn.{norm1,
+attn.{qkv,proj}, norm2, mlp}}``, ``layers.{s}.NC.{b}.{norm1, attn.{qkv,
+proj}, PCM.*, norm2, mlp}``).
 
 Layout conversions (flax -> torch):
   dense   kernel (in, out)        -> weight (out, in)
@@ -80,6 +92,23 @@ _RENAMES: Tuple[Tuple[str, Any], ...] = (
     (r"^encoder/level_norm(\d+)$", r"encoder.levels.\1.norm.0"),
     (r"^encoder/downsample_norm(\d+)$", r"encoder.levels.\1.downsample.norm.1"),
     (r"^encoder/downsample(\d+)$", r"encoder.levels.\1.downsample.conv"),
+    (r"^encoder/patch_norm$", "encoder.patch_embed.norm"),
+    (r"^encoder/stage(\d+)_block(\d+)(/|$)", r"encoder.layers.\1.blocks.\2\3"),
+    (r"^encoder/merge(\d+)(/|$)", r"encoder.layers.\1.downsample\2"),
+    (r"^encoder/stem_conv$", "encoder.conv1"),
+    (r"^encoder/stem_bn$", "encoder.bn1"),
+    (r"^encoder/layer(\d+)_block(\d+)/downsample_conv$", r"encoder.layer\1.\2.downsample.0"),
+    (r"^encoder/layer(\d+)_block(\d+)/downsample_bn$", r"encoder.layer\1.\2.downsample.1"),
+    (r"^encoder/layer(\d+)_block(\d+)/", r"encoder.layer\1.\2."),
+    (r"^encoder/rc(\d+)/prm_conv(\d+)$",  # dilation d is the (d - 1)-th branch
+     lambda m: f"encoder.layers.{m[1]}.RC.PRM.convs.{int(m[2]) - 1}.0"),
+    (r"^encoder/(rc|nc)(\d+)(?:_(\d+))?/pcm/(conv|bn)(\d)$",
+     lambda m: f"encoder.layers.{m[2]}.{'RC' if m[1] == 'rc' else 'NC.' + m[3]}.PCM."
+               f"{3 * int(m[5]) + (m[4] == 'bn')}"),
+    (r"^encoder/rc(\d+)/(?:attn/)?attn/(qkv|proj)$", r"encoder.layers.\1.RC.attn.attn.\2"),
+    (r"^encoder/rc(\d+)/", r"encoder.layers.\1.RC.attn."),
+    (r"^encoder/nc(\d+)_(\d+)/(?:attn/)?attn/(qkv|proj)$", r"encoder.layers.\1.NC.\2.attn.\3"),
+    (r"^encoder/nc(\d+)_(\d+)/", r"encoder.layers.\1.NC.\2."),
     (r"^encoder/neck/fpn1_deconv1$", "encoder.fpn1.0"),
     (r"^encoder/neck/fpn1_norm$", "encoder.fpn1.1.ln"),
     (r"^encoder/neck/fpn1_deconv2$", "encoder.fpn1.3"),

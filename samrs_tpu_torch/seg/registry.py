@@ -1,8 +1,6 @@
-"""Backbone and decoder factories (mirrors samrs_tpu/seg/registry.py).
-
-Only what the port has so far is registered; any other name raises a
-KeyError that points to ROADMAP.md, where the remaining backbones and
-decoders wait in order.
+"""Backbone and decoder factories (mirrors samrs_tpu/seg/registry.py):
+every backbone and decoder of the JAX package's registries; any other name
+raises a KeyError.
 """
 
 from __future__ import annotations
@@ -10,6 +8,27 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, Sequence
 
 from torch import nn
+
+
+def _resnet50(**kw) -> nn.Module:
+    from samrs_tpu_torch.seg.backbones.resnet import resnet50
+
+    kw.pop("image_size", None)  # a CNN: any image size
+    return resnet50(**kw)
+
+
+def _swin_t(**kw) -> nn.Module:
+    from samrs_tpu_torch.seg.backbones.swin import swin_t
+
+    kw.pop("image_size", None)  # windows of 7 on any grid (padded)
+    return swin_t(**kw)
+
+
+def _vitaev2_s(**kw) -> nn.Module:
+    from samrs_tpu_torch.seg.backbones.vitae import vitaev2_s
+
+    kw.pop("image_size", None)
+    return vitaev2_s(**kw)
 
 
 def _vit_b(**kw) -> nn.Module:
@@ -41,10 +60,13 @@ def _vit_adapter_b(**kw) -> nn.Module:
 
 
 BACKBONES: Dict[str, Callable[..., nn.Module]] = {
+    "resnet50": _resnet50,
     "vit_b": _vit_b,
     "vit_b_rvsa": _rvsa("vit_b_rvsa"),
     "vit_l_rvsa": _rvsa("vit_l_rvsa"),
     "vit_h_rvsa": _rvsa("vit_h_rvsa"),
+    "swin_t": _swin_t,
+    "vitaev2_s": _vitaev2_s,
     "internimage_t": _internimage_t,
     "vit_adapter_b": _vit_adapter_b,
 }
@@ -54,8 +76,7 @@ DECODERS = ("unet", "unetpp", "upernet", "mask2former")
 
 def get_backbone(name: str, image_size: int = 224, **kw: Any) -> nn.Module:
     if name not in BACKBONES:
-        raise KeyError(f"backbone {name!r} is not ported yet (ported: {sorted(BACKBONES)}; "
-                       "the others are queued in ROADMAP.md)")
+        raise KeyError(f"unknown backbone {name!r}; have {sorted(BACKBONES)}")
     return BACKBONES[name](image_size=image_size, **kw)
 
 
@@ -79,5 +100,4 @@ def get_decoder(name: str, encoder_channels: Sequence[int], **kw: Any) -> nn.Mod
         from samrs_tpu_torch.seg.decoders.mask2former import Mask2FormerDecoder
 
         return Mask2FormerDecoder(in_channels=tuple(encoder_channels[1:]), **kw)
-    raise KeyError(f"decoder {name!r} is not ported yet (ported: {list(DECODERS)}; "
-                   "the others are queued in ROADMAP.md)")
+    raise KeyError(f"unknown decoder {name!r}; have {list(DECODERS)}")

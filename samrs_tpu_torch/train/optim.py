@@ -179,8 +179,12 @@ class Optimizer:
 
 
 # Per-backbone optimizer defaults of the reference's zoo (ED/main_pretrain.py:329-409);
-# the rows of samrs_tpu/train/optim.py's table for the backbones the port has.
+# the rows of samrs_tpu/train/optim.py's table.  resnet50's lr follows the reference's
+# blr scaling, lr = blr * global batch / 96.
 BACKBONE_OPTIM_DEFAULTS: Dict[str, Dict[str, Any]] = {
+    "resnet50": dict(lr=None, blr=1e-3, weight_decay=0.05, layer_decay=None),
+    "swin_t": dict(lr=6e-5, weight_decay=0.01, layer_decay=None),
+    "vitaev2_s": dict(lr=6e-5, weight_decay=0.01, layer_decay=None),
     "vit_b": dict(lr=6e-5, weight_decay=0.05, layer_decay=0.9, scheme="vit"),
     "vit_b_rvsa": dict(lr=6e-5, weight_decay=0.05, layer_decay=0.9, scheme="vit"),
     "vit_l_rvsa": dict(lr=6e-5, weight_decay=0.05, layer_decay=0.9, scheme="vit"),
@@ -194,13 +198,18 @@ BACKBONE_OPTIM_DEFAULTS: Dict[str, Dict[str, Any]] = {
 }
 
 
-def backbone_optim_settings(backbone: str, encoder: Optional[nn.Module] = None) -> Dict[str, Any]:
-    """The family's lr / weight_decay / layer_decay / layer-id scheme, and
+def backbone_optim_settings(backbone: str, encoder: Optional[nn.Module] = None,
+                            global_batch: int = 96) -> Dict[str, Any]:
+    """The family's lr (``blr`` scaled by `global_batch` / 96 where the row
+    has one) / weight_decay / layer_decay / layer-id scheme, and
     ``num_layers`` / ``depths`` from the encoder when given (a staged
     backbone's ``depths``, summed; a ViT's ``depth``; 12 without one)."""
     if backbone not in BACKBONE_OPTIM_DEFAULTS:
-        raise KeyError(f"backbone {backbone!r} is not ported yet (ROADMAP.md)")
+        raise KeyError(f"unknown backbone {backbone!r}; have {sorted(BACKBONE_OPTIM_DEFAULTS)}")
     d = dict(BACKBONE_OPTIM_DEFAULTS[backbone])
+    if d["lr"] is None:
+        d["lr"] = d.pop("blr") * global_batch / 96.0
+    d.setdefault("scheme", "vit")
     depths = getattr(encoder, "depths", None) if encoder is not None else None
     if depths is not None:
         d["depths"] = tuple(depths)

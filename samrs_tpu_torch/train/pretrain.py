@@ -136,7 +136,7 @@ def run_pretrain(cfg: PretrainConfig, model: Optional[torch.nn.Module] = None,
 
     sched = warmup_cosine_schedule(cfg.optim.lr, cfg.total_iters, cfg.optim.warmup_iters,
                                    cfg.optim.min_lr_ratio)
-    bset = backbone_optim_settings(cfg.backbone, model.encoder)
+    bset = backbone_optim_settings(cfg.backbone, model.encoder, cfg.data.batch_size)
     opt = Optimizer(model, sched, weight_decay=cfg.optim.weight_decay,
                     betas=tuple(cfg.optim.betas), grad_clip=cfg.optim.grad_clip,
                     layer_decay=cfg.optim.layer_decay, num_layers=bset["num_layers"],
@@ -194,9 +194,9 @@ def run_pretrain(cfg: PretrainConfig, model: Optional[torch.nn.Module] = None,
 
 def apply_optim_defaults(cfg: PretrainConfig, overrides: Sequence[str]) -> PretrainConfig:
     """Fold the backbone family's lr / wd / layer-decay defaults
-    (ED/main_pretrain.py:329-409) into cfg.optim, keeping any explicit
-    ``optim.*=`` override."""
-    fam = backbone_optim_settings(cfg.backbone)
+    (ED/main_pretrain.py:329-409; resnet50's lr scaled by the global batch)
+    into cfg.optim, keeping any explicit ``optim.*=`` override."""
+    fam = backbone_optim_settings(cfg.backbone, None, cfg.data.batch_size)
     explicit = {o.split("=", 1)[0] for o in overrides if "=" in o}
     for key in ("lr", "weight_decay", "layer_decay"):
         if f"optim.{key}" not in explicit:

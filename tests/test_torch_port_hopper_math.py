@@ -13,8 +13,8 @@ does that arithmetic in torch on the CPU (each wgmma's sum formed in
 float64, then truncated to fp32); it lands within K11's 1e-5 of
 ``fused_mlp_plain`` and of JAX ``mlp_xla``, where a one-pass TF32 product
 and a single accumulator over all of K do not.  The wrapper's choice
-between the fused form (the hidden on chip, C <= 128) and the two launches
-is a pure function, tested at every width.
+between the fused form (the hidden on chip, C 64 / 96 / 128) and the two
+launches is a pure function, tested at every width.
 
 K8's backward (csrc/bilinear_gather.cu) adds each lane's channel vector to a
 corner of dX with one vector reduction and skips corners of weight 0; the
@@ -25,6 +25,8 @@ DCNv3 (K 9), MSDeformAttn (K 4) and RVSA (K 1) shapes, and
 chip_smoke.py reads on the card) is at least 4x below a per-channel
 scatter.
 """
+
+import contextlib
 
 import jax
 import jax.numpy as jnp
@@ -65,6 +67,20 @@ def _round_toward_zero(x: torch.Tensor) -> torch.Tensor:
     return torch.where(f.double().abs() > x.abs(), torch.nextafter(f, torch.zeros_like(f)), f)
 
 
+@contextlib.contextmanager
+def _one_thread():
+    """torch on one intra-op thread: the models below run thousands of small
+    ops in series, which under the suite's parallel workers wait on eight
+    OpenMP threads each (~100x slower).  The arithmetic is the same: their
+    matmuls are 8 deep, and no op splits a sum across threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 def _split_mm(a, b, stage=32):
     """a (T, K) @ b (N, K)^T as K11 computes it: split operands, three tf32
     products an 8-deep step (one wgmma each), small terms first.  Each
@@ -73,6 +89,11 @@ def _split_mm(a, b, stage=32):
     truncated).  A partial sum per `stage`-deep stage is then added to the
     running sum in fp32 (to nearest); stage=None keeps one accumulator over
     all of K."""
+    with _one_thread():
+        return _split_mm_serial(a, b, stage)
+
+
+def _split_mm_serial(a, b, stage):
     ah, bh = _tf32_rna(a), _tf32_rna(b)
     al, bl = _tf32_trunc(a - ah), _tf32_trunc(b - bh)
     ah, al, bh, bl = (t.double() for t in (ah, al, bh, bl))
@@ -114,9 +135,10 @@ def _k11_inputs(T, C, seed):
     return x, w1, b1, w2, b2
 
 
-@pytest.mark.parametrize("C", [64, 128, 256, 512, 768])
+@pytest.mark.parametrize("C", [64, 96, 128, 256, 512, 768])
 def test_k11_split_tf32_model_within_k11_bound(C):
-    """At the InternImage-T widths and vit_b's: the split-TF32 model within
+    """At the InternImage-T widths, Swin-T's first (C 96: three 32-deep
+    stages of lin1) and vit_b's: the split-TF32 model within
     1e-5 of the fp32 plain version and of JAX's ``mlp_xla``; one-pass TF32
     outside it, so the bound tells the two apart."""
     args = _k11_inputs(24, C, C)
@@ -149,15 +171,17 @@ def test_round_toward_zero():
     assert _round_toward_zero(x).tolist() == [1.0, -1.0, 1.0 - 2.0 ** -24, 3.0, 0.0]
 
 
-@pytest.mark.parametrize("C,on_chip", [(64, True), (128, True), (256, False), (512, False),
-                                       (768, False), (1024, False), (1280, False)])
+@pytest.mark.parametrize("C,on_chip", [(64, True), (96, True), (128, True), (192, False),
+                                       (256, False), (512, False), (768, False), (1024, False),
+                                       (1280, False)])
 def test_k11_form_choice(C, on_chip):
-    """The fused form (the hidden in registers) at C 64 / 128, the two
-    launches with the hidden in device memory from C 256."""
+    """The fused form (the hidden in registers) at C 64 / 96 / 128, the two
+    launches with the hidden in device memory from C 192 (Swin-T's second
+    stage)."""
     assert fused_mlp.hidden_on_chip(C) is on_chip
 
 
-@pytest.mark.parametrize("C", [64, 768])
+@pytest.mark.parametrize("C", [64, 96, 768])
 def test_k11_wrapper_passes_the_form(monkeypatch, C):
     """The wrapper asks the C entry for the form ``hidden_on_chip`` picks,
     with a hidden scratch only for the two launches; forcing the fused form
@@ -206,11 +230,16 @@ def test_tf32_rounding_model():
 
 
 def test_k11_cuda_wrapper_checks_shape_before_device():
-    """C and M must be multiples of 64 (the kernel's tiles); a CPU tensor of
-    a good shape is refused as a CPU tensor."""
-    with pytest.raises(ValueError, match="multiples of 64"):
-        fused_mlp.fused_mlp_cuda(torch.zeros(4, 96), torch.zeros(384, 96), torch.zeros(384),
-                                 torch.zeros(96, 384), torch.zeros(96))
+    """C must be one the kernel instantiates (64 / 96 / 128 on chip, or a
+    multiple of 64) and M a multiple of 64 (the kernel's tiles): C 80 and M
+    96 are refused; a CPU tensor of a good shape is refused as a CPU
+    tensor."""
+    with pytest.raises(ValueError, match="K11 takes C in"):
+        fused_mlp.fused_mlp_cuda(torch.zeros(4, 80), torch.zeros(320, 80), torch.zeros(320),
+                                 torch.zeros(80, 320), torch.zeros(80))
+    with pytest.raises(ValueError, match="K11 takes C in"):
+        fused_mlp.fused_mlp_cuda(torch.zeros(4, 64), torch.zeros(96, 64), torch.zeros(96),
+                                 torch.zeros(64, 96), torch.zeros(64))
     with pytest.raises(ValueError, match="CUDA tensor"):
         fused_mlp.fused_mlp_cuda(torch.zeros(4, 1024), torch.zeros(4096, 1024),
                                  torch.zeros(4096), torch.zeros(1024, 4096), torch.zeros(1024))

@@ -59,11 +59,11 @@ def _port_names(tree, path, prefix, stats=False):
 
 
 def _parity(jm, jargs, pm, pcall, path, prefix, seed, jout=lambda o: [o], train=True,
-            side=0.0):
+            side=0.0, no_grad=NO_GRAD):
     """Draw jm's variables, load them into pm, run both on the same inputs
     and return {"out": [rel-L2 per output], "grad": {name: rel-L2},
     "noise": {name: largest |gradient| of either side / the gradient's norm}
-    for the NO_GRAD parameters, "stats": {name: rel-L2}}: the gradients are
+    for the `no_grad` parameters, "stats": {name: rel-L2}}: the gradients are
     those of sum(out_i * r_i) with fixed numpy draws r_i (the port's layout),
     the statistics the BatchNorm running averages after the forward.
     ``pcall(pm, s)`` runs the port on its inputs scaled by 1 + s, s =
@@ -96,9 +96,9 @@ def _parity(jm, jargs, pm, pcall, path, prefix, seed, jout=lambda o: [o], train=
     total = np.sqrt(sum(float((v.double() ** 2).sum()) for v in want_g.values()))
     return {"out": [_rel_l2(o.detach().numpy(), np.asarray(w)) for o, w in zip(pouts, jouts)],
             "grad": {n: _rel(got_g[n].numpy(), w.numpy())
-                     for n, w in want_g.items() if n not in NO_GRAD},
+                     for n, w in want_g.items() if n not in no_grad},
             "noise": {n: max(float(g.abs().max()) for g in (got_g[n], want_g[n])) / total
-                      for n in NO_GRAD if n in want_g},
+                      for n in no_grad if n in want_g},
             "stats": {n: _rel(psd[n].numpy(), w.numpy()) for n, w in
                       _port_names(upd.get("batch_stats", {}), path, prefix, stats=True).items()}}
 
