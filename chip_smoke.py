@@ -73,6 +73,23 @@ checkout; it has no CPU path and raises on any failure.  Phases:
    gray PNG is the label of the last instance covering each pixel and the
    colour PNG is PALETTE[gray], and against the plain path mean instance
    IoU, per-pixel cover-index agreement and gray agreement, each >= 0.99;
+4a. fleet phase (``python -m samrs_tpu_torch.generate.fleet``'s
+   ``run_fleet``): a seeded DIOR mini-set of six 800x800 images with 100
+   boxes and two 768x1024 with 64, ordered so that each window of four
+   images holds both shapes (encoder passes of 3 and 1 images), as JPEGs;
+   run_fleet with the kernels and on the plain versions, and
+   ``generate_semantic`` on the same images; every image's outputs read back
+   and checked as in 4; fleet against generate_semantic and kernels against
+   plain: mean instance IoU, cover and gray agreement >= 0.99; launches K1
+   28, K2 4, K3 32 and the GEMM 128 per encoder pass, K4 1, K5 2, K6 1 and
+   K7 ceil(n/32) per image; the C codec's bytes equal to the numpy codec's
+   on every mask; fleet img/s (first and warm run, plain), the device's busy
+   share of a fleet run (torch.profiler), generate_semantic's s/image, a
+   cProfile of two of its images, the codecs' ms a mask; four 1024^2
+   images in one ``encode_images`` pass against ``set_image`` one by one
+   (feature rel-L2 <= 2e-2; bit-equality printed); the encoder's ms an image
+   at batch 4 and 1; K1-K3 (run_cases, device time by torch.profiler) and
+   the GEMM's four shapes at batch 4 (T 16384);
 4b. configurations phase: the ViT-H encoder on one 1024^2 image from the
    main path's weights under every value of window_attn_impl, each
    global_attn_impl mode, tail_impl=fused and mlp_impl=xla: launches per
@@ -213,7 +230,9 @@ checkout; it has no CPU path and raises on any failure.  Phases:
    and kernels-vs-plain probability maps (rel-L2 <= 1e-5);
 12. prints the configurations phase's results as one JSON line, then one
    JSON line of per-kernel results (launches: K1-K7 from the generate
-   phase, K12 from the generate phase at image_size 512, the modes from the
+   phase, with ``launches_main_path`` and ``launches_fleet`` beside them,
+   K1-K3 and the GEMM also with their batch-4 numbers under ``batch4_*``;
+   K12 from the generate phase at image_size 512, the modes from the
    configuration or image size that runs them, K8 from the pretrain phase
    with its per-step count and the adapter's cases and launches (phase 9c),
    K9 from the Mask2Former pretrain phase, K10 and K11 from the finetune driver
@@ -223,7 +242,7 @@ checkout; it has no CPU path and raises on any failure.  Phases:
    the card's name and power limit and the final status line.
 
 ``--only`` runs just the named phases after the build (kernels: 2; gemm: 2a; main: 3 and 4,
-the main path and the generate phase at the default image size; modes, configs,
+the main path and the generate phase at the default image size; fleet: 4a; modes, configs,
 sizes: 2b, 4b, 4c; slab: the K8-slab and K11-width checks of 9b;
 internimage: its step and driver runs; mlp: 6 and K11's widths; gather: 5
 and the MSDA wrapper of 5b; steps: 7, 7b, 8 and 9b's step; adapter: 9c;
@@ -240,11 +259,14 @@ busy share of the wall time).  ``chip_drift.py`` shows where the generate path's
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
+import cProfile
 import gc
 import json
 import logging
 import os
 import pickle
+import pstats
 import re
 import statistics
 import subprocess
@@ -268,6 +290,11 @@ MAIN_LAUNCHES = {"K1": 28, "K1pf": 0, "K1w": 0, "K2": 4, "K3": 32, "K3t": 0, "K1
                  "K11": 0, "K11s": 0, "K8sf": 0, "K8sb": 0}
 GEN_LAUNCHES = {**MAIN_LAUNCHES, "K7": 4}
 MAIN_GEMM_LAUNCHES = 128       # ViT-H: qkv + proj of 32 blocks, lin1 + lin2 of 32 MLPs
+# the fleet phase: 6 images of 800x800 (GEN_BOXES boxes) and 2 of 768x1024 (N_BOXES), in this
+# order, so each window of FLEET_BATCH images holds both shapes (encoder passes of 3 and 1)
+FLEET_ORDER = (GEN_HW, GEN_HW, GEN_HW, IMAGE_HW) * 2
+FLEET_BATCH = 4                # run_fleet's encoder pass (generate/fleet.py ENCODE_BATCH)
+ENCODE_LAUNCHES = {"K1": 28, "K2": 4, "K3": 32, "GEMM": MAIN_GEMM_LAUNCHES}  # an encoder pass
 # SEP pretraining: vit_b_rvsa + UperNet, 224^2, heads SOTA / SIOR / FAST
 TRAIN_BATCH = (17, 12, 65)     # proportional_batch_sizes(..., 96): floors of the subset shares
 TRAIN_CLASSES = (18, 20, 37)
@@ -457,54 +484,68 @@ def as_tuple(x):
     return x if isinstance(x, tuple) else (x,)
 
 
-def kernel_phase(gen: torch.Generator):
-    from samrs_tpu_torch.kernels import (flash_attention, fused_mlp, fused_twoway, fused_upscale,
-                                         fused_window_layer)
+def encoder_cases(gen: torch.Generator, B: int = 1):
+    """run_cases entries of K1, K2 and K3 at the ViT-H encoder's shapes for
+    a batch of B images (T 4096 tokens an image), with K3's inputs."""
+    from samrs_tpu_torch.kernels import flash_attention, fused_mlp, fused_window_layer
 
     C, nH, ws, G = 1280, 16, 14, 64
     hd = C // nH
     T = G * G
-    Bp, D, Ci, NTOK, NLIVE = 64, 256, 128, 16, 7  # decoder: prompts, widths, token slots
 
     def rn(*shape, std=1.0):  # bf16-representable fp32 values
         return (torch.randn(*shape, generator=gen, device="cuda") * std).bfloat16().float()
 
+    tag = "" if B == 1 else f", batch {B}"
     cases = []  # key, title, source, replaces, kernel, fp32 reference, bf16 plain, bytes, flops, library
-    xn = rn(1, G, G, C).bfloat16()
+    xn = rn(B, G, G, C).bfloat16()
     k1 = (rn(3 * C, C, std=C ** -0.5), rn(3 * C, std=0.5), rn(C, C, std=C ** -0.5),
           rn(C, std=0.1), rn(ws, ws, hd, std=0.1), rn(ws, ws, hd, std=0.1), ws, hd ** -0.5, nH)
     nwin = (-(-G // ws)) ** 2
-    k1_flops = 2 * T * C * 4 * C + nwin * nH * (4 * (ws * ws) ** 2 * hd + 4 * ws ** 3 * hd)
-    cases.append(("K1", "window layer (batch-innermost order: block_ijb, block_sg)",
+    k1_flops = B * (2 * T * C * 4 * C + nwin * nH * (4 * (ws * ws) ** 2 * hd + 4 * ws ** 3 * hd))
+    cases.append(("K1", f"window layer (batch-innermost order: block_ijb, block_sg){tag}",
                   "samrs_tpu_torch/csrc/window_attention.cu",
                   "samrs_tpu/kernels/fused_window_layer.py:639",
                   lambda: fused_window_layer.window_layer_attention(xn, *k1, variant="ijb"),
                   lambda: fused_window_layer.window_layer_plain(xn.float(), *k1),
                   lambda: fused_window_layer.window_layer_plain(xn, *k1),
-                  2 * (2 * T * C + 4 * C * C), k1_flops, None))
-    qkv = rn(1, T, 3 * C).bfloat16()
+                  2 * (2 * B * T * C + 4 * C * C), k1_flops, None))
+    qkv = rn(B, T, 3 * C).bfloat16()
     k2 = (rn(G, G, hd, std=0.1), rn(G, G, hd, std=0.1), (G, G), hd ** -0.5, nH)
-    q, k, v = qkv.reshape(1, T, 3, nH, hd).permute(2, 0, 3, 1, 4)
+    q, k, v = qkv.reshape(B, T, 3, nH, hd).permute(2, 0, 3, 1, 4)
     rel_h, rel_w = flash_attention._rel_rows(q, k2[0], k2[1], (G, G))
-    sdpa_mask = (rel_h[..., :, None] + rel_w[..., None, :]).reshape(1, nH, T, T).bfloat16()
+    sdpa_mask = (rel_h[..., :, None] + rel_w[..., None, :]).reshape(B, nH, T, T).bfloat16()
     del rel_h, rel_w
-    cases.append(("K2", "global flash attention", "samrs_tpu_torch/csrc/flash_attention.cu",
+    cases.append(("K2", f"global flash attention{tag}", "samrs_tpu_torch/csrc/flash_attention.cu",
                   "samrs_tpu/kernels/flash_attention.py:343",
                   lambda: flash_attention.attention_qkv_relpos(qkv, *k2),
                   lambda: flash_attention.attention_qkv_relpos_plain(qkv.float(), *k2),
                   lambda: flash_attention.attention_qkv_relpos_plain(qkv, *k2),
-                  2 * 4 * T * C, 4 * nH * T * T * hd,
+                  2 * 4 * B * T * C, 4 * nH * B * T * T * hd,
                   lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask,
                                                          scale=hd ** -0.5)))
-    x = rn(T, C)  # the encoder's fp32 residual stream
+    x = rn(B * T, C)  # the encoder's fp32 residual stream
     k3 = (1.0 + rn(C, std=0.1), rn(C, std=0.1), rn(4 * C, C, std=C ** -0.5), rn(4 * C, std=0.1),
           rn(C, 4 * C, std=(4 * C) ** -0.5), rn(C, std=0.1), 1e-6)
-    cases.append(("K3", "LN-MLP-residual", "samrs_tpu_torch/csrc/gemm.cu",
+    cases.append(("K3", f"LN-MLP-residual{tag}", "samrs_tpu_torch/csrc/gemm.cu",
                   "samrs_tpu/kernels/fused_mlp.py:249",
                   lambda: fused_mlp.ln_mlp_residual(x, *k3),
                   lambda: fused_mlp.ln_mlp_residual_plain(x, *k3, dtype=torch.float32),
                   lambda: fused_mlp.ln_mlp_residual_plain(x, *k3, dtype=torch.bfloat16),
-                  2 * 4 * T * C + 2 * 8 * C * C, 16 * T * C * C, None))
+                  2 * 4 * B * T * C + 2 * 8 * C * C, 16 * B * T * C * C, None))
+    return cases, x, k3
+
+
+def kernel_phase(gen: torch.Generator):
+    from samrs_tpu_torch.kernels import fused_twoway, fused_upscale
+
+    C, T = 1280, 64 * 64
+    Bp, D, Ci, NTOK, NLIVE = 64, 256, 128, 16, 7  # decoder: prompts, widths, token slots
+
+    def rn(*shape, std=1.0):  # bf16-representable fp32 values
+        return (torch.randn(*shape, generator=gen, device="cuda") * std).bfloat16().float()
+
+    cases, x, k3 = encoder_cases(gen)
 
     # decoder image side at bucket 64: batch-1 keys (layer 0), per-prompt keys (layer 1)
     keys1, pe = rn(1, T, D), rn(T, D)
@@ -565,7 +606,7 @@ def kernel_phase(gen: torch.Generator):
     del src, hyper
 
     results = run_cases(cases)
-    del cases, sdpa_mask, keysB, keysG
+    del cases, keysB, keysG
     torch.cuda.empty_cache()
     g_ln, b_ln, w1, b1, w2, b2, eps = k3
 
@@ -699,15 +740,16 @@ GEMM_SHAPES = (("qkv", 3, 1, False, False), ("proj", 1, 1, False, True),
                ("lin1", 4, 1, True, False), ("lin2", 1, 4, False, True))
 
 
-def gemm_phase(gen: torch.Generator):
+def gemm_rows(gen: torch.Generator, T: int = 4096):
     """K1 / K3's GEMM (csrc/gemm.cu) at the four dense shapes of the ViT-H
-    encoder against ``linear_plain`` in fp32 on the same bf16 inputs, timed
-    over back-to-back launches beside its plain version in bf16 and
-    ``F.linear`` in bf16 (cuBLAS: the yardstick, never called by the port;
-    it adds the bias but not the GELU or the residual)."""
+    encoder for T tokens (4096 an image) against ``linear_plain`` in fp32 on
+    the same bf16 inputs, timed over back-to-back launches beside its plain
+    version in bf16 and ``F.linear`` in bf16 (cuBLAS: the yardstick, never
+    called by the port; it adds the bias but not the GELU or the residual)
+    -> {shape name: numbers}."""
     from samrs_tpu_torch.kernels import gemm
 
-    C, T = 1280, 4096
+    C = 1280
     rows = {}
     for name, nf, kf, gelu, res in GEMM_SHAPES:
         N, K = nf * C, kf * C
@@ -740,6 +782,13 @@ def gemm_phase(gen: torch.Generator):
                           library_tflops=flops / lib_ms / 1e9)
         del x, w, r
     torch.cuda.empty_cache()
+    return rows
+
+
+def gemm_phase(gen: torch.Generator):
+    """The GEMM at one image's four shapes (gemm_rows) as the result line's
+    entry."""
+    rows = gemm_rows(gen)
     # the result line's row: the qkv shape (F.linear with its bias is the same
     # function there), the other shapes beside it
     entry = dict(name="GEMM dense layer of K1 / K3 and the globals (wgmma fed by TMA), qkv shape; "
@@ -2135,27 +2184,28 @@ def profile_image(run, model) -> None:
     sys.stdout.flush()
 
 
-def generate_scene(seed: int, box_px=GEN_BOX_PX):
-    """A seeded 800x800 image and GEN_BOXES DIOR boxes with sides uniform in
-    `box_px` and labels uniform over DIOR's 20 classes."""
+def generate_scene(seed: int, box_px=GEN_BOX_PX, hw=GEN_HW, n_boxes: int = GEN_BOXES):
+    """A seeded `hw` (800x800) image and `n_boxes` DIOR boxes with sides
+    uniform in `box_px` and labels uniform over DIOR's 20 classes."""
     from samrs_tpu_torch.data.mapping import CLASS_SETS
 
     rng = np.random.default_rng(seed)
-    H, W = GEN_HW
+    H, W = hw
     image = rng.integers(0, 256, (H, W, 3), dtype=np.uint8)
-    xy0 = rng.uniform(0, [W - box_px[0], H - box_px[0]], (GEN_BOXES, 2))
-    wh = rng.uniform(box_px[0], box_px[1], (GEN_BOXES, 2))
+    xy0 = rng.uniform(0, [W - box_px[0], H - box_px[0]], (n_boxes, 2))
+    wh = rng.uniform(box_px[0], box_px[1], (n_boxes, 2))
     boxes = np.concatenate([xy0, np.minimum(xy0 + wh, [W - 1, H - 1])], 1)
-    labels = rng.integers(0, len(CLASS_SETS["dior"]), GEN_BOXES)
+    labels = rng.integers(0, len(CLASS_SETS["dior"]), n_boxes)
     return image, boxes, labels
 
 
 def cover_index(masks: np.ndarray) -> np.ndarray:
     """(N, H, W) bool -> (H, W) int: the last instance covering each pixel,
-    -1 where none does (the generator's coverage fold)."""
-    hit = masks.any(0)
-    last = masks.shape[0] - 1 - masks[::-1].argmax(0)
-    return np.where(hit, last, -1)
+    -1 where none does (the generator's coverage fold), painted in order."""
+    cover = np.full(masks.shape[1:], -1)
+    for i, m in enumerate(masks):
+        cover[m] = i
+    return cover
 
 
 def generate_phase(model, profile: bool = False, want=GEN_LAUNCHES):
@@ -2246,6 +2296,268 @@ def generate_phase(model, profile: bool = False, want=GEN_LAUNCHES):
         profile_image(run, model)
     model.use_kernels = True
     return launches
+
+
+def write_fleet_set(root: str):
+    """The fleet phase's seeded DIOR mini-set under `root`: FLEET_ORDER's
+    images (800x800 with GEN_BOXES boxes of GEN_BOX_PX, 768x1024 with
+    N_BOXES) as JPEGs (DIOR's format) with their XMLs -> (image dir,
+    annotation dir, names, boxes an image)."""
+    from PIL import Image
+
+    from samrs_tpu_torch.data.mapping import CLASS_SETS
+
+    classes = CLASS_SETS["dior"]
+    img_dir, ann_dir = os.path.join(root, "images"), os.path.join(root, "anns")
+    os.makedirs(img_dir)
+    os.makedirs(ann_dir)
+    names, n_boxes = [], []
+    for i, hw in enumerate(FLEET_ORDER):
+        n = GEN_BOXES if hw == GEN_HW else N_BOXES
+        image, boxes, labels = generate_scene(SEED + 100 + i, hw=hw, n_boxes=n)
+        name = f"f{i}"
+        Image.fromarray(image).save(os.path.join(img_dir, name + ".jpg"), quality=95)
+        with open(os.path.join(ann_dir, name + ".xml"), "w") as f:
+            f.write(dior_xml(boxes, [classes[j] for j in labels]))
+        names.append(name)
+        n_boxes.append(n)
+    return img_dir, ann_dir, names, n_boxes
+
+
+def read_labels(save_dir: str, names):
+    """Read back one run's outputs and check each image: PNGs and pkl there,
+    every RLE decoding to its recorded area, the gray PNG the label of the
+    last instance covering each pixel, the colour PNG PALETTE[gray] ->
+    {name: (gray, decoded masks (N, H, W) bool, records, cover index)}
+    (images read on 8 threads)."""
+    from PIL import Image
+
+    from samrs_tpu_torch.data.mapping import PALETTE
+    from samrs_tpu_torch.data.rle import rle_decode
+
+    def read(name):
+        with Image.open(os.path.join(save_dir, "gray", name + ".png")) as im:
+            gray = np.asarray(im)
+        with Image.open(os.path.join(save_dir, "color", name + ".png")) as im:
+            color = np.asarray(im)
+        with open(os.path.join(save_dir, "ins", name + ".pkl"), "rb") as f:
+            records = pickle.load(f)
+        masks = np.stack([rle_decode(r["mask"]) for r in records]).view(bool)
+        if [int(m.sum()) for m in masks] != [r["size"] for r in records]:
+            raise RuntimeError(f"{save_dir}/{name}: an RLE does not decode to its recorded area")
+        labels = np.array([r["label"] for r in records])
+        cover = cover_index(masks)
+        if not np.array_equal(gray, np.where(cover >= 0, labels[np.maximum(cover, 0)], 255)):
+            raise RuntimeError(f"{save_dir}/{name}: gray PNG is not the label of the last "
+                               "instance covering each pixel")
+        if not np.array_equal(color, PALETTE[gray]):
+            raise RuntimeError(f"{save_dir}/{name}: color PNG is not PALETTE[gray]")
+        return gray, masks, records, cover
+
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        return dict(zip(names, pool.map(read, names)))
+
+
+def labels_agree(label: str, got, want) -> None:
+    """Mean instance IoU, cover agreement and gray agreement over all images
+    of two runs' outputs (read_labels), each >= IOU_MIN."""
+    ious, cover_hits, gray_hits, pixels = [], 0, 0, 0
+    for name, (gray, masks, _, cover) in got.items():
+        gray_w, masks_w, _, cover_w = want[name]
+        ious.append(mask_iou(masks, masks_w))
+        cover_hits += int((cover == cover_w).sum())
+        gray_hits += int((gray == gray_w).sum())
+        pixels += gray.size
+    ious = np.concatenate(ious)
+    cover_agree, gray_agree = cover_hits / pixels, gray_hits / pixels
+    print(f"fleet {label}: instance IoU mean={ious.mean():.5f} min={ious.min():.5f}, "
+          f"cover agreement={cover_agree:.5f}, gray agreement={gray_agree:.5f}", flush=True)
+    if not (ious.mean() >= IOU_MIN and cover_agree >= IOU_MIN and gray_agree >= IOU_MIN):
+        raise RuntimeError(f"fleet {label}: IoU {ious.mean():.5f} / cover agreement "
+                           f"{cover_agree:.5f} / gray agreement {gray_agree:.5f} < {IOU_MIN}")
+
+
+def fleet_batches():
+    """The encoder passes one worker makes over FLEET_ORDER: each window of
+    FLEET_BATCH images split by shape, in first-seen order."""
+    out = []
+    for i in range(0, len(FLEET_ORDER), FLEET_BATCH):
+        window = FLEET_ORDER[i:i + FLEET_BATCH]
+        out += [window.count(hw) for hw in dict.fromkeys(window)]
+    return out
+
+
+def fleet_phase(model):
+    """``run_fleet`` (python -m samrs_tpu_torch.generate.fleet) on the seeded
+    DIOR mini-set with the kernels and on the plain versions, the one-image
+    driver on the same images, batched against one-image features, both
+    codecs on every mask, and K1-K3 and the GEMM at batch FLEET_BATCH."""
+    from samrs_tpu_torch.core.config import GenerateConfig
+    from samrs_tpu_torch.data.rle import rle_encode
+    from samrs_tpu_torch.generate.fleet import run_fleet
+    from samrs_tpu_torch.generate.semantic import generate_semantic
+    from samrs_tpu_torch.kernels import gemm
+    from samrs_tpu_torch.native import native_rle_encode_batch
+    from samrs_tpu_torch.sam import SamPredictor
+
+    out = {}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        img_dir, ann_dir, names, n_boxes = write_fleet_set(tmp)
+        lap = lambda what: print(f"fleet phase: {what} at {time.perf_counter() - t_phase:.1f} s",
+                                 flush=True)
+        lap("mini-set written")
+
+        def cfg(run):
+            return GenerateConfig(dataset="dior", image_dir=img_dir, ann_dir=ann_dir,
+                                  save_dir=os.path.join(tmp, run))
+
+        def fleet(run, use_kernels):
+            model.use_kernels = use_kernels
+            stats = {}
+            if run_fleet(cfg(run), model=model, stats=stats) != len(names):
+                raise RuntimeError(f"fleet ({run}) wrote {stats['total']} of {len(names)} images")
+            torch.cuda.synchronize()
+            return stats
+
+        reset_counts()
+        stats = fleet("fleet", True)
+        launches = {**read_counts(), "GEMM": gemm.launches}
+        passes = fleet_batches()
+        want = {k: 0 for k in launches}
+        want.update({k: n * len(passes) for k, n in ENCODE_LAUNCHES.items()})
+        want.update(K4=len(names), K5=2 * len(names), K6=len(names),
+                    K7=sum(-(-n // 32) for n in n_boxes))
+        print(f"fleet launches ({len(names)} images, encoder passes of {stats['encode_batches']} "
+              f"images): {launches}", flush=True)
+        if stats["encode_batches"] != passes:
+            raise RuntimeError(f"fleet encoder passes {stats['encode_batches']} != {passes}")
+        if launches != want:
+            raise RuntimeError(f"fleet launch counts {launches} != {want}")
+        stats_plain = fleet("plain", False)
+        if {**read_counts(), "GEMM": gemm.launches} != launches:
+            raise RuntimeError("the plain fleet launched a kernel")
+        model.use_kernels = True
+        lap("fleet runs done")
+        t = time.perf_counter()
+        generate_semantic(cfg("one"), predictor=SamPredictor(model, buckets=cfg("one").box_buckets))
+        one_s = (time.perf_counter() - t) / len(names)
+        lap("generate_semantic done")
+        runs = {run: read_labels(os.path.join(tmp, run), names)
+                for run in ("fleet", "plain", "one")}
+        lap("outputs read back")
+        labels_agree("kernels vs generate_semantic", runs["fleet"], runs["one"])
+        labels_agree("kernels vs plain", runs["fleet"], runs["plain"])
+        lap("runs compared")
+
+        t = time.perf_counter()  # every mask of the phase: the C codec's bytes against numpy's
+        with concurrent.futures.ThreadPoolExecutor(8) as pool:
+            same = list(pool.map(
+                lambda mr: rle_encode(mr[0])["counts"] == mr[1]["mask"]["counts"].encode("ascii"),
+                [(m, r) for run in runs.values() for _, masks, records, _ in run.values()
+                 for m, r in zip(masks, records)]))
+        print(f"C codec vs numpy codec: {sum(same)} of {len(same)} masks byte-equal "
+              f"({time.perf_counter() - t:.1f} s)", flush=True)
+        if not all(same):
+            raise RuntimeError(f"C codec: {len(same) - sum(same)} masks differ from numpy's")
+        masks = runs["fleet"][names[0]][1][:32]
+        c_ms = statistics.median(_host_ms(lambda: native_rle_encode_batch(masks))
+                                 for _ in range(5)) / len(masks)
+        np_ms = _host_ms(lambda: [rle_encode(m) for m in masks]) / len(masks)
+        print(f"RLE ms a mask ({masks.shape[1]}x{masks.shape[2]}, a chunk of {len(masks)}): "
+              f"C {c_ms:.4f}, numpy {np_ms:.4f}", flush=True)
+        del runs, masks
+
+        stats_warm = fleet("warm", True)
+        lap("warm fleet run done")
+        dev_ms, prof_ms = total_device_ms(lambda: fleet("profiled", True), n=1, warm=False)
+        lap("profiled fleet run done")
+        host = cProfile.Profile()  # the host's share of two images of the one-image driver
+        host.runcall(generate_semantic, cfg("cprofile"), names[:2],
+                     SamPredictor(model, buckets=cfg("one").box_buckets))
+        pstats.Stats(host, stream=sys.stdout).sort_stats("tottime").print_stats(14)
+    for label, st in (("kernels, first run", stats), ("kernels, warm", stats_warm),
+                      ("plain", stats_plain)):
+        print(f"fleet img/s ({label}, {len(names)} DIOR images): "
+              f"{st['total'] / st['seconds']:.4f} ({st['seconds']:.3f} s; worker busy "
+              f"{st['overlap']:.3f} of the wall)", flush=True)
+    print(f"generate_semantic s/image on the same set (kernels): {one_s:.4f} "
+          f"({1 / one_s:.4f} img/s)", flush=True)
+    print(f"fleet device time {dev_ms:.2f} ms in a profiled wall of {prof_ms:.2f} ms: busy "
+          f"{100 * dev_ms / prof_ms:.1f}% (of the warm run's wall: "
+          f"{dev_ms / 10 / stats_warm['seconds']:.1f}%)", flush=True)
+
+    print(f"fleet phase: fleet runs timed and profiled at {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    # one batch of four 1024^2 images against each image through set_image
+    rng = np.random.default_rng(SEED + 200)
+    images = [rng.integers(0, 256, (1024, 1024, 3), dtype=np.uint8) for _ in range(FLEET_BATCH)]
+    predictor = SamPredictor(model)
+    batched = torch.cat([f for f, _, _ in predictor.encode_images(images)])
+    singles = []
+    for image in images:
+        predictor.set_image(image)
+        singles.append(predictor.features)
+    singles = torch.cat(singles)
+    err = rel_l2([batched], [singles])
+    print(f"encode_images at batch {FLEET_BATCH} vs set_image: feature rel_l2={err:.3e}, "
+          f"bit-equal {torch.equal(batched, singles)}", flush=True)
+    if not err <= FEATURE_RTOL:
+        raise RuntimeError(f"batched features: relative L2 {err:.3e} > {FEATURE_RTOL}")
+    x = (torch.from_numpy(np.stack(images)).cuda().float() - 128.0) / 64.0
+    enc = {}
+    for b in (FLEET_BATCH, 1):
+        ms = cuda_ms(lambda: model.encode_image(x[:b]), reps=5) / b
+        dev = total_device_ms(lambda: model.encode_image(x[:b]), n=5)[0] / b
+        enc[b] = (ms, dev)
+        print(f"encoder ms an image at batch {b}: {ms:.3f} (CUDA events), device {dev:.3f} "
+              "(torch.profiler)", flush=True)
+    del batched, singles, x, predictor
+
+    # K1-K3 and the GEMM at the batch's shapes, on a generator of their own
+    fgen = torch.Generator(device="cuda").manual_seed(SEED + FLEET_BATCH)
+    cases = encoder_cases(fgen, FLEET_BATCH)[0]
+    batch = run_cases(cases)
+    for key, _, _, _, kernel, *_ in cases:
+        batch[key]["device_ms"] = total_device_ms(kernel, n=20)[0]
+        print(f"{key} at batch {FLEET_BATCH}: device {batch[key]['device_ms']:.4f} ms a call, "
+              f"{batch[key]['device_ms'] / FLEET_BATCH:.4f} an image", flush=True)
+    del cases
+    torch.cuda.empty_cache()
+    out.update(launches=launches, batch=batch, gemm=gemm_rows(fgen, FLEET_BATCH * 4096),
+               encoder=enc)
+    print(f"fleet phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
+
+
+def total_device_ms(fn, n: int, warm: bool = True):
+    """(torch.profiler's device time, every device row, and the host's wall
+    time under the profiler) per call over `n` calls of `fn` (after a warm
+    one unless `warm` is False), in ms.  Device activity only: the host's
+    op records of a whole fleet run took ~12 s to aggregate."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if warm:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    if us <= 0:
+        raise RuntimeError("torch.profiler recorded no device time")
+    return us / 1e3 / n, wall_ms / n
+
+
+def _host_ms(fn) -> float:
+    t = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t) * 1e3
 
 
 def train_batches(seed: int):
@@ -3539,13 +3851,14 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="profile one generate image per path, one pretrain and one finetune step")
-    ap.add_argument("--only", choices=("kernels", "gemm", "main", "modes", "configs", "sizes",
-                                       "slab", "internimage", "mlp", "gather", "steps",
+    ap.add_argument("--only", choices=("kernels", "gemm", "main", "fleet", "modes", "configs",
+                                       "sizes", "slab", "internimage", "mlp", "gather", "steps",
                                        "point_sample", "mask2former", "adapter", "backbones"),
                     action="append",
                     help="run only these phases (a partial check: no result lines): K1-K7 at "
                          "the main path's shapes (kernels), the encoder's GEMM (gemm), the main "
-                         "path and the generate phase (main), the SAM "
+                         "path and the generate phase (main), run_fleet on a DIOR mini-set "
+                         "and K1-K3 and the GEMM at batch 4 (fleet), the SAM "
                          "encoder's kernel configurations (modes, configs, sizes), K8-slab and "
                          "K11 at InternImage's widths (slab), the InternImage step and driver "
                          "(internimage), K10 and K11 at every width (mlp), K8 and the MSDA "
@@ -3587,6 +3900,11 @@ def main() -> None:
             model = build_model(gen)
             main_path(model)
             generate_phase(model, args.profile)
+            del model
+            torch.cuda.empty_cache()
+        if "fleet" in args.only:
+            model = build_model(gen)
+            fleet_phase(model)
             del model
             torch.cuda.empty_cache()
         if "modes" in args.only:
@@ -3636,10 +3954,22 @@ def main() -> None:
     reset_counts()  # the counts of the main path's run alone
     main_launches = main_path(model)
     gen_launches = generate_phase(model, args.profile)
+    fleet = fleet_phase(model)
     for key in ("K1", "K2", "K3", "K4", "K5", "K6", "K7"):
         results[key]["launches"] = gen_launches[key]
         results[key]["launches_main_path"] = main_launches[key]
+        results[key]["launches_fleet"] = fleet["launches"][key]
     results["GEMM"]["launches"] = main_launches["GEMM"]
+    results["GEMM"]["launches_fleet"] = fleet["launches"]["GEMM"]
+    b = f"batch{FLEET_BATCH}"  # the fleet's encoder passes: K1-K3 and the GEMM at batch 4
+    for key in ("K1", "K2", "K3"):
+        results[key].update({f"{b}_{k}": v for k, v in fleet["batch"][key].items()
+                             if k not in ("name", "route", "source", "replaces")})
+        results[key]["max_abs_err"] = max(results[key]["max_abs_err"],
+                                          fleet["batch"][key]["max_abs_err"])
+    for shape, row in fleet["gemm"].items():
+        results["GEMM"].update({f"{b}_{shape}_{k}": v for k, v in row.items()})
+        results["GEMM"]["max_abs_err"] = max(results["GEMM"]["max_abs_err"], row["max_abs_err"])
     configs = configs_phase(model, gen)
     del model
     gc.collect()

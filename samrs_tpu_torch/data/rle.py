@@ -1,7 +1,9 @@
-"""COCO run-length encoding of binary masks, numpy only (the port's copy of
-samrs_tpu/data/rle.py's numpy codec).  The byte format is pycocotools':
-column-major runs starting with a zero run, then delta + 5-bit varint
-characters offset by 48, so the instance pkls read back with pycocotools.
+"""COCO run-length encoding of binary masks (the port's copy of
+samrs_tpu/data/rle.py).  The byte format is pycocotools': column-major runs
+starting with a zero run, then delta + 5-bit varint characters offset by
+48, so the instance pkls read back with pycocotools.  ``rle_encode_batch``
+(the label generator's) encodes with the C codec of
+``samrs_tpu_torch.native``; ``rle_encode`` is the numpy codec, its oracle.
 """
 
 from __future__ import annotations
@@ -51,33 +53,40 @@ def _encode_counts(counts: Sequence[int]) -> bytes:
     return (chars + 48).astype(np.uint8).tobytes()
 
 
-def _decode_counts(s: Union[bytes, str]) -> List[int]:
+def _decode_counts(s: Union[bytes, str]) -> np.ndarray:
+    """Inverse of ``_encode_counts``, all characters at once: a value ends at
+    a character without 0x20; its groups are summed little-endian and
+    sign-extended from the last group's 0x10 bit; then each count from the
+    fourth on adds the count two before it (a running sum per parity)."""
     if isinstance(s, str):
         s = s.encode("ascii")
-    cnts: List[int] = []
-    i = 0
-    while i < len(s):
-        x = 0
-        k = 0
-        more = True
-        while more:
-            c = s[i] - 48
-            x |= (c & 0x1F) << (5 * k)
-            more = bool(c & 0x20)
-            i += 1
-            k += 1
-            if not more and (c & 0x10):
-                x |= -1 << (5 * k)
-        if len(cnts) > 2:
-            x += cnts[-2]
-        cnts.append(x)
-    return cnts
+    c = np.frombuffer(s, np.uint8).astype(np.int64) - 48
+    if c.size == 0:
+        return np.zeros(0, np.int64)
+    ends = np.flatnonzero((c & 0x20) == 0)
+    starts = np.concatenate([[0], ends[:-1] + 1])
+    n = ends - starts + 1
+    k = np.arange(c.size) - np.repeat(starts, n)
+    x = np.add.reduceat((c & 0x1F) << (5 * k), starts)
+    x = np.where(c[ends] & 0x10, x - (1 << (5 * n)), x)
+    x[1::2] = np.cumsum(x[1::2])
+    x[2::2] = np.cumsum(x[2::2])
+    return x
 
 
 def rle_encode(mask: np.ndarray) -> RLE:
     """Binary (H, W) mask -> compressed COCO RLE dict (maskUtils.encode)."""
     h, w = mask.shape
     return {"size": [int(h), int(w)], "counts": _encode_counts(_mask_to_counts(mask))}
+
+
+def rle_encode_batch(masks: np.ndarray) -> List[RLE]:
+    """Binary (N, H, W) masks -> N compressed COCO RLE dicts, one call of the
+    C codec (built at first use; raises if it cannot be built)."""
+    from samrs_tpu_torch.native import native_rle_encode_batch
+
+    _, h, w = masks.shape
+    return [{"size": [int(h), int(w)], "counts": c} for c in native_rle_encode_batch(masks)]
 
 
 def rle_decode(rle: RLE) -> np.ndarray:

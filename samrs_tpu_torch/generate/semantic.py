@@ -6,9 +6,11 @@ Per image: one encoder pass (``set_image``), every box decoded in one
 bucket-padded batch (``predict_boxes_lowres``, low-res logits stay on the
 device), then per chunk of 32 masks K7 upscales, thresholds and bit-packs on
 the device and the coverage map (the last instance covering each pixel)
-folds on the device.  Only packed bits cross to the host, where each mask
-becomes a COCO RLE record.  The gray PNG holds each pixel's label (255 where
-no instance covers it), the colour PNG its palette colour.
+folds on the device (``painter.update_cover``).  Only packed bits cross to
+the host, where each chunk's masks become COCO RLE records in one call of
+the C codec (``data.rle.rle_encode_batch``).  The gray PNG holds each
+pixel's label (255 where no instance covers it), the colour PNG its palette
+colour.  ``generate/fleet.py`` drives the same generator on every card.
 
     python -m samrs_tpu_torch.generate.semantic --dataset dior \\
         --image-dir IMAGES --ann-dir ANNOTATIONS --save-dir OUT
@@ -28,10 +30,11 @@ import torch
 
 from samrs_tpu_torch.core.config import GenerateConfig, SamConfig
 from samrs_tpu_torch.data.loaders import LOADERS, Annotation
-from samrs_tpu_torch.data.mapping import CLASS_SETS, PALETTE
-from samrs_tpu_torch.data.rle import rle_encode
+from samrs_tpu_torch.data.mapping import CLASS_SETS
+from samrs_tpu_torch.data.rle import rle_encode_batch
 from samrs_tpu_torch.data.writers import (ensure_dirs, instance_record, save_color_png,
                                           save_instances_pkl, save_semantic_png)
+from samrs_tpu_torch.generate.painter import gray_from_cover, update_cover
 from samrs_tpu_torch.geometry.obb import poly_to_hbb
 from samrs_tpu_torch.kernels import amg_post
 from samrs_tpu_torch.sam.predictor import SamPredictor, _to_numpy, unpackbits2d
@@ -70,9 +73,7 @@ class SemanticGenerator:
         shifts = torch.arange(7, -1, -1, device=packed.device, dtype=torch.uint8)
         bits = (packed[:valid, :, :, None] >> shifts) & 1
         live = bits.reshape(valid, h, -1)[:, :, :w].bool()
-        idx = torch.arange(c0, c0 + valid, device=cover.device, dtype=torch.int32)
-        best = torch.where(live, idx[:, None, None], -1).amax(0)
-        return torch.maximum(cover, best), packed
+        return update_cover(cover, live, c0, valid), packed
 
     def process_image(self, image: np.ndarray, ann: Annotation,
                       rotated: bool = False) -> ImageResult:
@@ -103,18 +104,42 @@ class SemanticGenerator:
             valid = min(chunk, n - c0)
             cover, packed = self._chunk(low_res[c0:c0 + chunk, 0].contiguous(), cover, c0, valid)
             masks = unpackbits2d(_to_numpy(packed[:valid]), w)
-            for j, m in enumerate(masks):
+            for j, (m, rle) in enumerate(zip(masks, rle_encode_batch(masks))):
                 i = c0 + j
                 records.append(instance_record(
-                    rle_encode(m), bbox=boxes[i], label=int(labels[i]),
+                    rle, bbox=boxes[i], label=int(labels[i]),
                     category=self.class_names[int(labels[i])], area=int(m.sum()),
                     rbox=ann.polys[i].reshape(-1) if rotated else None,
                     rhbox=boxes[i] if rotated else None))
-        cover_h = _to_numpy(cover)
-        gray = np.full((h, w), 255, np.uint8)
-        covered = cover_h >= 0
-        gray[covered] = labels[cover_h[covered]].astype(np.uint8)
-        return ImageResult(gray=gray, color=PALETTE[gray], records=records, n_instances=n)
+        gray, color = gray_from_cover(_to_numpy(cover), labels)
+        return ImageResult(gray=gray, color=color, records=records, n_instances=n)
+
+
+def worklist(cfg: GenerateConfig, image_list: Optional[Sequence[str]] = None) -> List[str]:
+    """This shard's image names: `image_list` (default: the sorted stems of
+    cfg.image_dir's images), every shard_count-th from shard_index."""
+    if image_list is None:
+        image_list = sorted(os.path.splitext(f)[0] for f in os.listdir(cfg.image_dir)
+                            if f.lower().endswith(IMAGE_EXTS))
+    return [name for i, name in enumerate(image_list) if i % cfg.shard_count == cfg.shard_index]
+
+
+def find_image(image_dir: str, name: str) -> Optional[str]:
+    paths = [os.path.join(image_dir, name + ext) for ext in IMAGE_EXTS]
+    return next((p for p in paths if os.path.exists(p)), None)
+
+
+def output_dirs(cfg: GenerateConfig) -> dict:
+    """{"gray", "color", "ins"} -> directories under cfg.save_dir (made)."""
+    dirs = {k: os.path.join(cfg.save_dir, k) for k in ("gray", "color", "ins")}
+    ensure_dirs(*dirs.values())
+    return dirs
+
+
+def save_result(dirs: dict, name: str, result: ImageResult) -> None:
+    save_semantic_png(os.path.join(dirs["gray"], name + ".png"), result.gray)
+    save_color_png(os.path.join(dirs["color"], name + ".png"), result.color)
+    save_instances_pkl(os.path.join(dirs["ins"], name + ".pkl"), result.records)
 
 
 def generate_semantic(cfg: GenerateConfig, image_list: Optional[Sequence[str]] = None,
@@ -135,13 +160,8 @@ def generate_semantic(cfg: GenerateConfig, image_list: Optional[Sequence[str]] =
         predictor = SamPredictor(model, buckets=cfg.box_buckets)
     gen = SemanticGenerator(predictor, CLASS_SETS[cfg.dataset])
 
-    if image_list is None:
-        image_list = sorted(os.path.splitext(f)[0] for f in os.listdir(cfg.image_dir)
-                            if f.lower().endswith(IMAGE_EXTS))
-    image_list = [name for i, name in enumerate(image_list)
-                  if i % cfg.shard_count == cfg.shard_index]
-    dirs = {k: os.path.join(cfg.save_dir, k) for k in ("gray", "color", "ins")}
-    ensure_dirs(*dirs.values())
+    image_list = worklist(cfg, image_list)
+    dirs = output_dirs(cfg)
 
     done = 0
     for name in image_list:
@@ -149,8 +169,7 @@ def generate_semantic(cfg: GenerateConfig, image_list: Optional[Sequence[str]] =
         if ann.error and ann.num_instances == 0:
             print(f"skip {name}: no boxes")
             continue
-        paths = [os.path.join(cfg.image_dir, name + ext) for ext in IMAGE_EXTS]
-        img_path = next((p for p in paths if os.path.exists(p)), None)
+        img_path = find_image(cfg.image_dir, name)
         if img_path is None:
             print(f"skip {name}: image not found")
             continue
@@ -158,9 +177,7 @@ def generate_semantic(cfg: GenerateConfig, image_list: Optional[Sequence[str]] =
             image = np.asarray(im.convert("RGB"))
         t0 = time.perf_counter()
         result = gen.process_image(image, ann, rotated=rotated)
-        save_semantic_png(os.path.join(dirs["gray"], name + ".png"), result.gray)
-        save_color_png(os.path.join(dirs["color"], name + ".png"), result.color)
-        save_instances_pkl(os.path.join(dirs["ins"], name + ".pkl"), result.records)
+        save_result(dirs, name, result)
         done += 1
         print(f"[{done}/{len(image_list)}] {name}: {result.n_instances} boxes "
               f"in {time.perf_counter() - t0:.2f}s")
@@ -175,8 +192,9 @@ def _coerce(value: str, default):
     return type(default)(value)
 
 
-def main(argv: Optional[Sequence[str]] = None) -> None:
-    p = argparse.ArgumentParser(description="SAMRS semantic label generation (PyTorch, CUDA)")
+def parse_args(description: str, argv: Optional[Sequence[str]] = None):
+    """The generate CLIs' flags -> (GenerateConfig, SamConfig overrides)."""
+    p = argparse.ArgumentParser(description=description)
     # hrsc has a loader but no class set, so the label writer cannot name its classes
     p.add_argument("--dataset", default="dior", choices=["dota", "dior", "fair1m"])
     p.add_argument("--sam-variant", default="vit_h")
@@ -201,6 +219,11 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         if key not in defaults:
             raise SystemExit(f"unknown SamConfig field {key!r}")
         overrides[key] = _coerce(value, defaults[key])
+    return cfg, overrides
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    cfg, overrides = parse_args("SAMRS semantic label generation (PyTorch, CUDA)", argv)
     generate_semantic(cfg, sam_overrides=overrides)
 
 

@@ -3,7 +3,9 @@ samrs_tpu/sam/predictor.py; reference: segment_anything predictor.py).
 
 ``set_image`` resizes the longest side to the model's image size,
 normalises and zero-pads to the square on the device (``sam.preprocess``, as
-the reference does), and caches the encoder features.  ``predict_boxes`` decodes every box in one batched
+the reference does), and caches the encoder features; ``encode_images``
+encodes several images in one encoder pass for ``set_image_features``.
+``predict_boxes`` decodes every box in one batched
 call, padded up to a bucket size with not-a-point prompts; buckets above
 ``decode_chunk`` prompts decode chunk by chunk to bound the decoder's
 per-prompt image-side activations.  ``predict_boxes_lowres`` keeps the
@@ -13,7 +15,7 @@ masks leave the device bit-packed (``packbits2d``, np.packbits order).
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -86,6 +88,33 @@ class SamPredictor:
         x = preprocess(x, cfg.pixel_mean, cfg.pixel_std, cfg.image_size)
         self.features = self.model.encode_image(x)
         self.is_image_set = True
+
+    @torch.no_grad()
+    def encode_images(self, images: Sequence[np.ndarray]
+                      ) -> List[Tuple[torch.Tensor, Tuple[int, int], Tuple[int, int]]]:
+        """HWC uint8 images of any sizes -> [(features (1, g, g, C),
+        original_size, input_size)] for ``set_image_features``, from one
+        encoder pass over the batch.  Each image is resized as ``set_image``
+        resizes it and pasted into a (B, S, S, 3) batch, which is normalised
+        and zeroed outside each image's valid size: the encoder sees what
+        ``set_image`` gives it, image by image."""
+        cfg, S = self.cfg, self.cfg.image_size
+        batch = np.zeros((len(images), S, S, 3), np.uint8)
+        metas = []
+        for i, image in enumerate(images):
+            resized = self.transform.apply_image(image)
+            batch[i, :resized.shape[0], :resized.shape[1]] = resized
+            metas.append((tuple(image.shape[:2]), tuple(resized.shape[:2])))
+        x = torch.from_numpy(batch).to(self.device)
+        mean = torch.tensor(cfg.pixel_mean, dtype=torch.float32, device=self.device)
+        std = torch.tensor(cfg.pixel_std, dtype=torch.float32, device=self.device)
+        hw = torch.tensor([m[1] for m in metas], device=self.device)
+        rows = torch.arange(S, device=self.device)
+        valid = (rows[None, :, None] < hw[:, 0, None, None]) & \
+            (rows[None, None, :] < hw[:, 1, None, None])
+        x = torch.where(valid[..., None], (x.float() - mean) / std, 0.0)
+        feats = self.model.encode_image(x)
+        return [(feats[i:i + 1], orig, inp) for i, (orig, inp) in enumerate(metas)]
 
     def set_image_features(self, features: torch.Tensor, original_size: Tuple[int, int],
                            input_size: Tuple[int, int]) -> None:
@@ -173,6 +202,19 @@ class SamPredictor:
         labs[:n, 0] = 2  # top-left corner embedding
         labs[:n, 1] = 3  # bottom-right corner embedding
         return self._decode(pts, labs, None, multimask_output)
+
+    @torch.no_grad()
+    def upscale_chunk(self, low_res_chunk: torch.Tensor, binarize: bool = True) -> torch.Tensor:
+        """(C, M, 4g, 4g) low-res logits -> (C, M, *original_size) on the
+        device: logits, or masks thresholded at ``mask_threshold``."""
+        masks = postprocess_masks(low_res_chunk, self.input_size, self.original_size,
+                                  self.cfg.image_size)
+        return masks > self.cfg.mask_threshold if binarize else masks
+
+    def fetch_masks_packed(self, masks: torch.Tensor) -> np.ndarray:
+        """Device binary masks (..., H, W) -> host bool array of that shape,
+        bit-packed on the device for the copy (8x fewer bytes)."""
+        return unpackbits2d(_to_numpy(packbits2d(masks)), masks.shape[-1])
 
     def predict_boxes(self, boxes: np.ndarray, multimask_output: bool = False,
                       return_logits: bool = False) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
