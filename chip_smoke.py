@@ -83,8 +83,10 @@ checkout; it has no CPU path and raises on any failure.  Phases:
    plain: mean instance IoU, cover and gray agreement >= 0.99; launches K1
    28, K2 4, K3 32 and the GEMM 128 per encoder pass, K4 1, K5 2, K6 1 and
    K7 ceil(n/32) per image; the C codec's bytes equal to the numpy codec's
-   on every mask; fleet img/s (first and warm run, plain), the device's busy
-   share of a fleet run (torch.profiler), generate_semantic's s/image, a
+   on every mask; fleet img/s (first run and plain over the 8 images: fill
+   and drain; warm over 64, links to the 8: the steady rate), the fleet's
+   device ms an image (torch.profiler) and the card's busy share at the
+   steady rate, generate_semantic's s/image, a
    cProfile of two of its images, the codecs' ms a mask; four 1024^2
    images in one ``encode_images`` pass against ``set_image`` one by one
    (feature rel-L2 <= 2e-2; bit-equality printed); the encoder's ms an image
@@ -294,6 +296,7 @@ MAIN_GEMM_LAUNCHES = 128       # ViT-H: qkv + proj of 32 blocks, lin1 + lin2 of 
 # order, so each window of FLEET_BATCH images holds both shapes (encoder passes of 3 and 1)
 FLEET_ORDER = (GEN_HW, GEN_HW, GEN_HW, IMAGE_HW) * 2
 FLEET_BATCH = 4                # run_fleet's encoder pass (generate/fleet.py ENCODE_BATCH)
+FLEET_REPEAT = 8               # the steady-rate run: 8 passes over the set, 4x the read-ahead
 ENCODE_LAUNCHES = {"K1": 28, "K2": 4, "K3": 32, "GEMM": MAIN_GEMM_LAUNCHES}  # an encoder pass
 # SEP pretraining: vit_b_rvsa + UperNet, 224^2, heads SOTA / SIOR / FAST
 TRAIN_BATCH = (17, 12, 65)     # proportional_batch_sizes(..., 96): floors of the subset shares
@@ -666,37 +669,65 @@ def device_ms(fn, n: int = 20, tries: int = 5):
     ({kernel: ms}, `n` back-to-back calls after a warm one): the device rows
     only, so a CPU op is not counted beside the kernels it launched; a kernel
     is keyed by its `..._kernel` name, any other device row by its first 48
-    characters.  Late in a long run the profiler loses device records at
-    random (some or all of a profile's kernels, ours and PyTorch's alike,
-    with every launch on its host side), and a record's time, converted to
-    the host's clock, can fall ms past the calls: so the calls sit between
-    two idle PROFILE_PAD_S seconds inside the window, and a profile with no
-    device row, or with a row whose count is not a multiple of `n` (a call's
-    record lost), is taken again, up to `tries` times."""
+    characters.  Late in a long run the profiler drops the device record of
+    a profile's first launch, the same one in every profile (a fresh process
+    drops none): so one call of `fn` opens each profile, a spin kernel
+    marks its end, and only the records launched after the mark (by CUPTI's
+    correlation id, which grows with each launch) are counted.  The profiler
+    can also lose other records, and a record's time, converted to the
+    host's clock, can fall ms past the calls: so the calls sit between idle
+    PROFILE_PAD_S seconds, and a profile without the mark, with a row whose
+    count is not a multiple of `n`, or with another number of GEMM records
+    than ``gemm.launches`` counted, is taken again, up to `tries` times;
+    then ProfileLost is raised."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from samrs_tpu_torch.kernels import gemm
     fn()
     torch.cuda.synchronize()
     for i in range(tries):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             time.sleep(PROFILE_PAD_S)
+            fn()
+            torch.cuda._sleep(1000)  # the mark
+            gemms = gemm.launches
             for _ in range(n):
                 fn()
+            gemms = gemm.launches - gemms
             torch.cuda.synchronize()
             time.sleep(PROFILE_PAD_S)
+        records = [e for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CUDA]
+        marks = [e.correlation_id() for e in records if "spin_kernel" in e.name()]
         out, counts = {}, {}
-        for e in prof.key_averages():
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
-                m = re.search(r"\w+_kernel(<\d+>)?", e.key)
-                key = m.group(0) if m else e.key[:48]
-                out[key] = out.get(key, 0.0) + e.self_device_time_total / 1e3 / n
-                counts[key] = counts.get(key, 0) + e.count
-        if out and all(c % n == 0 for c in counts.values()):
+        for e in records:
+            if len(marks) == 1 and e.correlation_id() > marks[0]:
+                m = re.search(r"\w+_kernel(<\d+>)?", e.name())
+                key = m.group(0) if m else e.name()[:48]
+                out[key] = out.get(key, 0.0) + e.duration_ns() / 1e6 / n
+                counts[key] = counts.get(key, 0) + 1
+        if (out and all(c % n == 0 for c in counts.values())
+                and counts.get("gemm_wgmma_kernel", 0) == gemms):
             return out
-        print(f"torch.profiler recorded {counts or 'no device time'} over {n} calls; "
-              f"profiling again", flush=True)
-    raise RuntimeError(f"torch.profiler recorded no device time, or part of the calls' "
-                       f"({counts}), in {tries} profiles of {n} calls")
+        print(f"torch.profiler recorded {counts or 'no device time'} over {n} calls "
+              f"({gemms} GEMM launches, {len(marks)} marks); profiling again", flush=True)
+    raise ProfileLost(f"torch.profiler recorded no device time, or part of the calls' "
+                      f"({counts}, {gemms} GEMM launches), in {tries} profiles of {n} calls")
+
+
+class ProfileLost(RuntimeError):
+    """Every profile of a ``device_ms`` call lost device records."""
+
+
+def device_ms_or_none(label: str, fn, n: int = 20):
+    """The summed ``device_ms`` of `fn`, or None (printed as not measured)
+    where every profile lost records, as ``profile_step`` reports a step."""
+    try:
+        return sum(device_ms(fn, n=n).values())
+    except ProfileLost as e:
+        print(f"{label}: device time not measured ({e})", flush=True)
+        return None
 
 
 def run_cases(cases):
@@ -2402,6 +2433,43 @@ def fleet_phase(model):
 
     out = {}
     t_phase = time.perf_counter()
+    # one batch of four 1024^2 images against each image through set_image
+    rng = np.random.default_rng(SEED + 200)
+    images = [rng.integers(0, 256, (1024, 1024, 3), dtype=np.uint8) for _ in range(FLEET_BATCH)]
+    predictor = SamPredictor(model)
+    batched = torch.cat([f for f, _, _ in predictor.encode_images(images)])
+    singles = []
+    for image in images:
+        predictor.set_image(image)
+        singles.append(predictor.features)
+    singles = torch.cat(singles)
+    err = rel_l2([batched], [singles])
+    print(f"encode_images at batch {FLEET_BATCH} vs set_image: feature rel_l2={err:.3e}, "
+          f"bit-equal {torch.equal(batched, singles)}", flush=True)
+    if not err <= FEATURE_RTOL:
+        raise RuntimeError(f"batched features: relative L2 {err:.3e} > {FEATURE_RTOL}")
+    x = (torch.from_numpy(np.stack(images)).cuda().float() - 128.0) / 64.0
+    enc = {}
+    with torch.no_grad():
+        for b in (FLEET_BATCH, 1):
+            ms = cuda_ms(lambda: model.encode_image(x[:b]), reps=5) / b
+            dev = device_ms_or_none(f"encoder at batch {b}", lambda: model.encode_image(x[:b]),
+                                    n=5)
+            enc[b] = (ms, None if dev is None else dev / b)
+            print(f"encoder ms an image at batch {b}: {ms:.3f} (CUDA events), device "
+                  f"{enc[b][1]} (torch.profiler)", flush=True)
+    del batched, singles, x, predictor
+
+    # K1-K3 and the GEMM at the batch's shapes, on a generator of their own
+    fgen = torch.Generator(device="cuda").manual_seed(SEED + FLEET_BATCH)
+    cases = encoder_cases(fgen, FLEET_BATCH)[0]
+    batch = run_cases(cases)
+    for key, _, _, _, kernel, *_ in cases:
+        dev = batch[key]["device_ms"] = device_ms_or_none(f"{key} at batch {FLEET_BATCH}", kernel)
+        print(f"{key} at batch {FLEET_BATCH}: device {dev} ms a call, "
+              f"{None if dev is None else dev / FLEET_BATCH} an image", flush=True)
+    del cases
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         img_dir, ann_dir, names, n_boxes = write_fleet_set(tmp)
         lap = lambda what: print(f"fleet phase: {what} at {time.perf_counter() - t_phase:.1f} s",
@@ -2412,11 +2480,12 @@ def fleet_phase(model):
             return GenerateConfig(dataset="dior", image_dir=img_dir, ann_dir=ann_dir,
                                   save_dir=os.path.join(tmp, run))
 
-        def fleet(run, use_kernels):
+        def fleet(run, use_kernels, image_list=names):
             model.use_kernels = use_kernels
             stats = {}
-            if run_fleet(cfg(run), model=model, stats=stats) != len(names):
-                raise RuntimeError(f"fleet ({run}) wrote {stats['total']} of {len(names)} images")
+            if run_fleet(cfg(run), image_list, model=model, stats=stats) != len(image_list):
+                raise RuntimeError(f"fleet ({run}) wrote {stats['total']} of {len(image_list)} "
+                                   "images")
             torch.cuda.synchronize()
             return stats
 
@@ -2468,90 +2537,48 @@ def fleet_phase(model):
               f"C {c_ms:.4f}, numpy {np_ms:.4f}", flush=True)
         del runs, masks
 
-        stats_warm = fleet("warm", True)
+        # the steady rate: FLEET_REPEAT passes over the set (links under new names), several
+        # times the fleet's read-ahead (a queue of 8 and 8 decodes), so fill and drain are small
+        long_names = link_repeats(img_dir, ann_dir, names, FLEET_REPEAT)
+        stats_warm = fleet("warm", True, long_names)
         lap("warm fleet run done")
-        dev_ms, prof_ms = total_device_ms(lambda: fleet("profiled", True), n=1, warm=False)
+        fleet_dev = device_ms_or_none("fleet", lambda: fleet("profiled", True), n=1)
         lap("profiled fleet run done")
         host = cProfile.Profile()  # the host's share of two images of the one-image driver
         host.runcall(generate_semantic, cfg("cprofile"), names[:2],
                      SamPredictor(model, buckets=cfg("one").box_buckets))
         pstats.Stats(host, stream=sys.stdout).sort_stats("tottime").print_stats(14)
-    for label, st in (("kernels, first run", stats), ("kernels, warm", stats_warm),
-                      ("plain", stats_plain)):
-        print(f"fleet img/s ({label}, {len(names)} DIOR images): "
+    for label, st in (("kernels, first run, fill and drain", stats),
+                      ("kernels, warm, steady", stats_warm),
+                      ("plain, fill and drain", stats_plain)):
+        print(f"fleet img/s ({label}, {st['total']} DIOR images): "
               f"{st['total'] / st['seconds']:.4f} ({st['seconds']:.3f} s; worker busy "
               f"{st['overlap']:.3f} of the wall)", flush=True)
     print(f"generate_semantic s/image on the same set (kernels): {one_s:.4f} "
           f"({1 / one_s:.4f} img/s)", flush=True)
-    print(f"fleet device time {dev_ms:.2f} ms in a profiled wall of {prof_ms:.2f} ms: busy "
-          f"{100 * dev_ms / prof_ms:.1f}% (of the warm run's wall: "
-          f"{dev_ms / 10 / stats_warm['seconds']:.1f}%)", flush=True)
+    steady = stats_warm["total"] / stats_warm["seconds"]
+    if fleet_dev is not None:
+        fleet_dev /= len(names)
+        print(f"fleet device ms an image (torch.profiler, {len(names)} images): {fleet_dev:.3f}; "
+              f"at the steady {steady:.4f} img/s the card is busy {fleet_dev * steady / 10:.2f}%",
+              flush=True)
 
-    print(f"fleet phase: fleet runs timed and profiled at {time.perf_counter() - t_phase:.1f} s",
-          flush=True)
-    # one batch of four 1024^2 images against each image through set_image
-    rng = np.random.default_rng(SEED + 200)
-    images = [rng.integers(0, 256, (1024, 1024, 3), dtype=np.uint8) for _ in range(FLEET_BATCH)]
-    predictor = SamPredictor(model)
-    batched = torch.cat([f for f, _, _ in predictor.encode_images(images)])
-    singles = []
-    for image in images:
-        predictor.set_image(image)
-        singles.append(predictor.features)
-    singles = torch.cat(singles)
-    err = rel_l2([batched], [singles])
-    print(f"encode_images at batch {FLEET_BATCH} vs set_image: feature rel_l2={err:.3e}, "
-          f"bit-equal {torch.equal(batched, singles)}", flush=True)
-    if not err <= FEATURE_RTOL:
-        raise RuntimeError(f"batched features: relative L2 {err:.3e} > {FEATURE_RTOL}")
-    x = (torch.from_numpy(np.stack(images)).cuda().float() - 128.0) / 64.0
-    enc = {}
-    for b in (FLEET_BATCH, 1):
-        ms = cuda_ms(lambda: model.encode_image(x[:b]), reps=5) / b
-        dev = total_device_ms(lambda: model.encode_image(x[:b]), n=5)[0] / b
-        enc[b] = (ms, dev)
-        print(f"encoder ms an image at batch {b}: {ms:.3f} (CUDA events), device {dev:.3f} "
-              "(torch.profiler)", flush=True)
-    del batched, singles, x, predictor
-
-    # K1-K3 and the GEMM at the batch's shapes, on a generator of their own
-    fgen = torch.Generator(device="cuda").manual_seed(SEED + FLEET_BATCH)
-    cases = encoder_cases(fgen, FLEET_BATCH)[0]
-    batch = run_cases(cases)
-    for key, _, _, _, kernel, *_ in cases:
-        batch[key]["device_ms"] = total_device_ms(kernel, n=20)[0]
-        print(f"{key} at batch {FLEET_BATCH}: device {batch[key]['device_ms']:.4f} ms a call, "
-              f"{batch[key]['device_ms'] / FLEET_BATCH:.4f} an image", flush=True)
-    del cases
-    torch.cuda.empty_cache()
     out.update(launches=launches, batch=batch, gemm=gemm_rows(fgen, FLEET_BATCH * 4096),
                encoder=enc)
     print(f"fleet phase {time.perf_counter() - t_phase:.1f} s", flush=True)
     return out
 
 
-def total_device_ms(fn, n: int, warm: bool = True):
-    """(torch.profiler's device time, every device row, and the host's wall
-    time under the profiler) per call over `n` calls of `fn` (after a warm
-    one unless `warm` is False), in ms.  Device activity only: the host's
-    op records of a whole fleet run took ~12 s to aggregate."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    if warm:
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t) * 1e3
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    if us <= 0:
-        raise RuntimeError("torch.profiler recorded no device time")
-    return us / 1e3 / n, wall_ms / n
+def link_repeats(img_dir: str, ann_dir: str, names, k: int):
+    """`k` copies of the set's names (r<i>_<name>, symbolic links to its
+    image and XML in the same directories) -> the new names."""
+    out = []
+    for i in range(k):
+        for name in names:
+            for d, ext in ((img_dir, ".jpg"), (ann_dir, ".xml")):
+                os.symlink(name + ext, os.path.join(d, f"r{i}_{name}{ext}"))
+            out.append(f"r{i}_{name}")
+    return out
 
 
 def _host_ms(fn) -> float:

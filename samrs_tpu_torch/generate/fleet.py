@@ -43,6 +43,8 @@ from samrs_tpu_torch.sam.predictor import SamPredictor
 from samrs_tpu_torch.sam.sam import Sam
 
 ENCODE_BATCH = 4  # images a worker encodes in one pass (those of one shape)
+DECODE_THREADS = 8  # host threads decoding annotations and images ahead of the workers
+WRITE_THREADS = 4   # host threads writing the labels
 _POLL_S = 0.05    # how often a blocked thread looks for a failure elsewhere
 
 
@@ -59,10 +61,15 @@ def fleet_devices(device: str) -> List[torch.device]:
 
 
 def _replica(model: Sam, device: torch.device) -> Sam:
-    """`model` on `device`: the model itself if it is there, else a copy
-    made there (built on the meta device, then its state copied in)."""
+    """`model` on `device`: the model itself if it is there, else a copy."""
     if model.image_encoder.pos_embed.device == device:
         return model
+    return copy_to(model, device)
+
+
+def copy_to(model: Sam, device: torch.device) -> Sam:
+    """A copy of `model` on `device` sharing no storage with it: built on the
+    meta device, given empty storage there, then its state copied in."""
     with torch.device("meta"):
         copy = Sam(model.cfg, use_kernels=model.use_kernels)
     copy = copy.to_empty(device=device)
@@ -71,8 +78,7 @@ def _replica(model: Sam, device: torch.device) -> Sam:
 
 
 def run_fleet(cfg: GenerateConfig, image_list: Optional[Sequence[str]] = None,
-              model: Optional[Sam] = None, decode_threads: int = 8, write_threads: int = 4,
-              stats: Optional[dict] = None, sam_overrides: Optional[dict] = None) -> int:
+              model: Optional[Sam] = None, stats: Optional[dict] = None, sam_overrides: Optional[dict] = None) -> int:
     """Generate labels for this shard's images on every device of
     ``cfg.device`` and return the number of images written.  `model`
     replaces the one built from cfg; each device gets its own copy.  `stats`,
@@ -99,8 +105,8 @@ def run_fleet(cfg: GenerateConfig, image_list: Optional[Sequence[str]] = None,
 
     n_dev = len(devices)
     work: queue.Queue = queue.Queue(maxsize=max(4 * n_dev, 8))
-    decode_pool = ThreadPoolExecutor(max_workers=decode_threads)
-    write_pool = ThreadPoolExecutor(max_workers=write_threads)
+    decode_pool = ThreadPoolExecutor(max_workers=DECODE_THREADS)
+    write_pool = ThreadPoolExecutor(max_workers=WRITE_THREADS)
     writes: List[Future] = []
     errors: List[BaseException] = []
     failed = threading.Event()
@@ -139,7 +145,7 @@ def run_fleet(cfg: GenerateConfig, image_list: Optional[Sequence[str]] = None,
 
     def feed() -> None:
         try:
-            ahead = work.maxsize + decode_threads
+            ahead = work.maxsize + DECODE_THREADS
             pending = collections.deque()
             for name in names:
                 pending.append(decode_pool.submit(decode_one, name))

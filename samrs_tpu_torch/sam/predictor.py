@@ -94,25 +94,17 @@ class SamPredictor:
                       ) -> List[Tuple[torch.Tensor, Tuple[int, int], Tuple[int, int]]]:
         """HWC uint8 images of any sizes -> [(features (1, g, g, C),
         original_size, input_size)] for ``set_image_features``, from one
-        encoder pass over the batch.  Each image is resized as ``set_image``
-        resizes it and pasted into a (B, S, S, 3) batch, which is normalised
-        and zeroed outside each image's valid size: the encoder sees what
+        encoder pass over the batch.  Each image is resized, normalised and
+        zero-padded as ``set_image`` does it: the encoder sees what
         ``set_image`` gives it, image by image."""
-        cfg, S = self.cfg, self.cfg.image_size
-        batch = np.zeros((len(images), S, S, 3), np.uint8)
-        metas = []
-        for i, image in enumerate(images):
-            resized = self.transform.apply_image(image)
-            batch[i, :resized.shape[0], :resized.shape[1]] = resized
+        cfg = self.cfg
+        x, metas = [], []
+        for image in images:
+            resized = np.ascontiguousarray(self.transform.apply_image(image))
             metas.append((tuple(image.shape[:2]), tuple(resized.shape[:2])))
-        x = torch.from_numpy(batch).to(self.device)
-        mean = torch.tensor(cfg.pixel_mean, dtype=torch.float32, device=self.device)
-        std = torch.tensor(cfg.pixel_std, dtype=torch.float32, device=self.device)
-        hw = torch.tensor([m[1] for m in metas], device=self.device)
-        rows = torch.arange(S, device=self.device)
-        valid = (rows[None, :, None] < hw[:, 0, None, None]) & \
-            (rows[None, None, :] < hw[:, 1, None, None])
-        x = torch.where(valid[..., None], (x.float() - mean) / std, 0.0)
+            x.append(preprocess(torch.from_numpy(resized).to(self.device)[None], cfg.pixel_mean,
+                                cfg.pixel_std, cfg.image_size))
+        x = torch.cat(x)
         feats = self.model.encode_image(x)
         return [(feats[i:i + 1], orig, inp) for i, (orig, inp) in enumerate(metas)]
 

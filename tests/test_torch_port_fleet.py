@@ -213,7 +213,7 @@ def test_run_fleet_matches_generate_semantic(tiny, mini_set, tmp_path):
     img_dir, ann_dir, names = mini_set
     stats = {}
     kind, n = _with_limit(lambda: run_fleet(_cfg(mini_set, tmp_path / "fleet"), model=model,
-                                            decode_threads=2, write_threads=2, stats=stats))
+                                            stats=stats))
     assert kind == "value" and n == len(names)
     assert stats["total"] == 6 and stats["per_device"] == [6]
     # batches of 4 then 2, each split by shape: (3 of 60x80, 1 of 72x56), (1, 1)
@@ -244,12 +244,32 @@ def test_shards_are_disjoint_and_cover_the_set(tiny, mini_set, tmp_path):
     for index in range(2):
         save_dir = tmp_path / f"shard{index}"
         kind, n = _with_limit(lambda: run_fleet(
-            _cfg(mini_set, save_dir, shard_index=index, shard_count=2), model=model,
-            decode_threads=2, write_threads=2))
+            _cfg(mini_set, save_dir, shard_index=index, shard_count=2), model=model))
         assert kind == "value" and n == 3
         written.append({f[:-4] for f in os.listdir(save_dir / "ins")})
     assert not written[0] & written[1]
     assert written[0] | written[1] == set(mini_set[2])
+
+
+def test_copy_to_makes_an_independent_equal_model(tiny):
+    """The copy every further device gets: equal parameters and buffers, no
+    storage shared with the original, equal features from encode_images."""
+    _, _, model = tiny
+    copy = fleet.copy_to(model, torch.device("cpu"))
+    assert copy is not model and not copy.training
+    ptrs = {t.untyped_storage().data_ptr() for t in model.state_dict().values()}
+    want = model.state_dict()
+    got = copy.state_dict()
+    assert got.keys() == want.keys()
+    for key, t in got.items():
+        assert t.device.type == "cpu", key
+        assert torch.equal(t, want[key]), key
+        assert t.untyped_storage().data_ptr() not in ptrs, key
+    images = _images(12)
+    for (g, g_orig, g_inp), (w, w_orig, w_inp) in zip(SamPredictor(copy).encode_images(images),
+                                                      SamPredictor(model).encode_images(images)):
+        assert (g_orig, g_inp) == (w_orig, w_inp)
+        assert torch.equal(g, w)
 
 
 def test_run_fleet_needs_a_card_by_default(tiny, mini_set, tmp_path):
@@ -267,14 +287,14 @@ def test_writer_failure_raises(tiny, mini_set, tmp_path):
     succeed: run_fleet raises the writer's error."""
     for name in mini_set[2]:
         os.makedirs(tmp_path / "gray" / f"{name}.png")
-    kind, err = _with_limit(lambda: run_fleet(_cfg(mini_set, tmp_path), model=tiny[2],
-                                              decode_threads=2, write_threads=2))
+    kind, err = _with_limit(lambda: run_fleet(_cfg(mini_set, tmp_path), model=tiny[2]))
     assert kind == "error" and isinstance(err, OSError)
 
 
 def test_worker_exception_raises(tiny, mini_set, tmp_path, monkeypatch):
-    """A worker that raises on its second image, with 24 images queued
-    behind a queue of 8: the feed stops and the error reaches the caller."""
+    """A worker that raises on its second image, with 24 images behind a
+    queue of 8 and 8 decodes in flight: the feed stops and the error reaches
+    the caller."""
     calls = []
     real = SemanticGenerator.process_encoded
 
@@ -286,6 +306,6 @@ def test_worker_exception_raises(tiny, mini_set, tmp_path, monkeypatch):
 
     monkeypatch.setattr(SemanticGenerator, "process_encoded", flaky)
     kind, err = _with_limit(lambda: run_fleet(_cfg(mini_set, tmp_path), image_list=mini_set[2] * 4,
-                                              model=tiny[2], decode_threads=2, write_threads=2))
+                                              model=tiny[2]))
     assert kind == "error" and isinstance(err, ValueError) and "on purpose" in str(err)
     assert len(calls) == 2
