@@ -17,14 +17,16 @@ checkout; it has no CPU path and raises on any failure.  Phases:
    as its mask (both with TFLOP/s), K3 also against the ``mlp_impl="xla"``
    composition (F.layer_norm -> F.linear -> F.gelu -> F.linear in bf16);
    K5 also with 21 live tokens in 32 slots (two slot blocks,
-   as a decode with many point prompts gives it) and at bucket 256
-   (generate's 100 boxes); K6 also at bucket 256, with 3 mask tokens
+   as a decode with many point prompts gives it), at bucket 256
+   (generate's 100 boxes) and with 5 live tokens and per-prompt keys (the
+   prompt evaluation's mask-only prompts); K6 also at bucket 256, with 3 mask tokens
    (multimask) and on the 48x48, 32x32 and 16x16 grids of image_size 768 /
    512 / 256 with 1 and 3 tokens, beside its elementwise floor (768 GELUs a
    source pixel, two special-function ops each, at 16 a cycle an SM at the
    card's highest SM clock).  K7 on 32 low-res masks
    to an 800x800 original (input 1024x1024) and to a 768x1024 original
-   (input 768x1024): counts, boxes and bits must equal the plain version's
+   (input 768x1024), and on the automatic mask generator's chunk, 192
+   masks to 1024x1024: counts, boxes and bits must equal the plain version's
    except at pixels whose plain logit lies within 1e-4 of a threshold
    (counted and printed); timed one call at a time (CUDA events), by the
    device time of its kernel (torch.profiler) and by the wall time of 20
@@ -92,6 +94,23 @@ checkout; it has no CPU path and raises on any failure.  Phases:
    (feature rel-L2 <= 2e-2; bit-equality printed); the encoder's ms an image
    at batch 4 and 1; K1-K3 (run_cases, device time by torch.profiler) and
    the GEMM's four shapes at batch 4 (T 16384);
+4d. automatic mask generator (``SamAutomaticMaskGenerator`` over
+   ``SamPredictor``): a seeded 1024^2 image at 32^2 points, 64 a chunk; the
+   sweep before the filters (``amg_sweep``, 3072 masks) with the kernels and
+   with the plain versions, bits by mean IoU >= 0.99, and K7 against its
+   plain version on every chunk's own logits by K7's rule; the whole
+   generator with both thresholds at 0 on both paths (launches K1 28, K2 4,
+   K3 32, GEMM 128, and per chunk K4 1, K5 2, K6 1, K7 1; more than 0
+   records; the kernel path's records against the plain sweep's masks of
+   their prompts, mean IoU >= 0.99), s/image (device time by torch.profiler,
+   host the rest of the wall, a cProfile of the host), the default
+   thresholds' record count, and crop_n_layers 1 with
+   min_mask_region_area 100 (launches of 5 encoder passes and 32 chunks, the
+   record schema); then the HRSC prompt evaluation (``run_prompt_eval``) on
+   a seeded 800x600 scene with 8 rotated ships (HRSC XML, image, LandMask
+   PNG), every prompt mode on both paths: launches of one image, the COCO
+   JSON read back, instance masks kernels vs plain mean IoU >= 0.99,
+   s/image;
 4b. configurations phase: the ViT-H encoder on one 1024^2 image from the
    main path's weights under every value of window_attn_impl, each
    global_attn_impl mode, tail_impl=fused and mlp_impl=xla: launches per
@@ -244,12 +263,12 @@ checkout; it has no CPU path and raises on any failure.  Phases:
    the card's name and power limit and the final status line.
 
 ``--only`` runs just the named phases after the build (kernels: 2; gemm: 2a; main: 3 and 4,
-the main path and the generate phase at the default image size; fleet: 4a; modes, configs,
+the main path and the generate phase at the default image size; fleet: 4a; amg: 4d; modes, configs,
 sizes: 2b, 4b, 4c; slab: the K8-slab and K11-width checks of 9b;
 internimage: its step and driver runs; mlp: 6 and K11's widths; gather: 5
 and the MSDA wrapper of 5b; steps: 7, 7b, 8 and 9b's step; adapter: 9c;
 backbones: 9d),
-and prints no result lines.
+and prints no kernels line: it ends with the card's name and power limit and the status line.
 
 ``--profile`` adds a torch.profiler table of one warm generate image (and of
 one warm main-path image at image_size 768) with
@@ -382,6 +401,27 @@ FEATURE_RTOL = 2e-2    # 32 blocks with bf16 products, kernels vs plain versions
 IOU_MIN = 0.99         # kernels vs plain path: bf16 summation order flips pixels near 0
 K7_NEAR = 1e-4         # K7 pixels this close to a threshold may flip (fp32 sum order)
 K7_WIDE_HW = (7000, 7000)  # a DOTA-v2-sized scene: K7's tables no longer fit shared memory
+# the automatic mask generator (SamAutomaticMaskGenerator's defaults, bench.py:154-200's image):
+# one 1024^2 image, 32^2 points, 64 prompts a chunk, 3 masks a prompt (multimask)
+AMG_HW = (1024, 1024)
+AMG_POINTS = 32
+AMG_BATCH = 64
+AMG_CHUNKS = AMG_POINTS ** 2 // AMG_BATCH
+AMG_MASKS = 3 * AMG_BATCH      # K7's masks a chunk
+AMG_LAUNCHES = {**MAIN_LAUNCHES, "K4": AMG_CHUNKS, "K5": 2 * AMG_CHUNKS, "K6": AMG_CHUNKS,
+                "K7": AMG_CHUNKS}
+# crop_n_layers 1: the image and 4 crops (their grids 16^2 at crop_n_points_downscale_factor 2)
+AMG_CROPS = 5
+AMG_CROP_CHUNKS = AMG_CHUNKS + 4 * (AMG_POINTS // 2) ** 2 // AMG_BATCH
+AMG_CROP_LAUNCHES = {**MAIN_LAUNCHES, **{k: v * AMG_CROPS for k, v in ENCODE_LAUNCHES.items()
+                                         if k != "GEMM"},
+                     "K4": AMG_CROP_CHUNKS, "K5": 2 * AMG_CROP_CHUNKS, "K6": AMG_CROP_CHUNKS,
+                     "K7": AMG_CROP_CHUNKS}
+# the HRSC prompt evaluation: a seeded 800x600 scene with 8 rotated ships; every instance's
+# prompt of a mode decodes in one batch (bucket 16): the main path's launches, one encoder pass
+# and K4 1, K5 2, K6 1
+HRSC_HW = (600, 800)
+HRSC_SHIPS = 8
 # K6 cases: key, title, prompts, grid, mask tokens.  The main path runs bucket 64 on 64x64 with
 # one token, generate bucket 256; M 3 is multimask output; image_size 768 / 512 / 256 give the
 # 48 / 32 / 16 grids
@@ -544,6 +584,7 @@ def kernel_phase(gen: torch.Generator):
 
     C, T = 1280, 64 * 64
     Bp, D, Ci, NTOK, NLIVE = 64, 256, 128, 16, 7  # decoder: prompts, widths, token slots
+    NLIVE_MASK = 5  # the iou token and 4 mask tokens: a mask-only prompt has no sparse token
 
     def rn(*shape, std=1.0):  # bf16-representable fp32 values
         return (torch.randn(*shape, generator=gen, device="cuda") * std).bfloat16().float()
@@ -561,10 +602,11 @@ def kernel_phase(gen: torch.Generator):
                   lambda: fused_twoway.t2i_kv_proj_plain(keys1, pe, *kvw, torch.float32),
                   lambda: fused_twoway.t2i_kv_proj_plain(keys1, pe, *kvw, torch.bfloat16),
                   2 * T * D * 4 + 2 * Ci * D * 2 + 2 * T * Ci * 2, 2 * 2 * T * D * Ci, None))
-    def tokens(live, slots, prompts=Bp):  # token K, V and mask bias, `live` of `slots` slots live
+    def tokens(live, slots, prompts=Bp, g=gen):  # token K, V and mask bias, `live` of `slots` live
         on = torch.arange(slots, device="cuda") < live
-        return (rn(prompts, slots, Ci) * on[None, :, None],
-                rn(prompts, slots, Ci) * on[None, :, None], torch.where(on, 0.0, -1e9))
+        kv = [(torch.randn(prompts, slots, Ci, generator=g, device="cuda")).bfloat16().float()
+              * on[None, :, None] for _ in range(2)]
+        return (*kv, torch.where(on, 0.0, -1e9))
 
     i2tw = (rn(Ci, D, std=D ** -0.5), rn(Ci, std=0.1), rn(D, Ci, std=Ci ** -0.5), rn(D, std=0.1),
             1.0 + rn(D, std=0.1), rn(D, std=0.1), rn(Ci, D, std=D ** -0.5), rn(Ci, std=0.1),
@@ -578,7 +620,13 @@ def kernel_phase(gen: torch.Generator):
              Bp * T * D * 4, tokens(21, 2 * NTOK)),
             ("K5b256", f"decoder i2t update, per-prompt keys at bucket {GEN_BUCKET} (generate's "
              f"{GEN_BOXES} boxes)", keysG, torch.bfloat16, GEN_BUCKET * T * D * 4,
-             tokens(NLIVE, NTOK, GEN_BUCKET))):
+             tokens(NLIVE, NTOK, GEN_BUCKET)),
+            # mask-only prompts (the prompt evaluation's mask modes): the iou and mask tokens
+            # alone, each prompt's own dense embedding in its keys; drawn from a generator of
+            # their own, so the full run's later draws stay as they were
+            ("K5m", "decoder i2t update, per-prompt keys, 5 live tokens of 16 (mask-only "
+             "prompts)", keysB, torch.bfloat16, Bp * T * D * 4,
+             tokens(NLIVE_MASK, NTOK, g=torch.Generator(device="cuda").manual_seed(SEED + 5)))):
         S, Bk = tok_k.shape[1], tok_k.shape[0]
         row_flops = 2 * (D * Ci + 2 * S * Ci + Ci * D + 2 * D * Ci)
         small = 2 * Bk * S * Ci * 4 + 4 * Ci * D * 2
@@ -631,8 +679,9 @@ def kernel_phase(gen: torch.Generator):
     k5 = results.pop("K5p")
     k5["name"] = ("K5 decoder i2t update (per-prompt keys; shared-keys mode in shared_*, "
                   f"21 tokens in 32 slots in slots32_*, bucket {GEN_BUCKET} in "
-                  f"bucket{GEN_BUCKET}_*)")
-    for key, prefix in (("K5s", "shared"), ("K5w", "slots32"), ("K5b256", f"bucket{GEN_BUCKET}")):
+                  f"bucket{GEN_BUCKET}_*, 5 live tokens (mask-only prompts) in maskonly_*)")
+    for key, prefix in (("K5s", "shared"), ("K5w", "slots32"), ("K5b256", f"bucket{GEN_BUCKET}"),
+                        ("K5m", "maskonly")):
         other = results.pop(key)
         k5.update({f"{prefix}_{k}": other[k] for k in ("ms", "plain_ms", "max_abs_err")})
         k5["max_abs_err"] = max(k5["max_abs_err"], other["max_abs_err"])
@@ -1119,76 +1168,106 @@ def sizes_phase(gen: torch.Generator, profile: bool = False):
     return counts
 
 
+def k7_compare(label: str, low, inp, orig, img_size: int, mt: float, off: float):
+    """K7 on `low` (M, g, g) against its plain version by K7's rule: the bits
+    equal except at pixels whose plain logit lies within K7_NEAR of the
+    threshold, hi / lo within the counts of pixels that near mt + off / mt -
+    off, the kernel's boxes those of its own bits (equal to the plain ones
+    unless a pixel is near the threshold); prints the near and flipped
+    counts -> (largest count or box difference, the kernel's packed bits)."""
+    from samrs_tpu_torch.kernels import amg_post
+
+    M, g, _ = low.shape
+    Ho, Wo = orig
+    hi, lo, boxes, packed = amg_post.amg_postprocess(low, inp, orig, img_size, mt, off)
+    torch.cuda.synchronize()
+    hi_p, lo_p, boxes_p, packed_p = amg_post.amg_postprocess_plain(low, inp, orig, img_size, mt,
+                                                                    off)
+    wy = torch.from_numpy(amg_post._composed_axis(g, img_size, inp[0], Ho)).cuda()
+    wx = torch.from_numpy(amg_post._composed_axis(g, img_size, inp[1], Wo)).cuda()
+    logits = (wy @ low) @ wx.T
+    near = (logits - mt).abs() < K7_NEAR
+    near_hi = ((logits - mt - off).abs() < K7_NEAR).sum((-1, -2))
+    near_lo = ((logits - mt + off).abs() < K7_NEAR).sum((-1, -2))
+    del logits
+    shifts = torch.arange(7, -1, -1, device="cuda", dtype=torch.uint8)
+    unpack = lambda p: ((p[..., None] >> shifts) & 1).reshape(M, Ho, -1)[..., :Wo].bool()
+    bits, bits_p = unpack(packed), unpack(packed_p)
+    flips = int((bits != bits_p).sum())
+    flips_far = int(((bits != bits_p) & ~near).sum())
+    hi_ok = bool(((hi - hi_p).abs() <= near_hi).all())
+    lo_ok = bool(((lo - lo_p).abs() <= near_lo).all())
+    own_boxes = amg_post._boxes_from_masks(bits)
+    box_diff = int((boxes - boxes_p).abs().max())
+    max_abs = max(int((hi - hi_p).abs().max()), int((lo - lo_p).abs().max()), box_diff)
+    print(f"K7 {label}: {int(near.sum())} pixels within {K7_NEAR} of the threshold "
+          f"({int(near_hi.sum())} / {int(near_lo.sum())} of threshold +- offset), {flips} bits "
+          f"differ ({flips_far} elsewhere), hi/lo within the near counts {hi_ok}/{lo_ok}, "
+          f"max |box diff| {box_diff}", flush=True)
+    if flips_far or not (hi_ok and lo_ok) or not torch.equal(boxes, own_boxes):
+        raise RuntimeError(f"K7 {label}: disagrees with its plain version")
+    if box_diff and not near.any():
+        raise RuntimeError(f"K7 {label}: boxes differ with no pixel near the threshold")
+    return max_abs, packed
+
+
 def k7_phase(gen: torch.Generator):
     from samrs_tpu_torch.kernels import amg_post
 
     g, img_size, mt, off = 256, 1024, 0.0, 1.0
     low32 = (torch.randn(32, g, g, generator=gen, device="cuda") * 4.0).contiguous()
+    # the automatic mask generator's chunk on a generator of its own (the full run's later
+    # draws, the models' weights among them, stay as they were)
+    amg_gen = torch.Generator(device="cuda").manual_seed(SEED + AMG_MASKS)
+    low_amg = (torch.randn(AMG_MASKS, g, g, generator=amg_gen, device="cuda") * 4.0).contiguous()
     out = {}
-    # the generator's chunk to DIOR's 800^2, the main path's 768x1024, and a DOTA-v2-sized
-    # 7000^2 scene, whose row and column tables outgrow shared memory (read from global)
-    for inp, orig, M in (((1024, 1024), GEN_HW, 32), (IMAGE_HW, IMAGE_HW, 32),
-                         ((1024, 1024), K7_WIDE_HW, 8)):
-        low = low32[:M]
+    # the generator's chunk to DIOR's 800^2, the main path's 768x1024, a DOTA-v2-sized 7000^2
+    # scene, whose row and column tables outgrow shared memory (read from global), and the
+    # automatic mask generator's chunk of 64 prompts x 3 masks to 1024^2
+    for key, low, inp, orig in (("gen", low32, (1024, 1024), GEN_HW),
+                                ("main", low32, IMAGE_HW, IMAGE_HW),
+                                ("wide", low32[:8], (1024, 1024), K7_WIDE_HW),
+                                ("amg", low_amg, AMG_HW, AMG_HW)):
+        M = low.shape[0]
         tables = amg_post._smem_layout(g, orig[0], orig[1],
                                        amg_post._band_rows(g, img_size, inp[0], orig[0]))[1]
         if tables != (orig != K7_WIDE_HW):
             raise RuntimeError(f"K7 {orig}: tables in shared memory {tables}, want the opposite")
+        print(f"K7 {M} masks {inp}->{orig}: tables in shared memory {tables}", flush=True)
+        max_abs, packed = k7_compare(f"{M} masks {inp}->{orig}", low, inp, orig, img_size, mt, off)
         run = lambda: amg_post.amg_postprocess(low, inp, orig, img_size, mt, off)
         plain = lambda: amg_post.amg_postprocess_plain(low, inp, orig, img_size, mt, off)
-        hi, lo, boxes, packed = run()
-        torch.cuda.synchronize()
-        hi_p, lo_p, boxes_p, packed_p = plain()
-        Ho, Wo = orig
-        wy = torch.from_numpy(amg_post._composed_axis(g, img_size, inp[0], Ho)).cuda()
-        wx = torch.from_numpy(amg_post._composed_axis(g, img_size, inp[1], Wo)).cuda()
-        logits = (wy @ low) @ wx.T
-        near = (logits - mt).abs() < K7_NEAR
-        near_hi = ((logits - mt - off).abs() < K7_NEAR).sum((-1, -2))
-        near_lo = ((logits - mt + off).abs() < K7_NEAR).sum((-1, -2))
-        shifts = torch.arange(7, -1, -1, device="cuda", dtype=torch.uint8)
-        unpack = lambda p: ((p[..., None] >> shifts) & 1).reshape(M, Ho, -1)[..., :Wo].bool()
-        bits, bits_p = unpack(packed), unpack(packed_p)
-        flips = int((bits != bits_p).sum())
-        flips_far = int(((bits != bits_p) & ~near).sum())
-        hi_ok = bool(((hi - hi_p).abs() <= near_hi).all())
-        lo_ok = bool(((lo - lo_p).abs() <= near_lo).all())
-        own_boxes = amg_post._boxes_from_masks(bits)
-        box_diff = int((boxes - boxes_p).abs().max())
-        max_abs = max(int((hi - hi_p).abs().max()), int((lo - lo_p).abs().max()), box_diff)
-        print(f"K7 postprocess {M} masks {inp}->{orig} (tables in shared memory: {tables}): "
-              f"{int(near.sum())} pixels within {K7_NEAR} of the threshold, {flips} bits differ "
-              f"({flips_far} elsewhere), hi/lo within the near counts {hi_ok}/{lo_ok}, max |box "
-              f"diff| {box_diff}", flush=True)
-        if flips_far or not (hi_ok and lo_ok) or not torch.equal(boxes, own_boxes):
-            raise RuntimeError(f"K7 {orig}: disagrees with its plain version")
-        if box_diff and not near.any():
-            raise RuntimeError(f"K7 {orig}: boxes differ with no pixel near the threshold")
         ms, plain_ms = cuda_ms(run), cuda_ms(plain)
         dev_ms, wall_ms = device_ms(run).get("amg_post_kernel"), loop_ms(run)
         if dev_ms is None:
             raise RuntimeError("K7: torch.profiler recorded no time for amg_post_kernel")
         # flops this data needs: the nonzero taps of both banded stages
-        nnz_y = int((wy != 0).sum())
-        nnz_x = int((wx != 0).sum())
+        Ho, Wo = orig
+        nnz_y = int((amg_post._composed_axis(g, img_size, inp[0], Ho) != 0).sum())
+        nnz_x = int((amg_post._composed_axis(g, img_size, inp[1], Wo) != 0).sum())
         flops = M * 2 * (nnz_y * g + nnz_x * Ho)
         nbytes = M * g * g * 4 + packed.numel() + M * 6 * 4
         bound_ms, bound_by = bound(nbytes, flops, "fp32")
-        print(f"K7 {orig}: kernel_ms={ms:.4f} device_ms={dev_ms:.5f} wall_ms={wall_ms:.4f} "
-              f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.5f} ({bound_by}, "
-              f"{nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP)", flush=True)
-        out[orig] = dict(max_abs_err=max_abs, ms=ms, device_ms=dev_ms, wall_ms=wall_ms,
-                         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
-        del logits, near, bits, bits_p, packed, packed_p
-    r = dict(out[GEN_HW], max_abs_err=max(o["max_abs_err"] for o in out.values()))
+        print(f"K7 {M} masks to {orig}: kernel_ms={ms:.4f} device_ms={dev_ms:.5f} "
+              f"wall_ms={wall_ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.5f} "
+              f"({bound_by}, {nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP)", flush=True)
+        out[key] = dict(max_abs_err=max_abs, ms=ms, device_ms=dev_ms, wall_ms=wall_ms,
+                        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        del packed
+    del low_amg
+    torch.cuda.empty_cache()
+    r = dict(out["gen"], max_abs_err=max(o["max_abs_err"] for o in out.values()))
     wide = "x".join(map(str, K7_WIDE_HW))
+    amg = f"{'x'.join(map(str, AMG_HW))}_{AMG_MASKS}masks"
     return {"K7": dict(name="K7 full-resolution mask postprocess (32 masks to 800x800; ms one "
-                            "call, device_ms its kernel alone, wall_ms 20 back-to-back calls)",
+                            "call, device_ms its kernel alone, wall_ms 20 back-to-back calls; the "
+                            f"automatic mask generator's chunk under {amg}_*)",
                        route="cuda", source="samrs_tpu_torch/csrc/amg_post.cu",
                        replaces="samrs_tpu/kernels/amg_post.py:140", library_ms=None,
-                       **{f"{k}_768x1024": out[IMAGE_HW][k] for k in ("ms", "device_ms", "wall_ms")},
-                       **{f"{k}_{wide}_8masks": out[K7_WIDE_HW][k]
-                          for k in ("ms", "device_ms")},
+                       **{f"{k}_768x1024": out["main"][k] for k in ("ms", "device_ms", "wall_ms")},
+                       **{f"{k}_{wide}_8masks": out["wide"][k] for k in ("ms", "device_ms")},
+                       **{f"{k}_{amg}": out["amg"][k] for k in (
+                           "ms", "device_ms", "wall_ms", "plain_ms", "bound_ms", "bound_by")},
                        **r)}
 
 
@@ -2327,6 +2406,304 @@ def generate_phase(model, profile: bool = False, want=GEN_LAUNCHES):
         profile_image(run, model)
     model.use_kernels = True
     return launches
+
+
+def packed_iou(a, b, chunk: int = AMG_MASKS) -> np.ndarray:
+    """Mask IoU of packed bit rows a, b (N, H, Wp) uint8 on the card, by
+    popcounts of their AND and OR, in chunks; 1 where both are empty."""
+    pop = torch.tensor([bin(i).count("1") for i in range(256)], dtype=torch.int32,
+                       device="cuda")
+    out = []
+    for i in range(0, a.shape[0], chunk):
+        x, y = a[i:i + chunk], b[i:i + chunk]
+        inter = pop[(x & y).int()].sum((-1, -2))
+        union = pop[(x | y).int()].sum((-1, -2))
+        out.append(torch.where(union > 0, inter / union.clamp(min=1), 1.0))
+    return torch.cat(out).cpu().numpy()
+
+
+def amg_grid(pred):
+    """The generator's prompt sets for one image at AMG_POINTS^2 points,
+    chunked: (points, pts (G, nb, 2, 2), labs (G, nb, 2))."""
+    from samrs_tpu_torch.sam.amg import build_point_grid
+
+    h, w = pred.original_size
+    points = build_point_grid(AMG_POINTS) * np.array([[w, h]])
+    n = len(points)
+    pts, labs = pred._prompts_to_points(points.astype(np.float32)[:, None],
+                                        np.ones((n, 1), np.int64), None)
+    return points, pts.reshape(AMG_CHUNKS, AMG_BATCH, 2, 2), labs.reshape(AMG_CHUNKS, AMG_BATCH, 2)
+
+
+def check_amg_records(label: str, records, hw) -> None:
+    """The generator's record schema at image size hw, more than 0 records."""
+    keys = {"segmentation", "area", "bbox", "predicted_iou", "point_coords", "stability_score",
+            "crop_box"}
+    if not records:
+        raise RuntimeError(f"AMG {label}: no records")
+    for r in records:
+        seg = r["segmentation"]
+        if set(r) != keys or seg.shape != hw or seg.dtype != np.bool_:
+            raise RuntimeError(f"AMG {label}: record {set(r)} {seg.shape} {seg.dtype}")
+        if r["area"] != int(seg.sum()) or len(r["bbox"]) != 4 or len(r["crop_box"]) != 4:
+            raise RuntimeError(f"AMG {label}: area / bbox / crop_box {r['area']} {r['bbox']} "
+                               f"{r['crop_box']}")
+        if not (np.isfinite(r["predicted_iou"]) and 0.0 <= r["stability_score"] <= 1.0):
+            raise RuntimeError(f"AMG {label}: scores {r['predicted_iou']} {r['stability_score']}")
+
+
+def amg_phase(model):
+    """The automatic mask generator (SamAutomaticMaskGenerator over
+    SamPredictor, ViT-H) on a seeded 1024^2 image at 32^2 points, 64 a chunk:
+    the sweep before the filters on both paths (bits by mean IoU, K7's stats
+    by its rule on every chunk's real logits), the whole generator with both
+    thresholds at 0 on both paths (launches; the kernel path's records
+    against the plain sweep's masks of the same prompts), s/image split into
+    device and host time, the default thresholds' record count, and one run
+    with crop_n_layers 1 and min_mask_region_area 100 -> numbers."""
+    from samrs_tpu_torch.kernels import gemm
+    from samrs_tpu_torch.sam import SamAutomaticMaskGenerator, SamPredictor
+
+    t_phase = time.perf_counter()
+    image = np.random.default_rng(SEED + 3).integers(0, 256, (*AMG_HW, 3), dtype=np.uint8)
+    pred = SamPredictor(model)
+    cfg = model.cfg
+    out = {}
+
+    # the sweep before the filters, each path
+    sweep = {}
+    for use_kernels in (True, False):
+        model.use_kernels = use_kernels
+        pred.set_image(image)
+        points, pts, labs = amg_grid(pred)
+        stats, packed = pred.amg_sweep(pts, labs, 1.0)
+        sweep[use_kernels] = stats.cpu().numpy(), packed
+    (stats_k, packed_k), (stats_p, packed_p) = sweep.pop(True), sweep.pop(False)
+    n_masks = AMG_POINTS ** 2 * 3
+    if stats_k.shape != (AMG_POINTS ** 2, 3, 7) or tuple(packed_k.shape) != \
+            (n_masks, AMG_HW[0], AMG_HW[1] // 8):
+        raise RuntimeError(f"AMG sweep: stats {stats_k.shape}, bits {tuple(packed_k.shape)}")
+    if not np.isfinite(stats_k).all():
+        raise RuntimeError("AMG sweep: non-finite stats on the kernel path")
+    ious = packed_iou(packed_k, packed_p)
+    hi_k, hi_p = stats_k[..., 1].ravel(), stats_p[..., 1].ravel()
+    px = AMG_HW[0] * AMG_HW[1]
+    print(f"AMG sweep kernels vs plain ({n_masks} masks before the filters): bit IoU mean "
+          f"{ious.mean():.5f} min {ious.min():.5f}, |iou pred diff| max "
+          f"{np.abs(stats_k[..., 0] - stats_p[..., 0]).max():.3e}, hi relative diff mean "
+          f"{np.mean(np.abs(hi_k - hi_p) / np.maximum(hi_p, 1)):.3e}, share above threshold "
+          f"- / + offset {stats_k[..., 2].mean() / px:.4f} / {stats_k[..., 1].mean() / px:.4f}",
+          flush=True)
+    if not ious.mean() >= IOU_MIN:
+        raise RuntimeError(f"AMG sweep: mean bit IoU {ious.mean():.5f} < {IOU_MIN}")
+    out["sweep_iou_mean"] = float(ious.mean())
+    del packed_k
+    # K7's stats on the kernel path's own logits, chunk by chunk (launches not counted)
+    model.use_kernels = True
+    pred.set_image(image)
+    pts_d, labs_d = (torch.from_numpy(a).cuda() for a in (pts, labs))
+    worst = 0
+    with torch.no_grad():
+        for g in range(AMG_CHUNKS):
+            low, _ = model.predict(pred.features, pts_d[g], labs_d[g], None, True)
+            worst = max(worst, k7_compare(
+                f"AMG chunk {g}", low.reshape(AMG_MASKS, *low.shape[-2:]), pred.input_size,
+                pred.original_size, cfg.image_size, cfg.mask_threshold, 1.0)[0])
+    print(f"AMG K7 stats of {AMG_CHUNKS} chunks against the plain version: largest count or box "
+          f"difference {worst}", flush=True)
+    del pts_d, labs_d
+    torch.cuda.empty_cache()
+
+    # the whole generator, both thresholds at 0 (bench.py:173-189: random weights may fail the
+    # default thresholds on every candidate), each path
+    def generator(**kw):
+        return SamAutomaticMaskGenerator(pred, points_per_side=AMG_POINTS,
+                                         points_per_batch=AMG_BATCH, **kw)
+
+    zero = generator(pred_iou_thresh=0.0, stability_score_thresh=0.0)
+    records = {}
+    for use_kernels in (True, False):
+        model.use_kernels = use_kernels
+        reset_counts()
+        records[use_kernels] = zero.generate(image)
+        torch.cuda.synchronize()
+        launches, gemm_launches = read_counts(), gemm.launches
+        want = AMG_LAUNCHES if use_kernels else dict.fromkeys(AMG_LAUNCHES, 0)
+        if launches != want or gemm_launches != (MAIN_GEMM_LAUNCHES if use_kernels else 0):
+            raise RuntimeError(f"AMG launches ({'kernels' if use_kernels else 'plain'}) "
+                               f"{launches}, GEMM {gemm_launches}, want {want}")
+        check_amg_records("thresholds 0", records[use_kernels], AMG_HW)
+        if use_kernels:
+            out["launches"] = {**launches, "GEMM": gemm_launches}
+    # each kernel-path record against the plain sweep's mask of the same prompt and output
+    grid = {tuple(p): i for i, p in enumerate(points.tolist())}
+    idx = []
+    for r in records[True]:
+        i = grid[tuple(r["point_coords"][0])]
+        idx.append(3 * i + int(np.argmin(np.abs(stats_k[i, :, 0] - r["predicted_iou"]))))
+    plain_bits = pred.amg_take_packed(packed_p, np.array(idx))
+    del packed_p
+    torch.cuda.empty_cache()
+    rec_iou = mask_iou(np.stack([r["segmentation"] for r in records[True]]),
+                       np.unpackbits(plain_bits, axis=-1)[..., :AMG_HW[1]].astype(bool))
+    same = [r["point_coords"] for r in records[True]] == [r["point_coords"] for r in records[False]]
+    print(f"AMG thresholds 0: {len(records[True])} records with the kernels, "
+          f"{len(records[False])} plain (the same prompts in the same order: {same}); the kernel "
+          f"path's records against the plain sweep's masks of their prompts: IoU mean "
+          f"{rec_iou.mean():.5f} min {rec_iou.min():.5f}", flush=True)
+    if not rec_iou.mean() >= IOU_MIN:
+        raise RuntimeError(f"AMG records: mean IoU {rec_iou.mean():.5f} < {IOU_MIN}")
+    out["records"] = len(records[True])
+    del records, plain_bits
+
+    # s/image, paths in turns; device time by torch.profiler, host the rest of the wall
+    times = {True: [], False: []}
+    for use_kernels in (True, False, False, True):
+        model.use_kernels = use_kernels
+        for _ in range(2):
+            t = time.perf_counter()
+            zero.generate(image)
+            torch.cuda.synchronize()
+            times[use_kernels].append(time.perf_counter() - t)
+    model.use_kernels = True
+    s_img = {k: statistics.median(v) for k, v in times.items()}
+    dev = device_ms_or_none("AMG image", lambda: (zero.generate(image), torch.cuda.synchronize()),
+                            n=2)
+    host = None if dev is None else s_img[True] - dev / 1e3
+    print(f"AMG s/image (1024^2, {AMG_POINTS}^2 points, thresholds 0): kernels "
+          f"{s_img[True]:.4f} (device {dev} ms, host {host} s: the wall less the device time), "
+          f"plain {s_img[False]:.4f}", flush=True)
+    host_prof = cProfile.Profile()
+    host_prof.runcall(zero.generate, image)
+    pstats.Stats(host_prof, stream=sys.stdout).sort_stats("tottime").print_stats(12)
+    sys.stdout.flush()
+    out.update(s_image=s_img[True], s_image_plain=s_img[False], device_ms=dev, host_s=host)
+
+    # the generator's default thresholds (0.88 / 0.95), kernel path
+    t = time.perf_counter()
+    n_default = len(generator().generate(image))
+    torch.cuda.synchronize()
+    print(f"AMG default thresholds: {n_default} records in {time.perf_counter() - t:.4f} s",
+          flush=True)
+
+    # crop_n_layers 1 (the image and four crops, their grids 16^2), small regions removed
+    crops = generator(pred_iou_thresh=0.0, stability_score_thresh=0.0, crop_n_layers=1,
+                      crop_n_points_downscale_factor=2, min_mask_region_area=100)
+    reset_counts()
+    t = time.perf_counter()
+    crop_records = crops.generate(image)
+    torch.cuda.synchronize()
+    t = time.perf_counter() - t
+    launches, gemm_launches = read_counts(), gemm.launches
+    if launches != AMG_CROP_LAUNCHES or gemm_launches != AMG_CROPS * MAIN_GEMM_LAUNCHES:
+        raise RuntimeError(f"AMG crops: launches {launches}, GEMM {gemm_launches}, want "
+                           f"{AMG_CROP_LAUNCHES}")
+    check_amg_records("crop_n_layers 1", crop_records, AMG_HW)
+    boxes = {tuple(r["crop_box"]) for r in crop_records}
+    print(f"AMG crop_n_layers 1, min_mask_region_area 100: {len(crop_records)} records from "
+          f"{len(boxes)} crop boxes in {t:.4f} s; launches {launches}", flush=True)
+    out["crop_launches"] = launches
+    print(f"AMG phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
+
+
+def write_hrsc_scene(root: str):
+    """A seeded HRSC2016 scene under `root`: an 800x600 image with HRSC_SHIPS
+    rotated ships (img/s0.png), its HRSC XML (ann/s0.xml: hbox, rotated box,
+    colour) and its LandMask PNG (land/s0.png: each ship's polygon in its
+    colour, rasterised as the annotation's polygon) -> (image, ann, land dirs)."""
+    from PIL import Image
+
+    from samrs_tpu_torch.generate.instance_eval import fill_poly
+    from samrs_tpu_torch.geometry.obb import obb2poly, poly_to_hbb
+
+    rng = np.random.default_rng(SEED + 4)
+    H, W = HRSC_HW
+    image = rng.integers(0, 256, (H, W, 3), dtype=np.uint8)
+    land = np.zeros((H, W, 3), np.uint8)
+    objs = []
+    for k in range(HRSC_SHIPS):
+        obb = np.array([[*rng.uniform([100, 100], [W - 100, H - 100]), rng.uniform(60, 180),
+                         rng.uniform(16, 40), rng.uniform(-np.pi / 2, np.pi / 2)]])
+        poly = obb2poly(obb).reshape(4, 2)
+        color = (30 + 25 * k, 230 - 20 * k, 60 + 17 * k)
+        ship = fill_poly(np.zeros((H, W), np.uint8), poly.astype(np.int32)) > 0
+        land[ship] = color
+        image[ship] = image[ship] // 2 + 100
+        x0, y0, x1, y1 = poly_to_hbb(poly.reshape(1, 8))[0]
+        cx, cy, w, h, ang = (repr(float(v)) for v in obb[0])  # the polygon's values, exactly
+        objs.append(f"<HRSC_Object><box_xmin>{x0:.1f}</box_xmin><box_ymin>{y0:.1f}</box_ymin>"
+                    f"<box_xmax>{x1:.1f}</box_xmax><box_ymax>{y1:.1f}</box_ymax>"
+                    f"<mbox_cx>{cx}</mbox_cx><mbox_cy>{cy}</mbox_cy><mbox_w>{w}</mbox_w>"
+                    f"<mbox_h>{h}</mbox_h><mbox_ang>{ang}</mbox_ang>"
+                    f"<seg_color>{','.join(map(str, color))}</seg_color></HRSC_Object>")
+    dirs = [os.path.join(root, d) for d in ("img", "ann", "land")]
+    for d in dirs:
+        os.makedirs(d)
+    Image.fromarray(image).save(os.path.join(dirs[0], "s0.png"))
+    with open(os.path.join(dirs[1], "s0.xml"), "w") as f:
+        f.write(f"<HRSC_Image><HRSC_Objects>{''.join(objs)}</HRSC_Objects></HRSC_Image>")
+    Image.fromarray(land).save(os.path.join(dirs[2], "s0.png"))
+    return dirs
+
+
+def prompt_eval_phase(model):
+    """The HRSC prompt evaluation (``run_prompt_eval``) on a seeded 800x600
+    scene with 8 ships, in every prompt mode, with the kernels and with the
+    plain versions: launches, the COCO JSON read back, the instances' masks
+    of the two paths by mean IoU, s/image -> {mode: numbers}."""
+    from samrs_tpu_torch.data.rle import rle_decode
+    from samrs_tpu_torch.generate.instance_eval import PROMPT_MODES, run_prompt_eval
+    from samrs_tpu_torch.sam import SamPredictor
+
+    pred = SamPredictor(model)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dirs = write_hrsc_scene(tmp)
+        for mode in PROMPT_MODES:
+            masks, metrics, secs = {}, {}, {}
+            for use_kernels in (True, False):
+                model.use_kernels = use_kernels
+                json_dir = os.path.join(tmp, f"json_{'kernels' if use_kernels else 'plain'}")
+                reset_counts()
+                metrics[use_kernels] = run_prompt_eval(pred, *dirs, ["s0"], mode,
+                                                       json_dir=json_dir)
+                torch.cuda.synchronize()
+                launches = read_counts()
+                want = MAIN_LAUNCHES if use_kernels else dict.fromkeys(MAIN_LAUNCHES, 0)
+                if launches != want:
+                    raise RuntimeError(f"prompt eval {mode}: launches {launches}, want {want}")
+                if use_kernels:
+                    kernel_launches = launches
+                with open(os.path.join(json_dir, f"gt_ins_{mode}.json")) as f:
+                    gt = json.load(f)
+                with open(os.path.join(json_dir, f"sam_ins_{mode}.json")) as f:
+                    pre = json.load(f)
+                if (len(gt["annotations"]), len(pre), gt["categories"][0]["name"]) != \
+                        (HRSC_SHIPS, HRSC_SHIPS, "ship"):
+                    raise RuntimeError(f"prompt eval {mode}: COCO JSON {len(gt['annotations'])} "
+                                       f"annotations, {len(pre)} predictions")
+                masks[use_kernels] = np.stack([rle_decode(p["segmentation"])
+                                               for p in pre]).astype(bool)
+                if masks[use_kernels].shape != (HRSC_SHIPS, *HRSC_HW) or \
+                        metrics[use_kernels]["num_instances"] != HRSC_SHIPS:
+                    raise RuntimeError(f"prompt eval {mode}: masks {masks[use_kernels].shape}, "
+                                       f"metrics {metrics[use_kernels]}")
+                t = time.perf_counter()
+                run_prompt_eval(pred, *dirs, ["s0"], mode)
+                torch.cuda.synchronize()
+                secs[use_kernels] = time.perf_counter() - t
+            ious = mask_iou(masks[True], masks[False])
+            print(f"prompt eval {mode}: kernels vs plain instance IoU mean {ious.mean():.5f} "
+                  f"min {ious.min():.5f}; mIoU against the ground truth "
+                  f"{metrics[True]['miou_avg']:.4f} / {metrics[False]['miou_avg']:.4f}; s/image "
+                  f"{secs[True]:.4f} / {secs[False]:.4f} (kernels / plain)", flush=True)
+            if not ious.mean() >= IOU_MIN:
+                raise RuntimeError(f"prompt eval {mode}: mean IoU {ious.mean():.5f} < {IOU_MIN}")
+            out[mode] = dict(iou_mean=float(ious.mean()), s_image=secs[True],
+                             s_image_plain=secs[False], launches=kernel_launches)
+    model.use_kernels = True
+    return out
 
 
 def write_fleet_set(root: str):
@@ -3878,14 +4255,16 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="profile one generate image per path, one pretrain and one finetune step")
-    ap.add_argument("--only", choices=("kernels", "gemm", "main", "fleet", "modes", "configs",
-                                       "sizes", "slab", "internimage", "mlp", "gather", "steps",
-                                       "point_sample", "mask2former", "adapter", "backbones"),
+    ap.add_argument("--only", choices=("kernels", "gemm", "main", "fleet", "amg", "modes",
+                                       "configs", "sizes", "slab", "internimage", "mlp", "gather",
+                                       "steps", "point_sample", "mask2former", "adapter",
+                                       "backbones"),
                     action="append",
-                    help="run only these phases (a partial check: no result lines): K1-K7 at "
+                    help="run only these phases (a partial check: no kernels line): K1-K7 at "
                          "the main path's shapes (kernels), the encoder's GEMM (gemm), the main "
                          "path and the generate phase (main), run_fleet on a DIOR mini-set "
-                         "and K1-K3 and the GEMM at batch 4 (fleet), the SAM "
+                         "and K1-K3 and the GEMM at batch 4 (fleet), the automatic mask "
+                         "generator and the HRSC prompt evaluation (amg), the SAM "
                          "encoder's kernel configurations (modes, configs, sizes), K8-slab and "
                          "K11 at InternImage's widths (slab), the InternImage step and driver "
                          "(internimage), K10 and K11 at every width (mlp), K8 and the MSDA "
@@ -3934,6 +4313,12 @@ def main() -> None:
             fleet_phase(model)
             del model
             torch.cuda.empty_cache()
+        if "amg" in args.only:
+            model = build_model(gen)
+            amg_phase(model)
+            prompt_eval_phase(model)
+            del model
+            torch.cuda.empty_cache()
         if "modes" in args.only:
             modes_kernel_phase(gen)
         if "configs" in args.only:
@@ -3973,6 +4358,10 @@ def main() -> None:
                 internimage_pretrain_phase(tmp)
                 internimage_pretrain_phase(tmp, slab=True)
         print(f"partial run {args.only} passed", flush=True)
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}), flush=True)
         return
     results = kernel_phase(gen)
     results.update(gemm_phase(gen))
@@ -3982,12 +4371,18 @@ def main() -> None:
     main_launches = main_path(model)
     gen_launches = generate_phase(model, args.profile)
     fleet = fleet_phase(model)
+    amg = amg_phase(model)
+    prompts = prompt_eval_phase(model)
     for key in ("K1", "K2", "K3", "K4", "K5", "K6", "K7"):
         results[key]["launches"] = gen_launches[key]
         results[key]["launches_main_path"] = main_launches[key]
         results[key]["launches_fleet"] = fleet["launches"][key]
+        results[key]["launches_amg"] = amg["launches"][key]
+        results[key]["launches_amg_crop_layers_1"] = amg["crop_launches"][key]
+        results[key]["launches_prompt_eval"] = {m: o["launches"][key] for m, o in prompts.items()}
     results["GEMM"]["launches"] = main_launches["GEMM"]
     results["GEMM"]["launches_fleet"] = fleet["launches"]["GEMM"]
+    results["GEMM"]["launches_amg"] = amg["launches"]["GEMM"]
     b = f"batch{FLEET_BATCH}"  # the fleet's encoder passes: K1-K3 and the GEMM at batch 4
     for key in ("K1", "K2", "K3"):
         results[key].update({f"{b}_{k}": v for k, v in fleet["batch"][key].items()
@@ -4119,6 +4514,7 @@ def main() -> None:
           f"GiB, Hungarian {m2f['hungarian_ms']:.2f} ms a step, attention-mask bits differing "
           f"{m2f['flips'][0]} of {m2f['flips'][1]}, assignments {m2f['assign'][0]} of "
           f"{m2f['assign'][1]}", flush=True)
+    print(f"amg summary: {json.dumps(amg)}; prompt evaluation: {json.dumps(prompts)}", flush=True)
     print("encoder configurations: " + json.dumps(configs), flush=True)
     print(f"smoke wall time {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": list(results.values())}), flush=True)

@@ -22,9 +22,11 @@ IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
 
 
 def _linear_taps(src: int, dst: int):
-    """cv2 INTER_LINEAR source indices (lo, hi) and weight of hi per output."""
+    """cv2 INTER_LINEAR source indices (lo, hi) and weight of hi per output:
+    the source coordinate and its fraction in float64, the fraction then
+    rounded to float32 (cv2's float weights, to the bit)."""
     scale = 1.0 / (dst / src)
-    f = ((np.arange(dst) + 0.5) * scale - 0.5).astype(np.float32)
+    f = (np.arange(dst) + 0.5) * scale - 0.5
     lo = np.floor(f).astype(np.int64)
     w = (f - lo).astype(np.float32)
     w[lo < 0] = 0.0

@@ -212,14 +212,20 @@ def parse_args(description: str, argv: Optional[Sequence[str]] = None):
                          sam_checkpoint=a.sam_checkpoint, image_dir=a.image_dir,
                          ann_dir=a.ann_dir, save_dir=a.save_dir, shard_index=a.shard_index,
                          shard_count=a.shard_count, device=a.device)
+    return cfg, parse_sam_overrides(a.sam_override)
+
+
+def parse_sam_overrides(pairs: Sequence[str]) -> dict:
+    """``--sam-override KEY=VALUE`` strings -> SamConfig field overrides,
+    each value coerced to its field's type."""
     defaults = {f.name: f.default for f in dataclasses.fields(SamConfig)}
     overrides = {}
-    for kv in a.sam_override:
+    for kv in pairs:
         key, value = kv.split("=", 1)
         if key not in defaults:
             raise SystemExit(f"unknown SamConfig field {key!r}")
         overrides[key] = _coerce(value, defaults[key])
-    return cfg, overrides
+    return overrides
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:

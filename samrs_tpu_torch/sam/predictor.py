@@ -5,12 +5,16 @@ samrs_tpu/sam/predictor.py; reference: segment_anything predictor.py).
 normalises and zero-pads to the square on the device (``sam.preprocess``, as
 the reference does), and caches the encoder features; ``encode_images``
 encodes several images in one encoder pass for ``set_image_features``.
-``predict_boxes`` decodes every box in one batched
-call, padded up to a bucket size with not-a-point prompts; buckets above
-``decode_chunk`` prompts decode chunk by chunk to bound the decoder's
-per-prompt image-side activations.  ``predict_boxes_lowres`` keeps the
-decoded low-res logits on the device for the generate driver, whose binary
-masks leave the device bit-packed (``packbits2d``, np.packbits order).
+``predict_boxes``, ``predict_points`` (one single-point prompt set a
+point) and ``predict_mask_prompts`` (mask-only prompt sets) decode a whole
+batch in one call, padded up to a bucket size with all-pad prompt sets;
+buckets above ``decode_chunk`` prompts decode chunk by chunk to bound the
+decoder's per-prompt image-side activations.  ``_prompts_to_points`` is the
+one merge of point and box prompts that all of them use.
+``predict_boxes_lowres`` keeps the decoded low-res logits on the device for
+the generate driver, whose binary masks leave the device bit-packed
+(``packbits2d``, np.packbits order); ``amg_sweep`` / ``amg_take_packed``
+are the automatic mask generator's device sweep and survivor gather.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from samrs_tpu_torch.kernels import amg_post
 from samrs_tpu_torch.kernels.amg_post import packbits2d
 from samrs_tpu_torch.sam.sam import Sam, postprocess_masks, preprocess
 from samrs_tpu_torch.sam.transforms import ResizeLongestSide
@@ -118,8 +123,7 @@ class SamPredictor:
         self.is_image_set = True
 
     def get_image_embedding(self) -> torch.Tensor:
-        if not self.is_image_set:
-            raise RuntimeError("An image must be set with .set_image(...) first.")
+        self._require_image()
         return self.features
 
     # ---------------------------------------------------------------- predict
@@ -147,53 +151,106 @@ class SamPredictor:
             masks = masks > self.cfg.mask_threshold
         return _to_numpy(masks), _to_numpy(iou[:n]), _to_numpy(low_res[:n])
 
+    def _prompts_to_points(self, point_coords: Optional[np.ndarray],
+                           point_labels: Optional[np.ndarray], boxes: Optional[np.ndarray],
+                           n: Optional[int] = None) -> Tuple[np.ndarray, np.ndarray]:
+        """Merge a batch of prompt sets into the decoder's sparse prompts:
+        (B, S, 2) fp32 points in the model's input frame and (B, S) int64
+        labels.  point_coords (B, P, 2) with point_labels (B, P) in the
+        original image's frame come first; boxes (B, 4) xyxy become two
+        corner points labelled 2 and 3; points without a box get one
+        not-a-point pad (label -1, prompt_encoder.py:81-87); neither gives
+        S = 0, mask-only prompt sets (the reference's empty sparse
+        embedding, prompt_encoder.py:155-160), for a batch of `n`."""
+        parts_p, parts_l = [], []
+        if point_coords is not None:
+            if point_labels is None:
+                raise ValueError("point_labels are required with point_coords")
+            pc = np.asarray(point_coords)
+            parts_p.append(self.transform.apply_coords(pc, self.original_size))
+            parts_l.append(np.asarray(point_labels, np.int64).reshape(pc.shape[:2]))
+            if boxes is None:
+                parts_p.append(np.zeros((pc.shape[0], 1, 2), np.float32))
+                parts_l.append(np.full((pc.shape[0], 1), -1, np.int64))
+        if boxes is not None:
+            tb = self.transform.apply_boxes(np.asarray(boxes), self.original_size)
+            parts_p.append(tb.reshape(-1, 2, 2))
+            parts_l.append(np.tile(np.array([[2, 3]], np.int64), (tb.shape[0], 1)))
+        if not parts_p:
+            return np.zeros((n, 0, 2), np.float32), np.zeros((n, 0), np.int64)
+        return (np.concatenate(parts_p, 1).astype(np.float32),
+                np.concatenate(parts_l, 1).astype(np.int64))
+
+    @staticmethod
+    def _pad_prompts(pts: np.ndarray, labs: np.ndarray, rows: int) -> Tuple[np.ndarray, np.ndarray]:
+        """Pad a batch of prompt sets to `rows` with all-pad sets (points 0,
+        labels -1), which the caller slices away after the decode."""
+        n = pts.shape[0]
+        out_p = np.zeros((rows, *pts.shape[1:]), np.float32)
+        out_l = np.full((rows, *labs.shape[1:]), -1, np.int64)
+        out_p[:n], out_l[:n] = pts, labs
+        return out_p, out_l
+
+    def _require_image(self) -> None:
+        if not self.is_image_set:
+            raise RuntimeError("An image must be set with .set_image(...) first.")
+
     def predict(self, point_coords: Optional[np.ndarray] = None,
                 point_labels: Optional[np.ndarray] = None, box: Optional[np.ndarray] = None,
                 mask_input: Optional[np.ndarray] = None, multimask_output: bool = True,
                 return_logits: bool = False) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """One prompt set -> (masks (M, H, W), iou (M,), low_res (M, 4g, 4g))."""
-        if not self.is_image_set:
-            raise RuntimeError("An image must be set with .set_image(...) first.")
-        parts_p, parts_l = [], []
-        if point_coords is not None:
-            if point_labels is None:
-                raise ValueError("point_labels are required with point_coords")
-            parts_p.append(self.transform.apply_coords(point_coords, self.original_size))
-            parts_l.append(np.asarray(point_labels, np.int64))
-            if box is None:  # not-a-point pad (prompt_encoder.py:81-87)
-                parts_p.append(np.zeros((1, 2), np.float32))
-                parts_l.append(np.full((1,), -1, np.int64))
-        if box is not None:
-            tb = self.transform.apply_boxes(np.asarray(box).reshape(1, 4), self.original_size)
-            parts_p.append(tb.reshape(2, 2))
-            parts_l.append(np.array([2, 3], np.int64))
-        if parts_p:
-            pts = np.concatenate(parts_p).astype(np.float32)
-            labs = np.concatenate(parts_l)
-        elif mask_input is not None:  # mask-only prompt: zero sparse tokens
-            pts, labs = np.zeros((0, 2), np.float32), np.zeros((0,), np.int64)
-        else:
+        self._require_image()
+        if point_coords is None and box is None and mask_input is None:
             raise ValueError("at least one of point_coords/box/mask_input required")
-        mi = None if mask_input is None else np.asarray(mask_input).reshape(1, *mask_input.shape[-2:], 1)
-        low_res, iou = self._decode(pts[None], labs[None], mi, multimask_output)
+        pts, labs = self._prompts_to_points(
+            None if point_coords is None else np.asarray(point_coords)[None],
+            None if point_labels is None else np.asarray(point_labels)[None],
+            None if box is None else np.asarray(box).reshape(1, 4), n=1)
+        mi = None if mask_input is None else \
+            np.asarray(mask_input).reshape(1, *mask_input.shape[-2:], 1)
+        low_res, iou = self._decode(pts, labs, mi, multimask_output)
         masks, iou, low_res = self._finish(low_res, iou, 1, return_logits)
         return masks[0], iou[0], low_res[0]
+
+    def predict_points(self, point_coords: np.ndarray, multimask_output: bool = False,
+                       return_logits: bool = False) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(N, 2) foreground points, one single-point prompt set each (the
+        point and a not-a-point pad) -> (masks (N, M, H, W), iou (N, M),
+        low_res (N, M, 4g, 4g)), decoded in one bucket-padded batch."""
+        self._require_image()
+        n = point_coords.shape[0]
+        pts, labs = self._prompts_to_points(np.asarray(point_coords, np.float32)[:, None],
+                                            np.ones((n, 1), np.int64), None)
+        low_res, iou = self._decode(*self._pad_prompts(pts, labs, _bucket(n, self.buckets)),
+                                    None, multimask_output)
+        return self._finish(low_res, iou, n, return_logits)
+
+    def predict_mask_prompts(self, mask_inputs: np.ndarray, multimask_output: bool = False,
+                             return_logits: bool = False
+                             ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(N, 4g, 4g) low-res logit canvases, one mask-only prompt set each
+        (zero sparse tokens: a not-a-point pad would change the decoder's
+        token attention) -> (masks (N, M, H, W), iou (N, M), low_res
+        (N, M, 4g, 4g)), decoded in one bucket-padded batch."""
+        self._require_image()
+        n = mask_inputs.shape[0]
+        nb = _bucket(n, self.buckets)
+        pts, labs = self._pad_prompts(*self._prompts_to_points(None, None, None, n=n), nb)
+        mi = np.zeros((nb, *mask_inputs.shape[-2:], 1), np.float32)
+        mi[:n] = np.asarray(mask_inputs, np.float32)[..., None]
+        low_res, iou = self._decode(pts, labs, mi, multimask_output)
+        return self._finish(low_res, iou, n, return_logits)
 
     def predict_boxes_lowres(self, boxes: np.ndarray,
                              multimask_output: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
         """(N, 4) xyxy boxes -> (low_res (Nb, M, 4g, 4g), iou (Nb, M)) device
         tensors, Nb the bucket-padded N, decoded in one batch."""
-        if not self.is_image_set:
-            raise RuntimeError("An image must be set with .set_image(...) first.")
+        self._require_image()
         n = boxes.shape[0]
-        nb = _bucket(n, self.buckets)
-        tb = self.transform.apply_boxes(boxes, self.original_size).reshape(-1, 2, 2)
-        pts = np.zeros((nb, 2, 2), np.float32)
-        labs = np.full((nb, 2), -1, np.int64)
-        pts[:n] = tb
-        labs[:n, 0] = 2  # top-left corner embedding
-        labs[:n, 1] = 3  # bottom-right corner embedding
-        return self._decode(pts, labs, None, multimask_output)
+        pts, labs = self._prompts_to_points(None, None, boxes)
+        return self._decode(*self._pad_prompts(pts, labs, _bucket(n, self.buckets)), None,
+                            multimask_output)
 
     @torch.no_grad()
     def upscale_chunk(self, low_res_chunk: torch.Tensor, binarize: bool = True) -> torch.Tensor:
@@ -214,3 +271,43 @@ class SamPredictor:
         decoded in one bucket-padded batch."""
         low_res, iou = self.predict_boxes_lowres(boxes, multimask_output)
         return self._finish(low_res, iou, boxes.shape[0], return_logits)
+
+    @torch.no_grad()
+    def amg_sweep(self, pts: np.ndarray, labs: np.ndarray,
+                  offset: float) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The automatic mask generator's sweep of a crop's point grid:
+        pts (G, nb, 2, 2) fp32 and labs (G, nb, 2) prompt sets in the
+        model's input frame, uploaded once; each chunk of nb is one
+        multimask decode, then K7 (``amg_post.amg_postprocess``; its plain
+        version when ``Sam.use_kernels`` is False) on the chunk's nb * 3
+        low-res masks at ``offset`` -> (stats (G * nb, 3, 7) fp32, laid
+        out [iou, hi, lo, x0, y0, x1, y1] with inclusive boxes; packed
+        (G * nb * 3, H, ceil(W / 8)) uint8 bits at the original size), both
+        on the device."""
+        self._require_image()
+        cfg = self.cfg
+        post = amg_post.amg_postprocess if self.model.use_kernels else \
+            amg_post.amg_postprocess_plain
+        pts_d = torch.from_numpy(np.ascontiguousarray(pts, np.float32)).to(self.device)
+        labs_d = torch.from_numpy(np.asarray(labs, np.int64)).to(self.device)
+        stats, packed = [], None
+        for g in range(pts_d.shape[0]):
+            low, iou = self.model.predict(self.features, pts_d[g], labs_d[g], None, True)
+            nb, nm = iou.shape
+            hi, lo, boxes, bits = post(low.reshape(nb * nm, *low.shape[-2:]), self.input_size,
+                                       self.original_size, cfg.image_size, cfg.mask_threshold,
+                                       offset)
+            stats.append(torch.cat([iou.reshape(-1, 1), hi[:, None].float(), lo[:, None].float(),
+                                    boxes.float()], 1).reshape(nb, nm, 7))
+            if packed is None:
+                packed = torch.empty((pts_d.shape[0] * nb * nm, *bits.shape[1:]),
+                                     dtype=torch.uint8, device=bits.device)
+            packed[g * nb * nm:(g + 1) * nb * nm] = bits
+        return torch.cat(stats), packed
+
+    def amg_take_packed(self, packed: torch.Tensor, idx: np.ndarray) -> np.ndarray:
+        """Rows `idx` of ``amg_sweep``'s packed bits, gathered on the device
+        and copied to the host at once -> (len(idx), H, ceil(W / 8)) uint8."""
+        if len(idx) == 0:
+            return np.zeros((0, *packed.shape[1:]), np.uint8)
+        return _to_numpy(packed[torch.from_numpy(np.asarray(idx, np.int64)).to(packed.device)])
