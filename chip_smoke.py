@@ -249,6 +249,31 @@ checkout; it has no CPU path and raises on any failure.  Phases:
    crop 512 (a 2x2 grid with tail crops) with the finetuned model: launches,
    gray and colour PNGs read back against the prediction and the palette,
    and kernels-vs-plain probability maps (rel-L2 <= 1e-5);
+11a. pretrained phase (``pretrained=``): a seeded reference-layout ``.pth`` of
+   each of the seven families at its published widths (vit_b_rvsa, vit_b,
+   swin_t, resnet50, vitaev2_s, internimage_t, vit_adapter_b: the encoder's
+   keys under ``module.backbone.``, MAE extras, the reference's keys the
+   port keeps no tensor for, one key of the wrong shape, a 16^2 pos-embed
+   for the ViTs) loaded with ``load_backbone_checkpoint`` into the family's
+   encoder on the card: the family, the loaded and skipped counts against
+   JAX's on the same layout, every loaded tensor the checkpoint's; K11's
+   weight halves split again on the first forward after a load (one per
+   MLP weight loaded); one vit_b_rvsa + UperNet step from the loaded state
+   by the rule of phase 7; ``run_pretrain(pretrained=<vit_b_rvsa file>)``
+   for 3 steps with an eval (launches as phase 9's);
+11b. DDP phase: two ranks of this script (``--ddp-worker``, torchrun's
+   variables), on two cards over NCCL or both on one card over gloo
+   (core/mesh.py's rule; printed with the card count), vit_b_rvsa + UperNet
+   at full width and depth, the global batch cut to 32 (4 / 4 / 22 a head,
+   half on each rank): two steps with dropout and drop-path on against one
+   process on the rank-ordered global batch (losses within 1e-5, gradients,
+   AdamW moments and BatchNorm statistics within 3x the control's distance,
+   statistics and parameters equal on the ranks), K8 / K10 / K11 launches
+   inside each rank, warm s/step, peak memory, the gradient all-reduce's
+   time and a profile's all-reduce share a rank, and ``run_pretrain`` on
+   the two ranks for 2 steps with an eval (the same lines on both),
+   checkpoints written by rank 0 only and a resume that restores both; a
+   rank's failure fails the phase;
 12. prints the configurations phase's results as one JSON line, then one
    JSON line of per-kernel results (launches: K1-K7 from the generate
    phase, with ``launches_main_path`` and ``launches_fleet`` beside them,
@@ -257,7 +282,8 @@ checkout; it has no CPU path and raises on any failure.  Phases:
    configuration or image size that runs them, K8 from the pretrain phase
    with its per-step count and the adapter's cases and launches (phase 9c),
    K9 from the Mask2Former pretrain phase, K10 and K11 from the finetune driver
-   with their per-step counts, K11 also with phase 9d's cases and launches;
+   with their per-step counts, K11 also with phase 9d's cases and launches,
+   K8 / K10 / K11 also with phase 11a's run and phase 11b's per rank;
    an entry's other cases beside its main one carry measured numbers only,
    their bounds are on the log lines, but K11's 9d cases carry theirs), then
    the card's name and power limit and the final status line.
@@ -267,7 +293,7 @@ the main path and the generate phase at the default image size; fleet: 4a; amg: 
 sizes: 2b, 4b, 4c; slab: the K8-slab and K11-width checks of 9b;
 internimage: its step and driver runs; mlp: 6 and K11's widths; gather: 5
 and the MSDA wrapper of 5b; steps: 7, 7b, 8 and 9b's step; adapter: 9c;
-backbones: 9d),
+backbones: 9d; pretrained: 11a; ddp: 11b),
 and prints no kernels line: it ends with the card's name and power limit and the status line.
 
 ``--profile`` adds a torch.profiler table of one warm generate image (and of
@@ -4251,6 +4277,547 @@ def test_phase(tmp: str, model):
     return launches
 
 
+# ---------------------------------------------------------------- pretrained= ----
+# a seeded reference-layout .pth of each family at its published widths: the encoder's keys under
+# module.backbone., MAE extras, keys of the reference the port keeps no tensor for, one key of the
+# wrong shape and, for the ViTs, a pos-embed on the 16x16 grid of a 256^2 model
+PRETRAINED_EXTRAS = {
+    "vit_b_rvsa": ({"cls_token": (1, 1, 768), "norm.weight": (768,), "norm.bias": (768,),
+                    "blocks.0.attn.relative_position_index": (49, 49)},
+                   "blocks.5.mlp.fc1.weight"),
+    "vit_b": ({"cls_token": (1, 1, 768), "head.weight": (1000, 768)}, "blocks.3.attn.qkv.weight"),
+    "swin_t": ({"layers.0.blocks.0.attn.relative_position_index": (49, 49),
+                "layers.0.blocks.1.attn_mask": (64, 49, 49), "norm.weight": (768,)},
+               "layers.2.blocks.4.mlp.fc2.weight"),
+    "resnet50": ({"bn1.num_batches_tracked": (), "layer1.0.bn1.num_batches_tracked": (),
+                  "layer2.0.downsample.1.num_batches_tracked": (), "fc.weight": (1000, 2048),
+                  "fc.bias": (1000,)}, "layer3.2.conv2.weight"),
+    "vitaev2_s": ({"layers.0.RC.PCM.1.num_batches_tracked": (),
+                   "layers.2.NC.0.attn.relative_position_bias_table": (169, 8),
+                   "norm3.weight": (512,)}, "layers.2.NC.3.mlp.fc1.weight"),
+    "internimage_t": ({"conv_head.0.weight": (1536, 512, 1, 1), "head.weight": (1000, 1536)},
+                      "levels.2.blocks.7.dcn.offset.weight"),
+    "vit_adapter_b": ({"spm.stem.1.num_batches_tracked": (), "norm2.num_batches_tracked": (),
+                       "fc_norm.weight": (768,), "head.weight": (1000, 768)},
+                      "interactions.2.extractor.ffn.fc1.weight"),
+}
+PRETRAINED_POS_GRID = 16       # the checkpoints' pos-embed grid (a 256^2 ViT; the models' is 14)
+# (family, loaded, skipped) of these checkpoints: the port's rules, which
+# tests/test_torch_port_checkpoint.py holds to JAX's load_backbone_checkpoint key by key at small
+# widths, run on the CPU over the encoders' shapes (the meta device).  vit_b loads its patch
+# embedding and pos-embed alone: JAX's ViT rule names RVSA's nested blocks (ROADMAP Queue 3)
+PRETRAINED_COUNTS = {"vit_b_rvsa": ("vit", 161, 72), "vit_b": ("vit", 3, 159),
+                     "swin_t": ("swin", 176, 7), "resnet50": ("resnet", 264, 4),
+                     "vitaev2_s": ("vitae", 492, 4), "internimage_t": ("internimage", 684, 4),
+                     "vit_adapter_b": ("vit_adapter", 403, 3)}
+
+
+def write_reference_pth(path: str, name: str, encoder, seed: int):
+    """`name`'s reference-layout checkpoint for `encoder` (its state-dict keys
+    and shapes), drawn on the CPU from `seed`: weights fan-in scaled, norms
+    and layer scales near 1, BatchNorm variances positive; the MAE decoder
+    and mask token, PRETRAINED_EXTRAS, its wrong-shaped key one row too long,
+    and a pos-embed on a PRETRAINED_POS_GRID grid (with a cls slot, but for
+    the ViT-Adapter, whose own checkpoints hold none)."""
+    extras, wrong = PRETRAINED_EXTRAS[name]
+    shapes = {k: tuple(v.shape) for k, v in encoder.state_dict().items()}
+    shapes.update(extras)
+    shapes.update({"mask_token": (1, 1, 768), "decoder_embed.weight": (512, 768),
+                   "decoder_pos_embed": (1, 197, 512)})
+    shapes[wrong] = (shapes[wrong][0] + 1,) + shapes[wrong][1:]
+    if "pos_embed" in shapes:
+        cls = int(name != "vit_adapter_b")
+        shapes["pos_embed"] = (1, PRETRAINED_POS_GRID ** 2 + cls, shapes["pos_embed"][2])
+    gen = torch.Generator().manual_seed(seed)
+    sd = {}
+    for k, s in shapes.items():
+        if k.endswith("num_batches_tracked"):
+            v = torch.tensor(1000)
+        else:
+            v = torch.randn(s, generator=gen)
+            if k.endswith("running_var"):
+                v = 1.0 + 0.1 * v.abs()
+            elif k.endswith("weight") and len(s) >= 2:
+                v = v * float(np.prod(s[1:])) ** -0.5
+            elif k.endswith(("weight", "gamma1", "gamma2", "gamma")):
+                v = 1.0 + 0.1 * v
+            elif "pos_embed" not in k:
+                v = 0.1 * v
+        sd["module.backbone." + k] = v
+    torch.save({"model": sd}, path)
+    return sd
+
+
+def pretrained_phase(tmp: str):
+    """``pretrained=``: each family's seeded reference checkpoint loaded into
+    its encoder on the card (the loaded / skipped counts against
+    PRETRAINED_COUNTS, every loaded tensor equal to the checkpoint's, the
+    resized pos-embeds finite); K11's weight halves split again on the first
+    forward after a load; one vit_b_rvsa + UperNet step from the loaded
+    state by the control rule of phase 7; ``run_pretrain(pretrained=...)``
+    for PRETRAINED_ITERS steps with an eval (launches as the pretrain
+    phase's).  Returns the run's launches."""
+    from samrs_tpu_torch.core.config import PretrainConfig
+    from samrs_tpu_torch.seg.frameworks import build_multihead_model
+    from samrs_tpu_torch.seg.port import load_backbone_checkpoint
+    from samrs_tpu_torch.seg.registry import get_backbone
+    from samrs_tpu_torch.train import optim, trainer
+    from samrs_tpu_torch.train.pretrain import apply_optim_defaults, run_pretrain
+
+    paths = {}
+    for i, name in enumerate(PRETRAINED_EXTRAS):
+        with torch.device("cuda"):
+            encoder = get_backbone(name, image_size=224).cuda()
+        path = paths[name] = os.path.join(tmp, f"{name}_reference.pth")
+        t = time.perf_counter()
+        sd = write_reference_pth(path, name, encoder, SEED + 10 + i)
+        t_write = time.perf_counter() - t
+        t = time.perf_counter()
+        got = load_backbone_checkpoint(path, encoder)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t
+        counts = (got.family, len(got.loaded), len(got.skipped))
+        print(f"pretrained {name}: family {got.family}, loaded {counts[1]} tensors, skipped "
+              f"{counts[2]} (e.g. {got.skipped[:4]}); written in {t_write:.1f} s, loaded in "
+              f"{t_load:.1f} s", flush=True)
+        if counts != PRETRAINED_COUNTS[name] or PRETRAINED_EXTRAS[name][1] not in got.skipped:
+            raise RuntimeError(f"pretrained {name}: {counts} != {PRETRAINED_COUNTS[name]}, or "
+                               f"the wrong-shaped key was not skipped")
+        state = encoder.state_dict()
+        for k in got.loaded:
+            if k in state and k != "pos_embed" and not torch.equal(
+                    state[k].cpu(), sd["module.backbone." + k].to(state[k].dtype)):
+                raise RuntimeError(f"pretrained {name}: {k} is not the checkpoint's")
+        if "pos_embed" in got.loaded and not torch.isfinite(state["pos_embed"]).all():
+            raise RuntimeError(f"pretrained {name}: non-finite resized pos_embed")
+        del encoder, sd, state
+        torch.cuda.empty_cache()
+
+    # K11's tf32 halves are kept per weight version: the first forward after a load splits again
+    model = build_multihead_model(device="cuda",
+                                  generator=torch.Generator(device="cuda").manual_seed(SEED))
+    x = train_batches(SEED + 6)[0][0][:2]
+    model.eval()
+    with torch.no_grad():
+        model.forward_one(x, 0)
+        reset_counts()
+        model.forward_one(x, 0)
+        cached = read_counts()["K11s"]
+        got = load_backbone_checkpoint(paths["vit_b_rvsa"], model.encoder)
+        model.forward_one(x, 0)
+        resplit = read_counts()["K11s"]
+    # every MLP weight the checkpoint replaced (all but the wrong-shaped one) splits again
+    want = sum(bool(re.fullmatch(r"blocks\.\d+\.mlp\.fc[12]\.weight", k)) for k in got.loaded)
+    print(f"pretrained: K11 weight splits in a forward before the load {cached}, after it "
+          f"{resplit} ({want} MLP weights loaded)", flush=True)
+    if cached != 0 or resplit != want or want != 2 * VIT_DEPTH - 1:
+        raise RuntimeError(f"K11 splits {cached} / {resplit}, want 0 / {want}")
+
+    # the first step from the loaded state, kernels against the plain path by the control rule
+    cfg = PretrainConfig()
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    batches = train_batches(SEED + 7)
+    sched = optim.warmup_cosine_schedule(cfg.optim.lr, cfg.total_iters, cfg.optim.warmup_iters)
+
+    def fresh_state():
+        model.load_state_dict(init)
+        opt = optim.Optimizer(model, sched, weight_decay=cfg.optim.weight_decay,
+                              grad_clip=cfg.optim.grad_clip, layer_decay=cfg.optim.layer_decay,
+                              num_layers=model.encoder.depth)
+        return trainer.TrainState(0, model, opt)
+
+    step = lambda state: trainer.pretrain_step(state, batches, cfg.seed)
+    compare_steps("pretrained step", step_runs(model, fresh_state, step), STEP_LAUNCHES)
+    del model, init, batches
+    torch.cuda.empty_cache()
+
+    # run_pretrain with pretrained=
+    handler = _Lines()
+    log = logging.getLogger("samrs_tpu_torch")
+    log.addHandler(handler)
+    log.setLevel(logging.INFO)
+    root, n_val = os.path.join(tmp, "samrs"), 8
+    if not os.path.isdir(root):
+        write_samrs_layout(root, {"sota": 20, "sior": 15, "fast": 70}, n_val)
+    over = [f"data.root={root}", f"total_iters={PRETRAIN_ITERS}",
+            f"eval_interval={PRETRAIN_ITERS}", f"data.val_images={n_val}",
+            f"pretrained={paths['vit_b_rvsa']}", "init=mae",
+            f"ckpt_dir={os.path.join(tmp, 'pretrained_ckpt')}"]
+    cfg = apply_optim_defaults(PretrainConfig().override(over), over)
+    reset_counts()
+    t = time.perf_counter()
+    try:
+        state = run_pretrain(cfg)
+        torch.cuda.synchronize()
+    finally:
+        log.removeHandler(handler)
+    wall = time.perf_counter() - t
+    launches = read_counts()
+    evals = len(cfg.data.datasets) * -(-n_val // 8)
+    want = {k: 0 for k in launches}
+    want.update(K8f=PRETRAIN_ITERS * STEP_LAUNCHES["K8f"] + evals * RVSA_BLOCKS,
+                K8b=PRETRAIN_ITERS * STEP_LAUNCHES["K8b"],
+                K10=PRETRAIN_ITERS * STEP_LAUNCHES["K10"] + evals * FULL_BLOCKS,
+                K11=PRETRAIN_ITERS * STEP_LAUNCHES["K11"] + evals * VIT_DEPTH,
+                K11s=checked_splits("pretrained run", launches,
+                                    PRETRAIN_ITERS * STEP_LAUNCHES["K11s"]))
+    print("\n".join("pretrained run " + ln for ln in handler.lines), flush=True)
+    print(f"pretrained run launches: {launches} ({PRETRAIN_ITERS} steps + eval in {wall:.1f} s)",
+          flush=True)
+    if launches != want:
+        raise RuntimeError(f"pretrained run launches {launches} != {want}")
+    if state.step != PRETRAIN_ITERS or not any(ln.startswith("[vit] loaded")
+                                               for ln in handler.lines):
+        raise RuntimeError(f"run_pretrain(pretrained=...) at step {state.step}, load logged: "
+                           f"{[ln for ln in handler.lines if 'loaded' in ln]}")
+    del state
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ------------------------------------------------------------------- DDP ----
+DDP_RANKS = 2
+DDP_BATCH = 32                 # data.batch_size of the DDP runs (two ranks share one card)
+DDP_STEPS = 2                  # the steps held against one process
+DDP_TIMED = 3                  # warm steps timed a rank
+DDP_ITERS = 2                  # run_pretrain steps on the two ranks, one eval after them
+DDP_TIMEOUT_S = 600
+
+
+def ddp_sizes():
+    """The DDP runs' global batch a head: DDP_BATCH split as run_pretrain splits
+    it, rounded to the ranks as JAX rounds it to its devices."""
+    from samrs_tpu_torch.train.pretrain import data_parallel_batch, proportional_batch_sizes
+
+    sizes = proportional_batch_sizes(("sota", "sior", "fast"), DDP_BATCH)
+    return tuple(data_parallel_batch(b, DDP_RANKS) for b in sizes.values())
+
+
+def ddp_batches(seed: int, sizes, device):
+    """One global batch: seeded normalized 224^2 images and uniform labels a head."""
+    rng = np.random.default_rng(seed)
+    return [(torch.from_numpy(rng.normal(size=(b, 224, 224, 3)).astype(np.float32)).to(device),
+             torch.from_numpy(rng.integers(0, nc, (b, 224, 224))).to(device))
+            for b, nc in zip(sizes, TRAIN_CLASSES)]
+
+
+def _rows(batches, rank: int):
+    """Rank `rank`'s rows of each global batch: the ranks' batches in rank order."""
+    return [(x.chunk(DDP_RANKS)[rank], y.chunk(DDP_RANKS)[rank]) for x, y in batches]
+
+
+def _host_snapshot(state, losses):
+    """Losses, gradients, AdamW moments and BatchNorm statistics, on the host."""
+    model, opt = state.model, state.optimizer
+    names = {p: n for n, p in model.named_parameters()}
+    return dict(loss=torch.tensor(losses, dtype=torch.float64),
+                grads={n: p.grad.cpu() for n, p in model.named_parameters()},
+                mu={names[p]: s["exp_avg"].cpu() for p, s in opt.opt.state.items()},
+                nu={names[p]: s["exp_avg_sq"].cpu() for p, s in opt.opt.state.items()},
+                stats={k: v.cpu() for k, v in model.state_dict().items() if "running" in k})
+
+
+def _rel(got, want, skip=()) -> float:
+    keys = [k for k in want if k not in skip]
+    num = sum(float(((got[k].double() - want[k].double()) ** 2).sum()) for k in keys)
+    den = sum(float((want[k].double() ** 2).sum()) for k in keys)
+    return (num / den) ** 0.5
+
+
+def ddp_worker(out_dir: str) -> None:
+    """One rank of the DDP phase (started by ``ddp_phase`` with torchrun's
+    variables): the DDP steps against one process (rank 0 runs those), the
+    launches, s/step, peak memory and the all-reduce, and ``run_pretrain``
+    with an eval, checkpoints and a resume; writes ``rank{r}.json``."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from samrs_tpu_torch.core.config import PretrainConfig
+    from samrs_tpu_torch.core.mesh import barrier, init_data_mesh, reduce_grads
+    from samrs_tpu_torch.kernels import _build, fused_mlp
+    from samrs_tpu_torch.seg.frameworks import build_multihead_model
+    from samrs_tpu_torch.train import optim, pretrain, trainer
+
+    mesh = init_data_mesh((-1,), "cuda")
+    r, dev = mesh.rank, mesh.device
+    say = lambda msg: print(f"[rank {r}] {msg}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.library()
+    say(f"backend {mesh.backend}, {torch.cuda.device_count()} card(s) visible, on {dev} "
+        f"({torch.cuda.get_device_name(dev)})")
+    res = {"rank": r, "backend": mesh.backend, "cards": torch.cuda.device_count(),
+           "device": str(dev)}
+    sizes = ddp_sizes()
+    cfg = PretrainConfig()
+    model = build_multihead_model(device=dev, generator=torch.Generator(device=dev).manual_seed(SEED))
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    sched = optim.warmup_cosine_schedule(cfg.optim.lr, cfg.total_iters, cfg.optim.warmup_iters)
+
+    def fresh_state(m):
+        model.load_state_dict(init)
+        opt = optim.Optimizer(model, sched, weight_decay=cfg.optim.weight_decay,
+                              grad_clip=cfg.optim.grad_clip, layer_decay=cfg.optim.layer_decay,
+                              num_layers=model.encoder.depth)
+        return trainer.TrainState(0, model, opt, m)
+
+    batches = [ddp_batches(SEED + 20 + i, sizes, dev) for i in range(DDP_STEPS)]
+    # check 1 and 2: DDP_STEPS steps on the rank's rows, dropout and drop-path on; launches
+    state = fresh_state(mesh)
+    reset_counts()
+    losses = [float(trainer.pretrain_step(state, _rows(batches[i], r), cfg.seed)["loss"])
+              for i in range(DDP_STEPS)]
+    torch.cuda.synchronize()
+    res["step_launches"] = read_counts()
+    ddp = _host_snapshot(state, losses)
+    stats = torch.cat([v.flatten() for v in ddp["stats"].values()]).to(dev)
+    sums = torch.stack([p.detach().double().sum() for p in model.parameters()])
+    res["stats_equal"] = all(torch.equal(g, stats) for g in _all_gather(dist, stats))
+    res["params_equal"] = all(torch.equal(g, sums) for g in _all_gather(dist, sums))
+    say(f"{DDP_STEPS} steps on {[b[0].shape[0] // DDP_RANKS for b in batches[0]]} images a head: "
+        f"losses {losses}, launches {res['step_launches']}; BatchNorm statistics equal on the "
+        f"ranks {res['stats_equal']}, parameters {res['params_equal']}")
+    state.optimizer.zero_grad()
+    del state
+    torch.cuda.empty_cache()
+    if r == 0:  # one process on the rank-ordered global batch: kernels, plain, control
+        runs, plain_mlp = {}, fused_mlp.fused_mlp_plain
+        for mode in ("kernels", "plain", "control"):
+            model.use_kernels = mode == "kernels"
+            fused_mlp.fused_mlp_plain = split_mlp_plain if mode == "control" else plain_mlp
+            try:
+                state = fresh_state(None)
+                ls = [float(trainer.pretrain_step(state, batches[i], cfg.seed)["loss"])
+                      for i in range(DDP_STEPS)]
+                runs[mode] = _host_snapshot(state, ls)
+            finally:
+                fused_mlp.fused_mlp_plain = plain_mlp
+                model.use_kernels = True
+            state.optimizer.zero_grad()
+            del state
+            torch.cuda.empty_cache()
+        k, p, c = runs["kernels"], runs["plain"], runs["control"]
+        dloss = float(((ddp["loss"] - k["loss"]).abs() / k["loss"].abs()).max())
+        closs = float(((c["loss"] - p["loss"]).abs() / p["loss"].abs()).max())
+        say(f"one process, {sum(sizes)} images: losses kernels {k['loss'].tolist()}, plain "
+            f"{p['loss'].tolist()}, control {c['loss'].tolist()}; DDP vs one process |d|/loss "
+            f"{dloss:.3e} (control vs plain {closs:.3e}, limit {STEP_LOSS_RTOL})")
+        if not dloss <= STEP_LOSS_RTOL:
+            raise RuntimeError(f"DDP loss |d|/loss {dloss:.3e} > {STEP_LOSS_RTOL}")
+        res["dist"] = {}
+        for what in ("grads", "mu", "nu", "stats"):
+            skip = ZERO_GRAD if what != "stats" else ()
+            d, ctl = _rel(ddp[what], k[what], skip), _rel(c[what], p[what], skip)
+            res["dist"][what] = (d, ctl)
+            say(f"{what}: DDP vs one process rel_l2 {d:.3e}, control {ctl:.3e} (ratio "
+                f"{d / max(ctl, 1e-30):.2f}, limit {CONTROL_FACTOR})")
+            if not d <= CONTROL_FACTOR * ctl:
+                raise RuntimeError(f"DDP {what} rel-L2 {d:.3e} > {CONTROL_FACTOR} x control "
+                                   f"{ctl:.3e}")
+        del runs, k, p, c
+    del ddp
+    barrier(mesh)
+
+    # check 3: warm s/step a rank, peak memory, the gradient all-reduce alone and in a profile
+    state = fresh_state(mesh)
+    local = _rows(batches[0], r)
+    trainer.pretrain_step(state, local, cfg.seed)
+    torch.cuda.reset_peak_memory_stats(dev)
+    times = []
+    for _ in range(DDP_TIMED):
+        torch.cuda.synchronize()
+        barrier(mesh)
+        t = time.perf_counter()
+        trainer.pretrain_step(state, local, cfg.seed)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    res["s_step"], res["peak_bytes"] = statistics.median(times), torch.cuda.max_memory_allocated(dev)
+    params = state.optimizer.params
+    reduce_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        barrier(mesh)
+        t = time.perf_counter()
+        reduce_grads(params, mesh)
+        torch.cuda.synchronize()
+        reduce_ms.append((time.perf_counter() - t) * 1e3)
+    res["grad_all_reduce_ms"] = statistics.median(reduce_ms)
+    n_grad = sum(p.grad.numel() for p in params if p.grad is not None)
+    torch.cuda.synchronize()
+    barrier(mesh)
+    t = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.pretrain_step(state, local, cfg.seed)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t) * 1e3
+    events = {e.key: e for e in prof.key_averages()}
+    # BatchNorm's moment sums (mesh._AllReduceSum, forward and backward: host time, the wait
+    # for the other rank included), the step's c10d all-reduce calls, NCCL's device time
+    bn_fwd, bn_bwd = (events[k].cpu_time_total / 1e3 if k in events else 0.0
+                      for k in ("_AllReduceSum", "_AllReduceSumBackward"))
+    calls = events["c10d::allreduce_"].count if "c10d::allreduce_" in events else 0
+    nccl_ms = sum(e.self_device_time_total for k, e in events.items()
+                  if k.startswith(("ncclDevKernel", "ncclKernel"))) / 1e3
+    res.update(profile_wall_ms=wall_ms, profile_bn_sync_ms=(bn_fwd, bn_bwd),
+               profile_allreduce_calls=calls, profile_nccl_device_ms=nccl_ms)
+    say(f"{res['s_step']:.4f} s/step ({sum(b.shape[0] for b, _ in local)} images on this rank, "
+        f"{DDP_RANKS} ranks), peak memory {res['peak_bytes'] / 2**30:.2f} GiB; gradient "
+        f"all-reduce ({n_grad / 1e6:.1f} M fp32) {res['grad_all_reduce_ms']:.1f} ms "
+        f"({100 * res['grad_all_reduce_ms'] / 1e3 / res['s_step']:.1f}% of the step); profiled "
+        f"step {wall_ms:.1f} ms: {calls} all-reduce calls, BatchNorm sums {bn_fwd:.1f} ms forward "
+        f"+ {bn_bwd:.1f} ms backward of host time (waits for the other rank included), NCCL "
+        f"kernels {nccl_ms:.1f} ms of device time")
+    state.optimizer.zero_grad()
+    del state, model, init, batches, local, params
+    torch.cuda.empty_cache()
+
+    # check 4: run_pretrain on the ranks, an eval, rank-0 checkpoints, a resume
+    lines, saves = [], []
+    handler = logging.Handler()
+    handler.emit = lambda rec: lines.append(rec.getMessage())
+    log = logging.getLogger("samrs_tpu_torch.pretrain")
+    log.addHandler(handler)
+    log.setLevel(logging.INFO)
+    real_save = pretrain.save_train_state
+    pretrain.save_train_state = lambda *a, **kw: (saves.append(a[4]), real_save(*a, **kw))
+    n_val = 8
+    over = [f"data.root={os.path.join(os.path.dirname(out_dir), 'samrs')}",
+            f"total_iters={DDP_ITERS}", f"eval_interval={DDP_ITERS}", f"data.val_images={n_val}",
+            f"data.batch_size={DDP_BATCH}", f"ckpt_dir={os.path.join(out_dir, 'ckpt')}"]
+    cfg = pretrain.apply_optim_defaults(PretrainConfig().override(over), over)
+    try:
+        reset_counts()
+        state = pretrain.run_pretrain(cfg)
+        torch.cuda.synchronize()
+        res["run_launches"] = read_counts()
+        res["run_step"], res["run_saves"] = state.step, list(saves)
+        trained = {k: v.clone() for k, v in state.model.state_dict().items()}
+        del state
+        torch.cuda.empty_cache()
+        over2 = over + ["resume=last"]
+        resumed = pretrain.run_pretrain(pretrain.apply_optim_defaults(
+            PretrainConfig().override(over2), over2))
+        res["resume_step"] = resumed.step
+        res["resume_same"] = all(torch.equal(resumed.model.state_dict()[k], v)
+                                 for k, v in trained.items())
+    finally:
+        pretrain.save_train_state = real_save
+        log.removeHandler(handler)
+    res["eval_lines"] = [ln for ln in lines if ln.startswith(("val[", f"iter {DDP_ITERS} eval"))]
+    res["batch_line"] = next(ln for ln in lines if ln.startswith("per-dataset batch sizes"))
+    say(f"run_pretrain: {res['batch_line']}; launches {res['run_launches']}; "
+        f"{res['eval_lines']}; saved {res['run_saves']}; resumed at step {res['resume_step']}, "
+        f"weights restored {res['resume_same']}")
+    with open(os.path.join(out_dir, f"rank{r}.json"), "w") as f:
+        json.dump(res, f)
+    barrier(mesh)
+    dist.destroy_process_group()
+
+
+def _all_gather(dist, t):
+    out = [torch.empty_like(t) for _ in range(dist.get_world_size())]
+    dist.all_gather(out, t)
+    return out
+
+
+def ddp_phase(tmp: str):
+    """Two ranks of ``python3 chip_smoke.py --ddp-worker`` with torchrun's
+    variables: on two cards over NCCL, or both on one card over gloo (the
+    backend rule of core/mesh.py).  vit_b_rvsa + UperNet at full width and
+    depth, the global batch cut to DDP_BATCH (ddp_sizes a head, half a
+    rank).  Check 1: DDP_STEPS steps against one process on the rank-ordered
+    global batch (rank 0 runs it: kernels, plain, control), losses within
+    STEP_LOSS_RTOL, gradients, AdamW moments and BatchNorm statistics within
+    CONTROL_FACTOR x the control's distance, the statistics and parameters
+    equal on the ranks; check 2: K8 / K10 / K11 launches inside each rank;
+    check 3: s/step, peak memory, the gradient all-reduce's ms and a
+    profile's all-reduce share; check 4: run_pretrain for DDP_ITERS steps
+    with an eval (the same lines on both ranks), checkpoints from rank 0
+    only, a resume on both.  A rank that fails fails the phase, and the
+    other is stopped.  Returns the ranks' results."""
+    import socket
+
+    from samrs_tpu_torch.core.mesh import backend_rule
+
+    root = os.path.join(tmp, "samrs")
+    if not os.path.isdir(root):
+        write_samrs_layout(root, {"sota": 20, "sior": 15, "fast": 70}, 8)
+    out = os.path.join(tmp, "ddp")
+    os.makedirs(out)
+    cards = torch.cuda.device_count()
+    print(f"ddp: {DDP_RANKS} ranks on {min(cards, DDP_RANKS)} of {cards} card(s), backend "
+          f"{backend_rule('cuda', DDP_RANKS, cards)}; global batch {DDP_BATCH} -> {ddp_sizes()} a "
+          f"head", flush=True)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    procs, logs = [], []
+    t = time.perf_counter()
+    for r in range(DDP_RANKS):
+        env = dict(os.environ, RANK=str(r), LOCAL_RANK=str(r), WORLD_SIZE=str(DDP_RANKS),
+                   LOCAL_WORLD_SIZE=str(DDP_RANKS), MASTER_ADDR="localhost",
+                   MASTER_PORT=str(port))
+        logs.append(open(os.path.join(out, f"rank{r}.log"), "w+"))
+        procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), "--ddp-worker",
+                                       out], env=env, stdout=logs[-1], stderr=subprocess.STDOUT))
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs):
+                break
+            if time.perf_counter() - t > DDP_TIMEOUT_S:
+                break
+            time.sleep(1.0)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    wall = time.perf_counter() - t
+    for r, f in enumerate(logs):
+        f.seek(0)
+        print("".join(f"ddp {ln}" for ln in f.readlines()[-60:]), end="", flush=True)
+        f.close()
+    if any(p.returncode != 0 for p in procs):
+        raise RuntimeError(f"ddp: rank exit codes {[p.returncode for p in procs]} after "
+                           f"{wall:.1f} s")
+    ranks = []
+    for r in range(DDP_RANKS):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    per_step = {k: DDP_STEPS * v for k, v in STEP_LAUNCHES.items()}
+    evals = 3 * -(-(8 // DDP_RANKS) // 8)  # each rank's share of the 8 val images a head
+    per_run = {k: DDP_ITERS * v for k, v in STEP_LAUNCHES.items()}
+    per_run.update(K8f=per_run["K8f"] + evals * RVSA_BLOCKS,
+                   K10=per_run["K10"] + evals * FULL_BLOCKS, K11=per_run["K11"] + evals * VIT_DEPTH)
+    for res in ranks:
+        for got, want, what in ((res["step_launches"], per_step, "steps"),
+                                (res["run_launches"], per_run, "run_pretrain")):
+            want = {k: want.get(k, 0) for k in got}
+            want["K11s"] = checked_splits(f"ddp {what} rank {res['rank']}", got, want["K11s"])
+            if got != want:
+                raise RuntimeError(f"ddp rank {res['rank']} {what} launches {got} != {want}")
+        if not (res["stats_equal"] and res["params_equal"]):
+            raise RuntimeError(f"ddp rank {res['rank']}: statistics or parameters differ")
+        if res["run_step"] != DDP_ITERS or res["resume_step"] != DDP_ITERS or \
+                not res["resume_same"]:
+            raise RuntimeError(f"ddp rank {res['rank']}: run at step {res['run_step']}, resumed "
+                               f"at {res['resume_step']}, weights restored {res['resume_same']}")
+    if ranks[0]["eval_lines"] != ranks[1]["eval_lines"] or len(ranks[0]["eval_lines"]) != 4:
+        raise RuntimeError(f"ddp eval lines differ: {[r['eval_lines'] for r in ranks]}")
+    if ranks[0]["run_saves"] != ["last", "best"] or any(r["run_saves"] for r in ranks[1:]):
+        raise RuntimeError(f"ddp checkpoints saved by rank: {[r['run_saves'] for r in ranks]}")
+    files = sorted(os.listdir(os.path.join(out, "ckpt")))
+    if not {"last.pt", "last_encoder.pt", "best.pt", "best_encoder.pt"} <= set(files):
+        raise RuntimeError(f"ddp checkpoints written: {files}")
+    print(f"ddp: {DDP_RANKS} ranks, backend {ranks[0]['backend']}, {ranks[0]['cards']} card(s) "
+          f"({', '.join(r['device'] for r in ranks)}); s/step a rank "
+          f"{[round(r['s_step'], 4) for r in ranks]}, peak GiB "
+          f"{[round(r['peak_bytes'] / 2**30, 2) for r in ranks]}, gradient all-reduce ms "
+          f"{[round(r['grad_all_reduce_ms'], 1) for r in ranks]}; the same eval lines on both "
+          f"ranks, checkpoints from rank 0 only; phase wall {wall:.1f} s", flush=True)
+    return ranks
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -4258,7 +4825,7 @@ def main() -> None:
     ap.add_argument("--only", choices=("kernels", "gemm", "main", "fleet", "amg", "modes",
                                        "configs", "sizes", "slab", "internimage", "mlp", "gather",
                                        "steps", "point_sample", "mask2former", "adapter",
-                                       "backbones"),
+                                       "backbones", "pretrained", "ddp"),
                     action="append",
                     help="run only these phases (a partial check: no kernels line): K1-K7 at "
                          "the main path's shapes (kernels), the encoder's GEMM (gemm), the main "
@@ -4273,7 +4840,10 @@ def main() -> None:
                          "(point_sample), the Mask2Former step alone (mask2former), K8 at the "
                          "ViT-Adapter's shapes, its step and its drivers (adapter), K11 at the "
                          "Swin-T / ViTAEv2-S shapes, the swin_t / vitaev2_s / resnet50 steps, "
-                         "the swin_t finetune step at 512^2 and their drivers (backbones)")
+                         "the swin_t finetune step at 512^2 and their training runs (backbones), "
+                         "the seven families' torch checkpoints and run_pretrain(pretrained=) "
+                         "(pretrained), two ranks of data-parallel training (ddp)")
+    ap.add_argument("--ddp-worker", metavar="DIR", help=argparse.SUPPRESS)
     args = ap.parse_args()
     t_start = time.perf_counter()
     # the 94-image pretrain step peaks near 80 GB; growable segments keep the
@@ -4281,6 +4851,9 @@ def main() -> None:
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: torch.cuda.is_available() is False; this script runs on a GPU only")
+    if args.ddp_worker:  # one rank of ddp_phase
+        ddp_worker(args.ddp_worker)
+        return
     from samrs_tpu_torch.kernels import _build
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -4350,6 +4923,12 @@ def main() -> None:
             internimage_step_phase(args.profile)
             mask2former_step_phase(args.profile)
             finetune_step_phase(args.profile)
+        if "pretrained" in args.only:
+            with tempfile.TemporaryDirectory() as tmp:
+                pretrained_phase(tmp)
+        if "ddp" in args.only:
+            with tempfile.TemporaryDirectory() as tmp:
+                ddp_phase(tmp)
         if "internimage" in args.only:
             internimage_step_phase(args.profile)
             with tempfile.TemporaryDirectory() as tmp:
@@ -4450,6 +5029,10 @@ def main() -> None:
         ft_launches, model = finetune_driver_phase(tmp, encoder_ckpt)
         test_launches = test_phase(tmp, model)
         del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        pretrained_launches = pretrained_phase(tmp)
+        ddp = ddp_phase(tmp)
     for key in ("K8f", "K8b"):  # K8's paths: pretraining (UperNet, Mask2Former), finetuning
         results[key]["launches"] = pre_launches[key]
         results[key]["launches_per_step"] = STEP_LAUNCHES[key]
@@ -4467,6 +5050,12 @@ def main() -> None:
         results[key]["launches_pretrain"] = pre_launches[key]
         results[key]["launches_per_pretrain_step"] = STEP_LAUNCHES[key]
         results[key]["launches_mask2former"] = m2f_launches[key]
+    for key in ("K8f", "K8b", "K10", "K11", "K11s"):  # this slice's path: pretrained=, DDP
+        results[key]["launches_pretrained"] = pretrained_launches[key]
+        for res in ddp:
+            results[key][f"launches_ddp_rank{res['rank']}"] = res["run_launches"][key]
+            results[key][f"launches_ddp_rank{res['rank']}_per_{DDP_STEPS}_steps"] = \
+                res["step_launches"][key]
     for key in ("K8f", "K8b"):  # InternImage's DCNv3 through dense K8
         results[key]["launches_internimage"] = ii_launches[key]
         results[key]["launches_per_internimage_step"] = II_STEP_LAUNCHES[key]

@@ -201,9 +201,10 @@ class DataConfig(Config):
 
 @dataclass
 class PretrainConfig(Config):
-    """samrs_tpu.core.config.PretrainConfig.  The port trains on one card:
-    ``mesh_shape`` / ``mesh_axes`` are kept for the same overrides and must
-    name one device."""
+    """samrs_tpu.core.config.PretrainConfig, plus ``device``.  The data mesh
+    is the ranks torchrun starts, one card each (``core/mesh.py``):
+    ``mesh_shape`` (-1) is every rank, an explicit shape must multiply to
+    the world size; ``mesh_axes`` is kept for the same overrides."""
 
     backbone: str = "vit_b_rvsa"
     decoder: str = "upernet"

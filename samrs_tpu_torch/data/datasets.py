@@ -118,30 +118,42 @@ class ISAIDDataset(SegmentationDataset):
 
 
 class DataLoader:
-    """Shuffled, prefetching batch iterator: a thread pool decodes and
-    augments `prefetch` batches ahead.  (The JAX loader's per-process
-    sharding comes with DDP, ROADMAP.md.)"""
+    """Shuffled, sharded, prefetching batch iterator (JAX ``DataLoader``).
+
+    Process `process_index` of `process_count` reads indices
+    ``process_index::process_count`` of each epoch's permutation (the
+    DistributedSampler equivalent); a thread pool decodes and augments
+    `prefetch` batches ahead.  With ``drop_last`` every process counts
+    ``len(dataset) // process_count`` items, as the JAX loader does, so all
+    ranks take the same number of steps; without it a process counts its own
+    shard, so every image is read once (the JAX loader counts the same floor
+    there and may leave a shard's last image out)."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True, seed: int = 0,
-                 num_threads: int = 4, prefetch: int = 4, drop_last: bool = True):
+                 process_index: int = 0, process_count: int = 1, num_threads: int = 4,
+                 prefetch: int = 4, drop_last: bool = True):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
+        self.process_index = process_index
+        self.process_count = process_count
         self.num_threads = num_threads
         self.prefetch = prefetch
         self.drop_last = drop_last
         self.epoch = 0
 
     def __len__(self) -> int:
-        n = len(self.dataset)
-        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+        if self.drop_last:
+            return len(self.dataset) // self.process_count // self.batch_size
+        n = len(range(self.process_index, len(self.dataset), self.process_count))
+        return -(-n // self.batch_size)
 
     def _epoch_indices(self) -> np.ndarray:
         n = len(self.dataset)
-        if not self.shuffle:
-            return np.arange(n)
-        return np.random.default_rng(self.seed + self.epoch).permutation(n)
+        order = (np.random.default_rng(self.seed + self.epoch).permutation(n) if self.shuffle
+                 else np.arange(n))
+        return order[self.process_index::self.process_count]
 
     def __iter__(self) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
         idx = self._epoch_indices()

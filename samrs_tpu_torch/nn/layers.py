@@ -20,6 +20,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from samrs_tpu_torch.core.mesh import active
+
 
 class LayerNorm2d(nn.Module):
     """LayerNorm over the channel axis of an NCHW tensor (common.py:31-43),
@@ -96,8 +98,18 @@ def window_unpartition(windows: torch.Tensor, window_size: int, pad_hw: Tuple[in
 
 
 def _keep_mask(shape, keep: float, x: torch.Tensor, generator) -> torch.Tensor:
-    """Bernoulli(keep) bool mask of `shape` drawn from `generator` on x's device."""
-    return torch.empty(shape, dtype=torch.bool, device=x.device).bernoulli_(keep, generator=generator)
+    """Bernoulli(keep) bool mask of `shape` drawn from `generator` on x's
+    device.  In a data-parallel step (``mesh.active()``) x holds this rank's
+    rows of the global batch, the ranks' batches in rank order (JAX's global
+    array): the mask of the global shape is drawn and the rank's rows kept,
+    so every rank uses the generator as one process on the global batch does."""
+    dp = active()
+    if dp is None:
+        return torch.empty(shape, dtype=torch.bool, device=x.device).bernoulli_(
+            keep, generator=generator)
+    n = shape[0]
+    full = torch.empty((n * dp.world,) + tuple(shape[1:]), dtype=torch.bool, device=x.device)
+    return full.bernoulli_(keep, generator=generator)[dp.rank * n:(dp.rank + 1) * n]
 
 
 class DropPath(nn.Module):
@@ -150,6 +162,31 @@ def jax_resize_weights(n_in: int, n_out: int, kernel) -> np.ndarray:
     w = np.where(ok, w / np.where(total != 0, total, 1.0), 0.0)
     inside = (sample >= -0.5) & (sample <= n_in - 0.5)
     return np.where(inside[None, :], w, 0.0).astype(np.float32)
+
+
+def _keys_cubic(x: np.ndarray) -> np.ndarray:
+    """Keys' cubic kernel with a = -0.5 (jax.image's "bicubic")."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = np.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return np.where(x >= 2.0, 0.0, out).astype(np.float32)
+
+
+def jax_bicubic_weights(n_in: int, n_out: int) -> np.ndarray:
+    """(n_in, n_out) fp32 weights of ``jax.image.resize(..., "bicubic")`` along
+    one axis (``jax_resize_weights`` with Keys' cubic: half-pixel centres,
+    antialiased on a downscale); torch's bicubic (a = -0.75, no antialias)
+    differs."""
+    return jax_resize_weights(n_in, n_out, _keys_cubic)
+
+
+def resize_bicubic_jax(x: torch.Tensor, out_hw: Tuple[int, int],
+                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``jax.image.resize(x, (B, h, w, C), "bicubic")`` of an NHWC tensor,
+    computed and returned in `dtype` (fp32 weights either way)."""
+    H, W = x.shape[1:3]
+    wh = torch.from_numpy(jax_bicubic_weights(H, out_hw[0])).to(x.device, dtype)
+    ww = torch.from_numpy(jax_bicubic_weights(W, out_hw[1])).to(x.device, dtype)
+    return torch.einsum("bhwc,hy,wx->byxc", x.to(dtype), wh, ww)
 
 
 _MAX_INTERP = 2**31 - 1  # output elements of one F.interpolate call

@@ -18,7 +18,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from samrs_tpu_torch.nn.layers import checkpoint_with_generator, jax_resize_weights
+from samrs_tpu_torch.nn.layers import checkpoint_with_generator, resize_bicubic_jax
+from samrs_tpu_torch.nn.layers import jax_bicubic_weights  # noqa: F401 (importable here too)
 from samrs_tpu_torch.sam.image_encoder import PatchEmbed
 from samrs_tpu_torch.seg.backbones.vit_common import FullAttentionRelPos, ViTBlock, ViTFPNNeck
 
@@ -28,28 +29,6 @@ class PlainAttention(FullAttentionRelPos):
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True) -> None:
         super().__init__(dim, num_heads, qkv_bias, use_rel_pos=False)
-
-
-def _keys_cubic(x: np.ndarray) -> np.ndarray:
-    """Keys' cubic kernel with a = -0.5 (jax.image's "bicubic")."""
-    out = ((1.5 * x - 2.5) * x) * x + 1.0
-    out = np.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
-    return np.where(x >= 2.0, 0.0, out).astype(np.float32)
-
-
-def jax_bicubic_weights(n_in: int, n_out: int) -> np.ndarray:
-    """(n_in, n_out) fp32 weights of ``jax.image.resize(..., "bicubic")`` along
-    one axis (``jax_resize_weights`` with Keys' cubic); torch's bicubic (a =
-    -0.75, no antialias) differs."""
-    return jax_resize_weights(n_in, n_out, _keys_cubic)
-
-
-def resize_bicubic_jax(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
-    """``jax.image.resize(x, (B, h, w, C), "bicubic")`` of an NHWC tensor, in fp32."""
-    H, W = x.shape[1:3]
-    wh = torch.from_numpy(jax_bicubic_weights(H, out_hw[0])).to(x.device)
-    ww = torch.from_numpy(jax_bicubic_weights(W, out_hw[1])).to(x.device)
-    return torch.einsum("bhwc,hy,wx->byxc", x.float(), wh, ww)
 
 
 class ViTSeg(ViTFPNNeck):

@@ -45,9 +45,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from samrs_tpu_torch.kernels import bilinear_gather
-from samrs_tpu_torch.nn.layers import checkpoint_with_generator, resize_bilinear
+from samrs_tpu_torch.nn.layers import (checkpoint_with_generator, resize_bicubic_jax,
+                                       resize_bilinear)
 from samrs_tpu_torch.sam.image_encoder import PatchEmbed
-from samrs_tpu_torch.seg.backbones.vit import PlainAttention, resize_bicubic_jax
+from samrs_tpu_torch.seg.backbones.vit import PlainAttention
 from samrs_tpu_torch.seg.backbones.vit_common import ViTBlock
 from samrs_tpu_torch.seg.decoders.blocks import BatchNorm
 

@@ -13,6 +13,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from samrs_tpu_torch.core.mesh import active, all_reduce_sum
 from samrs_tpu_torch.nn.layers import recomputing, resize_bilinear
 
 __all__ = ["BatchNorm", "ConvBNReLU", "SCSEModule", "adaptive_avg_pool", "resize_bilinear",
@@ -22,7 +23,8 @@ __all__ = ["BatchNorm", "ConvBNReLU", "SCSEModule", "adaptive_avg_pool", "resize
 class BatchNorm(nn.Module):
     """Batch statistics in training, running statistics in eval; the running
     statistics are updated once a forward, not again when a checkpointed
-    block runs a second time in the backward."""
+    block runs a second time in the backward.  Inside a data-parallel step
+    (``mesh.sharded``) the batch statistics are the global batch's."""
 
     def __init__(self, features: int, momentum: float = 0.9, eps: float = 1e-5) -> None:
         super().__init__()
@@ -37,6 +39,9 @@ class BatchNorm(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
                                 False, 0.0, self.eps)
+        dp = active()
+        if dp is not None:
+            return self._forward_global(x, dp)
         if x.numel() == x.shape[1]:
             # one value per channel (a batch of 1 after the 1x1 pool), which
             # F.batch_norm refuses: zero variance, so the output is the bias
@@ -51,6 +56,29 @@ class BatchNorm(nn.Module):
             var, mean = torch.var_mean(x.float(), (0, 2, 3), unbiased=False)
             self.running_mean.mul_(self.momentum).add_(mean, alpha=1.0 - self.momentum)
             self.running_var.mul_(self.momentum).add_(var, alpha=1.0 - self.momentum)
+        return y
+
+    def _forward_global(self, x: torch.Tensor, dp) -> torch.Tensor:
+        """Training over a data-parallel global batch (flax's BatchNorm on a
+        sharded array): the moments are sums over every rank's rows, in two
+        passes (the mean, then the centred squares) as F.batch_norm forms
+        them, each summed with a gradient through the reduction.  A global
+        batch of one value per channel gives zero variance and the bias, as
+        the one-process branch does; one image on each rank is not that."""
+        C = x.shape[1]
+        dims = (0, 2, 3)
+        count = x.new_tensor(float(x.numel() // C))
+        sums = all_reduce_sum(torch.cat([x.sum(dims), count[None]]), dp)
+        n = sums[C].detach()
+        mean = sums[:C] / n
+        xc = x - mean[:, None, None]
+        var = all_reduce_sum((xc * xc).sum(dims), dp) / n
+        y = xc * torch.rsqrt(var + self.eps)[:, None, None] * self.weight[:, None, None] \
+            + self.bias[:, None, None]
+        if not recomputing():
+            with torch.no_grad():
+                self.running_mean.mul_(self.momentum).add_(mean, alpha=1.0 - self.momentum)
+                self.running_var.mul_(self.momentum).add_(var, alpha=1.0 - self.momentum)
         return y
 
 

@@ -1,7 +1,8 @@
-"""Single-dataset finetuning on one card (mirrors samrs_tpu/train/finetune.py;
-reference ED/main_finetune.py).
+"""Single-dataset finetuning (mirrors samrs_tpu/train/finetune.py; reference
+ED/main_finetune.py).
 
     python -m samrs_tpu_torch.train.finetune [key=value ...]
+    torchrun --nproc_per_node=N -m samrs_tpu_torch.train.finetune [key=value ...]
 
 takes the JAX entry point's ``FinetuneConfig`` and dotted overrides
 (``dataset=potsdam``, ``data.root=...``, ``epochs=...``, ``pretrained=...``),
@@ -13,7 +14,11 @@ validation scores (mIoU / mF1 / OA, iSAID without the background class,
 :490-529) and the ``last`` / ``best`` checkpoints.  ``pretrained`` grafts a
 SEP encoder checkpoint (the ``{tag}_encoder.pt`` that ``run_pretrain``
 writes), its pos-embed resized to the new grid with torch's bicubic
-(:290-361).
+(:290-361).  Under torchrun each rank drives one card: the batch is rounded
+to the ranks as the JAX entry point rounds it to its devices, each rank reads its
+shard of the training and validation sets, the step is the global batch's,
+the validation histograms are summed over the ranks and rank 0 alone writes
+the checkpoints.
 """
 
 from __future__ import annotations
@@ -30,13 +35,15 @@ import torch.nn.functional as F
 
 from samrs_tpu_torch.core.checkpoint import save_train_state
 from samrs_tpu_torch.core.config import FinetuneConfig
+from samrs_tpu_torch.core.logging_utils import setup_logger
+from samrs_tpu_torch.core.mesh import DataMesh, all_reduce_, barrier, init_data_mesh
 from samrs_tpu_torch.core.metrics import segmentation_scores
 from samrs_tpu_torch.data.datasets import DataLoader, ISAIDDataset, ISPRSDataset
 from samrs_tpu_torch.data.transforms import EvalAugment, TrainAugment
 from samrs_tpu_torch.seg.frameworks import SegModel, build_seg_model
 from samrs_tpu_torch.train.optim import (Optimizer, backbone_optim_settings,
                                          warmup_cosine_schedule)
-from samrs_tpu_torch.train.pretrain import to_device
+from samrs_tpu_torch.train.pretrain import data_parallel_batch, to_device
 from samrs_tpu_torch.train.trainer import TrainState, eval_step, finetune_step
 
 logger = logging.getLogger("samrs_tpu_torch.finetune")
@@ -81,12 +88,15 @@ def load_pretrained_encoder(model: SegModel, ckpt_path: str) -> None:
 
 
 def evaluate_simple(model: SegModel, dataset_val, num_classes: int, skip_bg: bool,
-                    batch_size: int = 8) -> dict:
+                    batch_size: int = 8, mesh: Optional[DataMesh] = None) -> dict:
     """Scores on the validation split; the tail batch is padded to
-    `batch_size` with ignored labels, so every image counts once."""
+    `batch_size` with ignored labels, so every image counts once.  Each rank
+    takes its shard; the histograms are summed over the ranks."""
     device = next(model.parameters()).device
     hist = torch.zeros(3, num_classes, dtype=torch.int64, device=device)
-    loader = DataLoader(dataset_val, batch_size=batch_size, shuffle=False, drop_last=False)
+    rank, ranks = (0, 1) if mesh is None else (mesh.rank, mesh.world)
+    loader = DataLoader(dataset_val, batch_size=batch_size, shuffle=False, drop_last=False,
+                        process_index=rank, process_count=ranks)
     for x, y in loader:
         if x.shape[0] < batch_size:
             pad = batch_size - x.shape[0]
@@ -94,7 +104,7 @@ def evaluate_simple(model: SegModel, dataset_val, num_classes: int, skip_bg: boo
             y = np.concatenate([y, np.full((pad, *y.shape[1:]), 255, y.dtype)])
         hist += torch.stack(eval_step(model, to_device(x, device), to_device(y, device),
                                       num_classes))
-    inter, target, union = hist.cpu().numpy().astype(np.float64)
+    inter, target, union = all_reduce_(hist, mesh).cpu().numpy().astype(np.float64)
     return segmentation_scores(inter, target, union, skip_background=skip_bg)
 
 
@@ -110,10 +120,11 @@ def build_datasets(cfg: FinetuneConfig, size: int):
 def run_finetune(cfg: FinetuneConfig, model: Optional[SegModel] = None, dataset_trn=None,
                  dataset_val=None) -> TrainState:
     """The epoch loop; the model and datasets are injectable (tests).  Runs on
-    ``cfg.device`` and never moves elsewhere."""
+    ``cfg.device`` (each rank on its card) and never moves elsewhere."""
     _, num_classes, default_size, skip_bg = FINETUNE_DATASETS[cfg.dataset]
     size = cfg.image_size or default_size
-    device = torch.device(cfg.device)
+    mesh = init_data_mesh((-1,), cfg.device)
+    device = mesh.device
     if model is None:
         model = build_seg_model(cfg.backbone, cfg.decoder, num_classes, size, device,
                                 torch.Generator(device=device).manual_seed(cfg.seed))
@@ -124,7 +135,9 @@ def run_finetune(cfg: FinetuneConfig, model: Optional[SegModel] = None, dataset_
     if dataset_trn is None:
         dataset_trn, dataset_val = build_datasets(cfg, size)
 
-    loader = DataLoader(dataset_trn, batch_size=cfg.batch_size, seed=cfg.seed,
+    batch = data_parallel_batch(cfg.batch_size, mesh.world)
+    loader = DataLoader(dataset_trn, batch_size=batch // mesh.world, seed=cfg.seed,
+                        process_index=mesh.rank, process_count=mesh.world,
                         num_threads=cfg.data.num_workers)
     total_steps = max(len(loader), 1) * cfg.epochs
     sched = warmup_cosine_schedule(cfg.optim.lr, total_steps, cfg.optim.warmup_iters,
@@ -135,9 +148,9 @@ def run_finetune(cfg: FinetuneConfig, model: Optional[SegModel] = None, dataset_
                     layer_decay=cfg.optim.layer_decay, num_layers=bset["num_layers"],
                     layer_id_scheme=bset["scheme"], depths=bset["depths"],
                     optimizer=cfg.optim.optimizer)
-    state = TrainState(0, model, opt)
-    logger.info("finetune %s: %d images, batch %d, %d steps on %s", cfg.dataset,
-                len(dataset_trn), cfg.batch_size, total_steps, device)
+    state = TrainState(0, model, opt, mesh)
+    logger.info("finetune %s: %d images, batch %d over %d rank(s), %d steps, rank %d on %s",
+                cfg.dataset, len(dataset_trn), batch, mesh.world, total_steps, mesh.rank, device)
 
     best = -1.0
     for epoch in range(cfg.epochs):
@@ -147,24 +160,34 @@ def run_finetune(cfg: FinetuneConfig, model: Optional[SegModel] = None, dataset_
             metrics = finetune_step(state, to_device(x, device), to_device(y, device),
                                     cfg.seed + 2)
             losses.append(metrics["loss"])
-        scores = evaluate_simple(model, dataset_val, num_classes, skip_bg)
+        scores = evaluate_simple(model, dataset_val, num_classes, skip_bg, mesh=mesh)
         loss = float(torch.stack(losses).mean()) if losses else 0.0
         logger.info("epoch %d/%d loss %.4f mIoU %.4f mF1 %.4f OA %.4f (%.1fs)", epoch + 1,
                     cfg.epochs, loss, scores["miou"], scores["mf1"], scores["all_acc"],
                     time.perf_counter() - t0)
-        save_train_state(cfg.ckpt_dir, model, opt, state.step, "last", {"miou": scores["miou"]})
-        if scores["miou"] > best:
-            best = scores["miou"]
-            save_train_state(cfg.ckpt_dir, model, opt, state.step, "best", {"miou": best})
+        if mesh.rank == 0:
+            save_train_state(cfg.ckpt_dir, model, opt, state.step, "last",
+                             {"miou": scores["miou"]})
+            if scores["miou"] > best:
+                save_train_state(cfg.ckpt_dir, model, opt, state.step, "best",
+                                 {"miou": scores["miou"]})
+        best = max(best, scores["miou"])
+        barrier(mesh)
     return state
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
-    p = argparse.ArgumentParser(description="SAMRS finetuning, one card")
+    p = argparse.ArgumentParser(description="SAMRS finetuning; one card, or one card a rank "
+                                            "under torchrun")
     p.add_argument("overrides", nargs="*", help="config overrides key=value")
     a = p.parse_args(argv)
-    logging.basicConfig(level=logging.INFO)
-    run_finetune(FinetuneConfig().override(a.overrides))
+    cfg = FinetuneConfig().override(a.overrides)
+    setup_logger("samrs_tpu_torch", cfg.ckpt_dir)
+    try:
+        run_finetune(cfg)
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

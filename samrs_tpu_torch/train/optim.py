@@ -20,7 +20,12 @@ Here:
     ``clip_grad_norm_``, which adds 1e-6 to the norm);
   * AdamW with eps 1e-8 and decoupled decay on the pre-update weights, which
     is torch's ``AdamW``; SGD as optax's ``trace(0.9)`` with the decay added
-    after the momentum;
+    after the momentum; LARS as ``optax.lars`` after the clip:
+    ``add_decayed_weights(wd, mask)`` -> ``scale_by_trust_ratio`` (trust
+    coefficient 1e-3, eps 0, ratio 1 where the parameter's or the update's
+    norm is 0, per tensor) -> the learning rate -> ``trace(0.9)`` (momentum
+    after the learning rate), and no layer decay (the JAX chain returns
+    before it);
   * the warmup-cosine schedule evaluated at the PRE-increment step, so the
     first update runs at lr 0, as ``optax.scale_by_learning_rate`` does.
 """
@@ -132,24 +137,24 @@ class Optimizer:
                  grad_clip: float = 5.0, layer_decay: Optional[float] = None,
                  num_layers: int = 12, optimizer: str = "adamw", layer_id_scheme: str = "vit",
                  depths: Optional[Sequence[int]] = None) -> None:
+        if optimizer not in ("adamw", "sgd", "lars"):
+            raise KeyError(f"unknown optimizer {optimizer!r} (adamw, sgd, lars)")
         groups: Dict[Tuple[float, bool], List[torch.Tensor]] = {}
         for name, p in model.named_parameters():
             if not p.requires_grad:
                 continue
-            key = (layer_decay_scale(name, layer_decay, num_layers, layer_id_scheme, depths),
-                   not no_weight_decay(name, p))
-            groups.setdefault(key, []).append(p)
+            scale = (1.0 if optimizer == "lars" else
+                     layer_decay_scale(name, layer_decay, num_layers, layer_id_scheme, depths))
+            groups.setdefault((scale, not no_weight_decay(name, p)), []).append(p)
         wd_key = "weight_decay" if optimizer == "adamw" else "decoupled_wd"
         param_groups = [{"params": ps, "lr": 0.0, "lr_scale": s, wd_key: weight_decay if d else 0.0}
                         for (s, d), ps in sorted(groups.items())]
         if optimizer == "adamw":
             self.opt = torch.optim.AdamW(param_groups, lr=0.0, betas=tuple(betas), eps=1e-8)
-        elif optimizer == "sgd":
-            # optax trace(0.9): t = g + 0.9 t; the decay follows in step()
-            self.opt = torch.optim.SGD(param_groups, lr=0.0, momentum=0.9)
         else:
-            raise KeyError(f"optimizer {optimizer!r} is not ported (adamw, sgd; LARS is queued "
-                           "in ROADMAP.md)")
+            # optax trace(0.9): t = g + 0.9 t; SGD's decay and LARS's update in step()
+            self.opt = torch.optim.SGD(param_groups, lr=0.0, momentum=0.9)
+        self.kind = optimizer
         self.lr_schedule = lr_schedule
         self.grad_clip = grad_clip
         self.params = [p for g in param_groups for p in g["params"]]
@@ -163,6 +168,10 @@ class Optimizer:
         grads = [p.grad for p in self.params if p.grad is not None]
         norm = clip_by_global_norm(grads, self.grad_clip)
         lr = self.lr_schedule(it)
+        if self.kind == "lars":
+            self._lars_updates(lr)
+            self.opt.step()
+            return norm
         for g in self.opt.param_groups:
             g["lr"] = lr * g["lr_scale"]
             if g.get("decoupled_wd"):
@@ -170,6 +179,25 @@ class Optimizer:
                 torch._foreach_mul_(g["params"], 1.0 - g["lr"] * g["decoupled_wd"])
         self.opt.step()
         return norm
+
+    @torch.no_grad()
+    def _lars_updates(self, lr: float) -> None:
+        """Each gradient becomes lr * trust * (g + wd p), trust = 1e-3 ||p|| /
+        ||g + wd p|| (1 where either norm is 0); SGD at lr 1 with momentum
+        0.9 then applies optax's trace(0.9)."""
+        for g in self.opt.param_groups:
+            g["lr"] = 1.0
+            ps = [p for p in g["params"] if p.grad is not None]
+            if not ps:
+                continue
+            us = [p.grad for p in ps]
+            if g["decoupled_wd"]:
+                torch._foreach_add_(us, ps, alpha=g["decoupled_wd"])
+            pn = torch.stack(torch._foreach_norm(ps))
+            un = torch.stack(torch._foreach_norm(us))
+            trust = torch.where((pn == 0) | (un == 0), torch.ones_like(pn), 1e-3 * pn / un)
+            for u, t in zip(us, (trust * lr).unbind()):
+                u.mul_(t)
 
     def state_dict(self) -> Dict[str, Any]:
         return self.opt.state_dict()

@@ -8,6 +8,14 @@ clips and updates.  The Mask2Former pretrain step sums the heads'
 Mask2Former losses (its backward runs head by head, below).  Dropout,
 drop-path and the point losses' draws come from a generator seeded from
 (seed, step), so a step is reproducible.
+
+With a data mesh of several ranks (``TrainState.mesh``) a step is the JAX
+step on the global batch, the ranks' batches in rank order: inside
+``mesh.sharded`` dropout and drop-path keep the rank's rows of the global
+masks and BatchNorm takes the global moments; a head's loss is the rank's
+summed NLL over the global count of valid pixels (``cross_entropy_ignore``
+with ``count``), the gradients are summed over the ranks before the clip,
+and the reported losses are the global ones.
 """
 
 from __future__ import annotations
@@ -19,6 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from samrs_tpu_torch.core.mesh import DataMesh, all_reduce_, reduce_grads, sharded
 from samrs_tpu_torch.core.metrics import intersection_and_union
 from samrs_tpu_torch.nn.layers import resize_bilinear
 from samrs_tpu_torch.train.optim import Optimizer
@@ -29,18 +38,36 @@ class TrainState:
     step: int
     model: nn.Module
     optimizer: Optimizer
+    mesh: Optional[DataMesh] = None  # several ranks: a data-parallel step
 
 
-def cross_entropy_ignore(logits: torch.Tensor, labels: torch.Tensor,
-                         ignore_label: int = 255) -> torch.Tensor:
+def cross_entropy_ignore(logits: torch.Tensor, labels: torch.Tensor, ignore_label: int = 255,
+                         count: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean cross-entropy over the pixels that are not ignored, 0 when all
-    are (``F.cross_entropy`` would give NaN): logits (..., C), labels (...)."""
+    are (``F.cross_entropy`` would give NaN): logits (..., C), labels (...).
+    ``count`` replaces the local count of valid pixels as the normaliser (a
+    data-parallel step passes the global batch's)."""
     valid = labels != ignore_label
     safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
     logp = F.log_softmax(logits.float(), dim=-1)
     nll = -logp.gather(-1, safe[..., None])[..., 0]
     nll = torch.where(valid, nll, torch.zeros_like(nll))
-    return nll.sum() / valid.sum().clamp(min=1)
+    return nll.sum() / (valid.sum() if count is None else count).clamp(min=1)
+
+
+def _global_counts(labels: Sequence[torch.Tensor], mesh: Optional[DataMesh],
+                   ignore_label: int = 255):
+    """Per batch the global batch's count of valid pixels (None for one process)."""
+    if mesh is None or mesh.world == 1:
+        return [None] * len(labels)
+    counts = torch.stack([(y != ignore_label).sum() for y in labels])
+    return list(all_reduce_(counts, mesh).unbind())
+
+
+def _global_losses(losses: Sequence[torch.Tensor], mesh: Optional[DataMesh]):
+    """The ranks' loss terms summed (each is already over the global count)."""
+    losses = torch.stack([l.detach() for l in losses])
+    return list(all_reduce_(losses, mesh).unbind())
 
 
 def step_generator(seed: int, step: int, device) -> torch.Generator:
@@ -53,19 +80,23 @@ def pretrain_step(state: TrainState, batches: Sequence[Optional[Tuple[torch.Tens
                   seed: int) -> Dict[str, torch.Tensor]:
     """One multi-dataset step in place: batches holds one (x, y) per head
     (None skips that head).  Returns the losses as device tensors."""
-    model, opt = state.model, state.optimizer
+    model, opt, mesh = state.model, state.optimizer, state.mesh
     model.train()
     xs = [None if b is None else b[0] for b in batches]
     dev = next(x for x in xs if x is not None).device
-    outs = model(xs, generator=step_generator(seed, state.step, dev))
-    losses = [cross_entropy_ignore(o, b[1]) for o, b in zip(outs, batches) if o is not None]
-    loss = sum(losses)
-    opt.zero_grad()
-    loss.backward()
+    with sharded(mesh):
+        outs = model(xs, generator=step_generator(seed, state.step, dev))
+        live = [(o, b[1]) for o, b in zip(outs, batches) if o is not None]
+        counts = _global_counts([y for _, y in live], mesh)
+        losses = [cross_entropy_ignore(o, y, count=c) for (o, y), c in zip(live, counts)]
+        opt.zero_grad()
+        sum(losses).backward()
+    reduce_grads(opt.params, mesh)
     grad_norm = opt.step(state.step)
     state.step += 1
-    return {"loss": loss.detach(), "grad_norm": grad_norm,
-            **{f"loss_{i}": l.detach() for i, l in enumerate(losses)}}
+    losses = _global_losses(losses, mesh)
+    return {"loss": sum(losses), "grad_norm": grad_norm,
+            **{f"loss_{i}": l for i, l in enumerate(losses)}}
 
 
 def pretrain_step_mask2former(state: TrainState,
@@ -85,6 +116,10 @@ def pretrain_step_mask2former(state: TrainState,
     from samrs_tpu_torch.seg.decoders.mask2former import mask2former_loss
 
     model, opt = state.model, state.optimizer
+    if state.mesh is not None and state.mesh.world > 1:
+        raise NotImplementedError(
+            "Mask2Former pretraining over several ranks is not ported (its matching, point draws "
+            "and num_masks normaliser over the global batch): ROADMAP.md Queue 1 item 7")
     model.train()
     dev = next(b[0] for b in batches if b is not None).device
     gen = step_generator(seed, state.step, dev)
@@ -109,14 +144,17 @@ def finetune_step(state: TrainState, x: torch.Tensor, y: torch.Tensor,
                   seed: int) -> Dict[str, torch.Tensor]:
     """One single-head step in place (JAX ``make_finetune_step``).  Returns
     the loss and the pre-clip gradient norm as device tensors."""
-    model, opt = state.model, state.optimizer
+    model, opt, mesh = state.model, state.optimizer, state.mesh
     model.train()
-    loss = cross_entropy_ignore(model(x, generator=step_generator(seed, state.step, x.device)), y)
-    opt.zero_grad()
-    loss.backward()
+    with sharded(mesh):
+        out = model(x, generator=step_generator(seed, state.step, x.device))
+        loss = cross_entropy_ignore(out, y, count=_global_counts([y], mesh)[0])
+        opt.zero_grad()
+        loss.backward()
+    reduce_grads(opt.params, mesh)
     grad_norm = opt.step(state.step)
     state.step += 1
-    return {"loss": loss.detach(), "grad_norm": grad_norm}
+    return {"loss": _global_losses([loss], mesh)[0], "grad_norm": grad_norm}
 
 
 @torch.no_grad()

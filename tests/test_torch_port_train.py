@@ -6,6 +6,7 @@ metrics, the host data pipeline, and ``run_pretrain`` end to end.
 
 import logging
 import os
+import re
 
 import flax
 import jax
@@ -458,10 +459,51 @@ def _make_seg_dataset(tmp_path, name, size=32, n_train=12, n_val=8, n_classes=5)
     return root
 
 
-def test_run_pretrain_refuses_pretrained_with_its_roadmap_item():
-    cfg = PretrainConfig(pretrained="mae_vit_b.pth", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 2"):
-        run_pretrain(cfg)
+def test_run_pretrain_refuses_pretrained_with_its_roadmap_item(tmp_path, caplog):
+    """``pretrained=`` (once refused, ROADMAP.md Queue 1 item 2) now grafts a
+    reference-layout ``.pth`` into the encoder before the optimizer: a MAE-
+    style checkpoint of the tiny RVSA trunk (``module.backbone.`` prefixes,
+    ``mask_token``, a decoder key) loads its trunk, the RVSA sampling nets
+    and the neck keep their init, and the first step (lr 0 at step 0) is
+    finite and leaves the loaded weights as they were."""
+    size = 32
+    roots = {n: _make_seg_dataset(tmp_path, n, size) for n in ("sota", "sior")}
+    ds = lambda split, aug: {n: SegmentationDataset(str(r), str(r / "images"), str(r / "labels"),
+                                                    split=split, transform=aug, val_images=8)
+                             for n, r in roots.items()}
+    model = TinyPort((18, 20), size)
+    rng = np.random.default_rng(4)
+    ckpt = {f"module.backbone.{k}": torch.from_numpy(
+        (0.05 * rng.normal(size=tuple(v.shape))).astype(np.float32))
+        for k, v in model.encoder.state_dict().items()}
+    ckpt["module.backbone.mask_token"] = torch.zeros(1, 1, 32)
+    ckpt["module.backbone.decoder_embed.weight"] = torch.zeros(16, 32)
+    path = str(tmp_path / "mae.pth")
+    torch.save({"model": ckpt}, path)
+    before = {k: v.clone() for k, v in model.encoder.state_dict().items()}
+    cfg = PretrainConfig(total_iters=1, eval_interval=1, seed=0, device="cpu", pretrained=path,
+                         data=DataConfig(root=str(tmp_path), datasets=("sota", "sior"),
+                                         image_size=size, batch_size=16, num_workers=2,
+                                         val_images=8),
+                         optim=OptimConfig(lr=1e-3, warmup_iters=2),
+                         ckpt_dir=str(tmp_path / "ckpt"))
+    with caplog.at_level(logging.INFO, logger="samrs_tpu_torch"):
+        state = run_pretrain(cfg, model=model, datasets_trn=ds("trn", TrainAugment(size, seed=0)),
+                             datasets_val=ds("val", EvalAugment(size)))
+    assert state.step == 1
+    trunk = re.compile(r"patch_embed\.proj\.|blocks\.\d+\.(norm[12]\.|attn\.(qkv\.|proj\.|rel_pos_)"
+                       r"|mlp\.fc[12]\.)")
+    after = model.encoder.state_dict()
+    for k, v in before.items():
+        want = ckpt[f"module.backbone.{k}"] if trunk.match(k) else v
+        assert torch.equal(after[k], want), k
+    # the patch embedding, 12 tensors a block, the rel-pos tables of the blocks that have them
+    n_rel = sum(".rel_pos_" in k for k in before)
+    assert n_rel == 4 and sum(bool(trunk.match(k)) for k in before) == 2 + 12 * 3 + n_rel
+    msgs = [r.getMessage() for r in caplog.records]
+    assert any(m.startswith("[vit] loaded 42 tensors, skipped 24 ") for m in msgs), msgs
+    loss = [float(m.split("loss ")[1].split()[0]) for m in msgs if m.startswith("iter 1/1 loss")]
+    assert len(loss) == 1 and np.isfinite(loss[0])
 
 
 def test_run_pretrain_end_to_end_and_resume(tmp_path, caplog):
@@ -498,3 +540,44 @@ def test_run_pretrain_end_to_end_and_resume(tmp_path, caplog):
         assert torch.equal(resumed.state_dict()[k], v), k
     state3 = run_pretrain(cfg2, model=resumed, datasets_trn=trn, datasets_val=val)
     assert state3.step == 5
+
+
+def test_lars_matches_optax():
+    """optimizer="lars": three updates of the tiny model's parameters with
+    drawn gradients against build_optimizer(..., "lars") (optax.lars after
+    the clip: decay on the masked weights, the trust ratio per tensor, lr,
+    trace(0.9)); the updates and the parameters within 1e-6."""
+    jm = TinyJax(num_classes=CLASSES, image_size=SIZE)
+    shapes = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0),
+                                            [jnp.zeros((1, SIZE, SIZE, 3))] * 3, True))
+    jvars = draw_variables(shapes, 8)
+    params = jvars["params"]
+    # one zero parameter: its norm is 0, so its trust ratio is 1
+    params = flax.traverse_util.unflatten_dict({
+        k: np.zeros_like(v) if k == ("head_0", "conv", "bias") else v
+        for k, v in flax.traverse_util.flatten_dict(params).items()})
+    sched = lambda c: 0.5 / (1.0 + c)
+    tx = jax_optim.build_optimizer(params, sched, weight_decay=0.05, grad_clip=1.0,
+                                   optimizer="lars", layer_decay=0.9, num_layers=3)
+    state = tx.init(params)
+    model = TinyPort()
+    model.load_state_dict(jax_params_to_torch(params, jvars["batch_stats"]), strict=True)
+    opt = optim.Optimizer(model, sched, weight_decay=0.05, grad_clip=1.0, optimizer="lars",
+                          layer_decay=0.9, num_layers=3)
+    rng = np.random.default_rng(9)
+    flat = flax.traverse_util.flatten_dict(params)
+    for it in range(3):
+        jgrads = flax.traverse_util.unflatten_dict(
+            {k: rng.normal(size=v.shape).astype(np.float32) for k, v in flat.items()})
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        upd, state = tx.update(jgrads, state, params)
+        params = optax.apply_updates(params, upd)
+        for n, g in jax_params_to_torch(jgrads).items():
+            dict(model.named_parameters())[n].grad = g.clone()
+        opt.step(it)
+        want_upd, want = jax_params_to_torch(upd), jax_params_to_torch(params)
+        for n, p in model.named_parameters():
+            np.testing.assert_allclose((p.detach() - before[n]).numpy(), want_upd[n].numpy(),
+                                       rtol=1e-6, atol=1e-6, err_msg=f"{n} update step {it}")
+            np.testing.assert_allclose(p.detach().numpy(), want[n].numpy(), rtol=1e-6,
+                                       atol=1e-6, err_msg=f"{n} step {it}")
