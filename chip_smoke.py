@@ -272,8 +272,21 @@ checkout; it has no CPU path and raises on any failure.  Phases:
    inside each rank, warm s/step, peak memory, the gradient all-reduce's
    time and a profile's all-reduce share a rank, and ``run_pretrain`` on
    the two ranks for 2 steps with an eval (the same lines on both),
-   checkpoints written by rank 0 only and a resume that restores both; a
-   rank's failure fails the phase;
+   checkpoints written by rank 0 only and a resume that restores both; then
+   in the same ranks vit_b_rvsa + Mask2Former at full width and depth
+   (m2f_num_points 12544, the same global batch): two steps against one
+   process by the same rule, K8 / K9 / K10 / K11 launches inside each rank,
+   warm s/step, peak memory, the gradient all-reduce's ms and the
+   Hungarian's host ms a rank, and ``run_pretrain decoder=mask2former`` for
+   2 steps with an eval and a resume; a rank's failure fails the phase;
+11c. sequence-parallel encoder (in the same two ranks): the ViT-H encoder
+   at 1024^2 with its four global blocks split among the ranks
+   (``build_sam(sp_mesh=...)``: kernels/ring_attention.py's ring in place of
+   K2) against the one-card encoder on the same weights and image, within 3x
+   the distance of the one-card encoder with K2 swapped for its plain
+   version; K1 / K2 / K3 / GEMM launches inside each rank (28 / 0 / 32 /
+   128), the ring's backend and transport (through the host under gloo),
+   ms an image for the ranks and for one card;
 12. prints the configurations phase's results as one JSON line, then one
    JSON line of per-kernel results (launches: K1-K7 from the generate
    phase, with ``launches_main_path`` and ``launches_fleet`` beside them,
@@ -283,7 +296,9 @@ checkout; it has no CPU path and raises on any failure.  Phases:
    with its per-step count and the adapter's cases and launches (phase 9c),
    K9 from the Mask2Former pretrain phase, K10 and K11 from the finetune driver
    with their per-step counts, K11 also with phase 9d's cases and launches,
-   K8 / K10 / K11 also with phase 11a's run and phase 11b's per rank;
+   K8 / K10 / K11 also with phase 11a's run and phase 11b's per rank (K8 /
+   K9 / K10 / K11 also its Mask2Former steps and run per rank, K1 / K2 / K3
+   / GEMM phase 11c's per rank);
    an entry's other cases beside its main one carry measured numbers only,
    their bounds are on the log lines, but K11's 9d cases carry theirs), then
    the card's name and power limit and the final status line.
@@ -293,7 +308,7 @@ the main path and the generate phase at the default image size; fleet: 4a; amg: 
 sizes: 2b, 4b, 4c; slab: the K8-slab and K11-width checks of 9b;
 internimage: its step and driver runs; mlp: 6 and K11's widths; gather: 5
 and the MSDA wrapper of 5b; steps: 7, 7b, 8 and 9b's step; adapter: 9c;
-backbones: 9d; pretrained: 11a; ddp: 11b),
+backbones: 9d; pretrained: 11a; ddp: 11b; sp: 11c; ddp and sp share one start of the ranks),
 and prints no kernels line: it ends with the card's name and power limit and the status line.
 
 ``--profile`` adds a torch.profiler table of one warm generate image (and of
@@ -4481,7 +4496,8 @@ DDP_BATCH = 32                 # data.batch_size of the DDP runs (two ranks shar
 DDP_STEPS = 2                  # the steps held against one process
 DDP_TIMED = 3                  # warm steps timed a rank
 DDP_ITERS = 2                  # run_pretrain steps on the two ranks, one eval after them
-DDP_TIMEOUT_S = 600
+DDP_TIMEOUT_S = 900
+SP_TIMED = 5                   # SP encoder calls timed a rank (phase 11c)
 
 
 def ddp_sizes():
@@ -4524,19 +4540,15 @@ def _rel(got, want, skip=()) -> float:
     return (num / den) ** 0.5
 
 
-def ddp_worker(out_dir: str) -> None:
+def ddp_worker(out_dir: str, parts) -> None:
     """One rank of the DDP phase (started by ``ddp_phase`` with torchrun's
-    variables): the DDP steps against one process (rank 0 runs those), the
-    launches, s/step, peak memory and the all-reduce, and ``run_pretrain``
-    with an eval, checkpoints and a resume; writes ``rank{r}.json``."""
+    variables): with part "ddp" the UperNet and Mask2Former checks of phase
+    11b (``ddp_upernet``, ``ddp_mask2former``), with part "sp" phase 11c
+    (``sp_encoder``); writes ``rank{r}.json``."""
     import torch.distributed as dist
-    from torch.profiler import ProfilerActivity, profile
 
-    from samrs_tpu_torch.core.config import PretrainConfig
-    from samrs_tpu_torch.core.mesh import barrier, init_data_mesh, reduce_grads
-    from samrs_tpu_torch.kernels import _build, fused_mlp
-    from samrs_tpu_torch.seg.frameworks import build_multihead_model
-    from samrs_tpu_torch.train import optim, pretrain, trainer
+    from samrs_tpu_torch.core.mesh import barrier, init_data_mesh
+    from samrs_tpu_torch.kernels import _build
 
     mesh = init_data_mesh((-1,), "cuda")
     r, dev = mesh.rank, mesh.device
@@ -4545,9 +4557,34 @@ def ddp_worker(out_dir: str) -> None:
     torch.backends.cudnn.allow_tf32 = False
     _build.library()
     say(f"backend {mesh.backend}, {torch.cuda.device_count()} card(s) visible, on {dev} "
-        f"({torch.cuda.get_device_name(dev)})")
+        f"({torch.cuda.get_device_name(dev)}); parts {list(parts)}")
     res = {"rank": r, "backend": mesh.backend, "cards": torch.cuda.device_count(),
            "device": str(dev)}
+    if "ddp" in parts:
+        ddp_upernet(mesh, out_dir, res, say)
+        ddp_mask2former(mesh, out_dir, res, say)
+    if "sp" in parts:
+        sp_encoder(mesh, res, say)
+    with open(os.path.join(out_dir, f"rank{r}.json"), "w") as f:
+        json.dump(res, f)
+    barrier(mesh)
+    dist.destroy_process_group()
+
+
+def ddp_upernet(mesh, out_dir: str, res: dict, say) -> None:
+    """Phase 11b's UperNet checks on this rank: the DDP steps against one
+    process (rank 0 runs those), the launches, s/step, peak memory and the
+    all-reduce, and ``run_pretrain`` with an eval, checkpoints and a resume."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from samrs_tpu_torch.core.config import PretrainConfig
+    from samrs_tpu_torch.core.mesh import barrier, reduce_grads
+    from samrs_tpu_torch.kernels import fused_mlp
+    from samrs_tpu_torch.seg.frameworks import build_multihead_model
+    from samrs_tpu_torch.train import optim, trainer
+
+    r, dev = mesh.rank, mesh.device
     sizes = ddp_sizes()
     cfg = PretrainConfig()
     model = build_multihead_model(device=dev, generator=torch.Generator(device=dev).manual_seed(SEED))
@@ -4672,7 +4709,20 @@ def ddp_worker(out_dir: str) -> None:
     torch.cuda.empty_cache()
 
     # check 4: run_pretrain on the ranks, an eval, rank-0 checkpoints, a resume
-    lines, saves = [], []
+    over = [f"data.root={os.path.join(os.path.dirname(out_dir), 'samrs')}",
+            f"total_iters={DDP_ITERS}", f"eval_interval={DDP_ITERS}", "data.val_images=8",
+            f"data.batch_size={DDP_BATCH}", f"ckpt_dir={os.path.join(out_dir, 'ckpt')}"]
+    res.update(run_pretrain_and_resume(over, say, "upernet"))
+    barrier(mesh)
+
+
+def run_pretrain_and_resume(over, say, label: str) -> dict:
+    """``run_pretrain`` with the overrides `over` on this rank, then a resume
+    from ``last``: launches, steps, saves, the eval lines and the batch line."""
+    from samrs_tpu_torch.core.config import PretrainConfig
+    from samrs_tpu_torch.train import pretrain
+
+    lines, saves, res = [], [], {}
     handler = logging.Handler()
     handler.emit = lambda rec: lines.append(rec.getMessage())
     log = logging.getLogger("samrs_tpu_torch.pretrain")
@@ -4680,12 +4730,8 @@ def ddp_worker(out_dir: str) -> None:
     log.setLevel(logging.INFO)
     real_save = pretrain.save_train_state
     pretrain.save_train_state = lambda *a, **kw: (saves.append(a[4]), real_save(*a, **kw))
-    n_val = 8
-    over = [f"data.root={os.path.join(os.path.dirname(out_dir), 'samrs')}",
-            f"total_iters={DDP_ITERS}", f"eval_interval={DDP_ITERS}", f"data.val_images={n_val}",
-            f"data.batch_size={DDP_BATCH}", f"ckpt_dir={os.path.join(out_dir, 'ckpt')}"]
-    cfg = pretrain.apply_optim_defaults(PretrainConfig().override(over), over)
     try:
+        cfg = pretrain.apply_optim_defaults(PretrainConfig().override(over), over)
         reset_counts()
         state = pretrain.run_pretrain(cfg)
         torch.cuda.synchronize()
@@ -4700,18 +4746,242 @@ def ddp_worker(out_dir: str) -> None:
         res["resume_step"] = resumed.step
         res["resume_same"] = all(torch.equal(resumed.model.state_dict()[k], v)
                                  for k, v in trained.items())
+        del resumed, trained
+        torch.cuda.empty_cache()
     finally:
         pretrain.save_train_state = real_save
         log.removeHandler(handler)
     res["eval_lines"] = [ln for ln in lines if ln.startswith(("val[", f"iter {DDP_ITERS} eval"))]
     res["batch_line"] = next(ln for ln in lines if ln.startswith("per-dataset batch sizes"))
-    say(f"run_pretrain: {res['batch_line']}; launches {res['run_launches']}; "
-        f"{res['eval_lines']}; saved {res['run_saves']}; resumed at step {res['resume_step']}, "
-        f"weights restored {res['resume_same']}")
-    with open(os.path.join(out_dir, f"rank{r}.json"), "w") as f:
-        json.dump(res, f)
+    say(f"run_pretrain ({label}): {res['batch_line']}; launches "
+        f"{res['run_launches']}; {res['eval_lines']}; saved {res['run_saves']}; resumed at step "
+        f"{res['resume_step']}, weights restored {res['resume_same']}")
+    return res
+
+
+def ddp_mask2former(mesh, out_dir: str, res: dict, say) -> None:
+    """Phase 11b's Mask2Former checks on this rank: vit_b_rvsa + Mask2Former
+    at full width and depth, m2f_num_points M2F_POINTS, the global batch
+    ddp_sizes(): DDP_STEPS steps on the rank's rows against one process on
+    the rank-ordered global batch (rank 0: kernels, plain, control; the loss
+    within STEP_LOSS_RTOL, gradients and AdamW moments within CONTROL_FACTOR
+    x the control's distance), the parameters equal on the ranks, K8 / K9 /
+    K10 / K11 launches inside the rank; warm s/step, peak memory, the
+    gradient all-reduce's ms and the Hungarian's host ms; ``run_pretrain
+    decoder=mask2former`` for DDP_ITERS steps with an eval and a resume."""
+    import torch.distributed as dist
+
+    from samrs_tpu_torch.core.config import PretrainConfig
+    from samrs_tpu_torch.core.mesh import barrier, reduce_grads
+    from samrs_tpu_torch.kernels import fused_mlp
+    from samrs_tpu_torch.seg.decoders import mask2former as m2f
+    from samrs_tpu_torch.seg.frameworks import build_multihead_mask2former_model
+    from samrs_tpu_torch.train import optim, trainer
+
+    r, dev = mesh.rank, mesh.device
+    sizes = ddp_sizes()
+    cfg = PretrainConfig()
+    model = build_multihead_mask2former_model(
+        device=dev, generator=torch.Generator(device=dev).manual_seed(SEED + 8))
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    sched = optim.warmup_cosine_schedule(cfg.optim.lr, cfg.total_iters, cfg.optim.warmup_iters)
+
+    def fresh_state(m):
+        model.load_state_dict(init)
+        opt = optim.Optimizer(model, sched, weight_decay=cfg.optim.weight_decay,
+                              grad_clip=cfg.optim.grad_clip, layer_decay=cfg.optim.layer_decay,
+                              num_layers=model.encoder.depth)
+        return trainer.TrainState(0, model, opt, m)
+
+    step = lambda state, b: trainer.pretrain_step_mask2former(state, b, cfg.seed, TRAIN_CLASSES,
+                                                              M2F_POINTS)
+    batches = [ddp_batches(SEED + 30 + i, sizes, dev) for i in range(DDP_STEPS)]
+    state = fresh_state(mesh)
+    reset_counts()
+    losses = [float(step(state, _rows(batches[i], r))["loss"]) for i in range(DDP_STEPS)]
+    torch.cuda.synchronize()
+    res["m2f_step_launches"] = read_counts()
+    ddp = _host_snapshot(state, losses)
+    sums = torch.stack([p.detach().double().sum() for p in model.parameters()])
+    res["m2f_params_equal"] = all(torch.equal(g, sums) for g in _all_gather(dist, sums))
+    say(f"mask2former: {DDP_STEPS} steps on {[b[0].shape[0] // DDP_RANKS for b in batches[0]]} "
+        f"images a head: losses {losses}, launches {res['m2f_step_launches']}; parameters equal "
+        f"on the ranks {res['m2f_params_equal']}")
+    state.optimizer.zero_grad()
+    del state
+    torch.cuda.empty_cache()
+    if r == 0:  # one process on the rank-ordered global batch: kernels, plain, control
+        runs, plain_mlp = {}, fused_mlp.fused_mlp_plain
+        for mode in ("kernels", "plain", "control"):
+            model.use_kernels = mode == "kernels"
+            fused_mlp.fused_mlp_plain = split_mlp_plain if mode == "control" else plain_mlp
+            try:
+                state = fresh_state(None)
+                ls = [float(step(state, batches[i])["loss"]) for i in range(DDP_STEPS)]
+                runs[mode] = _host_snapshot(state, ls)
+            finally:
+                fused_mlp.fused_mlp_plain = plain_mlp
+                model.use_kernels = True
+            state.optimizer.zero_grad()
+            del state
+            torch.cuda.empty_cache()
+        k, p, c = runs["kernels"], runs["plain"], runs["control"]
+        dloss = float(((ddp["loss"] - k["loss"]).abs() / k["loss"].abs()).max())
+        closs = float(((c["loss"] - p["loss"]).abs() / p["loss"].abs()).max())
+        say(f"mask2former one process, {sum(sizes)} images: losses kernels {k['loss'].tolist()}, "
+            f"plain {p['loss'].tolist()}, control {c['loss'].tolist()}; DDP vs one process "
+            f"|d|/loss {dloss:.3e} (control vs plain {closs:.3e}, limit {STEP_LOSS_RTOL})")
+        if not dloss <= STEP_LOSS_RTOL:
+            raise RuntimeError(f"DDP mask2former loss |d|/loss {dloss:.3e} > {STEP_LOSS_RTOL}")
+        res["m2f_dist"] = {}
+        for what in ("grads", "mu", "nu"):
+            d, ctl = _rel(ddp[what], k[what], ZERO_GRAD), _rel(c[what], p[what], ZERO_GRAD)
+            res["m2f_dist"][what] = (d, ctl)
+            say(f"mask2former {what}: DDP vs one process rel_l2 {d:.3e}, control {ctl:.3e} (ratio "
+                f"{d / max(ctl, 1e-30):.2f}, limit {CONTROL_FACTOR})")
+            if not d <= CONTROL_FACTOR * ctl:
+                raise RuntimeError(f"DDP mask2former {what} rel-L2 {d:.3e} > {CONTROL_FACTOR} x "
+                                   f"control {ctl:.3e}")
+        del runs, k, p, c
+    del ddp
     barrier(mesh)
-    dist.destroy_process_group()
+
+    # warm s/step a rank, peak memory, the gradient all-reduce alone, the Hungarian's host time
+    state = fresh_state(mesh)
+    local = _rows(batches[0], r)
+    step(state, local)
+    torch.cuda.reset_peak_memory_stats(dev)
+    times = []
+    for _ in range(DDP_TIMED):
+        torch.cuda.synchronize()
+        barrier(mesh)
+        t = time.perf_counter()
+        step(state, local)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    res["m2f_s_step"] = statistics.median(times)
+    res["m2f_peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    params = state.optimizer.params
+    reduce_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        barrier(mesh)
+        t = time.perf_counter()
+        reduce_grads(params, mesh)
+        torch.cuda.synchronize()
+        reduce_ms.append((time.perf_counter() - t) * 1e3)
+    res["m2f_grad_all_reduce_ms"] = statistics.median(reduce_ms)
+    n_grad = sum(p.grad.numel() for p in params if p.grad is not None)
+    solve, spent = m2f.hungarian_match, []
+
+    def timed_match(cost):
+        host = cost.cpu()
+        t = time.perf_counter()
+        out = solve(host)
+        spent.append(time.perf_counter() - t)
+        return out.to(cost.device)
+
+    m2f.hungarian_match = timed_match
+    try:
+        barrier(mesh)
+        step(state, local)
+        torch.cuda.synchronize()
+    finally:
+        m2f.hungarian_match = solve
+    res["m2f_hungarian_ms"] = sum(spent) * 1e3
+    say(f"mask2former {res['m2f_s_step']:.4f} s/step ({sum(b.shape[0] for b, _ in local)} images "
+        f"on this rank, {DDP_RANKS} ranks), peak memory {res['m2f_peak_bytes'] / 2**30:.2f} GiB; "
+        f"gradient all-reduce ({n_grad / 1e6:.1f} M fp32) {res['m2f_grad_all_reduce_ms']:.1f} ms "
+        f"({100 * res['m2f_grad_all_reduce_ms'] / 1e3 / res['m2f_s_step']:.1f}% of the step); "
+        f"Hungarian {len(spent)} calls, {res['m2f_hungarian_ms']:.2f} ms of scipy a step")
+    state.optimizer.zero_grad()
+    del state, model, init, batches, local, params
+    torch.cuda.empty_cache()
+    barrier(mesh)
+
+    over = [f"data.root={os.path.join(os.path.dirname(out_dir), 'samrs')}",
+            f"total_iters={DDP_ITERS}", f"eval_interval={DDP_ITERS}", "data.val_images=8",
+            f"data.batch_size={DDP_BATCH}", f"ckpt_dir={os.path.join(out_dir, 'ckpt_m2f')}",
+            "decoder=mask2former", f"m2f_num_points={M2F_POINTS}"]
+    res["m2f_run"] = run_pretrain_and_resume(over, say, "mask2former")
+    barrier(mesh)
+
+
+def sp_encoder(mesh, res: dict, say) -> None:
+    """Phase 11c on this rank: the ViT-H encoder at 1024^2 with its global
+    blocks split among the ranks (``build_sam(sp_mesh=...)``), on the same
+    seeded weights and image on every rank: K1 / K2 / K3 / GEMM launches
+    inside the rank, the ring's backend and transport, ms an image (median of
+    SP_TIMED, the ranks started together); rank 0 then runs the one-process
+    encoder, and the same with K2 swapped for its plain version, and holds
+    the sequence-parallel output within CONTROL_FACTOR x that distance."""
+    import torch.distributed as dist
+
+    from samrs_tpu_torch.core.mesh import barrier
+    from samrs_tpu_torch.kernels import flash_attention, gemm, ring_attention
+    from samrs_tpu_torch.sam import build_sam
+
+    r, dev = mesh.rank, mesh.device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    model = build_sam("vit_h", device=dev, generator=gen, sp_mesh=mesh)
+    with torch.no_grad():
+        for p in model.parameters():
+            if not p.any():
+                p.copy_(torch.randn(p.shape, generator=gen, device=dev) * 0.02)
+    enc = model.image_encoder
+    x = torch.randn((1, 1024, 1024, 3), generator=gen, device=dev)
+    sp_blocks = [b for b in enc.blocks if b.sp_mesh is not None]
+
+    def timed(fn):
+        times = []
+        for _ in range(SP_TIMED):
+            torch.cuda.synchronize()
+            barrier(mesh)
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(times)
+
+    with torch.no_grad():
+        enc(x)
+        reset_counts()
+        out = enc(x)
+        torch.cuda.synchronize()
+        res["sp_launches"] = {**read_counts(), "GEMM": gemm.launches}
+        res["sp_ms"] = timed(lambda: enc(x))
+        res["sp_backend"], res["sp_transport"] = mesh.backend, ring_attention.transport(mesh, dev)
+        res["sp_same_on_ranks"] = all(torch.equal(g, out) for g in _all_gather(dist, out))
+        say(f"sp encoder: {len(sp_blocks)} global blocks over {mesh.world} ranks, backend "
+            f"{mesh.backend}, the ring {res['sp_transport']}; launches {res['sp_launches']}; "
+            f"{res['sp_ms']:.3f} ms an image; output equal on the ranks {res['sp_same_on_ranks']}")
+        if r == 0:  # one card: the same encoder without the mesh, then K2's plain version
+            for b in sp_blocks:
+                b.sp_mesh = None
+            one = enc(x)
+            res["one_card_ms"] = cuda_ms(lambda: enc(x))
+            k2 = flash_attention.attention_qkv_relpos
+            flash_attention.attention_qkv_relpos = flash_attention.attention_qkv_relpos_plain
+            try:
+                plain_k2 = enc(x)
+            finally:
+                flash_attention.attention_qkv_relpos = k2
+            for b in sp_blocks:
+                b.sp_mesh = mesh
+            d, ctl = rel_l2([out], [one]), rel_l2([plain_k2], [one])
+            res["sp_dist"] = (d, ctl)
+            finite = bool(torch.isfinite(out).all())
+            say(f"sp encoder vs one card: rel_l2 {d:.3e}; one card with K2's plain version "
+                f"{ctl:.3e} (ratio {d / max(ctl, 1e-30):.2f}, limit {CONTROL_FACTOR}); one card "
+                f"{res['one_card_ms']:.3f} ms an image; output {tuple(out.shape)}, finite {finite}")
+            if tuple(out.shape) != (1, 64, 64, 256) or not finite:
+                raise RuntimeError(f"sp encoder output {tuple(out.shape)}, finite {finite}")
+            if not d <= CONTROL_FACTOR * ctl:
+                raise RuntimeError(f"sp encoder rel-L2 {d:.3e} > {CONTROL_FACTOR} x K2's plain "
+                                   f"version's {ctl:.3e}")
+    del model, enc, out
+    torch.cuda.empty_cache()
+    barrier(mesh)
 
 
 def _all_gather(dist, t):
@@ -4720,34 +4990,63 @@ def _all_gather(dist, t):
     return out
 
 
-def ddp_phase(tmp: str):
+def check_ddp_rank(res: dict) -> None:
+    """Phase 11b's checks of one rank's results: the launches of the DDP
+    steps and of each run_pretrain (UperNet, Mask2Former), the statistics
+    and parameters equal on the ranks, the runs' steps and resumes."""
+    evals = 3 * -(-(8 // DDP_RANKS) // 8)  # each rank's share of the 8 val images a head
+    for got, per_step, per_eval, steps, what in (
+            (res["step_launches"], STEP_LAUNCHES, {}, DDP_STEPS, "steps"),
+            (res["run_launches"], STEP_LAUNCHES,
+             {"K8f": RVSA_BLOCKS, "K10": FULL_BLOCKS, "K11": VIT_DEPTH}, DDP_ITERS, "run_pretrain"),
+            (res["m2f_step_launches"], M2F_STEP_LAUNCHES, {}, DDP_STEPS, "mask2former steps"),
+            (res["m2f_run"]["run_launches"], M2F_STEP_LAUNCHES, M2F_EVAL_LAUNCHES, DDP_ITERS,
+             "mask2former run_pretrain")):
+        want = {k: steps * per_step.get(k, 0) + evals * per_eval.get(k, 0) for k in got}
+        want["K11s"] = checked_splits(f"ddp {what} rank {res['rank']}", got, want["K11s"])
+        if got != want:
+            raise RuntimeError(f"ddp rank {res['rank']} {what} launches {got} != {want}")
+    if not (res["stats_equal"] and res["params_equal"] and res["m2f_params_equal"]):
+        raise RuntimeError(f"ddp rank {res['rank']}: statistics or parameters differ")
+    for run in (res, res["m2f_run"]):
+        if run["run_step"] != DDP_ITERS or run["resume_step"] != DDP_ITERS or \
+                not run["resume_same"]:
+            raise RuntimeError(f"ddp rank {res['rank']}: run at step {run['run_step']}, resumed "
+                               f"at {run['resume_step']}, weights restored {run['resume_same']}")
+
+
+def ddp_phase(tmp: str, parts=("ddp", "sp")):
     """Two ranks of ``python3 chip_smoke.py --ddp-worker`` with torchrun's
     variables: on two cards over NCCL, or both on one card over gloo (the
-    backend rule of core/mesh.py).  vit_b_rvsa + UperNet at full width and
-    depth, the global batch cut to DDP_BATCH (ddp_sizes a head, half a
-    rank).  Check 1: DDP_STEPS steps against one process on the rank-ordered
-    global batch (rank 0 runs it: kernels, plain, control), losses within
-    STEP_LOSS_RTOL, gradients, AdamW moments and BatchNorm statistics within
-    CONTROL_FACTOR x the control's distance, the statistics and parameters
-    equal on the ranks; check 2: K8 / K10 / K11 launches inside each rank;
-    check 3: s/step, peak memory, the gradient all-reduce's ms and a
-    profile's all-reduce share; check 4: run_pretrain for DDP_ITERS steps
-    with an eval (the same lines on both ranks), checkpoints from rank 0
-    only, a resume on both.  A rank that fails fails the phase, and the
+    backend rule of core/mesh.py).  Part "ddp" (phase 11b): vit_b_rvsa +
+    UperNet at full width and depth, the global batch cut to DDP_BATCH
+    (ddp_sizes a head, half a rank).  Check 1: DDP_STEPS steps against one
+    process on the rank-ordered global batch (rank 0 runs it: kernels,
+    plain, control), losses within STEP_LOSS_RTOL, gradients, AdamW moments
+    and BatchNorm statistics within CONTROL_FACTOR x the control's distance,
+    the statistics and parameters equal on the ranks; check 2: K8 / K10 /
+    K11 launches inside each rank; check 3: s/step, peak memory, the
+    gradient all-reduce's ms and a profile's all-reduce share; check 4:
+    run_pretrain for DDP_ITERS steps with an eval (the same lines on both
+    ranks), checkpoints from rank 0 only, a resume on both; then the same
+    for vit_b_rvsa + Mask2Former (m2f_num_points M2F_POINTS, no BatchNorm;
+    K8 / K9 / K10 / K11 launches, the Hungarian's host ms).  Part "sp"
+    (phase 11c): the ViT-H encoder at 1024^2 over the two ranks against one
+    card (``sp_encoder``).  A rank that fails fails the phase, and the
     other is stopped.  Returns the ranks' results."""
     import socket
 
     from samrs_tpu_torch.core.mesh import backend_rule
 
     root = os.path.join(tmp, "samrs")
-    if not os.path.isdir(root):
+    if "ddp" in parts and not os.path.isdir(root):
         write_samrs_layout(root, {"sota": 20, "sior": 15, "fast": 70}, 8)
     out = os.path.join(tmp, "ddp")
     os.makedirs(out)
     cards = torch.cuda.device_count()
-    print(f"ddp: {DDP_RANKS} ranks on {min(cards, DDP_RANKS)} of {cards} card(s), backend "
-          f"{backend_rule('cuda', DDP_RANKS, cards)}; global batch {DDP_BATCH} -> {ddp_sizes()} a "
-          f"head", flush=True)
+    print(f"ddp ({', '.join(parts)}): {DDP_RANKS} ranks on {min(cards, DDP_RANKS)} of {cards} "
+          f"card(s), backend {backend_rule('cuda', DDP_RANKS, cards)}; global batch {DDP_BATCH} "
+          f"-> {ddp_sizes()} a head", flush=True)
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
@@ -4759,7 +5058,8 @@ def ddp_phase(tmp: str):
                    MASTER_PORT=str(port))
         logs.append(open(os.path.join(out, f"rank{r}.log"), "w+"))
         procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), "--ddp-worker",
-                                       out], env=env, stdout=logs[-1], stderr=subprocess.STDOUT))
+                                       out, "--ddp-parts", ",".join(parts)], env=env,
+                                      stdout=logs[-1], stderr=subprocess.STDOUT))
     try:
         while any(p.poll() is None for p in procs):
             if any(p.poll() not in (None, 0) for p in procs):
@@ -4775,7 +5075,7 @@ def ddp_phase(tmp: str):
     wall = time.perf_counter() - t
     for r, f in enumerate(logs):
         f.seek(0)
-        print("".join(f"ddp {ln}" for ln in f.readlines()[-60:]), end="", flush=True)
+        print("".join(f"ddp {ln}" for ln in f.readlines()[-90:]), end="", flush=True)
         f.close()
     if any(p.returncode != 0 for p in procs):
         raise RuntimeError(f"ddp: rank exit codes {[p.returncode for p in procs]} after "
@@ -4784,37 +5084,44 @@ def ddp_phase(tmp: str):
     for r in range(DDP_RANKS):
         with open(os.path.join(out, f"rank{r}.json")) as f:
             ranks.append(json.load(f))
-    per_step = {k: DDP_STEPS * v for k, v in STEP_LAUNCHES.items()}
-    evals = 3 * -(-(8 // DDP_RANKS) // 8)  # each rank's share of the 8 val images a head
-    per_run = {k: DDP_ITERS * v for k, v in STEP_LAUNCHES.items()}
-    per_run.update(K8f=per_run["K8f"] + evals * RVSA_BLOCKS,
-                   K10=per_run["K10"] + evals * FULL_BLOCKS, K11=per_run["K11"] + evals * VIT_DEPTH)
     for res in ranks:
-        for got, want, what in ((res["step_launches"], per_step, "steps"),
-                                (res["run_launches"], per_run, "run_pretrain")):
-            want = {k: want.get(k, 0) for k in got}
-            want["K11s"] = checked_splits(f"ddp {what} rank {res['rank']}", got, want["K11s"])
-            if got != want:
-                raise RuntimeError(f"ddp rank {res['rank']} {what} launches {got} != {want}")
-        if not (res["stats_equal"] and res["params_equal"]):
-            raise RuntimeError(f"ddp rank {res['rank']}: statistics or parameters differ")
-        if res["run_step"] != DDP_ITERS or res["resume_step"] != DDP_ITERS or \
-                not res["resume_same"]:
-            raise RuntimeError(f"ddp rank {res['rank']}: run at step {res['run_step']}, resumed "
-                               f"at {res['resume_step']}, weights restored {res['resume_same']}")
-    if ranks[0]["eval_lines"] != ranks[1]["eval_lines"] or len(ranks[0]["eval_lines"]) != 4:
-        raise RuntimeError(f"ddp eval lines differ: {[r['eval_lines'] for r in ranks]}")
-    if ranks[0]["run_saves"] != ["last", "best"] or any(r["run_saves"] for r in ranks[1:]):
-        raise RuntimeError(f"ddp checkpoints saved by rank: {[r['run_saves'] for r in ranks]}")
-    files = sorted(os.listdir(os.path.join(out, "ckpt")))
-    if not {"last.pt", "last_encoder.pt", "best.pt", "best_encoder.pt"} <= set(files):
-        raise RuntimeError(f"ddp checkpoints written: {files}")
-    print(f"ddp: {DDP_RANKS} ranks, backend {ranks[0]['backend']}, {ranks[0]['cards']} card(s) "
-          f"({', '.join(r['device'] for r in ranks)}); s/step a rank "
-          f"{[round(r['s_step'], 4) for r in ranks]}, peak GiB "
-          f"{[round(r['peak_bytes'] / 2**30, 2) for r in ranks]}, gradient all-reduce ms "
-          f"{[round(r['grad_all_reduce_ms'], 1) for r in ranks]}; the same eval lines on both "
-          f"ranks, checkpoints from rank 0 only; phase wall {wall:.1f} s", flush=True)
+        if "ddp" in parts:
+            check_ddp_rank(res)
+        if "sp" in parts:
+            want = {**{k: 0 for k in res["sp_launches"]}, "K1": 28, "K3": 32,
+                    "GEMM": MAIN_GEMM_LAUNCHES}
+            if res["sp_launches"] != want or not res["sp_same_on_ranks"]:
+                raise RuntimeError(f"sp rank {res['rank']}: launches {res['sp_launches']} != {want}"
+                                   f", output equal on the ranks {res['sp_same_on_ranks']}")
+    if "ddp" in parts:
+        for run, name, ckpt in ((lambda r: r, "upernet", "ckpt"),
+                                (lambda r: r["m2f_run"], "mask2former", "ckpt_m2f")):
+            evals = [run(r)["eval_lines"] for r in ranks]
+            if evals[0] != evals[1] or len(evals[0]) != 4:
+                raise RuntimeError(f"ddp {name} eval lines differ: {evals}")
+            saves = [run(r)["run_saves"] for r in ranks]
+            if saves[0] != ["last", "best"] or any(saves[1:]):
+                raise RuntimeError(f"ddp {name} checkpoints saved by rank: {saves}")
+            files = sorted(os.listdir(os.path.join(out, ckpt)))
+            if not {"last.pt", "last_encoder.pt", "best.pt", "best_encoder.pt"} <= set(files):
+                raise RuntimeError(f"ddp {name} checkpoints written: {files}")
+        print(f"ddp: {DDP_RANKS} ranks, backend {ranks[0]['backend']}, {ranks[0]['cards']} "
+              f"card(s) ({', '.join(r['device'] for r in ranks)}); UperNet s/step a rank "
+              f"{[round(r['s_step'], 4) for r in ranks]}, peak GiB "
+              f"{[round(r['peak_bytes'] / 2**30, 2) for r in ranks]}, gradient all-reduce ms "
+              f"{[round(r['grad_all_reduce_ms'], 1) for r in ranks]}; Mask2Former s/step a rank "
+              f"{[round(r['m2f_s_step'], 4) for r in ranks]}, peak GiB "
+              f"{[round(r['m2f_peak_bytes'] / 2**30, 2) for r in ranks]}, gradient all-reduce ms "
+              f"{[round(r['m2f_grad_all_reduce_ms'], 1) for r in ranks]}, Hungarian ms "
+              f"{[round(r['m2f_hungarian_ms'], 2) for r in ranks]}; the same eval lines on both "
+              f"ranks, checkpoints from rank 0 only; phase wall {wall:.1f} s", flush=True)
+    if "sp" in parts:
+        d, ctl = ranks[0]["sp_dist"]
+        print(f"sp: ViT-H encoder at 1024^2 over {DDP_RANKS} ranks, backend "
+              f"{ranks[0]['sp_backend']}, the ring {ranks[0]['sp_transport']}; ms an image "
+              f"{[round(r['sp_ms'], 3) for r in ranks]} (one card {ranks[0]['one_card_ms']:.3f}); "
+              f"rel_l2 to one card {d:.3e}, K2's plain version {ctl:.3e}; phase wall {wall:.1f} s",
+              flush=True)
     return ranks
 
 
@@ -4825,7 +5132,7 @@ def main() -> None:
     ap.add_argument("--only", choices=("kernels", "gemm", "main", "fleet", "amg", "modes",
                                        "configs", "sizes", "slab", "internimage", "mlp", "gather",
                                        "steps", "point_sample", "mask2former", "adapter",
-                                       "backbones", "pretrained", "ddp"),
+                                       "backbones", "pretrained", "ddp", "sp"),
                     action="append",
                     help="run only these phases (a partial check: no kernels line): K1-K7 at "
                          "the main path's shapes (kernels), the encoder's GEMM (gemm), the main "
@@ -4842,8 +5149,10 @@ def main() -> None:
                          "Swin-T / ViTAEv2-S shapes, the swin_t / vitaev2_s / resnet50 steps, "
                          "the swin_t finetune step at 512^2 and their training runs (backbones), "
                          "the seven families' torch checkpoints and run_pretrain(pretrained=) "
-                         "(pretrained), two ranks of data-parallel training (ddp)")
+                         "(pretrained), two ranks of data-parallel training, UperNet and "
+                         "Mask2Former (ddp), the ViT-H encoder over two ranks (sp)")
     ap.add_argument("--ddp-worker", metavar="DIR", help=argparse.SUPPRESS)
+    ap.add_argument("--ddp-parts", default="ddp,sp", help=argparse.SUPPRESS)
     args = ap.parse_args()
     t_start = time.perf_counter()
     # the 94-image pretrain step peaks near 80 GB; growable segments keep the
@@ -4852,7 +5161,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: torch.cuda.is_available() is False; this script runs on a GPU only")
     if args.ddp_worker:  # one rank of ddp_phase
-        ddp_worker(args.ddp_worker)
+        ddp_worker(args.ddp_worker, args.ddp_parts.split(","))
         return
     from samrs_tpu_torch.kernels import _build
 
@@ -4926,9 +5235,9 @@ def main() -> None:
         if "pretrained" in args.only:
             with tempfile.TemporaryDirectory() as tmp:
                 pretrained_phase(tmp)
-        if "ddp" in args.only:
+        if "ddp" in args.only or "sp" in args.only:
             with tempfile.TemporaryDirectory() as tmp:
-                ddp_phase(tmp)
+                ddp_phase(tmp, tuple(p for p in ("ddp", "sp") if p in args.only))
         if "internimage" in args.only:
             internimage_step_phase(args.profile)
             with tempfile.TemporaryDirectory() as tmp:
@@ -5056,6 +5365,15 @@ def main() -> None:
             results[key][f"launches_ddp_rank{res['rank']}"] = res["run_launches"][key]
             results[key][f"launches_ddp_rank{res['rank']}_per_{DDP_STEPS}_steps"] = \
                 res["step_launches"][key]
+    for key in ("K8f", "K8b", "K9f", "K9b", "K10", "K11", "K11s"):  # Mask2Former over the ranks (phase 11b)
+        for res in ddp:
+            results[key][f"launches_ddp_mask2former_rank{res['rank']}"] = \
+                res["m2f_run"]["run_launches"][key]
+            results[key][f"launches_ddp_mask2former_rank{res['rank']}_per_{DDP_STEPS}_steps"] = \
+                res["m2f_step_launches"][key]
+    for key in ("K1", "K2", "K3", "GEMM"):  # the sequence-parallel encoder (phase 11c)
+        for res in ddp:
+            results[key][f"launches_sp_encoder_rank{res['rank']}"] = res["sp_launches"][key]
     for key in ("K8f", "K8b"):  # InternImage's DCNv3 through dense K8
         results[key]["launches_internimage"] = ii_launches[key]
         results[key]["launches_per_internimage_step"] = II_STEP_LAUNCHES[key]

@@ -14,6 +14,7 @@ import torch
 from torch import nn
 
 from samrs_tpu_torch.core.config import sam_config
+from samrs_tpu_torch.core.mesh import DataMesh
 from samrs_tpu_torch.nn.layers import LayerNorm2d
 from samrs_tpu_torch.sam.sam import Sam
 
@@ -49,16 +50,20 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
 
 def build_sam(variant: str = "vit_h", checkpoint: Optional[str] = None,
               device: Any = "cuda", generator: Optional[torch.Generator] = None,
-              use_kernels: bool = True, **overrides: Any) -> Sam:
+              use_kernels: bool = True, sp_mesh: Optional[DataMesh] = None,
+              **overrides: Any) -> Sam:
     """Build SAM `variant` (config fields overridable) on `device`, in eval
     mode.  With `checkpoint` (an official-layout state dict file) the weights
     load strictly; otherwise they are drawn from `generator` (default: seed 0
     on `device`).  The model runs on the card unless `device` says
     otherwise.  `use_kernels` sets ``Sam.use_kernels``: the hand-written
-    kernels (True) or their plain PyTorch versions (False)."""
+    kernels (True) or their plain PyTorch versions (False).  ``sp_mesh`` (a
+    ``DataMesh``: ``core.mesh.init_data_mesh`` under torchrun) splits the
+    encoder's global blocks among its ranks; every rank builds the same
+    weights and passes the same image."""
     cfg = sam_config(variant, **overrides)
     with torch.device(device):
-        model = Sam(cfg, use_kernels=use_kernels)
+        model = Sam(cfg, use_kernels=use_kernels, sp_mesh=sp_mesh)
     if checkpoint is not None:
         sd = torch.load(checkpoint, map_location=device, weights_only=True)
         if isinstance(sd, dict) and "state_dict" in sd:

@@ -21,21 +21,31 @@ after block.  Per block (the defaults; ``Block`` dispatches every
 The dense layers outside K1 and K3 are csrc/gemm.cu (``gemm.linear``) with
 the kernels and ``gemm.linear_plain`` without, so both paths round alike.
 
+Sequence parallelism (``sp_mesh``, a ``DataMesh`` whose ranks share the
+token rows; JAX's ``Sam(sp_mesh=...)``): only the global blocks take it,
+and there the ring replaces K2 / K12 (kernels/ring_attention.py), as the
+JAX encoder takes ``sp_flash_attention_relpos`` for them.  Every rank holds
+the whole residual stream; a global block normalises and projects only its
+slab of H / ranks token rows (the qkv GEMM), runs the ring over the ranks'
+slabs, adds proj, the residual and K3 on the slab, and all-gathers the
+slabs back.  Windowed blocks run K1 and K3 on every rank as on one card.
+
 ``forward(x, use_kernels=False)`` runs the kernels' plain versions instead
 (the comparison path on the card); ``Sam.use_kernels`` passes the switch.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from samrs_tpu_torch.core.mesh import DataMesh
 from samrs_tpu_torch.kernels import (flash_attention, fused_attention, fused_mlp,
                                      fused_window_block, fused_window_layer, gemm,
-                                     window_attention)
+                                     ring_attention, window_attention)
 from samrs_tpu_torch.nn.layers import LayerNorm2d, MLPBlock, window_partition, window_unpartition
 
 
@@ -94,13 +104,17 @@ _K1_VARIANTS = {"block": None, "block_row": "row", "blockq": "qkv_out", "block_s
 
 class Block(nn.Module):
     """Transformer block with window (window_size > 0) or global attention,
-    in the kernel configuration of the four ``SamConfig`` knobs."""
+    in the kernel configuration of the four ``SamConfig`` knobs; a global
+    block with ``sp_mesh`` splits its token rows among the mesh's ranks."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float, window_size: int,
                  input_size: Tuple[int, int], window_attn_impl: str = "block_ijb",
                  global_attn_impl: str = "m", mlp_impl: str = "fused",
-                 tail_impl: str = "xla") -> None:
+                 tail_impl: str = "xla", sp_mesh: Optional[DataMesh] = None) -> None:
         super().__init__()
+        if sp_mesh is not None and window_size > 0:
+            raise ValueError("sequence parallelism applies to global blocks only")
+        self.sp_mesh = sp_mesh
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
         attn_size = (window_size, window_size) if window_size > 0 else input_size
         self.attn = Attention(dim, num_heads, attn_size)
@@ -157,10 +171,43 @@ class Block(nn.Module):
         y = F.gelu(F.linear(y, m.lin1.weight.to(dt), m.lin1.bias.to(dt)))
         return x + F.linear(y, m.lin2.weight.to(dt), m.lin2.bias.to(dt)).float()
 
+    def _mlp(self, x: torch.Tensor, use_kernels: bool, dt: torch.dtype) -> torch.Tensor:
+        """norm2 -> MLP -> residual (K3) on the fp32 stream `x`."""
+        if self.mlp_impl == "xla":
+            return self._mlp_xla(x, dt)
+        m = self.mlp
+        mlp = fused_mlp.ln_mlp_residual if use_kernels else fused_mlp.ln_mlp_residual_plain
+        return mlp(x, self.norm2.weight, self.norm2.bias, m.lin1.weight, m.lin1.bias,
+                   m.lin2.weight, m.lin2.bias, 1e-6, dtype=dt)
+
+    def _forward_sp(self, x: torch.Tensor, use_kernels: bool, dt: torch.dtype) -> torch.Tensor:
+        """The global block over ``sp_mesh``: this rank's slab of token rows
+        through norm1, the qkv GEMM, the ring, proj + residual and K3, then
+        the ranks' slabs gathered back into the whole (B, H, W, C) stream."""
+        mesh, a = self.sp_mesh, self.attn
+        B, H, W, C = x.shape
+        hl = ring_attention.rows_per_rank(H, mesh)
+        xs = x[:, mesh.rank * hl:(mesh.rank + 1) * hl]
+        xn = F.layer_norm(xs, (C,), self.norm1.weight, self.norm1.bias, 1e-6).to(dt)
+        linear = gemm.linear if use_kernels and x.is_cuda else gemm.linear_plain
+        nH = a.num_heads
+        qkv = linear(xn.reshape(-1, C), a.qkv.weight, a.qkv.bias)
+        q, k, v = qkv.reshape(B, hl * W, 3, nH, C // nH).permute(2, 0, 3, 1, 4).reshape(
+            3, B * nH, hl * W, C // nH).contiguous()
+        Rh, Rw = get_rel_pos(H, H, a.rel_pos_h), get_rel_pos(W, W, a.rel_pos_w)
+        y = ring_attention.relpos_ring(q, k, v, Rh, Rw, (H, W), a.scale, mesh)
+        y = y.reshape(B, nH, hl * W, C // nH).transpose(1, 2).reshape(-1, C).to(dt)
+        xs = linear(y, a.proj.weight, a.proj.bias, residual=xs.reshape(-1, C))
+        xs = self._mlp(xs.reshape(B, hl, W, C), use_kernels, dt)
+        return ring_attention.gather_rows(xs, mesh, 1)
+
     def forward(self, x: torch.Tensor, use_kernels: bool, dt: torch.dtype) -> torch.Tensor:
         """x: the fp32 residual stream; `dt` the dtype of the products."""
         B, H, W, C = x.shape
         a, ws = self.attn, self.window_size
+        # JAX routes a global grid of <= 1024 tokens under "fused" to its fused kernel first
+        if self.sp_mesh is not None and not (self.window_attn_impl == "fused" and H * W <= 1024):
+            return self._forward_sp(x, use_kernels, dt)
         xn = F.layer_norm(x.float(), (C,), self.norm1.weight, self.norm1.bias, 1e-6).to(dt)
         linear = gemm.linear if use_kernels and x.is_cuda else gemm.linear_plain
         att_p = None  # the attention map the fused tail reads (padded for K1)
@@ -198,16 +245,13 @@ class Block(nn.Module):
             else:
                 x = linear(y, a.proj.weight, a.proj.bias,
                            residual=x.reshape(-1, C)).reshape(B, H, W, C)
-        m = self.mlp
-        weights = (m.lin1.weight, m.lin1.bias, m.lin2.weight, m.lin2.bias, 1e-6)
         if att_p is not None:
+            m = self.mlp
             tail = (fused_mlp.fused_tail_ln_mlp_residual if use_kernels
                     else fused_mlp.fused_tail_ln_mlp_residual_plain)
-            return tail(att_p, x, self.norm2.weight, self.norm2.bias, *weights, dtype=dt)
-        if self.mlp_impl == "xla":
-            return self._mlp_xla(x, dt)
-        mlp = fused_mlp.ln_mlp_residual if use_kernels else fused_mlp.ln_mlp_residual_plain
-        return mlp(x, self.norm2.weight, self.norm2.bias, *weights, dtype=dt)
+            return tail(att_p, x, self.norm2.weight, self.norm2.bias, m.lin1.weight, m.lin1.bias,
+                        m.lin2.weight, m.lin2.bias, 1e-6, dtype=dt)
+        return self._mlp(x, use_kernels, dt)
 
 
 class PatchEmbed(nn.Module):
@@ -225,14 +269,17 @@ class PatchEmbed(nn.Module):
 
 
 class ImageEncoderViT(nn.Module):
-    """(B, S, S, 3) preprocessed pixels -> (B, S/16, S/16, out_chans)."""
+    """(B, S, S, 3) preprocessed pixels -> (B, S/16, S/16, out_chans); with
+    ``sp_mesh`` the global blocks split their token rows among its ranks
+    (every rank passes the same image and gets the whole output)."""
 
     def __init__(self, img_size: int = 1024, patch_size: int = 16, in_chans: int = 3,
                  embed_dim: int = 768, depth: int = 12, num_heads: int = 12,
                  mlp_ratio: float = 4.0, out_chans: int = 256, window_size: int = 14,
                  global_attn_indexes: Tuple[int, ...] = (2, 5, 8, 11),
                  window_attn_impl: str = "block_ijb", global_attn_impl: str = "m",
-                 mlp_impl: str = "fused", tail_impl: str = "xla") -> None:
+                 mlp_impl: str = "fused", tail_impl: str = "xla",
+                 sp_mesh: Optional[DataMesh] = None) -> None:
         super().__init__()
         grid = img_size // patch_size
         self.patch_embed = PatchEmbed(patch_size, in_chans, embed_dim)
@@ -240,7 +287,8 @@ class ImageEncoderViT(nn.Module):
         self.blocks = nn.ModuleList(
             Block(embed_dim, num_heads, mlp_ratio,
                   0 if i in global_attn_indexes else window_size, (grid, grid),
-                  window_attn_impl, global_attn_impl, mlp_impl, tail_impl)
+                  window_attn_impl, global_attn_impl, mlp_impl, tail_impl,
+                  sp_mesh if i in global_attn_indexes else None)
             for i in range(depth)
         )
         self.neck = nn.Sequential(

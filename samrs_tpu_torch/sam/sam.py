@@ -5,6 +5,8 @@ returns fp32 NHWC features; ``Sam.predict`` runs the prompt encoder and the
 mask decoder against cached features.  ``Sam.use_kernels`` is the one
 switch between the hand-written kernels (K1-K7, including the generate
 driver's postprocess) and their plain PyTorch versions on the card.
+``sp_mesh`` (a ``DataMesh``) splits the encoder's global blocks among its
+ranks (sequence parallelism, sam/image_encoder.py).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from samrs_tpu_torch.core.config import SamConfig
+from samrs_tpu_torch.core.mesh import DataMesh
 from samrs_tpu_torch.sam.image_encoder import ImageEncoderViT
 from samrs_tpu_torch.sam.mask_decoder import MaskDecoder
 from samrs_tpu_torch.sam.prompt_encoder import PromptEncoder
@@ -45,7 +48,8 @@ def postprocess_masks(masks: torch.Tensor, input_size: Tuple[int, int],
 class Sam(nn.Module):
     """SAM = image encoder + prompt encoder + mask decoder (sam.py:18)."""
 
-    def __init__(self, cfg: SamConfig, use_kernels: bool = True) -> None:
+    def __init__(self, cfg: SamConfig, use_kernels: bool = True,
+                 sp_mesh: Optional[DataMesh] = None) -> None:
         super().__init__()
         c = cfg
         self.cfg = cfg
@@ -55,7 +59,7 @@ class Sam(nn.Module):
             depth=c.encoder_depth, num_heads=c.encoder_num_heads, out_chans=c.prompt_embed_dim,
             window_size=c.window_size, global_attn_indexes=c.encoder_global_attn_indexes,
             window_attn_impl=c.window_attn_impl, global_attn_impl=c.global_attn_impl,
-            mlp_impl=c.mlp_impl, tail_impl=c.tail_impl,
+            mlp_impl=c.mlp_impl, tail_impl=c.tail_impl, sp_mesh=sp_mesh,
         )
         self.prompt_encoder = PromptEncoder(
             embed_dim=c.prompt_embed_dim, image_embedding_size=(c.grid_size, c.grid_size),

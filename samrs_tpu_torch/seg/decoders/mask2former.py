@@ -26,6 +26,12 @@ full-mask loss; with ``num_points`` the mask terms are point-sampled
 (K8 through ``grid_sample``), uncertainty-biased points per query for the
 loss (K9 through ``point_sample``).  The random draws come from a
 ``torch.Generator`` or from the ``draw`` seam (the tests feed JAX's).
+
+In a data-parallel step (``mesh.sharded``: the loss sees this rank's rows
+of the global batch) the step draws through ``sharded_draw`` (the global
+batch's draws, this rank's rows), the Hungarian matching stays per image,
+and the class-weight sum and the matched count that normalise the loss are
+sums over the ranks.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ import torch.nn.functional as F
 from scipy.optimize import linear_sum_assignment
 from torch import nn
 
+from samrs_tpu_torch.core.mesh import DataMesh, active, all_reduce_
 from samrs_tpu_torch.kernels import bilinear_gather
 from samrs_tpu_torch.nn.layers import MLP, jax_resize_weights, resize_bilinear
 from samrs_tpu_torch.seg.backbones.vit_adapter import MSDeformAttnModule, _ref_points
@@ -348,6 +355,24 @@ def generator_draws(generator: torch.Generator) -> Draw:
                                                  device=generator.device)
 
 
+def sharded_draw(draw: Draw, mesh: Optional[DataMesh]) -> Draw:
+    """`draw` over a data-parallel step's global batch: each call draws the
+    global shape (the first axis, images or image-major masks, times the
+    ranks) and keeps this rank's rows (the ranks' batches in rank order), so
+    the draws and the generator's state are those of one process on the
+    global batch, as JAX draws over its global array (``mask2former.py``
+    :467, :472, :522).  `draw` itself for one process."""
+    if mesh is None or mesh.world == 1:
+        return draw
+
+    def rows(kind: str, layer: int, shape: Tuple[int, ...]) -> torch.Tensor:
+        n = shape[0]
+        full = draw(kind, layer, (n * mesh.world,) + tuple(shape[1:]))
+        return full[mesh.rank * n:(mesh.rank + 1) * n]
+
+    return rows
+
+
 def mask2former_targets(labels: torch.Tensor, num_classes: int, hw: Tuple[int, int]):
     """Labels (B, H, W) -> per-class masks on the (H4, W4) mask grid and
     their validity (the loss's targets)."""
@@ -399,7 +424,10 @@ def mask2former_loss(outputs: List[Tuple[torch.Tensor, torch.Tensor]], labels: t
 
     ``num_points=None``: exact full-mask BCE and dice.  With ``num_points``
     the mask terms are point-sampled, drawing from ``draw`` (or uniforms from
-    ``generator``).  ``plain`` routes K8 and K9 to their plain versions."""
+    ``generator``).  ``plain`` routes K8 and K9 to their plain versions.
+    Inside a data-parallel step (``mesh.active()``) the outputs and labels
+    are this rank's rows and the normalisers are the global batch's: the sum
+    of the ranks' losses is the global batch's loss."""
     B, Nq, H4, W4 = outputs[0][1].shape
     gt_masks, gt_valid = mask2former_targets(labels, num_classes, (H4, W4))
     use_points = num_points is not None
@@ -410,21 +438,32 @@ def mask2former_loss(outputs: List[Tuple[torch.Tensor, torch.Tensor]], labels: t
     all_assign = mask2former_assign(outputs, gt_masks, gt_valid, class_weight, mask_weight,
                                     dice_weight, num_points, draw, plain)  # (L * B, Q)
 
+    L = len(outputs)
+    slots = all_assign.clamp(min=0)
+    matches = (all_assign >= 0) & gt_valid.repeat(L, 1).gather(1, slots)  # (L * B, Q)
+    weights = torch.where(matches, 1.0, no_object_weight)  # background: no_object_weight
+    # per layer the class weights' sum and the matched count (mmdet's num_masks); over a
+    # data-parallel global batch both are sums over the ranks (JAX :574, :580 take them over
+    # its global array), the count clamped to 1 after the sum.  They depend on the assignment
+    # alone and carry no gradient, so a detached all-reduce suffices
+    sums = torch.stack([weights.reshape(L, -1).sum(1), matches.reshape(L, -1).float().sum(1)])
+    w_sums, denoms = all_reduce_(sums, active())
+    denoms = denoms.clamp(min=1.0)
+
     total = {"loss_cls": 0.0, "loss_mask": 0.0, "loss_dice": 0.0}
     batch = torch.arange(B, device=labels.device)[:, None]
     for li, (cls_logits, mask_logits) in enumerate(outputs):
         logp = F.log_softmax(cls_logits.float(), -1)  # (B, Q, C + 1)
-        assign = all_assign[li * B:(li + 1) * B]
-        slot = assign.clamp(min=0)
-        matched = (assign >= 0) & gt_valid.gather(1, slot)
+        slot = slots[li * B:(li + 1) * B]
+        matched = matches[li * B:(li + 1) * B]
+        w = weights[li * B:(li + 1) * B]
         tgt_cls = torch.where(matched, slot, num_classes)  # background = C
-        w = torch.where(tgt_cls == num_classes, no_object_weight, 1.0)
         ce = -logp.gather(-1, tgt_cls[..., None])[..., 0]
-        total["loss_cls"] = total["loss_cls"] + class_weight * (w * ce).sum() / w.sum()
+        total["loss_cls"] = total["loss_cls"] + class_weight * (w * ce).sum() / w_sums[li]
 
         tgt_mask = gt_masks[batch, slot]  # (B, Q, H4, W4)
         mw = matched.float()
-        denom = mw.sum().clamp(min=1.0)
+        denom = denoms[li]
         if use_points:  # uncertainty-biased points per query (:1016-1100)
             flat = mask_logits.reshape(B * Nq, H4, W4)
             coords = uncertain_point_coords(flat, num_points, draw, li, oversample_ratio,

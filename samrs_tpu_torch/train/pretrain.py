@@ -22,7 +22,8 @@ per-iteration warmup-cosine schedule; validation every ``eval_interval``
 iterations (per-dataset mIoU), checkpoints ``last`` / ``best`` and their
 ``*_encoder`` copies.  ``decoder=mask2former`` trains the E2E variant
 (``MultiHeadMask2FormerModel``, the summed Mask2Former losses of the three
-heads, point-sampled with ``m2f_num_points``) in the same loop.
+heads, point-sampled with ``m2f_num_points``) in the same loop, on one card
+or over torchrun's ranks.
 """
 
 from __future__ import annotations
@@ -129,10 +130,6 @@ def run_pretrain(cfg: PretrainConfig, model: Optional[torch.nn.Module] = None,
     ``cfg.device`` (each rank on its card) and never moves elsewhere."""
     is_m2f = cfg.decoder == "mask2former"
     mesh = init_data_mesh(cfg.mesh_shape, cfg.device)
-    if is_m2f and mesh.world > 1:
-        raise NotImplementedError(
-            "Mask2Former pretraining over several ranks is not ported (its matching, point draws "
-            "and num_masks normaliser over the global batch): ROADMAP.md Queue 1 item 7")
     device = mesh.device
     main = mesh.rank == 0
     num_classes = tuple(DATASET_CLASSES[d] for d in cfg.data.datasets)

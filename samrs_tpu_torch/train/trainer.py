@@ -15,7 +15,10 @@ step on the global batch, the ranks' batches in rank order: inside
 masks and BatchNorm takes the global moments; a head's loss is the rank's
 summed NLL over the global count of valid pixels (``cross_entropy_ignore``
 with ``count``), the gradients are summed over the ranks before the clip,
-and the reported losses are the global ones.
+and the reported losses are the global ones.  The Mask2Former step does the
+same head by head: its point draws are the global batch's rows of the rank
+and its normalisers (the class weights' sum, the matched-mask count) are
+sums over the ranks.
 """
 
 from __future__ import annotations
@@ -112,32 +115,41 @@ def pretrain_step_mask2former(state: TrainState,
     a time (the point losses keep ~2 GB a decoder output at the FAST head);
     the accumulated gradient is that of the sum.  ``draws`` (one per head)
     replace the generator's draws of the point losses (the tests feed JAX's).
-    K8, K9, K10 and K11 follow ``model.use_kernels``."""
-    from samrs_tpu_torch.seg.decoders.mask2former import mask2former_loss
+    K8, K9, K10 and K11 follow ``model.use_kernels``.
 
-    model, opt = state.model, state.optimizer
-    if state.mesh is not None and state.mesh.world > 1:
-        raise NotImplementedError(
-            "Mask2Former pretraining over several ranks is not ported (its matching, point draws "
-            "and num_masks normaliser over the global batch): ROADMAP.md Queue 1 item 7")
+    With a data mesh of several ranks each head's forward and loss run
+    inside ``mesh.sharded``: the point draws are this rank's rows of the
+    global batch's (``sharded_draw``; ``draws`` then draw the global
+    batch's), the loss's normalisers are global, the gradients are summed
+    over the ranks after the last head and the reported losses are global."""
+    from samrs_tpu_torch.seg.decoders.mask2former import (generator_draws, mask2former_loss,
+                                                          sharded_draw)
+
+    model, opt, mesh = state.model, state.optimizer, state.mesh
     model.train()
     dev = next(b[0] for b in batches if b is not None).device
     gen = step_generator(seed, state.step, dev)
     opt.zero_grad()
     losses = {}
-    for i, (b, nc) in enumerate(zip(batches, num_classes)):
-        if b is None:
-            continue
-        d = mask2former_loss(model.forward_one(b[0], i, gen), b[1], nc, num_points=num_points,
-                             generator=gen, draw=None if draws is None else draws[i],
-                             plain=not model.use_kernels)
-        loss = d["loss_cls"] + d["loss_mask"] + d["loss_dice"]
-        loss.backward()
-        losses[i] = loss.detach()
+    with sharded(mesh):
+        for i, (b, nc) in enumerate(zip(batches, num_classes)):
+            if b is None:
+                continue
+            draw = None
+            if num_points is not None:
+                draw = sharded_draw(generator_draws(gen) if draws is None else draws[i], mesh)
+            d = mask2former_loss(model.forward_one(b[0], i, gen), b[1], nc,
+                                 num_points=num_points, draw=draw, plain=not model.use_kernels)
+            loss = d["loss_cls"] + d["loss_mask"] + d["loss_dice"]
+            loss.backward()
+            losses[i] = loss.detach()
+    reduce_grads(opt.params, mesh)
     grad_norm = opt.step(state.step)
     state.step += 1
-    return {"loss": sum(losses.values()), "grad_norm": grad_norm,
-            **{f"loss_{i}": l for i, l in losses.items()}}
+    heads = list(losses)
+    totals = _global_losses([losses[i] for i in heads], mesh)
+    return {"loss": sum(totals), "grad_norm": grad_norm,
+            **{f"loss_{i}": l for i, l in zip(heads, totals)}}
 
 
 def finetune_step(state: TrainState, x: torch.Tensor, y: torch.Tensor,

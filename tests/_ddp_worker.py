@@ -1,8 +1,9 @@
 """One rank of tests/test_torch_port_ddp.py: two of these run together under
 a gloo process group on the CPU (RANK / WORLD_SIZE / MASTER_ADDR /
 MASTER_PORT in the environment, as torchrun sets them), each on its rows
-of the same global batches, and write what they saw to
-``<out>/rank{r}.pt``.
+of the same global batches (UperNet and Mask2Former pretraining, finetuning)
+or its share of the token rows (ring attention, the sequence-parallel SAM
+encoder), and write what they saw to ``<out>/rank{r}.pt``.
 
     python tests/_ddp_worker.py <inputs.pt> <data dir> <out dir>
 
@@ -25,12 +26,17 @@ from samrs_tpu_torch.core.mesh import init_data_mesh, sharded  # noqa: E402
 from samrs_tpu_torch.data.datasets import (DataLoader, ISPRSDataset,  # noqa: E402
                                            SegmentationDataset)
 from samrs_tpu_torch.data.transforms import EvalAugment, TrainAugment  # noqa: E402
+from samrs_tpu_torch.kernels import ring_attention  # noqa: E402
+from samrs_tpu_torch.sam.image_encoder import ImageEncoderViT  # noqa: E402
 from samrs_tpu_torch.seg.backbones.rvsa import ViTRVSA  # noqa: E402
 from samrs_tpu_torch.seg.backbones.vit import ViTSeg  # noqa: E402
 from samrs_tpu_torch.seg.decoders.blocks import BatchNorm  # noqa: E402
+from samrs_tpu_torch.seg.decoders.mask2former import (Mask2FormerDecoder,  # noqa: E402
+                                                      Mask2FormerHead)
 from samrs_tpu_torch.seg.decoders.upernet import UPerHead  # noqa: E402
-from samrs_tpu_torch.seg.frameworks import (MultiHeadSegModel, SegHead,  # noqa: E402
-                                            SegModel, init_parameters)
+from samrs_tpu_torch.seg.frameworks import (MultiHeadMask2FormerModel,  # noqa: E402
+                                            MultiHeadSegModel, SegHead, SegModel,
+                                            init_mask2former, init_parameters)
 from samrs_tpu_torch.train import optim  # noqa: E402
 from samrs_tpu_torch.train.finetune import evaluate_simple, run_finetune  # noqa: E402
 from samrs_tpu_torch.train.pretrain import run_pretrain  # noqa: E402
@@ -47,6 +53,28 @@ DROP = 0.1                 # the pretraining defaults' head dropout and drop-pat
 LR, WARMUP, TOTAL, OFFSET = 6e-5, 2, 20, 5   # the schedule past its warmup: lr > 0
 FT_SIZE, FT_CLASSES, FT_TRAIN, FT_VAL, FT_BATCH = 32, 6, 8, 5, 4
 RUN_SIZE, RUN_TRAIN, RUN_VAL = 32, 12, 5
+# Mask2Former: test_torch_port_mask2former.py's tiny decoder on the RVSA trunk
+M2F_DEC = dict(embed_dim=32, num_queries=8, num_decoder_layers=3, num_heads=2)
+M2F_CLASSES = (3, 4, 5)
+M2F_BATCH = (2, 2, 4)      # per head; 1 / 1 / 2 a rank
+M2F_POINTS = 16
+# the step cases: the batch seeds of their steps, num_points, head 0's rank-1 image all ignored.
+# Their batches sit on no kink of the step's gradient: the RVSA trunk's sampling (K8's
+# coordinate derivative is one-sided at integer coordinates) makes it jump on about half
+# the seeds, where the inputs scaled by 1 + 1e-7 move it by 1e-4 to 4e-2, and the two ranks'
+# matmuls (the batch blocked otherwise) land on either side; test_torch_port_ddp.py checks
+# each case's batches against that
+M2F_CASES = {"exact": ((6, 8), None, False), "point": ((9,), M2F_POINTS, False),
+             "ignore": ((10,), None, True)}
+M2F_JAX_SEED = 12          # the point step on JAX's draws
+# run_pretrain's global batch: 4 / 3 images a head and rank (at 32^2 the pixel decoder's c4 is
+# 1 x 1, where torch's GroupNorm refuses a batch of one value a group in training)
+M2F_RUN_BATCH = 16
+# ring attention: tests/test_ring_attention.py's shapes; its tiny SAM encoder
+RING_B, RING_N, RING_D, RING_HW = 2, 64, 16, (16, 4)
+SP_ENCODER = dict(img_size=128, patch_size=16, embed_dim=32, depth=2, num_heads=2, out_chans=16,
+                  window_size=4, global_attn_indexes=(1,))
+SP_KNOBS = dict(window_attn_impl="pallas", mlp_impl="xla")  # the JAX encoder's defaults
 
 
 class TinySeg(MultiHeadSegModel):
@@ -76,6 +104,44 @@ class TinyFinetune(SegModel):
                               drop_path_rate=0.0)
         self.seg_decoder = UPerHead(self.encoder.out_channels[1:], channels=16)
         self.head = SegHead(16, FT_CLASSES, 1, dropout=0.0)
+
+
+class TinyM2F(MultiHeadMask2FormerModel):
+    """MultiHeadMask2FormerModel with the width-32 RVSA trunk and the tiny
+    decoder (embed 32, 8 queries, 3 layers, 2 heads); drop-path at `drop`."""
+
+    def __init__(self, drop=0.0, num_classes=M2F_CLASSES, size=SIZE):
+        nn.Module.__init__(self)
+        self.backbone, self.decoder, self.image_size = "vit_b_rvsa", "mask2former", size
+        self.use_kernels = True
+        self.num_classes = tuple(num_classes)
+        self.encoder = ViTRVSA(img_size=size, drop_path_rate=drop, **RVSA)
+        self.seg_decoder = Mask2FormerDecoder((32,) * 4, **M2F_DEC)
+        self.heads = nn.ModuleList(Mask2FormerHead(32, nc) for nc in self.num_classes)
+
+
+def m2f_batches(seed, ignore_rank1_head0=False):
+    """One (x, y) per head (the last class absent, some pixels ignored);
+    optionally head 0's rank-1 image all ignored."""
+    rng = np.random.default_rng(100 + seed)
+    out = []
+    for b, nc in zip(M2F_BATCH, M2F_CLASSES):
+        x = rng.normal(size=(b, SIZE, SIZE, 3)).astype(np.float32)
+        y = rng.integers(0, nc - 1, (b, SIZE, SIZE)).astype(np.int64)
+        y[:, :7] = 255
+        out.append((torch.from_numpy(x), torch.from_numpy(y)))
+    if ignore_rank1_head0:
+        out[0][1][out[0][1].shape[0] // WORLD:] = 255
+    return out
+
+
+def array_draws(arrays):
+    """A ``draw`` replaying fixed uniforms: arrays["kind:layer"] of the shape asked."""
+    def draw(kind, layer, shape):
+        a = arrays[f"{kind}:{layer}"]
+        assert tuple(a.shape) == tuple(shape), (kind, layer, a.shape, shape)
+        return a.clone()
+    return draw
 
 
 def global_batches(seed, sizes=GLOBAL_BATCH):
@@ -150,11 +216,11 @@ def finetune_model():
     return model
 
 
-def pretrain_config(root, ckpt_dir, **kw):
+def pretrain_config(root, ckpt_dir, batch_size=8, **kw):
     return PretrainConfig(total_iters=2, eval_interval=2, seed=0, device="cpu",
                           data=DataConfig(root=root, datasets=("sota", "sior"),
-                                          image_size=RUN_SIZE, batch_size=8, num_workers=1,
-                                          val_images=RUN_VAL),
+                                          image_size=RUN_SIZE, batch_size=batch_size,
+                                          num_workers=1, val_images=RUN_VAL),
                           optim=OptimConfig(lr=1e-3, warmup_iters=1), ckpt_dir=ckpt_dir, **kw)
 
 
@@ -172,6 +238,89 @@ def pretrain_model():
     model = TinySeg(num_classes=(18, 20), size=RUN_SIZE)
     init_parameters(model, torch.Generator().manual_seed(12))
     return model
+
+
+def pretrain_m2f_model():
+    model = TinyM2F(num_classes=(18, 20), size=RUN_SIZE)
+    gen = torch.Generator().manual_seed(13)
+    init_parameters(model, gen)
+    init_mask2former(model, gen)
+    return model
+
+
+def run_and_resume(cfg, make_model, ds, saves, lines):
+    """run_pretrain, then a resume from ``last``: the step counts, the saves,
+    the log lines and whether the resume restored the weights."""
+    out = {}
+    model = make_model()
+    state = run_pretrain(cfg, model, ds["trn"], ds["val"])
+    out["run_step"], out["run_saves"] = state.step, list(saves)
+    out["run_lines"] = list(lines)
+    trained = {k: v.clone() for k, v in model.state_dict().items()}
+    resumed = make_model()
+    cfg2 = PretrainConfig(**{**cfg.__dict__, "resume": "last"})
+    out["resume_step"] = run_pretrain(cfg2, resumed, ds["trn"], ds["val"]).step
+    out["resume_same"] = all(torch.equal(resumed.state_dict()[k], v) for k, v in trained.items())
+    saves.clear()
+    lines.clear()
+    return out, trained
+
+
+def m2f_steps(init, case, mesh=None, scale=1.0):
+    """The steps of M2F_CASES[case] with drop-path on, on this rank's rows of
+    the global batches (all of them without a mesh), the images scaled by
+    `scale`: the losses and the snapshot."""
+    seeds, points, ignore = M2F_CASES[case]
+    state = new_state(TinyM2F(DROP), init, mesh)
+    losses = []
+    for seed in seeds:
+        batches = [(x * scale, y) for x, y in m2f_batches(seed, ignore)]
+        batches = batches if mesh is None else rows(batches, mesh.rank)
+        losses.append(float(pretrain_step_mask2former(state, batches, 0, M2F_CLASSES,
+                                                      points)["loss"]))
+    return losses, snapshot(state)
+
+
+def m2f_part(inputs, mesh):
+    """The Mask2Former step on this rank's rows: M2F_CASES (two exact steps,
+    one point step, one exact step where head 0's rank-1 image is all
+    ignored), then one point step on JAX's draws (drop-path off)."""
+    r, out = mesh.rank, {}
+    for case in M2F_CASES:
+        out[case + "_losses"], out[case] = m2f_steps(inputs["m2f_init"], case, mesh)
+    state = new_state(TinyM2F(0.0), inputs["m2f_init"], mesh)
+    met = pretrain_step_mask2former(state, rows(m2f_batches(M2F_JAX_SEED), r), 0, M2F_CLASSES,
+                                    M2F_POINTS, [array_draws(a) for a in inputs["m2f_draws"]])
+    out["jax_draw_losses"] = [float(met[f"loss_{h}"]) for h in range(3)]
+    return out
+
+
+def ring_part(inputs, mesh):
+    """Ring attention over the two ranks: sp_attention without and with a
+    bias, ring_attention on this rank's chunks, sp_flash_attention_relpos,
+    and the tiny SAM encoder with its global block split among the ranks."""
+    r, out = mesh.rank, {}
+    q, k, v, bias, Rh, Rw = (inputs["ring"][n] for n in ("q", "k", "v", "bias", "Rh", "Rw"))
+    scale = RING_D ** -0.5
+    n = RING_N // WORLD
+    local = slice(r * n, (r + 1) * n)
+    with torch.no_grad():
+        out["sp"] = ring_attention.sp_attention(q, k, v, mesh, scale)
+        out["sp_bias"] = ring_attention.sp_attention(q, k, v, mesh, scale, bias)
+        out["ring_bias"] = ring_attention.ring_attention(q[:, local], k[:, local], v[:, local],
+                                                         mesh, scale, bias[:, local])
+        out["sp_relpos"] = ring_attention.sp_flash_attention_relpos(q, k, v, Rh, Rw, RING_HW,
+                                                                    scale, mesh)
+        enc = ImageEncoderViT(**SP_ENCODER, **SP_KNOBS, sp_mesh=mesh)
+        enc.load_state_dict(inputs["sp_state"], strict=True)
+        out["sp_encoder"] = enc(inputs["sp_x"])
+    out["transport"] = ring_attention.transport(mesh, "cpu")
+    try:
+        ring_attention.sp_flash_attention_relpos(q, k, v, Rh[:1, :1], Rh[:RING_N], (1, RING_N),
+                                                 scale, mesh)
+    except ValueError as e:
+        out["rows_error"] = str(e)
+    return out
 
 
 def main(inputs_path, data_dir, out_dir):
@@ -226,9 +375,9 @@ def main(inputs_path, data_dir, out_dir):
     out["finetune_scores"] = evaluate_simple(model, val, FT_CLASSES, False, mesh=mesh)
     out["finetune_state"] = {k: v.clone() for k, v in model.state_dict().items()}
 
-    # run_pretrain over the two ranks: 2 steps, an eval, checkpoints; then a resume
+    # run_pretrain over the two ranks, UperNet and Mask2Former: 2 steps, an eval,
+    # checkpoints; then a resume
     ds = pretrain_datasets(data_dir)
-    ckpt = os.path.join(out_dir, "pretrain")
     saves = []
     import samrs_tpu_torch.train.pretrain as pretrain_mod
     real_save = pretrain_mod.save_train_state
@@ -239,28 +388,18 @@ def main(inputs_path, data_dir, out_dir):
     handler.emit = lambda rec: lines.append(rec.getMessage())
     logging.getLogger("samrs_tpu_torch.pretrain").addHandler(handler)
     logging.getLogger("samrs_tpu_torch.pretrain").setLevel(logging.INFO)
-    model = pretrain_model()
-    state = run_pretrain(pretrain_config(data_dir, ckpt), model, ds["trn"], ds["val"])
-    out["run_step"], out["run_saves"] = state.step, list(saves)
-    out["run_lines"] = list(lines)
-    out["run_state"] = {k: v.clone() for k, v in model.state_dict().items()}
-    resumed = pretrain_model()
-    state = run_pretrain(pretrain_config(data_dir, ckpt, resume="last"), resumed, ds["trn"],
-                         ds["val"])
-    out["resume_step"] = state.step
-    out["resume_same"] = all(torch.equal(resumed.state_dict()[k], v)
-                             for k, v in out["run_state"].items())
+    run, out["run_state"] = run_and_resume(
+        pretrain_config(data_dir, os.path.join(out_dir, "pretrain")), pretrain_model, ds, saves,
+        lines)
+    out.update(run)
+    out["m2f_run"], _ = run_and_resume(
+        pretrain_config(data_dir, os.path.join(out_dir, "pretrain_m2f"), decoder="mask2former",
+                        m2f_num_points=M2F_POINTS, batch_size=M2F_RUN_BATCH), pretrain_m2f_model,
+        ds, saves, lines)
     pretrain_mod.save_train_state = real_save
 
-    # the Mask2Former step refuses several ranks
-    try:
-        pretrain_step_mask2former(TrainState(0, None, None, mesh), [], 0, CLASSES)
-    except NotImplementedError as e:
-        out["m2f_step_error"] = str(e)
-    try:
-        run_pretrain(pretrain_config(data_dir, ckpt, decoder="mask2former"))
-    except NotImplementedError as e:
-        out["m2f_run_error"] = str(e)
+    out["m2f"] = m2f_part(inputs, mesh)
+    out["ring"] = ring_part(inputs, mesh)
     torch.save(out, os.path.join(out_dir, f"rank{r}.pt"))
     torch.distributed.destroy_process_group()
 

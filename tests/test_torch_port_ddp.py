@@ -17,12 +17,28 @@ one process on the rank-ordered global batch, and against JAX.
     the batches to the ranks is JAX's;
   * a finetune epoch on two ranks gives the one-process evaluation;
   * ``run_pretrain`` on two ranks: the same mIoU on both, checkpoints from
-    rank 0 only, a resume that restores the step on both;
-  * refusals: Mask2Former over several ranks, a mesh_shape that is not the
-    world size.
+    rank 0 only, a resume that restores the step on both; the same with
+    ``decoder="mask2former"``;
+  * the Mask2Former step, the tiny vit_b_rvsa + Mask2Former of
+    test_torch_port_mask2former_steps.py with drop-path 0.1: two exact-mode
+    steps, one point-mode step, and one step where a head's images on rank
+    1 are all ignored (the class-weight sum and the matched count global,
+    the count clamped after the sum), each against one process on the
+    rank-ordered global batch by the step rule above; one point-mode step on
+    JAX's draws for the global batch against JAX ``mask2former_loss``;
+  * ring attention (kernels/ring_attention.py): ``sp_attention`` with and
+    without a bias, ``ring_attention`` on a rank's chunks and
+    ``sp_flash_attention_relpos`` against JAX's oracles and its own
+    sequence-parallel functions on two devices, and the tiny SAM encoder of
+    tests/test_ring_attention.py with its global block split among the two
+    ranks against the one-process port encoder and the JAX encoder (JAX's
+    bound, atol 2e-5);
+  * refusals: a mesh_shape that is not the world size, token rows the
+    ranks do not divide.
 Also core/logging_utils.py against the JAX module.
 """
 
+import concurrent.futures
 import logging
 import os
 import socket
@@ -36,7 +52,13 @@ import pytest
 import torch
 from PIL import Image
 
+from jax.sharding import Mesh
+
 from samrs_tpu.core import logging_utils as jax_logging
+from samrs_tpu.kernels import ring_attention as jax_ring
+from samrs_tpu.kernels.flash_attention import attention_relpos_xla
+from samrs_tpu.sam.image_encoder import ImageEncoderViT as JaxEncoder
+from samrs_tpu.seg.decoders import mask2former as jm2f
 from samrs_tpu.train.trainer import cross_entropy_ignore as jax_ce
 from samrs_tpu_torch.core import logging_utils
 from samrs_tpu_torch.data.datasets import ISPRS_PALETTE, DataLoader
@@ -45,11 +67,16 @@ from samrs_tpu_torch.seg.decoders.blocks import BatchNorm
 from samrs_tpu_torch.seg.port import jax_params_to_torch
 from samrs_tpu_torch.train.finetune import evaluate_simple, run_finetune
 from samrs_tpu_torch.train.pretrain import data_parallel_batch, proportional_batch_sizes
-from samrs_tpu_torch.train.trainer import pretrain_step
+from samrs_tpu_torch.core.config import sam_config
+from samrs_tpu_torch.sam.image_encoder import ImageEncoderViT
+from samrs_tpu_torch.sam.port import _TO_TORCH, _get, _mapping_table
+from samrs_tpu_torch.train.trainer import pretrain_step, pretrain_step_mask2former
 
 TESTS = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, TESTS)
 import _ddp_worker as W  # noqa: E402
+from test_ring_attention import _oracle  # noqa: E402
+from test_torch_port_mask2former import DEC, jax_draws  # noqa: E402
 from test_torch_port_seg import TINY_RVSA, _rel_l2, draw_variables  # noqa: E402
 from test_torch_port_train import ZERO_GRAD, TinyJax  # noqa: E402
 
@@ -57,6 +84,7 @@ STEP_TOL = 1e-6      # two ranks vs one process: fp32 summation order only
 CONTROL_FACTOR = 3.0  # chip_smoke.py's rule where BatchNorm amplifies that order
 JAX_TOL = 1e-4       # port vs JAX, fp32 (test_torch_port_train.py's)
 SPAWN_TIMEOUT = 300
+RING_ATOL = 2e-5     # JAX's bound for its ring against one device (tests/test_ring_attention.py)
 
 
 def _free_port() -> int:
@@ -113,6 +141,122 @@ def _one_process(init, drop, clip=5.0, steps=2, control=False):
     return losses, W.snapshot(state)
 
 
+KINK_SCALE = 1 + 1e-7  # the images of a Mask2Former case scaled so, to show it sits on no kink
+
+
+def _one_process_m2f(init, case, control=False, scale=1.0):
+    """One process on the global batches of Mask2Former case `case`: the
+    losses and the snapshot."""
+    plain = fused_mlp.fused_mlp_plain
+    fused_mlp.fused_mlp_plain = split_mlp_plain if control else plain
+    try:
+        return W.m2f_steps(init, case, scale=scale)
+    finally:
+        fused_mlp.fused_mlp_plain = plain
+
+
+def _draw_state(model, seed):
+    """Every entry of `model`'s state dict drawn with numpy, as
+    ``draw_variables`` draws flax leaves (none left at zero)."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for k, t in model.state_dict().items():
+        v = rng.normal(size=tuple(t.shape)).astype(np.float32)
+        if k.endswith("running_var"):
+            v = 1.0 + 0.1 * np.abs(v)
+        elif k.endswith("weight") and t.dim() == 1:  # the norms' scales
+            v = 1.0 + 0.1 * v
+        elif k.endswith("weight"):
+            v = v * t[0].numel() ** -0.5
+        else:
+            v = 0.1 * v
+        out[k] = torch.from_numpy(v)
+    return out
+
+
+def _m2f_references(init):
+    """One process on the global batches of each Mask2Former case, its
+    control, and the case with its images scaled by KINK_SCALE."""
+    ref = {}
+    for case in W.M2F_CASES:
+        ref[case] = _one_process_m2f(init, case)
+        ref[case + "_control"] = _one_process_m2f(init, case, control=True)
+        ref[case + "_scaled"] = _one_process_m2f(init, case, scale=KINK_SCALE)
+    return ref
+
+
+def _m2f_jax_losses(init, draw_keys):
+    """The one-process outputs of the JAX-draw case's global batch (drop-path
+    off), and a thunk: JAX ``mask2former_loss`` of each head on them with the
+    same keys (one jit for the three heads)."""
+    model = W.TinyM2F(0.0)
+    model.load_state_dict(init, strict=True)
+    model.train()
+    outs, ys = [], []
+    with torch.no_grad():
+        for h, (x, y) in enumerate(W.m2f_batches(W.M2F_JAX_SEED)):
+            outs.append([tuple(jnp.asarray(t.numpy()) for t in o) for o in model.forward_one(x, h)])
+            ys.append(jnp.asarray(y.numpy().astype(np.int32)))
+
+    def losses(outs, ys, keys):
+        terms = [jm2f.mask2former_loss(o, y, nc, num_points=W.M2F_POINTS, rng=key)
+                 for o, y, key, nc in zip(outs, ys, keys, W.M2F_CLASSES)]
+        return [d["loss_cls"] + d["loss_mask"] + d["loss_dice"] for d in terms]
+
+    return lambda: [float(v) for v in jax.jit(losses)(outs, ys, draw_keys)]
+
+
+def _draw_arrays(key, B):
+    """JAX's draws of one head's point loss (``jax_draws``) as arrays, "kind:layer"."""
+    K, Nq, L = W.M2F_POINTS, W.M2F_DEC["num_queries"], W.M2F_DEC["num_decoder_layers"] + 1
+    draw = jax_draws(key, L, B, B * Nq, K)
+    shapes = {"match": (B, K, 2), "candidates": (B * Nq, 3 * K, 2),
+              "random": (B * Nq, K - int(0.75 * K), 2)}
+    return {f"{kind}:{li}": draw(kind, li, shape) for kind, shape in shapes.items()
+            for li in range(L)}
+
+
+def _sp_encoder_inputs():
+    """The tiny SAM encoder of tests/test_ring_attention.py: its flax
+    variables drawn with numpy, bridged to the port's state dict, and an
+    input."""
+    jenc = JaxEncoder(**W.SP_ENCODER, use_rel_pos=True, use_flash=True)
+    x = np.random.default_rng(24).standard_normal((2, 128, 128, 3)).astype(np.float32)
+    jvars = draw_variables(jax.eval_shape(lambda: jenc.init(jax.random.PRNGKey(0), x)), 23)
+    cfg = sam_config("vit_b", encoder_depth=W.SP_ENCODER["depth"])
+    tree = {"image_encoder": jvars["params"]}
+    state = {tk[len("image_encoder."):]: torch.from_numpy(np.array(
+        _TO_TORCH[kind](_get(tree, fk)), np.float32, order="C"))
+        for tk, fk, kind in _mapping_table(cfg) if tk.startswith("image_encoder.")}
+    return jenc, jvars, state, x
+
+
+def _ring_references(ring, jenc, jvars, sp_state, x):
+    """JAX's oracles and its sequence-parallel functions on two devices, the
+    port encoder in one process and the JAX encoder."""
+    q, k, v, bias, Rh, Rw = (jnp.asarray(ring[n].numpy()) for n in ("q", "k", "v", "bias", "Rh",
+                                                                     "Rw"))
+    scale = W.RING_D ** -0.5
+    mesh = Mesh(np.array(jax.devices()[:W.WORLD]), ("seq",))
+    H, Wd = W.RING_HW
+    B, N, d = q.shape
+    rel_h = jnp.einsum("bhwc,hkc->bhwk", q.reshape(B, H, Wd, d), Rh).reshape(B, N, H)
+    rel_w = jnp.einsum("bhwc,wkc->bhwk", q.reshape(B, H, Wd, d), Rw).reshape(B, N, Wd)
+    ref = {"oracle": _oracle(q, k, v, scale), "oracle_bias": _oracle(q, k, v, scale, bias),
+           "oracle_relpos": attention_relpos_xla(q, k, v, rel_h, rel_w, scale),
+           "jax_sp": jax.jit(lambda *a: jax_ring.sp_attention(*a, mesh=mesh, scale=scale))(q, k, v),
+           "jax_sp_bias": jax.jit(lambda *a: jax_ring.sp_attention(
+               *a[:3], mesh=mesh, scale=scale, bias=a[3]))(q, k, v, bias),
+           "jax_sp_relpos": jax.jit(lambda *a: jax_ring.sp_flash_attention_relpos(
+               *a, (H, Wd), scale, mesh))(q, k, v, Rh, Rw),
+           "jax_encoder": jax.jit(jenc.apply)(jvars, jnp.asarray(x))}
+    enc = ImageEncoderViT(**W.SP_ENCODER, **W.SP_KNOBS)
+    enc.load_state_dict(sp_state, strict=True)
+    with torch.no_grad():
+        ref["encoder"] = enc(torch.from_numpy(x))
+    return {k: np.asarray(v) for k, v in ref.items()}
+
+
 def _jax_loss_and_grads(params, stats):
     """jax.grad of make_pretrain_step's loss on global batch 0, drops at 0."""
     jm = TinyJax(num_classes=W.CLASSES, image_size=W.SIZE)
@@ -142,7 +286,22 @@ def ddp(tmp_path_factory):
     jvars = draw_variables(shapes, 21)
     init = jax_params_to_torch(jvars["params"], jvars["batch_stats"])
     bn_x = torch.from_numpy(np.random.default_rng(2).normal(size=(2, 6, 1, 1)).astype(np.float32))
-    torch.save({"init": init, "bn_x": bn_x}, tmp / "inputs.pt")
+    assert W.M2F_DEC == DEC
+    m2f_init = _draw_state(W.TinyM2F(), 50)
+    draw_keys = [jax.random.PRNGKey(31 + h) for h in range(3)]
+    m2f_draws = [_draw_arrays(key, b) for key, b in zip(draw_keys, W.M2F_BATCH)]
+    rng = np.random.default_rng(22)
+    H, Wd = W.RING_HW
+    ring = {n: torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * f)
+            for n, shape, f in (("q", (W.RING_B, W.RING_N, W.RING_D), 1.0),
+                                ("k", (W.RING_B, W.RING_N, W.RING_D), 1.0),
+                                ("v", (W.RING_B, W.RING_N, W.RING_D), 1.0),
+                                ("bias", (W.RING_B, W.RING_N, W.RING_N), 0.5),
+                                ("Rh", (H, H, W.RING_D), 0.1), ("Rw", (Wd, Wd, W.RING_D), 0.1))}
+    jenc, jenc_vars, sp_state, sp_x = _sp_encoder_inputs()
+    torch.save({"init": init, "bn_x": bn_x, "m2f_init": m2f_init, "m2f_draws": m2f_draws,
+                "ring": ring, "sp_state": sp_state, "sp_x": torch.from_numpy(sp_x)},
+               tmp / "inputs.pt")
     port = _free_port()
     procs = []
     for r in range(W.WORLD):
@@ -153,13 +312,18 @@ def ddp(tmp_path_factory):
             [sys.executable, os.path.join(TESTS, "_ddp_worker.py"), str(tmp / "inputs.pt"),
              str(data), str(out)], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True))
+    # JAX's references in a thread beside the port's (both release the GIL in their ops
+    # and compiles)
+    pool = concurrent.futures.ThreadPoolExecutor(2)
     try:
         ref = {}
+        m2f_jax = _m2f_jax_losses(m2f_init, draw_keys)
+        jax_side = [pool.submit(_jax_loss_and_grads, jvars["params"], jvars["batch_stats"]),
+                    pool.submit(m2f_jax),
+                    pool.submit(_ring_references, ring, jenc, jenc_vars, sp_state, sp_x)]
         ref["drop_losses"], ref["drop"] = _one_process(init, W.DROP)
         _, ref["drop_control"] = _one_process(init, W.DROP, control=True)
         ref["nodrop_losses"], ref["nodrop"] = _one_process(init, 0.0, clip=1e9, steps=1)
-        ref["jax_loss"], ref["jax_grads"] = _jax_loss_and_grads(jvars["params"],
-                                                                jvars["batch_stats"])
         model = W.TinySeg(W.DROP)
         model.load_state_dict(init, strict=True)
         model.train()
@@ -177,10 +341,14 @@ def ddp(tmp_path_factory):
         run_finetune(W.finetune_config(str(data), str(tmp / "ft_one")), model, trn, val)
         ref["finetune_scores"] = evaluate_simple(model, val, W.FT_CLASSES, False)
         ref["finetune_state"] = model.state_dict()
+        ref["m2f"] = _m2f_references(m2f_init)
+        (ref["jax_loss"], ref["jax_grads"]), ref["m2f"]["jax_losses"], ref["ring"] = (
+            f.result() for f in jax_side)
         logs = []
         for p in procs:
             logs.append(p.communicate(timeout=SPAWN_TIMEOUT)[0])
     finally:
+        pool.shutdown(cancel_futures=True)
         for p in procs:
             p.kill()
     for p, log in zip(procs, logs):
@@ -320,11 +488,105 @@ def test_run_pretrain_two_ranks(ddp):
 
 
 def test_refusals(ddp):
-    for r in ddp["ranks"]:
+    """A mesh shape that is not the world size is refused; Mask2Former, once
+    refused over several ranks, runs there: its steps, and ``run_pretrain``
+    to step 2 with the same eval lines on both ranks, checkpoints from rank
+    0 only and a resume that restores the step and the weights."""
+    ranks = ddp["ranks"]
+    for r in ranks:
         assert r["backend"] == "gloo" and r["world"] == 2
         assert "mesh (4,) != 2 ranks" in r["mesh_shape_error"]
-        for key in ("m2f_step_error", "m2f_run_error"):
-            assert "ROADMAP.md" in r[key] and "Mask2Former" in r[key]
+        assert r["m2f"]["exact"]["state"] and len(r["m2f"]["exact_losses"]) == 2
+        assert np.isfinite(r["m2f"]["exact_losses"] + r["m2f"]["point_losses"]).all()
+        run = r["m2f_run"]
+        assert run["run_step"] == 2 and run["resume_step"] == 2 and run["resume_same"]
+    evals = [[ln for ln in r["m2f_run"]["run_lines"] if ln.startswith(("val[", "iter 2 eval"))]
+             for r in ranks]
+    assert len(evals[0]) == 3 and evals[0] == evals[1]
+    assert ranks[0]["m2f_run"]["run_saves"] == ["last", "best"]
+    assert ranks[1]["m2f_run"]["run_saves"] == []
+    assert sorted(os.listdir(ddp["out"] / "pretrain_m2f")) == [
+        "best.pt", "best_encoder.pt", "last.pt", "last_encoder.pt"]
+
+
+@pytest.mark.parametrize("case", list(W.M2F_CASES))
+def test_two_rank_mask2former_steps_match_one_process(ddp, case):
+    """Two exact-mode steps, one point-mode step (16 points: the global
+    batch's draws, each rank's rows), and one exact step with head 0's
+    rank-1 image all ignored (rank 1 matches no mask of that head: its
+    class loss divides by the global weight sum, and the matched count is
+    clamped after the sum; clamped per rank it would count one too many):
+    the losses, the parameters and buffers, gradients and AdamW moments
+    within STEP_TOL or 3x the control's distance, and the parameters equal
+    on both ranks."""
+    ref = ddp["ref"]["m2f"]
+    want_losses, want = ref[case]
+    ctl_losses, ctl = ref[case + "_control"]
+    ranks = [r["m2f"] for r in ddp["ranks"]]
+    # the case's batches sit on no kink of the step's gradient (_ddp_worker.M2F_CASES): the
+    # images scaled by 1 + 1e-7 move it by no more than the control does, ~3e-6
+    kink = _dist(ref[case + "_scaled"][1]["grads"], want["grads"])
+    assert kink <= 1e-5, kink
+    if case == "ignore":
+        y = W.m2f_batches(W.M2F_CASES[case][0][0], ignore_rank1_head0=True)[0][1]
+        assert bool((y[1:] == 255).all()) and bool((y[:1] != 255).any())
+    # a step's loss after an AdamW update moves by ~1e-6 under any change of summation
+    # order (the control's second exact step: 7e-7; Adam's first update is ~lr sign(g) on
+    # every coordinate, the noise-sized gradients' too), so each loss is held by the rule
+    for r in ranks:
+        for got, w, c in zip(r[case + "_losses"], want_losses, ctl_losses):
+            assert abs(got - w) <= max(STEP_TOL, CONTROL_FACTOR * abs(c - w) / abs(w)) * abs(w), \
+                (got, w, c)
+    for what in ("state", "grads", "mu", "nu"):
+        d, c = _dist(ranks[0][case][what], want[what]), _dist(ctl[what], want[what])
+        assert d <= max(STEP_TOL, CONTROL_FACTOR * c), (what, d, c)
+    a, b = (r[case]["state"] for r in ranks)
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+
+
+def test_two_rank_mask2former_point_loss_matches_jax(ddp):
+    """One point-mode step on JAX's draws for the global batch (each rank
+    replays its rows through ``sharded_draw``): each head's global loss,
+    and their sum, against JAX ``mask2former_loss`` on the one-process
+    outputs of the global batch with the same keys."""
+    want = ddp["ref"]["m2f"]["jax_losses"]
+    for r in ddp["ranks"]:
+        got = r["m2f"]["jax_draw_losses"]
+        np.testing.assert_allclose(got, want, rtol=JAX_TOL)
+        assert abs(sum(got) - sum(want)) <= JAX_TOL * abs(sum(want))
+
+
+@pytest.mark.parametrize("name,oracles", [("sp", ("oracle", "jax_sp")),
+                                          ("sp_bias", ("oracle_bias", "jax_sp_bias")),
+                                          ("ring_bias", ("oracle_bias", "jax_sp_bias")),
+                                          ("sp_relpos", ("oracle_relpos", "jax_sp_relpos"))])
+def test_ring_attention_two_ranks_matches_jax(ddp, name, oracles):
+    """The ring over two gloo ranks (on the CPU the chunks move as they are)
+    against JAX's single-device oracles and its shard_map versions on two
+    devices; ``ring_attention`` returns this rank's rows."""
+    ref = ddp["ref"]["ring"]
+    n = W.RING_N // W.WORLD
+    for i, r in enumerate(ddp["ranks"]):
+        got = r["ring"][name].numpy()
+        rows = slice(i * n, (i + 1) * n) if name == "ring_bias" else slice(None)
+        assert got.dtype == np.float32
+        for o in oracles:
+            np.testing.assert_allclose(got, ref[o][:, rows], atol=RING_ATOL, err_msg=o)
+        assert r["ring"]["transport"] == "device to device"
+        assert "must divide among the 2 ranks" in r["ring"]["rows_error"]
+
+
+def test_sp_encoder_two_ranks_matches_one_process_and_jax(ddp):
+    """The tiny SAM encoder (global block 1 over two ranks: four token rows
+    of its 8 x 8 grid each) against the port encoder in one process and the
+    JAX encoder on the same variables, at JAX's bound."""
+    ref = ddp["ref"]["ring"]
+    for r in ddp["ranks"]:
+        got = r["ring"]["sp_encoder"].numpy()
+        assert got.shape == (2, 8, 8, 16)
+        np.testing.assert_allclose(got, ref["encoder"], atol=RING_ATOL)
+        np.testing.assert_allclose(got, ref["jax_encoder"], atol=RING_ATOL)
 
 
 # ------------------------------------------------------- logging_utils ----
